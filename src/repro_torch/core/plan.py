@@ -20,12 +20,14 @@ matching on the neuron IR (`core/neuron.py::NeuronProgram`):
                                                       feeding `lif`
 
 The matcher, the segment schedule and `Plan.describe()` (with its TB2xx
-codes) are identical to the reference's. Execution covers the serving
-slice: the `li` lowering, the feed-forward `lif` lowering and the `dhlif`
-lowering run on the hand kernels (`spikemm`, `linrec`, `lif`); a segment
-that lowers to `lifrec`, `alif` or `alifrec` raises NotImplementedError
-naming the unported kernel (it does not drop to the stepper). Segments
-that match no pattern run through the port's stepper, as in the reference.
+codes) are identical to the reference's. Every fused lowering runs on the
+hand kernels: `li` on `linrec`, feed-forward `lif` on `lif`, `dhlif` on
+`linrec` feeding `lif`, the self-recurrent `lif` on `lifrec`, and `alif`
+on `alif` or, self-recurrent, `alifrec`. A recurrent kernel starts from
+the node's previous output, `state[node]["out"]`, and the last step of
+its spike train becomes the next `out`, so the recurrence carries across
+windows and chunks. Segments that match no pattern run through the
+port's stepper, as in the reference.
 
 INTEG is hoisted out of the time loop for every fused segment: one
 `spikemm` over the (T*B, fan_in) spike matrix per feed; the branch
@@ -50,7 +52,9 @@ import torch
 from repro_torch.core import events
 from repro_torch.core.neuron import Decay, NeuronProgram
 from repro_torch.kernels.common import DeviceLike, check_device, resolve_device
+from repro_torch.kernels.alifrec.ops import alif_scan, alifrec_scan
 from repro_torch.kernels.lif.ops import lif_scan
+from repro_torch.kernels.lifrec.ops import lifrec_scan
 from repro_torch.kernels.linrec.ops import linrec
 from repro_torch.kernels.spikemm.ops import spikemm
 
@@ -77,14 +81,6 @@ LOWER_DHLIF = "dhlif"
 CROSS_ENGINE_ATOL = 1e-5
 
 _ROADMAP = "ROADMAP.md, Open items 1"
-_UNPORTED_LOWERING = {
-    (FUSED_REC, LOWER_LIF): ("lifrec", "kernels/lifrec/kernel.py::"
-                             "lifrec_pallas", "item 3 (ECG SRNN)"),
-    (FUSED_FF, LOWER_ALIF): ("alif", "kernels/alifrec/kernel.py::"
-                             "alif_pallas", "item 3 (ECG SRNN)"),
-    (FUSED_REC, LOWER_ALIF): ("alifrec", "kernels/alifrec/kernel.py::"
-                              "alifrec_pallas", "item 3 (ECG SRNN)"),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,17 +329,15 @@ def _decay_vec(decay: Decay, nparams: Optional[Dict[str, Tensor]], n: int,
     return torch.full(shape, decay.value, dtype=torch.float32, device=device)
 
 
+def _self_weight(node: events.LayerNode, params: Dict[str, Any]) -> Tensor:
+    conn = next(c for c in node.connections if c.src == "self")
+    return params[node.name][conn.weight_key].contiguous()
+
+
 def _run_fused(node: events.LayerNode, kind: str, lower: str,
                params: Dict[str, Any], outs: Dict[str, Tensor],
                state: Dict[str, Any], new_state: Dict[str, Any],
                T: int, B: int) -> None:
-    unported = _UNPORTED_LOWERING.get((kind, lower))
-    if unported is not None:
-        kern, where, item = unported
-        raise NotImplementedError(
-            f"node {node.name!r} lowers to the {kern} kernel "
-            f"(src/repro/{where}), which is not ported yet: {_ROADMAP}, "
-            f"{item}")
     cur = _hoisted_current(node, params, outs, state, T, B)
     prog = node.neuron.program
     nparams = params.get(node.name, {}).get("neuron")
@@ -360,9 +354,27 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
         ns = {sv.name: vT}
     elif lower == LOWER_LIF:
         tau = _decay_vec(prog.states[0].decay, nparams, N, dev)
-        out, vT = lif_scan(cur, tau, st[th.on].contiguous(), th.base,
-                           prog.reset)
+        v0 = st[th.on].contiguous()
+        if kind == FUSED_REC:
+            out, vT = lifrec_scan(cur, _self_weight(node, params), tau, v0,
+                                  st["out"].contiguous(), th.base)
+        else:
+            out, vT = lif_scan(cur, tau, v0, th.base, prog.reset)
         ns = {th.on: vT}
+    elif lower == LOWER_ALIF:
+        mem = next(s for s in prog.states if s.name == th.on)
+        ad = next(s for s in prog.states if s.name == th.adapt)
+        tau = _decay_vec(mem.decay, nparams, N, dev)
+        rho = _decay_vec(ad.decay, nparams, N, dev)
+        v0, a0 = st[mem.name].contiguous(), st[ad.name].contiguous()
+        if kind == FUSED_REC:
+            out, vT, aT = alifrec_scan(cur, _self_weight(node, params), tau,
+                                       rho, v0, a0, st["out"].contiguous(),
+                                       th.base, th.scale)
+        else:
+            out, vT, aT = alif_scan(cur, tau, rho, v0, a0, th.base,
+                                    th.scale)
+        ns = {mem.name: vT, ad.name: aT}
     elif lower == LOWER_DHLIF:
         # branch-integrate prologue: the dendrites never reset, so they are
         # a pure linear recurrence -> one linrec over every (b, k, n) lane

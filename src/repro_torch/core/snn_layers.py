@@ -1,15 +1,20 @@
-"""SNN layer library + the paper's SHD speech model (§V-B3).
+"""SNN layer library + the paper's ECG and SHD models (§V-B3).
 
-The port of `repro/core/snn_layers.py`, serving slice:
+The port of `repro/core/snn_layers.py`, serving slices:
 
   ff_integrate, branch_integrate — the INTEG conventions the plan compiler
                  hoists (their `.hoist` tags)
+  srnn_ecg     — 4 -> 64 self-recurrent ALIF -> 6 LI readout (Yin et al.
+                 2021), the ECG/QTDB task; `heterogeneous=False` is the
+                 homogeneous LIF ablation.
   dhsnn_shd    — 700 -> 64 DH-LIF (4 dendritic branches) -> 20 LI readout
                  (Zheng et al. 2024), the SHD speech task;
                  `dendritic=False` is the homogeneous LIF ablation.
 
-The ECG SRNN, the BCI decoder and the plastic feed-forward model come with
-later slices (ROADMAP.md, Open items 1).
+Weights are drawn on the CPU from a torch.Generator and then moved, so one
+seed gives the same weights on every device. The BCI decoder and the
+plastic feed-forward model come with later slices (ROADMAP.md, Open
+items 1).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import math
 import torch
 
 from repro_torch.core import events
-from repro_torch.core.neuron import DHLIF, LI, LIF, locacc
+from repro_torch.core.neuron import ALIF, DHLIF, LI, LIF, locacc
 from repro_torch.kernels.common import DeviceLike, resolve_device, tree_to
 
 
@@ -68,6 +73,45 @@ branch_integrate.hoist = "branch"
 
 
 # ---------------------------------------------------------------------------
+# SRNN for ECG (QTDB)
+# ---------------------------------------------------------------------------
+
+
+def make_srnn_ecg(generator: torch.Generator, n_in: int = 4,
+                  n_hidden: int = 64, n_out: int = 6,
+                  heterogeneous: bool = True, device: DeviceLike = "cuda"):
+    """The paper's ECG model -> (nodes, params), params on `device`.
+
+    Input: level-crossing-coded ECG, (T=1301, batch, 4). Output:
+    per-timestep band logits (the readout's membrane). The hidden layer
+    reads the input and its own previous spikes (`w_self`); the sigmoid
+    surrogate with alpha=4 is the reference's training choice, kept so the
+    programs compare equal. `heterogeneous=False` is the homogeneous LIF
+    ablation (no per-neuron decays: params["hidden"]["neuron"] is None)."""
+    dev = resolve_device(device)
+    hidden_neuron = (ALIF(surrogate="sigmoid", alpha=4.0, beta=0.5)
+                     if heterogeneous else LIF(surrogate="sigmoid", alpha=4.0))
+    nodes = [
+        events.LayerNode("hidden", hidden_neuron, ff_integrate,
+                         inputs=("input", "self"), out_dim=n_hidden),
+        events.LayerNode("readout", LI(tau=0.95), ff_integrate,
+                         inputs=("hidden",), out_dim=n_out),
+    ]
+    # the connection weights come first, so both variants of one seed share
+    # them and differ only in the hidden neurons
+    w_in = _dense_init(generator, n_in, n_hidden)
+    w_self = 0.1 * torch.randn((n_hidden, n_hidden), generator=generator)
+    w_out = _dense_init(generator, n_hidden, n_out)
+    neuron = (hidden_neuron.param_init(generator, (n_hidden,))
+              if heterogeneous else None)
+    params = {
+        "hidden": {"w_input": w_in, "w_self": w_self, "neuron": neuron},
+        "readout": {"w_hidden": w_out},
+    }
+    return nodes, tree_to(params, dev)
+
+
+# ---------------------------------------------------------------------------
 # DHSNN for SHD speech
 # ---------------------------------------------------------------------------
 
@@ -102,4 +146,5 @@ def make_dhsnn_shd(generator: torch.Generator, n_in: int = 700,
     return nodes, tree_to(params, dev)
 
 
-__all__ = ["ff_integrate", "branch_integrate", "make_dhsnn_shd"]
+__all__ = ["ff_integrate", "branch_integrate", "make_srnn_ecg",
+           "make_dhsnn_shd"]

@@ -15,6 +15,9 @@ with nvcc for sm_90a into one ctypes-loaded library at first use.
   spikemm  FINDIDX+LOCACC  event-gated spike x weight matmul (dense channel)
   linrec   DIFF            diagonal first-order recurrence y = a*y + x
   lif      DIFF+SEND       fused integrate-fire over time
+  lifrec   DIFF+LOCACC+SEND  the same with a self-recurrent s_{t-1} @ W_rec
+  alif     DIFF+SEND       adaptive-threshold integrate-fire over time
+  alifrec  DIFF+LOCACC+SEND  the same with a self-recurrent s_{t-1} @ W_rec
 
 `incidents.py` is the per-process incident log, kept verbatim from the
 JAX package (the serve scheduler records backpressure on it).

@@ -1,11 +1,12 @@
 """Build the hand-written CUDA kernels at first use and bind them with ctypes.
 
-All `src/repro_torch/csrc/*.cu` files are compiled and linked for `sm_90a`
+All `src/repro_torch/csrc/*.cu` files (and the `*.cuh` headers they
+include) are compiled and linked for `sm_90a`
 by one `nvcc -shared` call into a shared library with a plain C interface.
 The library lands in `build/repro_torch/<digest>/` at the repository root
 when the package runs from a checkout (`build/` is git-ignored), and under
 `$XDG_CACHE_HOME/repro_torch/` (default `~/.cache`) when it runs from an
-installed copy; the digest covers the sources, the flags and the compiler,
+installed copy; the digest covers the sources and headers, the flags and the compiler,
 so an edited kernel rebuilds and an unchanged one loads. The
 compiler's output (with `-Xptxas -v`: registers, shared memory and spills
 of each kernel) is kept beside the library as `build.log`.
@@ -47,6 +48,11 @@ SIGNATURES = {
     "spikemm_block_k": ((), _I),
     "linrec_f32": ((_P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "lif_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
+    "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _P), _I),
+    "rec_scan_max_n": ((), _I),
+    "rec_scan_w_in_smem": ((_I,), _I),
+    "alif_f32": ((_P,) * 8 + (_I, _I, _I, _F, _F, _P), _I),
+    "alifrec_f32": ((_P,) * 10 + (_I, _I, _I, _F, _F, _P), _I),
     "cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -97,7 +103,7 @@ def _digest(nvcc: str, srcs: List[Path]) -> str:
     for part in (real, f"{st.st_size}:{st.st_mtime_ns}",
                  " ".join(NVCC_FLAGS)):
         h.update(part.encode())
-    for s in srcs:
+    for s in srcs + sorted(CSRC.glob("*.cuh")):     # the headers too
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

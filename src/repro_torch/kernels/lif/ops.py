@@ -11,35 +11,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, registry
+from repro_torch.kernels.common import check_scan
 from repro_torch.kernels.lif.ref import lif_scan_ref
-
-
-def _check(current, tau, v0, reset) -> None:
-    if not current.is_cuda:
-        raise ValueError(f"lif: the CUDA kernel takes CUDA tensors, got "
-                         f"{current.device}")
-    if reset not in ("zero", "subtract"):
-        raise ValueError(f"lif: reset must be 'zero' or 'subtract', "
-                         f"got {reset!r}")
-    if (current.dim() != 3 or tuple(tau.shape) != (current.shape[2],)
-            or tuple(v0.shape) != tuple(current.shape[1:])):
-        raise ValueError(f"lif: current {tuple(current.shape)} must be "
-                         f"(T, B, N), tau {tuple(tau.shape)} (N,), "
-                         f"v0 {tuple(v0.shape)} (B, N)")
-    for nm, t in (("current", current), ("tau", tau), ("v0", v0)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"lif: {nm} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"lif: {nm} must be contiguous")
-        if t.device != current.device:
-            raise ValueError(f"lif: {nm} on {t.device}, current on "
-                             f"{current.device}")
 
 
 def lif_cuda(current: torch.Tensor, tau: torch.Tensor, v0: torch.Tensor,
              v_th: float = 1.0, reset: str = "zero"):
     """Launch `csrc/lif.cu` on CUDA tensors."""
-    _check(current, tau, v0, reset)
+    if reset not in ("zero", "subtract"):
+        raise ValueError(f"lif: reset must be 'zero' or 'subtract', "
+                         f"got {reset!r}")
+    check_scan("lif", current, None, [("tau", tau)], [("v0", v0)])
     T, B, N = current.shape
     spikes = torch.empty_like(current)
     vT = torch.empty_like(v0)

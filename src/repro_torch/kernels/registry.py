@@ -42,6 +42,8 @@ _KERNEL_MODULES = (
     "repro_torch.kernels.spikemm.ops",
     "repro_torch.kernels.linrec.ops",
     "repro_torch.kernels.lif.ops",
+    "repro_torch.kernels.lifrec.ops",
+    "repro_torch.kernels.alifrec.ops",
 )
 
 

@@ -36,8 +36,11 @@ assert not bad, bad
 print(len(mods), " ".join(mods))
 """
 
-# the modules of the serving slice (ROADMAP.md, Open items 1, item 1)
+# the modules of the serving slices (ROADMAP.md, Open items 1, items 1
+# and 3)
 EXPECTED = {
+    "repro_torch.kernels.lifrec.ops", "repro_torch.kernels.lifrec.ref",
+    "repro_torch.kernels.alifrec.ops", "repro_torch.kernels.alifrec.ref",
     "repro_torch.kernels.common", "repro_torch.kernels.incidents",
     "repro_torch.kernels._build", "repro_torch.kernels.registry",
     "repro_torch.kernels.spikemm.ops", "repro_torch.kernels.spikemm.ref",

@@ -1,20 +1,22 @@
 """Port kernels held against the JAX package, on the CPU.
 
-For `block_occupancy`, `spikemm`, `linrec` and `lif` (both resets), the
-port's plain version (what `repro_torch` dispatch runs for CPU tensors)
-is compared on the same numpy inputs with
+For `block_occupancy`, `spikemm`, `linrec`, `lif` (both resets), `lifrec`,
+`alif` and `alifrec`, the port's plain version (what `repro_torch`
+dispatch runs for CPU tensors) is compared on the same numpy inputs with
   * the JAX reference, through `repro.kernels.registry.dispatch`, which
     picks the XLA reference off-TPU, and
   * the JAX Pallas kernel in interpret mode (`force_pallas=True`).
 Shapes: the JAX `_make_inputs` shapes, plus a prime T=37 for the time
-kernels. Tolerance: the family's `KernelSpec.tol` (1e-4) in both
-packages. `block_occupancy` must match exactly.
+kernels; the recurrent and adaptive families start from a nonzero state.
+Tolerance: the family's `KernelSpec.tol` (1e-4) in both packages.
+`block_occupancy` must match exactly.
 
 The hand CUDA kernels themselves cannot run here (no card, no nvcc);
 `chip_smoke.py` holds each one against its plain version on the card.
 """
 
 import json
+import shutil
 import sys
 from pathlib import Path
 
@@ -27,7 +29,10 @@ from repro.kernels import registry as jreg
 from repro.kernels.common import pad_axis as jpad
 from repro.kernels.spikemm.ops import block_occupancy as jblock_occupancy
 from repro_torch.kernels import _build, registry
+from repro_torch.kernels.alifrec.ops import (alif_cuda, alif_scan,
+                                             alifrec_cuda, alifrec_scan)
 from repro_torch.kernels.lif.ops import lif_cuda, lif_scan
+from repro_torch.kernels.lifrec.ops import lifrec_cuda, lifrec_scan
 from repro_torch.kernels.linrec.ops import linrec, linrec_cuda
 from repro_torch.kernels.spikemm.ops import (block_occupancy, spikemm,
                                              spikemm_cuda)
@@ -129,6 +134,76 @@ def test_lif_matches_reference(T, B, N, force_pallas, reset):
         np.testing.assert_allclose(g, r, rtol=0, atol=_tol("lif"))
 
 
+def _state(rng, B, N):
+    """A nonzero (v0, a0, s0): membranes below threshold, adaptation
+    traces of a few past spikes, 0/1 spikes of the step before."""
+    v0 = rng.uniform(-0.5, 0.9, (B, N)).astype(np.float32)
+    a0 = rng.uniform(0.0, 2.0, (B, N)).astype(np.float32)
+    s0 = (rng.random((B, N)) < 0.3).astype(np.float32)
+    return v0, a0, s0
+
+
+def _scan_inputs(T, B, N, seed):
+    rng = np.random.default_rng(seed)
+    cur = (0.8 * rng.standard_normal((T, B, N))).astype(np.float32)
+    w_rec = (0.4 / np.sqrt(N) * rng.standard_normal((N, N))).astype(
+        np.float32)
+    tau = rng.uniform(0.7, 0.98, (N,)).astype(np.float32)
+    rho = rng.uniform(0.85, 0.99, (N,)).astype(np.float32)
+    return (cur, w_rec, tau, rho) + _state(rng, B, N)
+
+
+def _assert_spiking_outputs_close(got, ref, name):
+    assert got[0].sum() > 0, "no spikes: the comparison would be vacuous"
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, rtol=0, atol=_tol(name))
+
+
+@pytest.mark.parametrize("force_pallas", IMPLS)
+@pytest.mark.parametrize("T,B,N", [(20, 3, 70), (37, 3, 70)])
+def test_lifrec_matches_reference(T, B, N, force_pallas):
+    cur, w_rec, tau, _, v0, _, s0 = _scan_inputs(T, B, N, T * N)
+    args = (cur, w_rec, tau, v0, s0)
+    ref = _jax("lifrec", args, force_pallas, v_th=1.0)
+    got = _port(lifrec_scan, args, v_th=1.0)
+    _assert_spiking_outputs_close(got, ref, "lifrec")
+
+
+@pytest.mark.parametrize("force_pallas", IMPLS)
+@pytest.mark.parametrize("T,B,N", [(20, 3, 130), (37, 3, 70)])
+def test_alif_matches_reference(T, B, N, force_pallas):
+    cur, _, tau, rho, v0, a0, _ = _scan_inputs(T, B, N, T * N + 1)
+    args = (cur, tau, rho, v0, a0)
+    ref = _jax("alif", args, force_pallas, v_th=1.0, beta=1.8)
+    got = _port(alif_scan, args, v_th=1.0, beta=1.8)
+    _assert_spiking_outputs_close(got, ref, "alif")
+
+
+@pytest.mark.parametrize("force_pallas", IMPLS)
+@pytest.mark.parametrize("T,B,N", [(20, 3, 70), (37, 3, 70)])
+def test_alifrec_matches_reference(T, B, N, force_pallas):
+    cur, w_rec, tau, rho, v0, a0, s0 = _scan_inputs(T, B, N, T * N + 2)
+    args = (cur, w_rec, tau, rho, v0, a0, s0)
+    ref = _jax("alifrec", args, force_pallas, v_th=1.0, beta=0.5)
+    got = _port(alifrec_scan, args, v_th=1.0, beta=0.5)
+    _assert_spiking_outputs_close(got, ref, "alifrec")
+
+
+def test_recurrent_term_is_the_event_sum_in_ascending_order():
+    """The plain recurrence adds W[i] for each spiking i, in ascending i,
+    from zero: the sum `csrc/lifrec.cu` and `csrc/alifrec.cu` compute."""
+    from repro_torch.kernels.lifrec.ref import recurrent_current
+    rng = np.random.default_rng(4)
+    s = torch.from_numpy((rng.random((3, 40)) < 0.3).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((40, 40)).astype(np.float32))
+    got = recurrent_current(s, w)
+    for b in range(3):
+        want = torch.zeros(40)
+        for i in torch.nonzero(s[b]).flatten().tolist():
+            want = want + w[i]
+        assert torch.equal(got[b], want)
+
+
 def test_registry_make_inputs_run_plain_on_cpu():
     """Every family's make_inputs runs through dispatch on the CPU, and the
     CPU path never counts a kernel launch."""
@@ -138,7 +213,9 @@ def test_registry_make_inputs_run_plain_on_cpu():
         out = registry.dispatch(name, registry.get(name).make_inputs(g))
         for o in (out if isinstance(out, tuple) else (out,)):
             assert torch.isfinite(o).all()
-    assert registry.launch_counts() == {"lif": 0, "linrec": 0, "spikemm": 0}
+    assert registry.names() == ("alif", "alifrec", "lif", "lifrec", "linrec",
+                                "spikemm")
+    assert registry.launch_counts() == {n: 0 for n in registry.names()}
 
 
 def test_dispatch_rejects_mixed_devices():
@@ -151,6 +228,13 @@ def test_dispatch_rejects_mixed_devices():
     lambda: linrec_cuda(torch.ones(4), torch.zeros(5, 2, 4),
                         torch.zeros(2, 4)),
     lambda: lif_cuda(torch.zeros(5, 2, 4), torch.ones(4), torch.zeros(2, 4)),
+    lambda: lifrec_cuda(torch.zeros(5, 2, 4), torch.zeros(4, 4),
+                        torch.ones(4), torch.zeros(2, 4), torch.zeros(2, 4)),
+    lambda: alif_cuda(torch.zeros(5, 2, 4), torch.ones(4), torch.ones(4),
+                      torch.zeros(2, 4), torch.zeros(2, 4)),
+    lambda: alifrec_cuda(torch.zeros(5, 2, 4), torch.zeros(4, 4),
+                         torch.ones(4), torch.ones(4), torch.zeros(2, 4),
+                         torch.zeros(2, 4), torch.zeros(2, 4)),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A CUDA wrapper never runs a plain version: CPU tensors raise."""
@@ -185,10 +269,27 @@ def test_build_is_one_nvcc_call(tmp_path, monkeypatch):
     assert [a for a in argv if a.endswith(".cu")] == \
         [str(s) for s in _build.sources()]
     assert lib.parent.parent == tmp_path / "build" and lib.exists()
-    assert {s.name for s in _build.sources()} >= {"spikemm.cu", "linrec.cu",
-                                                  "lif.cu"}
+    assert {s.name for s in _build.sources()} >= {
+        "spikemm.cu", "linrec.cu", "lif.cu", "lifrec.cu", "alifrec.cu"}
     assert _build.build() == lib
     assert len(calls.read_text().splitlines()) == 1
+
+
+def test_header_edit_rebuilds(tmp_path, monkeypatch):
+    """The digest covers the `*.cuh` headers the sources include: an edited
+    header rebuilds though no `.cu` file changed."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    nvcc, calls = _fake_nvcc(tmp_path, 0)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    first = _build.build()
+    header = csrc / "rec_scan.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    second = _build.build()
+    assert second != first and second.exists()
+    assert len(calls.read_text().splitlines()) == 2
 
 
 def test_build_failure_raises(tmp_path, monkeypatch):

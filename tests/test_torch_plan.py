@@ -1,20 +1,23 @@
 """The port's plan compiler and plan executor held against the JAX package.
 
 * `describe()` strings equal the reference's (segment kinds, lowerings and
-  TB2xx fallback codes) for the SHD DH-SNN, its homogeneous ablation, a
-  3-node LIF/LI program with a delayed edge, and programs that fall back
-  or lower to kernels the port does not have yet.
+  TB2xx fallback codes) for the SHD DH-SNN and the ECG SRNN with their
+  homogeneous ablations, a 3-node LIF/LI program with a delayed edge, an
+  ALIF feed-forward program, and programs that fall back.
 * `plan.run` agrees with the JAX `plan.run` on the same numpy inputs and
   the same weights (carried over with `weights.params_from_numpy`):
   outputs and final states within `CROSS_ENGINE_ATOL` (1e-5: the JAX
-  reference folds the recurrences with an associative scan, the port
-  sequentially, and fp32 addition is not associative), hidden spike trains
-  exactly under the threshold-tie rule (`tests/_torch_parity.py`): a lane may
-  differ only from a step where the reference's pre-reset membrane lies
-  within 1e-5 of threshold, and the test computes that margin itself.
+  reference folds the recurrences with an associative scan and sums
+  s @ W_rec in its matmul's order, the port sequentially, and fp32
+  addition is not associative), hidden spike trains exactly under the
+  threshold-tie rule (`tests/_torch_parity.py`): a lane may differ only
+  from a step where the reference's pre-reset membrane lies within 1e-5
+  of its threshold, and the test computes that margin itself; for a
+  self-recurrent hidden layer (the ECG SRNN) the rule is row-wise.
 * The port's plan agrees with the port's stepper, chunked `run_stream`
-  equals one-shot exactly, and `pack_states`/`unpack_state` round-trip
-  exactly.
+  equals one-shot exactly (also where the recurrence crosses chunk
+  boundaries through `state["out"]`), and `pack_states`/`unpack_state`
+  round-trip exactly.
 * The neuron IR: each built-in's FIRE step (`program_fire`) agrees with
   the JAX interpreter, and program validation and `register_neuron`
   refuse what the reference refuses.
@@ -32,12 +35,14 @@ from repro.core import plan as jplan
 from repro.core.neuron import ALIF as JALIF, DHLIF as JDHLIF, LI as JLI, \
     LIF as JLIF
 from repro.core.snn_layers import ff_integrate as jff, \
-    make_dhsnn_shd as jmake_dhsnn
+    make_dhsnn_shd as jmake_dhsnn, make_srnn_ecg as jmake_srnn
 from repro_torch.core import events, neuron, plan
 from repro_torch.core.neuron import ALIF, DHLIF, LI, LIF
-from repro_torch.core.snn_layers import ff_integrate, make_dhsnn_shd
-from repro_torch.data.spikes import gen_shd_spikes
-from tests._torch_parity import hidden_membrane, max_err_before, tie_rule
+from repro_torch.core.snn_layers import ff_integrate, make_dhsnn_shd, \
+    make_srnn_ecg
+from repro_torch.data.spikes import gen_ecg_qtdb, gen_shd_spikes
+from tests._torch_parity import hidden_membrane, is_recurrent, \
+    max_err_before, tie_rule
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
 ATOL = plan.CROSS_ENGINE_ATOL
@@ -67,6 +72,47 @@ def _dhsnn(dendritic, n_in, n_hidden, n_out, n_branches=4):
                            n_branches=n_branches, dendritic=dendritic,
                            device="cpu")
     return jn, jp, tn, params_from_numpy(_np_tree(jp), "cpu")
+
+
+def _ecg(heterogeneous, n_hidden):
+    """(JAX nodes, JAX params, port nodes, port params) of the ECG SRNN
+    (4 -> n_hidden recurrent ALIF or LIF -> 6 LI): the same weights."""
+    jn, jp = jmake_srnn(jax.random.PRNGKey(0), n_hidden=n_hidden,
+                        heterogeneous=heterogeneous)
+    tn, _ = make_srnn_ecg(torch.Generator().manual_seed(0),
+                          n_hidden=n_hidden, heterogeneous=heterogeneous,
+                          device="cpu")
+    return jn, jp, tn, params_from_numpy(_np_tree(jp), "cpu")
+
+
+def _ecg_input(T, B, seed=0):
+    """(T, B, 4) level-crossing-coded ECG records."""
+    x, _ = gen_ecg_qtdb(B, seed=seed, T=T)
+    return np.ascontiguousarray(x.transpose(1, 0, 2))
+
+
+def _alif_ff(n_in=700, n_hidden=64, n_out=20):
+    """`benchmarks/bench_snn_engine.py`'s `shd_alif_ff` program: n_in ->
+    n_hidden ALIF(beta=0.5) -> n_out LI(tau=0.97), in both packages, with
+    shared numpy weights drawn as the bench draws them."""
+    rng = np.random.default_rng(12)
+    jneu = JALIF().param_init(jax.random.PRNGKey(3), (n_hidden,))
+    w = {"hidden": {"w_input": rng.standard_normal((n_in, n_hidden))
+                    / np.sqrt(n_in),
+                    "neuron": _np_tree(jneu)},
+         "readout": {"w_hidden": rng.standard_normal((n_hidden, n_out)) / 8}}
+    w = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), w)
+
+    def build(ev, alif, li, ff):
+        return [ev.LayerNode("hidden", alif(beta=0.5), ff, ("input",),
+                             n_hidden),
+                ev.LayerNode("readout", li(tau=0.97), ff, ("hidden",),
+                             n_out)]
+
+    return (build(jevents, JALIF, JLI, jff),
+            jax.tree_util.tree_map(jnp.asarray, w),
+            build(events, ALIF, LI, ff_integrate),
+            params_from_numpy(w, "cpu"))
 
 
 def _delayed_program():
@@ -109,9 +155,9 @@ def _assert_matches_reference(jn, jp, tn, tp, x, hidden="hidden"):
     s_ref = np.asarray(jr[hidden])
     s_port = tr[hidden].numpy()
     node = next(n for n in tn if n.name == hidden)
-    u_ref = hidden_membrane(node, _np_tree(jp)[hidden], x, s_ref)
-    first_div, n_ties = tie_rule(s_ref, s_port, u_ref,
-                                 node.neuron.program.threshold.base)
+    u_ref, th_ref = hidden_membrane(node, _np_tree(jp)[hidden], x, s_ref)
+    first_div, n_ties = tie_rule(s_ref, s_port, u_ref, th_ref,
+                                 rowwise=is_recurrent(node))
     assert s_ref.mean() >= MIN_RATE, \
         f"hidden layer fires in {s_ref.mean():.2%}: vacuous comparison"
     assert max_err_before(np.asarray(jo), to.numpy(), first_div) <= ATOL
@@ -147,6 +193,63 @@ def test_describe_delayed_program_matches_reference():
         jplan.compile_program(jn).describe()
 
 
+@pytest.mark.parametrize("heterogeneous", [True, False])
+def test_describe_ecg_matches_reference(heterogeneous):
+    jn, _, tn, _ = _ecg(heterogeneous, 16)
+    got = plan.compile_program(tn).describe()
+    assert got == jplan.compile_program(jn).describe()
+    assert got == ("fused_rec[hidden]:alif -> fused_ff[readout]:li"
+                   if heterogeneous else
+                   "fused_rec[hidden]:lif -> fused_ff[readout]:li")
+
+
+@pytest.mark.parametrize("heterogeneous", [True, False])
+def test_ecg_params_carry_across(heterogeneous):
+    """`params_from_numpy` carries the ECG tree over leaf for leaf, the
+    homogeneous model's `neuron: None` included, and the port's own
+    `make_srnn_ecg` draws a tree of the same structure and shapes."""
+    jn, jp, tn, tp = _ecg(heterogeneous, 16)
+    _, own = make_srnn_ecg(torch.Generator().manual_seed(0), n_hidden=16,
+                           heterogeneous=heterogeneous, device="cpu")
+    for tree in (tp, own):
+        assert tree["hidden"].keys() == {"w_input", "w_self", "neuron"}
+        assert (tree["hidden"]["neuron"] is None) != heterogeneous
+    assert jax.tree_util.tree_structure(_np_tree(jp)) == \
+        jax.tree_util.tree_structure(params_to_numpy(tp)) == \
+        jax.tree_util.tree_structure(params_to_numpy(own))
+    for a, b, c in zip(jax.tree_util.tree_leaves(_np_tree(jp)),
+                       jax.tree_util.tree_leaves(params_to_numpy(tp)),
+                       jax.tree_util.tree_leaves(params_to_numpy(own))):
+        np.testing.assert_array_equal(a, b)
+        assert b.shape == c.shape and b.dtype == c.dtype == np.float32
+
+
+def test_alif_param_init_draws_like_the_reference():
+    """Heterogeneous decays: logits of the defaults (tau 0.9, rho 0.97)
+    plus 0.5 x a standard normal per neuron, in both packages."""
+    n = 4096
+    jp = _np_tree(JALIF().param_init(jax.random.PRNGKey(0), (n,)))
+    g = torch.Generator().manual_seed(0)
+    tp = ALIF().param_init(g, (n,))
+    g.manual_seed(0)
+    z_tau, z_rho = torch.randn((n,), generator=g), torch.randn((n,),
+                                                                generator=g)
+    for key, p, z in (("w_tau", 0.9, z_tau), ("w_rho", 0.97, z_rho)):
+        logit = np.log(p / (1 - p))
+        torch.testing.assert_close(tp[key], logit + 0.5 * z)
+        for got in (tp[key].numpy(), jp[key]):
+            assert got.shape == (n,)
+            assert abs(got.mean() - logit) < 0.05
+            assert abs(got.std() - 0.5) < 0.05
+
+
+def test_describe_alif_ff_matches_reference():
+    jn, _, tn, _ = _alif_ff(20, 8, 3)
+    got = plan.compile_program(tn).describe()
+    assert got == jplan.compile_program(jn).describe() == \
+        "fused_ff[hidden]:alif -> fused_ff[readout]:li"
+
+
 def _odd_programs(ev, lif, alif, dhlif, li, ff):
     def untagged(p, f):
         return f["input"] @ p["w_input"]
@@ -179,16 +282,6 @@ def test_describe_fallbacks_and_lowerings_match_reference(name):
         jplan.compile_program(jp).describe()
 
 
-@pytest.mark.parametrize("name,kernel", [("recurrent_lif", "lifrec"),
-                                         ("alif", "alif"),
-                                         ("alif_rec", "alifrec")])
-def test_unported_lowerings_raise_naming_the_kernel(name, kernel):
-    nodes = _odd_programs(events, LIF, ALIF, DHLIF, LI, ff_integrate)[name]
-    params = {"h": {"w_input": torch.zeros(6, 8), "w_self": torch.zeros(8, 8)}}
-    with pytest.raises(NotImplementedError, match=f"the {kernel} kernel"):
-        plan.run(nodes, params, torch.zeros(4, 2, 6), device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # plan.run against the JAX package
 # ---------------------------------------------------------------------------
@@ -214,6 +307,32 @@ def test_plan_run_matches_reference_published_widths(dendritic):
     else:
         x = _raster(32, 2, 700, 0.1, seed=4)
     _assert_matches_reference(jn, jp, tn, tp, x)
+
+
+@pytest.mark.parametrize("heterogeneous", [True, False])
+def test_ecg_plan_run_matches_reference_narrow(heterogeneous):
+    """The ECG SRNN at n_hidden=16, T=37, B=3. Its heterogeneous hidden
+    layer fires in about 0.6 % of lane-steps on 37 steps of ECG records,
+    so it reads i.i.d. Bernoulli(0.3) spikes, as `bench_snn_engine` feeds
+    the SRNN."""
+    jn, jp, tn, tp = _ecg(heterogeneous, 16)
+    _assert_matches_reference(jn, jp, tn, tp, _raster(37, 3, 4, 0.3, 14))
+
+
+@pytest.mark.parametrize("heterogeneous", [True, False])
+def test_ecg_plan_run_matches_reference_published_widths(heterogeneous):
+    """The ECG SRNN at 4 -> 64 -> 6, T=200, B=4, on ECG records."""
+    jn, jp, tn, tp = _ecg(heterogeneous, 64)
+    _assert_matches_reference(jn, jp, tn, tp, _ecg_input(200, 4, seed=1))
+
+
+@pytest.mark.parametrize("n_in,n_hidden,n_out,T,B",
+                         [(40, 16, 5, 37, 3), (700, 64, 20, 64, 4)])
+def test_alif_ff_plan_run_matches_reference(n_in, n_hidden, n_out, T, B):
+    """The ALIF feed-forward program (`alif` kernel) on Bernoulli(0.08)
+    input, narrow and at the bench's widths."""
+    jn, jp, tn, tp = _alif_ff(n_in, n_hidden, n_out)
+    _assert_matches_reference(jn, jp, tn, tp, _raster(T, B, n_in, 0.08, 13))
 
 
 def test_delayed_program_matches_reference():
@@ -250,28 +369,55 @@ def test_fallback_segment_matches_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dendritic", [True, False])
-def test_plan_matches_port_stepper(dendritic):
-    _, jp, tn, tp = _dhsnn(dendritic, 40, 16, 5)
-    x = torch.from_numpy(_raster(37, 3, 40, 0.2, seed=5))
+def _port_model(name):
+    """(port nodes, port params, (T, B, n_in) input) of a named model."""
+    if name == "dhsnn":
+        _, _, tn, tp = _dhsnn(True, 40, 16, 5)
+        return tn, tp, _raster(61, 3, 40, 0.2, seed=6)
+    if name in ("ecg", "ecg_homogeneous"):
+        # Bernoulli(0.3), as in the narrow reference test: 61 steps of ECG
+        # records barely reach the 1 % firing floor at n_hidden=16
+        _, _, tn, tp = _ecg(name == "ecg", 16)
+        return tn, tp, _raster(61, 3, 4, 0.3, seed=6)
+    if name == "alif_ff":
+        _, _, tn, tp = _alif_ff(40, 16, 5)
+        return tn, tp, _raster(61, 3, 40, 0.08, seed=6)
+    _, _, tn, tp = _delayed_program()
+    return tn, tp, _raster(61, 3, 20, 0.3, seed=6)
+
+
+def _assert_plan_matches_stepper(tn, tp, x):
     ps, po, pr = plan.run(tn, tp, x, record=("hidden",), device="cpu")
     ss, so, sr = events.run(tn, tp, x, record=("hidden",), device="cpu")
     assert sr["hidden"].mean() >= MIN_RATE
-    u = hidden_membrane(tn[0], params_to_numpy(tp)["hidden"], x.numpy(),
-                        sr["hidden"].numpy())
+    u, th = hidden_membrane(tn[0], params_to_numpy(tp)["hidden"], x.numpy(),
+                            sr["hidden"].numpy())
     first_div, _ = tie_rule(sr["hidden"].numpy(), pr["hidden"].numpy(), u,
-                            1.0)
+                            th, rowwise=is_recurrent(tn[0]))
     assert max_err_before(so.numpy(), po.numpy(), first_div) <= ATOL
 
 
-@pytest.mark.parametrize("program", ["dhsnn", "delayed"])
+@pytest.mark.parametrize("dendritic", [True, False])
+def test_plan_matches_port_stepper(dendritic):
+    _, _, tn, tp = _dhsnn(dendritic, 40, 16, 5)
+    _assert_plan_matches_stepper(
+        tn, tp, torch.from_numpy(_raster(37, 3, 40, 0.2, seed=5)))
+
+
+@pytest.mark.parametrize("name", ["ecg", "ecg_homogeneous", "alif_ff"])
+def test_alif_and_recurrent_plan_matches_port_stepper(name):
+    tn, tp, x = _port_model(name)
+    _assert_plan_matches_stepper(tn, tp, torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("program", ["dhsnn", "delayed", "ecg",
+                                     "ecg_homogeneous"])
 def test_run_stream_chunked_equals_one_shot(program):
-    if program == "dhsnn":
-        _, _, tn, tp = _dhsnn(True, 40, 16, 5)
-        x = torch.from_numpy(_raster(61, 3, 40, 0.2, seed=6))
-    else:
-        _, _, tn, tp = _delayed_program()
-        x = torch.from_numpy(_raster(61, 3, 20, 0.3, seed=6))
+    """Concatenated chunk outputs and the final state equal the one-shot
+    run exactly; for the ECG SRNN the recurrence crosses every chunk
+    boundary through state["out"]."""
+    tn, tp, x = _port_model(program)
+    x = torch.from_numpy(x)
     s1, o1, _ = plan.run(tn, tp, x, device="cpu")
     cuts = [0, 1, 18, 41, 61]                 # includes a 1-step chunk
     chunks = [x[a:b] for a, b in zip(cuts, cuts[1:])]

@@ -8,6 +8,11 @@
   (`torch.equal`) solo, interleaved with strangers, and under a 1-byte
   cache that evicts and restores it every window — for both engines.
   Fixed cases, no time deadline.
+* The ECG SRNN (self-recurrent ALIF, and its LIF ablation) served by
+  both engines equals a one-shot `plan.run` of each session exactly: the
+  recurrence carries across windows through state["out"]. The isolation
+  property holds on it, and a packed cohort state carries the ALIF trace
+  `a` and the recurrent `out` per slot, with zero free slots.
 * `queue_limit` backpressure accepts and rejects the same chunks as the
   JAX engine and records each rejection on the incident log.
 * `learn=True` and entry points called without a device on a machine with
@@ -20,10 +25,11 @@ import pytest
 import torch
 
 from repro.core.snn_layers import make_dhsnn_shd as jmake_dhsnn
+from repro.core.snn_layers import make_srnn_ecg as jmake_srnn
 from repro.serve import EngineConfig as JEngineConfig
 from repro.serve import make_engine as jmake_engine
 from repro_torch.core import events, plan
-from repro_torch.core.snn_layers import make_dhsnn_shd
+from repro_torch.core.snn_layers import make_dhsnn_shd, make_srnn_ecg
 from repro_torch.kernels.incidents import clear, incidents
 from repro_torch.serve import EngineConfig, make_engine
 from repro_torch.weights import params_from_numpy
@@ -115,9 +121,9 @@ def test_engine_matches_reference(dendritic, kind):
                                    atol=plan.CROSS_ENGINE_ATOL, err_msg=sid)
 
 
-def _streams(n, T, seed):
+def _streams(n, T, seed, n_in=N_IN, rate=0.25):
     rng = np.random.default_rng(seed)
-    return {f"s{i}": (rng.random((T, N_IN)) < 0.25).astype(np.float32)
+    return {f"s{i}": (rng.random((T, n_in)) < rate).astype(np.float32)
             for i in range(n)}
 
 
@@ -157,6 +163,79 @@ def test_isolation_solo_interleaved_evict_restore(n_extra, T, seed, kind):
                            torch.from_numpy(other.outputs("s0")))
         for a, b in zip(_leaves(solo.state_of("s0")),
                         _leaves(other.state_of("s0"))):
+            assert torch.equal(a, b)
+
+
+def _ecg_model(heterogeneous):
+    """The ECG SRNN at n_hidden=16 with the JAX package's seed-0 weights
+    (4 inputs: the streams below are Bernoulli(0.3), on which it fires in
+    a few % of its hidden lane-steps)."""
+    _, jp = jmake_srnn(jax.random.PRNGKey(0), n_hidden=16,
+                       heterogeneous=heterogeneous)
+    tn, _ = make_srnn_ecg(torch.Generator().manual_seed(0), n_hidden=16,
+                          heterogeneous=heterogeneous, device="cpu")
+    return tn, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                 "cpu")
+
+
+@pytest.mark.parametrize("kind", ["batched", "naive"])
+@pytest.mark.parametrize("heterogeneous", [True, False])
+def test_ecg_engine_equals_one_shot_plan_run(heterogeneous, kind):
+    """Ragged sessions served over many windows (W=8) equal one plan.run
+    of all of them side by side, bit for bit."""
+    model = _ecg_model(heterogeneous)
+    lengths = (29, 8, 40, 17, 33)
+    data = {f"s{i}": (np.random.default_rng(20 + i).random((n, 4)) < 0.3)
+            .astype(np.float32) for i, n in enumerate(lengths)}
+    eng = _run(kind, data, model)
+    x = np.zeros((max(lengths), len(data), 4), np.float32)
+    for b, v in enumerate(data.values()):
+        x[:len(v), b] = v
+    _, out, rec = plan.run(*model, torch.from_numpy(x), record=("hidden",),
+                           device="cpu")
+    assert float(rec["hidden"].mean()) >= 0.01
+    for b, (sid, v) in enumerate(data.items()):
+        assert eng.finished(sid)
+        np.testing.assert_array_equal(eng.outputs(sid),
+                                      out[:len(v), b].numpy(), err_msg=sid)
+
+
+@pytest.mark.parametrize("kind", ["batched", "naive"])
+@pytest.mark.parametrize("heterogeneous", [True, False])
+def test_ecg_isolation_solo_interleaved_evict_restore(heterogeneous, kind):
+    """The isolation property on the recurrent model: exact."""
+    model = _ecg_model(heterogeneous)
+    data = _streams(4, 37, 5, n_in=4, rate=0.3)
+    solo = _run(kind, {"s0": data["s0"]}, model)
+    inter = _run(kind, data, model)
+    evict = _run(kind, data, model, cache_bytes=1)
+    assert evict.metrics.cache_evictions > 0
+    for other in (inter, evict):
+        assert torch.equal(torch.from_numpy(solo.outputs("s0")),
+                           torch.from_numpy(other.outputs("s0")))
+        for a, b in zip(_leaves(solo.state_of("s0")),
+                        _leaves(other.state_of("s0"))):
+            assert torch.equal(a, b)
+
+
+def test_ecg_packed_state_carries_adaptation_and_recurrent_out():
+    """pack_states/unpack_state move the ALIF trace `a` and the recurrent
+    `out` with their session, and the free slots of a cohort stay zero."""
+    nodes, params = _ecg_model(True)
+    states = []
+    for seed in (1, 2, 3):
+        x = torch.from_numpy(_streams(1, 23, seed, n_in=4, rate=0.3)["s0"])
+        st, _, _ = plan.run(nodes, params, x[:, None], device="cpu")
+        assert st["hidden"]["a"].abs().sum() > 0
+        states.append(st)
+    assert any(st["hidden"]["out"].sum() > 0 for st in states)
+    assert set(states[0]["hidden"]) == {"v", "a", "out"}
+    packed = plan.pack_states(states, pad_to=5)
+    for k, v in packed["hidden"].items():
+        assert v.shape[0] == 5 and torch.count_nonzero(v[3:]) == 0, k
+    for i, st in enumerate(states):
+        back = plan.unpack_state(packed, i)
+        for a, b in zip(_leaves(back), _leaves(st)):
             assert torch.equal(a, b)
 
 
@@ -216,6 +295,8 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         events.init_state(tn, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_dhsnn_shd(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_srnn_ecg(torch.Generator().manual_seed(0))
 
 
 def test_engine_rejects_params_on_another_device():

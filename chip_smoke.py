@@ -26,11 +26,21 @@ continues, and nothing falls back to the CPU.
             memory at N=130 and read through L2 above, and N=1024 is the
             largest batch row the recurrent kernels take; spikemm
             1000 x 700 x 257);
+            `spikemm_sparse` at the sparse_integ path's hidden INTEG,
+            `bench_kernels`' SPARSITY_SHAPE at four densities and two
+            ragged shapes, each also equal to the dense kernel bit for bit;
+            `spikemm_gather` at the banded path's chunk, the topology
+            benchmark's exec_vs_dense (also against the dense spikemm on
+            `dense_equivalent()`), scale_1e5 and scale_1e6 rows, and the six
+            ragged encodings of the JAX tests;
             no output may be all zero. The time kernels must match bit for
             bit; `spikemm` within rtol = atol = 1e-5 (the fp32 sum order
-            differs). Times each with CUDA events after warm-up: the
-            kernel, its plain version and, for spikemm, `torch.matmul` as
-            a yardstick (`library_ms`).
+            differs); the two spikemm channels within 1e-4 (their
+            `KernelSpec.tol`), with bit equality reported. Times each with
+            CUDA events after warm-up: the kernel, its plain version and,
+            where one exists, a PyTorch call of the same function as a
+            yardstick (`library_ms`: `torch.matmul`, or `torch.sparse.mm`
+            on a CSR matrix where the dense one does not fit).
 4. paths    each path served through the engine, with every launch counter
             set to 0 just before its run and read just after:
             * shd: `make_dhsnn_shd` at 700 -> 64 (x4 branches) -> 20, 128
@@ -45,7 +55,8 @@ continues, and nothing falls back to the CPU.
             capacity=64), ragged chunks 17/23/31/40 arriving over rounds.
             Checks for each:
             * every launch counter grew by launches-per-window x windows,
-              and the other kernels' stayed at 0;
+              and the other kernels' (the sparse and gather ones among
+              them) stayed at 0;
             * the engine's outputs equal a one-shot `plan.run` of all
               sessions on the card bit for bit (cohorts, windows, packing,
               the recurrence carried through state["out"] and the state
@@ -68,7 +79,28 @@ continues, and nothing falls back to the CPU.
             `plan.run` of Bernoulli(0.2) input at T=250, B=64: the launch
             counters (`alif` among them), and the card against the CPU
             under the per-lane tie rule with the 1 % floor.
-6. result   prints `{"kernels": [...]}`, one `{"slice": {...}}` line per
+6. topology_banded
+            `benchmarks/bench_topology_exec.py`'s program: 8192 LIF(0.8,
+            0.6) fed through `Connection("input", topology=enc)`, `enc` the
+            sparse_coo band of +-64 at weight 0.05, read out by 8 LI(0.9)
+            at 0.1; `plan.run_stream` over T=2048 in chunks of 64 at batch
+            1 on Bernoulli(0.2) input: 32 `spikemm_gather` launches;
+            streamed outputs and final state equal one-shot `plan.run` bit
+            for bit; the card against the CPU under the tie rule (the
+            readout, |v| ~ 8000, within 1e-4 + 1e-4 x |v|); peak device
+            memory of the T=2048 stream at most 1.25x the T=256 stream's
+            (`max_memory_allocated`), one-shot T=2048 printed beside it.
+7. sparse_integ
+            `bench_snn_engine.run_sparsity_rows`: the homogeneous DH-SNN at
+            4096 -> 512 -> 20, one eager `plan.run` (T=256, B=8) per
+            population-packed density 0.01, 0.05, 0.2, 0.5 under `auto`:
+            each INTEG's occupancy at the sparse kernel's block and the
+            channel its launch counters show (sparse at or below 0.25);
+            `always` and `never` equal `auto` bit for bit; the card against
+            the CPU under the tie rule at every density, where a density
+            whose hidden layer fires under the 1 % floor is reported as not
+            counting, and at least one density routed sparse must count.
+8. result   prints `{"kernels": [...]}`, one `{"slice": {...}}` line per
             path, the card's name and power limit and, last,
             `{"ok": true, "device": {...}}`.
 
@@ -76,7 +108,9 @@ Bounds (`bound_ms`) are computed from this run's inputs against the H100
 SXM's published peaks: 67 TFLOP/s fp32 (CUDA cores) and 3.35 TB/s HBM,
 each input byte read once and each output byte written once. spikemm's
 operations are what its product needs on this run's raster, 2 * nnz * N,
-whatever tiling a kernel chooses; the recurrent kernels' are their
+whatever tiling a kernel chooses; the sparse channel's are 2 * bm * bk * N
+per occupied block, and the gather's 2 * M * bk * bn per active entry (see
+`work`); the recurrent kernels' are their
 elementwise steps plus 2 * nnz(s_{t-1}) * N for the spikes that feed the
 next step. `bound_dense_ms` beside it counts the dense products instead,
 2 * M * K * N and 2 * T * B * N * N. The kernel table is held to
@@ -87,9 +121,11 @@ data, the two bounds are the same.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -121,6 +157,32 @@ MIN_HIDDEN_RATE = 0.01
 # this rate (it is almost silent on SHD-like rasters)
 HOMOGENEOUS_INPUT_RATE = 0.2
 
+# topology_banded: `bench_topology_exec`'s program (its _MEM_SCRIPT): an
+# n-neuron LIF(tau=0.8, v_th=0.6) layer fed through a sparse_coo band of
+# +-64 neighbours at weight 0.05, read out by 8 LI(tau=0.9) at 0.1
+BANDED_N, BANDED_BAND, BANDED_W, BANDED_OUT, BANDED_W_H = 8192, 64, 0.05, 8, 0.1
+BANDED_T, BANDED_SHORT_T, BANDED_CHUNK, BANDED_RATE = 2048, 256, 64, 0.2
+# the streamed peak over the short stream's, as the JAX package's test holds
+STREAM_PEAK_RATIO = 1.25
+# sparse_integ: `bench_snn_engine.run_sparsity_rows`, the homogeneous
+# DH-SNN at n_in=4096, eager plan.run on population-packed rasters
+SPARSE_IN, SPARSE_HIDDEN, SPARSE_T, SPARSE_B = 4096, 512, 256, 8
+SPARSE_DENSITIES = (0.01, 0.05, 0.2, 0.5)
+SPARSE_HOME_DENSITY, SPARSE_SEED = 0.05, 5
+SPARSITY_SHAPE = (2048, 2048, 512)           # bench_kernels' sweep shape
+# bench_topology_exec's gather rows: (n, band, bk = bn, rows M, input rate)
+GATHER_ROWS = {"exec_vs_dense": (8192, 64, 128, 64, 0.2),
+               "scale_1e5": (100_000, 32, 128, 8, 0.1),
+               "scale_1e6": (1_000_000, 2, 32, 8, 0.1)}
+# the two spikemm channels' tolerance against their plain versions: the
+# family's KernelSpec.tol, relative and absolute as the JAX package's
+# sparse-channel tests hold it (outputs of the bench shapes reach |60|,
+# where 1e-4 absolute is ~30 fp32 spacings)
+CHANNEL_TOL = 1e-4
+# the banded readout sums ~8000 spikes at 0.1 into |v| ~ 8000, where one
+# fp32 spacing is ~1e-3: readouts there are held relative to their size
+BANDED_READOUT_RTOL = 1e-4
+
 SOURCES = {
     "spikemm": ("src/repro_torch/csrc/spikemm.cu",
                 "src/repro/kernels/spikemm/kernel.py:61"),
@@ -134,10 +196,15 @@ SOURCES = {
              "src/repro/kernels/alifrec/kernel.py:77"),
     "alifrec": ("src/repro_torch/csrc/alifrec.cu",
                 "src/repro/kernels/alifrec/kernel.py:159"),
+    "spikemm_sparse": ("src/repro_torch/csrc/spikemm_sparse.cu",
+                       "src/repro/kernels/spikemm/sparse.py:128"),
+    "spikemm_gather": ("src/repro_torch/csrc/spikemm_gather.cu",
+                       "src/repro/kernels/spikemm/gather.py:218"),
 }
 # the path whose serving calls make up a kernel's row in the kernel table
 HOME = {"spikemm": "shd", "linrec": "shd", "lif": "shd",
-        "lifrec": "ecg_homogeneous", "alifrec": "ecg", "alif": "alif_ff"}
+        "lifrec": "ecg_homogeneous", "alifrec": "ecg", "alif": "alif_ff",
+        "spikemm_sparse": "sparse_integ", "spikemm_gather": "topology_banded"}
 # elementwise fp32 operations per lane-step of the time kernels
 LANE_OPS = {"lif": 4, "lifrec": 6, "alif": 9, "alifrec": 10}
 
@@ -238,6 +305,49 @@ def make_alif_ff(device):
               "readout": {"w_hidden": torch.randn((N_HIDDEN, N_OUT),
                                                   generator=g) / 8.0}}
     return nodes, tree_to(params, device)
+
+
+def make_sparse_integ(device):
+    """`bench_snn_engine.run_sparsity_rows`' model: the homogeneous DH-SNN
+    at n_in=4096, 512 hidden LIF, 20 LI, weights from seed 0."""
+    from repro_torch.core.snn_layers import make_dhsnn_shd
+    return make_dhsnn_shd(torch.Generator().manual_seed(0), n_in=SPARSE_IN,
+                          n_hidden=SPARSE_HIDDEN, dendritic=False,
+                          device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def banded_net():
+    """The banded topology of the topology_banded path, encoded once."""
+    return banded(BANDED_N, BANDED_BAND, w=BANDED_W)
+
+
+def make_banded(device):
+    """`bench_topology_exec`'s program: input --topology--> BANDED_N LIF
+    --w_h--> BANDED_OUT LI. The hidden layer's parameters are the
+    topology alone (in its Connection)."""
+    from repro_torch.core import events
+    from repro_torch.core.neuron import LI, LIF
+    from repro_torch.core.snn_layers import ff_integrate
+    nodes = [events.LayerNode("hidden", LIF(tau=0.8, v_th=0.6), ff_integrate,
+                              (events.Connection("input",
+                                                 topology=banded_net()),),
+                              BANDED_N),
+             events.LayerNode("readout", LI(tau=0.9), ff_integrate,
+                              ("hidden",), BANDED_OUT)]
+    params = {"hidden": {}, "readout": {"w_hidden": BANDED_W_H * torch.ones(
+        (BANDED_N, BANDED_OUT), device=device)}}
+    return nodes, params
+
+
+@functools.lru_cache(maxsize=None)
+def banded_input():
+    """(BANDED_T, 1, BANDED_N) Bernoulli(0.2) input, drawn chunk by chunk
+    from numpy's generator with seed 0 as the benchmark draws it."""
+    rng = np.random.default_rng(0)
+    return np.concatenate([
+        (rng.random((BANDED_CHUNK, 1, BANDED_N)) < BANDED_RATE).astype(
+            np.float32) for _ in range(BANDED_T // BANDED_CHUNK)])
 
 
 def shd_streams(n_sessions, seed=0, rate=None):
@@ -527,9 +637,16 @@ def work(name, args, out):
     spikemm: each nonzero spike adds one row of w into its output row, so
     the product needs 2 * nnz * N operations (one multiply-add per term;
     an add alone takes the same issue slot at the fp32 peak), whatever
-    blocking a kernel chooses; dense 2 * M * K * N. The recurrent kernels
-    add one W_rec row per spike of the previous step, 2 * nnz(s_{t-1}) * N
-    (s_{-1} = s0), against the dense 2 * T * B * N * N."""
+    blocking a kernel chooses; dense 2 * M * K * N. spikemm_sparse is the
+    same function and counts the same operations; its bytes are the
+    raster, the weight rows of the occupied block columns and the output.
+    spikemm_gather: each nonzero spike at pre adds that neuron's fan-out
+    (the nonzero weights of its row) into its output row,
+    2 * sum_pre nnz(s[:, pre]) * fan-out(pre); its bytes are the weight
+    patches of the active entries, the raster and the output; dense
+    2 * M * n_pre * n_post. The recurrent kernels add one W_rec row per
+    spike of the previous step, 2 * nnz(s_{t-1}) * N (s_{-1} = s0),
+    against the dense 2 * T * B * N * N."""
     tensors = [a for a in args if torch.is_tensor(a)]
     if name == "spikemm":
         s, w = args
@@ -537,6 +654,30 @@ def work(name, args, out):
         N = w.shape[1]
         nnz = int(torch.count_nonzero(s))
         return 4 * (M * K + K * N + M * N), 2 * nnz * N, 2 * M * K * N
+    if name == "spikemm_sparse":
+        from repro_torch.kernels.spikemm.sparse import (SPARSE_BLOCK,
+                                                        occupancy_flags)
+        s, w = args
+        M, K = s.shape
+        N = w.shape[1]
+        cols = int((occupancy_flags(s) != 0).any(dim=0).sum())
+        w_rows = min(K, cols * SPARSE_BLOCK[1])
+        nnz = int(torch.count_nonzero(s))
+        return (4 * (M * K + w_rows * N + M * N), 2 * nnz * N,
+                2 * M * K * N)
+    if name == "spikemm_gather":
+        s, t = args
+        M = s.shape[0]
+        d = t.device(s.device)
+        kb = -(-t.n_pre // t.bk)
+        col = torch.zeros(kb * t.bk, dtype=torch.int64, device=s.device)
+        col[:t.n_pre] = torch.count_nonzero(s, dim=0)
+        pre = d.kk.long()[:, None] * t.bk + torch.arange(t.bk,
+                                                         device=s.device)
+        fan = torch.count_nonzero(d.wblk, dim=2)      # (E, bk) per pre row
+        ops = 2 * int((col[pre] * fan).sum())
+        return (4 * (t.n_entries * t.bk * t.bn + M * t.n_pre
+                     + M * t.n_post), ops, 2 * M * t.n_pre * t.n_post)
     if name == "linrec":
         a, x, h0 = args
         a_bytes = 4 * int(np.prod([n for n, st in zip(a.shape, a.stride())
@@ -555,21 +696,173 @@ def work(name, args, out):
     return nbytes, ops, ops
 
 
+@dataclasses.dataclass
+class Case:
+    """One call of a kernel in the kernel phase. `path` names the path
+    whose main run makes this call (its row in the kernel table sums the
+    calls of the kernel's HOME path); `timed` cases are timed whatever
+    their path; `library` is one PyTorch call of the same function."""
+    label: str
+    args: tuple
+    path: str = None
+    timed: bool = False
+    library: Callable = None
+    dense_w: torch.Tensor = None     # gather: also held against spikemm
+    build_s: float = None            # gather: seconds to build its tables
+
+
+def packed_raster(M, K, density, seed, rate=0.5):
+    """`spikemm/sparse.py::_packed_raster` with numpy: population-packed
+    activity filling a dense corner (the mapping pass's channel order), so
+    block occupancy tracks density instead of being defeated by it."""
+    f = min(1.0, float(density / rate) ** 0.5)
+    m_act, k_act = max(1, int(M * f)), max(1, int(K * f))
+    x = np.zeros((M, K), np.float32)
+    x[:m_act, :k_act] = np.random.default_rng(seed).random(
+        (m_act, k_act)) < rate
+    return x
+
+
+def banded(n, band, w=None, seed=0):
+    """`bench_topology_exec`'s banded connectivity: each neuron reaches its
+    +-band neighbours, weight `w` or 0.1 * normal from `seed`, encoded
+    `sparse_coo`."""
+    from repro_torch.core import topology as topo
+    rows = np.repeat(np.arange(n), 2 * band + 1)
+    cols = rows + np.tile(np.arange(-band, band + 1), n)
+    keep = (cols >= 0) & (cols < n)
+    if w is None:
+        wv = 0.1 * np.random.default_rng(seed).standard_normal(
+            keep.sum()).astype(np.float32)
+    else:
+        wv = w * np.ones(keep.sum(), np.float32)
+    return topo.encode((rows[keep], cols[keep], wv), kind="sparse_coo",
+                       n_pre=n, n_post=n)
+
+
+def csr_product(enc, s):
+    """One `torch.sparse.mm` computing s @ W for the topology `enc`, with
+    W^T held as a CSR matrix on the card: the library yardstick where the
+    dense matrix does not fit."""
+    pre, post, w = enc.coo()
+    wt = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([post, pre])), torch.from_numpy(w),
+        (enc.n_post, enc.n_pre)).coalesce().to_sparse_csr().to(DEV)
+    st = s.t().contiguous()
+    return lambda: torch.sparse.mm(wt, st)
+
+
+def sparse_kernel_only(s, w):
+    """A call that launches only `csrc/spikemm_sparse.cu` on the block list
+    of (s, w), built once here: the kernel's own time, without the
+    occupancy reduction and the compaction's host sync that
+    `spikemm_sparse_cuda` adds to every call."""
+    from repro_torch.kernels.spikemm.sparse import (block_list,
+                                                    launch_block_list)
+    blocks = block_list(s)
+    out = torch.empty((s.shape[0], w.shape[1]), device=s.device)
+    return lambda: launch_block_list(s, w, blocks, out)
+
+
+def gather_cases():
+    """The gather kernel's cases: the banded path's chunk, the topology
+    benchmark's rows and the six ragged encodings of the JAX tests."""
+    from repro_torch.core import topology as topo
+    s = torch.from_numpy(banded_input()[:BANDED_CHUNK].reshape(
+        BANDED_CHUNK, BANDED_N)).to(DEV)
+    wd = torch.from_numpy(banded_net().dense_equivalent()).to(DEV)
+    cases = [Case(f"topology_banded chunk (T={BANDED_CHUNK}, B=1)",
+                  (s, banded_net().lowering()), path="topology_banded",
+                  timed=True, library=lambda s=s, wd=wd: torch.matmul(s, wd))]
+    n, band, bk, m, rate = GATHER_ROWS["exec_vs_dense"]
+    enc = banded(n, band, seed=0)
+    s = torch.from_numpy((np.random.default_rng(1).random((m, n)) < rate
+                          ).astype(np.float32)).to(DEV)
+    wd = torch.from_numpy(enc.dense_equivalent()).to(DEV)
+    cases.append(Case(f"exec_vs_dense n={n} band {band}",
+                      (s, enc.lowering(bk=bk, bn=bk)), timed=True,
+                      library=lambda s=s, wd=wd: torch.matmul(s, wd),
+                      dense_w=wd))
+    for label in ("scale_1e5", "scale_1e6"):
+        n, band, bk, m, rate = GATHER_ROWS[label]
+        t0 = time.perf_counter()
+        enc = banded(n, band, seed=0)
+        tables = enc.lowering(bk=bk, bn=bk)
+        build = time.perf_counter() - t0
+        x = torch.from_numpy((np.random.default_rng(2).random((m, n)) < rate
+                              ).astype(np.float32)).to(DEV)
+        cases.append(Case(f"{label} n={n} band {band} bk=bn={bk}",
+                          (x, tables), timed=True,
+                          library=csr_product(enc, x), build_s=build))
+    rng = np.random.default_rng(3)
+    dense = rng.standard_normal((37, 29)).astype(np.float32) * 0.3
+    sp = dense * (rng.random((37, 29)) < 0.15)
+    filt = 0.4 * rng.standard_normal((3, 2, 3, 3)).astype(np.float32)
+    pre, post = np.nonzero(rng.random((45, 33)) < 0.08)
+    w = 0.5 * rng.standard_normal(len(pre)).astype(np.float32)
+    for label, e in (
+            ("sparse_t0", topo.encode(sp, kind="sparse", ie_type=0)),
+            ("sparse_t1", topo.encode(sp, kind="sparse", ie_type=1)),
+            ("sparse_coo_t1", topo.encode((pre, post, w), kind="sparse_coo",
+                                          n_pre=45, n_post=33)),
+            ("conv_t3", topo.encode(filt, kind="conv", h=6, w=5)),
+            ("pool_t0", topo.encode(None, kind="pool", h=6, w=6, c=2, k=2)),
+            ("sparse_t1 at bk=8, bn=4", topo.encode(sp, kind="sparse",
+                                                    ie_type=1))):
+        tables = e.lowering(8, 4) if "bk=8" in label else e.lowering()
+        s = torch.from_numpy((rng.random((9, e.n_pre)) < 0.35).astype(
+            np.float32)).to(DEV)
+        cases.append(Case(f"ragged {label}", (s, tables)))
+    return cases
+
+
+def sparse_cases():
+    """The sparse channel's cases: the sparse_integ path's hidden INTEG at
+    the density whose run the kernel table records, `bench_kernels`'
+    SPARSITY_SHAPE at its four densities, and two ragged shapes."""
+    g = torch.Generator().manual_seed(4)
+    _, params = make_sparse_integ(DEV)
+    s = torch.from_numpy(packed_raster(SPARSE_T * SPARSE_B, SPARSE_IN,
+                                       SPARSE_HOME_DENSITY, SPARSE_SEED)
+                         ).to(DEV)
+    cases = [Case(f"sparse_integ hidden INTEG, density "
+                  f"{SPARSE_HOME_DENSITY}", (s, params["hidden"]["w_input"]),
+                  path="sparse_integ", timed=True)]
+    M, K, N = SPARSITY_SHAPE
+    w = torch.randn((K, N), generator=g).to(DEV)
+    for d in SPARSE_DENSITIES:
+        s = torch.from_numpy(packed_raster(M, K, d, 2)).to(DEV)
+        cases.append(Case(f"bench_kernels {M}x{K}x{N}, density {d}", (s, w),
+                          timed=True))
+    for M, K, N in ((100, 300, 200), (130, 700, 64)):
+        s = torch.from_numpy(packed_raster(M, K, 0.05, M)).to(DEV)
+        cases.append(Case(f"ragged {M}x{K}x{N}, density 0.05",
+                          (s, torch.randn((K, N), generator=g).to(DEV))))
+    return cases
+
+
 def phase_kernels(shd_params):
     from repro_torch.kernels.alifrec.ops import (alif_cuda, alif_scan_ref,
                                                  alifrec_cuda,
                                                  alifrec_scan_ref)
-    from repro_torch.kernels.lif.ops import lif_cuda, lif_scan_ref
     from repro_torch.kernels.common import w_in_smem
+    from repro_torch.kernels.lif.ops import lif_cuda, lif_scan_ref
     from repro_torch.kernels.lifrec.ops import lifrec_cuda, lifrec_scan_ref
     from repro_torch.kernels.linrec.ops import linrec_cuda, linrec_ref
+    from repro_torch.kernels.spikemm.gather import (spikemm_gather_cuda,
+                                                    spikemm_gather_ref)
     from repro_torch.kernels.spikemm.ops import spikemm_cuda, spikemm_ref
+    from repro_torch.kernels.spikemm.sparse import (spikemm_sparse_cuda,
+                                                    spikemm_sparse_ref)
     cuda = {"spikemm": spikemm_cuda, "linrec": linrec_cuda, "lif": lif_cuda,
             "lifrec": lifrec_cuda, "alif": alif_cuda,
-            "alifrec": alifrec_cuda}
+            "alifrec": alifrec_cuda, "spikemm_sparse": spikemm_sparse_cuda,
+            "spikemm_gather": spikemm_gather_cuda}
     plain = {"spikemm": spikemm_ref, "linrec": linrec_ref,
              "lif": lif_scan_ref, "lifrec": lifrec_scan_ref,
-             "alif": alif_scan_ref, "alifrec": alifrec_scan_ref}
+             "alif": alif_scan_ref, "alifrec": alifrec_scan_ref,
+             "spikemm_sparse": spikemm_sparse_ref,
+             "spikemm_gather": spikemm_gather_ref}
     cases = {name: [] for name in cuda}
     # the homogeneous ECG window's spikemm and linrec calls have the
     # heterogeneous one's shapes; only its hidden layer is new
@@ -580,19 +873,28 @@ def phase_kernels(shd_params):
                          ("alif_ff", {"alif": [("ALIF-ff hidden",
                                                 alif_ff_run_inputs())]})):
         for name, calls in window.items():
-            cases[name] += [(label, path, args) for label, args in calls]
+            cases[name] += [Case(label, args, path=path, timed=True,
+                                 library=(lambda a=args: torch.matmul(*a))
+                                 if name == "spikemm" else None)
+                            for label, args in calls]
     for name, calls in ragged_cases().items():
-        cases[name] += [(label, None, args) for label, args in calls]
+        cases[name] += [Case(label, args) for label, args in calls]
+    cases["spikemm_sparse"] = [
+        dataclasses.replace(c, library=lambda a=c.args: torch.matmul(*a))
+        for c in sparse_cases()]
+    cases["spikemm_gather"] = gather_cases()
 
     results = {}
     for name, calls_in in cases.items():
         calls, max_err = [], 0.0
-        for label, path, args in calls_in:
+        for case in calls_in:
+            label, args = case.label, case.args
             got = cuda[name](*args)
             ref = plain[name](*args)
             sync()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
+            extra = ""
             for g, r in zip(got, ref):
                 if not torch.isfinite(g).all():
                     raise AssertionError(f"{name} [{label}]: non-finite")
@@ -604,12 +906,35 @@ def phase_kernels(shd_params):
                 if name == "spikemm":
                     torch.testing.assert_close(g, r, rtol=SPIKEMM_TOL,
                                                atol=SPIKEMM_TOL)
+                elif name in ("spikemm_sparse", "spikemm_gather"):
+                    torch.testing.assert_close(g, r, rtol=CHANNEL_TOL,
+                                               atol=CHANNEL_TOL)
+                    extra = (", bit for bit" if torch.equal(g, r)
+                             else f", max abs err {err:.3e}")
                 elif not torch.equal(g, r):
                     raise AssertionError(
                         f"{name} [{label}]: not bit-identical to its plain "
                         f"version (max abs err {err:.3e})")
+            if name == "spikemm_sparse":
+                # it skips only silent work: equal to the dense kernel
+                dense = spikemm_cuda(*args)
+                if not torch.equal(got[0], dense):
+                    raise AssertionError(
+                        f"{name} [{label}]: differs from the dense kernel "
+                        f"by {float((got[0] - dense).abs().max()):.3e}")
+                extra += "; equal to the dense kernel bit for bit"
+            if getattr(case, "dense_w", None) is not None:
+                dense = spikemm_cuda(args[0], case.dense_w)
+                torch.testing.assert_close(got[0], dense, rtol=0,
+                                           atol=CHANNEL_TOL)
+                extra += (f"; against the dense spikemm on dense_equivalent()"
+                          f" {float((got[0] - dense).abs().max()):.3e}")
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-            if path is None:
+            if name == "spikemm_gather":
+                t = args[1]
+                shapes.append(f"E={len(t.jj)} ({t.n_entries} active), "
+                              f"bk={t.bk}, bn={t.bn}")
+            if not case.timed:
                 where = ""
                 if name in ("lifrec", "alifrec"):
                     n = args[0].shape[2]
@@ -622,32 +947,44 @@ def phase_kernels(shd_params):
                     where = (", W_rec in shared memory" if smem
                              else ", W_rec through L2")
                 log(f"kernel {name} [{label}] {shapes}{where}: matches "
-                    f"plain (max abs err {max_err:.3e})")
+                    f"plain{extra} (max abs err so far {max_err:.3e})")
                 continue
-            heavy = name in ("lifrec", "alifrec", "alif")
+            heavy = name in ("lifrec", "alifrec", "alif", "spikemm_gather")
             ms = cuda_ms(lambda: cuda[name](*args), iters=200)
             p_ms = cuda_ms(lambda: plain[name](*args),
-                           iters=10 if heavy else 20)
-            lib = (cuda_ms(lambda: torch.matmul(*args), iters=200)
-                   if name == "spikemm" else None)
+                           iters=5 if heavy else 20)
+            lib = (None if case.library is None
+                   else cuda_ms(case.library, iters=200))
+            # the sparse wrapper's time includes its occupancy reduction and
+            # the compaction's host sync; time the launch alone and the
+            # dense kernel on the same inputs beside it
+            kernel_ms = dense_ms = None
+            if name == "spikemm_sparse":
+                kernel_ms = cuda_ms(sparse_kernel_only(*args), iters=200)
+                dense_ms = cuda_ms(lambda: spikemm_cuda(*args), iters=200)
             nbytes, flops, dense = work(name, args, got)
             b_ms, b_by = bound(nbytes, flops)
             d_ms, d_by = bound(nbytes, dense)
             T = args[1].shape[0] if name == "linrec" else (
-                args[0].shape[0] if name != "spikemm" else None)
-            calls.append({"call": label, "path": path, "shape": shapes,
+                args[0].shape[0] if name not in ("spikemm", "spikemm_sparse",
+                                                 "spikemm_gather") else None)
+            calls.append({"call": label, "path": case.path, "shape": shapes,
                           "ms": ms, "plain_ms": p_ms, "library_ms": lib,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "bound_dense_ms": d_ms, "bound_dense_by": d_by,
                           "ms_per_step": None if T is None else ms / T,
                           "bytes": nbytes, "flops": flops,
-                          "dense_flops": dense})
+                          "dense_flops": dense, "kernel_ms": kernel_ms,
+                          "dense_kernel_ms": dense_ms,
+                          "table_build_s": case.build_s})
             log(f"kernel {name} [{label}] {shapes}: {ms:.4f} ms on the card"
                 f"{'' if T is None else f' ({ms / T * 1e3:.3f} us/step)'} "
                 f"(plain {p_ms:.4f}, "
                 f"library {lib if lib is None else round(lib, 4)}, bound "
-                f"{b_ms:.5f} by {b_by}, dense bound {d_ms:.5f} by {d_by}); "
-                f"max abs err so far {max_err:.3e}")
+                f"{b_ms:.5f} by {b_by}, dense bound {d_ms:.5f} by {d_by}"
+                f"{'' if kernel_ms is None else f', launch alone {kernel_ms:.4f}, dense kernel {dense_ms:.4f}'}"
+                f"{'' if case.build_s is None else f', tables built in {case.build_s:.1f} s'})"
+                f"{extra}; max abs err so far {max_err:.3e}")
         src, rep = SOURCES[name]
         home = [c for c in calls if c["path"] == HOME[name]]
         top = max(home, key=lambda c: c["bound_ms"])
@@ -663,8 +1000,10 @@ def phase_kernels(shd_params):
             "bound_ms": sum(c["bound_ms"] for c in home),
             "bound_by": top["bound_by"],
             "bound_dense_ms": sum(c["bound_dense_ms"] for c in home),
-            "library_ms": (sum(c["library_ms"] for c in home)
-                           if name == "spikemm" else None),
+            "library_ms": (None if any(c["library_ms"] is None for c in home)
+                           else sum(c["library_ms"] for c in home)),
+            "kernel_ms": (None if any(c["kernel_ms"] is None for c in home)
+                          else sum(c["kernel_ms"] for c in home)),
             "calls": calls}
     return results
 
@@ -707,28 +1046,43 @@ def replay(eng, trace, latencies=None):
     return eng
 
 
-def device_profile(eng_factory, trace):
-    """Card time per window, by kernel, over one replay traced with
-    torch.profiler: (total ms per window, {kernel: ms per window}), or
-    (None, {}) when the trace holds no device events."""
+def profile_ms(fn):
+    """Card time of everything `fn` runs, traced with torch.profiler: (ms
+    in all, {kernel: ms}), or (None, {}) when the trace holds no device
+    events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    eng = eng_factory()
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        replay(eng, trace)
+        fn()
         sync()
-    wins = eng.metrics.windows_run
     by_name = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + \
-                ev.device_time_total / 1e3 / wins
+                ev.device_time_total / 1e3
     if not by_name:
         return None, {}
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
-    return sum(by_name.values()), top
+    return sum(by_name.values()), by_name
+
+
+def top_per(by_name, units, n=10):
+    """The `n` largest entries of {kernel: ms}, each divided by `units`."""
+    return {k: v / units for k, v in
+            sorted(by_name.items(), key=lambda kv: -kv[1])[:n]}
+
+
+def device_profile(eng_factory, trace):
+    """Card time per window, by kernel, over one replay traced with
+    torch.profiler: (total ms per window, {kernel: ms per window}), or
+    (None, {}) when the trace holds no device events."""
+    eng = eng_factory()
+    total, by_name = profile_ms(lambda: replay(eng, trace))
+    wins = eng.metrics.windows_run
+    if total is None:
+        return None, {}
+    return total / wins, top_per(by_name, wins)
 
 
 def host_breakdown(eng, trace):
@@ -785,20 +1139,27 @@ def load_tie_rule():
 def counted(tag, per_run, runs, counts):
     """Raise unless `counts` holds exactly `per_run` x `runs` launches of
     each kernel (0 for the kernels not named)."""
-    from repro_torch.kernels import registry
-    want = {n: per_run.get(n, 0) * runs for n in registry.names()}
-    if counts != want:
+    want = {n: per_run.get(n, 0) * runs for n in counts}
+    if counts != want or not set(per_run) <= set(counts):
         raise AssertionError(f"[{tag}] launch counts {counts} != {want} "
                              f"({per_run} per run x {runs})")
 
 
-def card_vs_cpu(tag, nodes_c, params_c, x, st_gpu, o_gpu, r_gpu):
+def card_vs_cpu(tag, nodes_c, params_c, x, st_gpu, o_gpu, r_gpu,
+                tie_params=None, floor=True, readout_rtol=0.0):
     """Hold a card run of `plan.run` against the CPU's on the same input
     (T, B, n_in): hidden spikes under the tie rule (row-wise for a
     self-recurrent layer), the 1 % floor, readouts before each row's first
     divergence and the final states of the rows that never diverged.
+
+    `tie_params` replaces the hidden node's numpy parameters for the tie
+    rule's membrane (a topology-backed input edge passes its topology as
+    "w_input"); with `floor=False` a layer under the floor is compared all
+    the same and the caller reports that the comparison does not count;
+    readouts are held to READOUT_TOL + readout_rtol * |CPU readout|.
     Returns (CPU hidden spikes, first divergence per row, tie flips,
-    readout error, state error, CPU outputs)."""
+    readout error, state error, undiverged rows, readout error relative
+    to max(1, |CPU readout|))."""
     from repro_torch.core import plan
     from repro_torch.weights import params_to_numpy
     tie = load_tie_rule()
@@ -807,20 +1168,28 @@ def card_vs_cpu(tag, nodes_c, params_c, x, st_gpu, o_gpu, r_gpu):
                                     record=("hidden",), device="cpu")
     o_cpu = o_cpu.numpy()
     s_cpu = r_cpu["hidden"].numpy()
-    if not s_cpu.mean() >= MIN_HIDDEN_RATE:
+    if floor and not s_cpu.mean() >= MIN_HIDDEN_RATE:
         raise AssertionError(
             f"[{tag}] hidden layer fires in {s_cpu.mean():.4%} of its "
             f"lane-steps, under {MIN_HIDDEN_RATE:.0%}: the comparison "
             "would be vacuous")
-    u, th = tie.hidden_membrane(nodes_c[0], params_to_numpy(params_c)[
-        "hidden"], x, s_cpu)
+    if tie_params is None:
+        tie_params = params_to_numpy(params_c)["hidden"]
+    u, th = tie.hidden_membrane(nodes_c[0], tie_params, x, s_cpu)
     first_div, n_ties = tie.tie_rule(s_cpu, r_gpu["hidden"].cpu().numpy(),
                                      u, th,
                                      rowwise=tie.is_recurrent(nodes_c[0]))
     err_plan = tie.max_err_before(o_cpu, o_gpu, first_div)
-    if err_plan > READOUT_TOL:
+    scale = np.maximum(1.0, np.abs(o_cpu))
+    err_rel = tie.max_err_before(o_cpu / scale, o_gpu / scale, first_div)
+    over = tie.max_err_before(
+        np.zeros_like(o_cpu), np.maximum(
+            0.0, np.abs(o_gpu - o_cpu) - READOUT_TOL
+            - readout_rtol * np.abs(o_cpu)), first_div)
+    if over > 0:
         raise AssertionError(f"[{tag}] plan.run readout card vs CPU "
-                             f"{err_plan:.3e} > {READOUT_TOL}")
+                             f"{err_plan:.3e} (relative {err_rel:.3e}) > "
+                             f"{READOUT_TOL} + {readout_rtol} * |readout|")
     # final states (membranes, adaptation, branch currents, the recurrent
     # `out`, readout) of the rows whose hidden spikes never diverged: these
     # carry every input of the run, also where the hidden layer barely fires
@@ -837,7 +1206,7 @@ def card_vs_cpu(tag, nodes_c, params_c, x, st_gpu, o_gpu, r_gpu):
                                        f"{node}.{k} card vs CPU: {m}")
             if got.numel():
                 err_state = max(err_state, float((got - ref).abs().max()))
-    return s_cpu, first_div, n_ties, err_plan, err_state, rows
+    return s_cpu, first_div, n_ties, err_plan, err_state, rows, err_rel
 
 
 def phase_path(path: ServePath, smi):
@@ -893,7 +1262,7 @@ def phase_path(path: ServePath, smi):
                                  "the one-shot plan.run on the card")
 
     # -- the card against the CPU, under the tie rule -------------------------
-    s_cpu, first_div, n_ties, err_plan, err_state, rows = card_vs_cpu(
+    s_cpu, first_div, n_ties, err_plan, err_state, rows, _ = card_vs_cpu(
         tag, nodes_c, params_c, x, st_gpu, o_gpu, r_gpu)
     eng_c = replay(make_engine(nodes_c, params_c, cfg, device="cpu"), trace)
     err_eng = 0.0
@@ -989,7 +1358,7 @@ def phase_alif_ff(smi):
             not np.all(np.isfinite(o_gpu)):
         raise AssertionError(f"[{tag}] outputs {o_gpu.shape}, expected "
                              f"finite {(ALIF_T, ALIF_B, N_OUT)}")
-    s_cpu, first_div, n_ties, err_plan, err_state, rows = card_vs_cpu(
+    s_cpu, first_div, n_ties, err_plan, err_state, rows, _ = card_vs_cpu(
         tag, nodes_c, params_c, x, st_gpu, o_gpu, r_gpu)
     run_ms = []
     for _ in range(REPLAYS):
@@ -1013,6 +1382,249 @@ def phase_alif_ff(smi):
             "plan_run_ms": run_ms, "card": smi}
 
 
+# ---------------------------------------------------------------------------
+# 6. compressed topology: the banded net streamed through the gather kernel
+# ---------------------------------------------------------------------------
+
+
+def phase_topology_banded(smi):
+    """`bench_topology_exec`'s program through `plan.run_stream` on the
+    card: BANDED_T steps in chunks of BANDED_CHUNK at batch 1."""
+    from repro_torch.core import plan
+    from repro_torch.kernels import registry
+    tag = "topology_banded"
+    nodes, params = make_banded(DEV)
+    nodes_c, params_c = make_banded("cpu")
+    x = banded_input()
+    n_chunks = BANDED_T // BANDED_CHUNK
+
+    def chunks(t_len):
+        return (torch.from_numpy(x[i:i + BANDED_CHUNK]).to(DEV)
+                for i in range(0, t_len, BANDED_CHUNK))
+
+    def stream(t_len):
+        outs = [o for _, o in plan.run_stream(nodes, params, chunks(t_len),
+                                              device=DEV)]
+        sync()
+        return outs
+
+    stream(BANDED_CHUNK)                                 # warm-up
+    # -- peak device memory: streamed short and long, one-shot long --------
+    peaks = {}
+    for label, fn in (("stream_short", lambda: stream(BANDED_SHORT_T)),
+                      ("stream_long", lambda: stream(BANDED_T)),
+                      ("oneshot_long", lambda: plan.run(
+                          nodes, params, torch.from_numpy(x).to(DEV),
+                          device=DEV))):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        fn()
+        sync()
+        peaks[label] = (torch.cuda.max_memory_allocated(), resident)
+    ratio = peaks["stream_long"][0] / peaks["stream_short"][0]
+    if not ratio <= STREAM_PEAK_RATIO:
+        raise AssertionError(f"[{tag}] streamed peak device memory grows "
+                             f"{ratio:.3f}x from T={BANDED_SHORT_T} to "
+                             f"T={BANDED_T} (> {STREAM_PEAK_RATIO})")
+
+    # -- the main path: launch counters from 0 --------------------------------
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    res = list(plan.run_stream(nodes, params, chunks(BANDED_T), device=DEV))
+    sync()
+    wall = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    readout = {k: counts[k] for k in ("spikemm", "spikemm_sparse")}
+    if sum(readout.values()) != n_chunks:
+        raise AssertionError(f"[{tag}] readout INTEG launches {readout}, "
+                             f"expected {n_chunks} in all")
+    per_chunk = {"spikemm_gather": 1, "lif": 1, "linrec": 1}
+    counted(tag, per_chunk, n_chunks,
+            {k: v for k, v in counts.items() if k not in readout})
+    streamed = torch.cat([o for _, o in res])
+    st_stream = res[-1][0]
+
+    # -- streamed equals one-shot, bit for bit --------------------------------
+    st_gpu, o_gpu, r_gpu = plan.run(nodes, params,
+                                    torch.from_numpy(x).to(DEV),
+                                    record=("hidden",), device=DEV)
+    if streamed.shape != (BANDED_T, 1, BANDED_OUT) or \
+            not torch.isfinite(streamed).all():
+        raise AssertionError(f"[{tag}] streamed outputs {streamed.shape}, "
+                             f"expected finite {(BANDED_T, 1, BANDED_OUT)}")
+    if not torch.equal(streamed, o_gpu):
+        raise AssertionError(f"[{tag}] streamed outputs differ from one-shot "
+                             f"plan.run by {float((streamed - o_gpu).abs().max()):.3e}")
+    for node in st_gpu:
+        for k in st_gpu[node]:
+            if not torch.equal(st_stream[node][k], st_gpu[node][k]):
+                raise AssertionError(f"[{tag}] streamed final state "
+                                     f"{node}.{k} differs from one-shot")
+    dev_ms, by_name = profile_ms(lambda: stream(BANDED_T))
+    chunk_ms = wall * 1e3 / n_chunks
+    log(f"path [{tag}]: {n_chunks} chunks streamed, launches {counts}; "
+        f"streamed == one-shot plan.run, outputs and final state, bit for "
+        f"bit; {chunk_ms:.3f} ms per chunk, card time "
+        f"{None if dev_ms is None else round(dev_ms / n_chunks, 4)} ms "
+        f"per chunk")
+
+    # -- the card against the CPU, under the tie rule -------------------------
+    s_cpu, first_div, n_ties, err_plan, err_state, rows, err_rel = \
+        card_vs_cpu(tag, nodes_c, params_c, x, st_gpu, o_gpu.cpu().numpy(),
+                    r_gpu, tie_params={"w_input": banded_net()},
+                    readout_rtol=BANDED_READOUT_RTOL)
+    log(f"path [{tag}]: card vs CPU: hidden spikes {int(s_cpu.sum())} "
+        f"(rate {s_cpu.mean():.4f}), {n_ties} lanes flipped at threshold "
+        f"ties, first divergence at step {int(first_div.min())} of "
+        f"{BANDED_T}, readout max abs err {err_plan:.3e} (relative "
+        f"{err_rel:.3e}), final state max abs err {err_state:.3e}; peak "
+        f"device memory MB: streamed T={BANDED_SHORT_T} "
+        f"{peaks['stream_short'][0] / 2**20:.1f}, T={BANDED_T} "
+        f"{peaks['stream_long'][0] / 2**20:.1f} ({ratio:.4f}x), one-shot "
+        f"T={BANDED_T} {peaks['oneshot_long'][0] / 2**20:.1f}")
+    t = banded_net().lowering()
+    return {"path": tag, "model": f"bench_topology_exec banded "
+            f"{BANDED_N} LIF (sparse_coo band {BANDED_BAND}, w={BANDED_W}) "
+            f"-> {BANDED_OUT} LI", "T": BANDED_T, "chunk": BANDED_CHUNK,
+            "batch": 1, "input": f"bernoulli({BANDED_RATE})",
+            "entries": int(len(t.jj)), "active_entries": t.n_entries,
+            "launches": counts, "launches_per_window": {
+                **per_chunk, **{k: v / n_chunks if v % n_chunks else
+                                v // n_chunks for k, v in readout.items()}},
+            "hidden_spikes": int(s_cpu.sum()),
+            "hidden_rate": float(s_cpu.mean()), "tie_flips": n_ties,
+            "first_divergence": int(first_div.min()),
+            "readout_max_abs_err": err_plan,
+            "readout_max_rel_err": err_rel, "state_max_abs_err": err_state,
+            "stream_ms_per_chunk": chunk_ms,
+            "device_ms_per_chunk": (None if dev_ms is None
+                                    else dev_ms / n_chunks),
+            "device_busy_share": (None if dev_ms is None
+                                  else dev_ms / n_chunks / chunk_ms),
+            "device_ms_per_chunk_by_kernel": top_per(by_name, n_chunks),
+            "peak_bytes": {k: v[0] for k, v in peaks.items()},
+            "resident_bytes_before": {k: v[1] for k, v in peaks.items()},
+            "stream_peak_ratio": ratio, "card": smi}
+
+
+# ---------------------------------------------------------------------------
+# 7. block-sparse INTEG: eager plan.run on population-packed rasters
+# ---------------------------------------------------------------------------
+
+
+def phase_sparse_integ(smi):
+    """`bench_snn_engine.run_sparsity_rows` on the card: one `plan.run` per
+    density under `auto`, its channels read from the launch counters."""
+    from repro_torch.core import plan
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.spikemm.ops import (occupancy_fraction,
+                                                 sparse_threshold)
+    tag = "sparse_integ"
+    env = "REPRO_SPIKEMM_SPARSE"
+    nodes, params = make_sparse_integ(DEV)
+    nodes_c, params_c = make_sparse_integ("cpu")
+    T, B, K = SPARSE_T, SPARSE_B, SPARSE_IN
+    saved = os.environ.pop(env, None)                    # auto
+    rows = []
+    try:
+        plan.run(nodes, params, torch.zeros((4, B, K), device=DEV),
+                 device=DEV)                             # warm-up
+        sync()
+        for d in SPARSE_DENSITIES:
+            x = packed_raster(T * B, K, d, SPARSE_SEED).reshape(T, B, K)
+            xg = torch.from_numpy(x).to(DEV)
+            occ_in = occupancy_fraction(xg.reshape(T * B, K))
+            registry.reset_launches()
+            st_gpu, o_gpu, r_gpu = plan.run(nodes, params, xg,
+                                            record=("hidden",), device=DEV)
+            sync()
+            counts = registry.launch_counts()
+            occ_ro = occupancy_fraction(r_gpu["hidden"].reshape(T * B, -1))
+            th = sparse_threshold()
+            route = {"input": "spikemm_sparse" if occ_in <= th else "spikemm",
+                     "readout": "spikemm_sparse" if occ_ro <= th
+                     else "spikemm"}
+            per_run = {"lif": 1, "linrec": 1}
+            for ch in route.values():
+                per_run[ch] = per_run.get(ch, 0) + 1
+            counted(f"{tag} {d}", per_run, 1, counts)
+            # always == never (== auto) on the card, bit for bit
+            runs = {}
+            for mode in ("never", "always"):
+                os.environ[env] = mode
+                runs[mode] = plan.run(nodes, params, xg, record=("hidden",),
+                                      device=DEV)
+            del os.environ[env]
+            for mode, (st, o, r) in runs.items():
+                same = torch.equal(o, o_gpu) and torch.equal(
+                    r["hidden"], r_gpu["hidden"]) and all(
+                    torch.equal(st[n][k], st_gpu[n][k])
+                    for n in st for k in st[n])
+                if not same:
+                    raise AssertionError(f"[{tag} {d}] {mode} differs from "
+                                         "auto on the card")
+            s_cpu, first_div, n_ties, err_plan, err_state, ok_rows, _ = \
+                card_vs_cpu(f"{tag} {d}", nodes_c, params_c, x, st_gpu,
+                            o_gpu.cpu().numpy(), r_gpu, floor=False)
+            rate = float(s_cpu.mean())
+            times = {"auto": [], "never": []}
+            for _ in range(REPLAYS):
+                for mode in ("never", "auto"):
+                    if mode == "never":
+                        os.environ[env] = mode
+                    t0 = time.perf_counter()
+                    plan.run(nodes, params, xg, device=DEV)
+                    sync()
+                    times[mode].append((time.perf_counter() - t0) * 1e3)
+                    os.environ.pop(env, None)
+            dev_ms, by_name = profile_ms(
+                lambda: plan.run(nodes, params, xg, device=DEV))
+            row = {"density": d, "input_occupancy": occ_in,
+                   "readout_occupancy": occ_ro, "route": route,
+                   "launches": counts, "hidden_rate": rate,
+                   "counts_as_check": rate >= MIN_HIDDEN_RATE,
+                   "tie_flips": n_ties,
+                   "rows_diverged": int((first_div < T).sum()),
+                   "readout_max_abs_err": err_plan,
+                   "state_max_abs_err": err_state,
+                   "plan_run_ms_median": float(np.median(times["auto"])),
+                   "dense_plan_run_ms_median": float(
+                       np.median(times["never"])),
+                   "device_ms": dev_ms, "device_ms_by_kernel": top_per(
+                       by_name, 1, n=6)}
+            rows.append(row)
+            log(f"path [{tag}] density {d}: occupancy {occ_in:.4f} (input), "
+                f"{occ_ro:.4f} (readout) at the kernel's block -> {route}; "
+                f"launches {counts}; always == never == auto bit for bit; "
+                f"card vs CPU: hidden rate {rate:.4f}"
+                f"{'' if row['counts_as_check'] else ' (under the 1 % floor: this comparison does not count)'}"
+                f", {n_ties} tie flips, {row['rows_diverged']} rows diverged, "
+                f"readout max abs err {err_plan:.3e}; plan.run "
+                f"{row['plan_run_ms_median']:.3f} ms (all dense "
+                f"{row['dense_plan_run_ms_median']:.3f}), card time "
+                f"{None if dev_ms is None else round(dev_ms, 4)} ms")
+    finally:
+        if saved is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = saved
+    if not any(r["counts_as_check"] and r["route"]["input"] ==
+               "spikemm_sparse" for r in rows):
+        raise AssertionError(f"[{tag}] no density routed the input INTEG "
+                             "sparse on a layer over the 1 % floor")
+    total = {}
+    for r in rows:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return {"path": tag, "model": f"dhsnn_shd homogeneous {SPARSE_IN}->"
+            f"{SPARSE_HIDDEN}->20", "T": T, "batch": B,
+            "input": f"packed rasters, seed {SPARSE_SEED}",
+            "launches": total, "launches_per_run": {
+                k: [r["launches"][k] for r in rows] for k in total},
+            "densities": rows, "card": smi}
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
@@ -1022,6 +1634,8 @@ def main():
     kernels = phase_kernels(make_shd(True, DEV)[1])
     slices = [phase_path(p, smi) for p in PATHS]
     slices.append(phase_alif_ff(smi))
+    slices.append(phase_topology_banded(smi))
+    slices.append(phase_sparse_integ(smi))
     for name, k in kernels.items():
         by_path = {s["path"]: s["launches"][name] for s in slices
                    if s["launches"][name]}
@@ -1029,7 +1643,8 @@ def main():
             raise AssertionError(f"kernel {name} launched on no path")
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
-        # per served window; for alif_ff, per plan.run of its 250 steps
+        # per served window or streamed chunk; for alif_ff, per plan.run
+        # of its 250 steps; for sparse_integ, per plan.run of each density
         k["launches_per_window"] = {
             s["path"]: s.get("launches_per_window",
                              s.get("launches_per_run"))[name]

@@ -12,8 +12,12 @@ The stepper (`step`/`run`) is the plain per-timestep interpreter: a Python
 loop over time. `core/plan.py` lifts most programs off it onto whole-time
 kernels; the stepper remains the reference and the fallback.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): plastic connections and compressed-topology connections.
+A connection may be backed by compressed connectivity
+(`Connection(topology=...)`, an `EncodedTopology` or a params key naming
+one): both engines then execute it straight from its IE tables.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
+plastic connections.
 """
 
 from __future__ import annotations
@@ -24,12 +28,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.core.neuron import NeuronSpec
+from repro_torch.core.topology import EncodedTopology
 from repro_torch.kernels.common import DeviceLike, resolve_device
 
 _PLASTIC_TODO = ("plastic connections are not ported yet: ROADMAP.md, "
                  "Open items 1, item 5 (plasticity)")
-_TOPOLOGY_TODO = ("compressed-topology connections are not ported yet: "
-                  "ROADMAP.md, Open items 1, item 6 (compressed topology)")
 
 
 def _parse_src(src: str) -> Tuple[str, int]:
@@ -48,7 +51,16 @@ class Connection:
     delay:   delayed-fire depth in timesteps (ring-buffered delivery).
     weight:  params key holding this edge's weight; "" = the canonical
              convention ("w_<src>", "w_self").
-    plastic, topology: not ported yet; anything but None raises.
+    plastic: not ported yet; anything but None raises (after the topology
+             checks below, in the reference's order).
+    topology: optional compressed connectivity for this edge — an
+             `EncodedTopology` instance, or a string naming one inside
+             `params[node]`. The edge then executes straight from the IE
+             tables (type-2 FC through `spikemm`, sparse/conv/pool through
+             `spikemm_gather`) and no dense weight tensor is read.
+             Mutually exclusive with both `plastic` (tables are not
+             learnable) and a `weight` override (there is no dense tensor
+             to alias).
     """
 
     src: str
@@ -63,10 +75,21 @@ class Connection:
         if self.delay < 0:
             raise ValueError(f"negative delay {self.delay} on connection "
                              f"from {self.src!r}")
+        if self.topology is not None:
+            if not isinstance(self.topology, (str, EncodedTopology)):
+                raise TypeError(
+                    f"Connection.topology must be an EncodedTopology or a "
+                    f"params key, got {type(self.topology).__name__}")
+            if self.plastic is not None:
+                raise ValueError(
+                    f"connection from {self.src!r}: topology-backed edges "
+                    "cannot be plastic (IE tables are static configuration)")
+            if self.weight:
+                raise ValueError(
+                    f"connection from {self.src!r}: topology and a weight "
+                    "override are mutually exclusive")
         if self.plastic is not None:
             raise NotImplementedError(_PLASTIC_TODO)
-        if self.topology is not None:
-            raise NotImplementedError(_TOPOLOGY_TODO)
 
     @property
     def key(self) -> str:
@@ -86,6 +109,41 @@ class Connection:
             return spec
         name, d = _parse_src(spec)
         return cls(src=name, delay=d)
+
+    @classmethod
+    def from_topology(cls, src: str, topology: Any,
+                      delay: Optional[int] = None) -> "Connection":
+        """Edge backed by compressed connectivity. `delay` defaults to the
+        topology's own skip delay (Fig. 8c delayed-fire) when it carries
+        one, else 0."""
+        if delay is None:
+            meta = getattr(topology, "meta", None) or {}
+            delay = int(meta.get("delay", 0)) \
+                if getattr(topology, "kind", "") == "skip" else 0
+        return cls(src=src, delay=delay, topology=topology)
+
+
+def resolve_topology(conn: Connection, node_name: str,
+                     params: Dict[str, Any]) -> Optional[EncodedTopology]:
+    """The EncodedTopology a connection executes through, or None.
+
+    A string rides as a key into `params[node]`: the topology then lives
+    with the rest of the node's parameters."""
+    t = conn.topology
+    if t is None:
+        return None
+    if isinstance(t, str):
+        t = params.get(node_name, {}).get(t)
+        if t is None:
+            raise KeyError(
+                f"node {node_name!r}: connection {conn.key!r} names topology "
+                f"{conn.topology!r} but params[{node_name!r}] has no such "
+                "entry")
+    if not isinstance(t, EncodedTopology):
+        raise TypeError(
+            f"node {node_name!r}: params[{conn.topology!r}] is "
+            f"{type(t).__name__}, expected EncodedTopology")
+    return t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,14 +214,20 @@ def init_state(nodes: List[LayerNode], batch: int, dtype=torch.float32,
 
 def _node_params(n: LayerNode, params: Dict[str, Any]) -> Dict[str, Any]:
     """Node params with custom `Connection.weight` keys aliased onto the
-    canonical names, so the built-in integrate conventions pick them up."""
+    canonical names, so the built-in integrate conventions pick them up.
+    Topology-backed edges alias the canonical name to the EncodedTopology
+    itself — `neuron.locacc` routes it through the compressed kernels."""
     p = params.get(n.name, {})
     remap = {("w_self" if c.src == "self" else f"w_{c.src}"): c.weight
              for c in n.connections if c.weight}
-    if remap:
+    topos = {("w_self" if c.src == "self" else f"w_{c.src}"):
+             resolve_topology(c, n.name, params)
+             for c in n.connections if c.topology is not None}
+    if remap or topos:
         p = dict(p)
         for canon, key in remap.items():
             p[canon] = p[key]
+        p.update(topos)
     return p
 
 
@@ -232,5 +296,5 @@ def run(nodes: List[LayerNode], params: Dict[str, Any], x: torch.Tensor,
             {r: torch.stack(v) for r, v in recs.items()})
 
 
-__all__ = ["Connection", "LayerNode", "state_dtype", "init_state", "step",
-           "run"]
+__all__ = ["Connection", "LayerNode", "resolve_topology", "state_dtype",
+           "init_state", "step", "run"]

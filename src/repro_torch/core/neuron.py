@@ -39,10 +39,18 @@ def diff(v: torch.Tensor, tau, c) -> torch.Tensor:
     return tau * v + c
 
 
-def locacc(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def locacc(spikes: torch.Tensor, weights) -> torch.Tensor:
     """The LOCACC instruction: accumulate presynaptic events into currents
     (dense form; the event-gated kernel is `kernels/spikemm`). Integer
-    spikes are cast to the weights' type first."""
+    spikes are cast to the weights' type first. An `EncodedTopology` in
+    weight position executes through its compressed IE tables
+    (`apply_spikes`) — same currents, no dense matrix."""
+    if hasattr(weights, "apply_spikes"):
+        if not spikes.dtype.is_floating_point:
+            spikes = spikes.to(torch.float32)
+        lead = tuple(spikes.shape[:-1])
+        flat = spikes.reshape(-1, spikes.shape[-1]).contiguous()
+        return weights.apply_spikes(flat).reshape(lead + (weights.shape[1],))
     if not spikes.dtype.is_floating_point:
         spikes = spikes.to(weights.dtype)
     return spikes @ weights

@@ -30,8 +30,12 @@ windows and chunks. Segments that match no pattern run through the
 port's stepper, as in the reference.
 
 INTEG is hoisted out of the time loop for every fused segment: one
-`spikemm` over the (T*B, fan_in) spike matrix per feed; the branch
-convention hoists as one spikemm against the branch-flattened weights.
+`spikemm` over the (T*B, fan_in) spike matrix per feed (its dense or its
+block-sparse channel, by occupancy); the branch convention hoists as one
+spikemm against the branch-flattened weights. A topology-backed
+connection hoists through its compressed tables instead
+(`EncodedTopology.apply_spikes`: `spikemm_gather`, or spikemm for type-2
+FC).
 Delayed (`"src@d"`) reads of a fused source are exact: the ring buffer the
 stepper would keep is a time-shift of the source's full output, seeded
 from the initial ring state.
@@ -286,12 +290,16 @@ def _as_float(s: Tensor, dtype: torch.dtype) -> Tensor:
 
 def _hoisted_current(node: events.LayerNode, params: Dict[str, Any],
                      outs: Dict[str, Tensor], state: Dict[str, Any],
-                     T: int, B: int) -> Tensor:
-    """All-T INTEG: one event-gated spikemm per inbound connection.
+                     T: int, B: int, traced: bool) -> Tensor:
+    """All-T INTEG: one event-gated spikemm per inbound connection, or,
+    for a topology-backed one, one pass through its compressed tables
+    (`apply_spikes`: spikemm for type-2 FC, spikemm_gather for the other
+    IE tables; `dense_equivalent()` never runs).
 
     The "branch" convention hoists the dendritic einsum as a single
     spikemm against the branch-flattened (n_in, K*n_out) weight view,
-    yielding a (T, B, K, n_out) per-branch current block."""
+    yielding a (T, B, K, n_out) per-branch current block. `traced` is
+    spikemm's `_traced` routing hint."""
     if _hoist_tag(node) == "branch":
         conn = next(c for c in node.connections if c.src != "self")
         w = params[node.name]["w_input"]             # (K, n_in, n_out)
@@ -299,17 +307,23 @@ def _hoisted_current(node: events.LayerNode, params: Dict[str, Any],
         s = _as_float(_feed_full(outs, state, conn.src, conn.delay, T),
                       w.dtype)
         w2 = w.permute(1, 0, 2).reshape(n_in, K * n_out).contiguous()
-        c = spikemm(s.reshape(T * B, -1).contiguous(), w2)
+        c = spikemm(s.reshape(T * B, -1).contiguous(), w2, _traced=traced)
         return c.reshape(T, B, K, n_out)
     cur = None
     for conn in node.connections:
         if conn.src == "self":
             continue
-        w = params[node.name][conn.weight_key]
-        s = _as_float(_feed_full(outs, state, conn.src, conn.delay, T),
-                      w.dtype)
-        c = spikemm(s.reshape(T * B, -1).contiguous(),
-                    w.contiguous()).reshape(T, B, -1)
+        s = _feed_full(outs, state, conn.src, conn.delay, T)
+        topo = events.resolve_topology(conn, node.name, params)
+        if topo is not None:
+            s = _as_float(s, events.state_dtype(s.dtype))
+            c = topo.apply_spikes(s.reshape(T * B, -1).contiguous(),
+                                  _traced=traced).reshape(T, B, -1)
+        else:
+            w = params[node.name][conn.weight_key]
+            s = _as_float(s, w.dtype)
+            c = spikemm(s.reshape(T * B, -1).contiguous(), w.contiguous(),
+                        _traced=traced).reshape(T, B, -1)
         cur = c if cur is None else cur + c
     if cur is None:
         x = outs["input"]
@@ -337,8 +351,8 @@ def _self_weight(node: events.LayerNode, params: Dict[str, Any]) -> Tensor:
 def _run_fused(node: events.LayerNode, kind: str, lower: str,
                params: Dict[str, Any], outs: Dict[str, Tensor],
                state: Dict[str, Any], new_state: Dict[str, Any],
-               T: int, B: int) -> None:
-    cur = _hoisted_current(node, params, outs, state, T, B)
+               T: int, B: int, traced: bool) -> None:
+    cur = _hoisted_current(node, params, outs, state, T, B, traced)
     prog = node.neuron.program
     nparams = params.get(node.name, {}).get("neuron")
     th = prog.threshold
@@ -524,12 +538,15 @@ def unpack_state(state: Dict[str, Any], index: int,
 def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
         state: Optional[Dict[str, Any]] = None, record: Tuple[str, ...] = (),
         plan: Optional[Plan] = None, guard: Optional[str] = None,
-        device: DeviceLike = "cuda"):
+        device: DeviceLike = "cuda", _traced: bool = False):
     """Drop-in replacement for `events.run` through the compiled plan.
 
     x: (T, batch, n_in) on `device` (default the card; pass device="cpu"
     to run on the CPU). Returns (final_state, outputs (T, batch, n_out),
     recorded dict) — equivalent to the stepper within CROSS_ENGINE_ATOL.
+    `_traced=True` (the serve engine's window step) routes the hoisted
+    INTEG as the JAX package routes its jitted step: spikemm's `auto`
+    stays dense, with no occupancy sync.
     """
     _refuse_unported(guard)
     dev = resolve_device(device)
@@ -550,7 +567,7 @@ def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
                           new_state, T)
         else:
             _run_fused(nodes_by_name[seg.names[0]], seg.kind, seg.lower,
-                       params, outs, state, new_state, T, B)
+                       params, outs, state, new_state, T, B, _traced)
     return new_state, outs[nodes[-1].name], {r: outs[r] for r in record}
 
 

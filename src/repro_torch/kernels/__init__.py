@@ -12,7 +12,11 @@ Each family is a package with two modules:
 The CUDA sources live in `repro_torch/csrc/`; `_build.py` compiles them
 with nvcc for sm_90a into one ctypes-loaded library at first use.
 
-  spikemm  FINDIDX+LOCACC  event-gated spike x weight matmul (dense channel)
+  spikemm  FINDIDX+LOCACC  event-gated spike x weight matmul: the dense
+                          channel, and the block-sparse one over the
+                          occupied blocks (`spikemm/sparse.py`)
+  spikemm_gather  LOCACC   IE-table (block-COO) contraction of a compressed
+                          topology (`spikemm/gather.py`)
   linrec   DIFF            diagonal first-order recurrence y = a*y + x
   lif      DIFF+SEND       fused integrate-fire over time
   lifrec   DIFF+LOCACC+SEND  the same with a self-recurrent s_{t-1} @ W_rec

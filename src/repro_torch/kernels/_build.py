@@ -32,8 +32,15 @@ from typing import List, Optional
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
+# (bm, bk): the spike block shape at which the block-sparse spikemm channel
+# measures occupancy and skips work. This is its one definition:
+# `spikemm/sparse.py` measures at it, and `csrc/spikemm_sparse.cu` takes
+# it from the -D flags below (and refuses to build without them).
+SPARSE_BLOCK = (64, 64)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DSPIKEMM_SPARSE_BM={SPARSE_BLOCK[0]}",
+              f"-DSPIKEMM_SPARSE_BK={SPARSE_BLOCK[1]}")
 LIB_NAME = "libreprotorch.so"
 
 _P = ctypes.c_void_p
@@ -53,6 +60,9 @@ SIGNATURES = {
     "rec_scan_w_in_smem": ((_I,), _I),
     "alif_f32": ((_P,) * 8 + (_I, _I, _I, _F, _F, _P), _I),
     "alifrec_f32": ((_P,) * 10 + (_I, _I, _I, _F, _F, _P), _I),
+    "spikemm_sparse_f32": ((_P,) * 6 + (_I, _I, _I, _P), _I),
+    "spikemm_gather_f32": ((_P,) * 6 + (_I,) * 6 + (_P,), _I),
+    "spikemm_gather_block_m": ((), _I),
     "cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

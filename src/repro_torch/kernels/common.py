@@ -69,6 +69,25 @@ def check_scan(name: str, current: torch.Tensor,
                              f"{current.device}")
 
 
+def check_matmul(name: str, spikes: torch.Tensor, w: torch.Tensor) -> None:
+    """The checks of a spike-matmul wrapper: CUDA tensors, a (M, K) raster
+    and a (K, N) weight, both float32, contiguous and on one device."""
+    if not spikes.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"{spikes.device}")
+    if spikes.dim() != 2 or w.dim() != 2 or spikes.shape[1] != w.shape[0]:
+        raise ValueError(f"{name}: shapes {tuple(spikes.shape)} @ "
+                         f"{tuple(w.shape)} do not chain")
+    for nm, t in (("spikes", spikes), ("w", w)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {nm} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be contiguous")
+    if spikes.device != w.device:
+        raise ValueError(f"{name}: spikes on {spikes.device}, "
+                         f"w on {w.device}")
+
+
 def check_rec_n(name: str, n: int) -> None:
     """Raise when a batch row of n neurons exceeds what the recurrent
     scan's block holds (`rec_scan_max_n` in the library)."""
@@ -105,5 +124,6 @@ def pad_axis(x: torch.Tensor, axis: int, mult: int, value=0.0):
     return F.pad(x, widths, value=value), n
 
 
-__all__ = ["resolve_device", "check_device", "check_scan", "check_rec_n",
+__all__ = ["resolve_device", "check_device", "check_scan", "check_matmul",
+           "check_rec_n",
            "w_in_smem", "tree_to", "pad_axis", "DeviceLike"]

@@ -12,17 +12,37 @@ raises. (The JAX package's pallas -> interpret -> ref chain and its
 autotuner are not ported; a TPU's block sizes are VMEM choices that mean
 nothing here.)
 
+A family may register alternative implementation `channels` (as the
+JAX `KernelSpec` does: `spikemm`'s block-sparse channel) and a
+`select_channel` router. The router picks the channel per call, before
+the device decides between that channel's CUDA wrapper and its plain
+version; it returns the channel's key (None for the family's own pair)
+and the keyword arguments it hands that channel: what it measured to
+decide, so the channel does not measure it again. There is no fallback
+from one channel to another: a router that raises fails the call.
+
 Each CUDA wrapper keeps a plain integer count of its launches
 (`wrapper.launches`), which `launch_counts()` reads and `reset_launches()`
-zeroes, so a run can show that it went through the kernels.
+zeroes, so a run can show that it went through the kernels. A channel's
+wrapper counts on its own, listed as `<family>_<channel>`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import (Any, Callable, Dict, Mapping, Optional, Sequence,
+                    Tuple)
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Channel:
+    """An alternative implementation pair of a family: the same function,
+    computed another way that wins on some inputs."""
+
+    plain: Callable[..., Any]
+    cuda: Callable[..., Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +54,20 @@ class KernelSpec:
     cuda: Callable[..., Any]           # hand-kernel wrapper (CUDA tensors)
     make_inputs: Optional[Callable[..., tuple]] = None  # (generator) -> args
     tol: float = 1e-4
+    # named alternative channels and the router that picks one per call:
+    # select_channel(*args, traced=...) -> (a key of `channels` or None for
+    # the (plain, cuda) pair above, kwargs for the chosen implementation)
+    channels: Mapping[str, Channel] = dataclasses.field(default_factory=dict)
+    select_channel: Optional[Callable[..., Tuple[Optional[str],
+                                                 Dict[str, Any]]]] = None
+
+    def wrappers(self) -> Dict[str, Callable[..., Any]]:
+        """{counter name: CUDA wrapper}: the family's own and one per
+        channel."""
+        out = {self.name: self.cuda}
+        out.update({f"{self.name}_{k}": c.cuda
+                    for k, c in sorted(self.channels.items())})
+        return out
 
 
 _REGISTRY: Dict[str, KernelSpec] = {}
@@ -44,13 +78,15 @@ _KERNEL_MODULES = (
     "repro_torch.kernels.lif.ops",
     "repro_torch.kernels.lifrec.ops",
     "repro_torch.kernels.alifrec.ops",
+    "repro_torch.kernels.spikemm.gather",
 )
 
 
 def register(spec: KernelSpec) -> KernelSpec:
-    """Idempotent by name; the wrapper starts with a launch count of 0."""
-    if not hasattr(spec.cuda, "launches"):
-        spec.cuda.launches = 0
+    """Idempotent by name; each wrapper starts with a launch count of 0."""
+    for fn in spec.wrappers().values():
+        if not hasattr(fn, "launches"):
+            fn.launches = 0
     _REGISTRY[spec.name] = spec
     return spec
 
@@ -88,25 +124,40 @@ def on_cuda(args: Sequence[Any]) -> bool:
     raise ValueError(f"kernel arguments span devices {sorted(kinds)}")
 
 
-def dispatch(name: str, args: Sequence[Any], **static) -> Any:
-    """Run family `name`: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. `static` kwargs are forwarded to either."""
+def dispatch(name: str, args: Sequence[Any], traced: bool = False,
+             **static) -> Any:
+    """Run family `name`: the router's channel (or the family's own pair),
+    then the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. `traced` goes to the router only (see `spikemm`); `static`
+    kwargs, and those the router hands its channel, are forwarded to the
+    implementation."""
     spec = get(name)
-    fn = spec.cuda if on_cuda(args) else spec.plain
+    impl: Any = spec
+    if spec.select_channel is not None:
+        choice, measured = spec.select_channel(*args, traced=traced)
+        if choice is not None:
+            impl = spec.channels[choice]
+        static = {**static, **measured}
+    fn = impl.cuda if on_cuda(args) else impl.plain
     return fn(*args, **static)
 
 
 def launch_counts() -> Dict[str, int]:
+    """{wrapper: launches} of every family and channel."""
     ensure_registered()
-    return {n: s.cuda.launches for n, s in sorted(_REGISTRY.items())}
+    out: Dict[str, int] = {}
+    for s in _REGISTRY.values():
+        out.update({n: fn.launches for n, fn in s.wrappers().items()})
+    return dict(sorted(out.items()))
 
 
 def reset_launches() -> None:
     ensure_registered()
     for s in _REGISTRY.values():
-        s.cuda.launches = 0
+        for fn in s.wrappers().values():
+            fn.launches = 0
 
 
-__all__ = ["KernelSpec", "register", "get", "names", "dispatch",
+__all__ = ["Channel", "KernelSpec", "register", "get", "names", "dispatch",
            "ensure_registered", "on_cuda", "launch_counts",
            "reset_launches"]

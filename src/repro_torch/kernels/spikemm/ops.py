@@ -1,39 +1,54 @@
-"""Public spikemm entry: block occupancy + registry dispatch (dense channel).
+"""Public spikemm entry: block occupancy + registry dispatch over two channels.
 
-`spikemm(spikes, w)` computes spikes (M, K) @ w (K, N). On CUDA tensors it
-launches `csrc/spikemm.cu`, which skips every (BM, BK) spike block whose
-occupancy flag is 0; the flags come from `block_occupancy` at the kernel's
-own block shape (read from the built library). On CPU tensors it runs the
-plain matmul.
+`spikemm(spikes, w)` computes spikes (M, K) @ w (K, N). Two channels
+compute it, as in the JAX package:
 
-Only the dense channel is ported. The JAX serve step runs under `jit`,
-where a traced raster always routes dense, so dense is what the serving
-path runs; the sparse channel and its occupancy router come with the
-compressed-topology slice. Forward only: the straight-through gradient
-comes with the training slice.
+  * **dense** (the family's own pair): on CUDA tensors `csrc/spikemm.cu`,
+    which skips every (BM, BK) spike block whose occupancy flag is 0; the
+    flags come from `block_occupancy` at the kernel's own block shape
+    (read from the built library). On CPU tensors the plain matmul.
+  * **sparse** (`sparse.py`): `csrc/spikemm_sparse.cu` walks a compacted
+    list of the occupied `SPARSE_BLOCK` blocks only; its plain version is
+    the occupied-slab matmul.
+
+`_select_channel` routes between them per call. The
+`REPRO_SPIKEMM_SPARSE=never|auto|always` environment variable pins the
+choice, with the JAX package's values and message; `auto` (the default)
+measures the block occupancy at the sparse kernel's block shape (one
+host sync), goes sparse at or below `_SPARSE_THRESHOLD_DEFAULT`, and
+hands the sparse channel the flags it measured, so one call reduces the
+raster to flags once.
+The JAX package routes a traced raster dense under `auto`, since its
+occupancy is unknowable; its serve engine's step is jitted, so serving
+always runs dense. The port has no tracers, so a caller that stands for
+such a step (the port's serve engine) passes `_traced=True` and gets the
+same routing, with no occupancy sync.
+
+The JAX package's per-shape threshold tuning (`sparse_threshold` looking
+up `spikemm.sparse_th` in its tuning cache) is not ported: those
+crossovers were timed on the CPU. Forward only: the straight-through
+gradient comes with the training slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, registry
-from repro_torch.kernels.common import pad_axis
+from repro_torch.kernels.common import check_matmul
 from repro_torch.kernels.spikemm.ref import spikemm_ref
+from repro_torch.kernels.spikemm.sparse import (block_occupancy,
+                                                occupancy_flags,
+                                                spikemm_sparse_cuda,
+                                                spikemm_sparse_ref)
+
+_ENV_SPARSE = "REPRO_SPIKEMM_SPARSE"
+_SPARSE_THRESHOLD_DEFAULT = 0.25
 
 _BLOCK: Optional[Tuple[int, int]] = None
-
-
-def block_occupancy(spikes: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
-    """(ceil(M/bm), ceil(K/bk)) int32: 1 where the spike block has any
-    nonzero. Ragged edges count as zero-padded blocks."""
-    nz, _ = pad_axis(spikes != 0, 0, bm, value=False)
-    nz, _ = pad_axis(nz, 1, bk, value=False)
-    M, K = nz.shape
-    return nz.reshape(M, K // bk, bk).any(-1).reshape(
-        M // bm, bm, K // bk).any(1).to(torch.int32)
 
 
 def kernel_block_shape() -> Tuple[int, int]:
@@ -45,26 +60,45 @@ def kernel_block_shape() -> Tuple[int, int]:
     return _BLOCK
 
 
-def _check(spikes: torch.Tensor, w: torch.Tensor) -> None:
-    if not spikes.is_cuda:
-        raise ValueError(f"spikemm: the CUDA kernel takes CUDA tensors, got "
-                         f"{spikes.device}")
-    if spikes.dim() != 2 or w.dim() != 2 or spikes.shape[1] != w.shape[0]:
-        raise ValueError(f"spikemm: shapes {tuple(spikes.shape)} @ "
-                         f"{tuple(w.shape)} do not chain")
-    for nm, t in (("spikes", spikes), ("w", w)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"spikemm: {nm} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"spikemm: {nm} must be contiguous")
-    if spikes.device != w.device:
-        raise ValueError(f"spikemm: spikes on {spikes.device}, "
-                         f"w on {w.device}")
+def occupancy_fraction(spikes: torch.Tensor) -> float:
+    """Fraction of spike blocks with events at the sparse kernel's own
+    block shape (`occupancy_flags`): the share of its work the kernel
+    does not skip. Ragged edges count as zero-padded blocks, as the
+    kernel sees them."""
+    return float(occupancy_flags(spikes).float().mean())
+
+
+def sparse_threshold() -> float:
+    """Occupancy fraction at or below which `auto` routes sparse (the JAX
+    package's default; it has no per-shape tuning on the port)."""
+    return _SPARSE_THRESHOLD_DEFAULT
+
+
+def _select_channel(spikes: torch.Tensor, w: torch.Tensor, *,
+                    traced: bool = False
+                    ) -> Tuple[Optional[str], Dict[str, torch.Tensor]]:
+    """Dispatch-time router: ("sparse", its kwargs) at or below the
+    occupancy threshold, (None, {}) (dense) above it. Under `auto` the
+    kwargs carry the flags measured to decide."""
+    mode = os.environ.get(_ENV_SPARSE, "auto")
+    if mode not in ("never", "auto", "always"):
+        raise ValueError(f"{_ENV_SPARSE}={mode!r}: "
+                         "expected 'never', 'auto', or 'always'")
+    if mode == "never":
+        return None, {}
+    if mode == "always":
+        return "sparse", {}
+    if traced:
+        return None, {}              # the JAX package's traced raster
+    flags = occupancy_flags(spikes)
+    if float(flags.float().mean()) <= sparse_threshold():
+        return "sparse", {"flags": flags}
+    return None, {}
 
 
 def spikemm_cuda(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch `csrc/spikemm.cu` on CUDA tensors."""
-    _check(spikes, w)
+    check_matmul("spikemm", spikes, w)
     M, K = spikes.shape
     N = w.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=spikes.device)
@@ -83,9 +117,13 @@ def spikemm_cuda(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def spikemm(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Event-gated spikes @ w. spikes: (M, K) 0/1; w: (K, N)."""
-    return registry.dispatch("spikemm", (spikes, w))
+def spikemm(spikes: torch.Tensor, w: torch.Tensor, *,
+            _traced: bool = False) -> torch.Tensor:
+    """Event-gated spikes @ w. spikes: (M, K) 0/1; w: (K, N).
+
+    `_traced=True` routes `auto` dense, as the JAX package routes a traced
+    raster (see the module docstring)."""
+    return registry.dispatch("spikemm", (spikes, w), traced=_traced)
 
 
 def _make_inputs(generator: torch.Generator):
@@ -97,7 +135,11 @@ def _make_inputs(generator: torch.Generator):
 
 registry.register(registry.KernelSpec(
     name="spikemm", plain=spikemm_ref, cuda=spikemm_cuda,
-    make_inputs=_make_inputs, tol=1e-4))
+    make_inputs=_make_inputs, tol=1e-4,
+    channels={"sparse": registry.Channel(plain=spikemm_sparse_ref,
+                                         cuda=spikemm_sparse_cuda)},
+    select_channel=_select_channel))
 
 __all__ = ["spikemm", "spikemm_cuda", "spikemm_ref", "block_occupancy",
-           "kernel_block_shape"]
+           "kernel_block_shape", "occupancy_fraction", "sparse_threshold",
+           "spikemm_sparse_cuda", "spikemm_sparse_ref"]

@@ -12,7 +12,11 @@ Free slots are zero-padded and their results discarded, so every window
 runs at one shape.
 
 PyTorch runs the step eagerly, so there is no step cache: the plan is
-compiled once per engine and the kernels are built once per process.
+compiled once per engine and the kernels are built once per process. The
+JAX engine's step is jitted, where a traced raster routes spikemm's
+`auto` to the dense channel; the port's step passes `_traced=True` to
+`plan.run` for the same routing, so a window launches the same kernels
+whatever its occupancy and adds no occupancy sync.
 
   * `BatchedEngine` — the continuous-batching engine: sessions
     concatenated along the batch axis.
@@ -235,7 +239,8 @@ class BatchedEngine:
         packed = plan_mod.pack_states(states, pad_to=C)
         x = self._window([xw for _, xw, _ in cohort], C)
         ns, out, _ = plan_mod.run(self.nodes, self.params, x, state=packed,
-                                  plan=self.plan, device=self.device)
+                                  plan=self.plan, device=self.device,
+                                  _traced=True)
         out_np = out.cpu().numpy()              # one transfer per window
         return ([plan_mod.unpack_state(ns, i) for i in range(len(cohort))],
                 [out_np[:, i, :] for i in range(len(cohort))])
@@ -253,7 +258,8 @@ class NaiveEngine(BatchedEngine):
         for (_, xw, _), state in zip(cohort, states):
             ns, out, _ = plan_mod.run(self.nodes, self.params,
                                       self._window([xw], 1), state=state,
-                                      plan=self.plan, device=self.device)
+                                      plan=self.plan, device=self.device,
+                                      _traced=True)
             news.append(ns)
             outs.append(out.cpu().numpy()[:, 0, :])
         return news, outs

@@ -6,6 +6,11 @@ tree as numpy arrays (`jax.tree_util.tree_map(np.asarray, params)` on the
 JAX side) and turns it into the port's tensors here. Nested dicts map to
 nested dicts, None stays None (e.g. a homogeneous model's "neuron"
 entry), and every array is copied into a contiguous tensor on `device`.
+
+A compressed topology is configuration, not an array: an `EncodedTopology`
+leaf (the port's own, encoded from the same numpy arrays as the
+reference's) passes through untouched, and its tables go to a device when
+a kernel first needs them.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.topology import EncodedTopology
 from repro_torch.kernels.common import DeviceLike, resolve_device
 
 
@@ -23,8 +29,8 @@ def params_from_numpy(tree: Any, device: DeviceLike = "cuda") -> Any:
     dev = resolve_device(device)
 
     def conv(x):
-        if x is None:
-            return None
+        if x is None or isinstance(x, EncodedTopology):
+            return x
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
         return torch.from_numpy(np.array(x, copy=True, order="C")).to(dev)
@@ -34,8 +40,8 @@ def params_from_numpy(tree: Any, device: DeviceLike = "cuda") -> Any:
 
 def params_to_numpy(tree: Any) -> Any:
     """The inverse: torch tensors (any device) -> numpy arrays."""
-    if tree is None:
-        return None
+    if tree is None or isinstance(tree, EncodedTopology):
+        return tree
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy()

@@ -63,7 +63,9 @@ def hidden_membrane(node, params: Dict[str, Any], x: np.ndarray,
     prog = node.neuron.program
     th = prog.threshold
     nparams = params.get("neuron")
-    w = np.asarray(params["w_input"], np.float64)
+    w = params["w_input"]
+    if not hasattr(w, "lowering"):
+        w = np.asarray(w, np.float64)
     x = np.asarray(x, np.float64)
     s_ref = np.asarray(spikes_ref, np.float64)
     T, B = x.shape[:2]
@@ -82,7 +84,7 @@ def hidden_membrane(node, params: Dict[str, Any], x: np.ndarray,
         drive = (x.reshape(T * B, -1) @ w2).reshape(T, B, K, N)
         d = np.zeros((B, K, N))
     else:
-        drive = (x.reshape(T * B, -1) @ w).reshape(T, B, N)
+        drive = _drive(x.reshape(T * B, -1), w).reshape(T, B, N)
     rho = None if adapt is None else _decay(adapt.decay, nparams, (N,))
     v = np.zeros((B, N))
     a = np.zeros((B, N))
@@ -107,6 +109,25 @@ def hidden_membrane(node, params: Dict[str, Any], x: np.ndarray,
             a = rho * a + s
         s_prev = s
     return u, thr
+
+
+def _drive(x: np.ndarray, w) -> np.ndarray:
+    """x (M, n_in) float64 times the input weight: an array, or a
+    compressed topology (anything with `lowering()`), whose block tables
+    are contracted in float64 without building its dense matrix."""
+    if not hasattr(w, "lowering"):
+        return x @ w
+    if w.exec_channel() == "dense":
+        return x @ np.asarray(w.dense_equivalent(), np.float64)
+    t = w.lowering()
+    xp = np.zeros((len(x), -(-t.n_pre // t.bk) * t.bk))
+    xp[:, :t.n_pre] = x
+    out = np.zeros((len(x), -(-t.n_post // t.bn) * t.bn))
+    for e in np.flatnonzero(t.act):
+        j, k = int(t.jj[e]), int(t.kk[e])
+        out[:, j * t.bn:(j + 1) * t.bn] += \
+            xp[:, k * t.bk:(k + 1) * t.bk] @ t.wblk[e].astype(np.float64)
+    return out[:, :t.n_post]
 
 
 def is_recurrent(node) -> bool:

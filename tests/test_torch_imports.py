@@ -36,9 +36,11 @@ assert not bad, bad
 print(len(mods), " ".join(mods))
 """
 
-# the modules of the serving slices (ROADMAP.md, Open items 1, items 1
-# and 3)
+# the modules of the serving slices and of compressed topology
+# (ROADMAP.md, Open items 1, items 1, 3 and 6)
 EXPECTED = {
+    "repro_torch.core.topology", "repro_torch.kernels.spikemm.gather",
+    "repro_torch.kernels.spikemm.sparse",
     "repro_torch.kernels.lifrec.ops", "repro_torch.kernels.lifrec.ref",
     "repro_torch.kernels.alifrec.ops", "repro_torch.kernels.alifrec.ref",
     "repro_torch.kernels.common", "repro_torch.kernels.incidents",

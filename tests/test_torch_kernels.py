@@ -9,13 +9,19 @@ dispatch runs for CPU tensors) is compared on the same numpy inputs with
 Shapes: the JAX `_make_inputs` shapes, plus a prime T=37 for the time
 kernels; the recurrent and adaptive families start from a nonzero state.
 Tolerance: the family's `KernelSpec.tol` (1e-4) in both packages.
-`block_occupancy` must match exactly.
+`block_occupancy` and `compact_blocks` must match exactly. spikemm's
+block-sparse channel is held against the JAX package's sparse reference
+and sparse Pallas kernel (interpret mode) at density extremes, and its
+router against the threshold and `REPRO_SPIKEMM_SPARSE`; the gather family
+is held against the reference in `tests/test_torch_topology.py`.
 
 The hand CUDA kernels themselves cannot run here (no card, no nvcc);
 `chip_smoke.py` holds each one against its plain version on the card.
 """
 
+import dataclasses
 import json
+import re
 import shutil
 import sys
 from pathlib import Path
@@ -28,14 +34,23 @@ import torch
 from repro.kernels import registry as jreg
 from repro.kernels.common import pad_axis as jpad
 from repro.kernels.spikemm.ops import block_occupancy as jblock_occupancy
+from repro.kernels.spikemm.sparse import compact_blocks as jcompact_blocks
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.alifrec.ops import (alif_cuda, alif_scan,
                                              alifrec_cuda, alifrec_scan)
 from repro_torch.kernels.lif.ops import lif_cuda, lif_scan
 from repro_torch.kernels.lifrec.ops import lifrec_cuda, lifrec_scan
 from repro_torch.kernels.linrec.ops import linrec, linrec_cuda
+from repro_torch.kernels.spikemm import ops as spikemm_ops
+from repro_torch.kernels.spikemm.gather import (build_gather_tables,
+                                                spikemm_gather_cuda)
 from repro_torch.kernels.spikemm.ops import (block_occupancy, spikemm,
                                              spikemm_cuda)
+from repro_torch.kernels.spikemm.sparse import (SPARSE_BLOCK,
+                                                compact_blocks,
+                                                occupancy_flags,
+                                                spikemm_sparse_cuda,
+                                                spikemm_sparse_ref)
 
 IMPLS = [False, True]           # JAX side: reference, Pallas (interpret)
 
@@ -105,6 +120,147 @@ def test_linrec_matches_reference(T, B, D, force_pallas):
     got = _port(linrec, (a, x, h0))
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g, r, rtol=0, atol=_tol("linrec"))
+
+
+def _density_rasters(M, K, seed):
+    """The JAX sparse tests' extremes: all-empty, one occupied block, a
+    packed low-density corner, and dense."""
+    rng = np.random.default_rng(seed)
+    single = np.zeros((M, K), np.float32)
+    single[1, 2] = 1.0
+    packed = np.zeros((M, K), np.float32)
+    m, k = max(1, M // 8), max(1, K // 8)
+    packed[:m, :k] = rng.random((m, k)) < 0.5
+    return {"all_empty": np.zeros((M, K), np.float32),
+            "single_block": single, "packed_2pct": packed,
+            "dense": (rng.random((M, K)) < 0.5).astype(np.float32)}
+
+
+@pytest.mark.parametrize("M,K,N", [(256, 1024, 256), (100, 300, 200),
+                                   (130, 700, 64)])
+def test_spikemm_sparse_matches_reference(M, K, N):
+    """The sparse channel's plain version against the JAX package's
+    sparse reference and its sparse Pallas kernel (interpret mode), at the
+    shapes of the JAX sparse tests and their density extremes."""
+    from repro.kernels.spikemm.ops import (_sparse_pallas_impl,
+                                           _sparse_ref_impl,
+                                           resolve_block_shape)
+    blocks = resolve_block_shape(M, K)
+    blocks["bn"] = min(512, max(128, N))
+    w = np.random.default_rng(1).standard_normal((K, N)).astype(np.float32)
+    tol = _tol("spikemm")
+    for label, s in _density_rasters(M, K, M + K).items():
+        got = spikemm_sparse_ref(torch.from_numpy(s),
+                                 torch.from_numpy(w)).numpy()
+        for ref in (_sparse_ref_impl(jnp.asarray(s), jnp.asarray(w),
+                                     blocks=blocks),
+                    _sparse_pallas_impl(jnp.asarray(s), jnp.asarray(w),
+                                        blocks=blocks, interpret=True)):
+            np.testing.assert_allclose(got, np.asarray(ref), rtol=0,
+                                       atol=tol, err_msg=label)
+
+
+@pytest.mark.parametrize("Mb,Kb,p", [(4, 6, 0.3), (5, 3, 0.0), (3, 7, 1.0),
+                                     (6, 5, 0.15)])
+def test_compact_blocks_matches_reference(Mb, Kb, p):
+    rng = np.random.default_rng(Mb * Kb)
+    flags = (rng.random((Mb, Kb)) < p).astype(np.int32)
+    flags[min(1, Mb - 1)] = 0                  # a silent row block
+    ref = [np.asarray(a) for a in jcompact_blocks(jnp.asarray(flags))]
+    got = [a.numpy() for a in compact_blocks(torch.from_numpy(flags))]
+    for g, r in zip(got, ref):
+        assert g.dtype == np.int32
+        np.testing.assert_array_equal(g, r)
+
+
+def test_sparse_block_shape_is_the_kernels(tmp_path, monkeypatch):
+    """The sparse kernel is compiled at `SPARSE_BLOCK`, the block shape the
+    wrapper, the router and the plain version measure occupancy at: the
+    one nvcc call passes it as -D flags, and the source takes its BM and
+    SBK from them and no other value."""
+    nvcc, calls = _fake_nvcc(tmp_path, 0)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    _build.build()
+    argv, = [json.loads(line) for line in calls.read_text().splitlines()]
+    bm, bk = SPARSE_BLOCK
+    assert f"-DSPIKEMM_SPARSE_BM={bm}" in argv
+    assert f"-DSPIKEMM_SPARSE_BK={bk}" in argv
+    src = (_build.CSRC / "spikemm_sparse.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\w+);", src))
+    assert (consts["BM"], consts["SBK"]) == ("SPIKEMM_SPARSE_BM",
+                                             "SPIKEMM_SPARSE_BK")
+    half = torch.zeros(bm, 2 * bk)
+    half[:, :bk] = 1.0
+    assert spikemm_ops.occupancy_fraction(half) == 0.5
+
+
+def _block_raster(M, K, n_blocks, seed):
+    """A raster with exactly `n_blocks` occupied blocks of the sparse
+    kernel's (bm, bk), each holding a single spike."""
+    bm, bk = SPARSE_BLOCK
+    s = np.zeros((M, K), np.float32)
+    cells = np.random.default_rng(seed).permutation(
+        (M // bm) * (K // bk))[:n_blocks]
+    for c in cells:
+        i, k = divmod(int(c), K // bk)
+        s[i * bm, k * bk] = 1.0
+    return torch.from_numpy(s)
+
+
+def test_router_at_below_and_above_the_threshold(monkeypatch):
+    """`auto` routes sparse at and below 0.25 of the blocks occupied and
+    dense above; `never`/`always` pin; `_traced` routes `auto` dense."""
+    monkeypatch.delenv("REPRO_SPIKEMM_SPARSE", raising=False)
+    w = torch.ones(512, 8)
+    route = registry.get("spikemm").select_channel
+    assert spikemm_ops.sparse_threshold() == 0.25
+    for n, want in ((15, "sparse"), (16, "sparse"), (17, None)):
+        s = _block_raster(512, 512, n, n)       # 64 blocks in all
+        assert spikemm_ops.occupancy_fraction(s) == n / 64
+        choice, measured = route(s, w)
+        assert choice == want, n
+        # the sparse channel gets the flags the router measured
+        if want == "sparse":
+            assert torch.equal(measured.pop("flags"), occupancy_flags(s))
+        assert measured == {}
+        assert route(s, w, traced=True) == (None, {})
+    s = _block_raster(512, 512, 60, 0)
+    monkeypatch.setenv("REPRO_SPIKEMM_SPARSE", "always")
+    assert route(s, w) == ("sparse", {})
+    assert route(s, w, traced=True) == ("sparse", {})
+    monkeypatch.setenv("REPRO_SPIKEMM_SPARSE", "never")
+    assert route(_block_raster(512, 512, 1, 0), w) == (None, {})
+
+
+def test_sparse_env_refuses_a_bad_value(monkeypatch):
+    monkeypatch.setenv("REPRO_SPIKEMM_SPARSE", "sometimes")
+    with pytest.raises(ValueError, match="expected 'never', 'auto', or "
+                                         "'always'"):
+        spikemm(torch.zeros(4, 3), torch.zeros(3, 2))
+
+
+def test_dispatch_runs_the_routed_channel(monkeypatch):
+    """On CPU tensors, `always` runs the sparse channel's plain version and
+    `never` the dense one; `auto` on a sparse raster runs the sparse one
+    with the router's flags. All equal the matmul."""
+    rng = np.random.default_rng(6)
+    s = torch.from_numpy(_density_rasters(200, 300, 6)["packed_2pct"])
+    w = torch.from_numpy(rng.standard_normal((300, 40)).astype(np.float32))
+    calls = []
+    spec = registry.get("spikemm")
+
+    def plain(*args, **kw):
+        calls.append(sorted(kw))
+        return spikemm_sparse_ref(*args, **kw)
+
+    chan = registry.Channel(plain=plain, cuda=spikemm_sparse_cuda)
+    monkeypatch.setitem(registry._REGISTRY, "spikemm", dataclasses.replace(
+        spec, channels={"sparse": chan}))
+    for mode in ("always", "never", "auto"):
+        monkeypatch.setenv("REPRO_SPIKEMM_SPARSE", mode)
+        torch.testing.assert_close(spikemm(s, w), s @ w, rtol=0, atol=1e-5)
+    assert calls == [[], ["flags"]]
 
 
 def test_linrec_broadcast_decay_equals_full_plane():
@@ -214,8 +370,9 @@ def test_registry_make_inputs_run_plain_on_cpu():
         for o in (out if isinstance(out, tuple) else (out,)):
             assert torch.isfinite(o).all()
     assert registry.names() == ("alif", "alifrec", "lif", "lifrec", "linrec",
-                                "spikemm")
-    assert registry.launch_counts() == {n: 0 for n in registry.names()}
+                                "spikemm", "spikemm_gather")
+    assert registry.launch_counts() == {
+        n: 0 for n in registry.names() + ("spikemm_sparse",)}
 
 
 def test_dispatch_rejects_mixed_devices():
@@ -235,6 +392,9 @@ def test_dispatch_rejects_mixed_devices():
     lambda: alifrec_cuda(torch.zeros(5, 2, 4), torch.zeros(4, 4),
                          torch.ones(4), torch.ones(4), torch.zeros(2, 4),
                          torch.zeros(2, 4), torch.zeros(2, 4)),
+    lambda: spikemm_sparse_cuda(torch.zeros(4, 3), torch.zeros(3, 2)),
+    lambda: spikemm_gather_cuda(torch.zeros(4, 3), build_gather_tables(
+        [0], [1], [1.0], 3, 2, bk=4, bn=4)),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A CUDA wrapper never runs a plain version: CPU tensors raise."""
@@ -270,7 +430,8 @@ def test_build_is_one_nvcc_call(tmp_path, monkeypatch):
         [str(s) for s in _build.sources()]
     assert lib.parent.parent == tmp_path / "build" and lib.exists()
     assert {s.name for s in _build.sources()} >= {
-        "spikemm.cu", "linrec.cu", "lif.cu", "lifrec.cu", "alifrec.cu"}
+        "spikemm.cu", "linrec.cu", "lif.cu", "lifrec.cu", "alifrec.cu",
+        "spikemm_sparse.cu", "spikemm_gather.cu"}
     assert _build.build() == lib
     assert len(calls.read_text().splitlines()) == 1
 

@@ -460,8 +460,8 @@ def test_unported_hooks_raise(monkeypatch):
         plan.run(tn, tp, x, device="cpu")
     with pytest.raises(NotImplementedError, match="plasticity"):
         events.Connection("input", plastic=object())
-    with pytest.raises(NotImplementedError, match="compressed topology"):
-        events.Connection("input", topology="t")
+    # compressed topology is ported: a params-key topology edge builds
+    assert events.Connection("input", topology="t").topology == "t"
 
 
 def test_integer_rasters_cast_before_integ():

@@ -15,9 +15,14 @@
   `a` and the recurrent `out` per slot, with zero free slots.
 * `queue_limit` backpressure accepts and rejects the same chunks as the
   JAX engine and records each rejection on the incident log.
+* The engine's window step routes spikemm as the JAX package's jitted
+  step does: dense under `auto` whatever the occupancy (no occupancy is
+  measured), sparse only where `REPRO_SPIKEMM_SPARSE=always` pins it.
 * `learn=True` and entry points called without a device on a machine with
   no card raise.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -30,6 +35,7 @@ from repro.serve import EngineConfig as JEngineConfig
 from repro.serve import make_engine as jmake_engine
 from repro_torch.core import events, plan
 from repro_torch.core.snn_layers import make_dhsnn_shd, make_srnn_ecg
+from repro_torch.kernels import registry
 from repro_torch.kernels.incidents import clear, incidents
 from repro_torch.serve import EngineConfig, make_engine
 from repro_torch.weights import params_from_numpy
@@ -303,3 +309,35 @@ def test_engine_rejects_params_on_another_device():
     _, (tn, tp) = _models(True)
     with pytest.raises(ValueError, match="lies on"):
         make_engine(tn, tp, EngineConfig(), device="meta")
+
+
+@pytest.mark.parametrize("kind", ["batched", "naive"])
+def test_engine_window_routes_like_a_traced_step(kind, monkeypatch):
+    """Every spikemm of a served window reaches the router as a traced
+    raster: `auto` stays dense on a nearly silent input (which `plan.run`
+    itself would route sparse) and `always` still pins sparse; the
+    outputs are the same either way."""
+    spec = registry.get("spikemm")
+    seen = []
+
+    def router(*args, traced=False):
+        seen.append(traced)
+        return spec.select_channel(*args, traced=traced)
+
+    monkeypatch.setitem(registry._REGISTRY, "spikemm", dataclasses.replace(
+        spec, select_channel=router))
+    model = _models(False)[1]
+    data = _streams(3, 24, seed=4, rate=0.002)
+    monkeypatch.delenv("REPRO_SPIKEMM_SPARSE", raising=False)
+    x = torch.from_numpy(np.stack(list(data.values()), 1))
+    assert spec.select_channel(x.reshape(-1, N_IN), model[1]["hidden"][
+        "w_input"])[0] == "sparse"
+    outs = {}
+    for mode in ("auto", "always"):
+        monkeypatch.setenv("REPRO_SPIKEMM_SPARSE", mode)
+        seen.clear()
+        eng = _run(kind, data, model)
+        assert seen and all(seen)
+        outs[mode] = [eng.outputs(sid) for sid in data]
+    for a, b in zip(outs["auto"], outs["always"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=plan.CROSS_ENGINE_ATOL)

@@ -1,4 +1,5 @@
-"""Chip smoke test: serve the paper's SNNs through `repro_torch` on one H100.
+"""Chip smoke test: serve the paper's SNNs and learn on-chip through
+`repro_torch` on one H100.
 
 Run from the repository root with no arguments:
 
@@ -13,9 +14,10 @@ continues, and nothing falls back to the CPU.
             as `nvidia-smi` reports them. TF32 is switched off for every
             PyTorch matmul and convolution before any comparison, so the
             plain versions run in full fp32.
-2. build    `kernels/_build.py` compiles and links every CUDA source with
-            one `nvcc -shared` call; prints the seconds and what ptxas
-            reports of each kernel.
+2. build    `kernels/_build.py` compiles every CUDA source with its own
+            `nvcc -c`, all started together, and links them with one
+            `nvcc -shared`; prints the seconds and what ptxas reports of
+            each kernel.
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the shapes one serving window of each path hands it (window
             32 x 64 sessions: the SHD DH-SNN's, the ECG SRNN's with a state
@@ -23,9 +25,18 @@ continues, and nothing falls back to the CPU.
             (250, 64, 64)) and at ragged shapes (T=37, B=3, N=130, `lif`
             with both resets; `lifrec`, `alif` and `alifrec` also at N=300
             and N=1024, from nonzero v0/a0/s0, so W_rec is held in shared
-            memory at N=130 and read through L2 above, and N=1024 is the
-            largest batch row the recurrent kernels take; spikemm
-            1000 x 700 x 257);
+            memory at N=130 and read through L2 above; spikemm
+            1000 x 700 x 257); `lifrec` and `alifrec` on rows wider than a
+            block's 1024 threads, N = 1025, 2048 and 4096, ragged (T=37,
+            B=3) and in the ECG window's shape (T=32, B=64; timed at
+            N=2048);
+            `stdp_seq` at each learning rule's term planes of the
+            plastic_ff path (captured from its plan.run), at the JAX
+            family's ragged shape (K=2, T=12, B=4, 130 x 140), with four
+            term planes, and with bounds of +-0.4 that the trajectory hits;
+            `stdp` at one step of the stdp_step path and at the JAX kernel
+            tests' shapes (8, 256, 256), (16, 300, 200), (4, 128, 640)
+            with fp32 and bf16 traces;
             `spikemm_sparse` at the sparse_integ path's hidden INTEG,
             `bench_kernels`' SPARSITY_SHAPE at four densities and two
             ragged shapes, each also equal to the dense kernel bit for bit;
@@ -33,8 +44,8 @@ continues, and nothing falls back to the CPU.
             benchmark's exec_vs_dense (also against the dense spikemm on
             `dense_equivalent()`), scale_1e5 and scale_1e6 rows, and the six
             ragged encodings of the JAX tests;
-            no output may be all zero. The time kernels must match bit for
-            bit; `spikemm` within rtol = atol = 1e-5 (the fp32 sum order
+            no output may be all zero. The time kernels and the learning
+            kernels must match bit for bit; `spikemm` within rtol = atol = 1e-5 (the fp32 sum order
             differs); the two spikemm channels within 1e-4 (their
             `KernelSpec.tol`), with bit equality reported. Times each with
             CUDA events after warm-up: the kernel, its plain version and,
@@ -100,7 +111,34 @@ continues, and nothing falls back to the CPU.
             the CPU under the tie rule at every density, where a density
             whose hidden layer fires under the 1 % floor is reported as not
             counting, and at least one density routed sparse must count.
-8. result   prints `{"kernels": [...]}`, one `{"slice": {...}}` line per
+8. plastic_ff
+            `bench_plasticity.measure_program`'s program, `make_plastic_ff`
+            at 256 -> 128 -> 4, one learning plan.run at T=300, B=8 of
+            Bernoulli(0.15) per built-in rule (pair, triplet, reward with a
+            (T,) uniform reward, accumulated-spike with a teaching signal
+            on the last step): the plan lowers each to `stdp_seq`, one
+            launch per run; params are not written; the forward against
+            the CPU under the tie rule with the 1 % floor; the learned
+            weight and traces against the CPU's `synapse_run` fed with the
+            card's own spike trains, within 1e-4; REPRO_SNN_ENGINE=stepper
+            learns the same weight within 1e-5 (or, where its spikes flip
+            at threshold ties, its own trains' synapse_run within 1e-4);
+            `learn=False` launches no `stdp_seq` and changes no output.
+9. plastic_online
+            `examples/stdp_online.py`'s loop at the bench widths: 6 chunks
+            (T=200, B=4) of two alternating input assemblies, chunked
+            (`apply_learned` between chunks; each chunk must change the
+            weight) and streamed (`run_stream`, learning from the carried
+            synapse state while the forward reads the entry params): 12
+            `stdp_seq` launches, every learned state against a CPU
+            `synapse_run` replay on the card's trains within 1e-4, the
+            streamed outputs equal to one frozen plan.run over the stream.
+10. stdp_step
+            `bench_plasticity.measure_rule_only`'s shapes through the legacy
+            `stdp_run(use_kernel=True)` at T=300, B=8, 256 x 128: 300 `stdp`
+            launches; the weight equals `use_kernel=False` on the card and
+            the CPU's plain version within 1e-5 (the JAX test's tolerance).
+11. result  prints `{"kernels": [...]}`, one `{"slice": {...}}` line per
             path, the card's name and power limit and, last,
             `{"ok": true, "device": {...}}`.
 
@@ -108,14 +146,20 @@ Bounds (`bound_ms`) are computed from this run's inputs against the H100
 SXM's published peaks: 67 TFLOP/s fp32 (CUDA cores) and 3.35 TB/s HBM,
 each input byte read once and each output byte written once. spikemm's
 operations are what its product needs on this run's raster, 2 * nnz * N,
-whatever tiling a kernel chooses; the sparse channel's are 2 * bm * bk * N
-per occupied block, and the gather's 2 * M * bk * bn per active entry (see
-`work`); the recurrent kernels' are their
+whatever tiling a kernel chooses; the sparse channel computes the same
+function and counts the same 2 * nnz(s) * N; the gather's are
+2 * sum over pre of nnz(s[:, pre]) * fan-out(pre), each spike adding its
+neuron's nonzero weights (see `work`); the recurrent kernels' are their
 elementwise steps plus 2 * nnz(s_{t-1}) * N for the spikes that feed the
-next step. `bound_dense_ms` beside it counts the dense products instead,
-2 * M * K * N and 2 * T * B * N * N. The kernel table is held to
-`bound_ms`. For linrec, lif and alif, whose work does not depend on the
-data, the two bounds are the same.
+next step; stdp_seq's 2 * sum over k of min(nnz(P_k) * N, nnz(Q_k) * M)
+plus 2 * T * M * N, and stdp's 2 * (nnz(s_post) * M + nnz(s_pre) * N) plus
+3 * M * N. `bound_dense_ms` beside it counts the dense products instead,
+2 * M * K * N, 2 * T * B * N * N, 2 * K * T * B * M * N and 4 * B * M * N
++ 3 * M * N. The kernel table is held to `bound_ms`. For linrec, lif and
+alif, whose work does not depend on the data, the two bounds are the same.
+No single PyTorch call computes stdp_seq or stdp (the clip after every
+step, the two products and the clip of the single step), so their
+`library_ms` is null.
 """
 
 from __future__ import annotations
@@ -170,6 +214,24 @@ SPARSE_IN, SPARSE_HIDDEN, SPARSE_T, SPARSE_B = 4096, 512, 256, 8
 SPARSE_DENSITIES = (0.01, 0.05, 0.2, 0.5)
 SPARSE_HOME_DENSITY, SPARSE_SEED = 0.05, 5
 SPARSITY_SHAPE = (2048, 2048, 512)           # bench_kernels' sweep shape
+# plastic_ff: `bench_plasticity.measure_program`'s program, make_plastic_ff
+# at 256 -> 128 -> 4, one plan.run at T=300, B=8 of Bernoulli(0.15)
+PLASTIC_IN, PLASTIC_HIDDEN, PLASTIC_OUT = 256, 128, 4
+PLASTIC_T, PLASTIC_B, PLASTIC_RATE = 300, 8, 0.15
+PLASTIC_RULES = ("pair_stdp", "triplet_stdp", "reward_stdp",
+                 "accumulated_spike")
+# the learned synapse state on the card against the CPU's synapse_run fed
+# with the card's own spike trains (two sum orders of one product)
+LEARN_TOL = 1e-4
+# the stepper engine's learned weight against the plan engine's, and the
+# stdp kernel's stdp_run against the einsum one (the JAX test's tolerance)
+STEP_TOL = 1e-5
+# plastic_online: `examples/stdp_online.py`'s loop at the bench widths: 6
+# chunks of T=200, B=4, two alternating input assemblies at 0.30 / 0.02
+ONLINE_T, ONLINE_B, ONLINE_CHUNKS = 200, 4, 6
+ONLINE_RULE = dict(a_plus=0.02, a_minus=0.015, w_min=-1.0, w_max=1.0)
+# recurrent rows wider than 1024 neurons: several neurons per thread
+WIDE_N = (1025, 2048, 4096)
 # bench_topology_exec's gather rows: (n, band, bk = bn, rows M, input rate)
 GATHER_ROWS = {"exec_vs_dense": (8192, 64, 128, 64, 0.2),
                "scale_1e5": (100_000, 32, 128, 8, 0.1),
@@ -200,11 +262,16 @@ SOURCES = {
                        "src/repro/kernels/spikemm/sparse.py:128"),
     "spikemm_gather": ("src/repro_torch/csrc/spikemm_gather.cu",
                        "src/repro/kernels/spikemm/gather.py:218"),
+    "stdp_seq": ("src/repro_torch/csrc/stdp.cu",
+                 "src/repro/kernels/stdp/kernel.py:87"),
+    "stdp": ("src/repro_torch/csrc/stdp.cu",
+             "src/repro/kernels/stdp/kernel.py:114"),
 }
 # the path whose serving calls make up a kernel's row in the kernel table
 HOME = {"spikemm": "shd", "linrec": "shd", "lif": "shd",
         "lifrec": "ecg_homogeneous", "alifrec": "ecg", "alif": "alif_ff",
-        "spikemm_sparse": "sparse_integ", "spikemm_gather": "topology_banded"}
+        "spikemm_sparse": "sparse_integ", "spikemm_gather": "topology_banded",
+        "stdp_seq": "plastic_ff", "stdp": "stdp_step"}
 # elementwise fp32 operations per lane-step of the time kernels
 LANE_OPS = {"lif": 4, "lifrec": 6, "alif": 9, "alifrec": 10}
 
@@ -254,10 +321,12 @@ def phase_build():
     lib = _build.build()
     _build.library()
     secs = time.perf_counter() - t0
-    log(f"build: {secs:.1f} s ({len(_build.sources())} sources, one nvcc "
-        f"call, {lib.parent})")
+    log(f"build: {secs:.1f} s ({len(_build.sources())} sources, one nvcc -c "
+        f"each started together and one link, {lib.parent})")
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "bytes stack" in line or "error" in line:
+        if "Compiling entry function" in line:
+            log("  " + line.split("'")[1])
+        elif "registers" in line or "bytes stack" in line or "error" in line:
             log("  " + line.strip())
     return secs
 
@@ -348,6 +417,48 @@ def banded_input():
     return np.concatenate([
         (rng.random((BANDED_CHUNK, 1, BANDED_N)) < BANDED_RATE).astype(
             np.float32) for _ in range(BANDED_T // BANDED_CHUNK)])
+
+
+def make_plastic(rule_name, device, n_in=PLASTIC_IN, rule=None):
+    """`make_plastic_ff` at the bench widths with the built-in rule
+    `rule_name` (or `rule`), weights from torch.Generator seed 0."""
+    from repro_torch.core import plasticity
+    from repro_torch.core.snn_layers import make_plastic_ff
+    rule = rule if rule is not None else plasticity.make_synapse(rule_name)
+    return make_plastic_ff(torch.Generator().manual_seed(0), n_in=n_in,
+                           n_hidden=PLASTIC_HIDDEN, n_out=PLASTIC_OUT,
+                           rule=rule, device=device)
+
+
+def plastic_input():
+    """(T, B, n_in) Bernoulli(0.15) input of the plastic_ff path, from
+    numpy's generator with seed 1."""
+    return (np.random.default_rng(1).random(
+        (PLASTIC_T, PLASTIC_B, PLASTIC_IN)) < PLASTIC_RATE).astype(np.float32)
+
+
+def plastic_mod(rule_name):
+    """The modulator a rule reads: a (T,) uniform reward for reward STDP,
+    a teaching signal on the last step for the accumulated-spike rule (as
+    the JAX package's synapse-plan tests feed them), else None."""
+    if rule_name == "reward_stdp":
+        return np.random.default_rng(2).random(PLASTIC_T).astype(np.float32)
+    if rule_name == "accumulated_spike":
+        m = np.zeros((PLASTIC_T, PLASTIC_B, PLASTIC_HIDDEN), np.float32)
+        m[-1] = np.random.default_rng(3).standard_normal(
+            (PLASTIC_B, PLASTIC_HIDDEN))
+        return m
+    return None
+
+
+def online_chunk(c):
+    """Chunk c of the online stream: the first half of the inputs fires at
+    0.30 and the second at 0.02, swapped on odd chunks, drawn from numpy's
+    generator with seed 10 + c."""
+    rate = np.where((np.arange(PLASTIC_IN) < PLASTIC_IN // 2) ^ (c % 2 == 1),
+                    0.30, 0.02)
+    return (np.random.default_rng(10 + c).random(
+        (ONLINE_T, ONLINE_B, PLASTIC_IN)) < rate).astype(np.float32)
 
 
 def shd_streams(n_sessions, seed=0, rate=None):
@@ -595,7 +706,7 @@ def alif_ff_input():
 def ragged_cases():
     """Shapes no serving window has: T=37, B=3, N=130, N=300 and N=1024
     from a nonzero state (both W_rec storage paths of the recurrent
-    kernels, and the largest batch row they take)."""
+    kernels, and the widest row of one neuron a thread)."""
     g = torch.Generator().manual_seed(3)
 
     def rnd(*shape, lo=0.0, hi=1.0):
@@ -630,7 +741,122 @@ def ragged_cases():
     return cases
 
 
-def work(name, args, out):
+def wide_rec_cases():
+    """`lifrec` and `alifrec` on rows wider than a block's 1024 threads
+    (several neurons per thread), W_rec through L2, from a nonzero state:
+    ragged (T=37, B=3) and ECG-window-shaped (T=32, B=64) at each of
+    WIDE_N. The window-shaped N=2048 calls are timed."""
+    g = torch.Generator().manual_seed(6)
+
+    def rnd(*shape, lo=0.0, hi=1.0):
+        return (lo + (hi - lo) * torch.rand(shape, generator=g)).to(DEV)
+
+    cases = {"lifrec": [], "alifrec": []}
+    for n in WIDE_N:
+        w = (0.4 / math.sqrt(n) * torch.randn((n, n), generator=g)).to(DEV)
+        tau, rho = rnd(n, lo=0.7, hi=0.98), rnd(n, lo=0.85, hi=0.99)
+        for T, B, label in ((37, 3, f"ragged N={n}"),
+                            (WINDOW, CAPACITY, f"ECG window shape N={n}")):
+            cur = (0.8 * torch.randn((T, B, n), generator=g)).to(DEV)
+            v0, a0 = rnd(B, n, lo=-0.5, hi=0.9), rnd(B, n, hi=2.0)
+            s0 = (torch.rand((B, n), generator=g) < 0.3).float().to(DEV)
+            timed = n == 2048 and B == CAPACITY
+            cases["lifrec"].append(Case(label, (cur, w, tau, v0, s0, 1.0),
+                                        timed=timed, plain_iters=2))
+            cases["alifrec"].append(Case(
+                label, (cur, w, tau, rho, v0, a0, s0, 1.0, 0.5), timed=timed,
+                plain_iters=2))
+    return cases
+
+
+def stdp_cases():
+    """The learning kernels' cases. `stdp_seq`: each rule's term planes
+    from the plastic_ff path's one plan.run on the card (captured at the
+    kernel's call), `_make_seq_inputs`' ragged shape (K=2, T=12, B=4,
+    130 x 140), four term planes, and bounds of +-0.4 that the trajectory
+    hits. `stdp`: one step of the stdp_step path's stdp_run (step 150, its
+    traces warm), and the JAX kernel tests' (B, M, N) with fp32 and bf16
+    traces and their +-0.4 clip."""
+    from repro_torch.core import plan, plasticity
+    from repro_torch.kernels.stdp import ops as stdp_ops
+    captured = []
+    real_seq = plan.stdp_seq
+
+    def spy_seq(P, Q, w, **kw):
+        captured.append((P, Q, w, kw))
+        return real_seq(P, Q, w, **kw)
+
+    x = torch.from_numpy(plastic_input()).to(DEV)
+    plan.stdp_seq = spy_seq
+    try:
+        for rule_name in PLASTIC_RULES:
+            nodes, params = make_plastic(rule_name, DEV)
+            m = plastic_mod(rule_name)
+            plan.run(nodes, params, x, device=DEV,
+                     mod=None if m is None else torch.from_numpy(m).to(DEV))
+    finally:
+        plan.stdp_seq = real_seq
+    cases = {"stdp_seq": [
+        Case(f"plastic_ff {r}, K={P.shape[0]}", (P, Q, w), kw=kw,
+             path="plastic_ff" if r == "pair_stdp" else None, timed=True,
+             plain_iters=2)
+        for r, (P, Q, w, kw) in zip(PLASTIC_RULES, captured)], "stdp": []}
+    g = torch.Generator().manual_seed(7)
+    for K, amps, lo, hi, label in (
+            (2, (0.01, -0.012), -1.0, 1.0, "ragged K=2 (JAX make_inputs)"),
+            (4, (0.02, -0.015, 0.01, -0.03), -1.0, 1.0, "ragged K=4"),
+            (2, (0.05, -0.06), -0.4, 0.4, "ragged K=2, clip +-0.4")):
+        P = torch.rand((K, 12 * 4, 130), generator=g).to(DEV)
+        Q = (torch.rand((K, 12 * 4, 140), generator=g) < 0.2).float().to(DEV)
+        w = (0.5 * torch.randn((130, 140), generator=g)).to(DEV)
+        cases["stdp_seq"].append(Case(label, (P, Q, w), kw=dict(
+            amps=amps, w_min=lo, w_max=hi, batch=4)))
+
+    step_args = []
+    real_upd = stdp_ops.stdp_update
+
+    def spy_upd(*args, **kw):
+        step_args.append((args, kw))
+        return real_upd(*args, **kw)
+
+    pre, post, w = stdp_step_inputs()
+    stdp_ops.stdp_update = spy_upd
+    try:
+        plasticity.stdp_run(plasticity.STDPConfig(), w, pre[:151], post[:151],
+                            use_kernel=True)
+    finally:
+        stdp_ops.stdp_update = real_upd
+    args, kw = step_args[150]
+    cases["stdp"].append(Case("stdp_step, step 150 of stdp_run", args, kw=kw,
+                              path="stdp_step", timed=True))
+    for B, M, N in ((8, 256, 256), (16, 300, 200), (4, 128, 640)):
+        w = (0.5 * torch.randn((M, N), generator=g)).to(DEV)
+        tr = [torch.rand((B, M), generator=g),
+              (torch.rand((B, N), generator=g) < 0.2).float(),
+              (torch.rand((B, M), generator=g) < 0.2).float(),
+              torch.rand((B, N), generator=g)]
+        for dt in (torch.float32, torch.bfloat16):
+            cases["stdp"].append(Case(
+                f"JAX test ({B}, {M}, {N}), {str(dt)[6:]}",
+                tuple(t.to(dt).to(DEV) for t in tr) + (w,),
+                kw=dict(a_plus=0.05, a_minus=0.06, w_min=-0.4, w_max=0.4)))
+    return cases
+
+
+def stdp_step_inputs():
+    """`bench_plasticity.measure_rule_only`'s shapes (T=300, B=8,
+    256 x 128): Bernoulli(0.15) pre and post trains and 0.3 * normal
+    weights from numpy's generator with seed 3, on the card."""
+    rng = np.random.default_rng(3)
+    pre = (rng.random((PLASTIC_T, PLASTIC_B, PLASTIC_IN)) < PLASTIC_RATE)
+    post = (rng.random((PLASTIC_T, PLASTIC_B, PLASTIC_HIDDEN))
+            < PLASTIC_RATE)
+    w = 0.3 * rng.standard_normal((PLASTIC_IN, PLASTIC_HIDDEN))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(DEV)
+                 for a in (pre, post, w))
+
+
+def work(name, args, out, kw=None):
     """(bytes moved, fp32 operations on this run's data, the operations of
     the dense products) of one call with inputs `args` and outputs `out`.
 
@@ -646,8 +872,31 @@ def work(name, args, out):
     patches of the active entries, the raster and the output; dense
     2 * M * n_pre * n_post. The recurrent kernels add one W_rec row per
     spike of the previous step, 2 * nnz(s_{t-1}) * N (s_{-1} = s0),
-    against the dense 2 * T * B * N * N."""
+    against the dense 2 * T * B * N * N. stdp_seq: a term's product needs
+    2 * min(nnz(P_k) * N, nnz(Q_k) * M) operations (the sparser side's
+    nonzeros each add one row), plus 2 * T * M * N for the step sums and
+    the clip; dense 2 * K * T * B * M * N. stdp: 2 * (nnz(s_post) * M +
+    nnz(s_pre) * N) for its two products, plus 3 * M * N; dense
+    4 * B * M * N + 3 * M * N."""
     tensors = [a for a in args if torch.is_tensor(a)]
+    if name == "stdp_seq":
+        P, Q, w = args
+        K, TB, M = P.shape
+        N = w.shape[1]
+        T = TB // kw["batch"]
+        ops = 2 * sum(min(int(torch.count_nonzero(P[k])) * N,
+                          int(torch.count_nonzero(Q[k])) * M)
+                      for k in range(K)) + 2 * T * M * N
+        return (4 * (2 * M * N + K * TB * (M + N)), ops,
+                2 * K * TB * M * N)
+    if name == "stdp":
+        x_pre, s_post, s_pre, x_post, w = args
+        B, M = x_pre.shape
+        N = w.shape[1]
+        ops = 2 * (int(torch.count_nonzero(s_post)) * M
+                   + int(torch.count_nonzero(s_pre)) * N) + 3 * M * N
+        return (4 * 2 * M * N + x_pre.element_size() * 2 * B * (M + N), ops,
+                4 * B * M * N + 3 * M * N)
     if name == "spikemm":
         s, w = args
         M, K = s.shape
@@ -709,6 +958,8 @@ class Case:
     library: Callable = None
     dense_w: torch.Tensor = None     # gather: also held against spikemm
     build_s: float = None            # gather: seconds to build its tables
+    kw: dict = dataclasses.field(default_factory=dict)  # keyword arguments
+    plain_iters: int = None          # timed calls of a slow plain version
 
 
 def packed_raster(M, K, density, seed, rate=0.5):
@@ -841,11 +1092,11 @@ def sparse_cases():
     return cases
 
 
-def phase_kernels(shd_params):
+def kernel_impls():
+    """({kernel: CUDA wrapper}, {kernel: plain version})."""
     from repro_torch.kernels.alifrec.ops import (alif_cuda, alif_scan_ref,
                                                  alifrec_cuda,
                                                  alifrec_scan_ref)
-    from repro_torch.kernels.common import w_in_smem
     from repro_torch.kernels.lif.ops import lif_cuda, lif_scan_ref
     from repro_torch.kernels.lifrec.ops import lifrec_cuda, lifrec_scan_ref
     from repro_torch.kernels.linrec.ops import linrec_cuda, linrec_ref
@@ -854,16 +1105,26 @@ def phase_kernels(shd_params):
     from repro_torch.kernels.spikemm.ops import spikemm_cuda, spikemm_ref
     from repro_torch.kernels.spikemm.sparse import (spikemm_sparse_cuda,
                                                     spikemm_sparse_ref)
+    from repro_torch.kernels.stdp.ops import (stdp_seq_cuda, stdp_seq_ref,
+                                              stdp_update_cuda,
+                                              stdp_update_ref)
     cuda = {"spikemm": spikemm_cuda, "linrec": linrec_cuda, "lif": lif_cuda,
             "lifrec": lifrec_cuda, "alif": alif_cuda,
             "alifrec": alifrec_cuda, "spikemm_sparse": spikemm_sparse_cuda,
-            "spikemm_gather": spikemm_gather_cuda}
+            "spikemm_gather": spikemm_gather_cuda, "stdp_seq": stdp_seq_cuda,
+            "stdp": stdp_update_cuda}
     plain = {"spikemm": spikemm_ref, "linrec": linrec_ref,
              "lif": lif_scan_ref, "lifrec": lifrec_scan_ref,
              "alif": alif_scan_ref, "alifrec": alifrec_scan_ref,
              "spikemm_sparse": spikemm_sparse_ref,
-             "spikemm_gather": spikemm_gather_ref}
-    cases = {name: [] for name in cuda}
+             "spikemm_gather": spikemm_gather_ref,
+             "stdp_seq": stdp_seq_ref, "stdp": stdp_update_ref}
+    return cuda, plain
+
+
+def kernel_cases(shd_params):
+    """{kernel: [Case]}: every kernel's calls of the kernel phase."""
+    cases = {name: [] for name in kernel_impls()[0]}
     # the homogeneous ECG window's spikemm and linrec calls have the
     # heterogeneous one's shapes; only its hidden layer is new
     for path, window in (("shd", shd_window(shd_params)),
@@ -883,14 +1144,23 @@ def phase_kernels(shd_params):
         dataclasses.replace(c, library=lambda a=c.args: torch.matmul(*a))
         for c in sparse_cases()]
     cases["spikemm_gather"] = gather_cases()
+    for name, calls in wide_rec_cases().items():
+        cases[name] += calls
+    cases.update(stdp_cases())
+    return cases
 
+
+def phase_kernels(cases):
+    from repro_torch.kernels.common import w_in_smem
+    from repro_torch.kernels.spikemm.ops import spikemm_cuda
+    cuda, plain = kernel_impls()
     results = {}
     for name, calls_in in cases.items():
         calls, max_err = [], 0.0
         for case in calls_in:
-            label, args = case.label, case.args
-            got = cuda[name](*args)
-            ref = plain[name](*args)
+            label, args, kw = case.label, case.args, case.kw
+            got = cuda[name](*args, **kw)
+            ref = plain[name](*args, **kw)
             sync()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
@@ -949,10 +1219,12 @@ def phase_kernels(shd_params):
                 log(f"kernel {name} [{label}] {shapes}{where}: matches "
                     f"plain{extra} (max abs err so far {max_err:.3e})")
                 continue
-            heavy = name in ("lifrec", "alifrec", "alif", "spikemm_gather")
-            ms = cuda_ms(lambda: cuda[name](*args), iters=200)
-            p_ms = cuda_ms(lambda: plain[name](*args),
-                           iters=5 if heavy else 20)
+            heavy = name in ("lifrec", "alifrec", "alif", "spikemm_gather",
+                             "stdp_seq")
+            ms = cuda_ms(lambda: cuda[name](*args, **kw), iters=200)
+            p_ms = cuda_ms(lambda: plain[name](*args, **kw),
+                           iters=case.plain_iters or (5 if heavy else 20),
+                           warmup=1 if case.plain_iters else 3)
             lib = (None if case.library is None
                    else cuda_ms(case.library, iters=200))
             # the sparse wrapper's time includes its occupancy reduction and
@@ -962,12 +1234,14 @@ def phase_kernels(shd_params):
             if name == "spikemm_sparse":
                 kernel_ms = cuda_ms(sparse_kernel_only(*args), iters=200)
                 dense_ms = cuda_ms(lambda: spikemm_cuda(*args), iters=200)
-            nbytes, flops, dense = work(name, args, got)
+            nbytes, flops, dense = work(name, args, got, kw)
             b_ms, b_by = bound(nbytes, flops)
             d_ms, d_by = bound(nbytes, dense)
             T = args[1].shape[0] if name == "linrec" else (
-                args[0].shape[0] if name not in ("spikemm", "spikemm_sparse",
-                                                 "spikemm_gather") else None)
+                args[0].shape[1] // kw["batch"] if name == "stdp_seq" else (
+                    args[0].shape[0] if name not in (
+                        "spikemm", "spikemm_sparse", "spikemm_gather",
+                        "stdp") else None))
             calls.append({"call": label, "path": case.path, "shape": shapes,
                           "ms": ms, "plain_ms": p_ms, "library_ms": lib,
                           "bound_ms": b_ms, "bound_by": b_by,
@@ -1197,6 +1471,8 @@ def card_vs_cpu(tag, nodes_c, params_c, x, st_gpu, o_gpu, r_gpu,
     err_state = 0.0
     for node in st_cpu:
         for k, ref in st_cpu[node].items():
+            if k.startswith("syn:"):         # learning is checked apart
+                continue
             got = st_gpu[node][k].cpu()
             got, ref = (got[:, rows], ref[:, rows]) if k == "ring" else \
                 (got[rows], ref[rows])
@@ -1625,17 +1901,328 @@ def phase_sparse_integ(smi):
             "densities": rows, "card": smi}
 
 
+# ---------------------------------------------------------------------------
+# 8. on-chip learning: plastic_ff, plastic_online, stdp_step
+# ---------------------------------------------------------------------------
+
+
+def hold_learned(tag, syn_gpu, rule, w0, pre, post, mod=None, syn0=None):
+    """Hold a learned synapse state from the card to the CPU's per-step
+    `synapse_run` fed with the card's own spike trains (pre, post on the
+    card), from the same entry weight w0 (and entry state syn0), within
+    LEARN_TOL; returns the largest error of each entry."""
+    from repro_torch.core import plasticity
+    ref = plasticity.synapse_run(
+        rule, w0.cpu(), pre.cpu(), post.cpu(),
+        mod=None if mod is None else torch.as_tensor(mod),
+        syn=None if syn0 is None else {k: v.cpu() for k, v in syn0.items()})
+    errs = {}
+    for k, r in ref.items():
+        got = syn_gpu[k].cpu()
+        torch.testing.assert_close(got, r, rtol=LEARN_TOL, atol=LEARN_TOL,
+                                   msg=lambda m: f"[{tag}] learned {k} card "
+                                   f"vs CPU synapse_run: {m}")
+        errs[k] = float((got - r).abs().max())
+    return errs
+
+
+def phase_plastic_ff(smi):
+    """`bench_plasticity.measure_program`'s program through one learning
+    `plan.run` per built-in rule on the card."""
+    from repro_torch.core import plan, plasticity
+    from repro_torch.kernels import registry
+    tag = "plastic_ff"
+    tie = load_tie_rule()
+    env = "REPRO_SNN_ENGINE"
+    saved = os.environ.pop(env, None)
+    x = plastic_input()
+    xg = torch.from_numpy(x).to(DEV)
+    rows, total = [], {}
+    try:
+        for rule_name in PLASTIC_RULES:
+            rtag = f"{tag} {rule_name}"
+            rule = plasticity.make_synapse(rule_name)
+            nodes, params = make_plastic(rule_name, DEV)
+            nodes_c, params_c = make_plastic(rule_name, "cpu")
+            compiled = plan.compile_program(nodes)
+            want = (plan.PlasticLower("hidden", "input", plan.SYN_SEQ),)
+            if compiled.plastic != want:
+                raise AssertionError(f"[{rtag}] {compiled.describe()}")
+            m = plastic_mod(rule_name)
+            mg = None if m is None else torch.from_numpy(m).to(DEV)
+
+            def run_once(record=(), learn=True):
+                return plan.run(nodes, params, xg, record=record,
+                                plan=compiled, mod=mg, learn=learn,
+                                device=DEV)
+
+            run_once()                                   # warm-up
+            sync()
+            w0 = params["hidden"]["w_input"].clone()
+            # -- the main path: launch counters from 0 ----------------------
+            registry.reset_launches()
+            st, o, r = run_once(record=("hidden",))
+            sync()
+            counts = registry.launch_counts()
+            per_run = {"spikemm": 2, "lif": 1, "linrec": 1 + len(rule.traces),
+                       "stdp_seq": 1}
+            counted(rtag, per_run, 1, counts)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            syn = st["hidden"]["syn:input"]
+            if not torch.equal(params["hidden"]["w_input"], w0):
+                raise AssertionError(f"[{rtag}] learning wrote into params")
+            moved = float((syn["w"] - w0).abs().max())
+            if not moved > 0:
+                raise AssertionError(f"[{rtag}] nothing was learned")
+            # -- the forward: card against the CPU, under the tie rule -------
+            s_cpu, first_div, n_ties, err_plan, err_state, ok_rows, _ = \
+                card_vs_cpu(rtag, nodes_c, params_c, x, st, o.cpu().numpy(),
+                            r)
+            # -- learning: the CPU's synapse_run on the card's trains -------
+            errs = hold_learned(rtag, syn, rule, params_c["hidden"]["w_input"],
+                                xg, r["hidden"], m)
+            # -- the stepper engine learns the same ------------------------
+            os.environ[env] = "stepper"
+            try:
+                st_s, _, r_s = run_once(record=("hidden",))
+            finally:
+                del os.environ[env]
+            flips = int((r_s["hidden"] != r["hidden"]).sum())
+            if flips:
+                s_plan = r["hidden"].cpu().numpy()
+                u, th = tie.hidden_membrane(
+                    nodes_c[0], {"w_input": params_c["hidden"]["w_input"]
+                                 .numpy()}, x, s_plan)
+                tie.tie_rule(s_plan, r_s["hidden"].cpu().numpy(), u, th)
+                step_errs = hold_learned(f"{rtag} stepper",
+                                         st_s["hidden"]["syn:input"], rule,
+                                         params_c["hidden"]["w_input"], xg,
+                                         r_s["hidden"], m)
+                err_step = max(step_errs.values())
+            else:
+                got = st_s["hidden"]["syn:input"]["w"]
+                torch.testing.assert_close(got, syn["w"], rtol=0,
+                                           atol=STEP_TOL)
+                err_step = float((got - syn["w"]).abs().max())
+            # -- learn=False launches no stdp_seq and changes no forward ----
+            registry.reset_launches()
+            st_f, o_f, _ = run_once(learn=False)
+            sync()
+            counted(f"{rtag} learn=False", {"spikemm": 2, "lif": 1,
+                                            "linrec": 1}, 1,
+                    registry.launch_counts())
+            if st_f["hidden"]["syn:input"]["w"] is not params["hidden"][
+                    "w_input"] or not torch.equal(o_f, o):
+                raise AssertionError(f"[{rtag}] learn=False changed the "
+                                     "synapse state or the forward")
+            times = {"learn": [], "frozen": []}
+            for _ in range(REPLAYS):
+                for mode in times:
+                    t0 = time.perf_counter()
+                    run_once(learn=mode == "learn")
+                    sync()
+                    times[mode].append((time.perf_counter() - t0) * 1e3)
+            dev_ms, by_name = profile_ms(run_once)
+            row = {"rule": rule_name, "plan": compiled.describe(),
+                   "launches": counts, "hidden_rate": float(s_cpu.mean()),
+                   "tie_flips": n_ties,
+                   "rows_diverged": int((first_div < PLASTIC_T).sum()),
+                   "readout_max_abs_err": err_plan,
+                   "state_max_abs_err": err_state,
+                   "learned_max_abs_err": errs, "w_moved_max": moved,
+                   "stepper_spike_flips": flips,
+                   "stepper_w_max_abs_err": err_step,
+                   "plan_run_ms_median": float(np.median(times["learn"])),
+                   "plan_run_frozen_ms_median": float(
+                       np.median(times["frozen"])),
+                   "device_ms": dev_ms,
+                   "device_ms_by_kernel": top_per(by_name, 1, n=8)}
+            rows.append(row)
+            log(f"path [{rtag}]: {compiled.describe()}; launches {counts}; "
+                f"card vs CPU: hidden rate {row['hidden_rate']:.4f}, {n_ties} "
+                f"tie flips, readout max abs err {err_plan:.3e}; learned vs "
+                f"CPU synapse_run on the card's trains {errs}; stepper "
+                f"engine: {flips} spike flips, w max abs err {err_step:.3e}; "
+                f"learn=False launches no stdp_seq; plan.run "
+                f"{row['plan_run_ms_median']:.3f} ms learning, "
+                f"{row['plan_run_frozen_ms_median']:.3f} ms frozen, card "
+                f"time {None if dev_ms is None else round(dev_ms, 4)} ms")
+    finally:
+        if saved is not None:
+            os.environ[env] = saved
+    return {"path": tag, "model": f"make_plastic_ff {PLASTIC_IN}->"
+            f"{PLASTIC_HIDDEN}->{PLASTIC_OUT}", "T": PLASTIC_T,
+            "batch": PLASTIC_B, "input": f"bernoulli({PLASTIC_RATE})",
+            "launches": total, "launches_per_run": {
+                k: [r["launches"][k] for r in rows] for k in total},
+            "rules": rows, "card": smi}
+
+
+def phase_plastic_online(smi):
+    """`examples/stdp_online.py`'s loop at the bench widths: ONLINE_CHUNKS
+    chunks, chunked (apply_learned between chunks) and streamed
+    (`run_stream`, the synapse state carried, the forward on the entry
+    params)."""
+    from repro_torch.core import plan, plasticity
+    from repro_torch.kernels import registry
+    tag = "plastic_online"
+    rule = plasticity.pair_stdp(**ONLINE_RULE)
+    nodes, params0 = make_plastic("pair_stdp", DEV, rule=rule)
+    nodes_c, params_c = make_plastic("pair_stdp", "cpu", rule=rule)
+    compiled = plan.compile_program(nodes)
+    xs = [online_chunk(c) for c in range(ONLINE_CHUNKS)]
+    xg = [torch.from_numpy(x).to(DEV) for x in xs]
+    w0 = params0["hidden"]["w_input"].clone()
+    plan.run(nodes, params0, xg[0][:8], plan=compiled, device=DEV)  # warm-up
+    sync()
+    per_chunk = {"spikemm": 2, "lif": 1, "linrec": 3, "stdp_seq": 1}
+
+    # -- chunked: apply_learned between chunks, fresh traces each chunk ----
+    registry.reset_launches()
+    params, runs = params0, []
+    t0 = time.perf_counter()
+    for x in xg:
+        st, _, r = plan.run(nodes, params, x, plan=compiled,
+                            record=("hidden",), device=DEV)
+        runs.append((params["hidden"]["w_input"], st, r["hidden"]))
+        params = plasticity.apply_learned(nodes, params, st)
+    sync()
+    chunked_s = time.perf_counter() - t0
+    drift, steps, rates, errs_c = [], [], [], []
+    for c, (x, (w_in, st, s_hidden)) in enumerate(zip(xg, runs)):
+        syn = st["hidden"]["syn:input"]
+        errs_c.append(hold_learned(f"{tag} chunk {c}", syn, rule, w_in, x,
+                                   s_hidden))
+        steps.append(float(torch.linalg.norm(syn["w"] - w_in)))
+        drift.append(float(torch.linalg.norm(syn["w"] - w0)))
+        rates.append(float(s_hidden.mean()))
+    counts_chunked = registry.launch_counts()
+    counted(f"{tag} chunked", per_chunk, ONLINE_CHUNKS, counts_chunked)
+    if not torch.equal(params0["hidden"]["w_input"], w0):
+        raise AssertionError(f"[{tag}] learning wrote into the entry params")
+    if not all(d > 0 for d in steps):
+        raise AssertionError(f"[{tag}] a chunk learned nothing: |w_c - "
+                             f"w_(c-1)| {steps}")
+
+    # -- streamed: run_stream carries the synapse state ---------------------
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    res = list(plan.run_stream(nodes, params0, xg, plan=compiled,
+                               device=DEV))
+    sync()
+    stream_s = time.perf_counter() - t0
+    counts_stream = registry.launch_counts()
+    counted(f"{tag} streamed", per_chunk, ONLINE_CHUNKS, counts_stream)
+    # the stream's forward reads params0 throughout: its trains are those
+    # of one frozen plan.run over the whole stream (checked on the outputs)
+    x_all = np.concatenate(xs)
+    xg_all = torch.cat(xg)
+    st1, o1, r1 = plan.run(nodes, params0, xg_all, plan=compiled,
+                           learn=False, record=("hidden",), device=DEV)
+    if not torch.equal(torch.cat([o for _, o in res]), o1):
+        raise AssertionError(f"[{tag}] streamed outputs differ from one "
+                             "frozen plan.run over the stream")
+    errs_s = hold_learned(f"{tag} streamed", res[-1][0]["hidden"]["syn:input"],
+                          rule, w0, xg_all, r1["hidden"])
+    s_cpu, first_div, n_ties, err_plan, err_state, _, _ = card_vs_cpu(
+        f"{tag} forward", nodes_c, params_c, x_all, st1, o1.cpu().numpy(), r1)
+    total = {k: counts_chunked[k] + counts_stream[k] for k in counts_stream}
+    stream_drift = float(torch.linalg.norm(
+        res[-1][0]["hidden"]["syn:input"]["w"] - w0))
+    log(f"path [{tag}]: {ONLINE_CHUNKS} chunks of T={ONLINE_T}, B={ONLINE_B};"
+        f" chunked: |w - w0| per chunk {[round(d, 4) for d in drift]} "
+        f"(|w_c - w_(c-1)| {[round(d, 4) for d in steps]}), hidden "
+        f"rate per chunk {[round(v, 4) for v in rates]}, learned vs CPU "
+        f"replay max abs err {max(max(e.values()) for e in errs_c):.3e}; "
+        f"streamed: |w - w0| {stream_drift:.4f}, learned vs CPU replay "
+        f"{errs_s}; forward card vs CPU: {n_ties} tie flips, readout max abs "
+        f"err {err_plan:.3e}; launches {total}; {chunked_s * 1e3:.1f} ms "
+        f"chunked, {stream_s * 1e3:.1f} ms streamed")
+    return {"path": tag, "model": f"make_plastic_ff {PLASTIC_IN}->"
+            f"{PLASTIC_HIDDEN}->{PLASTIC_OUT}, pair_stdp({ONLINE_RULE})",
+            "T": ONLINE_T, "batch": ONLINE_B, "chunks": ONLINE_CHUNKS,
+            "input": "two alternating assemblies at 0.30 / 0.02",
+            "launches": total, "launches_per_window": per_chunk,
+            "drift_per_chunk": drift, "change_per_chunk": steps,
+            "hidden_rate_per_chunk": rates,
+            "learned_max_abs_err_chunked": errs_c,
+            "learned_max_abs_err_streamed": errs_s,
+            "stream_drift": stream_drift, "tie_flips": n_ties,
+            "hidden_rate": float(s_cpu.mean()),
+            "readout_max_abs_err": err_plan, "state_max_abs_err": err_state,
+            "chunked_ms": chunked_s * 1e3, "streamed_ms": stream_s * 1e3,
+            "card": smi}
+
+
+def phase_stdp_step(smi):
+    """`bench_plasticity.measure_rule_only`'s shapes through the legacy
+    `stdp_run(use_kernel=True)`: one `stdp` launch per step."""
+    from repro_torch.core import plasticity
+    from repro_torch.kernels import registry
+    tag = "stdp_step"
+    cfg = plasticity.STDPConfig()
+    pre, post, w = stdp_step_inputs()
+    plasticity.stdp_run(cfg, w, pre[:4], post[:4], use_kernel=True)
+    sync()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    wk = plasticity.stdp_run(cfg, w, pre, post, use_kernel=True)
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = registry.launch_counts()
+    counted(tag, {"stdp": PLASTIC_T}, 1, counts)
+    we = plasticity.stdp_run(cfg, w, pre, post, use_kernel=False)
+    torch.testing.assert_close(wk, we, rtol=STEP_TOL, atol=STEP_TOL)
+    err = float((wk - we).abs().max())
+    wc = plasticity.stdp_run(cfg, w.cpu(), pre.cpu(), post.cpu(),
+                             use_kernel=True)
+    torch.testing.assert_close(wk.cpu(), wc, rtol=STEP_TOL, atol=STEP_TOL)
+    same_cpu = torch.equal(wk.cpu(), wc)
+    moved = float((wk - w).abs().max())
+    if not moved > 0:
+        raise AssertionError(f"[{tag}] nothing was learned")
+    times = {"kernel": [], "einsum": []}
+    for _ in range(REPLAYS):
+        for mode in times:
+            t0 = time.perf_counter()
+            plasticity.stdp_run(cfg, w, pre, post,
+                                use_kernel=mode == "kernel")
+            sync()
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+    dev_ms, by_name = profile_ms(lambda: plasticity.stdp_run(
+        cfg, w, pre, post, use_kernel=True))
+    log(f"path [{tag}]: launches {counts}; kernel vs einsum stdp_run max abs "
+        f"err {err:.3e}; card == CPU plain version bit for bit: {same_cpu}; "
+        f"stdp_run {np.median(times['kernel']):.3f} ms with the kernel, "
+        f"{np.median(times['einsum']):.3f} ms einsum, card time "
+        f"{None if dev_ms is None else round(dev_ms, 4)} ms")
+    return {"path": tag, "model": f"stdp_run {PLASTIC_IN}x{PLASTIC_HIDDEN}",
+            "T": PLASTIC_T, "batch": PLASTIC_B,
+            "input": f"bernoulli({PLASTIC_RATE})", "launches": counts,
+            "launches_per_run": {"stdp": PLASTIC_T},
+            "kernel_vs_einsum_max_abs_err": err, "equal_to_cpu": same_cpu,
+            "w_moved_max": moved, "first_run_ms": wall,
+            "stdp_run_ms_median": float(np.median(times["kernel"])),
+            "einsum_stdp_run_ms_median": float(np.median(times["einsum"])),
+            "device_ms": dev_ms,
+            "device_ms_by_kernel": top_per(by_name, 1, n=8), "card": smi}
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     build_s = phase_build()
-    kernels = phase_kernels(make_shd(True, DEV)[1])
+    kernels = phase_kernels(kernel_cases(make_shd(True, DEV)[1]))
     slices = [phase_path(p, smi) for p in PATHS]
     slices.append(phase_alif_ff(smi))
     slices.append(phase_topology_banded(smi))
     slices.append(phase_sparse_integ(smi))
+    slices.append(phase_plastic_ff(smi))
+    slices.append(phase_plastic_online(smi))
+    slices.append(phase_stdp_step(smi))
     for name, k in kernels.items():
         by_path = {s["path"]: s["launches"][name] for s in slices
                    if s["launches"][name]}

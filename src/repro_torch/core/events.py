@@ -16,8 +16,10 @@ A connection may be backed by compressed connectivity
 (`Connection(topology=...)`, an `EncodedTopology` or a params key naming
 one): both engines then execute it straight from its IE tables.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
-plastic connections.
+A connection may carry a `SynapseProgram` (`Connection(plastic=...)`,
+core/plasticity.py), making the edge learnable on-chip. The stepper itself
+is forward-only; plasticity runs at run granularity in `core/plan.py`, with
+the synapse state carried here in `state[node]["syn:<conn>"]`.
 """
 
 from __future__ import annotations
@@ -28,11 +30,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.core.neuron import NeuronSpec
+from repro_torch.core.plasticity import (SynapseProgram, synapse_init,
+                                         validate_synapse_program)
 from repro_torch.core.topology import EncodedTopology
 from repro_torch.kernels.common import DeviceLike, resolve_device
-
-_PLASTIC_TODO = ("plastic connections are not ported yet: ROADMAP.md, "
-                 "Open items 1, item 5 (plasticity)")
 
 
 def _parse_src(src: str) -> Tuple[str, int]:
@@ -51,8 +52,9 @@ class Connection:
     delay:   delayed-fire depth in timesteps (ring-buffered delivery).
     weight:  params key holding this edge's weight; "" = the canonical
              convention ("w_<src>", "w_self").
-    plastic: not ported yet; anything but None raises (after the topology
-             checks below, in the reference's order).
+    plastic: optional `SynapseProgram` (core/plasticity.py); the edge's
+             weight then learns on-chip under `plan.run` and the updated
+             tensor is published in `state[node]["syn:<key>"]["w"]`.
     topology: optional compressed connectivity for this edge — an
              `EncodedTopology` instance, or a string naming one inside
              `params[node]`. The edge then executes straight from the IE
@@ -66,7 +68,7 @@ class Connection:
     src: str
     delay: int = 0
     weight: str = ""
-    plastic: Optional[Any] = None
+    plastic: Optional[SynapseProgram] = None
     topology: Optional[Any] = None
 
     def __post_init__(self):
@@ -89,7 +91,7 @@ class Connection:
                     f"connection from {self.src!r}: topology and a weight "
                     "override are mutually exclusive")
         if self.plastic is not None:
-            raise NotImplementedError(_PLASTIC_TODO)
+            validate_synapse_program(self.plastic)
 
     @property
     def key(self) -> str:
@@ -192,8 +194,11 @@ def state_dtype(dtype) -> torch.dtype:
 def init_state(nodes: List[LayerNode], batch: int, dtype=torch.float32,
                params: Optional[Dict[str, Any]] = None,
                device: DeviceLike = "cuda"):
-    """Neuron states and skip-delay ring buffers for every node, on
-    `device` (default the card; pass device="cpu" to run on the CPU)."""
+    """Neuron states, skip-delay ring buffers, and synapse (plasticity)
+    state for every node, on `device` (default the card; pass device="cpu"
+    to run on the CPU). Plastic connections need `params` to seed the
+    learned weight (trace shapes derive from it); their "w" is the params
+    tensor itself, which no update writes into."""
     dev = resolve_device(device)
     dtype = state_dtype(dtype)
     state = {}
@@ -208,6 +213,15 @@ def init_state(nodes: List[LayerNode], batch: int, dtype=torch.float32,
         if n.name in max_delay:
             s["ring"] = torch.zeros((max_delay[n.name], batch, n.out_dim),
                                     dtype=dtype, device=dev)
+        for c in n.connections:
+            if c.plastic is None:
+                continue
+            if params is None:
+                raise ValueError(
+                    f"node {n.name!r}: connection {c.key!r} is plastic; "
+                    "init_state needs params=... to seed its weight")
+            s[f"syn:{c.key}"] = synapse_init(
+                c.plastic, params[n.name][c.weight_key], batch)
         state[n.name] = s
     return state
 
@@ -239,7 +253,8 @@ def step(nodes: List[LayerNode], params: Dict[str, Any],
 
     `ext` maps feed keys (e.g. "conv1", "conv1@2") to externally supplied
     per-timestep feeds — the plan compiler uses it to run a fallback
-    segment whose neighbours were fused out of the time loop.
+    segment whose neighbours were fused out of the time loop. Synapse state
+    rides through untouched (plasticity is a run-granularity pass).
     """
     new_state = dict(state)
     emitted: Dict[str, torch.Tensor] = {"input": x_t}
@@ -259,7 +274,7 @@ def step(nodes: List[LayerNode], params: Dict[str, Any],
         current = n.integrate(_node_params(n, params), feeds)  # INTEG
         ns, s_out = n.neuron.fire(
             {k: v for k, v in state[n.name].items()
-             if k not in ("out", "ring")},
+             if k not in ("out", "ring") and not k.startswith("syn:")},
             current, params.get(n.name, {}).get("neuron"))      # FIRE
         ns = dict(ns)
         ns["out"] = s_out
@@ -267,6 +282,9 @@ def step(nodes: List[LayerNode], params: Dict[str, Any],
             ring = state[n.name]["ring"]
             ns["ring"] = torch.cat([s_out[None].to(ring.dtype), ring[:-1]],
                                    dim=0)
+        for k, v in state[n.name].items():
+            if k.startswith("syn:"):
+                ns[k] = v
         new_state[n.name] = ns
         emitted[n.name] = s_out
     return new_state, emitted[nodes[-1].name]

@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.surrogate import spike
+from repro_torch.kernels.common import resolve_device
 
 State = Dict[str, torch.Tensor]
 
@@ -248,7 +249,10 @@ class NeuronSpec:
         raise NotImplementedError
 
     def init_state(self, shape, dtype=torch.float32,
-                   device: Any = "cpu") -> State:
+                   device: Any = "cuda") -> State:
+        """Zero states on `device` (default the card; pass device="cpu"
+        to run on the CPU)."""
+        device = resolve_device(device)
         prog = self.program
         state = {}
         for sv in prog.states:

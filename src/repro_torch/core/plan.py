@@ -19,11 +19,25 @@ matching on the neuron IR (`core/neuron.py::NeuronProgram`):
                                                       over the branch axis)
                                                       feeding `lif`
 
-The matcher, the segment schedule and `Plan.describe()` (with its TB2xx
-codes) are identical to the reference's. Every fused lowering runs on the
-hand kernels: `li` on `linrec`, feed-forward `lif` on `lif`, `dhlif` on
-`linrec` feeding `lif`, the self-recurrent `lif` on `lifrec`, and `alif`
-on `alif` or, self-recurrent, `alifrec`. A recurrent kernel starts from
+Synapse programs (`core/plasticity.py::SynapseProgram`, attached to a
+`Connection(plastic=...)`) are matched the same way: a rule of at most four
+traces and four update terms lowers to the `stdp_seq` kernel — trace DIFFs
+hoisted through all-T `linrec`, then every outer-product update term
+applied over the window in one launch — while larger rules (TB210) run
+through the per-step interpreter (`plasticity.synapse_run` over the
+realized spike trains). Either way, on-chip learning runs *inside*
+`plan.run` (and, under REPRO_SNN_ENGINE=stepper, as the same pass after the
+interpreted forward): within one run window the forward uses the entry
+weights, and the learned weight + final traces are published in
+`state[node]["syn:<conn>"]` (chunked-online semantics; merge with
+`plasticity.apply_learned` between windows). The learned weight is a new
+tensor: params and the entry state are never written.
+
+The matchers, the segment schedule and `Plan.describe()` (with its TB2xx
+codes and its `| learn` tag) are identical to the reference's. Every fused
+lowering runs on the hand kernels: `li` on `linrec`, feed-forward `lif` on
+`lif`, `dhlif` on `linrec` feeding `lif`, the self-recurrent `lif` on
+`lifrec`, and `alif` on `alif` or, self-recurrent, `alifrec`. A recurrent kernel starts from
 the node's previous output, `state[node]["out"]`, and the last step of
 its spike train becomes the next `out`, so the recurrence carries across
 windows and chunks. Segments that match no pattern run through the
@@ -40,9 +54,16 @@ Delayed (`"src@d"`) reads of a fused source are exact: the ring buffer the
 stepper would keep is a time-shift of the source's full output, seeded
 from the initial ring state.
 
+Env knobs: REPRO_SNN_ENGINE = plan | stepper | auto (auto = plan; set
+`stepper` to force the interpreted engine, `events.run`, e.g. when
+bisecting a numerics difference). REPRO_SNN_EXPLAIN=1 prints every compiled
+schedule (`Plan.describe()`) as Programs are lowered. A bad value of either
+raises the reference's ValueError.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: numerical guardrails (`guard=`, REPRO_GUARD), fault injection
-(REPRO_FAULTS), and learning (plastic connections cannot be built).
+item: numerical guardrails (`guard=`, REPRO_GUARD) and fault injection
+(REPRO_FAULTS), item 8; the compile-time checker (REPRO_CHECK=warn|raise),
+item 9.
 """
 
 from __future__ import annotations
@@ -53,14 +74,15 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core import events
-from repro_torch.core.neuron import Decay, NeuronProgram
+from repro_torch.core import events, plasticity
+from repro_torch.core.neuron import Decay, NeuronProgram, decay_array
 from repro_torch.kernels.common import DeviceLike, check_device, resolve_device
 from repro_torch.kernels.alifrec.ops import alif_scan, alifrec_scan
 from repro_torch.kernels.lif.ops import lif_scan
 from repro_torch.kernels.lifrec.ops import lifrec_scan
 from repro_torch.kernels.linrec.ops import linrec
 from repro_torch.kernels.spikemm.ops import spikemm
+from repro_torch.kernels.stdp.ops import stdp_seq
 
 Tensor = torch.Tensor
 
@@ -73,6 +95,10 @@ LOWER_LI = "li"
 LOWER_LIF = "lif"
 LOWER_ALIF = "alif"
 LOWER_DHLIF = "dhlif"
+
+# synapse-program lowerings
+SYN_SEQ = "stdp_seq"
+SYN_STEP = "step"
 
 # Cross-engine agreement tolerance (fused plan vs stepper, port vs JAX).
 #
@@ -87,6 +113,22 @@ CROSS_ENGINE_ATOL = 1e-5
 _ROADMAP = "ROADMAP.md, Open items 1"
 
 
+def engine_mode() -> str:
+    mode = os.environ.get("REPRO_SNN_ENGINE", "auto")
+    if mode not in ("auto", "plan", "stepper"):
+        raise ValueError(f"REPRO_SNN_ENGINE={mode!r}: "
+                         "expected 'plan', 'stepper', or 'auto'")
+    return mode
+
+
+def check_mode() -> str:
+    mode = os.environ.get("REPRO_CHECK", "off")
+    if mode not in ("off", "warn", "raise"):
+        raise ValueError(f"REPRO_CHECK={mode!r}: "
+                         "expected 'off', 'warn', or 'raise'")
+    return mode
+
+
 @dataclasses.dataclass(frozen=True)
 class Segment:
     """One unit of the lowered schedule, executed over the full time axis."""
@@ -99,15 +141,28 @@ class Segment:
 
 
 @dataclasses.dataclass(frozen=True)
+class PlasticLower:
+    """Lowering decision for one plastic Connection (run-granularity pass)."""
+
+    node: str                  # destination node name
+    conn: str                  # Connection.key
+    lower: str                 # stdp_seq | step
+    reason: str = ""           # why the fused family was refused
+    code: str = ""             # TB2xx code for a refused fused lowering
+
+
+@dataclasses.dataclass(frozen=True)
 class Plan:
     segments: Tuple[Segment, ...]
+    plastic: Tuple[PlasticLower, ...] = ()
 
     @property
     def fully_fallback(self) -> bool:
         return all(s.kind == FALLBACK for s in self.segments)
 
     def describe(self) -> str:
-        """Segment schedule, with every fallback's TB-code inline."""
+        """Segment schedule, with every fallback's TB-code inline, and
+        the plastic connections' lowerings after `| learn`."""
         parts = []
         for s in self.segments:
             tag = f"{s.kind}[{','.join(s.names)}]"
@@ -116,7 +171,17 @@ class Plan:
             if s.reason:
                 tag += f"({s.reason})"
             parts.append(tag)
-        return " -> ".join(parts)
+        out = " -> ".join(parts)
+        if self.plastic:
+            learns = []
+            for p in self.plastic:
+                tag = f"{p.node}.{p.conn}:{p.lower}"
+                if p.reason:
+                    tag += f"({p.code}: {p.reason})" if p.code \
+                        else f"({p.reason})"
+                learns.append(tag)
+            out += " | learn " + ",".join(learns)
+        return out
 
 
 def _hoist_tag(node: events.LayerNode) -> Optional[str]:
@@ -170,6 +235,23 @@ def _match_fire_pattern(prog: NeuronProgram
     return None, "TB206", "program shape matches no fused FIRE kernel"
 
 
+def _match_synapse_pattern(prog: plasticity.SynapseProgram
+                           ) -> Tuple[str, str, str]:
+    """Structurally match a SynapseProgram against the `stdp_seq` family.
+
+    -> (SYN_SEQ, "", "") when the program is small enough for the fused
+    plane stack; else (SYN_STEP, TB-code, reason) — the per-step
+    interpreter over the realized spike trains, always correct. Learned
+    per-synapse trace decays are fine: `linrec` takes a full decay plane,
+    so a sigmoid-resolved learned decay hoists exactly like a constant.
+    """
+    if len(prog.traces) > 4:
+        return SYN_STEP, "TB210", f"{len(prog.traces)} traces"
+    if len(prog.terms) > 4:
+        return SYN_STEP, "TB210", f"{len(prog.terms)} update terms"
+    return SYN_SEQ, "", ""
+
+
 def _classify(node: events.LayerNode, order: Dict[str, int]
               ) -> Tuple[str, str, str, str]:
     """-> (segment kind, TB-code, fallback reason, lowering family)."""
@@ -214,8 +296,24 @@ def _classify(node: events.LayerNode, order: Dict[str, int]
 
 
 def compile_program(nodes: List[events.LayerNode]) -> Plan:
-    """Analyze the node DAG and emit the segment plan."""
+    """Analyze the node DAG and emit the segment + plastic-lowering plan."""
+    _refuse_check()
+    plan = _compile(nodes)
+    if os.environ.get("REPRO_SNN_EXPLAIN") == "1":
+        print(f"[repro_torch.plan] {plan.describe()}")
+    return plan
+
+
+def _compile(nodes: List[events.LayerNode]) -> Plan:
     order = {n.name: i for i, n in enumerate(nodes)}
+    plastic = []
+    for n in nodes:
+        for c in n.connections:
+            if c.plastic is None:
+                continue
+            lower, code, why = _match_synapse_pattern(c.plastic)
+            plastic.append(PlasticLower(n.name, c.key, lower, why, code))
+    plastic = tuple(plastic)
     # Any previous-timestep read of a later node couples the whole Program
     # per-timestep: compile to one stepper segment (exactly events.run).
     for n in nodes:
@@ -224,7 +322,7 @@ def compile_program(nodes: List[events.LayerNode]) -> Plan:
                 return Plan((Segment(
                     FALLBACK, tuple(x.name for x in nodes),
                     f"{n.name}: TB201 reads later node {c.src}",
-                    codes=("TB201",)),))
+                    codes=("TB201",)),), plastic)
 
     segments: List[Segment] = []
     pending: List[str] = []
@@ -249,7 +347,7 @@ def compile_program(nodes: List[events.LayerNode]) -> Plan:
             flush()
             segments.append(Segment(kind, (n.name,), lower=family))
     flush()
-    return Plan(tuple(segments))
+    return Plan(tuple(segments), plastic)
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +517,9 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
     ns["out"] = out[-1]
     if "ring" in st:
         ns["ring"] = _advance_ring(st["ring"], out)
+    for k, v in st.items():
+        if k.startswith("syn:"):
+            ns[k] = v
     new_state[node.name] = ns
 
 
@@ -447,9 +548,19 @@ def _run_fallback(seg: Segment, nodes_by_name: Dict[str, events.LayerNode],
     new_state.update(st)
 
 
+def _refuse_check() -> None:
+    """REPRO_CHECK=warn|raise asks for the compile-time checker, which is
+    not ported: raise rather than compile unchecked."""
+    if check_mode() != "off":
+        raise NotImplementedError(
+            f"the compile-time checker (REPRO_CHECK={check_mode()}) is not "
+            f"ported yet: {_ROADMAP}, item 9 (verifier)")
+
+
 def _refuse_unported(guard) -> None:
     """Raise for the reference's run-time hooks the port does not have
     yet, instead of silently running without them."""
+    _refuse_check()
     if guard is not None or os.environ.get("REPRO_GUARD", "off") != "off":
         raise NotImplementedError(
             "numerical guardrails (guard=, REPRO_GUARD) are not ported yet: "
@@ -468,7 +579,10 @@ def _refuse_unported(guard) -> None:
 # leaf carries the batch on axis 0 — except the delay ring, whose layout is
 # (depth, batch, n). The serve engine multiplexes many batch-1 streaming
 # sessions through one window step by concatenating their states into
-# cohort slots along the batch axis and slicing them back out.
+# cohort slots along the batch axis and slicing them back out. Synapse
+# ("syn:") entries are rejected: their weight plane has no batch axis (one
+# tile per connection, batch-summed updates), so packing sessions that
+# learn would alias their weights — the engine keeps them per session.
 
 
 def _state_batch_axis(key: str) -> int:
@@ -493,7 +607,8 @@ def pack_states(states: List[Dict[str, Any]], pad_to: Optional[int] = None
 
     Every leaf joins along its batch axis (axis 0; axis 1 for delay
     rings); `pad_to` right-pads the cohort with zero slots up to a fixed
-    capacity, so every window step runs at one shape."""
+    capacity, so every window step runs at one shape. Raises on "syn:"
+    entries — see the note above."""
     if not states:
         raise ValueError("pack_states needs at least one state")
     total = sum(next(iter(s.values()))["out"].shape[0] for s in states)
@@ -505,6 +620,11 @@ def pack_states(states: List[Dict[str, Any]], pad_to: Optional[int] = None
     for node in states[0]:
         nd: Dict[str, Any] = {}
         for k in states[0][node]:
+            if k.startswith("syn:"):
+                raise ValueError(
+                    f"pack_states: node {node!r} carries synapse state "
+                    f"{k!r}, which has no batch axis; keep syn entries "
+                    "per-session (see repro_torch.serve)")
             ax = _state_batch_axis(k)
             parts = [s[node][k] for s in states]
             if pad:
@@ -530,31 +650,202 @@ def unpack_state(state: Dict[str, Any], index: int,
 
 
 # ---------------------------------------------------------------------------
+# the plasticity pass (run-granularity on-chip learning)
+# ---------------------------------------------------------------------------
+
+
+def _mod_full(mod: Any, T: int, B: int, N: int, dtype: torch.dtype,
+              device: torch.device) -> Tensor:
+    """Broadcast the run-level modulator to the (T, B, N) term plane.
+
+    Accepts None (zeros: no reward, no update), (T,) global reward per
+    step, (T, B) per-trial reward, or (T, B, N) per-neuron teaching
+    signal."""
+    if mod is None:
+        return torch.zeros((T, B, N), dtype=dtype, device=device)
+    m = torch.as_tensor(mod, dtype=dtype, device=device)
+    if m.dim() == 1:
+        m = m[:, None, None]
+    elif m.dim() == 2:
+        m = m[..., None]
+    return m.expand(T, B, N)
+
+
+def _learn_fused(prog: plasticity.SynapseProgram, syn0: Dict[str, Tensor],
+                 pre_full: Tensor, post_full: Tensor,
+                 mod_full: Optional[Tensor],
+                 sparams: Optional[Dict[str, Tensor]] = None
+                 ) -> Dict[str, Tensor]:
+    """Fused `stdp_seq` lowering of one SynapseProgram window.
+
+    Trace DIFFs are pure linear recurrences -> hoisted through all-T
+    `linrec`; each term's pre/post factor products become (T*B, n) planes
+    ("after" traces read the one-step-shifted trajectory); the stacked
+    planes drive the serial-in-time `stdp_seq` kernel, one launch for the
+    window. Learned per-synapse decays (`sparams`, the
+    `params[node]["syn:<conn>"]` dict) resolve through `decay_array`
+    exactly like the per-step interpreter and broadcast into the decay
+    plane. The learned weight is the kernel's fresh output; syn0["w"] is
+    read only.
+    """
+    T, B = pre_full.shape[:2]
+    by_name = {t.name: t for t in prog.traces}
+    traj: Dict[str, Tensor] = {}
+    shifted: Dict[str, Tensor] = {}
+    finals: Dict[str, Tensor] = {}
+    for tr in prog.traces:
+        s = pre_full if tr.source == "pre" else post_full
+        h0 = syn0[tr.name].to(s.dtype).contiguous()
+        a = decay_array(tr.decay, sparams, s.dtype, s.device)
+        y, hT = linrec(a, (tr.scale * s).contiguous(), h0)
+        traj[tr.name] = y
+        finals[tr.name] = hT.to(syn0[tr.name].dtype)
+        shifted[tr.name] = torch.cat([h0[None], y[:-1]], dim=0)
+
+    def plane(factors, spikes):
+        v = None
+        for f in factors:
+            if f == "spikes":
+                x = spikes
+            elif f == "mod":
+                x = mod_full
+            else:
+                x = traj[f] if by_name[f].update == "before" else shifted[f]
+            v = x if v is None else v * x
+        return v.expand(T, B, -1).reshape(T * B, -1)
+
+    P = torch.stack([plane(t.pre, pre_full) for t in prog.terms])
+    Q = torch.stack([plane(t.post, post_full) for t in prog.terms])
+    w1 = stdp_seq(P, Q, syn0["w"].contiguous(),
+                  amps=tuple(t.amp for t in prog.terms),
+                  w_min=prog.w_min, w_max=prog.w_max, batch=B)
+    out = {"w": w1}
+    out.update(finals)
+    return out
+
+
+def _learn_conn(node: events.LayerNode, conn: events.Connection, lower: str,
+                params: Dict[str, Any], outs: Dict[str, Tensor],
+                state: Dict[str, Any], new_state: Dict[str, Any],
+                T: int, B: int, mod: Any, order: Dict[str, int]) -> None:
+    """Apply one plastic Connection's learning rule over the run window.
+
+    The pre train is exactly the feed the stepper delivered: delay-shifted
+    for "src@d" reads, and the *previous-step* output for "self" and for
+    undelayed back-references (a source ordered at-or-after the node is
+    read before it runs, i.e. at t-1, seeded from its initial "out"). The
+    post train is the node's emitted output. The update is a weight write
+    into the state, never into params or the entry state.
+    """
+    prog = conn.plastic
+    key = f"syn:{conn.key}"
+    syn0 = state[node.name][key]
+    prev_step = conn.src == "self" or (
+        conn.src != "input" and conn.delay == 0
+        and order[conn.src] >= order[node.name])
+    if prev_step:
+        src_name = node.name if conn.src == "self" else conn.src
+        s_full = outs[src_name]
+        pre = torch.cat([state[src_name]["out"][None].to(s_full.dtype),
+                         s_full[:-1]], dim=0)
+    else:
+        pre = _feed_full(outs, state, conn.src, conn.delay, T)
+    post = outs[node.name]
+    fdt = events.state_dtype(post.dtype)
+    pre, post = pre.to(fdt), post.to(fdt)
+    uses_mod = any("mod" in t.post for t in prog.terms)
+    mod_f = (_mod_full(mod, T, B, post.shape[-1], fdt, post.device)
+             if uses_mod else None)
+    sparams = params.get(node.name, {}).get(key)
+    if lower == SYN_SEQ:
+        syn1 = _learn_fused(prog, syn0, pre, post, mod_f, sparams)
+    else:
+        syn1 = plasticity.synapse_run(prog, syn0["w"], pre, post, mod_f,
+                                      sparams, syn=syn0)
+    ns = dict(new_state[node.name])
+    ns[key] = syn1
+    new_state[node.name] = ns
+
+
+def _learn_pass(plan: Plan, nodes: List[events.LayerNode],
+                params: Dict[str, Any], outs: Dict[str, Tensor],
+                state: Dict[str, Any], new_state: Dict[str, Any],
+                T: int, B: int, mod: Any) -> None:
+    nodes_by_name = {n.name: n for n in nodes}
+    order = {n.name: i for i, n in enumerate(nodes)}
+    for p in plan.plastic:
+        node = nodes_by_name[p.node]
+        conn = next(c for c in node.connections if c.key == p.conn)
+        _learn_conn(node, conn, p.lower, params, outs, state, new_state,
+                    T, B, mod, order)
+
+
+# ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+
+def _run_stepper(nodes: List[events.LayerNode], params: Dict[str, Any],
+                 x: Tensor, state: Optional[Dict[str, Any]],
+                 record: Tuple[str, ...], plan: Plan, mod: Any,
+                 do_learn: bool, dev: torch.device):
+    """The interpreted engine (`events.run`), then, when learning, the
+    same learning pass over the realized spike trains (recording what the
+    plastic connections need)."""
+    if not do_learn:
+        return events.run(nodes, params, x, state, record, device=dev)
+    T, B = x.shape[0], x.shape[1]
+    if state is None:
+        state = events.init_state(nodes, B, x.dtype, params, device=dev)
+    nodes_by_name = {n.name: n for n in nodes}
+    needed = set(record)
+    for p in plan.plastic:
+        needed.add(p.node)
+        conn = next(c for c in nodes_by_name[p.node].connections
+                    if c.key == p.conn)
+        if conn.src not in ("input", "self"):
+            needed.add(conn.src)
+    final, out, recs = events.run(nodes, params, x, state,
+                                  tuple(sorted(needed)), device=dev)
+    outs = dict(recs)
+    outs["input"] = x
+    outs[nodes[-1].name] = out
+    new_state = dict(final)
+    _learn_pass(plan, nodes, params, outs, state, new_state, T, B, mod)
+    return new_state, out, {r: outs[r] for r in record}
 
 
 @torch.no_grad()
 def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
         state: Optional[Dict[str, Any]] = None, record: Tuple[str, ...] = (),
-        plan: Optional[Plan] = None, guard: Optional[str] = None,
-        device: DeviceLike = "cuda", _traced: bool = False):
+        plan: Optional[Plan] = None, mod: Any = None, learn: bool = True,
+        guard: Optional[str] = None, device: DeviceLike = "cuda",
+        _traced: bool = False):
     """Drop-in replacement for `events.run` through the compiled plan.
 
     x: (T, batch, n_in) on `device` (default the card; pass device="cpu"
     to run on the CPU). Returns (final_state, outputs (T, batch, n_out),
     recorded dict) — equivalent to the stepper within CROSS_ENGINE_ATOL.
-    `_traced=True` (the serve engine's window step) routes the hoisted
-    INTEG as the JAX package routes its jitted step: spikemm's `auto`
-    stays dense, with no occupancy sync.
+    Plastic Connections learn over the window (disable with
+    `learn=False`); `mod` is the optional modulator/reward signal ((T,),
+    (T, B), or (T, B, n_post)) feeding the rules' "mod" factors. Learned
+    weights + final traces come back in `state[node]["syn:<conn>"]`
+    (`plasticity.apply_learned` merges them into params). With
+    REPRO_SNN_ENGINE=stepper the forward runs on `events.run`, and the
+    learning pass after it. `_traced=True` (the serve engine's window
+    step) routes the hoisted INTEG as the JAX package routes its jitted
+    step: spikemm's `auto` stays dense, with no occupancy sync.
     """
     _refuse_unported(guard)
+    mode = engine_mode()
     dev = resolve_device(device)
     check_device("x", x, dev)
     if plan is None:
         plan = compile_program(nodes)
-    if plan.fully_fallback:
-        return events.run(nodes, params, x, state, record, device=dev)
+    do_learn = learn and bool(plan.plastic)
+    if mode == "stepper" or plan.fully_fallback:
+        return _run_stepper(nodes, params, x, state, record, plan, mod,
+                            do_learn, dev)
     T, B = x.shape[0], x.shape[1]
     if state is None:
         state = events.init_state(nodes, B, x.dtype, params, device=dev)
@@ -568,28 +859,39 @@ def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
         else:
             _run_fused(nodes_by_name[seg.names[0]], seg.kind, seg.lower,
                        params, outs, state, new_state, T, B, _traced)
+    if do_learn:
+        _learn_pass(plan, nodes, params, outs, state, new_state, T, B, mod)
     return new_state, outs[nodes[-1].name], {r: outs[r] for r in record}
 
 
 def run_stream(nodes: List[events.LayerNode], params: Dict[str, Any],
                chunks: Iterable[Tensor],
                state: Optional[Dict[str, Any]] = None,
-               plan: Optional[Plan] = None, guard: Optional[str] = None,
+               plan: Optional[Plan] = None, mod: Optional[Iterable] = None,
+               learn: bool = True, guard: Optional[str] = None,
                device: DeviceLike = "cuda"
                ) -> Iterator[Tuple[Dict[str, Any], Tensor]]:
     """Chunked/streaming execution: yields `(state, outputs)` after each
-    (T_chunk, batch, n_in) chunk, carrying neuron state and delay rings
-    across chunk boundaries, so concatenating the yielded outputs equals
-    the one-shot `run` on the concatenated stream."""
+    (T_chunk, batch, n_in) chunk, carrying neuron state, delay rings and
+    synapse state across chunk boundaries, so concatenating the yielded
+    outputs equals the one-shot `run` on the concatenated stream. Learning
+    continues from the carried state's weight, while the forward reads
+    `params` (chunked-online: merge with `apply_learned` to change that).
+    The plan is compiled once up front; `mod`, when given, must be an
+    iterable aligned with `chunks` (one modulator window per chunk)."""
     if plan is None:
         plan = compile_program(nodes)
+    mods = iter(mod) if mod is not None else None
     for x in chunks:
-        state, out, _ = run(nodes, params, x, state=state, plan=plan,
-                            guard=guard, device=device)
+        m = next(mods) if mods is not None else None
+        state, out, _ = run(nodes, params, x, state=state, plan=plan, mod=m,
+                            learn=learn, guard=guard, device=device)
         yield state, out
 
 
-__all__ = ["Plan", "Segment", "compile_program", "run", "run_stream",
+__all__ = ["Plan", "PlasticLower", "Segment", "compile_program",
+           "engine_mode", "check_mode", "run", "run_stream",
            "CROSS_ENGINE_ATOL", "state_nbytes", "pack_states",
            "unpack_state", "FUSED_FF", "FUSED_REC", "FALLBACK",
-           "LOWER_LI", "LOWER_LIF", "LOWER_ALIF", "LOWER_DHLIF"]
+           "LOWER_LI", "LOWER_LIF", "LOWER_ALIF", "LOWER_DHLIF",
+           "SYN_SEQ", "SYN_STEP"]

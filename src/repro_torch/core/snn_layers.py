@@ -10,11 +10,12 @@ The port of `repro/core/snn_layers.py`, serving slices:
   dhsnn_shd    — 700 -> 64 DH-LIF (4 dendritic branches) -> 20 LI readout
                  (Zheng et al. 2024), the SHD speech task;
                  `dendritic=False` is the homogeneous LIF ablation.
+  plastic_ff   — a 2-layer LIF stack whose input connection learns on-chip
+                 (the plasticity bench, the online-STDP example).
 
 Weights are drawn on the CPU from a torch.Generator and then moved, so one
-seed gives the same weights on every device. The BCI decoder and the
-plastic feed-forward model come with later slices (ROADMAP.md, Open
-items 1).
+seed gives the same weights on every device. The BCI decoder comes with
+a later slice (ROADMAP.md, Open items 1, item 4).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.core import events
 from repro_torch.core.neuron import ALIF, DHLIF, LI, LIF, locacc
+from repro_torch.core.plasticity import SynapseProgram, pair_stdp
 from repro_torch.kernels.common import DeviceLike, resolve_device, tree_to
 
 
@@ -111,6 +113,34 @@ def make_srnn_ecg(generator: torch.Generator, n_in: int = 4,
     return nodes, tree_to(params, dev)
 
 
+def make_plastic_ff(generator: torch.Generator, n_in: int = 64,
+                    n_hidden: int = 32, n_out: int = 4,
+                    rule: SynapseProgram = None, tau: float = 0.8,
+                    v_th: float = 0.6, device: DeviceLike = "cuda"):
+    """A 2-layer LIF stack whose input connection learns on-chip ->
+    (nodes, params), params on `device`.
+
+    The hidden layer's input edge carries `rule` (default: pair STDP), so
+    under `plan.run` the weight `w_input` updates over every window — the
+    `stdp_seq` lowering when the rule's structure matches, the per-step
+    interpreter otherwise. Used by the plasticity bench, the `stdp_online`
+    example and the synapse-plan tests."""
+    dev = resolve_device(device)
+    rule = rule if rule is not None else pair_stdp()
+    nodes = [
+        events.LayerNode("hidden", LIF(tau=tau, v_th=v_th), ff_integrate,
+                         inputs=(events.Connection("input", plastic=rule),),
+                         out_dim=n_hidden),
+        events.LayerNode("readout", LI(tau=0.95), ff_integrate,
+                         inputs=(events.Connection("hidden"),),
+                         out_dim=n_out),
+    ]
+    params = {"hidden": {"w_input": _dense_init(generator, n_in, n_hidden)},
+              "readout": {"w_hidden": _dense_init(generator, n_hidden,
+                                                  n_out)}}
+    return nodes, tree_to(params, dev)
+
+
 # ---------------------------------------------------------------------------
 # DHSNN for SHD speech
 # ---------------------------------------------------------------------------
@@ -147,4 +177,4 @@ def make_dhsnn_shd(generator: torch.Generator, n_in: int = 700,
 
 
 __all__ = ["ff_integrate", "branch_integrate", "make_srnn_ecg",
-           "make_dhsnn_shd"]
+           "make_plastic_ff", "make_dhsnn_shd"]

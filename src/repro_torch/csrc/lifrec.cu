@@ -5,15 +5,12 @@
 // Replaces: src/repro/kernels/lifrec/kernel.py::lifrec_pallas
 //           (body `_lifrec_kernel`).
 //
-// Also exports the two queries of the recurrent scan that `lifrec` and
-// `alifrec` share: the most neurons a batch row may hold, and whether an
-// (N, N) W_rec is kept in shared memory.
+// Also exports the query of the recurrent scan that `lifrec` and `alifrec`
+// share: whether an (N, N) W_rec is kept in shared memory.
 
 #include "rec_scan.cuh"
 
 extern "C" {
-
-int rec_scan_max_n() { return REC_MAX_N; }
 
 // 1 when W_rec (N, N) is held in shared memory, 0 when it is read through
 // L2, a negative CUDA error code when the device cannot be queried.

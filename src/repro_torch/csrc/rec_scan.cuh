@@ -15,22 +15,27 @@
 // dependent rounds. The TPU kernels keep the whole (N, N) W_rec in VMEM
 // and feed s @ W to the MXU each step. Here one block owns one batch row
 // (rows are independent, so a row's result never depends on how sessions
-// were packed: no split across blocks, no atomics), one thread owns one
-// neuron (N <= 1024), and W_rec sits in shared memory when it fits (N up
+// were packed: no split across blocks, no atomics). A block has at most
+// 1024 threads, so each thread owns NPT neurons of the row, j, j + blockDim,
+// j + 2 blockDim, ... (NPT = 1 up to 1024 neurons, the smallest power of
+// two that covers the row above; the launcher instantiates NPT up to 256,
+// past the largest W_rec a card's memory holds), with their state in
+// registers up to NPT = 8. W_rec sits in shared memory when it fits (N up
 // to 241 in fp32, with the 227 KB opt-in), else it is read through L2.
-// Each step the row's spikes become a bit mask in shared memory (one warp
-// ballot per 32 lanes), and every thread adds W[i, j] for the set bits i
-// in ascending order: the event-driven recurrence, whose work is
-// nnz(s_{t-1}) * N and whose loop is uniform across the block (every
-// thread reads the same mask). The mask is double-buffered, so one
-// __syncthreads per step suffices; the next step's current is loaded
-// before this step's sum.
+// Each step the row's spikes become a bit mask over all N in shared memory
+// (one warp ballot per 32 neurons), and every thread adds W[i, j] for the
+// set bits i in ascending order to each neuron it owns: the event-driven
+// recurrence, whose work is nnz(s_{t-1}) * N and whose loop is uniform
+// across the block (every thread reads the same mask). The mask is
+// double-buffered, so one __syncthreads per step suffices; the next step's
+// current is loaded before this step's sum.
 //
 // Rounding: each add and product is __fadd_rn/__fmul_rn/__fsub_rn in the
 // plain versions' order, u = ((tau * v) + I) + rec with rec summed from 0
 // over ascending i, th = v_th + (beta * a), a = (rho * a) + s. nvcc cannot
-// contract them into FMAs, so the kernels equal `kernels/lifrec/ref.py`
-// and `kernels/alifrec/ref.py` bit for bit.
+// contract them into FMAs, and a neuron's arithmetic does not depend on
+// which thread owns it, so the kernels equal `kernels/lifrec/ref.py` and
+// `kernels/alifrec/ref.py` bit for bit at every N.
 
 #pragma once
 
@@ -39,7 +44,7 @@
 
 namespace {
 
-constexpr int REC_MAX_N = 1024;  // one thread per neuron of a batch row
+constexpr int REC_THREADS = 1024;  // most threads a block may have
 constexpr unsigned FULL = 0xffffffffu;
 
 struct ScanArgs {
@@ -68,12 +73,16 @@ __device__ __forceinline__ float fire(float u, float& v, float& a, float rho,
   return s;
 }
 
-template <bool ADAPT, bool SMEM>
-__global__ void __launch_bounds__(REC_MAX_N) rec_scan_kernel(
+// Thread x owns neurons x + r * blockDim.x, r < NPT. Warp w's 32 neurons
+// of round r fill mask word r * (blockDim.x / 32) + w, which exists when
+// the round's first neuron does.
+template <bool ADAPT, bool SMEM, int NPT>
+__global__ void __launch_bounds__(REC_THREADS) rec_scan_kernel(
     const ScanArgs p) {
   extern __shared__ uint32_t smem[];
   const int N = p.N, T = p.T;
-  const int words = (N + 31) / 32;  // = warps of the block
+  const int words = (N + 31) / 32;
+  const int wpb = blockDim.x / 32;  // warps per block
   uint32_t* mask = smem;            // [2][words]
   const float* W = p.w;
   if (SMEM) {
@@ -81,43 +90,70 @@ __global__ void __launch_bounds__(REC_MAX_N) rec_scan_kernel(
     for (int e = threadIdx.x; e < N * N; e += blockDim.x) ws[e] = p.w[e];
     W = ws;
   }
-  const int j = threadIdx.x;
-  const bool in = j < N;
-  const int warp = j / 32, lane = j % 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int64_t row = (int64_t)blockIdx.x * N;
   const int64_t stride_t = (int64_t)p.B * N;
 
-  float v = in ? p.v0[row + j] : 0.f;
-  float a = (ADAPT && in) ? p.a0[row + j] : 0.f;
-  const float tn = in ? p.tau[j] : 0.f;
-  const float rn = (ADAPT && in) ? p.rho[j] : 0.f;
-  float c_next = (in && T > 0) ? p.cur[row + j] : 0.f;
-  const unsigned bits0 = __ballot_sync(FULL, in && p.s0[row + j] != 0.f);
-  if (lane == 0) mask[warp] = bits0;
+  // the loops over the owned neurons unroll up to 8 a thread, so their
+  // state stays in registers; wider rows keep it in (cached) local memory
+  int j[NPT];
+  bool in[NPT];
+  float v[NPT], a[NPT], tn[NPT], rn[NPT], c_next[NPT];
+#pragma unroll(NPT <= 8 ? NPT : 1)
+  for (int r = 0; r < NPT; ++r) {
+    j[r] = r * (int)blockDim.x + (int)threadIdx.x;
+    in[r] = j[r] < N;
+    v[r] = in[r] ? p.v0[row + j[r]] : 0.f;
+    a[r] = (ADAPT && in[r]) ? p.a0[row + j[r]] : 0.f;
+    tn[r] = in[r] ? p.tau[j[r]] : 0.f;
+    rn[r] = (ADAPT && in[r]) ? p.rho[j[r]] : 0.f;
+    c_next[r] = (in[r] && T > 0) ? p.cur[row + j[r]] : 0.f;
+  }
+#pragma unroll(NPT <= 8 ? NPT : 1)
+  for (int r = 0; r < NPT; ++r) {
+    const unsigned bits0 =
+        __ballot_sync(FULL, in[r] && p.s0[row + j[r]] != 0.f);
+    if (lane == 0 && (r * wpb + warp) * 32 < N) mask[r * wpb + warp] = bits0;
+  }
   __syncthreads();
 
   int buf = 0;
   for (int t = 0; t < T; ++t) {
-    const float c = c_next;
-    if (in && t + 1 < T) c_next = p.cur[(t + 1) * stride_t + row + j];
-    float rec = 0.f;
+    float c[NPT], rec[NPT];
+#pragma unroll(NPT <= 8 ? NPT : 1)
+    for (int r = 0; r < NPT; ++r) {
+      c[r] = c_next[r];
+      if (in[r] && t + 1 < T)
+        c_next[r] = p.cur[(t + 1) * stride_t + row + j[r]];
+      rec[r] = 0.f;
+    }
     const uint32_t* m = mask + buf * words;
     for (int wi = 0; wi < words; ++wi)
-      for (uint32_t bits = m[wi]; bits; bits &= bits - 1)
-        if (in)
-          rec = __fadd_rn(rec, W[(int64_t)(wi * 32 + __ffs(bits) - 1) * N + j]);
-    const float u = __fadd_rn(__fadd_rn(__fmul_rn(tn, v), c), rec);
-    const float s = fire<ADAPT>(u, v, a, rn, p.v_th, p.beta);
-    if (in) p.spikes[t * stride_t + row + j] = s;
-    const unsigned bits = __ballot_sync(FULL, in && s != 0.f);
-    if (lane == 0) mask[(buf ^ 1) * words + warp] = bits;
+      for (uint32_t bits = m[wi]; bits; bits &= bits - 1) {
+        const float* wrow = W + (int64_t)(wi * 32 + __ffs(bits) - 1) * N;
+#pragma unroll(NPT <= 8 ? NPT : 1)
+        for (int r = 0; r < NPT; ++r)
+          if (in[r]) rec[r] = __fadd_rn(rec[r], wrow[j[r]]);
+      }
+#pragma unroll(NPT <= 8 ? NPT : 1)
+    for (int r = 0; r < NPT; ++r) {
+      const float u =
+          __fadd_rn(__fadd_rn(__fmul_rn(tn[r], v[r]), c[r]), rec[r]);
+      const float s = fire<ADAPT>(u, v[r], a[r], rn[r], p.v_th, p.beta);
+      if (in[r]) p.spikes[t * stride_t + row + j[r]] = s;
+      const unsigned bits = __ballot_sync(FULL, in[r] && s != 0.f);
+      if (lane == 0 && (r * wpb + warp) * 32 < N)
+        mask[(buf ^ 1) * words + r * wpb + warp] = bits;
+    }
     __syncthreads();
     buf ^= 1;
   }
-  if (in) {
-    p.vT[row + j] = v;
-    if (ADAPT) p.aT[row + j] = a;
-  }
+#pragma unroll(NPT <= 8 ? NPT : 1)
+  for (int r = 0; r < NPT; ++r)
+    if (in[r]) {
+      p.vT[row + j[r]] = v[r];
+      if (ADAPT) p.aT[row + j[r]] = a[r];
+    }
 }
 
 // Dynamic shared memory of a block: the two spike masks, plus W_rec when
@@ -137,23 +173,44 @@ int plan_smem(int N, int* bytes, bool* smem_w) {
   return 0;
 }
 
-// Launch the scan on B blocks of whole warps; returns a CUDA error code.
-template <bool ADAPT>
-int launch_rec_scan(const ScanArgs& p, cudaStream_t stream) {
-  if (p.N > REC_MAX_N) return (int)cudaErrorInvalidValue;
-  int smem = 0;
-  bool smem_w = false;
-  const int err = plan_smem(p.N, &smem, &smem_w);
-  if (err) return err;
-  const auto kern = smem_w ? rec_scan_kernel<ADAPT, true>
-                           : rec_scan_kernel<ADAPT, false>;
+// Launch kernel `kern` on B blocks of `threads` threads (whole warps).
+template <typename K>
+int launch_kernel(K kern, const ScanArgs& p, int threads, int smem,
+                  cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<p.B, (p.N + 31) / 32 * 32, smem, stream>>>(p);
+  kern<<<p.B, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The instantiation that owns NPT neurons a thread, or the next wider one.
+template <bool ADAPT, int NPT>
+int launch_npt(const ScanArgs& p, int smem, cudaStream_t stream) {
+  if constexpr (NPT < 256) {
+    if ((int64_t)NPT * REC_THREADS < p.N)
+      return launch_npt<ADAPT, 2 * NPT>(p, smem, stream);
+  } else if ((int64_t)NPT * REC_THREADS < p.N) {
+    return (int)cudaErrorInvalidValue;  // W_rec alone would be 275 GB
+  }
+  const int per = (p.N + NPT - 1) / NPT;
+  return launch_kernel(rec_scan_kernel<ADAPT, false, NPT>, p,
+                       (per + 31) / 32 * 32, smem, stream);
+}
+
+// Launch the scan on B blocks; returns a CUDA error code.
+template <bool ADAPT>
+int launch_rec_scan(const ScanArgs& p, cudaStream_t stream) {
+  int smem = 0;
+  bool smem_w = false;
+  const int err = plan_smem(p.N, &smem, &smem_w);
+  if (err) return err;
+  if (smem_w)  // N <= 241: one neuron a thread
+    return launch_kernel(rec_scan_kernel<ADAPT, true, 1>, p,
+                         (p.N + 31) / 32 * 32, smem, stream);
+  return launch_npt<ADAPT, 1>(p, smem, stream);
 }
 
 }  // namespace

@@ -22,6 +22,9 @@ with nvcc for sm_90a into one ctypes-loaded library at first use.
   lifrec   DIFF+LOCACC+SEND  the same with a self-recurrent s_{t-1} @ W_rec
   alif     DIFF+SEND       adaptive-threshold integrate-fire over time
   alifrec  DIFF+LOCACC+SEND  the same with a self-recurrent s_{t-1} @ W_rec
+  stdp     on-chip learning  clipped outer-product weight updates: one
+                          pair-STDP step (`stdp`) and K term planes over T
+                          serial steps (`stdp_seq`)
 
 `incidents.py` is the per-process incident log, kept verbatim from the
 JAX package (the serve scheduler records backpressure on it).

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels at first use and bind them with ctypes.
 
 All `src/repro_torch/csrc/*.cu` files (and the `*.cuh` headers they
-include) are compiled and linked for `sm_90a`
-by one `nvcc -shared` call into a shared library with a plain C interface.
+include) are compiled for `sm_90a`, one `nvcc -c` per source, all started
+together, and linked by one `nvcc -shared` call into a shared library with
+a plain C interface.
 The library lands in `build/repro_torch/<digest>/` at the repository root
 when the package runs from a checkout (`build/` is git-ignored), and under
 `$XDG_CACHE_HOME/repro_torch/` (default `~/.cache`) when it runs from an
@@ -37,10 +38,13 @@ CSRC = PKG / "csrc"
 # `spikemm/sparse.py` measures at it, and `csrc/spikemm_sparse.cu` takes
 # it from the -D flags below (and refuses to build without them).
 SPARSE_BLOCK = (64, 64)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DSPIKEMM_SPARSE_BM={SPARSE_BLOCK[0]}",
-              f"-DSPIKEMM_SPARSE_BK={SPARSE_BLOCK[1]}")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# compile flags (each source with -c), then the link's
+NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                      "-Xptxas", "-v",
+                      f"-DSPIKEMM_SPARSE_BM={SPARSE_BLOCK[0]}",
+                      f"-DSPIKEMM_SPARSE_BK={SPARSE_BLOCK[1]}")
+LINK_FLAGS = _ARCH + ("-shared",)
 LIB_NAME = "libreprotorch.so"
 
 _P = ctypes.c_void_p
@@ -56,13 +60,15 @@ SIGNATURES = {
     "linrec_f32": ((_P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "lif_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
     "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _P), _I),
-    "rec_scan_max_n": ((), _I),
     "rec_scan_w_in_smem": ((_I,), _I),
     "alif_f32": ((_P,) * 8 + (_I, _I, _I, _F, _F, _P), _I),
     "alifrec_f32": ((_P,) * 10 + (_I, _I, _I, _F, _F, _P), _I),
     "spikemm_sparse_f32": ((_P,) * 6 + (_I, _I, _I, _P), _I),
     "spikemm_gather_f32": ((_P,) * 6 + (_I,) * 6 + (_P,), _I),
     "spikemm_gather_block_m": ((), _I),
+    "stdp_seq_f32": ((_P,) * 5 + (_I,) * 5 + (_F, _F, _P), _I),
+    "stdp_f32": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),
+    "stdp_bf16": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),
     "cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -111,7 +117,7 @@ def _digest(nvcc: str, srcs: List[Path]) -> str:
     st = os.stat(real)
     h = hashlib.sha256()
     for part in (real, f"{st.st_size}:{st.st_mtime_ns}",
-                 " ".join(NVCC_FLAGS)):
+                 " ".join(NVCC_FLAGS), " ".join(LINK_FLAGS)):
         h.update(part.encode())
     for s in srcs + sorted(CSRC.glob("*.cuh")):     # the headers too
         h.update(s.name.encode())
@@ -120,8 +126,9 @@ def _digest(nvcc: str, srcs: List[Path]) -> str:
 
 
 def build() -> Path:
-    """Compile and link every source with one nvcc call; returns the
-    library's path. Reuses an existing build with the same digest."""
+    """Compile every source (one nvcc process each, all running at once)
+    and link them with one more; returns the library's path. Reuses an
+    existing build with the same digest."""
     nvcc = nvcc_path()
     srcs = sources()
     out_dir = BUILD_ROOT / _digest(nvcc, srcs)
@@ -130,15 +137,28 @@ def build() -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{s.stem}.o" for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o",
+                                   str(o)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [f"== {s.name}\n{p.communicate()[0]}"
+                for s, p in zip(srcs, procs)]
+        failed = [(s.name, p.returncode) for s, p in zip(srcs, procs)
+                  if p.returncode != 0]
         tmp_lib = Path(tmp) / LIB_NAME
-        p = subprocess.run([nvcc, *NVCC_FLAGS, *map(str, srcs),
-                            "-o", str(tmp_lib)],
-                           capture_output=True, text=True)
-        log = p.stdout + p.stderr
+        if not failed:
+            p = subprocess.run([nvcc, *LINK_FLAGS, *map(str, objs), "-o",
+                                str(tmp_lib)], capture_output=True,
+                               text=True)
+            logs.append(f"== link\n{p.stdout}{p.stderr}")
+            if p.returncode != 0:
+                failed.append(("link", p.returncode))
+        log = "\n".join(logs)
         (out_dir / "build.log").write_text(log)
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc exited {p.returncode} building "
-                               f"{[s.name for s in srcs]}:\n{log[-4000:]}")
+        if failed:
+            raise RuntimeError(f"nvcc exited {failed[0][1]} building "
+                               f"{[n for n, _ in failed]}:\n{log[-4000:]}")
         os.replace(tmp_lib, lib)
     return lib
 

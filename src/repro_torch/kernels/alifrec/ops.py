@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.alifrec.ref import alif_scan_ref, alifrec_scan_ref
-from repro_torch.kernels.common import check_rec_n, check_scan
+from repro_torch.kernels.common import check_scan
 
 
 def _outputs(current: torch.Tensor, v0: torch.Tensor, a0: torch.Tensor):
@@ -55,7 +55,6 @@ def alifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
     check_scan("alifrec", current, w_rec, [("tau", tau), ("rho", rho)],
                [("v0", v0), ("a0", a0), ("s0", s0)])
     T, B, N = current.shape
-    check_rec_n("alifrec", N)
     spikes, vT, aT = _outputs(current, v0, a0)
     if T == 0:
         return spikes, vT.copy_(v0), aT.copy_(a0)

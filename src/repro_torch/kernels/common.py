@@ -88,15 +88,6 @@ def check_matmul(name: str, spikes: torch.Tensor, w: torch.Tensor) -> None:
                          f"w on {w.device}")
 
 
-def check_rec_n(name: str, n: int) -> None:
-    """Raise when a batch row of n neurons exceeds what the recurrent
-    scan's block holds (`rec_scan_max_n` in the library)."""
-    max_n = _build.library().rec_scan_max_n()
-    if n > max_n:
-        raise ValueError(f"{name}: N={n} neurons exceed the recurrent "
-                         f"kernel's {max_n} per batch row")
-
-
 def w_in_smem(n: int) -> bool:
     """Whether the recurrent kernels (`lifrec`, `alifrec`) keep an (n, n)
     W_rec in shared memory on the current device; else they read W_rec
@@ -125,5 +116,4 @@ def pad_axis(x: torch.Tensor, axis: int, mult: int, value=0.0):
 
 
 __all__ = ["resolve_device", "check_device", "check_scan", "check_matmul",
-           "check_rec_n",
            "w_in_smem", "tree_to", "pad_axis", "DeviceLike"]

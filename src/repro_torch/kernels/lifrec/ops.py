@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, registry
-from repro_torch.kernels.common import check_rec_n, check_scan
+from repro_torch.kernels.common import check_scan
 from repro_torch.kernels.lifrec.ref import lifrec_scan_ref
 
 
@@ -22,7 +22,6 @@ def lifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
     check_scan("lifrec", current, w_rec, [("tau", tau)],
                [("v0", v0), ("s0", s0)])
     T, B, N = current.shape
-    check_rec_n("lifrec", N)
     spikes = torch.empty_like(current)
     vT = torch.empty_like(v0)
     if T == 0:

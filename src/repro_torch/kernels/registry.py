@@ -53,6 +53,9 @@ class KernelSpec:
     plain: Callable[..., Any]          # plain PyTorch version (any device)
     cuda: Callable[..., Any]           # hand-kernel wrapper (CUDA tensors)
     make_inputs: Optional[Callable[..., tuple]] = None  # (generator) -> args
+    # keyword arguments a call on make_inputs' tensors needs beside them
+    # (the JAX spec's `tune_static`)
+    static: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     tol: float = 1e-4
     # named alternative channels and the router that picks one per call:
     # select_channel(*args, traced=...) -> (a key of `channels` or None for
@@ -79,6 +82,7 @@ _KERNEL_MODULES = (
     "repro_torch.kernels.lifrec.ops",
     "repro_torch.kernels.alifrec.ops",
     "repro_torch.kernels.spikemm.gather",
+    "repro_torch.kernels.stdp.ops",
 )
 
 

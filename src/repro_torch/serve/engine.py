@@ -32,9 +32,13 @@ matmul sums each row in a fixed order with no split-K; the recurrences
 are per-lane) and solo and packed cohorts run at the same shape;
 evict/restore because spill is a pure device<->host copy.
 
-Not ported yet: `learn=True` (the per-session vmapped plasticity path)
-and `guard=`; both raise NotImplementedError naming their ROADMAP.md
-items.
+A program with plastic connections serves with frozen weights
+(`EngineConfig(learn=False)`, as in the reference): each session's synapse
+("syn:") entries stay in its own state tree, are never packed into a cohort
+(their weight plane has no batch axis), and come back unchanged.
+
+Not ported yet: `learn=True` (the per-session plasticity path) and
+`guard=`; both raise NotImplementedError naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -65,7 +69,8 @@ class EngineConfig:
                  rejected (backpressure). None = unbounded.
     cache_bytes: hot-state byte budget for the LRU cache; LRU sessions
                  spill to host beyond it. None = unbounded.
-    learn:       per-session on-chip plasticity (not ported yet: raises).
+    learn:       per-session on-chip plasticity (not ported yet: raises);
+                 with False a plastic program serves with frozen weights.
     guard:       numerical guardrail policy (not ported yet: raises).
     """
 
@@ -90,6 +95,27 @@ def _check_params(params: Dict[str, Any], device: torch.device,
             _check_params(v, device, f"{path}[{k!r}]")
         elif isinstance(v, torch.Tensor):
             check_device(f"{path}[{k!r}]", v, device)
+
+
+def _split_syn(state: Dict[str, Any]
+               ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Split a session state into (packable core, per-session syn tree)."""
+    core: Dict[str, Any] = {}
+    syn: Dict[str, Any] = {}
+    for node, nd in state.items():
+        core[node] = {k: v for k, v in nd.items()
+                      if not k.startswith("syn:")}
+        s = {k: v for k, v in nd.items() if k.startswith("syn:")}
+        if s:
+            syn[node] = s
+    return core, syn
+
+
+def _merge_syn(core: Dict[str, Any], syn: Dict[str, Any]) -> Dict[str, Any]:
+    out = {node: dict(nd) for node, nd in core.items()}
+    for node, s in syn.items():
+        out[node].update(s)
+    return out
 
 
 class BatchedEngine:
@@ -130,7 +156,10 @@ class BatchedEngine:
         for n in self.nodes:
             for c in n.connections:
                 if c.src == "input":
-                    return int(self.params[n.name][c.weight_key].shape[-2])
+                    topo = events.resolve_topology(c, n.name, self.params)
+                    w = (topo if topo is not None
+                         else self.params[n.name][c.weight_key])
+                    return int(w.shape[-2])
         raise ValueError("no node reads 'input'; cannot infer n_in")
 
     # -- lifecycle ----------------------------------------------------------
@@ -234,15 +263,18 @@ class BatchedEngine:
                     states: List[Dict[str, Any]]
                     ) -> Tuple[List[Dict[str, Any]], List[np.ndarray]]:
         # flat path: sessions concatenated along the batch axis, padded to
-        # capacity with zero slots whose results are discarded
+        # capacity with zero slots whose results are discarded; syn entries
+        # stay per session
         C = self.cfg.capacity
-        packed = plan_mod.pack_states(states, pad_to=C)
+        cores, syns = zip(*(_split_syn(s) for s in states))
+        packed = plan_mod.pack_states(list(cores), pad_to=C)
         x = self._window([xw for _, xw, _ in cohort], C)
         ns, out, _ = plan_mod.run(self.nodes, self.params, x, state=packed,
-                                  plan=self.plan, device=self.device,
-                                  _traced=True)
+                                  plan=self.plan, learn=False,
+                                  device=self.device, _traced=True)
         out_np = out.cpu().numpy()              # one transfer per window
-        return ([plan_mod.unpack_state(ns, i) for i in range(len(cohort))],
+        return ([_merge_syn(plan_mod.unpack_state(ns, i), syn)
+                 for i, syn in enumerate(syns)],
                 [out_np[:, i, :] for i in range(len(cohort))])
 
 
@@ -256,11 +288,12 @@ class NaiveEngine(BatchedEngine):
         news: List[Dict[str, Any]] = []
         outs: List[np.ndarray] = []
         for (_, xw, _), state in zip(cohort, states):
+            core, syn = _split_syn(state)
             ns, out, _ = plan_mod.run(self.nodes, self.params,
-                                      self._window([xw], 1), state=state,
-                                      plan=self.plan, device=self.device,
-                                      _traced=True)
-            news.append(ns)
+                                      self._window([xw], 1), state=core,
+                                      plan=self.plan, learn=False,
+                                      device=self.device, _traced=True)
+            news.append(_merge_syn(ns, syn))
             outs.append(out.cpu().numpy()[:, 0, :])
         return news, outs
 

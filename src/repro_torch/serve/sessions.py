@@ -21,10 +21,9 @@ from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.core.plan import state_nbytes
-from repro_torch.kernels.common import tree_to
+from repro_torch.kernels.common import resolve_device, tree_to
 from repro_torch.serve.metrics import ServeMetrics
 
 
@@ -102,12 +101,12 @@ class StateCache:
 
     def __init__(self, budget_bytes: Optional[int] = None,
                  metrics: Optional[ServeMetrics] = None,
-                 device: Any = "cpu"):
+                 device: Any = "cuda"):
         if budget_bytes is not None and budget_bytes <= 0:
             raise ValueError(f"budget_bytes must be positive or None, "
                              f"got {budget_bytes}")
         self.budget_bytes = budget_bytes
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.metrics = metrics or ServeMetrics()
         # sid -> (state tree, nbytes, spilled?); insertion order = recency
         self._entries: "OrderedDict[str, Tuple[Any, int, bool]]" = \

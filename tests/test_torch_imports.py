@@ -36,9 +36,11 @@ assert not bad, bad
 print(len(mods), " ".join(mods))
 """
 
-# the modules of the serving slices and of compressed topology
-# (ROADMAP.md, Open items 1, items 1, 3 and 6)
+# the modules of the serving slices, compressed topology and plasticity
+# (ROADMAP.md, Open items 1, items 1, 3, 5 and 6)
 EXPECTED = {
+    "repro_torch.core.plasticity", "repro_torch.kernels.stdp.ops",
+    "repro_torch.kernels.stdp.ref",
     "repro_torch.core.topology", "repro_torch.kernels.spikemm.gather",
     "repro_torch.kernels.spikemm.sparse",
     "repro_torch.kernels.lifrec.ops", "repro_torch.kernels.lifrec.ref",

@@ -14,6 +14,11 @@ block-sparse channel is held against the JAX package's sparse reference
 and sparse Pallas kernel (interpret mode) at density extremes, and its
 router against the threshold and `REPRO_SPIKEMM_SPARSE`; the gather family
 is held against the reference in `tests/test_torch_topology.py`.
+`stdp` (fp32 and bf16 traces) and `stdp_seq` (the JAX family's ragged
+shape, four term planes, and a case that hits the clip) are held to the
+JAX reference and the Pallas kernels in interpret mode at their tol 1e-4,
+and their plain versions to the kernel's summation order. The recurrent
+plain versions take rows wider than 1024 neurons, as the reference does.
 
 The hand CUDA kernels themselves cannot run here (no card, no nvcc);
 `chip_smoke.py` holds each one against its plain version on the card.
@@ -51,6 +56,9 @@ from repro_torch.kernels.spikemm.sparse import (SPARSE_BLOCK,
                                                 occupancy_flags,
                                                 spikemm_sparse_cuda,
                                                 spikemm_sparse_ref)
+from repro_torch.kernels.stdp.ops import (stdp_seq, stdp_seq_cuda,
+                                          stdp_update, stdp_update_cuda)
+from repro_torch.kernels.stdp.ref import outer_sum
 
 IMPLS = [False, True]           # JAX side: reference, Pallas (interpret)
 
@@ -182,7 +190,9 @@ def test_sparse_block_shape_is_the_kernels(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
     _build.build()
-    argv, = [json.loads(line) for line in calls.read_text().splitlines()]
+    argv, = [a for a in (json.loads(line) for line in
+                         calls.read_text().splitlines())
+             if str(_build.CSRC / "spikemm_sparse.cu") in a]
     bm, bk = SPARSE_BLOCK
     assert f"-DSPIKEMM_SPARSE_BM={bm}" in argv
     assert f"-DSPIKEMM_SPARSE_BK={bk}" in argv
@@ -361,16 +371,18 @@ def test_recurrent_term_is_the_event_sum_in_ascending_order():
 
 
 def test_registry_make_inputs_run_plain_on_cpu():
-    """Every family's make_inputs runs through dispatch on the CPU, and the
-    CPU path never counts a kernel launch."""
+    """Every family's make_inputs (with its static keywords) runs through
+    dispatch on the CPU, and the CPU path never counts a kernel launch."""
     registry.reset_launches()
     g = torch.Generator().manual_seed(0)
     for name in registry.names():
-        out = registry.dispatch(name, registry.get(name).make_inputs(g))
+        spec = registry.get(name)
+        out = registry.dispatch(name, spec.make_inputs(g), **spec.static)
         for o in (out if isinstance(out, tuple) else (out,)):
             assert torch.isfinite(o).all()
     assert registry.names() == ("alif", "alifrec", "lif", "lifrec", "linrec",
-                                "spikemm", "spikemm_gather")
+                                "spikemm", "spikemm_gather", "stdp",
+                                "stdp_seq")
     assert registry.launch_counts() == {
         n: 0 for n in registry.names() + ("spikemm_sparse",)}
 
@@ -395,6 +407,12 @@ def test_dispatch_rejects_mixed_devices():
     lambda: spikemm_sparse_cuda(torch.zeros(4, 3), torch.zeros(3, 2)),
     lambda: spikemm_gather_cuda(torch.zeros(4, 3), build_gather_tables(
         [0], [1], [1.0], 3, 2, bk=4, bn=4)),
+    lambda: stdp_update_cuda(torch.zeros(2, 3), torch.zeros(2, 4),
+                             torch.zeros(2, 3), torch.zeros(2, 4),
+                             torch.zeros(3, 4)),
+    lambda: stdp_seq_cuda(torch.zeros(2, 6, 3), torch.zeros(2, 6, 4),
+                          torch.zeros(3, 4), amps=(0.1, -0.1), w_min=-1.0,
+                          w_max=1.0, batch=2),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A CUDA wrapper never runs a plain version: CPU tensors raise."""
@@ -418,22 +436,28 @@ def _fake_nvcc(tmp_path, exit_code):
 
 
 def test_build_is_one_nvcc_call(tmp_path, monkeypatch):
-    """Every source is compiled and linked for sm_90a by one `nvcc -shared`
+    """Every source is compiled for sm_90a by its own `nvcc -c`, all
+    started together, and the objects are linked by one `nvcc -shared`
     call into the digest directory; an unchanged tree reuses the build."""
     nvcc, calls = _fake_nvcc(tmp_path, 0)
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
     lib = _build.build()
-    argv, = [json.loads(line) for line in calls.read_text().splitlines()]
-    assert "-shared" in argv and "arch=compute_90a,code=sm_90a" in argv
-    assert [a for a in argv if a.endswith(".cu")] == \
+    argvs = [json.loads(line) for line in calls.read_text().splitlines()]
+    *compiles, link = argvs
+    assert sorted(a[a.index("-c") + 1] for a in compiles) == \
         [str(s) for s in _build.sources()]
+    for argv in argvs:
+        assert "arch=compute_90a,code=sm_90a" in argv
+    assert "-shared" in link and "-c" not in link
+    assert sorted(a for a in link if a.endswith(".o")) == sorted(
+        a[a.index("-o") + 1] for a in compiles)
     assert lib.parent.parent == tmp_path / "build" and lib.exists()
     assert {s.name for s in _build.sources()} >= {
         "spikemm.cu", "linrec.cu", "lif.cu", "lifrec.cu", "alifrec.cu",
-        "spikemm_sparse.cu", "spikemm_gather.cu"}
+        "spikemm_sparse.cu", "spikemm_gather.cu", "stdp.cu"}
     assert _build.build() == lib
-    assert len(calls.read_text().splitlines()) == 1
+    assert len(calls.read_text().splitlines()) == len(_build.sources()) + 1
 
 
 def test_header_edit_rebuilds(tmp_path, monkeypatch):
@@ -450,7 +474,8 @@ def test_header_edit_rebuilds(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "// edited\n")
     second = _build.build()
     assert second != first and second.exists()
-    assert len(calls.read_text().splitlines()) == 2
+    assert len(calls.read_text().splitlines()) == 2 * (len(_build.sources())
+                                                       + 1)
 
 
 def test_build_failure_raises(tmp_path, monkeypatch):
@@ -470,3 +495,151 @@ def test_build_root_is_the_checkout_or_a_user_cache(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "PKG", tmp_path / "site-packages" / "repro_torch")
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
     assert _build.build_root() == tmp_path / "cache" / "repro_torch"
+
+
+# ---------------------------------------------------------------------------
+# stdp and stdp_seq (on-chip learning)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_exact(a):
+    """fp32 values that bf16 holds exactly (both packages then read the
+    same bf16 tensor)."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("force_pallas", IMPLS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,M,N", [(8, 256, 256), (16, 300, 200),
+                                   (4, 128, 640)])
+def test_stdp_matches_reference(B, M, N, dtype, force_pallas):
+    """The JAX kernel tests' shapes and dtypes and its clip (+-0.4): the
+    plain version against the reference and the Pallas kernel (interpret
+    mode) at the family's tol. bf16 traces are upcast exactly in all
+    three, so one tolerance holds both dtypes."""
+    rng = np.random.default_rng(B * M + N)
+    x_pre = rng.random((B, M)).astype(np.float32)
+    x_post = rng.random((B, N)).astype(np.float32)
+    s_pre = (rng.random((B, M)) < 0.2).astype(np.float32)
+    s_post = (rng.random((B, N)) < 0.2).astype(np.float32)
+    w = (0.5 * rng.standard_normal((M, N))).astype(np.float32)
+    traces = [x_pre, s_post, s_pre, x_post]
+    if dtype == "bfloat16":
+        traces = [_bf16_exact(a) for a in traces]
+    kw = dict(a_plus=0.05, a_minus=0.06, w_min=-0.4, w_max=0.4)
+    jargs = tuple(jnp.asarray(a, getattr(jnp, dtype)) for a in traces) + (
+        jnp.asarray(w),)
+    ref = np.asarray(jreg.dispatch("stdp", jargs, force_pallas=force_pallas,
+                                   **kw))
+    targs = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in traces]
+    got = stdp_update(*targs, torch.from_numpy(w), **kw)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=_tol("stdp"))
+    assert (got.abs() == 0.4).sum() > 0, "no weight reached the clip"
+
+
+def _seq_case(K, T, B, M, N, seed):
+    rng = np.random.default_rng(seed)
+    P = rng.random((K, T * B, M)).astype(np.float32)
+    Q = (rng.random((K, T * B, N)) < 0.2).astype(np.float32)
+    w = (0.5 * rng.standard_normal((M, N))).astype(np.float32)
+    return P, Q, w
+
+
+@pytest.mark.parametrize("force_pallas", IMPLS)
+@pytest.mark.parametrize("case", ["jax_make_inputs", "four_terms",
+                                  "clip"])
+def test_stdp_seq_matches_reference(case, force_pallas):
+    """`_make_seq_inputs`' ragged shape (K=2, T=12, B=4, 130 x 140), four
+    term planes (the matcher's largest program) and bounds of +-0.4 that
+    the trajectory hits: the plain version against the reference and the
+    Pallas kernel (interpret mode) at the family's tol."""
+    K, amps, lo, hi = {
+        "jax_make_inputs": (2, (0.01, -0.012), -1.0, 1.0),
+        "four_terms": (4, (0.02, -0.015, 0.01, -0.03), -1.0, 1.0),
+        "clip": (2, (0.05, -0.06), -0.4, 0.4)}[case]
+    P, Q, w = _seq_case(K, 12, 4, 130, 140, K * 7 + len(case))
+    static = dict(amps=amps, w_min=lo, w_max=hi, batch=4)
+    ref, = _jax("stdp_seq", (P, Q, w), force_pallas, **static)
+    got, = _port(stdp_seq, (P, Q, w), **static)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=_tol("stdp_seq"))
+    if case == "clip":
+        assert (np.abs(got) == 0.4).sum() > 0, "no weight reached the clip"
+
+
+def test_stdp_plain_versions_sum_in_the_kernels_order():
+    """`outer_sum` adds p[b] q[b] from zeros over b ascending, one rounded
+    product and one rounded sum a row: the order `csrc/stdp.cu` follows.
+    `stdp_seq`'s step is dw = sum over k of amp_k * s_k from zeros, then
+    clip(w + dw); the single step is (w + a_plus pot) - a_minus dep."""
+    rng = np.random.default_rng(11)
+    p = torch.from_numpy(rng.random((5, 7)).astype(np.float32))
+    q = torch.from_numpy(rng.random((5, 6)).astype(np.float32))
+    s = outer_sum(p, q)
+    for i in range(7):
+        for j in range(6):
+            acc = torch.tensor(0.0)
+            for b in range(5):
+                acc = acc + p[b, i] * q[b, j]
+            assert torch.equal(s[i, j], acc)
+    P, Q, w = (torch.from_numpy(a) for a in _seq_case(2, 3, 5, 7, 6, 2))
+    amps = (0.3, -0.2)
+    want = w.clone()
+    for t in range(3):
+        rows = slice(5 * t, 5 * t + 5)
+        dw = torch.zeros_like(w)
+        for k in range(2):
+            dw = dw + torch.tensor(amps[k]) * outer_sum(P[k, rows],
+                                                        Q[k, rows])
+        want = torch.clamp(want + dw, -0.5, 0.5)
+    assert torch.equal(stdp_seq(P, Q, w, amps=amps, w_min=-0.5, w_max=0.5,
+                                batch=5), want)
+    x_pre, s_pre = P[0, :5], P[1, :5]
+    s_post, x_post = Q[0, :5], Q[1, :5]
+    one = stdp_update(x_pre, s_post, s_pre, x_post, w, a_plus=0.3,
+                      a_minus=0.2, w_min=-0.5, w_max=0.5)
+    want = torch.clamp((w + torch.tensor(0.3) * outer_sum(x_pre, s_post))
+                       - torch.tensor(0.2) * outer_sum(s_pre, x_post),
+                       -0.5, 0.5)
+    assert torch.equal(one, want)
+    bf = stdp_update(x_pre.bfloat16(), s_post.bfloat16(), s_pre.bfloat16(),
+                     x_post.bfloat16(), w, a_plus=0.3, a_minus=0.2,
+                     w_min=-0.5, w_max=0.5)
+    up = stdp_update(x_pre.bfloat16().float(), s_post.bfloat16().float(),
+                     s_pre.bfloat16().float(), x_post.bfloat16().float(), w,
+                     a_plus=0.3, a_minus=0.2, w_min=-0.5, w_max=0.5)
+    assert torch.equal(bf, up)                 # bf16 upcasts exactly
+
+
+def test_stdp_wrappers_write_a_fresh_weight():
+    """The plain versions return a new tensor and leave w as it was (the
+    CUDA wrappers allocate theirs with torch.empty_like)."""
+    P, Q, w = (torch.from_numpy(a) for a in _seq_case(2, 2, 3, 5, 4, 3))
+    w0 = w.clone()
+    out = stdp_seq(P, Q, w, amps=(0.5, -0.5), w_min=-1.0, w_max=1.0, batch=3)
+    assert out is not w and torch.equal(w, w0) and not torch.equal(out, w0)
+    out = stdp_update(P[0, :3], Q[0, :3], P[1, :3], Q[1, :3], w)
+    assert out is not w and torch.equal(w, w0)
+
+
+@pytest.mark.parametrize("name", ["lifrec", "alifrec"])
+def test_recurrent_plain_versions_take_rows_over_1024(name):
+    """N = 1025, past what the recurrent kernel once held per batch row:
+    the reference and the port's plain version take it (the card's check
+    is in `chip_smoke.py`), and the kernel's source sets no limit on N
+    short of device memory."""
+    T, B, N = 3, 2, 1025
+    cur, w_rec, tau, rho, v0, a0, s0 = _scan_inputs(T, B, N, N)
+    cur = cur + 0.6                     # enough spikes for a real check
+    if name == "lifrec":
+        args, kw, fn = (cur, w_rec, tau, v0, s0), dict(v_th=1.0), lifrec_scan
+    else:
+        args, kw, fn = ((cur, w_rec, tau, rho, v0, a0, s0),
+                        dict(v_th=1.0, beta=0.5), alifrec_scan)
+    ref = _jax(name, args, False, **kw)
+    got = _port(fn, args, **kw)
+    _assert_spiking_outputs_close(got, ref, name)
+    src = (_build.CSRC / "rec_scan.cuh").read_text()
+    assert "REC_MAX_N" not in src and "rec_scan_max_n" not in \
+        (_build.CSRC / "lifrec.cu").read_text()
+    assert "rec_scan_max_n" not in _build.SIGNATURES

@@ -21,6 +21,10 @@
 * The neuron IR: each built-in's FIRE step (`program_fire`) agrees with
   the JAX interpreter, and program validation and `register_neuron`
   refuse what the reference refuses.
+* The env knobs: REPRO_SNN_ENGINE selects the engine, REPRO_SNN_EXPLAIN
+  prints `describe()`, REPRO_CHECK raises (the checker is not ported), bad
+  values raise the reference's errors; neuron state and the serve cache
+  default to the card.
 """
 
 import jax
@@ -37,10 +41,12 @@ from repro.core.neuron import ALIF as JALIF, DHLIF as JDHLIF, LI as JLI, \
 from repro.core.snn_layers import ff_integrate as jff, \
     make_dhsnn_shd as jmake_dhsnn, make_srnn_ecg as jmake_srnn
 from repro_torch.core import events, neuron, plan
+from repro_torch.core.plasticity import pair_stdp
 from repro_torch.core.neuron import ALIF, DHLIF, LI, LIF
 from repro_torch.core.snn_layers import ff_integrate, make_dhsnn_shd, \
     make_srnn_ecg
 from repro_torch.data.spikes import gen_ecg_qtdb, gen_shd_spikes
+from repro_torch.serve import EngineConfig, make_engine
 from tests._torch_parity import hidden_membrane, is_recurrent, \
     max_err_before, tie_rule
 from repro_torch.weights import params_from_numpy, params_to_numpy
@@ -458,10 +464,102 @@ def test_unported_hooks_raise(monkeypatch):
     monkeypatch.setenv("REPRO_FAULTS", "dead_rows:frac=0.1")
     with pytest.raises(NotImplementedError, match="fault injection"):
         plan.run(tn, tp, x, device="cpu")
-    with pytest.raises(NotImplementedError, match="plasticity"):
-        events.Connection("input", plastic=object())
-    # compressed topology is ported: a params-key topology edge builds
+    monkeypatch.delenv("REPRO_FAULTS")
+    monkeypatch.setenv("REPRO_CHECK", "raise")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        plan.run(tn, tp, x, device="cpu")
+    # compressed topology and plasticity are ported: both edges build
     assert events.Connection("input", topology="t").topology == "t"
+    assert events.Connection("input", plastic=pair_stdp()).plastic \
+        == pair_stdp()
+
+
+def test_engine_knob_selects_the_engine(monkeypatch):
+    """REPRO_SNN_ENGINE=stepper runs `events.run` and gives the stepper's
+    outputs and state bit for bit; plan and auto run the fused plan; a bad
+    value raises the reference's ValueError."""
+    _, _, tn, tp = _dhsnn(True, 40, 16, 5)
+    x = torch.from_numpy(_raster(12, 2, 40, 0.3, seed=3))
+    calls = []
+    stepper = events.run
+
+    def spy(*a, **k):
+        calls.append(1)
+        return stepper(*a, **k)
+
+    monkeypatch.setattr(events, "run", spy)
+    st_s, o_s, _ = stepper(tn, tp, x, device="cpu")
+    for mode, want in (("plan", 0), ("auto", 0), ("stepper", 1)):
+        monkeypatch.setenv("REPRO_SNN_ENGINE", mode)
+        calls.clear()
+        st, o, _ = plan.run(tn, tp, x, device="cpu")
+        assert len(calls) == want, mode
+        if want:
+            assert torch.equal(o, o_s)
+            for n in st_s:
+                for k in st_s[n]:
+                    assert torch.equal(st[n][k], st_s[n][k])
+        else:
+            torch.testing.assert_close(o, o_s, atol=ATOL, rtol=0)
+    monkeypatch.setenv("REPRO_SNN_ENGINE", "interpreter")
+    with pytest.raises(ValueError) as got:
+        plan.run(tn, tp, x, device="cpu")
+    with pytest.raises(ValueError) as ref:
+        jplan.engine_mode()
+    assert str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("mode", ["warn", "raise", "sometimes"])
+def test_check_knob_raises(mode, monkeypatch):
+    """REPRO_CHECK asks for the compile-time checker, which is not ported:
+    warn and raise refuse to compile or run unchecked (naming ROADMAP
+    item 9), a bad value raises the reference's ValueError, off runs."""
+    _, _, tn, tp = _dhsnn(True, 8, 4, 2)
+    x = torch.zeros(3, 1, 8)
+    monkeypatch.setenv("REPRO_CHECK", mode)
+    if mode == "sometimes":
+        with pytest.raises(ValueError) as ref:
+            jplan.check_mode()
+        for call in (lambda: plan.compile_program(tn),
+                     lambda: plan.run(tn, tp, x, device="cpu")):
+            with pytest.raises(ValueError) as got:
+                call()
+            assert str(got.value) == str(ref.value)
+    else:
+        for call in (lambda: plan.compile_program(tn),
+                     lambda: plan.run(tn, tp, x, device="cpu"),
+                     lambda: make_engine(tn, tp, EngineConfig(),
+                                         device="cpu")):
+            with pytest.raises(NotImplementedError, match="item 9"):
+                call()
+    monkeypatch.setenv("REPRO_CHECK", "off")
+    plan.run(tn, tp, x, device="cpu")
+
+
+def test_explain_knob_prints_describe(monkeypatch, capsys):
+    jn, _, tn, _ = _dhsnn(True, 8, 4, 2)
+    plan.compile_program(tn)
+    assert capsys.readouterr().out == ""
+    monkeypatch.setenv("REPRO_SNN_EXPLAIN", "1")
+    compiled = plan.compile_program(tn)
+    out = capsys.readouterr().out
+    assert out == f"[repro_torch.plan] {compiled.describe()}\n"
+    assert compiled.describe() == jplan.compile_program(jn).describe()
+
+
+def test_state_defaults_are_the_card(monkeypatch):
+    """A neuron's `init_state` and the serve cache default to the card, as
+    every entry point does: with no card they raise unless the caller
+    passes device="cpu"."""
+    from repro_torch.serve.sessions import StateCache
+    assert LIF().init_state((2, 3), device="cpu")["v"].device.type == "cpu"
+    assert StateCache(device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: LIF().init_state((2, 3)),
+                 lambda: DHLIF().init_state((2, 3)),
+                 lambda: StateCache()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_integer_rasters_cast_before_integ():

@@ -20,6 +20,8 @@
   measured), sparse only where `REPRO_SPIKEMM_SPARSE=always` pins it.
 * `learn=True` and entry points called without a device on a machine with
   no card raise.
+* A program whose input edge is a compressed topology serves: the engine
+  reads the input width from the topology.
 """
 
 import dataclasses
@@ -341,3 +343,35 @@ def test_engine_window_routes_like_a_traced_step(kind, monkeypatch):
         outs[mode] = [eng.outputs(sid) for sid in data]
     for a, b in zip(outs["auto"], outs["always"]):
         np.testing.assert_allclose(a, b, rtol=0, atol=plan.CROSS_ENGINE_ATOL)
+
+
+@pytest.mark.parametrize("kind", ["batched", "naive"])
+def test_engine_takes_a_topology_input_edge(kind):
+    """The engine infers n_in from a `Connection(topology=)` input edge (it
+    read a dense weight key such an edge does not have) and serves the
+    program as one `plan.run` computes it."""
+    from repro_torch.core import topology as topo
+    from repro_torch.core.neuron import LI, LIF
+    from repro_torch.core.snn_layers import ff_integrate
+    rng = np.random.default_rng(0)
+    dense = (rng.standard_normal((N_IN, 10))
+             * (rng.random((N_IN, 10)) < 0.4)).astype(np.float32)
+    nodes = [events.LayerNode("h", LIF(tau=0.8, v_th=0.3), ff_integrate,
+                              (events.Connection("input", topology=topo.encode(
+                                  dense, kind="sparse", ie_type=1)),), 10),
+             events.LayerNode("ro", LI(tau=0.9), ff_integrate, ("h",), 3)]
+    params = {"h": {}, "ro": {"w_h": torch.from_numpy(
+        rng.standard_normal((10, 3)).astype(np.float32))}}
+    eng = make_engine(nodes, params, EngineConfig(window=4, capacity=2),
+                      kind=kind, device="cpu")
+    assert eng.n_in == N_IN
+    x = (rng.random((9, N_IN)) < 0.4).astype(np.float32)
+    sid = eng.open()
+    eng.submit(sid, x)
+    eng.close(sid)
+    eng.drain()
+    _, o, r = plan.run(nodes, params, torch.from_numpy(x[:, None]),
+                       record=("h",), device="cpu")
+    assert float(r["h"].mean()) > 0.01
+    torch.testing.assert_close(torch.from_numpy(eng.outputs(sid)), o[:, 0],
+                               rtol=0, atol=plan.CROSS_ENGINE_ATOL)

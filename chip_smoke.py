@@ -1,5 +1,5 @@
-"""Chip smoke test: serve the paper's SNNs and learn on-chip through
-`repro_torch` on one H100.
+"""Chip smoke test: serve the paper's SNNs, learn on-chip and run flash
+attention through `repro_torch` on one H100.
 
 Run from the repository root with no arguments:
 
@@ -138,9 +138,35 @@ continues, and nothing falls back to the CPU.
             `stdp_run(use_kernel=True)` at T=300, B=8, 256 x 128: 300 `stdp`
             launches; the weight equals `use_kernel=False` on the card and
             the CPU's plain version within 1e-5 (the JAX test's tolerance).
-11. result  prints `{"kernels": [...]}`, one `{"slice": {...}}` line per
-            path, the card's name and power limit and, last,
-            `{"ok": true, "device": {...}}`.
+11. attention
+            `kernels.attention.ops.flash_attention` through the registry,
+            once per case, counters set to 0 just before: the JAX kernel
+            tests' grid (BH=4: (256, 256, 64), (512, 512, 128), (384, 640,
+            64) x causal, window 128, non-causal at T = S) and their bf16
+            case; `_make_inputs`' (2, 160, 64); d = 1, 16, 32, 96, 256;
+            rows with no allowed key; the padded-key shape (2, 256, 160,
+            64); `bench_kernels`' (4, 1024, 64); one prompt of
+            prefill_32k at qwen2-1.5b's widths (BH=12, d=128, its 2 KV heads
+            repeated) and at zamba2-1.2b's shared block with a 4096 window
+            (BH=32, d=64), both bf16; and BH=17, T=128, S=2^20, d=128 bf16,
+            whose last heads' K/V start past element 2^31. The counter must
+            show one launch a case and every other counter 0. Each output
+            against the plain version on the card (a few heads a call where
+            the score plane is large): fp32 within rtol = atol = 2e-4 (the
+            JAX test's), bf16 within one bf16 spacing (rtol 2^-7, atol 1e-2
+            of the reference's RMS); every head within a relative norm of
+            1e-2 and none all zero. Times the kernel, its plain version and
+            `scaled_dot_product_attention` (its fused backends only; a
+            yardstick) at make_inputs, bench and the three full-width cases.
+            Then `_FlashST`'s straight-through VJP at T=256, S=160, d=64,
+            causal with window 128 (the parity phase holds (2, 160, 64))
+            against autograd through the plain version, within 2e-3.
+12. parity  `repro_torch.kernels.parity.check_all()`: every family's CUDA
+            wrapper and the sparse channel's against their plain versions
+            at `make_inputs`, `attention` forward and VJP; 11 kernels.
+13. result  prints `{"kernels": [...]}`, one `{"slice": {...}}` line per
+            path, `{"parity": {...}}`, the card's name and power limit and,
+            last, `{"ok": true, "device": {...}}`.
 
 Bounds (`bound_ms`) are computed from this run's inputs against the H100
 SXM's published peaks: 67 TFLOP/s fp32 (CUDA cores) and 3.35 TB/s HBM,
@@ -159,7 +185,11 @@ plus 2 * T * M * N, and stdp's 2 * (nnz(s_post) * M + nnz(s_pre) * N) plus
 alif, whose work does not depend on the data, the two bounds are the same.
 No single PyTorch call computes stdp_seq or stdp (the clip after every
 step, the two products and the clip of the single step), so their
-`library_ms` is null.
+`library_ms` is null. Attention counts 4 d operations per (q, k) pair the
+softmax weighs (every key of a row with no allowed key) against the peak
+of its input type: 67 TFLOP/s for fp32, 989 TFLOP/s (the tensor cores)
+for bf16; `bound_dense_ms` counts all T x S pairs. Its row in the kernel
+line is the qwen2_32k call.
 """
 
 from __future__ import annotations
@@ -245,6 +275,22 @@ CHANNEL_TOL = 1e-4
 # fp32 spacing is ~1e-3: readouts there are held relative to their size
 BANDED_READOUT_RTOL = 1e-4
 
+# attention: fp32 within the JAX kernel test's 2e-4 (tests/test_kernels.py
+# :187). bf16 is held tighter than that test's 5e-2 (:200), which is many
+# times a typical output at S = 2^20: both sides compute in fp32 and round
+# once, so they may differ by one bf16 spacing (rtol 2^-7), with an atol of
+# 1e-2 of the reference's RMS. Every head of every case lies within a
+# relative norm of 1e-2 of the plain version's. The straight-through VJP
+# is within the family's KernelSpec.tol
+ATTN_TOL, ATTN_VJP_TOL = 2e-4, 2e-3
+ATTN_BF16_RTOL, ATTN_BF16_ATOL_RMS, ATTN_HEAD_REL = 2 ** -7, 1e-2, 1e-2
+# the kernel table's attention row: one prompt of qwen2-1.5b at prefill_32k
+ATTN_HOME = "qwen2_32k"
+# the most fp32 score bytes one call of the plain version may hold: larger
+# cases are compared head by head
+ATTN_PLAIN_BYTES = 2 ** 31
+PEAK_BF16_FLOPS = 989e12
+
 SOURCES = {
     "spikemm": ("src/repro_torch/csrc/spikemm.cu",
                 "src/repro/kernels/spikemm/kernel.py:61"),
@@ -266,12 +312,15 @@ SOURCES = {
                  "src/repro/kernels/stdp/kernel.py:87"),
     "stdp": ("src/repro_torch/csrc/stdp.cu",
              "src/repro/kernels/stdp/kernel.py:114"),
+    "attention": ("src/repro_torch/csrc/flash_attention.cu",
+                  "src/repro/kernels/attention/kernel.py:106"),
 }
 # the path whose serving calls make up a kernel's row in the kernel table
 HOME = {"spikemm": "shd", "linrec": "shd", "lif": "shd",
         "lifrec": "ecg_homogeneous", "alifrec": "ecg", "alif": "alif_ff",
         "spikemm_sparse": "sparse_integ", "spikemm_gather": "topology_banded",
-        "stdp_seq": "plastic_ff", "stdp": "stdp_step"}
+        "stdp_seq": "plastic_ff", "stdp": "stdp_step",
+        "attention": "attention"}
 # elementwise fp32 operations per lane-step of the time kernels
 LANE_OPS = {"lif": 4, "lifrec": 6, "alif": 9, "alifrec": 10}
 
@@ -2209,6 +2258,295 @@ def phase_stdp_step(smi):
             "device_ms_by_kernel": top_per(by_name, 1, n=8), "card": smi}
 
 
+# ---------------------------------------------------------------------------
+# 11. attention and 12. parity
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCase:
+    """One call of `flash_attention`: q (BH, T, d), k and v (BH, S, d);
+    `kv_heads` draws k and v with that many heads and repeats each to
+    BH / kv_heads q heads (GQA)."""
+    label: str
+    BH: int
+    T: int
+    S: int
+    d: int
+    causal: bool = True
+    window: int = 0
+    dtype: torch.dtype = torch.float32
+    kv_heads: int = None
+    timed: bool = False
+
+
+def attention_cases():
+    """The JAX kernel tests' grid (BH=4; non-causal only at T = S) and their
+    bf16 case; `_make_inputs`' shape; every head-dim template of the kernel
+    and ragged d; rows with no allowed key; the padded-key shape;
+    `bench_kernels`' shape; and at full width the kernel's inputs for one
+    prompt of the prefill_32k shape (T = 32768, models/config.py): qwen2-1.5b
+    (12 heads, 2 KV heads, d = 128) and zamba2-1.2b's shared block (32
+    heads, d = 64) with the long-context window of configs/__init__.py:56,
+    in the configs' bf16; and K/V past element 2^31."""
+    bf16 = torch.bfloat16
+    grid = [AttnCase(f"grid T={T} S={S} d={d} causal={c} window={w}", 4, T,
+                     S, d, c, w)
+            for T, S, d in ((256, 256, 64), (512, 512, 128), (384, 640, 64))
+            for c, w in ((True, 0), (True, 128), (False, 0)) if c or T == S]
+    return grid + [
+        AttnCase("bf16", 2, 256, 256, 64, dtype=bf16),
+        AttnCase("make_inputs", 2, 160, 160, 64, timed=True),
+        AttnCase("d=16", 2, 160, 160, 16),
+        AttnCase("d=96 window", 3, 200, 330, 96, window=64),
+        AttnCase("d=32 non-causal window", 2, 100, 77, 32, causal=False,
+                 window=20),
+        AttnCase("d=256 non-causal", 2, 130, 130, 256, causal=False),
+        AttnCase("d=1", 1, 70, 70, 1),
+        AttnCase("no allowed key", 2, 256, 64, 64, window=32),
+        AttnCase("padded keys", 2, 256, 160, 64),
+        AttnCase("bench", 4, 1024, 1024, 64, timed=True),
+        AttnCase("qwen2_32k", 12, 32768, 32768, 128, dtype=bf16, kv_heads=2,
+                 timed=True),
+        AttnCase("zamba2_w4096", 32, 32768, 32768, 64, window=4096,
+                 dtype=bf16, timed=True),
+        AttnCase("int64", 17, 128, 1 << 20, 128, causal=False, dtype=bf16,
+                 timed=True),
+    ]
+
+
+def attention_inputs(c, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((c.BH, c.T, c.d), generator=g, device=DEV, dtype=c.dtype)
+    kv = []
+    for _ in range(2):
+        x = torch.randn((c.kv_heads or c.BH, c.S, c.d), generator=g,
+                        device=DEV, dtype=c.dtype)
+        kv.append(x.repeat_interleave(c.BH // c.kv_heads, dim=0)
+                  if c.kv_heads else x)
+    return q, kv[0], kv[1]
+
+
+def attention_plain(c, q, k, v):
+    """The plain version on the card, a few heads a call where the whole
+    (BH, T, S) fp32 score plane would pass ATTN_PLAIN_BYTES."""
+    from repro_torch.kernels.attention.ref import attention_ref
+    step = max(1, ATTN_PLAIN_BYTES // (4 * c.T * c.S))
+    return torch.cat([attention_ref(q[h:h + step], k[h:h + step],
+                                    v[h:h + step], causal=c.causal,
+                                    window=c.window)
+                      for h in range(0, c.BH, step)])
+
+
+def attention_work(c):
+    """(bytes, operations on this run's masks, operations of the dense
+    product) of one call: q, k, v read once and o written once; 4 d
+    operations (two d-long products) per (q, k) pair the softmax weighs,
+    which is every key for a row with no allowed key."""
+    t = np.arange(c.T, dtype=np.int64)
+    lo = np.maximum(t - c.window + 1, 0) if c.window > 0 else 0 * t
+    hi = np.minimum(t, c.S - 1) if c.causal else 0 * t + c.S - 1
+    n = np.maximum(hi - lo + 1, 0)
+    if c.window > 0:
+        n = np.where(t >= c.S + c.window - 1, c.S, n)
+    esize = torch.finfo(c.dtype).bits // 8
+    nbytes = esize * c.BH * 2 * (c.T + c.S) * c.d
+    return (nbytes, 4 * c.d * c.BH * int(n.sum()),
+            4 * c.d * c.BH * c.T * c.S)
+
+
+def attention_bound(c, nbytes, ops):
+    """max(bytes / HBM rate, operations / the peak for the input type: the
+    bf16 tensor cores for bf16, the fp32 CUDA cores for fp32)."""
+    peak = PEAK_BF16_FLOPS if c.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_call(c, q, k, v):
+    """`scaled_dot_product_attention` on the same tensors in (BH, 1, T, d)
+    form, restricted to its fused backends: a yardstick only, the port
+    never calls it. Causal alone is `is_causal` (aligned at (0, 0), as the
+    kernel's positions are); a window is a boolean mask."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    fused = [getattr(SDPBackend, b) for b in (
+        "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+        if hasattr(SDPBackend, b)]
+    mask = None
+    if c.window > 0:
+        dpos = (torch.arange(c.T, device=DEV)[:, None]
+                - torch.arange(c.S, device=DEV)[None, :])
+        mask = dpos < c.window
+        if c.causal:
+            mask &= dpos >= 0
+    qs, ks, vs = (x.unsqueeze(1) for x in (q, k, v))
+
+    def call():
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask,
+                is_causal=c.causal and mask is None)
+    return call
+
+
+def attention_check(c, got, ref):
+    """Hold one output to the plain version's (see ATTN_TOL and its
+    neighbours): elementwise, then head by head in relative norm, and no
+    head all zero. Returns (max abs err, the worst head's relative norm,
+    the tolerance as text)."""
+    got, ref = got.float(), ref.float()
+    if c.dtype == torch.float32:
+        rtol = atol = ATTN_TOL
+    else:
+        rtol = ATTN_BF16_RTOL
+        atol = ATTN_BF16_ATOL_RMS * float(ref.square().mean().sqrt())
+    try:
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+    except AssertionError as e:
+        raise AssertionError(f"attention [{c.label}]: {e}") from None
+    dead = (got.flatten(1).abs().amax(dim=1) == 0).nonzero().flatten()
+    if dead.numel():
+        raise AssertionError(f"attention [{c.label}]: heads "
+                             f"{dead.tolist()[:8]} are all zero")
+    rel = ((got - ref).flatten(1).norm(dim=1)
+           / ref.flatten(1).norm(dim=1)).max()
+    if not float(rel) <= ATTN_HEAD_REL:
+        raise AssertionError(f"attention [{c.label}]: a head's relative "
+                             f"norm error {float(rel):.3e} > {ATTN_HEAD_REL}")
+    return (float((got - ref).abs().max()), float(rel),
+            f"rtol {rtol:.3g}, atol {atol:.3g}")
+
+
+def phase_attention(smi):
+    """`flash_attention` through the registry at every case, counted; each
+    output against the plain version on the card; times; the
+    straight-through VJP."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.attention.ops import (flash_attention,
+                                                   flash_attention_cuda)
+    from repro_torch.kernels.attention.ref import attention_ref
+    tag = "attention"
+    cases = attention_cases()
+    inputs = [attention_inputs(c, seed) for seed, c in enumerate(cases)]
+    sync()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    outs = [flash_attention(q, k, v, causal=c.causal, window=c.window)
+            for c, (q, k, v) in zip(cases, inputs)]
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = registry.launch_counts()
+    counted(tag, {"attention": 1}, len(cases), counts)
+
+    calls, max_err, max_err_f32, max_rel = [], 0.0, 0.0, 0.0
+    for c, (q, k, v), got in zip(cases, inputs, outs):
+        if got.dtype != c.dtype or tuple(got.shape) != (c.BH, c.T, c.d):
+            raise AssertionError(f"attention [{c.label}]: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"attention [{c.label}]: non-finite")
+        err, rel, tol = attention_check(c, got, attention_plain(c, q, k, v))
+        max_err, max_rel = max(max_err, err), max(max_rel, rel)
+        if c.dtype == torch.float32:
+            max_err_f32 = max(max_err_f32, err)
+        shape = (f"q {(c.BH, c.T, c.d)}, k/v {(c.BH, c.S, c.d)} "
+                 f"{str(c.dtype)[6:]}, causal={c.causal}, window={c.window}")
+        if not c.timed:
+            log(f"kernel attention [{c.label}] {shape}: within {tol} of "
+                f"plain, max abs err {err:.3e}, head rel norm {rel:.3e}")
+            continue
+        big = c.T * c.S * c.BH > 2 ** 28
+        ms = cuda_ms(lambda: flash_attention_cuda(
+            q, k, v, causal=c.causal, window=c.window),
+            iters=3 if big else 50, warmup=1 if big else 3)
+        p_ms = cuda_ms(lambda: attention_plain(c, q, k, v),
+                       iters=1 if big else 10, warmup=1 if big else 3)
+        try:
+            lib = cuda_ms(sdpa_call(c, q, k, v), iters=3 if big else 50,
+                          warmup=1 if big else 3)
+        except RuntimeError as e:        # no fused SDPA backend takes it
+            log(f"kernel attention [{c.label}]: no library time ({e})")
+            lib = None
+        nbytes, ops, dense = attention_work(c)
+        b_ms, b_by = attention_bound(c, nbytes, ops)
+        d_ms, d_by = attention_bound(c, nbytes, dense)
+        calls.append({"call": c.label, "path": tag, "shape": shape,
+                      "ms": ms, "plain_ms": p_ms, "library_ms": lib,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "bound_dense_ms": d_ms, "bound_dense_by": d_by,
+                      "bytes": nbytes, "flops": ops, "dense_flops": dense,
+                      "max_abs_err": err, "head_rel_err": rel})
+        log(f"kernel attention [{c.label}] {shape}: {ms:.4f} ms on the card "
+            f"(plain {p_ms:.4f}, library "
+            f"{lib if lib is None else round(lib, 4)}, bound {b_ms:.5f} by "
+            f"{b_by}, dense bound {d_ms:.5f} by {d_by}; "
+            f"{'' if lib is None else f'{ms / lib:.2f}x SDPA, '}"
+            f"{ms / b_ms:.1f}x the bound); within {tol} of plain, max abs "
+            f"err {err:.3e}, head rel norm {rel:.3e}")
+    del inputs, outs
+
+    # the straight-through VJP where the parity phase does not reach it
+    # (that holds _make_inputs' (2, 160, 64) causal): T != S and a window
+    g = torch.Generator(device=DEV).manual_seed(len(cases))
+    qkv = [torch.randn((2, n, 64), generator=g, device=DEV)
+           for n in (256, 160, 160)]
+    grads = []
+    for fn in (flash_attention, attention_ref):
+        args = [x.clone().requires_grad_() for x in qkv]
+        loss = torch.sin(fn(*args, causal=True, window=128) * 0.7).sum()
+        grads.append(torch.autograd.grad(loss, args))
+    vjp_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    if not vjp_err <= ATTN_VJP_TOL:
+        raise AssertionError(f"[{tag}] straight-through VJP max abs err "
+                             f"{vjp_err:.3e} > {ATTN_VJP_TOL}")
+    log(f"path [{tag}]: launches {counts} over {len(cases)} calls in "
+        f"{wall:.1f} ms; every case within tolerance (max abs err "
+        f"{max_err:.3e}, fp32 {max_err_f32:.3e}, worst head rel norm "
+        f"{max_rel:.3e}); straight-through VJP (T=256, S=160, window 128) "
+        f"max abs err {vjp_err:.3e}")
+    src, rep = SOURCES["attention"]
+    home = next(x for x in calls if x["call"] == ATTN_HOME)
+    kernel = {"name": "attention", "route": "cuda", "source": src,
+              "replaces": rep, "launches": None, "max_abs_err": max_err,
+              "max_abs_err_fp32": max_err_f32, "path": tag,
+              "call": ATTN_HOME, "ms": home["ms"],
+              "plain_ms": home["plain_ms"], "bound_ms": home["bound_ms"],
+              "bound_by": home["bound_by"],
+              "bound_dense_ms": home["bound_dense_ms"],
+              "library_ms": home["library_ms"], "calls": calls}
+    sl = {"path": tag, "model": "flash_attention", "cases": len(cases),
+          "launches": counts, "launches_per_run": {"attention": len(cases)},
+          "first_run_ms": wall, "max_abs_err": max_err,
+          "max_abs_err_fp32": max_err_f32, "head_rel_err": max_rel,
+          "vjp_max_abs_err": vjp_err,
+          "card": smi}
+    return kernel, sl
+
+
+def phase_parity():
+    """`repro_torch.kernels.parity.check_all()` on the card: every family's
+    wrapper (and the sparse channel's) against its plain version at its
+    `make_inputs`, `attention` with its VJP. Its launches are comparisons
+    and count toward no path."""
+    from repro_torch.kernels import parity
+    reports = parity.check_all()
+    n = 0
+    for name, rep in reports.items():
+        for kname, r in [(name, rep)] + list(rep.get("channels", {}).items()):
+            n += 1
+            log(f"parity {kname}: forward max abs err "
+                f"{r['forward_max_err']:.3e}"
+                + (f", VJP {r['vjp_max_err']:.3e}" if "vjp_max_err" in r
+                   else ""))
+    if n != len(SOURCES):
+        raise AssertionError(f"parity checked {n} kernels, the table has "
+                             f"{len(SOURCES)}")
+    log(f"parity OK for {n} kernels")
+    return reports
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
@@ -2223,6 +2561,9 @@ def main():
     slices.append(phase_plastic_ff(smi))
     slices.append(phase_plastic_online(smi))
     slices.append(phase_stdp_step(smi))
+    kernels["attention"], attn = phase_attention(smi)
+    slices.append(attn)
+    parity = phase_parity()
     for name, k in kernels.items():
         by_path = {s["path"]: s["launches"][name] for s in slices
                    if s["launches"][name]}
@@ -2240,6 +2581,7 @@ def main():
     log(json.dumps({"kernels": list(kernels.values())}))
     for s in slices:
         log(json.dumps({"slice": s}))
+    log(json.dumps({"parity": parity}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

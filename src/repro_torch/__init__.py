@@ -8,9 +8,13 @@ Entry points (`core.plan.run`, `core.events.init_state`,
 `core.snn_layers.make_dhsnn_shd`, `core.snn_layers.make_srnn_ecg`,
 `serve.make_engine` / `serve.BatchedEngine`) default to device="cuda" and
 run on the CPU only when the caller passes device="cpu"; with no card and
-no explicit CPU they raise. The TPU kernels on the ported paths (serving,
-compressed topology, block-sparse INTEG) are hand-written CUDA
-(`csrc/*.cu`, built for sm_90a at first use by `kernels/_build.py`).
+no explicit CPU they raise. `kernels.attention.ops.flash_attention` runs
+where its tensors lie, and `kernels.parity` (`python -m
+repro_torch.kernels.parity`) holds every kernel against its plain version
+on the card and refuses the CPU. Every TPU kernel of the JAX package has a
+hand-written CUDA counterpart (`csrc/*.cu`, built for sm_90a at first use
+by `kernels/_build.py`): serving, compressed topology, block-sparse INTEG,
+on-chip learning and flash attention.
 """
 
 __version__ = "0.1.0"

@@ -25,6 +25,13 @@ with nvcc for sm_90a into one ctypes-loaded library at first use.
   stdp     on-chip learning  clipped outer-product weight updates: one
                           pair-STDP step (`stdp`) and K term planes over T
                           serial steps (`stdp_seq`)
+  attention  (LM shelf)   flash attention forward, causal and sliding
+                          window (`attention.ops.flash_attention`), with a
+                          straight-through VJP through its plain version
+
+`parity.py` holds every family's CUDA wrappers against their plain
+versions on the card, forward and (for `attention`) VJP:
+`python -m repro_torch.kernels.parity`.
 
 `incidents.py` is the per-process incident log, kept verbatim from the
 JAX package (the serve scheduler records backpressure on it).

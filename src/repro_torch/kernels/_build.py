@@ -69,6 +69,8 @@ SIGNATURES = {
     "stdp_seq_f32": ((_P,) * 5 + (_I,) * 5 + (_F, _F, _P), _I),
     "stdp_f32": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),
     "stdp_bf16": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),
+    "flash_attention_f32": ((_P,) * 4 + (_I,) * 6 + (_F, _P), _I),
+    "flash_attention_bf16": ((_P,) * 4 + (_I,) * 6 + (_F, _P), _I),
     "cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

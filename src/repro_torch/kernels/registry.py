@@ -2,7 +2,8 @@
 
 Each family registers a `KernelSpec` once, at the bottom of its `ops.py`:
 its plain PyTorch version, its CUDA wrapper, a `make_inputs` for parity
-checks, and the tolerance its parity is held to.
+checks, the tolerance its parity is held to and, for a differentiable
+family, the arguments whose gradients `parity.py` compares.
 
 Dispatch goes by the device of the tensors, and by nothing else: tensors
 on the CPU run the plain version, tensors on a CUDA device launch the hand
@@ -57,6 +58,9 @@ class KernelSpec:
     # (the JAX spec's `tune_static`)
     static: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     tol: float = 1e-4
+    # the arguments whose gradients the parity harness holds against the
+    # plain version's (the JAX spec's); () for forward-only families
+    diff_argnums: Tuple[int, ...] = ()
     # named alternative channels and the router that picks one per call:
     # select_channel(*args, traced=...) -> (a key of `channels` or None for
     # the (plain, cuda) pair above, kwargs for the chosen implementation)
@@ -83,6 +87,7 @@ _KERNEL_MODULES = (
     "repro_torch.kernels.alifrec.ops",
     "repro_torch.kernels.spikemm.gather",
     "repro_torch.kernels.stdp.ops",
+    "repro_torch.kernels.attention.ops",
 )
 
 

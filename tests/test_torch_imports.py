@@ -36,9 +36,12 @@ assert not bad, bad
 print(len(mods), " ".join(mods))
 """
 
-# the modules of the serving slices, compressed topology and plasticity
-# (ROADMAP.md, Open items 1, items 1, 3, 5 and 6)
+# the modules of the serving slices, compressed topology, plasticity and
+# flash attention with the parity harness (ROADMAP.md, Open items 1,
+# items 1, 3, 5, 6 and 11's kernel)
 EXPECTED = {
+    "repro_torch.kernels.attention.ops", "repro_torch.kernels.attention.ref",
+    "repro_torch.kernels.parity",
     "repro_torch.core.plasticity", "repro_torch.kernels.stdp.ops",
     "repro_torch.kernels.stdp.ref",
     "repro_torch.core.topology", "repro_torch.kernels.spikemm.gather",

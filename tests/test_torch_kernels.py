@@ -43,6 +43,7 @@ from repro.kernels.spikemm.sparse import compact_blocks as jcompact_blocks
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.alifrec.ops import (alif_cuda, alif_scan,
                                              alifrec_cuda, alifrec_scan)
+from repro_torch.kernels.attention.ops import flash_attention_cuda
 from repro_torch.kernels.lif.ops import lif_cuda, lif_scan
 from repro_torch.kernels.lifrec.ops import lifrec_cuda, lifrec_scan
 from repro_torch.kernels.linrec.ops import linrec, linrec_cuda
@@ -380,9 +381,9 @@ def test_registry_make_inputs_run_plain_on_cpu():
         out = registry.dispatch(name, spec.make_inputs(g), **spec.static)
         for o in (out if isinstance(out, tuple) else (out,)):
             assert torch.isfinite(o).all()
-    assert registry.names() == ("alif", "alifrec", "lif", "lifrec", "linrec",
-                                "spikemm", "spikemm_gather", "stdp",
-                                "stdp_seq")
+    assert registry.names() == ("alif", "alifrec", "attention", "lif",
+                                "lifrec", "linrec", "spikemm",
+                                "spikemm_gather", "stdp", "stdp_seq")
     assert registry.launch_counts() == {
         n: 0 for n in registry.names() + ("spikemm_sparse",)}
 
@@ -413,6 +414,8 @@ def test_dispatch_rejects_mixed_devices():
     lambda: stdp_seq_cuda(torch.zeros(2, 6, 3), torch.zeros(2, 6, 4),
                           torch.zeros(3, 4), amps=(0.1, -0.1), w_min=-1.0,
                           w_max=1.0, batch=2),
+    lambda: flash_attention_cuda(torch.zeros(2, 5, 4), torch.zeros(2, 3, 4),
+                                 torch.zeros(2, 3, 4)),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A CUDA wrapper never runs a plain version: CPU tensors raise."""
@@ -455,7 +458,8 @@ def test_build_is_one_nvcc_call(tmp_path, monkeypatch):
     assert lib.parent.parent == tmp_path / "build" and lib.exists()
     assert {s.name for s in _build.sources()} >= {
         "spikemm.cu", "linrec.cu", "lif.cu", "lifrec.cu", "alifrec.cu",
-        "spikemm_sparse.cu", "spikemm_gather.cu", "stdp.cu"}
+        "spikemm_sparse.cu", "spikemm_gather.cu", "stdp.cu",
+        "flash_attention.cu"}
     assert _build.build() == lib
     assert len(calls.read_text().splitlines()) == len(_build.sources()) + 1
 

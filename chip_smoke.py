@@ -44,10 +44,16 @@ continues, and nothing falls back to the CPU.
             benchmark's exec_vs_dense (also against the dense spikemm on
             `dense_equivalent()`), scale_1e5 and scale_1e6 rows, and the six
             ragged encodings of the JAX tests;
+            `spikemm` also at the parity harness's inputs, at the
+            sparse_integ path's hidden INTEG at each density and at the
+            topology_banded path's readout INTEG (64 x 8192 @ 8192 x 8);
             no output may be all zero. The time kernels and the learning
-            kernels must match bit for bit; `spikemm` within rtol = atol = 1e-5 (the fp32 sum order
-            differs); the two spikemm channels within 1e-4 (their
-            `KernelSpec.tol`), with bit equality reported. Times each with
+            kernels must match bit for bit; `spikemm` within rtol = atol =
+            1e-5 of the plain matmul (the fp32 sum order differs; the
+            banded readout, |out| ~ 800, at rtol 1e-4) and bit for bit
+            `spikemm_chain_ref`, the kernel's ascending-k chain; the two
+            spikemm channels within 1e-4 (their `KernelSpec.tol`), with
+            bit equality reported. Times each with
             CUDA events after warm-up: the kernel, its plain version and,
             where one exists, a PyTorch call of the same function as a
             yardstick (`library_ms`: `torch.matmul`, or `torch.sparse.mm`
@@ -148,9 +154,17 @@ continues, and nothing falls back to the CPU.
             64); `bench_kernels`' (4, 1024, 64); one prompt of
             prefill_32k at qwen2-1.5b's widths (BH=12, d=128, its 2 KV heads
             repeated) and at zamba2-1.2b's shared block with a 4096 window
-            (BH=32, d=64), both bf16; and BH=17, T=128, S=2^20, d=128 bf16,
-            whose last heads' K/V start past element 2^31. The counter must
-            show one launch a case and every other counter 0. Each output
+            (BH=32, d=64), both bf16; BH=17, T=128, S=2^20, d=128 bf16,
+            whose last heads' K/V start past element 2^31; and bf16 twins
+            at d = 64 and 128 of the ragged and edge shapes (T != S, a
+            window, non-causal with and without a window, no allowed key,
+            padded keys, T not a multiple of 128), and a split at d = 64.
+            Each call's route comes from `plan_call`: bf16 at d = 64 or 128
+            on the tensor cores (one launch, two with a split over KV: the
+            kernel and its combine), the rest on the CUDA cores (one). The
+            route counters must show each case's planned launches (int64 a
+            split), the registry's counter their sum, and every other
+            counter 0. Each output
             against the plain version on the card (a few heads a call where
             the score plane is large): fp32 within rtol = atol = 2e-4 (the
             JAX test's), bf16 within one bf16 spacing (rtol 2^-7, atol 1e-2
@@ -290,6 +304,8 @@ ATTN_HOME = "qwen2_32k"
 # cases are compared head by head
 ATTN_PLAIN_BYTES = 2 ** 31
 PEAK_BF16_FLOPS = 989e12
+# the head dims of flash attention's tensor-core route (bf16)
+TC_HEAD_DIMS = (64, 128)
 
 SOURCES = {
     "spikemm": ("src/repro_torch/csrc/spikemm.cu",
@@ -1009,6 +1025,7 @@ class Case:
     build_s: float = None            # gather: seconds to build its tables
     kw: dict = dataclasses.field(default_factory=dict)  # keyword arguments
     plain_iters: int = None          # timed calls of a slow plain version
+    rtol: float = None               # spikemm: against the plain matmul
 
 
 def packed_raster(M, K, density, seed, rate=0.5):
@@ -1141,6 +1158,38 @@ def sparse_cases():
     return cases
 
 
+def spikemm_cases():
+    """spikemm beyond the serving windows: the parity harness's inputs
+    (`_make_inputs`, (100, 300) @ (300, 200)); the sparse_integ path's
+    hidden INTEG, (2048, 4096) @ (4096, 512), at each of its densities
+    (what its dense channel meets); and the topology_banded path's readout
+    INTEG on one chunk's hidden spikes, (64, 8192) @ (8192, 8). The last
+    two are timed beside `torch.matmul`."""
+    from repro_torch.core import plan
+    from repro_torch.kernels import registry
+    s, w = registry.get("spikemm").make_inputs(torch.Generator().manual_seed(0))
+    cases = [Case("parity inputs (make_inputs)", (s.to(DEV), w.to(DEV)))]
+    _, params = make_sparse_integ(DEV)
+    w = params["hidden"]["w_input"]
+    for d in SPARSE_DENSITIES:
+        s = torch.from_numpy(packed_raster(SPARSE_T * SPARSE_B, SPARSE_IN, d,
+                                           SPARSE_SEED)).to(DEV)
+        cases.append(Case(f"sparse_integ hidden INTEG, density {d}", (s, w),
+                          timed=True))
+    nodes, params = make_banded(DEV)
+    x = torch.from_numpy(banded_input()[:BANDED_CHUNK]).to(DEV)
+    _, _, rec = plan.run(nodes, params, x, record=("hidden",), device=DEV)
+    # ~8000 spikes at 0.1 sum to |out| ~ 800: against the plain matmul's
+    # other sum order it is held relative to its size, as the path's
+    # readout is (and bit for bit against spikemm_chain_ref)
+    cases.append(Case("topology_banded readout INTEG, one chunk",
+                      (rec["hidden"].reshape(BANDED_CHUNK, BANDED_N)
+                       .contiguous(), params["readout"]["w_hidden"]),
+                      timed=True, rtol=BANDED_READOUT_RTOL))
+    return [dataclasses.replace(c, library=lambda a=c.args: torch.matmul(*a))
+            if c.timed else c for c in cases]
+
+
 def kernel_impls():
     """({kernel: CUDA wrapper}, {kernel: plain version})."""
     from repro_torch.kernels.alifrec.ops import (alif_cuda, alif_scan_ref,
@@ -1189,6 +1238,7 @@ def kernel_cases(shd_params):
                             for label, args in calls]
     for name, calls in ragged_cases().items():
         cases[name] += [Case(label, args) for label, args in calls]
+    cases["spikemm"] += spikemm_cases()
     cases["spikemm_sparse"] = [
         dataclasses.replace(c, library=lambda a=c.args: torch.matmul(*a))
         for c in sparse_cases()]
@@ -1202,6 +1252,7 @@ def kernel_cases(shd_params):
 def phase_kernels(cases):
     from repro_torch.kernels.common import w_in_smem
     from repro_torch.kernels.spikemm.ops import spikemm_cuda
+    from repro_torch.kernels.spikemm.ref import spikemm_chain_ref
     cuda, plain = kernel_impls()
     results = {}
     for name, calls_in in cases.items():
@@ -1223,8 +1274,16 @@ def phase_kernels(cases):
                 err = float((g - r).abs().max())
                 max_err = max(max_err, err)
                 if name == "spikemm":
-                    torch.testing.assert_close(g, r, rtol=SPIKEMM_TOL,
-                                               atol=SPIKEMM_TOL)
+                    torch.testing.assert_close(g, r, rtol=case.rtol or
+                                               SPIKEMM_TOL, atol=SPIKEMM_TOL)
+                    # and bit for bit the kernel's fmaf chain (atol = 0)
+                    chain = spikemm_chain_ref(*args)
+                    if not torch.equal(g, chain):
+                        raise AssertionError(
+                            f"{name} [{label}]: differs from "
+                            f"spikemm_chain_ref by "
+                            f"{float((g - chain).abs().max()):.3e}")
+                    extra = ", equal to spikemm_chain_ref bit for bit"
                 elif name in ("spikemm_sparse", "spikemm_gather"):
                     torch.testing.assert_close(g, r, rtol=CHANNEL_TOL,
                                                atol=CHANNEL_TOL)
@@ -2312,7 +2371,22 @@ def attention_cases():
                  dtype=bf16, timed=True),
         AttnCase("int64", 17, 128, 1 << 20, 128, causal=False, dtype=bf16,
                  timed=True),
-    ]
+    ] + [
+        # the ragged and edge shapes above in bf16 at the tensor-core
+        # route's widths, so that route and its split meet their edges
+        AttnCase(f"bf16 {label} d={d}", BH, T, S, d, causal, window,
+                 dtype=bf16)
+        for d in TC_HEAD_DIMS
+        for label, BH, T, S, causal, window in (
+            ("T != S", 4, 384, 640, True, 0),
+            ("T != S window", 4, 384, 640, True, 128),
+            ("non-causal", 4, 512, 512, False, 0),
+            ("non-causal window", 2, 100, 77, False, 20),
+            ("no allowed key", 2, 256, 64, True, 32),
+            ("padded keys", 2, 256, 160, True, 0),
+            ("T not a multiple of 128", 3, 200, 330, True, 64))
+    ] + [AttnCase("bf16 split d=64", 4, 256, 4096, 64, causal=False,
+                  dtype=bf16)]
 
 
 def attention_inputs(c, seed):
@@ -2424,24 +2498,52 @@ def phase_attention(smi):
     output against the plain version on the card; times; the
     straight-through VJP."""
     from repro_torch.kernels import registry
+    from repro_torch.kernels.attention import ops
     from repro_torch.kernels.attention.ops import (flash_attention,
                                                    flash_attention_cuda)
     from repro_torch.kernels.attention.ref import attention_ref
     tag = "attention"
     cases = attention_cases()
     inputs = [attention_inputs(c, seed) for seed, c in enumerate(cases)]
+    sms = ops.sm_count(torch.device(DEV))
+    plans = [ops.plan_call(c.BH, c.T, c.S, c.d, c.dtype, sms) for c in cases]
     sync()
     registry.reset_launches()
     t0 = time.perf_counter()
-    outs = [flash_attention(q, k, v, causal=c.causal, window=c.window)
-            for c, (q, k, v) in zip(cases, inputs)]
+    outs, routes = [], []
+    for c, (q, k, v) in zip(cases, inputs):
+        before = ops.route_launch_counts()
+        outs.append(flash_attention(q, k, v, causal=c.causal,
+                                    window=c.window))
+        after = ops.route_launch_counts()
+        routes.append({r: after[r] - before[r] for r in after
+                       if after[r] != before[r]})
     sync()
     wall = (time.perf_counter() - t0) * 1e3
     counts = registry.launch_counts()
-    counted(tag, {"attention": 1}, len(cases), counts)
+    # each case launches its planned route's kernels, one count a launch:
+    # the tensor-core kernel and, for a split, the combine; or the
+    # CUDA-core kernel
+    for c, plan, got in zip(cases, plans, routes):
+        want = ({ops.TENSOR_CORES: 1, **({ops.COMBINE: 1} if plan.nsplit > 1
+                                         else {})}
+                if plan.route == ops.TENSOR_CORES else {ops.CUDA_CORES: 1})
+        if got != want:
+            raise AssertionError(f"[{tag}] {c.label}: launches {got}, the "
+                                 f"plan {plan} launches {want}")
+        if (c.dtype == torch.bfloat16 and c.d in TC_HEAD_DIMS) != (
+                plan.route == ops.TENSOR_CORES):
+            raise AssertionError(f"[{tag}] {c.label}: route {plan.route} "
+                                 f"for {c.dtype} d={c.d}")
+    if plans[[c.label for c in cases].index("int64")].nsplit < 2:
+        raise AssertionError(f"[{tag}] int64 ran without a split")
+    per_run = sum(sum(r.values()) for r in routes)
+    counted(tag, {"attention": per_run}, 1, counts)
+    by_route = {r: sum(x.get(r, 0) for x in routes)
+                for r in (ops.TENSOR_CORES, ops.COMBINE, ops.CUDA_CORES)}
 
     calls, max_err, max_err_f32, max_rel = [], 0.0, 0.0, 0.0
-    for c, (q, k, v), got in zip(cases, inputs, outs):
+    for c, (q, k, v), got, plan in zip(cases, inputs, outs, plans):
         if got.dtype != c.dtype or tuple(got.shape) != (c.BH, c.T, c.d):
             raise AssertionError(f"attention [{c.label}]: {got.dtype} "
                                  f"{tuple(got.shape)}")
@@ -2452,7 +2554,9 @@ def phase_attention(smi):
         if c.dtype == torch.float32:
             max_err_f32 = max(max_err_f32, err)
         shape = (f"q {(c.BH, c.T, c.d)}, k/v {(c.BH, c.S, c.d)} "
-                 f"{str(c.dtype)[6:]}, causal={c.causal}, window={c.window}")
+                 f"{str(c.dtype)[6:]}, causal={c.causal}, window={c.window}, "
+                 f"{plan.route}"
+                 + (f", {plan.nsplit} splits" if plan.nsplit > 1 else ""))
         if not c.timed:
             log(f"kernel attention [{c.label}] {shape}: within {tol} of "
                 f"plain, max abs err {err:.3e}, head rel norm {rel:.3e}")
@@ -2473,6 +2577,8 @@ def phase_attention(smi):
         b_ms, b_by = attention_bound(c, nbytes, ops)
         d_ms, d_by = attention_bound(c, nbytes, dense)
         calls.append({"call": c.label, "path": tag, "shape": shape,
+                      "route": plan.route, "nsplit": plan.nsplit,
+                      "launches": 1 + int(plan.nsplit > 1),
                       "ms": ms, "plain_ms": p_ms, "library_ms": lib,
                       "bound_ms": b_ms, "bound_by": b_by,
                       "bound_dense_ms": d_ms, "bound_dense_by": d_by,
@@ -2501,7 +2607,8 @@ def phase_attention(smi):
     if not vjp_err <= ATTN_VJP_TOL:
         raise AssertionError(f"[{tag}] straight-through VJP max abs err "
                              f"{vjp_err:.3e} > {ATTN_VJP_TOL}")
-    log(f"path [{tag}]: launches {counts} over {len(cases)} calls in "
+    log(f"path [{tag}]: launches {counts} over {len(cases)} calls "
+        f"({by_route}, each case's as its plan) in "
         f"{wall:.1f} ms; every case within tolerance (max abs err "
         f"{max_err:.3e}, fp32 {max_err_f32:.3e}, worst head rel norm "
         f"{max_rel:.3e}); straight-through VJP (T=256, S=160, window 128) "
@@ -2517,7 +2624,8 @@ def phase_attention(smi):
               "bound_dense_ms": home["bound_dense_ms"],
               "library_ms": home["library_ms"], "calls": calls}
     sl = {"path": tag, "model": "flash_attention", "cases": len(cases),
-          "launches": counts, "launches_per_run": {"attention": len(cases)},
+          "launches": counts, "launches_per_run": {"attention": per_run},
+          "launches_by_route": by_route,
           "first_run_ms": wall, "max_abs_err": max_err,
           "max_abs_err_fp32": max_err_f32, "head_rel_err": max_rel,
           "vjp_max_abs_err": vjp_err,

@@ -1,27 +1,52 @@
-// Event-gated spike x weight matmul (FINDIDX + LOCACC) for sm_90a.
+// Event-driven spike x weight matmul (FINDIDX + LOCACC) for sm_90a.
 //
 // Replaces: src/repro/kernels/spikemm/kernel.py::spikemm_pallas
 //           (body `_spikemm_kernel`), the dense channel.
 //
-// Computes out(M, N) = spikes(M, K) @ w(K, N) in fp32. A (BM, BK) block
-// of the spike raster whose occupancy flag is 0 is skipped: neither its
-// spike tile nor its weight tile is loaded, and no FMA runs for it.
+// Computes out(M, N) = spikes(M, K) @ w(K, N) in fp32, in one launch with
+// no pre-pass: the kernel finds the events itself.
 //
-// What bounds it on an H100: the operations. At the serving shape
-// (2048 x 700) @ (700 x 256) the product is 0.73 GFLOP against 8.6 MB of
-// traffic, ~85 FLOP/byte, above the fp32 CUDA-core ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 FLOP/byte). The design is the plain register-blocked
-// SGEMM: each 256-thread block owns one 64 x 64 output tile, walks K in
-// 16-deep steps through shared memory, and each thread keeps a 4 x 4
-// accumulator in registers. No TF32 and no bf16: the spikes are exact in
-// any format, the weights are not.
+// What bounds it on an H100: the bytes of the raster (read once), of w and
+// of the output, or the operations the events need: one multiply-add per
+// spike and output column, 2 nnz N. At the SHD window's hidden INTEG,
+// (2048 x 700) @ (700 x 256) at a few percent firing, that is the bytes:
+// 5.7 MB of raster, 1.7 us. A dense product does 30-100x the work the
+// events need.
 //
-// Determinism: every output element is one fmaf chain over k = 0..K-1 in
-// increasing order. There is no split-K and there are no atomics. A
-// skipped block contributes exactly what fmaf(0, w, acc) = acc would, so
-// a row's result does not depend on what the other rows of its block
-// hold. That is what the serve engine's isolation invariant (a session is
-// bit-identical alone or packed with strangers) needs from this kernel.
+// Design. A CTA owns BM rows (16 to 128) and one column tile of CW = 8, 16,
+// 32 or 64 columns, sized from N so that narrow readouts (N = 20, 8, 6) do
+// not leave most lanes idle; a thread owns RPT rows, TY apart (so that the
+// two row groups of a warp read distinct shared-memory banks), and CPT
+// columns. The wrapper takes the largest BM that still gives the card
+// about a wave of CTAs (`rows_per_cta` in kernels/spikemm/ops.py).
+//
+//   FINDIDX  the CTA's warps read its rows (a row slab of 128 k as one
+//            float4 a lane where K allows, several slabs in flight) and,
+//            by __ballot_sync, compact each row's nonzero k and spike
+//            values into a list in shared memory in ascending k, counting
+//            the events. A row with more than CAP events stops the scan.
+//   route    from that count, on the device and with no host sync: a tile
+//            with more than one event in four of its entries, or a row past
+//            CAP, runs the dense register-blocked loop (K in 32-deep
+//            steps through a 3-stage cp.async ring in shared memory,
+//            skipping (BM, 32) blocks with no spike); else
+//   LOCACC   each thread walks its rows' lists (its RPT rows interleaved
+//            and unrolled, so their loads of w are in flight together) and
+//            adds spike times w's row, read through L2 (w stays resident),
+//            into its columns.
+//
+// Determinism and bit equality: both routes compute every output element
+// as one fmaf chain acc = fmaf(s[m, k], w[k, n], acc), acc from +0, over k
+// in ascending order: LOCACC over the nonzero k, the dense loop over every
+// k of the blocks that hold a spike. fmaf(0, w, acc) == acc for finite w,
+// and acc never becomes -0 (a sum that is exactly 0 rounds to +0), so the
+// routes give the same bits, and so does the first version of this kernel
+// (the plain 64 x 64 SGEMM tile). An element depends on nothing but its
+// row of spikes: no split-K, no atomics. That is what the serve engine's
+// isolation invariant (a session is bit-identical alone or packed with
+// strangers) needs from this kernel. `spikemm_chain_ref`
+// (kernels/spikemm/ref.py) is the same chain in plain PyTorch. No TF32 and
+// no bf16: the weights are exact in neither.
 //
 // Ragged edges (M = 2048, K = 700, N = 20 on the serving path) are masked
 // in the loads and the store; nothing is padded in device memory.
@@ -31,79 +56,345 @@
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TM = 4;
-constexpr int TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int LIST_ENTRIES = 4096;     // event list capacity of a CTA
+constexpr int INFLIGHT = 8;            // row slabs a lane reads at once
+constexpr int BK = 32;                 // depth of a dense step
+constexpr int STAGES = 3;              // dense steps in shared memory
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(THREADS)
+template <int CW, int RPT>
+struct Tile {
+  static constexpr int TX = CW >= 16 ? 16 : 8;    // threads along columns
+  static constexpr int TY = THREADS / TX;         // threads along rows
+  static constexpr int CPT = CW / TX;             // columns per thread
+  static constexpr int BM = TY * RPT;             // rows per CTA
+  static constexpr int CAP = LIST_ENTRIES / BM;   // events a row may list
+  // events of each row LOCACC takes at once: about 32 loads of w in flight
+  static constexpr int UNROLL =
+      RPT * CPT >= 32 ? 1 : (32 / (RPT * CPT) > 8 ? 8 : 32 / (RPT * CPT));
+  static constexpr int ALD = BK + 4;              // dense A tile, per row
+  // 4-float slots of the dense step's A (BM x BK) and B (BK x CW) tiles
+  static constexpr int A_SLOTS = (BM * BK / 4 + THREADS - 1) / THREADS;
+  static constexpr int B_SLOTS = (BK * CW / 4 + THREADS - 1) / THREADS;
+  // the lists (k, spike), their counts, and the dense ring
+  static constexpr int SMEM = LIST_ENTRIES * 8 + BM * 4 +
+                              STAGES * (BM * ALD + BK * CW) * 4;
+  static_assert(BM % WARPS == 0 && CPT <= 4, "tile shape");
+};
+
+template <int N>
+__device__ __forceinline__ void load_vec(float (&dst)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    dst[0] = v.x, dst[1] = v.y;
+  } else {
+    dst[0] = *p;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared copies that complete asynchronously; `in` false writes
+// zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// FINDIDX over the CTA's rows. Work items are (row, slab of 32 PER k),
+// row = warp + WARPS r, taken INFLIGHT at a time per warp so that their
+// loads are issued together; PER = 4 reads a float4 a lane (K % 4 == 0).
+// Each row's nonzero k and values go to its list in ascending k; a row
+// past CAP sets `overflow` and stops every warp's scan. Returns the events
+// this warp listed.
+template <int PER, int BM, int CAP>
+__device__ __forceinline__ int findidx(const float* __restrict__ s, int m0,
+                                       int M, int K, int* klist,
+                                       float* vlist, int* counts,
+                                       int* overflow) {
+  constexpr int STEP = 32 * PER;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const unsigned lt = (1u << lane) - 1u;
+  const int slabs = (K + STEP - 1) / STEP;
+  const int items = (BM / WARPS) * slabs;
+  int events = 0;
+  for (int g = 0; g < items; g += INFLIGHT) {
+    if (*reinterpret_cast<volatile int*>(overflow)) break;
+    float x[INFLIGHT][PER];
+#pragma unroll
+    for (int u = 0; u < INFLIGHT; ++u) {
+      const int it = g + u, row = warp + WARPS * (it / slabs);
+      const int k = (it % slabs) * STEP + lane * PER, m = m0 + row;
+      if (it < items && m < M && k < K) {
+        load_vec<PER>(x[u], s + (size_t)m * K + k);
+      } else {
+#pragma unroll
+        for (int j = 0; j < PER; ++j) x[u][j] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < INFLIGHT; ++u) {
+      const int it = g + u;
+      if (it >= items) break;                          // warp-uniform
+      const int row = warp + WARPS * (it / slabs), slab = it % slabs;
+      int below = 0, n = 0;
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const unsigned b = __ballot_sync(FULL, x[u][j] != 0.f);
+        below += __popc(b & lt);
+        n += __popc(b);
+      }
+      const int base = counts[row];
+      __syncwarp();
+      if (base + n > CAP) {                            // too many to list
+        if (lane == 0) *overflow = 1;
+        break;
+      }
+      int pos = base + below;
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        if (x[u][j] != 0.f) {
+          klist[row * CAP + pos] = slab * STEP + lane * PER + j;
+          vlist[row * CAP + pos] = x[u][j];
+          ++pos;
+        }
+      }
+      if (lane == 0) counts[row] = base + n;
+      __syncwarp();
+      events += n;
+    }
+  }
+  return events;
+}
+
+template <int CW, int RPT>
+__global__ void __launch_bounds__(THREADS, RPT < 8 ? 2 : 1)
 spikemm_kernel(const float* __restrict__ s, const float* __restrict__ w,
-               const int32_t* __restrict__ flags, float* __restrict__ out,
-               int M, int K, int N, int nkb) {
-  // +4 words of padding keep the transposed spike-tile stores from all
-  // landing in one shared-memory bank
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN];
+               float* __restrict__ out, int M, int K, int N) {
+  using L = Tile<CW, RPT>;
+  constexpr int BM = L::BM, CPT = L::CPT, TX = L::TX, CAP = L::CAP;
+  constexpr int ALD = L::ALD, UNROLL = L::UNROLL;
+  extern __shared__ __align__(16) float smem[];
+  int* klist = reinterpret_cast<int*>(smem);          // [BM][CAP]
+  float* vlist = smem + LIST_ENTRIES;                  // [BM][CAP]
+  int* counts = reinterpret_cast<int*>(vlist + LIST_ENTRIES);  // [BM]
+  float* As = vlist + LIST_ENTRIES + BM;               // [STAGES][BM][ALD]
+  float* Bs = As + STAGES * BM * ALD;                  // [STAGES][BK][CW]
+  __shared__ int total, overflow;
 
-  const int tid = threadIdx.x;
-  const int ty = tid / (BN / TN);
-  const int tx = tid % (BN / TN);
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int32_t* row_flags = flags + (size_t)blockIdx.y * nkb;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int tx = tid % TX, ty = tid / TX;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * CW;
+  const int live = min(BM, M - m0);
+  // float4 reads of a raster row, of a row of w (16-byte aligned rows)
+  const bool vec_s = K % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  const bool vec_w = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (tid == 0) total = overflow = 0;
+  for (int r = tid; r < BM; r += THREADS) counts[r] = 0;
+  __syncthreads();
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  const int events =
+      vec_s ? findidx<4, BM, CAP>(s, m0, M, K, klist, vlist, counts, &overflow)
+            : findidx<1, BM, CAP>(s, m0, M, K, klist, vlist, counts, &overflow);
+  if (lane == 0) atomicAdd(&total, events);
+  __syncthreads();
 
-  for (int kb = 0; kb < nkb; ++kb) {
-    if (row_flags[kb] == 0) continue;  // block-uniform: the skip is safe
-    const int k0 = kb * BK;
-    // spike tile, consecutive threads on consecutive k (contiguous in s)
+  float acc[RPT][CPT];
 #pragma unroll
-    for (int r = 0; r < (BM * BK) / THREADS; ++r) {
-      const int e = tid + r * THREADS;
-      const int m = e / BK, k = e % BK;
-      const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < K) ? s[(size_t)gm * K + gk] : 0.f;
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+
+  if (overflow || 4LL * total > (long long)live * K) {
+    // dense: the register-blocked loop, K in BK-deep steps through a ring
+    // of STAGES shared-memory buffers filled by cp.async (zeros past M, K
+    // and N), STAGES - 1 steps in flight while one step's products run
+    auto fetch = [&](int st) {
+      const int k0 = st * BK, buf = st % STAGES;
+#pragma unroll
+      for (int u = 0; u < L::A_SLOTS; ++u) {
+        const int e = tid + THREADS * u;
+        if (e >= BM * BK / 4) break;
+        const int row = e / (BK / 4), k = k0 + (e % (BK / 4)) * 4;
+        const uint32_t dst = smem_u32(
+            As + (buf * BM + row) * ALD + (e % (BK / 4)) * 4);
+        const bool in = m0 + row < M;
+        const float* src = s + (in ? (size_t)(m0 + row) * K : 0);
+        if (vec_s) {
+          cp_async16(dst, src + k, in && k < K);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            cp_async4(dst + 4 * j, src + k + j, in && k + j < K);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < L::B_SLOTS; ++u) {
+        const int e = tid + THREADS * u;
+        if (e >= BK * CW / 4) break;
+        const int k = k0 + e / (CW / 4), n = n0 + (e % (CW / 4)) * 4;
+        const uint32_t dst = smem_u32(Bs + buf * BK * CW + e * 4);
+        const float* src = w + (k < K ? (size_t)k * N : 0);
+        if (vec_w) {
+          cp_async16(dst, src + n, k < K && n < N);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            cp_async4(dst + 4 * j, src + n + j, k < K && n + j < N);
+        }
+      }
+    };
+    // whether this thread's share of a step's spike tile holds a spike
+    auto any_spike = [&](int buf) {
+      bool nz = false;
+#pragma unroll
+      for (int u = 0; u < L::A_SLOTS; ++u) {
+        const int e = tid + THREADS * u;
+        if (e >= BM * BK / 4) break;
+        float t[4];
+        load_vec<4>(t, As + (buf * BM + e / (BK / 4)) * ALD +
+                           (e % (BK / 4)) * 4);
+        nz |= t[0] != 0.f || t[1] != 0.f || t[2] != 0.f || t[3] != 0.f;
+      }
+      return nz;
+    };
+    const int steps = (K + BK - 1) / BK;
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < steps) fetch(st);
+      cp_async_commit();
     }
-    // weight tile, consecutive threads on consecutive n (contiguous in w)
+    for (int st = 0; st < steps; ++st) {
+      const int buf = st % STAGES;
+      cp_async_wait<STAGES - 2>();       // this thread's copies of step st
+      // every copy of step st is in and step st - 1 is done: skip a
+      // (BM, BK) block with no spike, refill the buffer step st - 1 used
+      const bool live_step = __syncthreads_or(any_spike(buf));
+      if (st + STAGES - 1 < steps) fetch(st + STAGES - 1);
+      cp_async_commit();
+      if (!live_step) continue;
+      const float* A = As + (buf * BM + ty) * ALD;
+      const float* B = Bs + buf * BK * CW + tx * CPT;
 #pragma unroll
-    for (int r = 0; r < (BK * BN) / THREADS; ++r) {
-      const int e = tid + r * THREADS;
-      const int k = e / BN, n = e % BN;
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < K && gn < N) ? w[(size_t)gk * N + gn] : 0.f;
+      for (int k4 = 0; k4 < BK; k4 += 4) {
+        float a[RPT][4];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+          load_vec<4>(a[i], A + i * L::TY * ALD + k4);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float bv[CPT];
+          load_vec<CPT>(bv, B + (k4 + u) * CW);
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+#pragma unroll
+            for (int j = 0; j < CPT; ++j)
+              acc[i][j] = fmaf(a[i][u], bv[j], acc[i][j]);
+        }
+      }
     }
-    __syncthreads();
+  } else {
+    // LOCACC: this thread's rows' events, interleaved, in ascending k,
+    // UNROLL a row at a time with all their loads of w issued first. Past
+    // a row's last event a slot adds 0 times w's row 0 (k = 0, spike 0):
+    // fmaf(0, w, acc) == acc, so the chain is unchanged and no load waits
+    // on a branch; columns past N read column N - 1 and are not stored.
+    int cnt[RPT], most = 0;
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[k][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int i = 0; i < RPT; ++i) {
+      cnt[i] = counts[ty + L::TY * i];
+      most = max(most, cnt[i]);
     }
-    __syncthreads();
+    int cc[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) cc[j] = min(n0 + tx * CPT + j, N - 1);
+    for (int e0 = 0; e0 < most; e0 += UNROLL) {
+      float v[UNROLL][RPT], wv[UNROLL][RPT][CPT];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int e = e0 + u, at = (ty + L::TY * i) * CAP + e;
+          const bool ok = e < cnt[i];
+          const int k = ok ? klist[at] : 0;
+          v[u][i] = ok ? vlist[at] : 0.f;
+          const float* wr = w + (size_t)k * N;
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) wv[u][i][j] = __ldg(wr + cc[j]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j)
+            acc[i][j] = fmaf(v[u][i], wv[u][i][j], acc[i][j]);
+    }
   }
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
+  for (int i = 0; i < RPT; ++i) {
+    const int m = m0 + ty + L::TY * i;
+    if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx * TN + j;
-      if (gn < N) out[(size_t)gm * N + gn] = acc[i][j];
+    for (int j = 0; j < CPT; ++j) {
+      const int n = n0 + tx * CPT + j;
+      if (n < N) out[(size_t)m * N + n] = acc[i][j];
     }
+  }
+}
+
+template <int CW, int RPT>
+int launch(const float* s, const float* w, float* out, int M, int K, int N,
+           cudaStream_t stream) {
+  using L = Tile<CW, RPT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      spikemm_kernel<CW, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + CW - 1) / CW, (M + L::BM - 1) / L::BM);
+  spikemm_kernel<CW, RPT><<<grid, THREADS, L::SMEM, stream>>>(s, w, out, M,
+                                                             K, N);
+  return (int)cudaGetLastError();
+}
+
+// rows per CTA bm = TY * RPT
+template <int CW>
+int launch_cw(const float* s, const float* w, float* out, int M, int K,
+              int N, int bm, cudaStream_t st) {
+  constexpr int TY = Tile<CW, 1>::TY;
+  switch (bm / TY) {
+    case 1: return launch<CW, 1>(s, w, out, M, K, N, st);
+    case 2: return launch<CW, 2>(s, w, out, M, K, N, st);
+    case 4: return launch<CW, 4>(s, w, out, M, K, N, st);
+    default:
+      if constexpr (TY == 16)
+        return launch<CW, 8>(s, w, out, M, K, N, st);
+      else
+        return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -111,18 +402,21 @@ spikemm_kernel(const float* __restrict__ s, const float* __restrict__ w,
 
 extern "C" {
 
-// Occupancy block shape the kernel skips at; the wrapper builds the flags
-// (ceil(M / BM), ceil(K / BK)) int32 at exactly this shape.
-int spikemm_block_m() { return BM; }
-int spikemm_block_k() { return BK; }
-
-int spikemm_f32(const float* s, const float* w, const int32_t* flags,
-                float* out, int M, int K, int N, void* stream) {
-  const int nkb = (K + BK - 1) / BK;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  spikemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      s, w, flags, out, M, K, N, nkb);
-  return (int)cudaGetLastError();
+// The CTA's tile, as kernels/spikemm/ops.py::col_tile and rows_per_cta
+// pick it: cw columns (8, 16, 32 or 64), bm rows (a power of two from 16,
+// or 32 when cw = 8, to 128)
+int spikemm_f32(const float* s, const float* w, float* out, int M, int K,
+                int N, int bm, int cw, void* stream) {
+  if (M < 1 || N < 1 || K < 0 || bm > 128 || bm < (cw == 8 ? 32 : 16) ||
+      (bm & (bm - 1)) || (cw != 8 && cw != 16 && cw != 32 && cw != 64))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (cw) {
+    case 8: return launch_cw<8>(s, w, out, M, K, N, bm, st);
+    case 16: return launch_cw<16>(s, w, out, M, K, N, bm, st);
+    case 32: return launch_cw<32>(s, w, out, M, K, N, bm, st);
+    default: return launch_cw<64>(s, w, out, M, K, N, bm, st);
+  }
 }
 
 }  // extern "C"

@@ -54,9 +54,7 @@ _L = ctypes.c_int64
 
 # C signatures, one per exported symbol: (argtypes, restype)
 SIGNATURES = {
-    "spikemm_f32": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
-    "spikemm_block_m": ((), _I),
-    "spikemm_block_k": ((), _I),
+    "spikemm_f32": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     "linrec_f32": ((_P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "lif_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
     "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _P), _I),
@@ -71,6 +69,8 @@ SIGNATURES = {
     "stdp_bf16": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),
     "flash_attention_f32": ((_P,) * 4 + (_I,) * 6 + (_F, _P), _I),
     "flash_attention_bf16": ((_P,) * 4 + (_I,) * 6 + (_F, _P), _I),
+    "flash_attention_bf16_tc": ((_P,) * 6 + (_I,) * 6 + (_F, _I, _P), _I),
+    "flash_attention_combine_bf16": ((_P, _P, _P, _L, _I, _I, _P), _I),
     "cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -1,14 +1,31 @@
-"""Flash attention public entry: registry dispatch and a straight-through
-VJP.
+"""Flash attention public entry: registry dispatch, route and split
+planning, and a straight-through VJP.
 
 `flash_attention(q, k, v, causal=, window=)` takes q (BH, T, d) and k, v
 (BH, S, d) with heads folded into the batch. CUDA tensors launch
 `csrc/flash_attention.cu` (fp32 or bf16, 1 <= d <= 256), CPU tensors run
-the plain version `attention_ref`. The kernel is forward-only, as the
-JAX package's is: `_FlashST` launches it in its forward and, in its
-backward, differentiates the plain version, a straight-through gradient
-that is exact because the forward equals it. A backward hand kernel is
-the training slice's work.
+the plain version `attention_ref`. The kernel file has two routes, and
+`plan_call` picks one per call from the shapes, the dtype and the card's
+SM count alone (no environment variable, no fallback: a route that fails
+to build or launch raises):
+
+  * **tensor cores** (`flash_fwd_tc`) for bf16 with d = 64 or 128 (the
+    configs' head widths) and S >= 1: wgmma on TMA-fed shared memory. When
+    its grid, BH * ceil(T / 128) CTAs, is under about twice the SM count,
+    `plan_split` cuts each q tile's KV range into `nsplit` whole-tile
+    chunks; the kernel then writes partial results to scratch and a second
+    kernel (`flash_combine`) merges them in fixed split order. Such a call
+    launches two kernels and counts two launches.
+  * **CUDA cores** (`flash_fwd`) for fp32 and for bf16 at any other d.
+
+`attention_split_ref` (in `ref.py`) is the plain version of the split:
+the same per-split partial results, merged as the combine kernel merges
+them. `route_launch_counts()` says which kernels a run launched.
+
+The kernel is forward-only, as the JAX package's is: `_FlashST` launches
+it in its forward and, in its backward, differentiates the plain version,
+a straight-through gradient that is exact because the forward equals it.
+A backward hand kernel is the training slice's work.
 
 The JAX entry's `bq`, `bk` and `force_pallas` are not ported: the first
 two are VMEM block choices of the TPU kernel, the third a switch of its
@@ -20,19 +37,84 @@ itself and pads nothing.
 
 from __future__ import annotations
 
+import math
+from typing import Dict, NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build, registry
-from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.attention.ref import (attention_ref,
+                                               attention_split_ref)
+from repro_torch.kernels.common import sm_count
 
 MAX_HEAD_DIM = 256          # the largest d `csrc/flash_attention.cu` takes
 _TYPES = (torch.float32, torch.bfloat16)
+# the tensor-core route's tiles (TC_BQ, TC_BK in csrc/flash_attention.cu)
+TC_BLOCK_Q = TC_BLOCK_K = 128
+TC_HEAD_DIMS = (64, 128)
+# split over KV while the grid is under this many CTAs per SM, into at
+# most this many chunks (bounds the scratch: nsplit * BH * T * d fp32)
+SPLIT_CTAS_PER_SM = 2
+MAX_SPLITS = 128
+TENSOR_CORES, CUDA_CORES, COMBINE = "tensor_cores", "cuda_cores", "combine"
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: int) -> torch.Tensor:
-    """Check the arguments and launch the kernel on PyTorch's current
-    stream; counts the launch on `flash_attention_cuda`."""
+class AttentionPlan(NamedTuple):
+    route: str                 # TENSOR_CORES or CUDA_CORES
+    nsplit: int                # KV chunks per q tile (1: no split)
+
+
+def pick_route(dtype: torch.dtype, d: int, S: int = 1) -> str:
+    """The kernel route for inputs of this dtype and head dim: the tensor
+    cores for bf16 at d = 64 or 128 (with at least one key), else the CUDA
+    cores."""
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS and S >= 1:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def plan_split(BH: int, T: int, S: int, n_sm: int) -> int:
+    """Whole-tile KV chunks per q tile for the tensor-core route: 1 when
+    its BH * ceil(T / 128) CTAs reach SPLIT_CTAS_PER_SM per SM, else enough
+    chunks to get there, at most one per KV tile and MAX_SPLITS."""
+    ctas = BH * math.ceil(T / TC_BLOCK_Q)
+    want = SPLIT_CTAS_PER_SM * n_sm
+    if ctas == 0 or ctas >= want:
+        return 1
+    return max(1, min(math.ceil(want / ctas), math.ceil(S / TC_BLOCK_K),
+                      MAX_SPLITS))
+
+
+def plan_call(BH: int, T: int, S: int, d: int, dtype: torch.dtype,
+              n_sm: int) -> AttentionPlan:
+    """The route and split of one call: a pure function of the shapes,
+    the dtype and the card's SM count."""
+    route = pick_route(dtype, d, S)
+    return AttentionPlan(route, plan_split(BH, T, S, n_sm)
+                         if route == TENSOR_CORES else 1)
+
+
+_ROUTE_LAUNCHES = {TENSOR_CORES: 0, CUDA_CORES: 0, COMBINE: 0}
+
+
+def route_launch_counts() -> Dict[str, int]:
+    """{kernel: launches} since import: the tensor-core kernel, the
+    CUDA-core kernel and the split's combine kernel. Each launch also
+    counts on the registry's `attention` counter; `registry.reset_launches`
+    leaves these as they are, so compare two readings."""
+    return dict(_ROUTE_LAUNCHES)
+
+
+def _count(kernel: str) -> None:
+    _ROUTE_LAUNCHES[kernel] += 1
+    flash_attention_cuda.launches += 1
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int) -> None:
+    """The wrapper's refusals: shapes that do not chain, head dims past
+    MAX_HEAD_DIM, other dtypes, non-contiguous or CPU tensors, tensors on
+    two devices, sizes past int32."""
     if q.dim() != 3 or k.dim() != 3 or tuple(k.shape) != tuple(v.shape) \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
@@ -61,18 +143,58 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError(f"flash_attention: (BH, T, S, window) = "
                          f"{(BH, T, S, window)} exceeds the kernel's int32 "
                          "sizes")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    """Check the arguments and launch the planned route on PyTorch's
+    current stream; counts each launch on `flash_attention_cuda` (two for
+    a split: the kernel and the combine)."""
+    _check(q, k, v, window)
+    BH, T, d = q.shape
+    S = k.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    plan = plan_call(BH, T, S, d, q.dtype, sm_count(q.device))
     lib = _build.library()
-    fn = (lib.flash_attention_f32 if q.dtype == torch.float32
-          else lib.flash_attention_bf16)
+    scale = float(d ** -0.5)
+    if plan.route == CUDA_CORES:
+        fn = (lib.flash_attention_f32 if q.dtype == torch.float32
+              else lib.flash_attention_bf16)
+        with torch.cuda.device(q.device):
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), BH, T, S, d, int(bool(causal)),
+                      int(window), scale,
+                      torch.cuda.current_stream().cuda_stream)
+        _build.check("flash_attention", code)
+        _count(CUDA_CORES)
+        return out
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {nm} must be 16-byte "
+                             "aligned for the tensor-core route (TMA)")
+    part = ml = None
+    if plan.nsplit > 1:
+        part = torch.empty((plan.nsplit, BH, T, d), dtype=torch.float32,
+                           device=q.device)
+        ml = torch.empty((plan.nsplit, BH, T, 2), dtype=torch.float32,
+                         device=q.device)
     with torch.cuda.device(q.device):
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  BH, T, S, d, int(bool(causal)), int(window),
-                  float(d ** -0.5), torch.cuda.current_stream().cuda_stream)
-    _build.check("flash_attention", code)
-    flash_attention_cuda.launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.flash_attention_bf16_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if ml is None else ml.data_ptr(), BH, T, S, d,
+            int(bool(causal)), int(window), scale, plan.nsplit, stream)
+        _build.check("flash_attention", code)
+        _count(TENSOR_CORES)
+        if part is not None:
+            code = lib.flash_attention_combine_bf16(
+                part.data_ptr(), ml.data_ptr(), out.data_ptr(), BH * T, d,
+                plan.nsplit, stream)
+            _build.check("flash_attention (combine)", code)
+            _count(COMBINE)
     return out
 
 
@@ -125,4 +247,6 @@ registry.register(registry.KernelSpec(
     diff_argnums=(0, 1, 2)))
 
 __all__ = ["flash_attention", "flash_attention_cuda", "attention_ref",
+           "attention_split_ref", "AttentionPlan", "pick_route",
+           "plan_split", "plan_call", "route_launch_counts", "sm_count",
            "MAX_HEAD_DIM"]

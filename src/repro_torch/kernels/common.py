@@ -88,6 +88,19 @@ def check_matmul(name: str, spikes: torch.Tensor, w: torch.Tensor) -> None:
                          f"w on {w.device}")
 
 
+_SM_COUNT = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's multiprocessor count, read once per device."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
 def w_in_smem(n: int) -> bool:
     """Whether the recurrent kernels (`lifrec`, `alifrec`) keep an (n, n)
     W_rec in shared memory on the current device; else they read W_rec
@@ -116,4 +129,4 @@ def pad_axis(x: torch.Tensor, axis: int, mult: int, value=0.0):
 
 
 __all__ = ["resolve_device", "check_device", "check_scan", "check_matmul",
-           "w_in_smem", "tree_to", "pad_axis", "DeviceLike"]
+           "sm_count", "w_in_smem", "tree_to", "pad_axis", "DeviceLike"]

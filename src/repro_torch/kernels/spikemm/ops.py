@@ -1,12 +1,17 @@
-"""Public spikemm entry: block occupancy + registry dispatch over two channels.
+"""Public spikemm entry: registry dispatch over two channels.
 
 `spikemm(spikes, w)` computes spikes (M, K) @ w (K, N). Two channels
 compute it, as in the JAX package:
 
   * **dense** (the family's own pair): on CUDA tensors `csrc/spikemm.cu`,
-    which skips every (BM, BK) spike block whose occupancy flag is 0; the
-    flags come from `block_occupancy` at the kernel's own block shape
-    (read from the built library). On CPU tensors the plain matmul.
+    one launch and nothing before it. The kernel finds each row's events
+    itself (FINDIDX) and adds their weight rows (LOCACC), or runs a
+    register-blocked loop over chunks dense enough for it, chosen on the
+    card from the count it just made; both give the same fmaf chain, bit
+    for bit (`spikemm_chain_ref` is that chain in plain PyTorch). The
+    wrapper only picks the CTA's tile from the shapes and the SM count
+    (`col_tile`, `rows_per_cta`). On CPU tensors the plain matmul
+    `spikemm_ref`.
   * **sparse** (`sparse.py`): `csrc/spikemm_sparse.cu` walks a compacted
     list of the occupied `SPARSE_BLOCK` blocks only; its plain version is
     the occupied-slab matmul.
@@ -32,14 +37,15 @@ gradient comes with the training slice.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, registry
-from repro_torch.kernels.common import check_matmul
-from repro_torch.kernels.spikemm.ref import spikemm_ref
+from repro_torch.kernels.common import check_matmul, sm_count
+from repro_torch.kernels.spikemm.ref import spikemm_chain_ref, spikemm_ref
 from repro_torch.kernels.spikemm.sparse import (block_occupancy,
                                                 occupancy_flags,
                                                 spikemm_sparse_cuda,
@@ -48,16 +54,26 @@ from repro_torch.kernels.spikemm.sparse import (block_occupancy,
 _ENV_SPARSE = "REPRO_SPIKEMM_SPARSE"
 _SPARSE_THRESHOLD_DEFAULT = 0.25
 
-_BLOCK: Optional[Tuple[int, int]] = None
+
+def col_tile(N: int) -> int:
+    """The column tile of a CTA of `csrc/spikemm.cu` for N columns: the
+    least of 8, 16, 32, 64 that covers N, 64 above, so that a narrow
+    readout does not leave most lanes idle."""
+    return 8 if N <= 8 else 16 if N <= 16 else 32 if N <= 32 else 64
 
 
-def kernel_block_shape() -> Tuple[int, int]:
-    """(bm, bk): the occupancy block shape `csrc/spikemm.cu` skips at."""
-    global _BLOCK
-    if _BLOCK is None:
-        lib = _build.library()
-        _BLOCK = (lib.spikemm_block_m(), lib.spikemm_block_k())
-    return _BLOCK
+def rows_per_cta(M: int, N: int, n_sm: int) -> int:
+    """Rows a CTA of `csrc/spikemm.cu` owns: the largest of 128, 64, 32
+    and 16 (32 at the 8-wide column tile) whose grid still holds about a
+    wave of CTAs (three quarters of the SM count), else the smallest.
+    Larger tiles make the dense loop's loads go further; more CTAs keep
+    the card busy where the events are few."""
+    cw = col_tile(N)
+    sizes = (128, 64, 32) if cw == 8 else (128, 64, 32, 16)
+    for bm in sizes:
+        if math.ceil(M / bm) * math.ceil(N / cw) * 4 >= 3 * n_sm:
+            return bm
+    return sizes[-1]
 
 
 def occupancy_fraction(spikes: torch.Tensor) -> float:
@@ -97,21 +113,19 @@ def _select_channel(spikes: torch.Tensor, w: torch.Tensor, *,
 
 
 def spikemm_cuda(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch `csrc/spikemm.cu` on CUDA tensors."""
+    """Launch `csrc/spikemm.cu` on CUDA tensors: one kernel, nothing
+    before it (K = 0 gives zeros from the kernel too)."""
     check_matmul("spikemm", spikes, w)
     M, K = spikes.shape
     N = w.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=spikes.device)
     if out.numel() == 0:
         return out
-    if K == 0:
-        return out.zero_()
-    bm, bk = kernel_block_shape()
-    flags = block_occupancy(spikes, bm, bk)
+    bm = rows_per_cta(M, N, sm_count(spikes.device))
     with torch.cuda.device(spikes.device):
         code = _build.library().spikemm_f32(
-            spikes.data_ptr(), w.data_ptr(), flags.data_ptr(), out.data_ptr(),
-            M, K, N, torch.cuda.current_stream().cuda_stream)
+            spikes.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, bm,
+            col_tile(N), torch.cuda.current_stream().cuda_stream)
     _build.check("spikemm", code)
     spikemm_cuda.launches += 1
     return out
@@ -140,6 +154,7 @@ registry.register(registry.KernelSpec(
                                          cuda=spikemm_sparse_cuda)},
     select_channel=_select_channel))
 
-__all__ = ["spikemm", "spikemm_cuda", "spikemm_ref", "block_occupancy",
-           "kernel_block_shape", "occupancy_fraction", "sparse_threshold",
-           "spikemm_sparse_cuda", "spikemm_sparse_ref"]
+__all__ = ["spikemm", "spikemm_cuda", "spikemm_ref", "spikemm_chain_ref",
+           "block_occupancy", "col_tile", "rows_per_cta",
+           "occupancy_fraction", "sparse_threshold", "spikemm_sparse_cuda",
+           "spikemm_sparse_ref"]

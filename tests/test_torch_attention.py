@@ -233,3 +233,178 @@ def test_straight_through_backward_is_the_plain_vjp(monkeypatch, causal,
     assert len(got) == sum(need)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# The tensor-core route's split over KV, on the CPU through its plain
+# version `attention_split_ref`, held against the JAX `attention_ref` at
+# fp32 (both compute in fp32; 2e-5 bounds their different sum orders and
+# exp2 against exp). `tiles` are (bq, bk): the kernel's 128 and a small 32
+# that gives each q tile more KV tiles to cut.
+SPLIT_TOL = 2e-5
+SPLIT_CASES = [
+    (2, 384, 640, 64, True, 128),     # T != S, a window
+    (2, 256, 256, 64, True, 0),       # causal: later splits of early tiles
+    (2, 100, 77, 32, False, 20),      # non-causal window, T != S, ragged
+    (2, 256, 64, 64, True, 32),       # rows with no allowed key
+    (2, 256, 64, 16, False, 32),
+    (2, 256, 160, 64, True, 0),       # padded keys: S not a tile multiple
+    (3, 200, 330, 16, True, 64),      # T not a multiple of the tile
+]
+
+
+@pytest.mark.parametrize("tiles", [(128, 128), (32, 32)], ids=["128", "32"])
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 7])
+@pytest.mark.parametrize("BH,T,S,d,causal,window", SPLIT_CASES)
+def test_split_ref_matches_jax_attention_ref(BH, T, S, d, causal, window,
+                                             nsplit, tiles):
+    q, k, v = _inputs(BH, T, S, d, seed=T * 7 + S + nsplit)
+    got = ops.attention_split_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  nsplit, causal=causal, window=window,
+                                  bq=tiles[0], bk=tiles[1]).numpy()
+    want = _jax(q, k, v, False, causal=causal, window=window)
+    np.testing.assert_allclose(got, want, rtol=SPLIT_TOL, atol=SPLIT_TOL)
+
+
+def _split_key_ranges(T, S, causal, window, nsplit, bq, bk):
+    """[(q rows, [(first key, end key) per split])] as the kernel cuts
+    them (`ref._tile_range`, then split s takes tiles j_lo + s n / nsplit
+    up to j_lo + (s + 1) n / nsplit)."""
+    from repro_torch.kernels.attention.ref import _tile_range
+    out = []
+    for q0 in range(0, T, bq):
+        t_last = min(q0 + bq, T) - 1
+        lo, hi = _tile_range(q0, t_last, S, causal, window, bk)
+        n = hi - lo + 1
+        out.append((range(q0, t_last + 1), [
+            ((lo + s * n // nsplit) * bk,
+             min((lo + (s + 1) * n // nsplit) * bk, S))
+            for s in range(nsplit)]))
+    return out
+
+
+@pytest.mark.parametrize("BH,T,S,d,causal,window,nsplit,tiles,what", [
+    (2, 384, 640, 64, True, 128, 7, (32, 32), "masked"),
+    (2, 256, 256, 64, True, 0, 7, (128, 128), "empty"),
+    (2, 256, 64, 64, True, 32, 3, (32, 32), "none"),
+])
+def test_split_cases_reach_the_edges(BH, T, S, d, causal, window, nsplit,
+                                     tiles, what):
+    """The split cases above hold what the kernel must get right: a split
+    whose keys are all masked for some of its rows (m = -1e30, l = 0), a
+    split with no tile, and rows with no allowed key spread over splits."""
+    ranges = _split_key_ranges(T, S, causal, window, nsplit, *tiles)
+    found = False
+    for rows, splits in ranges:
+        for a, b in splits:
+            if what == "empty":
+                found |= b <= a
+                continue
+            for t in rows:
+                keys = np.arange(a, b)
+                ok = np.ones(len(keys), bool)
+                if causal:
+                    ok &= t - keys >= 0
+                if window > 0:
+                    ok &= t - keys < window
+                none = window > 0 and t >= S + window - 1
+                if what == "masked":
+                    found |= len(keys) > 0 and not ok.any() and not none
+                else:
+                    found |= none and len(keys) > 0 and len(splits) > 1
+    assert found
+    q, k, v = _inputs(BH, T, S, d, seed=11)
+    got = ops.attention_split_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  nsplit, causal=causal, window=window,
+                                  bq=tiles[0], bk=tiles[1]).numpy()
+    np.testing.assert_allclose(got, _jax(q, k, v, False, causal=causal,
+                                         window=window),
+                               rtol=SPLIT_TOL, atol=SPLIT_TOL)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("BH,T,S,d,dtype,sms,route,nsplit", [
+    (12, 32768, 32768, 128, BF16, 132, ops.TENSOR_CORES, 1),   # qwen2_32k
+    (32, 32768, 32768, 64, BF16, 132, ops.TENSOR_CORES, 1),    # zamba2
+    (17, 128, 1 << 20, 128, BF16, 132, ops.TENSOR_CORES, 16),  # int64
+    (2, 256, 256, 64, BF16, 132, ops.TENSOR_CORES, 2),   # one split a tile
+    (2, 256, 64, 64, BF16, 132, ops.TENSOR_CORES, 1),    # one KV tile
+    (4, 512, 512, 128, BF16, 132, ops.TENSOR_CORES, 4),
+    (132, 128, 4096, 64, BF16, 132, ops.TENSOR_CORES, 2),
+    (264, 128, 4096, 64, BF16, 132, ops.TENSOR_CORES, 1),  # 2 CTAs an SM
+    (1, 128, 1 << 24, 128, BF16, 132, ops.TENSOR_CORES, ops.MAX_SPLITS),
+    (17, 128, 1 << 20, 128, BF16, 66, ops.TENSOR_CORES, 8),  # half the SMs
+    (4, 1024, 1024, 64, F32, 132, ops.CUDA_CORES, 1),      # bench
+    (2, 256, 256, 64, F32, 132, ops.CUDA_CORES, 1),
+    (2, 256, 256, 96, BF16, 132, ops.CUDA_CORES, 1),       # other d
+    (2, 160, 160, 16, BF16, 132, ops.CUDA_CORES, 1),
+    (2, 130, 130, 256, BF16, 132, ops.CUDA_CORES, 1),
+    (2, 70, 70, 1, BF16, 132, ops.CUDA_CORES, 1),
+    (2, 8, 0, 64, BF16, 132, ops.CUDA_CORES, 1),           # no key
+])
+def test_route_and_split_plan(BH, T, S, d, dtype, sms, route, nsplit):
+    """`plan_call` is a pure function of the shapes, the dtype and the SM
+    count: the tensor cores for bf16 at d = 64 or 128, split while the
+    grid is under two CTAs an SM, at most a chunk per KV tile."""
+    plan = ops.plan_call(BH, T, S, d, dtype, sms)
+    assert plan == ops.AttentionPlan(route, nsplit)
+    assert ops.pick_route(dtype, d, S) == route
+    if route == ops.TENSOR_CORES:
+        assert ops.plan_split(BH, T, S, sms) == nsplit
+
+
+def test_tile_constants_are_the_kernels():
+    """The planner's tiles are the tensor-core kernel's."""
+    src = (ops._build.CSRC / "flash_attention.cu").read_text()
+    assert f"constexpr int TC_BQ = {ops.TC_BLOCK_Q};" in src
+    assert f"constexpr int TC_BK = {ops.TC_BLOCK_K};" in src
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((2, 256, 256, 64), BF16, ["flash_attention_bf16_tc",
+                               "flash_attention_combine_bf16"]),
+    ((12, 4096, 1024, 128), BF16, ["flash_attention_bf16_tc"]),
+    ((2, 256, 256, 96), BF16, ["flash_attention_bf16"]),
+    ((2, 256, 256, 64), F32, ["flash_attention_f32"]),
+])
+def test_wrapper_launches_the_planned_route(monkeypatch, shape, dtype,
+                                            want):
+    """With a recording stand-in for the library (no card here), a call
+    makes the planned C calls, counts one launch each on the registry and
+    on its route, and hands a split its scratch: (nsplit, BH, T, d) and
+    (nsplit, BH, T, 2) fp32."""
+    from contextlib import nullcontext
+    from unittest import mock
+    lib = mock.Mock(**{f"{n}.return_value": 0 for n in (
+        "flash_attention_bf16_tc", "flash_attention_combine_bf16",
+        "flash_attention_bf16", "flash_attention_f32")})
+    monkeypatch.setattr(ops, "_check", lambda *a: None)
+    monkeypatch.setattr(ops, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(ops._build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    BH, T, S, d = shape
+    q, k, v = (torch.zeros((BH, n, d), dtype=dtype) for n in (T, S, S))
+    registry.reset_launches()
+    before = ops.route_launch_counts()
+    ops._launch(q, k, v, True, 0)
+    calls = [(c[0], c.args) for c in lib.method_calls]
+    assert [name for name, _ in calls] == want
+    assert registry.launch_counts()["attention"] == len(want)
+    after = ops.route_launch_counts()
+    kinds = {"flash_attention_bf16_tc": ops.TENSOR_CORES,
+             "flash_attention_combine_bf16": ops.COMBINE,
+             "flash_attention_bf16": ops.CUDA_CORES,
+             "flash_attention_f32": ops.CUDA_CORES}
+    for kind in (ops.TENSOR_CORES, ops.CUDA_CORES, ops.COMBINE):
+        assert after[kind] - before[kind] == sum(kinds[n] == kind
+                                                 for n in want)
+    if len(want) == 2:
+        nsplit = ops.plan_split(BH, T, S, 132)
+        tc_args, comb_args = calls[0][1], calls[1][1]
+        assert tc_args[-2] == comb_args[-2] == nsplit > 1
+        assert tc_args[4] == comb_args[0] and tc_args[5] == comb_args[1]
+        assert comb_args[3] == BH * T and comb_args[4] == d
+    registry.reset_launches()

@@ -52,6 +52,7 @@ from repro_torch.kernels.spikemm.gather import (build_gather_tables,
                                                 spikemm_gather_cuda)
 from repro_torch.kernels.spikemm.ops import (block_occupancy, spikemm,
                                              spikemm_cuda)
+from repro_torch.kernels.spikemm.ref import spikemm_chain_ref, spikemm_ref
 from repro_torch.kernels.spikemm.sparse import (SPARSE_BLOCK,
                                                 compact_blocks,
                                                 occupancy_flags,
@@ -116,6 +117,94 @@ def test_spikemm_matches_reference(M, K, N, force_pallas):
     ref, = _jax("spikemm", (s, w), force_pallas)
     got, = _port(spikemm, (s, w))
     np.testing.assert_allclose(got, ref, rtol=0, atol=_tol("spikemm"))
+
+
+@pytest.mark.parametrize("force_pallas", IMPLS)
+@pytest.mark.parametrize("M,K,N,p", [(100, 300, 200, 0.13), (111, 700, 20, 0.13),
+                                     (37, 65, 6, 0.5), (64, 129, 8, 0.02),
+                                     (5, 1, 3, 1.0)])
+def test_spikemm_chain_ref_matches_reference(M, K, N, p, force_pallas):
+    """The kernel's summation order in plain PyTorch (an ascending-k chain
+    of fp32 adds) is the JAX package's spikemm within the family's tol,
+    on ragged shapes."""
+    rng = np.random.default_rng(M + K + N)
+    s = (rng.random((M, K)) < p).astype(np.float32)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    ref, = _jax("spikemm", (s, w), force_pallas)
+    got, = _port(spikemm_chain_ref, (s, w))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=_tol("spikemm"))
+
+
+@pytest.mark.parametrize("M,K,N", [(100, 300, 200), (64, 700, 20)])
+def test_spikemm_chain_ref_is_the_plain_version_and_row_isolated(M, K, N):
+    """`spikemm_chain_ref` matches `spikemm_ref` (the registry's plain
+    version) within `_tol("spikemm")`, and each row is the same bits alone
+    as packed with other rows: the isolation the kernel keeps."""
+    rng = np.random.default_rng(K)
+    s = torch.from_numpy((rng.random((M, K)) < 0.1).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    packed = spikemm_chain_ref(s, w)
+    torch.testing.assert_close(packed, spikemm_ref(s, w), rtol=0,
+                               atol=_tol("spikemm"))
+    for i in (0, 1, M // 2, M - 1):
+        assert torch.equal(spikemm_chain_ref(s[i:i + 1], w)[0], packed[i])
+        assert torch.equal(spikemm_chain_ref(s[i:i + 3], w)[0], packed[i])
+
+
+@pytest.mark.parametrize("M,N,cw,bm", [
+    (2048, 256, 64, 64),      # the SHD window's hidden INTEG
+    (2048, 20, 32, 16),       # its readout
+    (2048, 64, 64, 16), (2048, 6, 8, 32),    # the ECG window's
+    (64, 8, 8, 32),           # the banded readout
+    (2048, 512, 64, 128),     # sparse_integ's hidden INTEG
+    (1000, 257, 64, 32), (100, 200, 64, 16), (1, 1, 8, 32),
+])
+def test_spikemm_tile_plan(M, N, cw, bm):
+    """The column tile follows N; the rows per CTA are the largest that
+    keep about a wave of CTAs on 132 SMs."""
+    assert spikemm_ops.col_tile(N) == cw
+    assert spikemm_ops.rows_per_cta(M, N, 132) == bm
+
+
+@pytest.mark.parametrize("M,K,N", [(2048, 700, 256), (64, 8192, 8),
+                                   (5, 0, 3)])
+def test_spikemm_wrapper_launches_one_kernel_and_nothing_before(
+        monkeypatch, M, K, N):
+    """With a recording stand-in for the library (no card here) the
+    wrapper makes one C call, `spikemm_f32` with the planned tile, counts
+    one launch, and runs no occupancy reduction before it."""
+    from contextlib import nullcontext
+    from unittest import mock
+
+    def refuse(*a, **k):
+        raise AssertionError("a reduction before the kernel")
+    lib = mock.Mock(**{"spikemm_f32.return_value": 0})
+    monkeypatch.setattr(spikemm_ops, "check_matmul", lambda *a: None)
+    monkeypatch.setattr(spikemm_ops, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(spikemm_ops, "block_occupancy", refuse)
+    monkeypatch.setattr(spikemm_ops, "occupancy_flags", refuse)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    registry.reset_launches()
+    spikemm_cuda(torch.zeros((M, K)), torch.zeros((K, N)))
+    assert [c[0] for c in lib.method_calls] == ["spikemm_f32"]
+    assert lib.spikemm_f32.call_args.args[3:8] == (
+        M, K, N, spikemm_ops.rows_per_cta(M, N, 132),
+        spikemm_ops.col_tile(N))
+    assert registry.launch_counts()["spikemm"] == 1
+    registry.reset_launches()
+
+
+@pytest.mark.parametrize("symbol", ["spikemm_block_m", "spikemm_block_k",
+                                    "kernel_block_shape"])
+def test_spikemm_block_shape_symbols_are_gone(symbol):
+    """The kernel measures occupancy itself: no block-shape symbol is left
+    in the library's signatures, the kernel source or the wrapper."""
+    assert symbol not in _build.SIGNATURES
+    assert symbol not in (_build.CSRC / "spikemm.cu").read_text()
+    assert not hasattr(spikemm_ops, symbol)
 
 
 @pytest.mark.parametrize("force_pallas", IMPLS)

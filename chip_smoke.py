@@ -10,6 +10,13 @@ the hand kernels from `src/repro_torch/csrc/` and runs these phases. Any
 failure raises and the script exits non-zero; no phase catches and
 continues, and nothing falls back to the CPU.
 
+    python3 chip_smoke.py --sweep
+
+runs the device and build phases and the serial-chain kernels' sweep
+alone (see 3.), with no other phase: copied into an older checkout, it
+measures that tree's kernels the same way, so two trees compare in one
+call.
+
 1. device   the card, its compute capability, and its name and power limit
             as `nvidia-smi` reports them. TF32 is switched off for every
             PyTorch matmul and convolution before any comparison, so the
@@ -24,16 +31,24 @@ continues, and nothing falls back to the CPU.
             ten windows into ECG records, and the ALIF feed-forward run's
             (250, 64, 64)) and at ragged shapes (T=37, B=3, N=130, `lif`
             with both resets; `lifrec`, `alif` and `alifrec` also at N=300
-            and N=1024, from nonzero v0/a0/s0, so W_rec is held in shared
-            memory at N=130 and read through L2 above; spikemm
-            1000 x 700 x 257); `lifrec` and `alifrec` on rows wider than a
-            block's 1024 threads, N = 1025, 2048 and 4096, ragged (T=37,
-            B=3) and in the ECG window's shape (T=32, B=64; timed at
-            N=2048);
+            and N=1024, from nonzero v0/a0/s0, so the block route holds
+            W_rec in shared memory at N=130 and reads it through L2 above;
+            spikemm 1000 x 700 x 257); `lifrec` and `alifrec` on rows wider
+            than a block's 1024 threads, N = 1025, 2048 and 4096, ragged
+            (T=37, B=3) and in the ECG window's shape (T=32, B=64; timed at
+            N=2048); both on each side of the scan's route edges, N = 1,
+            31, 32, 33, 64, 127, 128, 129 and 1024 at B = 1, 3 and 64
+            (T=37), at T=1 and with rows firing in most steps, each call's
+            route read off `rec_route_launch_counts()` (the warp route up
+            to 128 neurons, the block route above);
             `stdp_seq` at each learning rule's term planes of the
             plastic_ff path (captured from its plan.run), at the JAX
             family's ragged shape (K=2, T=12, B=4, 130 x 140), with four
             term planes, and with bounds of +-0.4 that the trajectory hits;
+            at T = 1, G - 1 and G + 1 (G = STDP_SEQ_GROUP), K = 4, a window
+            of T = 2000, terms that end mid-stage (K=4, B=5), B = 1,
+            ragged tiles of float4 rows (260 x 100), and at B = 0 through
+            the C entry point (the wrapper cannot express it);
             `stdp` at one step of the stdp_step path and at the JAX kernel
             tests' shapes (8, 256, 256), (16, 300, 200), (4, 128, 640)
             with fp32 and bf16 traces;
@@ -58,6 +73,11 @@ continues, and nothing falls back to the CPU.
             where one exists, a PyTorch call of the same function as a
             yardstick (`library_ms`: `torch.matmul`, or `torch.sparse.mm`
             on a CSR matrix where the dense one does not fit).
+            Then the sweep of the serial-chain kernels: the plastic_ff pair
+            rule's `stdp_seq` planes cut to T = 1, 75, 150 and 300 steps,
+            the ECG windows' `alifrec` and `lifrec` calls cut to T = 1, 8
+            and 32, each bit for bit and timed; the fit ms = a + b T splits
+            a call into its launch and prologue (a) and a step (b).
 4. paths    each path served through the engine, with every launch counter
             set to 0 just before its run and read just after:
             * shd: `make_dhsnn_shd` at 700 -> 64 (x4 branches) -> 20, 128
@@ -73,7 +93,8 @@ continues, and nothing falls back to the CPU.
             Checks for each:
             * every launch counter grew by launches-per-window x windows,
               and the other kernels' (the sparse and gather ones among
-              them) stayed at 0;
+              them) stayed at 0; every recurrent-scan launch on the route
+              its hidden width plans (the ECG SRNN's 64: the warp route);
             * the engine's outputs equal a one-shot `plan.run` of all
               sessions on the card bit for bit (cohorts, windows, packing,
               the recurrence carried through state["out"] and the state
@@ -178,9 +199,10 @@ continues, and nothing falls back to the CPU.
 12. parity  `repro_torch.kernels.parity.check_all()`: every family's CUDA
             wrapper and the sparse channel's against their plain versions
             at `make_inputs`, `attention` forward and VJP; 11 kernels.
-13. result  prints `{"kernels": [...]}`, one `{"slice": {...}}` line per
-            path, `{"parity": {...}}`, the card's name and power limit and,
-            last, `{"ok": true, "device": {...}}`.
+13. result  prints `{"kernels": [...]}`, `{"sweep": {...}}`, one
+            `{"slice": {...}}` line per path, `{"parity": {...}}`, the
+            card's name and power limit and, last, `{"ok": true,
+            "device": {...}}`.
 
 Bounds (`bound_ms`) are computed from this run's inputs against the H100
 SXM's published peaks: 67 TFLOP/s fp32 (CUDA cores) and 3.35 TB/s HBM,
@@ -276,6 +298,16 @@ ONLINE_T, ONLINE_B, ONLINE_CHUNKS = 200, 4, 6
 ONLINE_RULE = dict(a_plus=0.02, a_minus=0.015, w_min=-1.0, w_max=1.0)
 # recurrent rows wider than 1024 neurons: several neurons per thread
 WIDE_N = (1025, 2048, 4096)
+# the widest row whose W_rec the scan's block route holds in shared memory
+# (fp32, under the H100's 227 KB opt-in)
+SMEM_W_MAX_N = 241
+# the serial-chain kernels: a chain over time (the recurrent scans) or over
+# the learning window's clips (stdp_seq, stdp)
+SERIAL = ("lifrec", "alifrec", "stdp_seq", "stdp")
+# the step-0 sweep: each serial-chain kernel's home-path call cut to these
+# step counts (plastic_ff's T = 300, the ECG window's 32)
+SWEEP_T = {"stdp_seq": (1, 75, 150, 300), "alifrec": (1, 8, 32),
+           "lifrec": (1, 8, 32)}
 # bench_topology_exec's gather rows: (n, band, bk = bn, rows M, input rate)
 GATHER_ROWS = {"exec_vs_dense": (8192, 64, 128, 64, 0.2),
                "scale_1e5": (100_000, 32, 128, 8, 0.1),
@@ -834,16 +866,110 @@ def wide_rec_cases():
     return cases
 
 
-def stdp_cases():
-    """The learning kernels' cases. `stdp_seq`: each rule's term planes
-    from the plastic_ff path's one plan.run on the card (captured at the
-    kernel's call), `_make_seq_inputs`' ragged shape (K=2, T=12, B=4,
-    130 x 140), four term planes, and bounds of +-0.4 that the trajectory
-    hits. `stdp`: one step of the stdp_step path's stdp_run (step 150, its
-    traces warm), and the JAX kernel tests' (B, M, N) with fp32 and bf16
-    traces and their +-0.4 clip."""
-    from repro_torch.core import plan, plasticity
-    from repro_torch.kernels.stdp import ops as stdp_ops
+def rec_route_cases():
+    """`lifrec` and `alifrec` on both sides of the scan's route edges: N =
+    1, 31, 32, 33 (one ballot word and two), 64 (the ECG SRNN),
+    REC_WARP_MAX_N - 1, REC_WARP_MAX_N, REC_WARP_MAX_N + 1 (the last warp
+    row and the first block row) and 1024, each at B = 1, 3 and 64 (one
+    row a block, a partial block, full blocks) over T = 37 steps (three
+    stages of current: the ring wraps), from a nonzero state; the ECG
+    window's shape at T = 1; and rows that fire in most steps, so that
+    most mask bits are set. Inputs biased to fire in every case."""
+    from repro_torch.kernels.common import REC_WARP_MAX_N
+    g = torch.Generator().manual_seed(8)
+
+    def rnd(*shape, lo=0.0, hi=1.0):
+        return (lo + (hi - lo) * torch.rand(shape, generator=g)).to(DEV)
+
+    cases = {"lifrec": [], "alifrec": []}
+
+    def add(label, T, B, n, bias):
+        cur = (0.8 * torch.randn((T, B, n), generator=g) + bias).to(DEV)
+        w = (0.4 / math.sqrt(n) * torch.randn((n, n), generator=g)).to(DEV)
+        tau, rho = rnd(n, lo=0.7, hi=0.98), rnd(n, lo=0.85, hi=0.99)
+        v0, a0 = rnd(B, n, lo=-0.5, hi=0.9), rnd(B, n, hi=2.0)
+        s0 = (torch.rand((B, n), generator=g) < 0.3).float().to(DEV)
+        cases["lifrec"].append(Case(label, (cur, w, tau, v0, s0, 1.0)))
+        cases["alifrec"].append(Case(label, (cur, w, tau, rho, v0, a0, s0,
+                                             1.0, 0.5)))
+
+    for n in sorted({1, 31, 32, 33, 64, REC_WARP_MAX_N - 1, REC_WARP_MAX_N,
+                     REC_WARP_MAX_N + 1, 1024}):
+        for B in (1, 3, CAPACITY):
+            add(f"route edge N={n}, B={B}, T=37", 37, B, n, 0.3)
+    add("ECG window shape at T=1", 1, CAPACITY, ECG_HIDDEN, 0.3)
+    for n in (ECG_HIDDEN, REC_WARP_MAX_N):
+        add(f"firing most steps, N={n}", 37, 3, n, 2.5)
+    return cases
+
+
+def stdp_seq_edge_cases():
+    """`stdp_seq` at the plastic_ff widths (256 x 128, B = 8) where the
+    kernel's groups of STDP_SEQ_GROUP steps have edges: T = 1, G - 1, G + 1
+    (K = 2), four terms at T = 75, a window of T = 2000; rows of a step
+    that cross its stages (K = 4, B = 5: a term ends mid-stage) and a
+    single batch row (K = 3, B = 1, T = 37); ragged tiles with rows of
+    whole float4s (260 x 100). Bounds of +-0.4 that the trajectory hits."""
+    from repro_torch.kernels._build import STDP_SEQ_GROUP as G
+    g = torch.Generator().manual_seed(9)
+    amps4 = (0.05, -0.06, 0.03, -0.04)
+    out = []
+    for K, T, B, M, N, label in (
+            (2, 1, 8, 256, 128, "T=1"),
+            (2, G - 1, 8, 256, 128, f"T=G-1={G - 1}"),
+            (2, G + 1, 8, 256, 128, f"T=G+1={G + 1}"),
+            (4, 75, 8, 256, 128, "T=75"),
+            (2, 2000, 8, 256, 128, "long window T=2000"),
+            (4, 37, 5, 256, 128, "B=5, terms end mid-stage"),
+            (3, 37, 1, 256, 128, "B=1"),
+            (2, G + 3, 8, 260, 100, "ragged 260 x 100, float4 rows")):
+        P = torch.rand((K, T * B, M), generator=g).to(DEV)
+        Q = (torch.rand((K, T * B, N), generator=g) < 0.2).float().to(DEV)
+        w = (0.3 * torch.randn((M, N), generator=g)).to(DEV)
+        out.append(Case(f"{label}, K={K}", (P, Q, w), kw=dict(
+            amps=amps4[:K], w_min=-0.4, w_max=0.4, batch=B)))
+    return out
+
+
+def stdp_seq_no_rows():
+    """`csrc/stdp.cu`'s stdp_seq at B = 0 (steps with no batch rows, which
+    the wrapper cannot express: it derives T from the rows), called through
+    the C entry point at T = 5, K = 3 on the card, against the plain loop:
+    dw = sum_k amp_k * 0 from zeros, then the clip, T times."""
+    import ctypes
+    from repro_torch.kernels import _build
+    K, T, M, N = 3, 5, 130, 140
+    amps = (0.5, -0.25, 0.125)
+    w = (0.7 * torch.randn((M, N), generator=torch.Generator().manual_seed(
+        4))).to(DEV)
+    P = torch.zeros((K, 0, M), device=DEV)
+    Q = torch.zeros((K, 0, N), device=DEV)
+    out = torch.empty_like(w)
+    amp = (ctypes.c_float * K)(*amps)
+    code = _build.library().stdp_seq_f32(
+        P.data_ptr(), Q.data_ptr(), w.data_ptr(), out.data_ptr(),
+        ctypes.addressof(amp), K, T, 0, M, N, -0.5, 0.5,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check("stdp_seq", code)
+    want = w.clone()
+    for _ in range(T):
+        dw = torch.zeros_like(w)
+        for a in amps:
+            dw = dw + torch.tensor(a, device=DEV) * torch.zeros_like(w)
+        want = torch.clamp(want + dw, -0.5, 0.5)
+    sync()
+    if not torch.equal(out, want) or torch.equal(out, w):
+        raise AssertionError("stdp_seq at B=0: not its plain loop bit for "
+                             "bit, or nothing clipped")
+    log(f"kernel stdp_seq [B=0 through the C entry point, K={K}, T={T}, "
+        f"{M} x {N}]: clips T times, equal to the plain loop bit for bit")
+
+
+def plastic_seq_cases(rules):
+    """One timed `stdp_seq` Case per rule: the term planes of the
+    plastic_ff path's one plan.run on the card, captured at the kernel's
+    call. The pair rule's is the path's home call."""
+    from repro_torch.core import plan
     captured = []
     real_seq = plan.stdp_seq
 
@@ -854,18 +980,31 @@ def stdp_cases():
     x = torch.from_numpy(plastic_input()).to(DEV)
     plan.stdp_seq = spy_seq
     try:
-        for rule_name in PLASTIC_RULES:
+        for rule_name in rules:
             nodes, params = make_plastic(rule_name, DEV)
             m = plastic_mod(rule_name)
             plan.run(nodes, params, x, device=DEV,
                      mod=None if m is None else torch.from_numpy(m).to(DEV))
     finally:
         plan.stdp_seq = real_seq
-    cases = {"stdp_seq": [
-        Case(f"plastic_ff {r}, K={P.shape[0]}", (P, Q, w), kw=kw,
-             path="plastic_ff" if r == "pair_stdp" else None, timed=True,
-             plain_iters=2)
-        for r, (P, Q, w, kw) in zip(PLASTIC_RULES, captured)], "stdp": []}
+    return [Case(f"plastic_ff {r}, K={P.shape[0]}", (P, Q, w), kw=kw,
+                 path="plastic_ff" if r == "pair_stdp" else None, timed=True,
+                 plain_iters=2)
+            for r, (P, Q, w, kw) in zip(rules, captured)]
+
+
+def stdp_cases():
+    """The learning kernels' cases. `stdp_seq`: each rule's term planes
+    from the plastic_ff path's one plan.run on the card (captured at the
+    kernel's call), `_make_seq_inputs`' ragged shape (K=2, T=12, B=4,
+    130 x 140), four term planes, and bounds of +-0.4 that the trajectory
+    hits. `stdp`: one step of the stdp_step path's stdp_run (step 150, its
+    traces warm), and the JAX kernel tests' (B, M, N) with fp32 and bf16
+    traces and their +-0.4 clip."""
+    from repro_torch.core import plasticity
+    from repro_torch.kernels.stdp import ops as stdp_ops
+    cases = {"stdp_seq": plastic_seq_cases(PLASTIC_RULES), "stdp": []}
+    cases["stdp_seq"] += stdp_seq_edge_cases()
     g = torch.Generator().manual_seed(7)
     for K, amps, lo, hi, label in (
             (2, (0.01, -0.012), -1.0, 1.0, "ragged K=2 (JAX make_inputs)"),
@@ -1223,48 +1362,82 @@ def kernel_impls():
 def kernel_cases(shd_params):
     """{kernel: [Case]}: every kernel's calls of the kernel phase."""
     cases = {name: [] for name in kernel_impls()[0]}
-    # the homogeneous ECG window's spikemm and linrec calls have the
-    # heterogeneous one's shapes; only its hidden layer is new
     for path, window in (("shd", shd_window(shd_params)),
                          ("ecg", ecg_window(True)),
-                         ("ecg_homogeneous",
-                          {"lifrec": ecg_window(False)["lifrec"]}),
                          ("alif_ff", {"alif": [("ALIF-ff hidden",
                                                 alif_ff_run_inputs())]})):
         for name, calls in window.items():
+            if name in SERIAL:
+                continue                       # in serial_cases
             cases[name] += [Case(label, args, path=path, timed=True,
                                  library=(lambda a=args: torch.matmul(*a))
                                  if name == "spikemm" else None)
                             for label, args in calls]
     for name, calls in ragged_cases().items():
-        cases[name] += [Case(label, args) for label, args in calls]
+        if name not in SERIAL:
+            cases[name] += [Case(label, args) for label, args in calls]
     cases["spikemm"] += spikemm_cases()
     cases["spikemm_sparse"] = [
         dataclasses.replace(c, library=lambda a=c.args: torch.matmul(*a))
         for c in sparse_cases()]
     cases["spikemm_gather"] = gather_cases()
-    for name, calls in wide_rec_cases().items():
+    for name, calls in serial_cases().items():
         cases[name] += calls
-    cases.update(stdp_cases())
+    return cases
+
+
+def serial_cases():
+    """{kernel: [Case]} of the serial-chain kernels: the ECG windows'
+    hidden layers (`alifrec`; `lifrec` in the homogeneous ablation), the
+    ragged and wide recurrent rows, both sides of the scan's route edges,
+    and the learning kernels' cases."""
+    cases = {name: [] for name in SERIAL}
+    for path, name, heterogeneous in (("ecg", "alifrec", True),
+                                      ("ecg_homogeneous", "lifrec", False)):
+        cases[name] += [Case(label, args, path=path, timed=True)
+                        for label, args in ecg_window(heterogeneous)[name]]
+    ragged = ragged_cases()
+    for name in ("lifrec", "alifrec"):
+        cases[name] += [Case(label, args) for label, args in ragged[name]]
+    for more in (wide_rec_cases(), rec_route_cases(), stdp_cases()):
+        for name, calls in more.items():
+            cases[name] += calls
     return cases
 
 
 def phase_kernels(cases):
-    from repro_torch.kernels.common import w_in_smem
+    from repro_torch.kernels.common import (rec_route,
+                                            rec_route_launch_counts,
+                                            w_in_smem)
     from repro_torch.kernels.spikemm.ops import spikemm_cuda
     from repro_torch.kernels.spikemm.ref import spikemm_chain_ref
     cuda, plain = kernel_impls()
     results = {}
+    if "stdp_seq" in cases:
+        stdp_seq_no_rows()
     for name, calls_in in cases.items():
         calls, max_err = [], 0.0
         for case in calls_in:
             label, args, kw = case.label, case.args, case.kw
+            before = rec_route_launch_counts()
             got = cuda[name](*args, **kw)
+            route = None
+            if name in ("lifrec", "alifrec"):
+                # the route the wrapper took: one launch on rec_route(N)'s
+                # counter and none on the other's
+                route = rec_route(args[0].shape[2])
+                took = {r: n - before[name][r]
+                        for r, n in rec_route_launch_counts()[name].items()}
+                if took != {r: int(r == route) for r in took}:
+                    raise AssertionError(f"{name} [{label}]: route counters "
+                                         f"moved {took}, planned {route}")
             ref = plain[name](*args, **kw)
             sync()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
-            extra = ""
+            extra = "" if route is None else (
+                f", {route} route (its counter "
+                f"{rec_route_launch_counts()[name][route]})")
             for g, r in zip(got, ref):
                 if not torch.isfinite(g).all():
                     raise AssertionError(f"{name} [{label}]: non-finite")
@@ -1314,14 +1487,14 @@ def phase_kernels(cases):
                               f"bk={t.bk}, bn={t.bn}")
             if not case.timed:
                 where = ""
-                if name in ("lifrec", "alifrec"):
+                if route == "block":
                     n = args[0].shape[2]
                     smem = w_in_smem(n)
-                    if smem != (n <= 130):
+                    if smem != (n <= SMEM_W_MAX_N):
                         raise AssertionError(
                             f"{name} [{label}]: W_rec in shared memory is "
                             f"{smem}; this case is to run the "
-                            f"{'shared' if n <= 130 else 'L2'} path")
+                            f"{'shared' if n <= SMEM_W_MAX_N else 'L2'} path")
                     where = (", W_rec in shared memory" if smem
                              else ", W_rec through L2")
                 log(f"kernel {name} [{label}] {shapes}{where}: matches "
@@ -1351,7 +1524,8 @@ def phase_kernels(cases):
                         "spikemm", "spikemm_sparse", "spikemm_gather",
                         "stdp") else None))
             calls.append({"call": label, "path": case.path, "shape": shapes,
-                          "ms": ms, "plain_ms": p_ms, "library_ms": lib,
+                          "route": route, "ms": ms, "plain_ms": p_ms,
+                          "library_ms": lib,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "bound_dense_ms": d_ms, "bound_dense_by": d_by,
                           "ms_per_step": None if T is None else ms / T,
@@ -1388,6 +1562,66 @@ def phase_kernels(cases):
                           else sum(c["kernel_ms"] for c in home)),
             "calls": calls}
     return results
+
+
+def cut_steps(name, args, kw, T):
+    """The call `args` of a serial-chain kernel cut to its first T steps."""
+    if name == "stdp_seq":
+        P, Q, w = args
+        rows = T * kw["batch"]
+        return (P[:, :rows].contiguous(), Q[:, :rows].contiguous(), w)
+    return (args[0][:T].contiguous(),) + tuple(args[1:])
+
+
+def fit_line(xs, ys):
+    """(a, b) of the least-squares line y = a + b x."""
+    b, a = np.polyfit(np.asarray(xs, float), np.asarray(ys, float), 1)
+    return float(a), float(b)
+
+
+def sweep_cases():
+    """The home-path calls of the serial-chain kernels alone: the
+    plastic_ff pair rule's `stdp_seq` planes and the ECG window's hidden
+    layer, heterogeneous (`alifrec`) and homogeneous (`lifrec`)."""
+    return {"stdp_seq": plastic_seq_cases(("pair_stdp",)),
+            "alifrec": [Case("ECG hidden", ecg_window(True)["alifrec"][0][1],
+                             path="ecg", timed=True)],
+            "lifrec": [Case("ECG hidden", ecg_window(False)["lifrec"][0][1],
+                            path="ecg_homogeneous", timed=True)]}
+
+
+def phase_sweep(cases):
+    """Where a serial-chain kernel's time goes: its home-path call cut to
+    each of SWEEP_T's step counts, checked bit for bit against the plain
+    version and timed with CUDA events; the fit ms = a + b * T splits the
+    time into launch and prologue (a) and the cost of a step (b)."""
+    cuda, plain = kernel_impls()
+    out = {}
+    for name, steps in SWEEP_T.items():
+        case = next(c for c in cases[name] if c.path == HOME[name])
+        ms = []
+        for T in steps:
+            args = cut_steps(name, case.args, case.kw, T)
+            got = cuda[name](*args, **case.kw)
+            ref = plain[name](*args, **case.kw)
+            sync()
+            for g, r in zip(got if isinstance(got, tuple) else (got,),
+                            ref if isinstance(ref, tuple) else (ref,)):
+                if not torch.equal(g, r):
+                    raise AssertionError(
+                        f"sweep {name} [{case.label}] T={T}: not bit-identical"
+                        f" to its plain version "
+                        f"({float((g - r).abs().max()):.3e})")
+            ms.append(cuda_ms(lambda: cuda[name](*args, **case.kw),
+                              iters=200))
+        a, b = fit_line(steps, ms)
+        out[name] = {"call": case.label, "path": case.path, "T": list(steps),
+                     "ms": ms, "a_ms": a, "b_ms_per_step": b}
+        log(f"sweep {name} [{case.label}]: " + ", ".join(
+            f"T={T} {t:.5f} ms" for T, t in zip(steps, ms))
+            + f"; fit a = {a:.5f} ms, b = {b * 1e3:.4f} us a step "
+            "(bit for bit at every T)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1593,9 +1827,27 @@ def card_vs_cpu(tag, nodes_c, params_c, x, st_gpu, o_gpu, r_gpu,
     return s_cpu, first_div, n_ties, err_plan, err_state, rows, err_rel
 
 
+def rec_routes_taken(tag, before, counts, width):
+    """{kernel: {route: launches}} of the recurrent scans since `before`
+    (`rec_route_launch_counts()`): every launch of the main path on the
+    route its hidden width plans, `rec_route(width)`, and none on the
+    other."""
+    from repro_torch.kernels.common import rec_route, rec_route_launch_counts
+    after = rec_route_launch_counts()
+    taken = {k: {r: n - before[k][r] for r, n in v.items()}
+             for k, v in after.items()}
+    for k, by_route in taken.items():
+        want = {r: counts[k] * (r == rec_route(width)) for r in by_route}
+        if by_route != want:
+            raise AssertionError(f"[{tag}] {k} route launches {by_route}, "
+                                 f"planned {want}")
+    return taken
+
+
 def phase_path(path: ServePath, smi):
     from repro_torch.core import plan
     from repro_torch.kernels import registry
+    from repro_torch.kernels.common import rec_route_launch_counts
     from repro_torch.serve import EngineConfig, make_engine
 
     tag = path.name
@@ -1613,6 +1865,7 @@ def phase_path(path: ServePath, smi):
 
     # -- the main path: launch counters from 0 --------------------------------
     registry.reset_launches()
+    routes0 = rec_route_launch_counts()
     lat, walls = [], []
 
     def timed_replay():
@@ -1626,8 +1879,11 @@ def phase_path(path: ServePath, smi):
     counts = registry.launch_counts()
     wins = eng.metrics.windows_run
     counted(tag, path.per_window, wins, counts)
+    routes = rec_routes_taken(tag, routes0, counts, next(
+        n.out_dim for n in nodes if n.name == "hidden"))
     log(f"path [{tag}]: {len(streams)} sessions, {wins} windows, launches "
-        f"{counts} ({path.per_window} per window)")
+        f"{counts} ({path.per_window} per window); recurrent scan routes "
+        f"{routes}")
 
     # -- the engine equals a one-shot plan.run of every session ---------------
     x = side_by_side(streams, n_in)
@@ -1682,7 +1938,8 @@ def phase_path(path: ServePath, smi):
     out = {"path": tag, "model": path.model, "window": WINDOW,
            "capacity": CAPACITY, "sessions": len(streams), "windows": wins,
            "launches": counts, "launches_per_window": path.per_window,
-           "input": path.input, "hidden_spikes": int(s_cpu.sum()),
+           "rec_route_launches": routes, "input": path.input,
+           "hidden_spikes": int(s_cpu.sum()),
            "hidden_rate": float(s_cpu.mean()), "tie_flips": n_ties,
            "rows_diverged": int((first_div < T).sum()),
            "readout_max_abs_err": max(err_plan, err_eng),
@@ -2655,13 +2912,23 @@ def phase_parity():
     return reports
 
 
-def main():
+def main(argv):
+    if argv not in ([], ["--sweep"]):
+        raise SystemExit(f"chip_smoke: unknown arguments {argv}; run it with "
+                         "none, or with --sweep")
     smi = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     build_s = phase_build()
-    kernels = phase_kernels(kernel_cases(make_shd(True, DEV)[1]))
+    if argv == ["--sweep"]:
+        # the serial-chain kernels alone: their sweep, no paths
+        log(json.dumps({"sweep": phase_sweep(sweep_cases())}))
+        log(smi)
+        return
+    cases = kernel_cases(make_shd(True, DEV)[1])
+    kernels = phase_kernels(cases)
+    sweep = phase_sweep(cases)
     slices = [phase_path(p, smi) for p in PATHS]
     slices.append(phase_alif_ff(smi))
     slices.append(phase_topology_banded(smi))
@@ -2687,6 +2954,7 @@ def main():
             for s in slices if s["path"] in by_path}
     slices[0]["build_s"] = build_s
     log(json.dumps({"kernels": list(kernels.values())}))
+    log(json.dumps({"sweep": sweep}))
     for s in slices:
         log(json.dumps({"slice": s}))
     log(json.dumps({"parity": parity}))
@@ -2697,4 +2965,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -18,7 +18,8 @@
 // the currents of 8 steps are loaded before the 8 dependent updates.
 //
 // alifrec (self-recurrent): the scan of `rec_scan.cuh` with the moving
-// threshold, one block per batch row.
+// threshold: a warp per batch row up to 32 * REC_LANE_NEURONS neurons, a
+// block per batch row above.
 //
 // Rounding: every product and sum is __fmul_rn/__fadd_rn/__fsub_rn in the
 // plain version's order (`kernels/alifrec/ref.py`), so both kernels equal
@@ -78,10 +79,11 @@ int alif_f32(const float* cur, const float* tau, const float* rho,
 int alifrec_f32(const float* cur, const float* w, const float* tau,
                 const float* rho, const float* v0, const float* a0,
                 const float* s0, float* spikes, float* vT, float* aT, int T,
-                int B, int N, float v_th, float beta, void* stream) {
+                int B, int N, float v_th, float beta, int warp,
+                void* stream) {
   const ScanArgs p{cur, w, tau, rho, v0, a0, s0, spikes, vT, aT,
                    T, B, N, v_th, beta};
-  return launch_rec_scan<true>(p, (cudaStream_t)stream);
+  return launch_rec_scan<true>(p, warp != 0, (cudaStream_t)stream);
 }
 
 }  // extern "C"

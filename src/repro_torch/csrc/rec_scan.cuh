@@ -11,36 +11,64 @@
 //
 // What bounds it on an H100: neither bytes nor operations but the serial
 // chain. Every lane of a batch row needs every lane's previous spike, so
-// each step ends in a barrier across the row; a window of T steps is T
-// dependent rounds. The TPU kernels keep the whole (N, N) W_rec in VMEM
-// and feed s @ W to the MXU each step. Here one block owns one batch row
-// (rows are independent, so a row's result never depends on how sessions
-// were packed: no split across blocks, no atomics). A block has at most
-// 1024 threads, so each thread owns NPT neurons of the row, j, j + blockDim,
-// j + 2 blockDim, ... (NPT = 1 up to 1024 neurons, the smallest power of
-// two that covers the row above; the launcher instantiates NPT up to 256,
-// past the largest W_rec a card's memory holds), with their state in
-// registers up to NPT = 8. W_rec sits in shared memory when it fits (N up
-// to 241 in fp32, with the 227 KB opt-in), else it is read through L2.
-// Each step the row's spikes become a bit mask over all N in shared memory
-// (one warp ballot per 32 neurons), and every thread adds W[i, j] for the
-// set bits i in ascending order to each neuron it owns: the event-driven
-// recurrence, whose work is nnz(s_{t-1}) * N and whose loop is uniform
-// across the block (every thread reads the same mask). The mask is
-// double-buffered, so one __syncthreads per step suffices; the next step's
-// current is loaded before this step's sum.
+// each step ends in an exchange across the row; a window of T steps is T
+// dependent rounds, and a call's fixed cost (the launch, W_rec and the
+// first currents reaching shared memory) is the rest. The TPU kernels keep
+// the whole (N, N) W_rec in VMEM and feed s @ W to the MXU each step. Rows
+// are independent, so a row's result never depends on how sessions were
+// packed: no split across blocks, no atomics. Two routes, chosen from N by
+// the wrappers (`kernels/common.py::rec_route`):
+//
+// The warp route, N <= 32 * REC_LANE_NEURONS (the ECG SRNN's 64). One warp
+// owns one batch row, lane l the neurons l, l + 32, ... (R of them, the
+// smallest power of two that covers the row), with their state in
+// registers. A step's spikes become R ballot words that every lane holds
+// in registers; the lanes list the set bits in ascending order in
+// warp-private shared memory (each at its rank, a popc) and then add
+// their W_rec rows four at a time. A step needs one __syncwarp and no
+// block barrier. Up to REC_ROWS rows (warps) share a block and one copy of
+// W_rec in shared memory, which the block loads once with cp.async while
+// each warp stages its row's first TC steps of current the same way; from
+// then on each warp waits only for its own copies (__syncwarp), staging
+// the next TC steps while it scans these, every copy instruction moving
+// 32 float4s (or floats) of the warp. A step's spikes overwrite its
+// current in the stage, which the warp writes out the same way after its
+// TC steps. The next step's current is read while this one is summed.
+//
+// The block route, wider rows. One block owns one batch row, so each
+// thread owns NPT neurons of the row, j, j + blockDim, j + 2 blockDim, ...
+// (NPT = 1 up to 1024 neurons, the smallest power of two that covers the
+// row above; the launcher instantiates NPT up to 256, past the largest
+// W_rec a card's memory holds), with their state in registers up to NPT =
+// 8. W_rec sits in shared memory when it fits (N up to 241 in fp32, with
+// the 227 KB opt-in), else it is read through L2. Each step the row's
+// spikes become a bit mask over all N in shared memory (one warp ballot per
+// 32 neurons); the mask is double-buffered, so one __syncthreads per step
+// suffices; the next step's current is loaded before this step's sum.
+//
+// On both routes every thread adds W[i, j] for the set bits i in ascending
+// order to each neuron it owns: the event-driven recurrence, whose work is
+// nnz(s_{t-1}) * N and whose loop is uniform across the warp or block
+// (every thread reads the same mask).
 //
 // Rounding: each add and product is __fadd_rn/__fmul_rn/__fsub_rn in the
 // plain versions' order, u = ((tau * v) + I) + rec with rec summed from 0
 // over ascending i, th = v_th + (beta * a), a = (rho * a) + s. nvcc cannot
 // contract them into FMAs, and a neuron's arithmetic does not depend on
-// which thread owns it, so the kernels equal `kernels/lifrec/ref.py` and
-// `kernels/alifrec/ref.py` bit for bit at every N.
+// which thread owns it or on the route, so the kernels equal
+// `kernels/lifrec/ref.py` and `kernels/alifrec/ref.py` bit for bit at
+// every N.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "async_copy.cuh"
+
+#ifndef REC_LANE_NEURONS
+#error "rec_scan.cuh needs -DREC_LANE_NEURONS (kernels/_build.py passes it)"
+#endif
 
 namespace {
 
@@ -72,6 +100,214 @@ __device__ __forceinline__ float fire(float u, float& v, float& a, float rho,
   if (ADAPT) a = __fadd_rn(__fmul_rn(rho, a), s);
   return s;
 }
+
+// ---------------------------------------------------------------------------
+// The warp route
+// ---------------------------------------------------------------------------
+
+constexpr int LANE_N = REC_LANE_NEURONS;  // most neurons a lane owns
+constexpr int WARP_MAX_N = 32 * LANE_N;   // widest row of the warp route
+constexpr int REC_ROWS = 4;               // rows a block: one warp a scheduler
+constexpr int TC = 16;                    // steps of current a stage holds
+constexpr int LIST = WARP_MAX_N + 4;      // a step's set bits, read 4 at once
+static_assert(LANE_N > 0 && (LANE_N & (LANE_N - 1)) == 0,
+              "REC_LANE_NEURONS is a power of two");
+static_assert(4 * (WARP_MAX_N * WARP_MAX_N +
+                   REC_ROWS * 2 * (TC * WARP_MAX_N + LIST)) <= 227 * 1024,
+              "W_rec, the stages and the lists of the widest rows fit");
+
+// Floats of a staged step (16-byte rows) and of W_rec in shared memory,
+// and the words of a block's shared memory: W_rec, then per warp two
+// stages and two lists.
+__host__ __device__ __forceinline__ int stage_row(int N) {
+  return (N + 3) / 4 * 4;
+}
+__host__ __device__ __forceinline__ int w_floats(int N) {
+  return (N * N + 3) / 4 * 4;
+}
+__host__ __device__ __forceinline__ int warp_words(int N, int rows) {
+  return w_floats(N) + rows * 2 * (TC * stage_row(N) + LIST);
+}
+
+// Warp w of block x owns batch row x * (blockDim.x / 32) + w; lane l owns
+// neurons l + 32 r, r < R, whose spikes fill ballot word r. Shared memory
+// is indexed from `wsm` by word offsets: W_rec at 0, then each warp's two
+// stages of TC steps, NS floats a step, then each warp's two lists.
+template <bool ADAPT, int R>
+__global__ void __launch_bounds__(32 * REC_ROWS) rec_warp_kernel(
+    const ScanArgs p) {
+  extern __shared__ __align__(16) float wsm[];
+  const int N = p.N, T = p.T, B = p.B;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int b = blockIdx.x * (blockDim.x / 32) + warp;
+  const bool live = b < B;
+  const int NS = stage_row(N);
+  const int rows = blockDim.x / 32;
+  const int ring = w_floats(N) + warp * 2 * TC * NS;  // this row's stages
+  const int lists = w_floats(N) + rows * 2 * TC * NS + warp * 2 * LIST;
+  const bool vec = N % 4 == 0 && (uintptr_t)p.w % 16 == 0 &&
+                   (uintptr_t)p.cur % 16 == 0 && (uintptr_t)p.spikes % 16 == 0;
+  const int64_t row = (int64_t)b * N;
+  const int64_t stride_t = (int64_t)B * N;
+
+  // W_rec, once, by every thread of the block
+  const int nw = N * N;
+  if (vec) {
+    for (int e = 4 * threadIdx.x; e < nw; e += 4 * blockDim.x)
+      cp_async16(smem_u32(wsm + e), p.w + e, true);
+  } else {
+    for (int e = threadIdx.x; e < nw; e += blockDim.x)
+      cp_async4(smem_u32(wsm + e), p.w + e, true);
+  }
+  // A row of the stage is nu units (float4s, or floats when rows are not
+  // 16-byte aligned); lane l walks the units l, l + 32, ... of a chunk's
+  // rows, dq rows and du units on each time, so that every copy
+  // instruction of the warp moves 32 units.
+  const int nu = vec ? N / 4 : N, us = vec ? 4 : 1;
+  const int dq = 32 / nu, du = 32 % nu;
+  // the currents of steps ch * TC .. of this row into stage ch % 2
+  auto issue = [&](int ch) {
+    const int t0 = ch * TC;
+    const int nt = live ? min(TC, T - t0) : 0;
+    const uint32_t st = smem_u32(wsm + ring + (ch & 1) * TC * NS);
+    for (int tt = lane / nu, e = lane % nu; tt < nt;) {
+      const float* src = p.cur + (t0 + tt) * stride_t + row + us * e;
+      const uint32_t dst = st + 4 * (tt * NS + us * e);
+      if (vec)
+        cp_async16(dst, src, true);
+      else
+        cp_async4(dst, src, true);
+      tt += dq;
+      if ((e += du) >= nu) e -= nu, ++tt;
+    }
+    cp_async_commit();
+  };
+  issue(0);                         // one group with W_rec
+  issue(1);
+
+  int j[R];
+  bool in[R];
+  float v[R], a[R], tn[R], rn[R];
+  uint32_t mask[R];                 // the previous step's spikes, all lanes
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    j[r] = lane + 32 * r;
+    in[r] = live && j[r] < N;
+    v[r] = in[r] ? p.v0[row + j[r]] : 0.f;
+    a[r] = (ADAPT && in[r]) ? p.a0[row + j[r]] : 0.f;
+    tn[r] = in[r] ? p.tau[j[r]] : 0.f;
+    rn[r] = (ADAPT && in[r]) ? p.rho[j[r]] : 0.f;
+    mask[r] = __ballot_sync(FULL, in[r] && p.s0[row + j[r]] != 0.f);
+  }
+  cp_async_wait<1>();
+  __syncthreads();                  // W_rec and every row's first stage
+  if (!live) return;
+
+  // the step's set bits as a list of rows of W_rec, double-buffered
+  int* list = reinterpret_cast<int*>(wsm + lists);
+  const uint32_t below = (1u << lane) - 1;   // the lanes under this one
+  const int chunks = (T + TC - 1) / TC;
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch > 0) {
+      cp_async_wait<1>();           // this lane's copies of stage ch
+      __syncwarp();                 // and the warp's
+    }
+    const int st = ring + (ch & 1) * TC * NS;
+    const int t0 = ch * TC, nt = min(TC, T - t0);
+    float c[R];                     // the step's current, read a step ahead
+#pragma unroll
+    for (int r = 0; r < R; ++r) c[r] = in[r] ? wsm[st + j[r]] : 0.f;
+    for (int tt = 0; tt < nt; ++tt) {
+      float pre[R], rec[R];         // tau * v + I, before the recurrence
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        pre[r] = __fadd_rn(__fmul_rn(tn[r], v[r]), c[r]);
+        rec[r] = 0.f;
+        if (tt + 1 < nt && in[r]) c[r] = wsm[st + (tt + 1) * NS + j[r]];
+      }
+      // FINDIDX: lane l of word w lists row 32 w + l at its rank among the
+      // set bits, so the list ascends; then LOCACC adds the listed rows in
+      // order, reading four rows at a time
+      int* ls = list + (tt & 1) * LIST;
+      int k = 0;
+#pragma unroll
+      for (int wi = 0; wi < R; ++wi) {
+        if (mask[wi] >> lane & 1)
+          ls[k + __popc(mask[wi] & below)] = wi * 32 + lane;
+        k += __popc(mask[wi]);
+      }
+      // every step passes one __syncwarp between its list's writes and
+      // reads, and after its reads, before the same list is written again
+      __syncwarp();
+      for (int q = 0; q < k; q += 4) {
+        const int4 iv = *reinterpret_cast<const int4*>(ls + q);
+        const int i4[4] = {iv.x, iv.y, iv.z, iv.w};
+        float x[4][R];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            x[e][r] = (q + e < k && in[r]) ? wsm[i4[e] * N + j[r]] : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (q + e < k) rec[r] = __fadd_rn(rec[r], x[e][r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float u = __fadd_rn(pre[r], rec[r]);
+        const float s = fire<ADAPT>(u, v[r], a[r], rn[r], p.v_th, p.beta);
+        if (in[r]) wsm[st + tt * NS + j[r]] = s;  // in its current's place
+        mask[r] = __ballot_sync(FULL, in[r] && s != 0.f);
+      }
+    }
+    __syncwarp();                   // every lane's spikes of the stage
+    for (int tt = lane / nu, e = lane % nu; tt < nt;) {
+      float* dst = p.spikes + (t0 + tt) * stride_t + row + us * e;
+      const float* src = wsm + st + tt * NS + us * e;
+      if (vec)
+        *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+      else
+        *dst = *src;
+      tt += dq;
+      if ((e += du) >= nu) e -= nu, ++tt;
+    }
+    __syncwarp();                   // read out before it is refilled
+    issue(ch + 2);
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (in[r]) {
+      p.vT[row + j[r]] = v[r];
+      if (ADAPT) p.aT[row + j[r]] = a[r];
+    }
+}
+
+// The instantiation whose R lanes-worth of neurons covers the row.
+template <bool ADAPT, int R>
+int launch_warp(const ScanArgs& p, cudaStream_t stream) {
+  if constexpr (R < LANE_N) {
+    if (32 * R < p.N) return launch_warp<ADAPT, 2 * R>(p, stream);
+  } else if (32 * R < p.N) {
+    return (int)cudaErrorInvalidValue;  // wider rows take the block route
+  }
+  const int rows = p.B < REC_ROWS ? p.B : REC_ROWS;
+  const int smem = (int)sizeof(float) * warp_words(p.N, rows);
+  auto kern = rec_warp_kernel<ADAPT, R>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<(p.B + rows - 1) / rows, 32 * rows, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The block route
+// ---------------------------------------------------------------------------
 
 // Thread x owns neurons x + r * blockDim.x, r < NPT. Warp w's 32 neurons
 // of round r fill mask word r * (blockDim.x / 32) + w, which exists when
@@ -200,9 +436,11 @@ int launch_npt(const ScanArgs& p, int smem, cudaStream_t stream) {
                        (per + 31) / 32 * 32, smem, stream);
 }
 
-// Launch the scan on B blocks; returns a CUDA error code.
+// Launch the scan on the warp route (`warp` set, N <= WARP_MAX_N) or on B
+// blocks; returns a CUDA error code.
 template <bool ADAPT>
-int launch_rec_scan(const ScanArgs& p, cudaStream_t stream) {
+int launch_rec_scan(const ScanArgs& p, bool warp, cudaStream_t stream) {
+  if (warp) return launch_warp<ADAPT, 1>(p, stream);
   int smem = 0;
   bool smem_w = false;
   const int err = plan_smem(p.N, &smem, &smem_w);

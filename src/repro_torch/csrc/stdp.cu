@@ -7,50 +7,65 @@
 //
 // stdp_seq: P (K, T*B, M), Q (K, T*B, N), w (M, N), all fp32, K <= 4. For
 // t = 0 .. T-1:
-//   w = clip(w + sum_k amp_k * P_k[t]^T Q_k[t], w_min, w_max)
+//   w = clip(w + dw_t, w_min, w_max),  dw_t = sum_k amp_k * P_k[t]^T Q_k[t]
 // each P_k[t]^T Q_k[t] a sum over the step's B batch rows.
 // stdp: one pair-STDP step over B events, x_pre, s_pre (B, M) and s_post,
 // x_post (B, N) in fp32 or bf16 (upcast exactly), w (M, N) fp32:
 //   w' = clip((w + a_plus * x_pre^T s_post) - a_minus * s_pre^T x_post)
 // Both write a fresh (M, N) output and never the input w.
 //
-// What bounds it on an H100: the serial chain, not bytes or operations.
-// The clip makes the steps non-associative, so a weight takes its T
-// updates one after another, and at the bench shapes (256 x 128 weights,
-// T = 300, B = 8) the card moves ~8 MB and does ~40 MFLOP, a few
-// microseconds of either. The TPU kernel keeps a (bm, bn) weight tile in
-// VMEM for the whole window and runs each step's contraction on the MXU.
-// Here one block owns a 16 x 16 weight tile (256 x 128 gives 128 blocks
-// for 132 SMs; a 64 x 64 tile would give 8), each thread one weight in a
-// register for the whole window: one read and one write of w. The block
-// walks the window's rows (t, k, b) in that order, staging CHUNK of them
-// at a time in shared memory (each row: the tile's 16 columns of P_k and
-// of Q_k at step t, batch row b), and every thread adds p[b, i] * q[b, j]
-// of each row into its term sum. The next round's rows are loaded into
-// registers while this round's are summed, and the sum runs over the
-// rows of one term's batch without a branch per row. No split over steps
-// or batch rows and no atomics: a weight's result never depends on the
-// grid.
+// What bounds them on an H100. The clip makes the steps non-associative:
+// a weight takes its T updates one after another. But only the clip is
+// serial; every dw_t depends on the planes alone. At the plastic_ff shapes
+// (256 x 128 weights, T = 300, B = 8, K = 2) the card moves 7.4 MB (2.2 us)
+// and the products are 157 M multiply-adds, each a rounded product and a
+// rounded sum (two fp32 issues; ~10 us at the issue rate of 132 SMs):
+// issue-bound work around a short serial chain.
+//
+// stdp_seq's design. A CTA owns a TM x TN = 16 x 8 weight tile (256 CTAs at
+// 256 x 128, two an SM: four warps a scheduler) and walks the window in
+// groups of G = STDP_SEQ_GROUP steps, in two phases:
+//   1. dw of every (weight, step) of the group, in parallel across both:
+//      thread (g, u) sums step g's rows for a 4 x 4 micro-tile u of
+//      weights, 16 independent chains, reading a float4 of P and one of Q
+//      from shared memory per batch row; it writes its 16 dw to shared
+//      memory.
+//   2. after one barrier, the thread that owns weight (i, j) runs the
+//      serial chain w = clip(w + dw_t) over the group's steps (3 dependent
+//      operations a step) in a register.
+// The planes reach shared memory by cp.async into a ring of STAGES stages,
+// each holding RC rows of every step of the group (the tile's 16 columns
+// of P_k and 8 of Q_k), so the next stage's rows arrive while this one is
+// summed. A step's rows are copied and read by the same eight threads of
+// one warp, so the ring needs only __syncwarp; the two phases meet at one
+// __syncthreads a group (the dw are double-buffered, so a group's phase 1
+// runs while the previous group's chains finish). No split over steps or
+// batch rows and no atomics: a weight's result never depends on the grid.
+//
+// The single step (`stdp`): one block owns a 16 x 16 tile, a thread one
+// weight; the block stages CHUNK rows (k, b) at a time in shared memory,
+// loading the next round into registers while this one is summed.
 //
 // Rounding: each product and sum is __fmul_rn/__fadd_rn/__fsub_rn in the
 // plain versions' order (`kernels/stdp/ref.py`): s_k summed from 0 over b
 // ascending, dw summed from 0 over k ascending as dw + amp_k * s_k, then
 // w + dw; the single step as (w + a_plus * pot) - a_minus * dep. The clip
 // is fminf(fmaxf(x, w_min), w_max). nvcc cannot contract them into FMAs,
-// so the kernels equal their plain versions bit for bit.
+// and the split into phases changes no operation, so the kernels equal
+// their plain versions bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "async_copy.cuh"
+
+#ifndef STDP_SEQ_GROUP
+#error "stdp.cu needs -DSTDP_SEQ_GROUP (kernels/_build.py passes it)"
+#endif
+
 namespace {
 
-constexpr int TILE = 16;                // weight tile edge
-constexpr int THREADS = TILE * TILE;    // one thread per weight
-constexpr int CHUNK = 256;              // rows staged per round
-constexpr int ROW_STEP = THREADS / (2 * TILE);  // rows a pass of loads covers
-constexpr int LOADS = CHUNK / ROW_STEP;         // loads per thread a round
-static_assert(CHUNK == THREADS, "one thread finds each row of a round");
 constexpr int MAX_TERMS = 4;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -70,9 +85,23 @@ __device__ __forceinline__ X pick(const X (&a)[MAX_TERMS], int k) {
   return k == 0 ? a[0] : k == 1 ? a[1] : k == 2 ? a[2] : a[3];
 }
 
-// PAIR: the single pair-STDP step, K = 2, T = 1, w + amp0 * s0 - amp1 * s1.
-// Otherwise the multi-step form, w + sum_k amp_k * s_k.
-template <typename Tin, bool PAIR>
+__device__ __forceinline__ float clip(float w, float w_min, float w_max) {
+  return fminf(fmaxf(w, w_min), w_max);
+}
+
+// ---------------------------------------------------------------------------
+// stdp: the single pair step
+// ---------------------------------------------------------------------------
+
+constexpr int TILE = 16;                // weight tile edge
+constexpr int THREADS = TILE * TILE;    // one thread per weight
+constexpr int CHUNK = 256;              // rows staged per round
+constexpr int ROW_STEP = THREADS / (2 * TILE);  // rows a pass of loads covers
+constexpr int LOADS = CHUNK / ROW_STEP;         // loads per thread a round
+static_assert(CHUNK == THREADS, "one thread finds each row of a round");
+
+// K = 2, T = 1: w + amp0 * s0 - amp1 * s1, then the clip.
+template <typename Tin>
 __global__ void __launch_bounds__(THREADS)
 stdp_kernel(const Planes<Tin> pl, const float* __restrict__ w_in,
             float* __restrict__ w_out, int K, int T, int B, int M, int N,
@@ -84,22 +113,14 @@ stdp_kernel(const Planes<Tin> pl, const float* __restrict__ w_in,
   const int i = m0 + ty, j = n0 + tx;
   const bool in = i < M && j < N;
   float w = in ? w_in[(int64_t)i * N + j] : 0.f;
-  // closes term kk of the current step with its sum over the batch rows
-  float dw = 0.f;
+  // closes term kk of the step with its sum over the batch rows
   auto close_term = [&](int kk, float sum) {
     const float a = pick(pl.amp, kk);
-    if (PAIR)
-      w = kk == 0 ? __fadd_rn(w, __fmul_rn(a, sum))
-                  : __fsub_rn(w, __fmul_rn(a, sum));
-    else
-      dw = __fadd_rn(dw, __fmul_rn(a, sum));
+    w = kk == 0 ? __fadd_rn(w, __fmul_rn(a, sum))
+                : __fsub_rn(w, __fmul_rn(a, sum));
   };
-  auto close_step = [&]() {
-    if (!PAIR) w = __fadd_rn(w, dw);
-    w = fminf(fmaxf(w, w_min), w_max);
-    dw = 0.f;
-  };
-  if (B == 0) {                // steps with no batch rows still clip
+  auto close_step = [&]() { w = clip(w, w_min, w_max); };
+  if (B == 0) {                // a step with no batch rows still clips
     for (int t = 0; t < T; ++t) {
       for (int kk = 0; kk < K; ++kk) close_term(kk, 0.f);
       close_step();
@@ -204,18 +225,6 @@ stdp_kernel(const Planes<Tin> pl, const float* __restrict__ w_in,
   if (in) w_out[(int64_t)i * N + j] = w;
 }
 
-template <typename Tin, bool PAIR>
-int launch(const Planes<Tin>& pl, const float* w_in, float* w_out, int K,
-           int T, int B, int M, int N, float w_min, float w_max,
-           cudaStream_t stream) {
-  if (K < 1 || K > MAX_TERMS || (PAIR && (K != 2 || T != 1)))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
-  stdp_kernel<Tin, PAIR><<<grid, THREADS, 0, stream>>>(
-      pl, w_in, w_out, K, T, B, M, N, w_min, w_max);
-  return (int)cudaGetLastError();
-}
-
 template <typename Tin>
 int stdp_pair(const void* x_pre, const void* s_post, const void* s_pre,
               const void* x_post, const float* w, float* out, int B, int M,
@@ -228,8 +237,210 @@ int stdp_pair(const void* x_pre, const void* s_post, const void* s_pre,
   pl.q[1] = static_cast<const Tin*>(x_post);
   pl.amp[0] = a_plus;
   pl.amp[1] = a_minus;
-  return launch<Tin, true>(pl, w, out, 2, 1, B, M, N, w_min, w_max,
-                           (cudaStream_t)stream);
+  const dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
+  stdp_kernel<Tin><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      pl, w, out, 2, 1, B, M, N, w_min, w_max);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// stdp_seq: dw of a group of steps in parallel, then the clip chain
+// ---------------------------------------------------------------------------
+
+constexpr int G = STDP_SEQ_GROUP;       // steps a group
+constexpr int TM = 16, TN = 8;          // weight tile: rows of M x columns of N
+constexpr int UT = 4;                   // a thread's micro-tile: UT x UT
+constexpr int MICRO = (TM / UT) * (TN / UT);  // micro-tiles of a tile (8)
+constexpr int SEQ_THREADS = MICRO * G;  // one thread a (step, micro-tile)
+constexpr int PV = TM / 4, QV = TN / 4; // float4s of a P row and a Q row
+constexpr int RC = 8;                   // rows of each step a stage holds
+constexpr int STAGES = 3;
+// one step's rows in a stage, padded so that the four steps a warp reads
+// fall on distinct banks: P rows at 16 words mod 32 apart, Q rows at 8
+constexpr int PS = RC * TM + 16;
+constexpr int QS = RC * TN + 8;
+constexpr int STAGE = G * (PS + QS);    // floats of a stage
+// dw of a group: [step][r][micro-tile][c], so that the stores of the
+// eight micro-tiles of a step fill the 32 banks, and owner x of phase 2
+// reads word x of each step. Two of them: a group's dw are written while
+// the previous group's clip chains may still read theirs.
+constexpr int DWS = TM * TN;
+constexpr int SEQ_SMEM = (STAGES * STAGE + 2 * G * DWS) * (int)sizeof(float);
+static_assert(MICRO <= 8 && PV + QV <= 8, "a step's loads take 8 threads");
+static_assert(SEQ_THREADS <= 1024 && TM * TN <= SEQ_THREADS, "block shape");
+
+struct SeqArgs {
+  const float* P;   // (K, T*B, M): the planes back to back
+  const float* Q;   // (K, T*B, N)
+  float amp[MAX_TERMS];
+  const float* w_in;
+  float* w_out;
+  int K, T, B, M, N;
+  float w_min, w_max;
+  bool vec;         // rows of P and Q are 16-byte aligned: float4 copies
+};
+
+__global__ void __launch_bounds__(SEQ_THREADS, 2)
+stdp_seq_kernel(const SeqArgs a) {
+  extern __shared__ __align__(16) float seq_smem[];
+  const int K = a.K, T = a.T, B = a.B, M = a.M, N = a.N;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int tid = threadIdx.x;
+  // phase 1 and the copies: step g of the group, micro-tile (or vector) u
+  const int g = tid / MICRO, u = tid % MICRO;
+  const int mi = u / (TN / UT), nj = u % (TN / UT);
+  // phase 2: the weight this thread owns, (r, micro-tile, c) = tid
+  const int mt2 = tid / UT % MICRO;
+  const int i2 = m0 + UT * (mt2 / (TN / UT)) + tid / (UT * MICRO);
+  const int j2 = n0 + UT * (mt2 % (TN / UT)) + tid % UT;
+  const bool own = tid < TM * TN && i2 < M && j2 < N;
+  float w = own ? a.w_in[(int64_t)i2 * N + j2] : 0.f;
+
+  const int KB = K * B;                 // rows of one step, (k, b) order
+  if (KB == 0) {                        // steps with no batch rows still clip
+    float dw = 0.f;
+    for (int k = 0; k < K; ++k)
+      dw = __fadd_rn(dw, __fmul_rn(pick(a.amp, k), 0.f));
+    for (int t = 0; t < T; ++t) w = clip(__fadd_rn(w, dw), a.w_min, a.w_max);
+    if (own) a.w_out[(int64_t)i2 * N + j2] = w;
+    return;
+  }
+  const int nsub = (KB + RC - 1) / RC;  // stages of one group
+  const int groups = (T + G - 1) / G;
+  const int chunks = groups * nsub;
+
+  // The copies of chunk c (group c / nsub, rows sub * RC .. of each step):
+  // thread (g, u) copies step g's rows, vector u < PV of P_k's tile
+  // columns or u - PV < QV of Q_k's; the others copy nothing. Within a
+  // plane the next batch row is `width` floats on; the next plane's first
+  // row of the step is `jump` on from the last.
+  const bool isP = u < PV;
+  const bool copies = u < PV + QV;
+  const int col = isP ? m0 + 4 * u : n0 + 4 * (u - PV);
+  const int width = isP ? M : N;
+  const int valid = min(max(width - col, 0), 4);
+  const float* plane = isP ? a.P : a.Q;
+  const int64_t jump = ((int64_t)(T - 1) * B + 1) * width;
+  const int rowlen = isP ? TM : TN;
+  const int dst0 = isP ? g * PS + 4 * u : G * PS + g * QS + 4 * (u - PV);
+  int issued = 0, ist = 0;              // chunks issued, the next one's stage
+  int lgi = 0, lsub = 0;                // its group and stage of the group
+  auto issue = [&]() {
+    const int t = lgi * G + g;
+    if (issued < chunks && copies && t < T) {
+      const uint32_t dst = smem_u32(seq_smem + ist * STAGE + dst0);
+      const int q = lsub * RC, qe = min(q + RC, KB);
+      int k = q / B, b = q - k * B;
+      const float* src = plane + ((int64_t)(k * T + t) * B + b) * width + col;
+      for (int r = 0; r < qe - q; ++r) {
+        const uint32_t d = dst + 4 * r * rowlen;
+        if (a.vec) {
+          cp_async16(d, valid ? src : plane, valid > 0);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            cp_async4(d + 4 * e, e < valid ? src + e : plane, e < valid);
+        }
+        if (++b == B) {
+          b = 0;
+          src += jump;
+        } else {
+          src += width;
+        }
+      }
+    }
+    cp_async_commit();                  // empty past the end: counts stay
+    ++issued;
+    ist = ist == STAGES - 1 ? 0 : ist + 1;
+    if (++lsub == nsub) lsub = 0, ++lgi;
+  };
+  for (int c = 0; c < STAGES - 1; ++c) issue();
+
+  float s[UT][UT], dw[UT][UT];
+#pragma unroll
+  for (int r = 0; r < UT; ++r)
+#pragma unroll
+    for (int c = 0; c < UT; ++c) s[r][c] = dw[r][c] = 0.f;
+  int k = 0, b = 0;                     // the next row's term and batch row
+  int gi = 0, sub = 0, cst = 0;         // group, its stage, the ring's stage
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait<STAGES - 2>();        // this thread's copies of chunk ch
+    __syncwarp();                       // and its step's seven other threads'
+    issue();                            // into the stage read at ch - 1
+    const int t = gi * G + g;
+    const int nr = min(RC, KB - sub * RC);
+    if (t < T) {
+      const float* st = seq_smem + cst * STAGE;
+      const float* sp = st + g * PS + UT * mi;
+      const float* sq = st + G * PS + g * QS + UT * nj;
+      for (int r = 0; r < nr;) {
+        // the rows up to the end of this term's batch, or of the stage
+        const int seg = min(B - b, nr - r);
+#pragma unroll 2
+        for (int e = r; e < r + seg; ++e) {
+          const float4 p4 = *reinterpret_cast<const float4*>(sp + e * TM);
+          const float4 q4 = *reinterpret_cast<const float4*>(sq + e * TN);
+          const float pv[UT] = {p4.x, p4.y, p4.z, p4.w};
+          const float qv[UT] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+          for (int rr = 0; rr < UT; ++rr)
+#pragma unroll
+            for (int c = 0; c < UT; ++c)
+              s[rr][c] = __fadd_rn(s[rr][c], __fmul_rn(pv[rr], qv[c]));
+        }
+        r += seg;
+        b += seg;
+        if (b < B) continue;
+        const float amp = pick(a.amp, k);
+#pragma unroll
+        for (int rr = 0; rr < UT; ++rr)
+#pragma unroll
+          for (int c = 0; c < UT; ++c) {
+            dw[rr][c] = __fadd_rn(dw[rr][c], __fmul_rn(amp, s[rr][c]));
+            s[rr][c] = 0.f;
+          }
+        b = 0;
+        ++k;
+      }
+    }
+    cst = cst == STAGES - 1 ? 0 : cst + 1;
+    if (++sub < nsub) continue;
+    // the group's last stage: every dw of the group is complete
+    sub = 0;
+    k = 0;
+    float* dwb = seq_smem + STAGES * STAGE + (gi & 1) * G * DWS;
+    if (t < T) {
+#pragma unroll
+      for (int rr = 0; rr < UT; ++rr) {
+        *reinterpret_cast<float4*>(dwb + g * DWS + rr * MICRO * UT +
+                                   u * UT) =
+            make_float4(dw[rr][0], dw[rr][1], dw[rr][2], dw[rr][3]);
+#pragma unroll
+        for (int c = 0; c < UT; ++c) dw[rr][c] = 0.f;
+      }
+    }
+    // one barrier a group: the other buffer is rewritten only after the
+    // next group's barrier, which every owner passes after this chain
+    __syncthreads();
+    if (tid < TM * TN) {
+      const int steps = min(G, T - gi * G);
+#pragma unroll 8
+      for (int gg = 0; gg < steps; ++gg)
+        w = clip(__fadd_rn(w, dwb[gg * DWS + tid]), a.w_min, a.w_max);
+    }
+    ++gi;
+  }
+  cp_async_wait<0>();
+  if (own) a.w_out[(int64_t)i2 * N + j2] = w;
+}
+
+int stdp_seq_launch(const SeqArgs& a, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      stdp_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SEQ_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.N + TN - 1) / TN, (a.M + TM - 1) / TM);
+  stdp_seq_kernel<<<grid, SEQ_THREADS, SEQ_SMEM, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -241,15 +452,17 @@ int stdp_seq_f32(const float* P, const float* Q, const float* w, float* out,
                  const float* amps, int K, int T, int B, int M, int N,
                  float w_min, float w_max, void* stream) {
   if (K < 1 || K > MAX_TERMS) return (int)cudaErrorInvalidValue;
-  Planes<float> pl{};
-  const int64_t tb = (int64_t)T * B;
-  for (int k = 0; k < K; ++k) {
-    pl.p[k] = P + k * tb * M;
-    pl.q[k] = Q + k * tb * N;
-    pl.amp[k] = amps[k];
-  }
-  return launch<float, false>(pl, w, out, K, T, B, M, N, w_min, w_max,
-                              (cudaStream_t)stream);
+  SeqArgs a{};
+  a.P = P;
+  a.Q = Q;
+  for (int k = 0; k < K; ++k) a.amp[k] = amps[k];
+  a.w_in = w;
+  a.w_out = out;
+  a.K = K, a.T = T, a.B = B, a.M = M, a.N = N;
+  a.w_min = w_min, a.w_max = w_max;
+  a.vec = M % 4 == 0 && N % 4 == 0 && (uintptr_t)P % 16 == 0 &&
+          (uintptr_t)Q % 16 == 0;
+  return stdp_seq_launch(a, (cudaStream_t)stream);
 }
 
 int stdp_f32(const float* x_pre, const float* s_post, const float* s_pre,

@@ -38,12 +38,22 @@ CSRC = PKG / "csrc"
 # `spikemm/sparse.py` measures at it, and `csrc/spikemm_sparse.cu` takes
 # it from the -D flags below (and refuses to build without them).
 SPARSE_BLOCK = (64, 64)
+# The steps of a group of `stdp_seq` (`csrc/stdp.cu`): their dw are summed
+# in parallel, then each weight's clip chain runs over them. Its one
+# definition, passed as -DSTDP_SEQ_GROUP.
+STDP_SEQ_GROUP = 32
+# The most neurons a lane owns on the recurrent scan's warp route
+# (`csrc/rec_scan.cuh`): rows of up to 32 times as many neurons run a warp
+# a row (`common.rec_route`). Its one definition, -DREC_LANE_NEURONS.
+REC_LANE_NEURONS = 4
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # compile flags (each source with -c), then the link's
 NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                       "-Xptxas", "-v",
                       f"-DSPIKEMM_SPARSE_BM={SPARSE_BLOCK[0]}",
-                      f"-DSPIKEMM_SPARSE_BK={SPARSE_BLOCK[1]}")
+                      f"-DSPIKEMM_SPARSE_BK={SPARSE_BLOCK[1]}",
+                      f"-DSTDP_SEQ_GROUP={STDP_SEQ_GROUP}",
+                      f"-DREC_LANE_NEURONS={REC_LANE_NEURONS}")
 LINK_FLAGS = _ARCH + ("-shared",)
 LIB_NAME = "libreprotorch.so"
 
@@ -57,10 +67,10 @@ SIGNATURES = {
     "spikemm_f32": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     "linrec_f32": ((_P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "lif_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
-    "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _P), _I),
+    "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _I, _P), _I),
     "rec_scan_w_in_smem": ((_I,), _I),
     "alif_f32": ((_P,) * 8 + (_I, _I, _I, _F, _F, _P), _I),
-    "alifrec_f32": ((_P,) * 10 + (_I, _I, _I, _F, _F, _P), _I),
+    "alifrec_f32": ((_P,) * 10 + (_I, _I, _I, _F, _F, _I, _P), _I),
     "spikemm_sparse_f32": ((_P,) * 6 + (_I, _I, _I, _P), _I),
     "spikemm_gather_f32": ((_P,) * 6 + (_I,) * 6 + (_P,), _I),
     "spikemm_gather_block_m": ((), _I),

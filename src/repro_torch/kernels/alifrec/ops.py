@@ -8,6 +8,12 @@ ALIF neuron over (T, B, N) with the moving threshold v_th + beta * a and
 the hard reset: `csrc/alifrec.cu` on CUDA tensors, the plain scans on CPU
 tensors. s0 holds the 0/1 spikes of the step before the first. Forward
 only: the STBP backward comes with the training slice.
+
+The recurrent kernel takes one of the two routes of `csrc/rec_scan.cuh`
+by the row's width, `common.rec_route(N)` (a warp a batch row up to 128
+neurons, a block a row above), and counts each launch on that route's
+counter (`common.rec_route_launch_counts()`) as well as on its registry
+counter.
 """
 
 from __future__ import annotations
@@ -16,7 +22,8 @@ import torch
 
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.alifrec.ref import alif_scan_ref, alifrec_scan_ref
-from repro_torch.kernels.common import check_scan
+from repro_torch.kernels.common import (REC_WARP, check_scan,
+                                       count_rec_launch, rec_route)
 
 
 def _outputs(current: torch.Tensor, v0: torch.Tensor, a0: torch.Tensor):
@@ -51,7 +58,8 @@ def alifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
                  tau: torch.Tensor, rho: torch.Tensor, v0: torch.Tensor,
                  a0: torch.Tensor, s0: torch.Tensor, v_th: float = 1.0,
                  beta: float = 1.8):
-    """Launch `csrc/alifrec.cu`'s self-recurrent kernel on CUDA tensors."""
+    """Launch `csrc/alifrec.cu`'s self-recurrent kernel on CUDA tensors, on
+    the route `rec_route(N)` picks."""
     check_scan("alifrec", current, w_rec, [("tau", tau), ("rho", rho)],
                [("v0", v0), ("a0", a0), ("s0", s0)])
     T, B, N = current.shape
@@ -60,15 +68,17 @@ def alifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
         return spikes, vT.copy_(v0), aT.copy_(a0)
     if v0.numel() == 0:
         return spikes, vT, aT
+    route = rec_route(N)
     with torch.cuda.device(current.device):
         code = _build.library().alifrec_f32(
             current.data_ptr(), w_rec.data_ptr(), tau.data_ptr(),
             rho.data_ptr(), v0.data_ptr(), a0.data_ptr(), s0.data_ptr(),
             spikes.data_ptr(), vT.data_ptr(), aT.data_ptr(), T, B, N,
-            float(v_th), float(beta),
+            float(v_th), float(beta), int(route == REC_WARP),
             torch.cuda.current_stream().cuda_stream)
     _build.check("alifrec", code)
     alifrec_cuda.launches += 1
+    count_rec_launch("alifrec", route)
     return spikes, vT, aT
 
 

@@ -8,7 +8,7 @@ the package continues on the CPU behind the caller's back.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -101,10 +101,35 @@ def sm_count(device: torch.device) -> int:
     return _SM_COUNT[idx]
 
 
+# the routes of the recurrent scan (`csrc/rec_scan.cuh`)
+REC_WARP, REC_BLOCK = "warp", "block"
+REC_WARP_MAX_N = 32 * _build.REC_LANE_NEURONS
+_REC_ROUTE_LAUNCHES = {k: {REC_WARP: 0, REC_BLOCK: 0}
+                       for k in ("lifrec", "alifrec")}
+
+
+def rec_route(n: int) -> str:
+    """The route of the recurrent kernels (`lifrec`, `alifrec`) for rows of
+    n neurons: a warp a batch row up to REC_WARP_MAX_N, a block a row
+    above."""
+    return REC_WARP if n <= REC_WARP_MAX_N else REC_BLOCK
+
+
+def rec_route_launch_counts() -> Dict[str, Dict[str, int]]:
+    """{kernel: {route: launches}} since import. Each launch also counts on
+    the kernel's registry counter; `registry.reset_launches` leaves these as
+    they are, so compare two readings."""
+    return {k: dict(v) for k, v in _REC_ROUTE_LAUNCHES.items()}
+
+
+def count_rec_launch(kernel: str, route: str) -> None:
+    _REC_ROUTE_LAUNCHES[kernel][route] += 1
+
+
 def w_in_smem(n: int) -> bool:
-    """Whether the recurrent kernels (`lifrec`, `alifrec`) keep an (n, n)
-    W_rec in shared memory on the current device; else they read W_rec
-    through L2."""
+    """Whether the recurrent kernels' block route keeps an (n, n) W_rec in
+    shared memory on the current device; else it reads W_rec through L2.
+    (The warp route always holds it in shared memory.)"""
     code = _build.library().rec_scan_w_in_smem(n)
     _build.check("rec_scan", max(-code, 0))
     return bool(code)
@@ -129,4 +154,6 @@ def pad_axis(x: torch.Tensor, axis: int, mult: int, value=0.0):
 
 
 __all__ = ["resolve_device", "check_device", "check_scan", "check_matmul",
-           "sm_count", "w_in_smem", "tree_to", "pad_axis", "DeviceLike"]
+           "sm_count", "rec_route", "rec_route_launch_counts", "REC_WARP",
+           "REC_BLOCK", "REC_WARP_MAX_N", "w_in_smem", "tree_to", "pad_axis",
+           "DeviceLike"]

@@ -4,6 +4,11 @@
 over (T, B, N) with the hard reset: `csrc/lifrec.cu` on CUDA tensors, the
 plain scan on CPU tensors. s0 holds the 0/1 spikes of the step before the
 first. Forward only: the STBP backward comes with the training slice.
+
+The kernel takes one of the two routes of `csrc/rec_scan.cuh` by the
+row's width, `common.rec_route(N)` (a warp a batch row up to 128 neurons,
+a block a row above), and counts each launch on that route's counter
+(`common.rec_route_launch_counts()`) as well as on its registry counter.
 """
 
 from __future__ import annotations
@@ -11,14 +16,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, registry
-from repro_torch.kernels.common import check_scan
+from repro_torch.kernels.common import (REC_WARP, check_scan,
+                                       count_rec_launch, rec_route)
 from repro_torch.kernels.lifrec.ref import lifrec_scan_ref
 
 
 def lifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
                 tau: torch.Tensor, v0: torch.Tensor, s0: torch.Tensor,
                 v_th: float = 1.0):
-    """Launch `csrc/lifrec.cu` on CUDA tensors."""
+    """Launch `csrc/lifrec.cu` on CUDA tensors, on the route `rec_route(N)`
+    picks."""
     check_scan("lifrec", current, w_rec, [("tau", tau)],
                [("v0", v0), ("s0", s0)])
     T, B, N = current.shape
@@ -28,13 +35,16 @@ def lifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
         return spikes, vT.copy_(v0)
     if v0.numel() == 0:
         return spikes, vT
+    route = rec_route(N)
     with torch.cuda.device(current.device):
         code = _build.library().lifrec_f32(
             current.data_ptr(), w_rec.data_ptr(), tau.data_ptr(),
             v0.data_ptr(), s0.data_ptr(), spikes.data_ptr(), vT.data_ptr(),
-            T, B, N, float(v_th), torch.cuda.current_stream().cuda_stream)
+            T, B, N, float(v_th), int(route == REC_WARP),
+            torch.cuda.current_stream().cuda_stream)
     _build.check("lifrec", code)
     lifrec_cuda.launches += 1
+    count_rec_launch("lifrec", route)
     return spikes, vT
 
 

@@ -715,6 +715,140 @@ def test_stdp_wrappers_write_a_fresh_weight():
     assert out is not w and torch.equal(w, w0)
 
 
+def _stdp_seq_grouped(P, Q, w, *, amps, w_min, w_max, batch, T, G):
+    """The schedule of `csrc/stdp.cu`'s stdp_seq, in plain PyTorch: for
+    each group of G steps, every step's dw at once (s_k summed from zeros
+    over b ascending, dw from zeros over k ascending as dw + amp_k s_k),
+    then the clip chain w = clip(w + dw_t) over the group's steps. T is
+    explicit, so that steps with no batch rows (B = 0) still clip."""
+    K = P.shape[0]
+    M, N = w.shape
+    amp = [torch.tensor(a, dtype=torch.float32) for a in amps]
+    w = w.clone()
+    for t0 in range(0, T, G):
+        steps = torch.arange(t0, min(t0 + G, T))
+        dw = torch.zeros((len(steps), M, N))
+        for k in range(K):
+            s = torch.zeros((len(steps), M, N))
+            for b in range(batch):
+                rows = steps * batch + b
+                s = s + P[k, rows][:, :, None] * Q[k, rows][:, None, :]
+            dw = dw + amp[k] * s
+        for d in dw:
+            w = torch.clamp(w + d, w_min, w_max)
+    return w
+
+
+@pytest.mark.parametrize("B", [0, 1, 8])
+@pytest.mark.parametrize("K", [1, 2, 4])
+@pytest.mark.parametrize("T_of_G", ["1", "G-1", "G", "G+1", "3G+5"])
+def test_stdp_seq_group_schedule_is_the_plain_version(T_of_G, K, B):
+    """The kernel's split of the window (all dw of a group of
+    STDP_SEQ_GROUP steps first, then the clip chain over the group) is
+    exact: bit for bit `stdp_seq_ref` at T on both sides of a group's edge
+    and past several groups, with bounds the trajectory hits. At B = 0,
+    which the wrapper cannot express, against the plain loop it runs: each
+    step clips w + dw, dw = sum_k amp_k * 0 from zeros."""
+    G = _build.STDP_SEQ_GROUP
+    T = {"1": 1, "G-1": G - 1, "G": G, "G+1": G + 1, "3G+5": 3 * G + 5}[
+        T_of_G]
+    P, Q, w = (torch.from_numpy(a) for a in _seq_case(K, T, B, 12, 10,
+                                                        T * 16 + K * 4 + B))
+    w = 2.0 * w
+    amps = (0.05, -0.06, 0.03, -0.04)[:K]
+    kw = dict(amps=amps, w_min=-0.4, w_max=0.4)
+    got = _stdp_seq_grouped(P, Q, w, batch=B, T=T, G=G, **kw)
+    if B:
+        want = stdp_seq(P, Q, w, batch=B, **kw)
+    else:
+        want, dw = w.clone(), torch.zeros_like(w)
+        for a in amps:
+            dw = dw + torch.tensor(a) * torch.zeros_like(w)
+        for _ in range(T):
+            want = torch.clamp(want + dw, -0.4, 0.4)
+    assert torch.equal(got, want)
+    assert (got.abs() == 0.4).sum() > 0, "no weight reached the clip"
+    if B:
+        assert not torch.equal(got, torch.clamp(w, -0.4, 0.4))
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, "max-1", "max", "max+1",
+                               1024, 4096])
+def test_rec_route_follows_the_row_width(n):
+    """Rows of up to 32 * REC_LANE_NEURONS neurons (128) take the warp
+    route, wider rows the block route."""
+    from repro_torch.kernels.common import (REC_BLOCK, REC_WARP,
+                                            REC_WARP_MAX_N, rec_route)
+    assert REC_WARP_MAX_N == 32 * _build.REC_LANE_NEURONS == 128
+    n = {"max-1": REC_WARP_MAX_N - 1, "max": REC_WARP_MAX_N,
+         "max+1": REC_WARP_MAX_N + 1}.get(n, n)
+    assert rec_route(n) == (REC_WARP if n <= REC_WARP_MAX_N else REC_BLOCK)
+
+
+@pytest.mark.parametrize("name", ["lifrec", "alifrec"])
+@pytest.mark.parametrize("side", ["warp", "block"])
+def test_rec_wrappers_pass_the_route_and_count_it(monkeypatch, name, side):
+    """With a recording stand-in for the library (no card here) the
+    wrapper tells the C entry point its route (the `warp` flag, 1 up to
+    REC_WARP_MAX_N neurons and 0 above) and counts one launch on that
+    route's counter and on the registry's."""
+    from contextlib import nullcontext
+    from unittest import mock
+    from repro_torch.kernels import common
+    from repro_torch.kernels.alifrec import ops as alifrec_ops
+    from repro_torch.kernels.lifrec import ops as lifrec_ops
+    ops = lifrec_ops if name == "lifrec" else alifrec_ops
+    n = common.REC_WARP_MAX_N + (side == "block")
+    lib = mock.Mock(**{f"{name}_f32.return_value": 0})
+    monkeypatch.setattr(ops, "check_scan", lambda *a: None)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    T, B = 3, 2
+    lane = torch.zeros((B, n))
+    args = ((torch.zeros((T, B, n)), torch.zeros((n, n)), torch.ones(n),
+             lane, lane) if name == "lifrec" else
+            (torch.zeros((T, B, n)), torch.zeros((n, n)), torch.ones(n),
+             torch.ones(n), lane, lane, lane))
+    registry.reset_launches()
+    before = common.rec_route_launch_counts()[name]
+    (lifrec_cuda if name == "lifrec" else alifrec_cuda)(*args)
+    after = common.rec_route_launch_counts()[name]
+    call, = getattr(lib, f"{name}_f32").call_args_list
+    assert call.args[-2] == int(side == "warp")
+    assert {r: after[r] - before[r] for r in after} == {
+        "warp": int(side == "warp"), "block": int(side == "block")}
+    assert registry.launch_counts()[name] == 1
+    registry.reset_launches()
+
+
+@pytest.mark.parametrize("source,macro,const", [
+    ("stdp.cu", "STDP_SEQ_GROUP", "G"),
+    ("lifrec.cu", "REC_LANE_NEURONS", None),
+    ("alifrec.cu", "REC_LANE_NEURONS", None)])
+def test_serial_kernel_constants_are_the_wrappers(tmp_path, monkeypatch,
+                                                 source, macro, const):
+    """stdp_seq's group of STDP_SEQ_GROUP steps and the scan's
+    REC_LANE_NEURONS neurons a lane have one definition, in `_build`: the
+    nvcc call of each source that uses them passes them as -D flags, and
+    the sources take them from there and from no other value."""
+    nvcc, calls = _fake_nvcc(tmp_path, 0)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    _build.build()
+    argv, = [a for a in (json.loads(line) for line in
+                         calls.read_text().splitlines())
+             if str(_build.CSRC / source) in a]
+    assert f"-D{macro}={getattr(_build, macro)}" in argv
+    text = (_build.CSRC / (source if const else "rec_scan.cuh")).read_text()
+    if const is None:
+        assert '#include "rec_scan.cuh"' in (_build.CSRC / source).read_text()
+        const = "LANE_N"
+    consts = dict(re.findall(r"constexpr int (\w+) = (\w+);", text))
+    assert consts[const] == macro
+
+
 @pytest.mark.parametrize("name", ["lifrec", "alifrec"])
 def test_recurrent_plain_versions_take_rows_over_1024(name):
     """N = 1025, past what the recurrent kernel once held per batch row:

@@ -13,9 +13,13 @@ continues, and nothing falls back to the CPU.
     python3 chip_smoke.py --sweep
 
 runs the device and build phases and the serial-chain kernels' sweep
-alone (see 3.), with no other phase: copied into an older checkout, it
-measures that tree's kernels the same way, so two trees compare in one
-call.
+alone (see 3.), with no other phase, and
+
+    python3 chip_smoke.py --kernels
+
+the kernel phase and the sweep with no path: copied into an older
+checkout, either measures that tree's kernels the same way, so two trees
+compare in one call.
 
 1. device   the card, its compute capability, and its name and power limit
             as `nvidia-smi` reports them. TF32 is switched off for every
@@ -25,7 +29,11 @@ call.
             `nvcc -c`, all started together, and links them with one
             `nvcc -shared`; prints the seconds and what ptxas reports of
             each kernel.
-3. kernels  each kernel against its plain PyTorch version on the card, at
+3. kernels  first the launch floor: `cuda_ms` of a one-element in-place
+            `add_`, the least a launch costs back to back, printed on its
+            own line and beside every kernel row (`floor_ms`); a call is
+            held to max(bound, floor). Then each kernel against its plain
+            PyTorch version on the card, at
             the shapes one serving window of each path hands it (window
             32 x 64 sessions: the SHD DH-SNN's, the ECG SRNN's with a state
             ten windows into ECG records, and the ALIF feed-forward run's
@@ -51,7 +59,16 @@ call.
             the C entry point (the wrapper cannot express it);
             `stdp` at one step of the stdp_step path and at the JAX kernel
             tests' shapes (8, 256, 256), (16, 300, 200), (4, 128, 640)
-            with fp32 and bf16 traces;
+            with fp32 and bf16 traces (all timed), on planes that are not
+            16-byte aligned (a `pre_spikes[t]`-like slice at B = 3,
+            130 x 70, and rows of N = 128 one element into their buffer;
+            fp32 and bf16), and at B = 0 and B = 1;
+            `linrec` also at the plastic_ff pair rule's three calls
+            (captured at `plan.linrec`: the two trace scans, (300, 8, 256)
+            and (300, 8, 128), and the LI readout (300, 8, 4); timed) and
+            at D = 6, 20 (B = 64), 130 (B = 3) and 4097 lanes (B = 1), each
+            at T = 1, 31, 33 and 300 with a stride-0 decay and with a full
+            decay plane;
             `spikemm_sparse` at the sparse_integ path's hidden INTEG,
             `bench_kernels`' SPARSITY_SHAPE at four densities and two
             ragged shapes, each also equal to the dense kernel bit for bit;
@@ -74,10 +91,11 @@ call.
             yardstick (`library_ms`: `torch.matmul`, or `torch.sparse.mm`
             on a CSR matrix where the dense one does not fit).
             Then the sweep of the serial-chain kernels: the plastic_ff pair
-            rule's `stdp_seq` planes cut to T = 1, 75, 150 and 300 steps,
-            the ECG windows' `alifrec` and `lifrec` calls cut to T = 1, 8
-            and 32, each bit for bit and timed; the fit ms = a + b T splits
-            a call into its launch and prologue (a) and a step (b).
+            rule's `stdp_seq` planes and its pre-trace `linrec` call cut to
+            T = 1, 75, 150 and 300 steps, the ECG windows' `alifrec` and
+            `lifrec` calls cut to T = 1, 8 and 32, each bit for bit and
+            timed; the fit ms = a + b T splits a call into its launch and
+            prologue (a) and a step (b).
 4. paths    each path served through the engine, with every launch counter
             set to 0 just before its run and read just after:
             * shd: `make_dhsnn_shd` at 700 -> 64 (x4 branches) -> 20, 128
@@ -304,10 +322,14 @@ SMEM_W_MAX_N = 241
 # the serial-chain kernels: a chain over time (the recurrent scans) or over
 # the learning window's clips (stdp_seq, stdp)
 SERIAL = ("lifrec", "alifrec", "stdp_seq", "stdp")
-# the step-0 sweep: each serial-chain kernel's home-path call cut to these
-# step counts (plastic_ff's T = 300, the ECG window's 32)
+# the sweep: each serial-chain kernel's home-path call, and linrec's
+# plastic_ff pre-trace scan, cut to these step counts (plastic_ff's
+# T = 300, the ECG window's 32)
 SWEEP_T = {"stdp_seq": (1, 75, 150, 300), "alifrec": (1, 8, 32),
-           "lifrec": (1, 8, 32)}
+           "lifrec": (1, 8, 32), "linrec": (1, 75, 150, 300)}
+# the call each kernel's sweep cuts, by its label, where it is not the
+# kernel's HOME-path call
+SWEEP_CALL = {"linrec": "plastic_ff pair pre trace"}
 # bench_topology_exec's gather rows: (n, band, bk = bn, rows M, input rate)
 GATHER_ROWS = {"exec_vs_dense": (8192, 64, 128, 64, 0.2),
                "scale_1e5": (100_000, 32, 128, 8, 0.1),
@@ -687,6 +709,23 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+_FLOOR_MS = None
+
+
+def launch_floor_ms():
+    """`cuda_ms` of a one-element in-place `add_`: the least a launch
+    costs back to back under the same sleep-hidden issue. It is no kernel
+    of the port; a call whose bound lies far under it is held to
+    max(bound, floor). Measured once, logged on its own line."""
+    global _FLOOR_MS
+    if _FLOOR_MS is None:
+        one = torch.zeros(1, device=DEV)
+        _FLOOR_MS = cuda_ms(lambda: one.add_(1.0), iters=200)
+        log(f"launch floor: {_FLOOR_MS:.5f} ms (cuda_ms of a one-element "
+            "add_ on the card)")
+    return _FLOOR_MS
+
+
 def bound(bytes_, flops):
     t_bytes = bytes_ / PEAK_HBM_BYTES * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
@@ -903,6 +942,68 @@ def rec_route_cases():
     return cases
 
 
+def linrec_edge_cases():
+    """`linrec` where a lane scan has edges: rows of D = 6 and 20 (the ECG
+    and SHD readouts, B = 64), D = 130 (B = 3: rows not 16-byte aligned)
+    and 4097 lanes (B = 1: a last warp of one lane), each at T = 1, 31, 33
+    (not a multiple of a staged chunk) and 300, with a per-neuron decay
+    broadcast over T and B (stride 0) and with a full decay plane."""
+    g = torch.Generator().manual_seed(10)
+    out = []
+    for B, D in ((CAPACITY, 6), (CAPACITY, 20), (3, 130), (1, 4097)):
+        for T in (1, 31, 33, 300):
+            x = torch.randn((T, B, D), generator=g).to(DEV)
+            h0 = torch.randn((B, D), generator=g).to(DEV)
+            per_neuron = (0.5 + 0.49 * torch.rand((D,), generator=g)).to(DEV)
+            plane = (0.5 + 0.49 * torch.rand((T, B, D), generator=g)).to(DEV)
+            for kind, a in (("stride-0 decay", per_neuron.expand(x.shape)),
+                            ("full decay plane", plane)):
+                out.append(Case(f"edge ({T}, {B}, {D}), {kind}", (a, x, h0)))
+    return out
+
+
+def stdp_edge_cases():
+    """`stdp` on inputs that are not 16-byte aligned, as `stdp_run` hands
+    it `pre_spikes[t]` slices: at B = 3, M = 130, N = 70 the slice at t = 1
+    starts B * n elements in (fp32 and bf16; whole pairs, which the kernel
+    reads as one load); rows of N = 128 whose planes start one element
+    into their buffer (no pair aligned: scalar loads); and B = 0 (the
+    weight only clipped) and B = 1."""
+    g = torch.Generator().manual_seed(11)
+    kw = dict(a_plus=0.05, a_minus=0.06, w_min=-0.4, w_max=0.4)
+
+    def planes(B, M, N, dt, lead):
+        """x_pre, s_post, s_pre, x_post of one step, each a view one step
+        and `lead` elements into a buffer of two steps."""
+        pre = torch.rand((2, B, M), generator=g)
+        pre[1] = (pre[1] < 0.2).float()
+        post = torch.rand((2, B, N), generator=g)
+        post[0] = (post[0] < 0.2).float()
+        views = []
+        for buf, k in ((pre, 0), (post, 0), (pre, 1), (post, 1)):
+            n = buf[k].numel()
+            flat = torch.zeros((lead + 2 * n,), dtype=dt, device=DEV)
+            flat[lead + n:].copy_(buf[k].reshape(-1))
+            views.append(flat[lead + n:].view(buf[k].shape))
+        return views
+
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        for B, M, N, lead, label in ((3, 130, 70, 0, "pre_spikes[1] slices"),
+                                     (3, 130, 128, 1, "one element in")):
+            tr = planes(B, M, N, dt, lead)
+            if all(t.data_ptr() % 16 == 0 for t in tr):
+                raise AssertionError(f"stdp edge [{label}]: aligned")
+            w = (0.5 * torch.randn((M, N), generator=g)).to(DEV)
+            out.append(Case(f"{label} ({B}, {M}, {N}), {str(dt)[6:]}, "
+                            "not 16-byte aligned", (*tr, w), kw=kw))
+    for B in (0, 1):
+        w = (0.5 * torch.randn((130, 70), generator=g)).to(DEV)
+        tr = planes(B, 130, 70, torch.float32, 0)
+        out.append(Case(f"B={B} (130, 70)", (*tr, w), kw=kw))
+    return out
+
+
 def stdp_seq_edge_cases():
     """`stdp_seq` at the plastic_ff widths (256 x 128, B = 8) where the
     kernel's groups of STDP_SEQ_GROUP steps have edges: T = 1, G - 1, G + 1
@@ -993,6 +1094,37 @@ def plastic_seq_cases(rules):
             for r, (P, Q, w, kw) in zip(rules, captured)]
 
 
+def plastic_linrec_cases():
+    """The `linrec` calls of the plastic_ff path's pair-rule plan.run on
+    the card, captured at `plan.linrec`: the LI readout (T=300, B=8, N=4)
+    and the learning pass's two trace scans, pre (256 lanes a row) and post
+    (128). Timed, with the path tag plastic_ff (not linrec's HOME, so the
+    kernel table's SHD row stays the serving window's)."""
+    from repro_torch.core import plan
+    captured = []
+    real = plan.linrec
+
+    def spy(a, x, h0):
+        captured.append((a, x, h0))
+        return real(a, x, h0)
+
+    x = torch.from_numpy(plastic_input()).to(DEV)
+    nodes, params = make_plastic("pair_stdp", DEV)
+    plan.linrec = spy
+    try:
+        plan.run(nodes, params, x, device=DEV)
+    finally:
+        plan.linrec = real
+    names = {PLASTIC_IN: "pre trace", PLASTIC_HIDDEN: "post trace",
+             PLASTIC_OUT: "LI readout"}
+    if sorted(x.shape[2] for _, x, _ in captured) != sorted(names):
+        raise AssertionError(f"plastic_ff pair rule: linrec calls of shapes "
+                             f"{[tuple(x.shape) for _, x, _ in captured]}")
+    return [Case(f"plastic_ff pair {names[args[1].shape[2]]}", args,
+                 path="plastic_ff", timed=True, plain_iters=2)
+            for args in captured]
+
+
 def stdp_cases():
     """The learning kernels' cases. `stdp_seq`: each rule's term planes
     from the plastic_ff path's one plan.run on the card (captured at the
@@ -1043,7 +1175,9 @@ def stdp_cases():
             cases["stdp"].append(Case(
                 f"JAX test ({B}, {M}, {N}), {str(dt)[6:]}",
                 tuple(t.to(dt).to(DEV) for t in tr) + (w,),
-                kw=dict(a_plus=0.05, a_minus=0.06, w_min=-0.4, w_max=0.4)))
+                kw=dict(a_plus=0.05, a_minus=0.06, w_min=-0.4, w_max=0.4),
+                timed=True))
+    cases["stdp"] += stdp_edge_cases()
     return cases
 
 
@@ -1377,6 +1511,7 @@ def kernel_cases(shd_params):
         if name not in SERIAL:
             cases[name] += [Case(label, args) for label, args in calls]
     cases["spikemm"] += spikemm_cases()
+    cases["linrec"] += plastic_linrec_cases() + linrec_edge_cases()
     cases["spikemm_sparse"] = [
         dataclasses.replace(c, library=lambda a=c.args: torch.matmul(*a))
         for c in sparse_cases()]
@@ -1413,6 +1548,7 @@ def phase_kernels(cases):
     from repro_torch.kernels.spikemm.ref import spikemm_chain_ref
     cuda, plain = kernel_impls()
     results = {}
+    floor = launch_floor_ms()
     if "stdp_seq" in cases:
         stdp_seq_no_rows()
     for name, calls_in in cases.items():
@@ -1537,7 +1673,8 @@ def phase_kernels(cases):
                 f"{'' if T is None else f' ({ms / T * 1e3:.3f} us/step)'} "
                 f"(plain {p_ms:.4f}, "
                 f"library {lib if lib is None else round(lib, 4)}, bound "
-                f"{b_ms:.5f} by {b_by}, dense bound {d_ms:.5f} by {d_by}"
+                f"{b_ms:.5f} by {b_by}, dense bound {d_ms:.5f} by {d_by}, "
+                f"{ms / max(b_ms, floor):.2f}x max(bound, floor)"
                 f"{'' if kernel_ms is None else f', launch alone {kernel_ms:.4f}, dense kernel {dense_ms:.4f}'}"
                 f"{'' if case.build_s is None else f', tables built in {case.build_s:.1f} s'})"
                 f"{extra}; max abs err so far {max_err:.3e}")
@@ -1556,6 +1693,7 @@ def phase_kernels(cases):
             "bound_ms": sum(c["bound_ms"] for c in home),
             "bound_by": top["bound_by"],
             "bound_dense_ms": sum(c["bound_dense_ms"] for c in home),
+            "floor_ms": floor,
             "library_ms": (None if any(c["library_ms"] is None for c in home)
                            else sum(c["library_ms"] for c in home)),
             "kernel_ms": (None if any(c["kernel_ms"] is None for c in home)
@@ -1570,6 +1708,9 @@ def cut_steps(name, args, kw, T):
         P, Q, w = args
         rows = T * kw["batch"]
         return (P[:, :rows].contiguous(), Q[:, :rows].contiguous(), w)
+    if name == "linrec":
+        a, x, h0 = args                # a stays a view: stride 0 stays 0
+        return (a[:T] if a.dim() == x.dim() else a, x[:T].contiguous(), h0)
     return (args[0][:T].contiguous(),) + tuple(args[1:])
 
 
@@ -1582,12 +1723,14 @@ def fit_line(xs, ys):
 def sweep_cases():
     """The home-path calls of the serial-chain kernels alone: the
     plastic_ff pair rule's `stdp_seq` planes and the ECG window's hidden
-    layer, heterogeneous (`alifrec`) and homogeneous (`lifrec`)."""
+    layer, heterogeneous (`alifrec`) and homogeneous (`lifrec`); and the
+    plastic_ff pair rule's `linrec` calls."""
     return {"stdp_seq": plastic_seq_cases(("pair_stdp",)),
             "alifrec": [Case("ECG hidden", ecg_window(True)["alifrec"][0][1],
                              path="ecg", timed=True)],
             "lifrec": [Case("ECG hidden", ecg_window(False)["lifrec"][0][1],
-                            path="ecg_homogeneous", timed=True)]}
+                            path="ecg_homogeneous", timed=True)],
+            "linrec": plastic_linrec_cases()}
 
 
 def phase_sweep(cases):
@@ -1596,9 +1739,12 @@ def phase_sweep(cases):
     version and timed with CUDA events; the fit ms = a + b * T splits the
     time into launch and prologue (a) and the cost of a step (b)."""
     cuda, plain = kernel_impls()
-    out = {}
+    out = {"floor_ms": launch_floor_ms()}
     for name, steps in SWEEP_T.items():
-        case = next(c for c in cases[name] if c.path == HOME[name])
+        if name in SWEEP_CALL:
+            case = next(c for c in cases[name] if c.label == SWEEP_CALL[name])
+        else:
+            case = next(c for c in cases[name] if c.path == HOME[name])
         ms = []
         for T in steps:
             args = cut_steps(name, case.args, case.kw, T)
@@ -2913,9 +3059,9 @@ def phase_parity():
 
 
 def main(argv):
-    if argv not in ([], ["--sweep"]):
+    if argv not in ([], ["--sweep"], ["--kernels"]):
         raise SystemExit(f"chip_smoke: unknown arguments {argv}; run it with "
-                         "none, or with --sweep")
+                         "none, --sweep or --kernels")
     smi = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -2929,6 +3075,12 @@ def main(argv):
     cases = kernel_cases(make_shd(True, DEV)[1])
     kernels = phase_kernels(cases)
     sweep = phase_sweep(cases)
+    if argv == ["--kernels"]:
+        # the kernel phase and the sweep alone, no paths (no launch counts)
+        log(json.dumps({"kernels": list(kernels.values())}))
+        log(json.dumps({"sweep": sweep}))
+        log(smi)
+        return
     slices = [phase_path(p, smi) for p in PATHS]
     slices.append(phase_alif_ff(smi))
     slices.append(phase_topology_banded(smi))
@@ -2937,6 +3089,7 @@ def main(argv):
     slices.append(phase_plastic_online(smi))
     slices.append(phase_stdp_step(smi))
     kernels["attention"], attn = phase_attention(smi)
+    kernels["attention"]["floor_ms"] = launch_floor_ms()
     slices.append(attn)
     parity = phase_parity()
     for name, k in kernels.items():

@@ -6,81 +6,167 @@
 // Computes y_t = a_t * y_{t-1} + x_t over the leading time axis of a
 // (T, B, D) tensor, from h0 (B, D); writes y (T, B, D) and h_T (B, D).
 //
-// What bounds it on an H100: the bytes. It does 2 FLOP per element and
-// moves at least 8 bytes per element (x in, y out), far below the fp32
-// ridge. The TPU kernel runs a Hillis-Steele scan inside each time chunk
-// because a TPU grid is sequential and the scan is its only parallelism.
-// Here the B * D lanes are the parallelism: one thread owns one (b, d)
-// lane, holds its state in a register and walks T serially. Loads and
-// stores are coalesced along d. The x and a loads of 8 steps are issued
-// before the 8 dependent updates, so the serial chain does not wait on
-// device memory once per step.
+// What bounds it on an H100. It does 2 FLOP per element and moves at
+// least 8 bytes per element (x in, y out), far below the fp32 ridge, so
+// its bound is the bytes. But its real calls are small: the SHD window's
+// DH-LIF branches are 16384 lanes of 32 steps (2 MB), a learning run's
+// trace scans 2048 and 1024 lanes of 300 steps, a readout 20 or 6 lanes a
+// row. There the time is the serial chain of each lane (T dependent
+// updates) and the memory round trips it waits on. The TPU kernel runs a
+// Hillis-Steele scan inside each time chunk because a TPU grid is
+// sequential and the scan is its only parallelism. Here the B * D lanes
+// are the parallelism: one thread owns one (b, d) lane, holds its state in
+// a register and walks T serially.
+//
+// Design. The thread's x (and a, where a has a time stride) reach it
+// through `lane_scan.cuh`'s ring: chunks of LS_CHUNK steps copied by
+// cp.async into shared memory, LS_STAGES - 1 of them in flight while the
+// chain runs over the oldest, so in steady state a step costs its
+// dependent product and sum, a shared load, a store that does not block
+// and one copy, issued in the chain's gaps. A warp owns 32 adjacent lanes, so each step is one coalesced
+// 128-byte copy and one 128-byte store a warp. The wrapper sizes the CTA
+// from the lanes (one to four warps, `linrec/ops.py::lane_plan`), so that
+// a few thousand lanes spread over as many SMs as they have warps and
+// 16384 over all 132.
 //
 // The decay `a` is read through explicit element strides, so a per-neuron
 // decay broadcast over T and B (stride 0) is read as the small tensor it
-// is and never materialised at (T, B, D).
+// is and never materialised at (T, B, D). With a time stride of 0 it stays
+// in a register; with another it is a second plane of the ring.
 //
 // Rounding: each step is __fadd_rn(__fmul_rn(a, h), x), a rounded product
-// and then a rounded sum, exactly what the plain PyTorch version
-// (`a[t] * h + x[t]`, two ops) computes. nvcc would otherwise contract it
-// into one FMA and the kernel would differ from its plain version in the
-// last bit.
+// and then a rounded sum in ascending t, exactly what the plain PyTorch
+// version (`a[t] * h + x[t]`, two ops) computes. nvcc would otherwise
+// contract it into one FMA and the kernel would differ from its plain
+// version in the last bit. No chunked or parallel scan: that would change
+// the rounding.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "lane_scan.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int UNROLL = 8;
-
+template <bool A_PLANE, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 linrec_kernel(const float* __restrict__ a, int64_t sa_t, int64_t sa_b,
               int64_t sa_d, const float* __restrict__ x,
               const float* __restrict__ h0, float* __restrict__ y,
               float* __restrict__ hT, int T, int B, int D) {
+  extern __shared__ __align__(16) float ring_smem[];
+  constexpr int NP = A_PLANE ? 2 : 1;       // x, and a where it varies in t
   const int64_t lanes = (int64_t)B * D;
   const int64_t idx = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= lanes) return;
+  if (idx >= lanes) return;                 // no barrier below: leave
   const int64_t b = idx / D, d = idx % D;
   const float* ap = a + b * sa_b + d * sa_d;
-  const float* xp = x + idx;
+  const float* base[NP];
+  int64_t stride[NP];
+  base[0] = x + idx;
+  stride[0] = lanes;
+  if constexpr (A_PLANE) {
+    base[NP - 1] = ap;
+    stride[NP - 1] = sa_t;
+  }
+  LaneRing<NP, THREADS> ring(ring_smem, base, stride, T);
+  const float a0 = A_PLANE ? 0.f : *ap;
   float* yp = y + idx;
   float h = h0[idx];
 
-  int t = 0;
-  for (; t + UNROLL <= T; t += UNROLL) {
-    float av[UNROLL], xv[UNROLL];
+  ring.start();
+  for (int c = 0; c < ring.chunks; ++c) {
+    ring.wait();
+    // the chunk's values into registers before the chain's first store
+    const float* st = ring.stage(c);
+    float xv[LS_CHUNK], av[LS_CHUNK];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      av[u] = ap[(int64_t)(t + u) * sa_t];
-      xv[u] = xp[(int64_t)(t + u) * lanes];
+    for (int u = 0; u < LS_CHUNK; ++u) {
+      xv[u] = st[u * THREADS];
+      av[u] = A_PLANE ? st[(LS_CHUNK + u) * THREADS] : a0;
     }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
+    auto chain = [&](int u) {
       h = __fadd_rn(__fmul_rn(av[u], h), xv[u]);
-      yp[(int64_t)(t + u) * lanes] = h;
+      *yp = h;
+      yp += lanes;
+    };
+    const int n = T - c * LS_CHUNK;
+    if (n >= LS_CHUNK && !ring.done() && ring.whole()) {
+#pragma unroll
+      for (int u = 0; u < LS_CHUNK; ++u) {
+        chain(u);
+        ring.copy_whole(u);                 // fills the chain's gaps
+      }
+    } else if (n >= LS_CHUNK && ring.done()) {
+#pragma unroll
+      for (int u = 0; u < LS_CHUNK; ++u) chain(u);
+    } else {
+#pragma unroll
+      for (int u = 0; u < LS_CHUNK; ++u) {
+        if (u < n) chain(u);
+        ring.copy(u);
+      }
     }
+    ring.commit();
   }
-  for (; t < T; ++t) {
-    h = __fadd_rn(__fmul_rn(ap[(int64_t)t * sa_t], h), xp[(int64_t)t * lanes]);
-    yp[(int64_t)t * lanes] = h;
-  }
+  ring.finish();
   hT[idx] = h;
+}
+
+template <bool A_PLANE, int THREADS>
+int launch(const float* a, int64_t sa_t, int64_t sa_b, int64_t sa_d,
+           const float* x, const float* h0, float* y, float* hT, int T,
+           int B, int D, int stages, cudaStream_t stream) {
+  const size_t smem = lane_ring_bytes(THREADS, A_PLANE ? 2 : 1, stages);
+  if (smem > 48 * 1024) {                   // above 48 KB: the opt-in
+    const cudaError_t e = cudaFuncSetAttribute(
+        linrec_kernel<A_PLANE, THREADS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int64_t lanes = (int64_t)B * D;
+  const int64_t blocks = (lanes + THREADS - 1) / THREADS;
+  linrec_kernel<A_PLANE, THREADS>
+      <<<(unsigned)blocks, THREADS, smem, stream>>>(a, sa_t, sa_b, sa_d, x,
+                                                    h0, y, hT, T, B, D);
+  return (int)cudaGetLastError();
+}
+
+template <bool A_PLANE>
+int launch_warps(int warps, const float* a, int64_t sa_t, int64_t sa_b,
+                 int64_t sa_d, const float* x, const float* h0, float* y,
+                 float* hT, int T, int B, int D, int stages,
+                 cudaStream_t stream) {
+  switch (warps) {
+    case 1:
+      return launch<A_PLANE, 32>(a, sa_t, sa_b, sa_d, x, h0, y, hT, T, B, D,
+                                 stages, stream);
+    case 2:
+      return launch<A_PLANE, 64>(a, sa_t, sa_b, sa_d, x, h0, y, hT, T, B, D,
+                                 stages, stream);
+    case 4:
+      return launch<A_PLANE, 128>(a, sa_t, sa_b, sa_d, x, h0, y, hT, T, B,
+                                  D, stages, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
+// warps: warps a CTA (1, 2 or 4); stages: the ring's stages, exactly
+// lane_ring_stages(T) (`linrec/ops.py::lane_plan` computes both).
 int linrec_f32(const float* a, int64_t sa_t, int64_t sa_b, int64_t sa_d,
                const float* x, const float* h0, float* y, float* hT, int T,
-               int B, int D, void* stream) {
-  const int64_t lanes = (int64_t)B * D;
-  const int blocks = (int)((lanes + THREADS - 1) / THREADS);
-  linrec_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      a, sa_t, sa_b, sa_d, x, h0, y, hT, T, B, D);
-  return (int)cudaGetLastError();
+               int B, int D, int warps, int stages, void* stream) {
+  if (T < 1 || B < 1 || D < 1 || stages != lane_ring_stages(T))
+    return (int)cudaErrorInvalidValue;
+  return sa_t != 0
+             ? launch_warps<true>(warps, a, sa_t, sa_b, sa_d, x, h0, y, hT, T,
+                                  B, D, stages, (cudaStream_t)stream)
+             : launch_warps<false>(warps, a, sa_t, sa_b, sa_d, x, h0, y, hT,
+                                   T, B, D, stages, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -42,9 +42,20 @@
 // runs while the previous group's chains finish). No split over steps or
 // batch rows and no atomics: a weight's result never depends on the grid.
 //
-// The single step (`stdp`): one block owns a 16 x 16 tile, a thread one
-// weight; the block stages CHUNK rows (k, b) at a time in shared memory,
-// loading the next round into registers while this one is summed.
+// The single step (`stdp`). At `stdp_run`'s shape (B = 8, 256 x 128) it
+// moves 0.29 MB (0.09 us at 3.35 TB/s) and is called once a step, so its
+// time is a launch and the memory round trips its chain waits on. A
+// thread owns PAIR_V = 2 adjacent weights of one row (128 CTAs of four
+// warps at 256 x 128) and issues every load
+// before the first use: its weights, the B values of x_pre[:, i] and
+// s_pre[:, i] (one address across a warp) and the B rows of its columns of
+// s_post and x_post, in rounds of PAIR_ROWS rows with the next round in
+// flight while this one is summed. One round trip at B <= 8; no shared
+// memory, no barrier. Pair loads only where the kernel finds the rows
+// whole and aligned (`stdp_run` passes slices t * B * n elements into a
+// train), else scalar loads; one branch picks the route for the whole
+// step. bf16 values stay as loaded until they are used, so that no
+// conversion waits on a load while later loads are still to be issued.
 //
 // Rounding: each product and sum is __fmul_rn/__fadd_rn/__fsub_rn in the
 // plain versions' order (`kernels/stdp/ref.py`): s_k summed from 0 over b
@@ -54,7 +65,6 @@
 // and the split into phases changes no operation, so the kernels equal
 // their plain versions bit for bit.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -67,18 +77,6 @@
 namespace {
 
 constexpr int MAX_TERMS = 4;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename Tin>
-struct Planes {
-  const Tin* p[MAX_TERMS];  // K pre-side planes, rows of M
-  const Tin* q[MAX_TERMS];  // K post-side planes, rows of N
-  float amp[MAX_TERMS];
-};
 
 template <typename X>
 __device__ __forceinline__ X pick(const X (&a)[MAX_TERMS], int k) {
@@ -93,136 +91,174 @@ __device__ __forceinline__ float clip(float w, float w_min, float w_max) {
 // stdp: the single pair step
 // ---------------------------------------------------------------------------
 
-constexpr int TILE = 16;                // weight tile edge
-constexpr int THREADS = TILE * TILE;    // one thread per weight
-constexpr int CHUNK = 256;              // rows staged per round
-constexpr int ROW_STEP = THREADS / (2 * TILE);  // rows a pass of loads covers
-constexpr int LOADS = CHUNK / ROW_STEP;         // loads per thread a round
-static_assert(CHUNK == THREADS, "one thread finds each row of a round");
+constexpr int PAIR_V = 2;          // adjacent weights of one row a thread owns
+constexpr int PAIR_THREADS = 128;  // four warps a CTA
+constexpr int PAIR_ROWS = 8;       // batch rows one round of loads covers
 
-// K = 2, T = 1: w + amp0 * s0 - amp1 * s1, then the clip.
+// A trace or spike value as loaded. fp32 is used as it is; bf16 is kept as
+// its bits (a pair of columns in one word where loaded as a pair) and
+// upcast only where it is used, exactly: the bits of a bf16 are the high
+// half of its fp32. So no instruction waits on a load before the last
+// load is issued.
 template <typename Tin>
-__global__ void __launch_bounds__(THREADS)
-stdp_kernel(const Planes<Tin> pl, const float* __restrict__ w_in,
-            float* __restrict__ w_out, int K, int T, int B, int M, int N,
-            float w_min, float w_max) {
-  __shared__ float sp[CHUNK * TILE];
-  __shared__ float sq[CHUNK * TILE];
-  const int tx = threadIdx.x % TILE, ty = threadIdx.x / TILE;
-  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  const int i = m0 + ty, j = n0 + tx;
-  const bool in = i < M && j < N;
-  float w = in ? w_in[(int64_t)i * N + j] : 0.f;
-  // closes term kk of the step with its sum over the batch rows
-  auto close_term = [&](int kk, float sum) {
-    const float a = pick(pl.amp, kk);
-    w = kk == 0 ? __fadd_rn(w, __fmul_rn(a, sum))
-                : __fsub_rn(w, __fmul_rn(a, sum));
-  };
-  auto close_step = [&]() { w = clip(w, w_min, w_max); };
-  if (B == 0) {                // a step with no batch rows still clips
-    for (int t = 0; t < T; ++t) {
-      for (int kk = 0; kk < K; ++kk) close_term(kk, 0.f);
-      close_step();
+struct Raw;
+template <>
+struct Raw<float> {
+  using T = float;
+  __device__ static float one(const float* p) { return __ldg(p); }
+  __device__ static float f32(float r) { return r; }
+  // columns j0, j0 + 1 of a row: one 8-byte load where VEC, else the n
+  // valid ones one by one
+  template <bool VEC>
+  __device__ static void pair(float (&r)[PAIR_V], const float* p, int n) {
+    if (VEC) {
+      const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+      r[0] = q.x, r[1] = q.y;
+    } else {
+#pragma unroll
+      for (int e = 0; e < PAIR_V; ++e) r[e] = e < n ? __ldg(p + e) : 0.f;
     }
   }
+  template <bool VEC>
+  __device__ static float col(const float (&r)[PAIR_V], int e) {
+    return r[e];
+  }
+};
+template <>
+struct Raw<uint16_t> {
+  using T = uint32_t;
+  __device__ static uint32_t one(const uint16_t* p) { return __ldg(p); }
+  __device__ static float f32(uint32_t r) { return __uint_as_float(r << 16); }
+  // VEC: both columns in r[0] (column j0 in its low half)
+  template <bool VEC>
+  __device__ static void pair(uint32_t (&r)[PAIR_V], const uint16_t* p,
+                              int n) {
+    if (VEC) {
+      r[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+    } else {
+#pragma unroll
+      for (int e = 0; e < PAIR_V; ++e) r[e] = e < n ? __ldg(p + e) : 0u;
+    }
+  }
+  template <bool VEC>
+  __device__ static float col(const uint32_t (&r)[PAIR_V], int e) {
+    if (VEC)
+      return __uint_as_float(e == 0 ? r[0] << 16 : r[0] & 0xffff0000u);
+    return f32(r[e]);
+  }
+};
+static_assert(PAIR_V == 2, "Raw<>::pair reads pairs");
 
-  const int kb = K * B;        // rows of one step
-  const int64_t rows = (int64_t)T * kb;
-  // Staging: thread x finds where row x of the next round starts in P_k
-  // and in Q_k (its step, term and batch row: one division each), and the
-  // block keeps these row pointers in shared memory. Thread x then loads
-  // column x % 32 (the tile's 16 columns of P_k, then of Q_k) of rows
-  // x / 32 + 8u, u < LOADS, into registers, which are in flight while this
-  // round's rows are summed and go to shared memory after.
-  __shared__ const Tin* rp[CHUNK];
-  __shared__ const Tin* rq[CHUNK];
-  const int c = threadIdx.x % (2 * TILE), r0 = threadIdx.x / (2 * TILE);
-  float buf[LOADS];
-  auto index_rows = [&](int64_t t0, int q0, int nr) {
-    const int x = threadIdx.x;
-    if (x < nr) {
-      const int q = q0 + x;
-      const int64_t trow = (t0 + q / kb) * B + q % kb % B;
-      const int kk = q % kb / B;
-      rp[x] = pick(pl.p, kk) + trow * M + m0;
-      rq[x] = pick(pl.q, kk) + trow * N + n0;
+template <typename Tin>
+struct PairArgs {
+  const Tin* x_pre;    // (B, M)
+  const Tin* s_post;   // (B, N)
+  const Tin* s_pre;    // (B, M)
+  const Tin* x_post;   // (B, N)
+  const float* w_in;   // (M, N)
+  float* w_out;        // (M, N)
+  int B, M, N;
+  float a_plus, a_minus, w_min, w_max;
+};
+
+// One round's inputs of a thread, as loaded: PAIR_ROWS batch rows of its
+// row i's pre-side values and of its columns' post-side values.
+template <typename Tin>
+struct PairRows {
+  using R = typename Raw<Tin>::T;
+  R x_pre[PAIR_ROWS], s_pre[PAIR_ROWS];
+  R s_post[PAIR_ROWS][PAIR_V], x_post[PAIR_ROWS][PAIR_V];
+};
+
+// The thread's PAIR_V weights (i, j0 ..), n of them inside N. VEC: rows of
+// whole pairs at aligned addresses, so each pair is one load.
+template <typename Tin, bool VEC>
+__device__ __forceinline__ void pair_step(const PairArgs<Tin>& a, int i,
+                                          int j0, int n) {
+  using Rw = Raw<Tin>;
+  const int wo = i * a.N + j0;
+  float w[PAIR_V];
+  Raw<float>::pair<VEC>(w, a.w_in + wo, n);
+  auto load = [&](PairRows<Tin>& r, int b0) {
+#pragma unroll
+    for (int k = 0; k < PAIR_ROWS; ++k) {
+      const int b = b0 + k;
+      if (b < a.B) {
+        const int pre = b * a.M + i, post = b * a.N + j0;
+        r.x_pre[k] = Rw::one(a.x_pre + pre);
+        r.s_pre[k] = Rw::one(a.s_pre + pre);
+        Rw::template pair<VEC>(r.s_post[k], a.s_post + post, n);
+        Rw::template pair<VEC>(r.x_post[k], a.x_post + post, n);
+      }
     }
   };
-  auto load = [&](int nr) {
+  float pot[PAIR_V], dep[PAIR_V];
 #pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int r = r0 + ROW_STEP * u;
-      float v = 0.f;
-      if (r < nr) {
-        if (c < TILE) {
-          if (m0 + c < M) v = to_f32(rp[r][c]);
-        } else if (n0 + c - TILE < N) {
-          v = to_f32(rq[r][c - TILE]);
+  for (int v = 0; v < PAIR_V; ++v) pot[v] = dep[v] = 0.f;
+  PairRows<Tin> cur, nxt;
+  load(cur, 0);
+  for (int b0 = 0; b0 < a.B; b0 += PAIR_ROWS) {
+    if (b0 + PAIR_ROWS < a.B) load(nxt, b0 + PAIR_ROWS);
+    const int rows = min(PAIR_ROWS, a.B - b0);
+#pragma unroll
+    for (int k = 0; k < PAIR_ROWS; ++k) {
+      if (k < rows) {
+        const float xp = Rw::f32(cur.x_pre[k]), sp = Rw::f32(cur.s_pre[k]);
+#pragma unroll
+        for (int v = 0; v < PAIR_V; ++v) {
+          pot[v] = __fadd_rn(
+              pot[v], __fmul_rn(xp, Rw::template col<VEC>(cur.s_post[k], v)));
+          dep[v] = __fadd_rn(
+              dep[v], __fmul_rn(sp, Rw::template col<VEC>(cur.x_post[k], v)));
         }
       }
-      buf[u] = v;
     }
-  };
-  auto store = [&]() {
+    cur = nxt;
+  }
+  float o[PAIR_V];
 #pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int r = r0 + ROW_STEP * u;
-      if (c < TILE)
-        sp[r * TILE + c] = buf[u];
-      else
-        sq[r * TILE + c - TILE] = buf[u];
-    }
-  };
+  for (int v = 0; v < PAIR_V; ++v)
+    o[v] = clip(__fsub_rn(__fadd_rn(w[v], __fmul_rn(a.a_plus, pot[v])),
+                          __fmul_rn(a.a_minus, dep[v])),
+                a.w_min, a.w_max);
+  float* op = a.w_out + wo;
+  if (VEC) {
+    *reinterpret_cast<float2*>(op) = make_float2(o[0], o[1]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < PAIR_V; ++v)
+      if (v < n) op[v] = o[v];
+  }
+}
 
-  int64_t t0 = 0;              // the round's first row: step t0, place q0
-  int q0 = 0;                  //   (q0 = k * B + b) within it
-  int b = 0, k = 0;            // the next row's place, for the sums
-  float s = 0.f;
-  if (rows > 0) {
-    const int nr = (int)(rows < CHUNK ? rows : CHUNK);
-    index_rows(0, 0, nr);
-    __syncthreads();
-    load(nr);
-    store();
-    __syncthreads();
-  }
-  for (int64_t base = 0; base < rows; base += CHUNK) {
-    const int nr = (int)(rows - base < CHUNK ? rows - base : CHUNK);
-    const int64_t t1 = t0 + (q0 + nr) / kb;
-    const int q1 = (q0 + nr) % kb;
-    const int64_t rest = rows - base - nr;
-    const int nr1 = (int)(rest < CHUNK ? rest : CHUNK);
-    if (rest > 0) {            // the last loads have read the row pointers
-      index_rows(t1, q1, nr1);
-      __syncthreads();
-      load(nr1);
-    }
-    for (int r = 0; r < nr;) {
-      // the rows up to the end of this term's batch, or of the round
-      const int seg = B - b < nr - r ? B - b : nr - r;
-#pragma unroll 4
-      for (int e = r; e < r + seg; ++e)
-        s = __fadd_rn(s, __fmul_rn(sp[e * TILE + ty], sq[e * TILE + tx]));
-      r += seg;
-      b += seg;
-      if (b < B) continue;
-      b = 0;
-      close_term(k, s);
-      s = 0.f;
-      if (++k < K) continue;
-      k = 0;
-      close_step();
-    }
-    t0 = t1;
-    q0 = q1;
-    if (rest > 0) {
-      __syncthreads();         // this round's rows are consumed
-      store();
-      __syncthreads();
-    }
-  }
-  if (in) w_out[(int64_t)i * N + j] = w;
+template <typename Tin>
+__device__ __forceinline__ bool pair_aligned(const void* p) {
+  return (uintptr_t)p % (PAIR_V * sizeof(Tin)) == 0;
+}
+
+// w' = clip((w + a_plus * x_pre^T s_post) - a_minus * s_pre^T x_post). A
+// thread owns PAIR_V adjacent weights of one row (with N = 128 a warp owns
+// half a row); it issues all its loads before the first use, rounds of
+// PAIR_ROWS batch rows with the next round's loads in flight while this
+// one is summed. No shared memory, no barrier. Offsets are 32-bit (the
+// entry point refuses B * M, B * N or M * N past 2^31).
+template <typename Tin>
+__global__ void __launch_bounds__(PAIR_THREADS)
+stdp_pair_kernel(const PairArgs<Tin> a) {
+  const int nv = (a.N + PAIR_V - 1) / PAIR_V;   // pairs of a row
+  const int g = blockIdx.x * PAIR_THREADS + threadIdx.x;
+  const int i = g / nv;
+  if (i >= a.M) return;
+  const int j0 = (g - i * nv) * PAIR_V;
+  const int n = min(PAIR_V, a.N - j0);           // its columns inside N
+  // Rows of whole pairs at aligned addresses, checked here: `stdp_run`
+  // hands in slices of a (T, B, n) spike train, t * B * n elements in.
+  if (a.N % PAIR_V == 0 && pair_aligned<Tin>(a.s_post) &&
+      pair_aligned<Tin>(a.x_post) && pair_aligned<float>(a.w_in) &&
+      pair_aligned<float>(a.w_out))
+    pair_step<Tin, true>(a, i, j0, n);
+  else
+    pair_step<Tin, false>(a, i, j0, n);
 }
 
 template <typename Tin>
@@ -230,16 +266,21 @@ int stdp_pair(const void* x_pre, const void* s_post, const void* s_pre,
               const void* x_post, const float* w, float* out, int B, int M,
               int N, float a_plus, float a_minus, float w_min, float w_max,
               void* stream) {
-  Planes<Tin> pl{};
-  pl.p[0] = static_cast<const Tin*>(x_pre);
-  pl.q[0] = static_cast<const Tin*>(s_post);
-  pl.p[1] = static_cast<const Tin*>(s_pre);
-  pl.q[1] = static_cast<const Tin*>(x_post);
-  pl.amp[0] = a_plus;
-  pl.amp[1] = a_minus;
-  const dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
-  stdp_kernel<Tin><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      pl, w, out, 2, 1, B, M, N, w_min, w_max);
+  const int64_t threads = (int64_t)M * ((N + PAIR_V - 1) / PAIR_V);
+  if (B < 0 || M < 1 || N < 1 || (int64_t)M * N > INT32_MAX ||
+      (int64_t)B * M > INT32_MAX || (int64_t)B * N > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  PairArgs<Tin> a{};
+  a.x_pre = static_cast<const Tin*>(x_pre);
+  a.s_post = static_cast<const Tin*>(s_post);
+  a.s_pre = static_cast<const Tin*>(s_pre);
+  a.x_post = static_cast<const Tin*>(x_post);
+  a.w_in = w;
+  a.w_out = out;
+  a.B = B, a.M = M, a.N = N;
+  a.a_plus = a_plus, a.a_minus = a_minus, a.w_min = w_min, a.w_max = w_max;
+  const int blocks = (int)((threads + PAIR_THREADS - 1) / PAIR_THREADS);
+  stdp_pair_kernel<Tin><<<blocks, PAIR_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -477,9 +518,8 @@ int stdp_bf16(const void* x_pre, const void* s_post, const void* s_pre,
               const void* x_post, const float* w, float* out, int B, int M,
               int N, float a_plus, float a_minus, float w_min, float w_max,
               void* stream) {
-  return stdp_pair<__nv_bfloat16>(x_pre, s_post, s_pre, x_post, w, out, B,
-                                  M, N, a_plus, a_minus, w_min, w_max,
-                                  stream);
+  return stdp_pair<uint16_t>(x_pre, s_post, s_pre, x_post, w, out, B, M, N,
+                             a_plus, a_minus, w_min, w_max, stream);
 }
 
 }  // extern "C"

@@ -12,7 +12,29 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, registry
+from repro_torch.kernels.common import sm_count
 from repro_torch.kernels.linrec.ref import linrec_ref
+
+MAX_WARPS = 4              # warps a CTA of `csrc/linrec.cu`, at most
+
+
+def lane_plan(lanes: int, T: int, n_sm: int):
+    """(warps a CTA, CTAs, stages of the staging ring) of `csrc/linrec.cu`
+    for `lanes` lanes of T steps on a card of `n_sm` SMs.
+
+    A warp owns 32 adjacent lanes. CTAs take the fewest warps (1, 2 or 4)
+    that keep their count within one a SM, so a few thousand lanes spread
+    over as many SMs as they have warps and 16384 over all 132; past 4
+    warps a CTA the grid grows. The ring holds LANE_SCAN_STAGES chunks of
+    LANE_SCAN_CHUNK steps, or as many chunks as T has where that is fewer
+    (the kernel refuses any other count)."""
+    warps = -(-lanes // 32)
+    per_cta = 1
+    while per_cta < MAX_WARPS and -(-warps // per_cta) > n_sm:
+        per_cta *= 2
+    chunks = -(-T // _build.LANE_SCAN_CHUNK)
+    return (per_cta, -(-lanes // (32 * per_cta)),
+            min(_build.LANE_SCAN_STAGES, chunks))
 
 
 def _check(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor) -> None:
@@ -43,11 +65,12 @@ def linrec_cuda(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor):
         return y, hT.copy_(h0)
     if h0.numel() == 0:
         return y, hT
+    warps, _, stages = lane_plan(B * D, T, sm_count(x.device))
     with torch.cuda.device(x.device):
         code = _build.library().linrec_f32(
             av.data_ptr(), av.stride(0), av.stride(1), av.stride(2),
             x.data_ptr(), h0.data_ptr(), y.data_ptr(), hT.data_ptr(),
-            T, B, D, torch.cuda.current_stream().cuda_stream)
+            T, B, D, warps, stages, torch.cuda.current_stream().cuda_stream)
     _build.check("linrec", code)
     linrec_cuda.launches += 1
     return y, hT
@@ -70,4 +93,4 @@ registry.register(registry.KernelSpec(
     name="linrec", plain=linrec_ref, cuda=linrec_cuda,
     make_inputs=_make_inputs, tol=1e-4))
 
-__all__ = ["linrec", "linrec_cuda", "linrec_ref"]
+__all__ = ["linrec", "linrec_cuda", "linrec_ref", "lane_plan"]

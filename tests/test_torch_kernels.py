@@ -220,6 +220,84 @@ def test_linrec_matches_reference(T, B, D, force_pallas):
         np.testing.assert_allclose(g, r, rtol=0, atol=_tol("linrec"))
 
 
+@pytest.mark.parametrize("force_pallas", IMPLS)
+@pytest.mark.parametrize("decay", ["per_neuron", "full_plane"])
+def test_linrec_matches_reference_at_the_trace_shape(decay, force_pallas):
+    """plastic_ff's trace scans, T = 300, B = 8, D = 256 on spike input:
+    the plain version against the reference and the Pallas kernel
+    (interpret mode) at the family's tol, with a per-neuron decay that the
+    port takes as a stride-0 view (the JAX side takes it materialised) and
+    with a full decay plane."""
+    T, B, D = 300, 8, 256
+    rng = np.random.default_rng(22)
+    x = (rng.random((T, B, D)) < 0.15).astype(np.float32)
+    h0 = rng.random((B, D)).astype(np.float32)
+    if decay == "per_neuron":
+        a_d = rng.uniform(0.8, 0.99, (D,)).astype(np.float32)
+        a = np.ascontiguousarray(np.broadcast_to(a_d, (T, B, D)))
+        a_port = torch.from_numpy(a_d).expand(T, B, D)
+        assert a_port.stride() == (0, 0, 1)
+    else:
+        a = rng.uniform(0.8, 0.99, (T, B, D)).astype(np.float32)
+        a_port = torch.from_numpy(a)
+    ref = _jax("linrec", (a, x, h0), force_pallas)
+    got = linrec(a_port, torch.from_numpy(x), torch.from_numpy(h0))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=_tol("linrec"))
+
+
+@pytest.mark.parametrize("T", [1, 7, 32, 300])
+@pytest.mark.parametrize("lanes", [1, 6 * 64, 20 * 64, 1024, 2048, 16384])
+def test_linrec_lane_plan(lanes, T):
+    """`lane_plan`: one to four warps a CTA, the fewest that keep the CTAs
+    within one an SM of 132 (2048 lanes on 64 SMs, 16384 on 128); no CTA
+    without a lane and every lane covered exactly once; the ring's stages
+    are LANE_SCAN_STAGES or the chunks T has, within the shared memory a
+    CTA may take with a decay plane staged too."""
+    from repro_torch.kernels.linrec.ops import MAX_WARPS, lane_plan
+    warps, ctas, stages = lane_plan(lanes, T, 132)
+    threads = 32 * warps
+    assert warps in (1, 2, 4) and warps <= MAX_WARPS
+    assert (ctas - 1) * threads < lanes <= ctas * threads
+    owner = np.arange(ctas * threads)
+    assert np.array_equal(owner[owner < lanes], np.arange(lanes))
+    assert ctas <= 132 or warps == MAX_WARPS
+    if warps > 1:                       # half the warps would overfill
+        assert -(-lanes // (16 * warps)) > 132
+    chunk, ring = _build.LANE_SCAN_CHUNK, _build.LANE_SCAN_STAGES
+    assert stages == min(ring, -(-T // chunk)) >= 1
+    assert threads * 2 * stages * chunk * 4 <= 232448
+    assert {2048: (1, 64), 16384: (4, 128)}.get(lanes, (warps, ctas)) == (
+        warps, ctas)
+
+
+def test_linrec_wrapper_passes_the_plan(monkeypatch):
+    """With a recording stand-in for the library (no card here) the
+    wrapper hands `linrec_f32` the decay's strides (0 where broadcast) and
+    `lane_plan`'s warps and stages, and counts one launch."""
+    from contextlib import nullcontext
+    from unittest import mock
+    from repro_torch.kernels.linrec import ops as linrec_ops
+    lib = mock.Mock(**{"linrec_f32.return_value": 0})
+    monkeypatch.setattr(linrec_ops, "_check", lambda *a: None)
+    monkeypatch.setattr(linrec_ops, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    T, B, D = 300, 8, 256
+    registry.reset_launches()
+    linrec_cuda(torch.ones(D).expand(T, B, D), torch.zeros((T, B, D)),
+                torch.zeros((B, D)))
+    call, = lib.linrec_f32.call_args_list
+    assert call.args[1:4] == (0, 0, 1)
+    assert call.args[8:13] == (T, B, D) + tuple(
+        linrec_ops.lane_plan(B * D, T, 132)[i] for i in (0, 2))
+    assert registry.launch_counts()["linrec"] == 1
+    registry.reset_launches()
+
+
 def _density_rasters(M, K, seed):
     """The JAX sparse tests' extremes: all-empty, one occupied block, a
     packed low-density corner, and dense."""
@@ -604,12 +682,14 @@ def _bf16_exact(a):
 @pytest.mark.parametrize("force_pallas", IMPLS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,M,N", [(8, 256, 256), (16, 300, 200),
-                                   (4, 128, 640)])
+                                   (4, 128, 640), (8, 256, 128),
+                                   (3, 130, 70)])
 def test_stdp_matches_reference(B, M, N, dtype, force_pallas):
-    """The JAX kernel tests' shapes and dtypes and its clip (+-0.4): the
-    plain version against the reference and the Pallas kernel (interpret
-    mode) at the family's tol. bf16 traces are upcast exactly in all
-    three, so one tolerance holds both dtypes."""
+    """The JAX kernel tests' shapes and dtypes and its clip (+-0.4), and
+    stdp_step's (8, 256, 128) and an unaligned (3, 130, 70): the plain
+    version against the reference and the Pallas kernel (interpret mode) at
+    the family's tol. bf16 traces are upcast exactly in all three, so one
+    tolerance holds both dtypes."""
     rng = np.random.default_rng(B * M + N)
     x_pre = rng.random((B, M)).astype(np.float32)
     x_post = rng.random((B, N)).astype(np.float32)
@@ -629,6 +709,24 @@ def test_stdp_matches_reference(B, M, N, dtype, force_pallas):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=_tol("stdp"))
     assert (got.abs() == 0.4).sum() > 0, "no weight reached the clip"
+
+
+@pytest.mark.parametrize("force_pallas", IMPLS)
+def test_stdp_with_no_batch_rows_only_clips(force_pallas):
+    """B = 0: no event, so the step is the clip of the weight alone, in
+    the plain version as in the reference and the Pallas kernel."""
+    rng = np.random.default_rng(12)
+    M, N = 130, 70
+    w = (0.5 * rng.standard_normal((M, N))).astype(np.float32)
+    traces = [np.zeros((0, n), np.float32) for n in (M, N, M, N)]
+    kw = dict(a_plus=0.05, a_minus=0.06, w_min=-0.4, w_max=0.4)
+    got = stdp_update(*(torch.from_numpy(a) for a in traces),
+                      torch.from_numpy(w), **kw)
+    assert torch.equal(got, torch.clamp(torch.from_numpy(w), -0.4, 0.4))
+    ref = np.asarray(jreg.dispatch(
+        "stdp", tuple(jnp.asarray(a) for a in traces + [w]),
+        force_pallas=force_pallas, **kw))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=_tol("stdp"))
 
 
 def _seq_case(K, T, B, M, N, seed):
@@ -826,13 +924,17 @@ def test_rec_wrappers_pass_the_route_and_count_it(monkeypatch, name, side):
 @pytest.mark.parametrize("source,macro,const", [
     ("stdp.cu", "STDP_SEQ_GROUP", "G"),
     ("lifrec.cu", "REC_LANE_NEURONS", None),
-    ("alifrec.cu", "REC_LANE_NEURONS", None)])
+    ("alifrec.cu", "REC_LANE_NEURONS", None),
+    ("linrec.cu", "LANE_SCAN_CHUNK", "LS_CHUNK"),
+    ("linrec.cu", "LANE_SCAN_STAGES", "LS_STAGES")])
 def test_serial_kernel_constants_are_the_wrappers(tmp_path, monkeypatch,
                                                  source, macro, const):
-    """stdp_seq's group of STDP_SEQ_GROUP steps and the scan's
-    REC_LANE_NEURONS neurons a lane have one definition, in `_build`: the
-    nvcc call of each source that uses them passes them as -D flags, and
-    the sources take them from there and from no other value."""
+    """stdp_seq's group of STDP_SEQ_GROUP steps, the scan's
+    REC_LANE_NEURONS neurons a lane and the lane scans' staging ring
+    (LANE_SCAN_CHUNK steps a stage, LANE_SCAN_STAGES stages) have one
+    definition, in `_build`: the nvcc call of each source that uses them
+    passes them as -D flags, and the sources (or the headers they include)
+    take them from there and from no other value."""
     nvcc, calls = _fake_nvcc(tmp_path, 0)
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
@@ -841,9 +943,11 @@ def test_serial_kernel_constants_are_the_wrappers(tmp_path, monkeypatch,
                          calls.read_text().splitlines())
              if str(_build.CSRC / source) in a]
     assert f"-D{macro}={getattr(_build, macro)}" in argv
-    text = (_build.CSRC / (source if const else "rec_scan.cuh")).read_text()
+    src = (_build.CSRC / source).read_text()
+    text = "".join([src] + [(_build.CSRC / h).read_text() for h in
+                            re.findall(r'#include "(\w+\.cuh)"', src)])
     if const is None:
-        assert '#include "rec_scan.cuh"' in (_build.CSRC / source).read_text()
+        assert '#include "rec_scan.cuh"' in src
         const = "LANE_N"
     consts = dict(re.findall(r"constexpr int (\w+) = (\w+);", text))
     assert consts[const] == macro

@@ -69,6 +69,17 @@ compare in one call.
             at D = 6, 20 (B = 64), 130 (B = 3) and 4097 lanes (B = 1), each
             at T = 1, 31, 33 and 300 with a stride-0 decay and with a full
             decay plane;
+            `lif` also at four paths' calls (captured at `plan.lif_scan`:
+            plastic_ff's pair rule (300, 8, 128), plastic_online's first
+            chunk (200, 4, 128), sparse_integ at density 0.05
+            (256, 8, 512), topology_banded's second streamed chunk
+            (64, 1, 8192); timed, each tagged with its path), and `lif`
+            (both resets) and `alif` at rows of N = 6, 20 (B = 64), 130
+            (B = 3) and 4097 lanes (B = 1), each at T = 1, 15, 16, 17, 33
+            and 300 from a nonzero state with lanes that fire in most
+            steps, and with signed zeros at thresholds of 0 and -0.5; the
+            lane scans (`linrec`, `lif`, `alif`) are held bit for bit as
+            fp32 bit patterns, signs of zeros included;
             `spikemm_sparse` at the sparse_integ path's hidden INTEG,
             `bench_kernels`' SPARSITY_SHAPE at four densities and two
             ragged shapes, each also equal to the dense kernel bit for bit;
@@ -91,11 +102,12 @@ compare in one call.
             yardstick (`library_ms`: `torch.matmul`, or `torch.sparse.mm`
             on a CSR matrix where the dense one does not fit).
             Then the sweep of the serial-chain kernels: the plastic_ff pair
-            rule's `stdp_seq` planes and its pre-trace `linrec` call cut to
-            T = 1, 75, 150 and 300 steps, the ECG windows' `alifrec` and
-            `lifrec` calls cut to T = 1, 8 and 32, each bit for bit and
-            timed; the fit ms = a + b T splits a call into its launch and
-            prologue (a) and a step (b).
+            rule's `stdp_seq` planes, its pre-trace `linrec` call and its
+            `lif` call cut to T = 1, 75, 150 and 300 steps, alif_ff's
+            `alif` call to T = 1, 64, 128 and 250, the ECG windows'
+            `alifrec` and `lifrec` calls to T = 1, 8 and 32, each bit for
+            bit and timed; the fit ms = a + b T splits a call into its
+            launch and prologue (a) and a step (b).
 4. paths    each path served through the engine, with every launch counter
             set to 0 just before its run and read just after:
             * shd: `make_dhsnn_shd` at 700 -> 64 (x4 branches) -> 20, 128
@@ -322,14 +334,26 @@ SMEM_W_MAX_N = 241
 # the serial-chain kernels: a chain over time (the recurrent scans) or over
 # the learning window's clips (stdp_seq, stdp)
 SERIAL = ("lifrec", "alifrec", "stdp_seq", "stdp")
-# the sweep: each serial-chain kernel's home-path call, and linrec's
-# plastic_ff pre-trace scan, cut to these step counts (plastic_ff's
-# T = 300, the ECG window's 32)
+# the sweep: each serial-chain kernel's home-path call, the lane scans'
+# longest path calls (linrec's and lif's of plastic_ff) and alif's
+# alif_ff call, cut to these step counts (plastic_ff's T = 300, alif_ff's
+# 250, the ECG window's 32)
 SWEEP_T = {"stdp_seq": (1, 75, 150, 300), "alifrec": (1, 8, 32),
-           "lifrec": (1, 8, 32), "linrec": (1, 75, 150, 300)}
+           "lifrec": (1, 8, 32), "linrec": (1, 75, 150, 300),
+           "lif": (1, 75, 150, 300), "alif": (1, 64, 128, 250)}
 # the call each kernel's sweep cuts, by its label, where it is not the
 # kernel's HOME-path call
-SWEEP_CALL = {"linrec": "plastic_ff pair pre trace"}
+SWEEP_CALL = {"linrec": "plastic_ff pair pre trace",
+              "lif": "plastic_ff pair hidden, zero reset"}
+# the lane scans' edge shapes: rows of the ECG and SHD readouts' widths
+# (B = 64), rows not 16-byte aligned (B = 3) and a last warp of one lane
+# (B = 1), and step counts that start or end a staged chunk of
+# LANE_SCAN_CHUNK (16) steps in another place
+LANE_EDGE_ROWS = ((CAPACITY, 6), (CAPACITY, 20), (3, 130), (1, 4097))
+LANE_EDGE_T = (1, 15, 16, 17, 33, 300)
+# the lane scans: a thread a (b, n) lane, held to their plain versions
+# bit for bit, signs of zeros included
+LANE_SCANS = ("linrec", "lif", "alif")
 # bench_topology_exec's gather rows: (n, band, bk = bn, rows M, input rate)
 GATHER_ROWS = {"exec_vs_dense": (8192, 64, 128, 64, 0.2),
                "scale_1e5": (100_000, 32, 128, 8, 0.1),
@@ -947,7 +971,8 @@ def linrec_edge_cases():
     and SHD readouts, B = 64), D = 130 (B = 3: rows not 16-byte aligned)
     and 4097 lanes (B = 1: a last warp of one lane), each at T = 1, 31, 33
     (not a multiple of a staged chunk) and 300, with a per-neuron decay
-    broadcast over T and B (stride 0) and with a full decay plane."""
+    broadcast over T and B (stride 0) and with a full decay plane; and
+    rows of whole warps whose x starts off 16-byte alignment."""
     g = torch.Generator().manual_seed(10)
     out = []
     for B, D in ((CAPACITY, 6), (CAPACITY, 20), (3, 130), (1, 4097)):
@@ -959,6 +984,12 @@ def linrec_edge_cases():
             for kind, a in (("stride-0 decay", per_neuron.expand(x.shape)),
                             ("full decay plane", plane)):
                 out.append(Case(f"edge ({T}, {B}, {D}), {kind}", (a, x, h0)))
+    x = off_alignment(torch.randn((33, CAPACITY, 20), generator=g).to(DEV))
+    h0 = torch.randn((CAPACITY, 20), generator=g).to(DEV)
+    a = (0.5 + 0.49 * torch.rand((20,), generator=g)).to(DEV)
+    out.append(Case(f"rows of whole warps, x off 16-byte alignment "
+                    f"(33, {CAPACITY}, 20), stride-0 decay",
+                    (a.expand(x.shape), x, h0)))
     return out
 
 
@@ -1123,6 +1154,126 @@ def plastic_linrec_cases():
     return [Case(f"plastic_ff pair {names[args[1].shape[2]]}", args,
                  path="plastic_ff", timed=True, plain_iters=2)
             for args in captured]
+
+
+def path_lif_cases():
+    """The `lif` calls of four paths' main runs on the card, captured at
+    `plan.lif_scan`: the plastic_ff pair rule's hidden layer (T=300, B=8,
+    N=128, zero reset), plastic_online's first chunk (200, 4, 128),
+    sparse_integ at its home density (256, 8, 512) and topology_banded's
+    second streamed chunk (64, 1, 8192), from the state the first left.
+    Timed, each tagged with its own path (not lif's HOME, so the kernel
+    table's row 2 stays the SHD window's)."""
+    from repro_torch.core import plan, plasticity
+    captured = []
+    real = plan.lif_scan
+
+    def spy(cur, tau, v0, v_th=1.0, reset="zero"):
+        captured.append((cur.clone(), tau.clone(), v0.clone(), v_th, reset))
+        return real(cur, tau, v0, v_th, reset)
+
+    runs = []
+    nodes, params = make_plastic("pair_stdp", DEV)
+    runs.append(("plastic_ff", "plastic_ff pair hidden", lambda: plan.run(
+        nodes, params, torch.from_numpy(plastic_input()).to(DEV),
+        device=DEV)))
+    rule = plasticity.pair_stdp(**ONLINE_RULE)
+    o_nodes, o_params = make_plastic("pair_stdp", DEV, rule=rule)
+    runs.append(("plastic_online", "plastic_online first chunk",
+                 lambda: plan.run(o_nodes, o_params, torch.from_numpy(
+                     online_chunk(0)).to(DEV), device=DEV)))
+    s_nodes, s_params = make_sparse_integ(DEV)
+    s_x = packed_raster(SPARSE_T * SPARSE_B, SPARSE_IN, SPARSE_HOME_DENSITY,
+                        SPARSE_SEED).reshape(SPARSE_T, SPARSE_B, SPARSE_IN)
+    runs.append(("sparse_integ", f"sparse_integ hidden, density "
+                 f"{SPARSE_HOME_DENSITY}", lambda: plan.run(
+                     s_nodes, s_params, torch.from_numpy(s_x).to(DEV),
+                     device=DEV)))
+    b_nodes, b_params = make_banded(DEV)
+    b_x = banded_input()[:2 * BANDED_CHUNK]
+    runs.append(("topology_banded", "topology_banded second chunk",
+                 lambda: list(plan.run_stream(
+                     b_nodes, b_params, (torch.from_numpy(
+                         b_x[i:i + BANDED_CHUNK]).to(DEV)
+                         for i in (0, BANDED_CHUNK)), device=DEV))))
+    out = []
+    plan.lif_scan = spy
+    try:
+        for path, label, run in runs:
+            captured.clear()
+            run()
+            args = captured[-1]             # banded: the second chunk's
+            out.append(Case(f"{label}, {args[4]} reset", args, path=path,
+                            timed=True, plain_iters=2))
+    finally:
+        plan.lif_scan = real
+    shapes = [tuple(c.args[0].shape) for c in out]
+    want = [(PLASTIC_T, PLASTIC_B, PLASTIC_HIDDEN),
+            (ONLINE_T, ONLINE_B, PLASTIC_HIDDEN),
+            (SPARSE_T, SPARSE_B, SPARSE_HIDDEN), (BANDED_CHUNK, 1, BANDED_N)]
+    if shapes != want:
+        raise AssertionError(f"path lif calls of shapes {shapes}, expected "
+                             f"{want}")
+    if not out[-1].args[2].abs().sum() > 0:
+        raise AssertionError("topology_banded's second chunk starts from a "
+                             "zero membrane")
+    return out
+
+
+def lane_fire_edge_cases():
+    """{"lif": [Case], "alif": [Case]} where a lane scan has edges: rows of
+    LANE_EDGE_ROWS at each of LANE_EDGE_T steps, from a nonzero v0 (and
+    a0), a quarter of the lanes driven to fire in most steps; `lif` with
+    both resets. And signed zeros at a threshold of 0 and of -0.5: lanes
+    whose current and v0 are -0.0, so the resets meet u = -0 on both sides
+    of the threshold (the check is bit for bit, signs of zeros included);
+    and rows of whole warps whose current starts off 16-byte alignment.
+    Untimed."""
+    g = torch.Generator().manual_seed(12)
+
+    def rnd(*shape, lo=0.0, hi=1.0):
+        return (lo + (hi - lo) * torch.rand(shape, generator=g)).to(DEV)
+
+    out = {"lif": [], "alif": []}
+
+    def add(label, cur, v_th):
+        T, B, N = cur.shape
+        tau, rho = rnd(N, lo=0.7, hi=0.98), rnd(N, lo=0.85, hi=0.99)
+        v0, a0 = rnd(B, N, lo=-0.5, hi=0.9), rnd(B, N, hi=2.0)
+        if v_th <= 0:
+            zero = (torch.arange(B * N, device=DEV) % 5 == 0).reshape(B, N)
+            cur = torch.where(zero, torch.full_like(cur, -0.0), cur)
+            v0 = torch.where(zero, torch.full_like(v0, -0.0), v0)
+        for reset in ("zero", "subtract"):
+            out["lif"].append(Case(f"{label}, {reset} reset",
+                                   (cur, tau, v0, v_th, reset)))
+        out["alif"].append(Case(label, (cur, tau, rho, v0, a0, v_th, 1.8)))
+
+    for B, N in LANE_EDGE_ROWS:
+        for T in LANE_EDGE_T:
+            hot = (torch.rand((B, N), generator=g) < 0.25).float() * 2.5
+            cur = (0.6 * torch.randn((T, B, N), generator=g) + hot).to(DEV)
+            add(f"edge ({T}, {B}, {N})", cur, 1.0)
+    for v_th in (0.0, -0.5):
+        cur = (0.6 * torch.randn((33, CAPACITY, 20), generator=g)).to(DEV)
+        add(f"signed zeros (33, {CAPACITY}, 20), v_th={v_th}", cur, v_th)
+    cur = off_alignment((0.6 * torch.randn((33, CAPACITY, 20), generator=g)
+                         + 0.8).to(DEV))
+    add(f"rows of whole warps, current off 16-byte alignment "
+        f"(33, {CAPACITY}, 20)", cur, 1.0)
+    return out
+
+
+def off_alignment(t):
+    """A contiguous copy of `t` whose data starts 4 bytes past a 16-byte
+    boundary: the lane scans then copy it a lane a thread even where its
+    rows are whole warps."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    if out.data_ptr() % 16 == 0:
+        raise AssertionError("off_alignment: the copy is 16-byte aligned")
+    return out
 
 
 def stdp_cases():
@@ -1512,6 +1663,9 @@ def kernel_cases(shd_params):
             cases[name] += [Case(label, args) for label, args in calls]
     cases["spikemm"] += spikemm_cases()
     cases["linrec"] += plastic_linrec_cases() + linrec_edge_cases()
+    cases["lif"] += path_lif_cases()
+    for name, calls in lane_fire_edge_cases().items():
+        cases[name] += calls
     cases["spikemm_sparse"] = [
         dataclasses.replace(c, library=lambda a=c.args: torch.matmul(*a))
         for c in sparse_cases()]
@@ -1598,7 +1752,7 @@ def phase_kernels(cases):
                                                atol=CHANNEL_TOL)
                     extra = (", bit for bit" if torch.equal(g, r)
                              else f", max abs err {err:.3e}")
-                elif not torch.equal(g, r):
+                elif not same_bits(name, g, r):
                     raise AssertionError(
                         f"{name} [{label}]: not bit-identical to its plain "
                         f"version (max abs err {err:.3e})")
@@ -1702,6 +1856,16 @@ def phase_kernels(cases):
     return results
 
 
+def same_bits(name, got, ref):
+    """Whether a kernel's output equals its plain version's: as values
+    (`torch.equal`), and for the lane scans (`linrec`, `lif`, `alif`) as
+    fp32 bit patterns too, so that -0.0 and +0.0 differ."""
+    if not torch.equal(got, ref):
+        return False
+    return name not in LANE_SCANS or torch.equal(got.view(torch.int32),
+                                                 ref.view(torch.int32))
+
+
 def cut_steps(name, args, kw, T):
     """The call `args` of a serial-chain kernel cut to its first T steps."""
     if name == "stdp_seq":
@@ -1724,13 +1888,17 @@ def sweep_cases():
     """The home-path calls of the serial-chain kernels alone: the
     plastic_ff pair rule's `stdp_seq` planes and the ECG window's hidden
     layer, heterogeneous (`alifrec`) and homogeneous (`lifrec`); and the
-    plastic_ff pair rule's `linrec` calls."""
+    lane scans' calls: the plastic_ff pair rule's `linrec` calls, the four
+    paths' `lif` calls and alif_ff's `alif` call."""
     return {"stdp_seq": plastic_seq_cases(("pair_stdp",)),
             "alifrec": [Case("ECG hidden", ecg_window(True)["alifrec"][0][1],
                              path="ecg", timed=True)],
             "lifrec": [Case("ECG hidden", ecg_window(False)["lifrec"][0][1],
                             path="ecg_homogeneous", timed=True)],
-            "linrec": plastic_linrec_cases()}
+            "linrec": plastic_linrec_cases(),
+            "lif": path_lif_cases(),
+            "alif": [Case("ALIF-ff hidden", alif_ff_run_inputs(),
+                          path="alif_ff", timed=True)]}
 
 
 def phase_sweep(cases):
@@ -1753,7 +1921,7 @@ def phase_sweep(cases):
             sync()
             for g, r in zip(got if isinstance(got, tuple) else (got,),
                             ref if isinstance(ref, tuple) else (ref,)):
-                if not torch.equal(g, r):
+                if not same_bits(name, g, r):
                     raise AssertionError(
                         f"sweep {name} [{case.label}] T={T}: not bit-identical"
                         f" to its plain version "

@@ -18,16 +18,17 @@
 // are the parallelism: one thread owns one (b, d) lane, holds its state in
 // a register and walks T serially.
 //
-// Design. The thread's x (and a, where a has a time stride) reach it
-// through `lane_scan.cuh`'s ring: chunks of LS_CHUNK steps copied by
-// cp.async into shared memory, LS_STAGES - 1 of them in flight while the
-// chain runs over the oldest, so in steady state a step costs its
-// dependent product and sum, a shared load, a store that does not block
-// and one copy, issued in the chain's gaps. A warp owns 32 adjacent lanes, so each step is one coalesced
-// 128-byte copy and one 128-byte store a warp. The wrapper sizes the CTA
-// from the lanes (one to four warps, `linrec/ops.py::lane_plan`), so that
-// a few thousand lanes spread over as many SMs as they have warps and
-// 16384 over all 132.
+// Design. The thread's x (and a, where a has a time stride) reach it through
+// `lane_scan.cuh`'s ring: chunks of LS_CHUNK steps copied by cp.async into
+// shared memory, LS_STAGES - 1 of them in flight while the chain runs over the
+// oldest, so in steady state a step costs its dependent product and sum, a
+// shared load, a store that does not block and a copy, issued in the chain's
+// gaps. A warp owns 32 adjacent lanes, so each step is one coalesced 128-byte
+// store a warp and one 128-byte copy, or a quarter of a 512-byte one where the
+// rows are whole warps (x then goes 16 bytes a thread, four steps a copy). The
+// wrapper sizes the CTA from the lanes (one to four warps,
+// `kernels/common.py::lane_plan`), so that a few thousand lanes spread over as
+// many SMs as they have warps and 16384 over all 132.
 //
 // The decay `a` is read through explicit element strides, so a per-neuron
 // decay broadcast over T and B (stride 0) is read as the small tensor it
@@ -48,7 +49,7 @@
 
 namespace {
 
-template <bool A_PLANE, int THREADS>
+template <bool A_PLANE, int THREADS, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 linrec_kernel(const float* __restrict__ a, int64_t sa_t, int64_t sa_b,
               int64_t sa_d, const float* __restrict__ x,
@@ -69,86 +70,16 @@ linrec_kernel(const float* __restrict__ a, int64_t sa_t, int64_t sa_b,
     base[NP - 1] = ap;
     stride[NP - 1] = sa_t;
   }
-  LaneRing<NP, THREADS> ring(ring_smem, base, stride, T);
+  LaneRing<NP, THREADS, VEC> ring(ring_smem, base, stride, T);
   const float a0 = A_PLANE ? 0.f : *ap;
   float* yp = y + idx;
   float h = h0[idx];
-
-  ring.start();
-  for (int c = 0; c < ring.chunks; ++c) {
-    ring.wait();
-    // the chunk's values into registers before the chain's first store
-    const float* st = ring.stage(c);
-    float xv[LS_CHUNK], av[LS_CHUNK];
-#pragma unroll
-    for (int u = 0; u < LS_CHUNK; ++u) {
-      xv[u] = st[u * THREADS];
-      av[u] = A_PLANE ? st[(LS_CHUNK + u) * THREADS] : a0;
-    }
-    auto chain = [&](int u) {
-      h = __fadd_rn(__fmul_rn(av[u], h), xv[u]);
-      *yp = h;
-      yp += lanes;
-    };
-    const int n = T - c * LS_CHUNK;
-    if (n >= LS_CHUNK && !ring.done() && ring.whole()) {
-#pragma unroll
-      for (int u = 0; u < LS_CHUNK; ++u) {
-        chain(u);
-        ring.copy_whole(u);                 // fills the chain's gaps
-      }
-    } else if (n >= LS_CHUNK && ring.done()) {
-#pragma unroll
-      for (int u = 0; u < LS_CHUNK; ++u) chain(u);
-    } else {
-#pragma unroll
-      for (int u = 0; u < LS_CHUNK; ++u) {
-        if (u < n) chain(u);
-        ring.copy(u);
-      }
-    }
-    ring.commit();
-  }
-  ring.finish();
+  lane_scan(ring, [&](const auto& in, int u) {
+    h = __fadd_rn(__fmul_rn(A_PLANE ? in[NP - 1][u] : a0, h), in[0][u]);
+    *yp = h;
+    yp += lanes;
+  });
   hT[idx] = h;
-}
-
-template <bool A_PLANE, int THREADS>
-int launch(const float* a, int64_t sa_t, int64_t sa_b, int64_t sa_d,
-           const float* x, const float* h0, float* y, float* hT, int T,
-           int B, int D, int stages, cudaStream_t stream) {
-  const size_t smem = lane_ring_bytes(THREADS, A_PLANE ? 2 : 1, stages);
-  if (smem > 48 * 1024) {                   // above 48 KB: the opt-in
-    const cudaError_t e = cudaFuncSetAttribute(
-        linrec_kernel<A_PLANE, THREADS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int64_t lanes = (int64_t)B * D;
-  const int64_t blocks = (lanes + THREADS - 1) / THREADS;
-  linrec_kernel<A_PLANE, THREADS>
-      <<<(unsigned)blocks, THREADS, smem, stream>>>(a, sa_t, sa_b, sa_d, x,
-                                                    h0, y, hT, T, B, D);
-  return (int)cudaGetLastError();
-}
-
-template <bool A_PLANE>
-int launch_warps(int warps, const float* a, int64_t sa_t, int64_t sa_b,
-                 int64_t sa_d, const float* x, const float* h0, float* y,
-                 float* hT, int T, int B, int D, int stages,
-                 cudaStream_t stream) {
-  switch (warps) {
-    case 1:
-      return launch<A_PLANE, 32>(a, sa_t, sa_b, sa_d, x, h0, y, hT, T, B, D,
-                                 stages, stream);
-    case 2:
-      return launch<A_PLANE, 64>(a, sa_t, sa_b, sa_d, x, h0, y, hT, T, B, D,
-                                 stages, stream);
-    case 4:
-      return launch<A_PLANE, 128>(a, sa_t, sa_b, sa_d, x, h0, y, hT, T, B,
-                                  D, stages, stream);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -156,17 +87,26 @@ int launch_warps(int warps, const float* a, int64_t sa_t, int64_t sa_b,
 extern "C" {
 
 // warps: warps a CTA (1, 2 or 4); stages: the ring's stages, exactly
-// lane_ring_stages(T) (`linrec/ops.py::lane_plan` computes both).
+// lane_ring_stages(T) (`kernels/common.py::lane_plan` computes both).
 int linrec_f32(const float* a, int64_t sa_t, int64_t sa_b, int64_t sa_d,
                const float* x, const float* h0, float* y, float* hT, int T,
                int B, int D, int warps, int stages, void* stream) {
   if (T < 1 || B < 1 || D < 1 || stages != lane_ring_stages(T))
     return (int)cudaErrorInvalidValue;
-  return sa_t != 0
-             ? launch_warps<true>(warps, a, sa_t, sa_b, sa_d, x, h0, y, hT, T,
-                                  B, D, stages, (cudaStream_t)stream)
-             : launch_warps<false>(warps, a, sa_t, sa_b, sa_d, x, h0, y, hT,
-                                   T, B, D, stages, (cudaStream_t)stream);
+  const int64_t lanes = (int64_t)B * D;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = lane_vec(x, lanes);
+  return with_lane_layout(warps, vec, [&](auto threads, auto vec_) {
+    constexpr int TH = decltype(threads)::value;
+    constexpr bool V = decltype(vec_)::value;
+    return sa_t != 0
+               ? launch_lane_scan<TH, 2>(linrec_kernel<true, TH, V>, lanes,
+                                         stages, s, a, sa_t, sa_b, sa_d, x,
+                                         h0, y, hT, T, B, D)
+               : launch_lane_scan<TH, 1>(linrec_kernel<false, TH, V>, lanes,
+                                         stages, s, a, sa_t, sa_b, sa_d, x,
+                                         h0, y, hT, T, B, D);
+  });
 }
 
 }  // extern "C"

@@ -46,12 +46,12 @@ STDP_SEQ_GROUP = 32
 # (`csrc/rec_scan.cuh`): rows of up to 32 times as many neurons run a warp
 # a row (`common.rec_route`). Its one definition, -DREC_LANE_NEURONS.
 REC_LANE_NEURONS = 4
-# The lane scans' staging ring (`csrc/lane_scan.cuh`, `linrec`): steps a
-# stage holds and stages of the ring (chunks in flight: one fewer). Their
-# one definition, -DLANE_SCAN_CHUNK and -DLANE_SCAN_STAGES;
-# `linrec/ops.py::lane_plan` sizes the ring from them. Four stages: on an
-# H100, eight made the SHD window's call 0.5 us slower (a longer
-# prologue) and two left too few steps in flight at T = 300.
+# The lane scans' staging ring (`csrc/lane_scan.cuh`: `linrec`, `lif`,
+# `alif`): steps a stage holds and stages of the ring (chunks in flight:
+# one fewer). Their one definition, -DLANE_SCAN_CHUNK and
+# -DLANE_SCAN_STAGES; `common.lane_plan` sizes the ring from them. Four
+# stages: on an H100, eight made the SHD window's call 0.5 us slower (a
+# longer prologue) and two left too few steps in flight at T = 300.
 LANE_SCAN_CHUNK = 16
 LANE_SCAN_STAGES = 4
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -77,10 +77,10 @@ SIGNATURES = {
     "spikemm_f32": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     "linrec_f32": ((_P, _L, _L, _L, _P, _P, _P, _P) + (_I,) * 5 + (_P,),
                    _I),
-    "lif_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
+    "lif_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P), _I),
     "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _I, _P), _I),
     "rec_scan_w_in_smem": ((_I,), _I),
-    "alif_f32": ((_P,) * 8 + (_I, _I, _I, _F, _F, _P), _I),
+    "alif_f32": ((_P,) * 8 + (_I, _I, _I, _F, _F, _I, _I, _P), _I),
     "alifrec_f32": ((_P,) * 10 + (_I, _I, _I, _F, _F, _I, _P), _I),
     "spikemm_sparse_f32": ((_P,) * 6 + (_I, _I, _I, _P), _I),
     "spikemm_gather_f32": ((_P,) * 6 + (_I,) * 6 + (_P,), _I),

@@ -23,7 +23,8 @@ import torch
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.alifrec.ref import alif_scan_ref, alifrec_scan_ref
 from repro_torch.kernels.common import (REC_WARP, check_scan,
-                                       count_rec_launch, rec_route)
+                                       count_rec_launch, lane_plan,
+                                       rec_route, sm_count)
 
 
 def _outputs(current: torch.Tensor, v0: torch.Tensor, a0: torch.Tensor):
@@ -34,7 +35,8 @@ def _outputs(current: torch.Tensor, v0: torch.Tensor, a0: torch.Tensor):
 def alif_cuda(current: torch.Tensor, tau: torch.Tensor, rho: torch.Tensor,
               v0: torch.Tensor, a0: torch.Tensor, v_th: float = 1.0,
               beta: float = 1.8):
-    """Launch `csrc/alifrec.cu`'s feed-forward kernel on CUDA tensors."""
+    """Launch `csrc/alifrec.cu`'s feed-forward kernel on CUDA tensors, in
+    CTAs and a staging ring sized by `lane_plan`."""
     check_scan("alif", current, None, [("tau", tau), ("rho", rho)],
                [("v0", v0), ("a0", a0)])
     T, B, N = current.shape
@@ -43,11 +45,12 @@ def alif_cuda(current: torch.Tensor, tau: torch.Tensor, rho: torch.Tensor,
         return spikes, vT.copy_(v0), aT.copy_(a0)
     if v0.numel() == 0:
         return spikes, vT, aT
+    warps, _, stages = lane_plan(B * N, T, sm_count(current.device))
     with torch.cuda.device(current.device):
         code = _build.library().alif_f32(
             current.data_ptr(), tau.data_ptr(), rho.data_ptr(),
             v0.data_ptr(), a0.data_ptr(), spikes.data_ptr(), vT.data_ptr(),
-            aT.data_ptr(), T, B, N, float(v_th), float(beta),
+            aT.data_ptr(), T, B, N, float(v_th), float(beta), warps, stages,
             torch.cuda.current_stream().cuda_stream)
     _build.check("alif", code)
     alif_cuda.launches += 1

@@ -101,6 +101,29 @@ def sm_count(device: torch.device) -> int:
     return _SM_COUNT[idx]
 
 
+MAX_WARPS = 4              # warps a CTA of a lane scan, at most
+
+
+def lane_plan(lanes: int, T: int, n_sm: int):
+    """(warps a CTA, CTAs, stages of the staging ring) of a lane scan
+    (`csrc/lane_scan.cuh`: `linrec`, `lif`, `alif`) over `lanes` lanes of
+    T steps on a card of `n_sm` SMs.
+
+    A warp owns 32 adjacent lanes. CTAs take the fewest warps (1, 2 or 4)
+    that keep their count within one a SM, so a few thousand lanes spread
+    over as many SMs as they have warps and 16384 over all 132; past 4
+    warps a CTA the grid grows. The ring holds LANE_SCAN_STAGES chunks of
+    LANE_SCAN_CHUNK steps, or as many chunks as T has where that is fewer
+    (the kernels refuse any other count)."""
+    warps = -(-lanes // 32)
+    per_cta = 1
+    while per_cta < MAX_WARPS and -(-warps // per_cta) > n_sm:
+        per_cta *= 2
+    chunks = -(-T // _build.LANE_SCAN_CHUNK)
+    return (per_cta, -(-lanes // (32 * per_cta)),
+            min(_build.LANE_SCAN_STAGES, chunks))
+
+
 # the routes of the recurrent scan (`csrc/rec_scan.cuh`)
 REC_WARP, REC_BLOCK = "warp", "block"
 REC_WARP_MAX_N = 32 * _build.REC_LANE_NEURONS
@@ -154,6 +177,7 @@ def pad_axis(x: torch.Tensor, axis: int, mult: int, value=0.0):
 
 
 __all__ = ["resolve_device", "check_device", "check_scan", "check_matmul",
-           "sm_count", "rec_route", "rec_route_launch_counts", "REC_WARP",
-           "REC_BLOCK", "REC_WARP_MAX_N", "w_in_smem", "tree_to", "pad_axis",
+           "sm_count", "MAX_WARPS", "lane_plan", "rec_route",
+           "rec_route_launch_counts", "REC_WARP", "REC_BLOCK",
+           "REC_WARP_MAX_N", "w_in_smem", "tree_to", "pad_axis",
            "DeviceLike"]

@@ -11,13 +11,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, registry
-from repro_torch.kernels.common import check_scan
+from repro_torch.kernels.common import check_scan, lane_plan, sm_count
 from repro_torch.kernels.lif.ref import lif_scan_ref
 
 
 def lif_cuda(current: torch.Tensor, tau: torch.Tensor, v0: torch.Tensor,
              v_th: float = 1.0, reset: str = "zero"):
-    """Launch `csrc/lif.cu` on CUDA tensors."""
+    """Launch `csrc/lif.cu` on CUDA tensors, in CTAs and a staging ring
+    sized by `lane_plan`."""
     if reset not in ("zero", "subtract"):
         raise ValueError(f"lif: reset must be 'zero' or 'subtract', "
                          f"got {reset!r}")
@@ -29,11 +30,13 @@ def lif_cuda(current: torch.Tensor, tau: torch.Tensor, v0: torch.Tensor,
         return spikes, vT.copy_(v0)
     if v0.numel() == 0:
         return spikes, vT
+    warps, _, stages = lane_plan(B * N, T, sm_count(current.device))
     with torch.cuda.device(current.device):
         code = _build.library().lif_f32(
             current.data_ptr(), tau.data_ptr(), v0.data_ptr(),
             spikes.data_ptr(), vT.data_ptr(), T, B, N, float(v_th),
-            int(reset == "subtract"), torch.cuda.current_stream().cuda_stream)
+            int(reset == "subtract"), warps, stages,
+            torch.cuda.current_stream().cuda_stream)
     _build.check("lif", code)
     lif_cuda.launches += 1
     return spikes, vT

@@ -12,29 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, registry
-from repro_torch.kernels.common import sm_count
+from repro_torch.kernels.common import MAX_WARPS, lane_plan, sm_count
 from repro_torch.kernels.linrec.ref import linrec_ref
-
-MAX_WARPS = 4              # warps a CTA of `csrc/linrec.cu`, at most
-
-
-def lane_plan(lanes: int, T: int, n_sm: int):
-    """(warps a CTA, CTAs, stages of the staging ring) of `csrc/linrec.cu`
-    for `lanes` lanes of T steps on a card of `n_sm` SMs.
-
-    A warp owns 32 adjacent lanes. CTAs take the fewest warps (1, 2 or 4)
-    that keep their count within one a SM, so a few thousand lanes spread
-    over as many SMs as they have warps and 16384 over all 132; past 4
-    warps a CTA the grid grows. The ring holds LANE_SCAN_STAGES chunks of
-    LANE_SCAN_CHUNK steps, or as many chunks as T has where that is fewer
-    (the kernel refuses any other count)."""
-    warps = -(-lanes // 32)
-    per_cta = 1
-    while per_cta < MAX_WARPS and -(-warps // per_cta) > n_sm:
-        per_cta *= 2
-    chunks = -(-T // _build.LANE_SCAN_CHUNK)
-    return (per_cta, -(-lanes // (32 * per_cta)),
-            min(_build.LANE_SCAN_STAGES, chunks))
 
 
 def _check(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor) -> None:
@@ -93,4 +72,5 @@ registry.register(registry.KernelSpec(
     name="linrec", plain=linrec_ref, cuda=linrec_cuda,
     make_inputs=_make_inputs, tol=1e-4))
 
-__all__ = ["linrec", "linrec_cuda", "linrec_ref", "lane_plan"]
+__all__ = ["linrec", "linrec_cuda", "linrec_ref", "lane_plan",
+           "MAX_WARPS"]

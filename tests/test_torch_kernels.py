@@ -254,8 +254,12 @@ def test_linrec_lane_plan(lanes, T):
     within one an SM of 132 (2048 lanes on 64 SMs, 16384 on 128); no CTA
     without a lane and every lane covered exactly once; the ring's stages
     are LANE_SCAN_STAGES or the chunks T has, within the shared memory a
-    CTA may take with a decay plane staged too."""
+    CTA may take with a decay plane staged too. It lives in
+    `kernels/common.py` (`linrec`, `lif` and `alif` share it) and stays
+    importable from `linrec/ops.py`."""
+    from repro_torch.kernels import common
     from repro_torch.kernels.linrec.ops import MAX_WARPS, lane_plan
+    assert (lane_plan, MAX_WARPS) == (common.lane_plan, common.MAX_WARPS)
     warps, ctas, stages = lane_plan(lanes, T, 132)
     threads = 32 * warps
     assert warps in (1, 2, 4) and warps <= MAX_WARPS
@@ -295,6 +299,48 @@ def test_linrec_wrapper_passes_the_plan(monkeypatch):
     assert call.args[8:13] == (T, B, D) + tuple(
         linrec_ops.lane_plan(B * D, T, 132)[i] for i in (0, 2))
     assert registry.launch_counts()["linrec"] == 1
+    registry.reset_launches()
+
+
+@pytest.mark.parametrize("name,reset,shape", [
+    ("lif", "zero", (300, 8, 128)), ("lif", "subtract", (300, 8, 128)),
+    ("alif", None, (250, 64, 64))])
+def test_lane_scan_wrappers_pass_the_plan(monkeypatch, name, reset, shape):
+    """With a recording stand-in for the library (no card here) the `lif`
+    and `alif` wrappers hand `lif_f32`/`alif_f32` the shape, the reset and
+    `lane_plan`'s warps and stages, at plastic_ff's hidden layer
+    (300, 8, 128; both resets) and alif_ff's (250, 64, 64), and count one
+    launch."""
+    from contextlib import nullcontext
+    from unittest import mock
+    from repro_torch.kernels import common
+    from repro_torch.kernels.alifrec import ops as alif_ops
+    from repro_torch.kernels.lif import ops as lif_ops
+    ops = lif_ops if name == "lif" else alif_ops
+    lib = mock.Mock(**{f"{name}_f32.return_value": 0})
+    monkeypatch.setattr(ops, "check_scan", lambda *a: None)
+    monkeypatch.setattr(ops, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    T, B, N = shape
+    cur, lane = torch.zeros(shape), torch.zeros((B, N))
+    registry.reset_launches()
+    if name == "lif":
+        lif_cuda(cur, torch.ones(N), lane, 0.5, reset)
+    else:
+        alif_cuda(cur, torch.ones(N), torch.ones(N), lane, lane, 0.5, 1.8)
+    call, = getattr(lib, f"{name}_f32").call_args_list
+    warps, ctas, stages = common.lane_plan(B * N, T, 132)
+    assert (warps, ctas) == {1024: (1, 32), 4096: (1, 128)}[B * N]
+    assert stages == _build.LANE_SCAN_STAGES
+    if name == "lif":
+        assert call.args[5:12] == (T, B, N, 0.5, int(reset == "subtract"),
+                                   warps, stages)
+    else:
+        assert call.args[8:15] == (T, B, N, 0.5, 1.8, warps, stages)
+    assert registry.launch_counts()[name] == 1
     registry.reset_launches()
 
 
@@ -926,7 +972,11 @@ def test_rec_wrappers_pass_the_route_and_count_it(monkeypatch, name, side):
     ("lifrec.cu", "REC_LANE_NEURONS", None),
     ("alifrec.cu", "REC_LANE_NEURONS", None),
     ("linrec.cu", "LANE_SCAN_CHUNK", "LS_CHUNK"),
-    ("linrec.cu", "LANE_SCAN_STAGES", "LS_STAGES")])
+    ("linrec.cu", "LANE_SCAN_STAGES", "LS_STAGES"),
+    ("lif.cu", "LANE_SCAN_CHUNK", "LS_CHUNK"),
+    ("lif.cu", "LANE_SCAN_STAGES", "LS_STAGES"),
+    ("alifrec.cu", "LANE_SCAN_CHUNK", "LS_CHUNK"),
+    ("alifrec.cu", "LANE_SCAN_STAGES", "LS_STAGES")])
 def test_serial_kernel_constants_are_the_wrappers(tmp_path, monkeypatch,
                                                  source, macro, const):
     """stdp_seq's group of STDP_SEQ_GROUP steps, the scan's
@@ -949,6 +999,8 @@ def test_serial_kernel_constants_are_the_wrappers(tmp_path, monkeypatch,
     if const is None:
         assert '#include "rec_scan.cuh"' in src
         const = "LANE_N"
+    elif macro.startswith("LANE_SCAN"):
+        assert '#include "lane_scan.cuh"' in src
     consts = dict(re.findall(r"constexpr int (\w+) = (\w+);", text))
     assert consts[const] == macro
 

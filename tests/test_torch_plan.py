@@ -352,6 +352,86 @@ def test_delayed_program_matches_reference():
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=ATOL)
 
 
+def _six_programs(ev, lif, plif, li, ff):
+    """Six program shapes, each read out by 3 LI: subtract reset and PLIF
+    (per-neuron learned decays), each feed-forward and self-recurrent; a
+    back-reference (`hidden` reads `b`, defined after it: TB201); and a
+    self-connection two steps late (`self@2`)."""
+    def net(*hidden):
+        return list(hidden) + [ev.LayerNode(
+            "readout", li(tau=0.9), ff, inputs=(hidden[-1].name,),
+            out_dim=3)]
+
+    def node(neu, *inputs, name="hidden"):
+        return ev.LayerNode(name, neu, ff, inputs=("input",) + inputs,
+                            out_dim=8)
+
+    sub = lif(tau=0.85, v_th=0.5, reset="subtract")
+    return {"ff_subtract": net(node(sub)),
+            "rec_subtract": net(node(sub, "self")),
+            "ff_plif": net(node(plif(v_th=0.5))),
+            "rec_plif": net(node(plif(v_th=0.5), "self")),
+            "back_ref": net(node(lif(v_th=0.5), "b"),
+                            ev.LayerNode("b", lif(v_th=0.5), ff,
+                                         inputs=("hidden",), out_dim=8)),
+            "self_at_2": net(node(lif(v_th=0.5), "self@2"))}
+
+
+def _six_params(name):
+    """Numpy weights of `_six_programs(...)[name]`, as the JAX and the
+    port's params trees."""
+    rng = np.random.default_rng(21)
+    hidden = {"w_input": 0.6 * rng.standard_normal((12, 8))}
+    if name in ("rec_subtract", "rec_plif", "self_at_2"):
+        hidden["w_self"] = 0.4 * rng.standard_normal((8, 8))
+    if name.endswith("plif"):
+        hidden["neuron"] = {"w_tau": rng.uniform(0.5, 3.0, 8)}
+    w = {"hidden": hidden,
+         "readout": {"w_hidden": 0.5 * rng.standard_normal((8, 3))}}
+    if name == "back_ref":
+        hidden["w_b"] = 0.4 * rng.standard_normal((8, 8))
+        w["b"] = {"w_hidden": 0.6 * rng.standard_normal((8, 8))}
+        w["readout"] = {"w_b": w["readout"]["w_hidden"]}
+    w = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), w)
+    return jax.tree_util.tree_map(jnp.asarray, w), params_from_numpy(w,
+                                                                     "cpu")
+
+
+@pytest.mark.parametrize("name", ["ff_subtract", "rec_subtract", "ff_plif",
+                                  "rec_plif", "back_ref", "self_at_2"])
+def test_six_program_shapes_run_like_reference(name):
+    """`plan.run` of the port against the JAX `plan.run` on shapes that
+    were compared only by `describe()`: the feed-forward subtract reset
+    and PLIF run on `lif_scan`, the rest as they compile. Outputs and final
+    states within CROSS_ENGINE_ATOL; the hidden trains under the tie rule
+    where `hidden_membrane` models the layer (input and, for the recurrent
+    ones, its own previous spikes), else equal."""
+    jn = _six_programs(jevents, JLIF, jneuron.PLIF, JLI, jff)[name]
+    tn = _six_programs(events, LIF, neuron.PLIF, LI, ff_integrate)[name]
+    assert plan.compile_program(tn).describe() == \
+        jplan.compile_program(jn).describe()
+    jp, tp = _six_params(name)
+    x = _raster(37, 3, 12, 0.3, seed=22)
+    if name not in ("back_ref", "self_at_2"):
+        _assert_matches_reference(jn, jp, tn, tp, x)
+        return
+    rec = tuple(n.name for n in tn[:-1])
+    js, jo, jr = jplan.run(jn, jp, jnp.asarray(x), record=rec)
+    ts, to, tr = plan.run(tn, tp, torch.from_numpy(x), record=rec,
+                          device="cpu")
+    for r in rec:
+        assert np.asarray(jr[r]).mean() >= MIN_RATE, r
+        np.testing.assert_array_equal(tr[r].numpy(), np.asarray(jr[r]))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0,
+                               atol=ATOL)
+    jl, tl = _leaves(js), _leaves(ts)
+    assert set(jl) == set(tl)
+    for k in jl:
+        np.testing.assert_allclose(tl[k].numpy(), np.asarray(jl[k]),
+                                   rtol=STATE_RTOL, atol=ATOL,
+                                   err_msg=str(k))
+
+
 def test_fallback_segment_matches_reference():
     """An untagged integrate runs on the port's stepper, feeding a fused
     readout, and agrees with the JAX plan."""

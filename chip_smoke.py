@@ -17,9 +17,13 @@ alone (see 3.), with no other phase, and
 
     python3 chip_smoke.py --kernels
 
-the kernel phase and the sweep with no path: copied into an older
-checkout, either measures that tree's kernels the same way, so two trees
-compare in one call.
+the kernel phase and the sweep with no path, and
+
+    python3 chip_smoke.py --path topology_banded
+
+the device and build phases and one path (any of 4.-10.'s names) alone:
+copied into an older checkout, `--kernels` or `--path` measures that
+tree the same way, so two trees compare in one call.
 
 1. device   the card, its compute capability, and its name and power limit
             as `nvidia-smi` reports them. TF32 is switched off for every
@@ -85,22 +89,35 @@ compare in one call.
             ragged shapes, each also equal to the dense kernel bit for bit;
             `spikemm_gather` at the banded path's chunk, the topology
             benchmark's exec_vs_dense (also against the dense spikemm on
-            `dense_equivalent()`), scale_1e5 and scale_1e6 rows, and the six
-            ragged encodings of the JAX tests;
+            `dense_equivalent()`), scale_1e5 and scale_1e6 rows at M = 1,
+            8 and 64 (scale_1e6 at M = 8 also a row at a time, each equal
+            to its row of the batch), the six ragged encodings of the JAX
+            tests, and edge cases at bk = bn = 8, 32, 128 and bk = 8,
+            bn = 4, each at M = 1, 8, 9, 64, 65 (graded spikes of either
+            sign with -0.0 entries and a silent row, patches with rows of
+            -0.0 and of +0.0, post blocks made only of sentinels), on a
+            raster where only the last pre neuron of each block fires, and
+            on an all-silent raster (its output must be +0 everywhere);
+            every gather case equal to `spikemm_gather_ref` as fp32 bit
+            patterns;
             `spikemm` also at the parity harness's inputs, at the
             sparse_integ path's hidden INTEG at each density and at the
             topology_banded path's readout INTEG (64 x 8192 @ 8192 x 8);
             no output may be all zero. The time kernels and the learning
-            kernels must match bit for bit; `spikemm` within rtol = atol =
-            1e-5 of the plain matmul (the fp32 sum order differs; the
-            banded readout, |out| ~ 800, at rtol 1e-4) and bit for bit
-            `spikemm_chain_ref`, the kernel's ascending-k chain; the two
-            spikemm channels within 1e-4 (their `KernelSpec.tol`), with
-            bit equality reported. Times each with
+            kernels and the gather must match bit for bit; `spikemm`
+            within rtol = atol = 1e-5 of the plain matmul (the fp32 sum
+            order differs; the banded readout, |out| ~ 800, at rtol 1e-4)
+            and bit for bit `spikemm_chain_ref`, the kernel's ascending-k
+            chain; the sparse channel within 1e-4 (its `KernelSpec.tol`),
+            with bit equality reported. Times each with
             CUDA events after warm-up: the kernel, its plain version and,
             where one exists, a PyTorch call of the same function as a
             yardstick (`library_ms`: `torch.matmul`, or `torch.sparse.mm`
             on a CSR matrix where the dense one does not fit).
+            Then the gather's rows a warp x columns a lane: each timed
+            gather case of 8 rows or more under every instantiation of
+            `csrc/spikemm_gather.cu`, bit for bit the wrapper's, timed
+            beside the plan's pick (`phase_gather_rows`).
             Then the sweep of the serial-chain kernels: the plastic_ff pair
             rule's `stdp_seq` planes, its pre-trace `linrec` call and its
             `lif` call cut to T = 1, 75, 150 and 300 steps, alif_ff's
@@ -154,8 +171,10 @@ compare in one call.
             at 0.1; `plan.run_stream` over T=2048 in chunks of 64 at batch
             1 on Bernoulli(0.2) input: 32 `spikemm_gather` launches;
             streamed outputs and final state equal one-shot `plan.run` bit
-            for bit; the card against the CPU under the tie rule (the
-            readout, |v| ~ 8000, within 1e-4 + 1e-4 x |v|); peak device
+            for bit; the card against the CPU under the tie rule, with no
+            lane flipped at a tie (the gather and `lif` are bit for bit
+            their plain versions; the readout, |v| ~ 8000, within 1e-4 +
+            1e-4 x |v|); peak device
             memory of the T=2048 stream at most 1.25x the T=256 stream's
             (`max_memory_allocated`), one-shot T=2048 printed beside it.
 7. sparse_integ
@@ -229,7 +248,8 @@ compare in one call.
 12. parity  `repro_torch.kernels.parity.check_all()`: every family's CUDA
             wrapper and the sparse channel's against their plain versions
             at `make_inputs`, `attention` forward and VJP; 11 kernels.
-13. result  prints `{"kernels": [...]}`, `{"sweep": {...}}`, one
+13. result  prints `{"kernels": [...]}`, `{"gather_rows": {...}}`,
+            `{"sweep": {...}}`, one
             `{"slice": {...}}` line per path, `{"parity": {...}}`, the
             card's name and power limit and, last, `{"ok": true,
             "device": {...}}`.
@@ -241,7 +261,11 @@ operations are what its product needs on this run's raster, 2 * nnz * N,
 whatever tiling a kernel chooses; the sparse channel computes the same
 function and counts the same 2 * nnz(s) * N; the gather's are
 2 * sum over pre of nnz(s[:, pre]) * fan-out(pre), each spike adding its
-neuron's nonzero weights (see `work`); the recurrent kernels' are their
+neuron's nonzero weights, and its bytes are the nonzero weights those
+spikes need (of every pre neuron that spikes in some row of the call),
+the raster and the output; printed beside it, the read-rows bound (the
+patch rows the kernel reads, bn weights each) and the every-patch bound
+(see `work`); the recurrent kernels' are their
 elementwise steps plus 2 * nnz(s_{t-1}) * N for the spikes that feed the
 next step; stdp_seq's 2 * sum over k of min(nnz(P_k) * N, nnz(Q_k) * M)
 plus 2 * T * M * N, and stdp's 2 * (nnz(s_post) * M + nnz(s_pre) * N) plus
@@ -302,6 +326,7 @@ HOMOGENEOUS_INPUT_RATE = 0.2
 # +-64 neighbours at weight 0.05, read out by 8 LI(tau=0.9) at 0.1
 BANDED_N, BANDED_BAND, BANDED_W, BANDED_OUT, BANDED_W_H = 8192, 64, 0.05, 8, 0.1
 BANDED_T, BANDED_SHORT_T, BANDED_CHUNK, BANDED_RATE = 2048, 256, 64, 0.2
+BANDED_REPLAYS = 5          # streams timed on the host clock after the counted one
 # the streamed peak over the short stream's, as the JAX package's test holds
 STREAM_PEAK_RATIO = 1.25
 # sparse_integ: `bench_snn_engine.run_sparsity_rows`, the homogeneous
@@ -358,10 +383,18 @@ LANE_SCANS = ("linrec", "lif", "alif")
 GATHER_ROWS = {"exec_vs_dense": (8192, 64, 128, 64, 0.2),
                "scale_1e5": (100_000, 32, 128, 8, 0.1),
                "scale_1e6": (1_000_000, 2, 32, 8, 0.1)}
-# the two spikemm channels' tolerance against their plain versions: the
-# family's KernelSpec.tol, relative and absolute as the JAX package's
-# sparse-channel tests hold it (outputs of the bench shapes reach |60|,
-# where 1e-4 absolute is ~30 fp32 spacings)
+# the scale rows are also run at 1 and 64 rows
+GATHER_M = (1, 8, 64)
+# the gather's edge cases: (bk, bn) and rows M of a ragged topology
+# (n_pre, n_post) whose posts from GATHER_EDGE_NO_FAN_IN on have no fan-in
+GATHER_EDGE_BLOCKS = ((8, 8), (32, 32), (128, 128), (8, 4))
+GATHER_EDGE_M = (1, 8, 9, 64, 65)
+GATHER_EDGE_SHAPE, GATHER_EDGE_NO_FAN_IN = (300, 270), 250
+# the sparse channel's tolerance against its plain version, and the
+# gather's against the dense spikemm on dense_equivalent() (another sum
+# order): the family's KernelSpec.tol, relative and absolute as the JAX
+# package's sparse-channel tests hold it (outputs of the bench shapes
+# reach |60|, where 1e-4 absolute is ~30 fp32 spacings)
 CHANNEL_TOL = 1e-4
 # the banded readout sums ~8000 spikes at 0.1 into |v| ~ 8000, where one
 # fp32 spacing is ~1e-3: readouts there are held relative to their size
@@ -1357,9 +1390,13 @@ def work(name, args, out, kw=None):
     raster, the weight rows of the occupied block columns and the output.
     spikemm_gather: each nonzero spike at pre adds that neuron's fan-out
     (the nonzero weights of its row) into its output row,
-    2 * sum_pre nnz(s[:, pre]) * fan-out(pre); its bytes are the weight
-    patches of the active entries, the raster and the output; dense
-    2 * M * n_pre * n_post. The recurrent kernels add one W_rec row per
+    2 * sum_pre nnz(s[:, pre]) * fan-out(pre); its bytes are the nonzero
+    weights the events need (those of every pre neuron that spikes in
+    some row of the call), the raster and the output; dense
+    2 * M * n_pre * n_post. (`gather_read_bytes` counts the patch rows
+    the kernel reads instead, bn weights a listed row, and
+    `gather_patch_bytes` every active patch, as a kernel that walks every
+    term reads them.) The recurrent kernels add one W_rec row per
     spike of the previous step, 2 * nnz(s_{t-1}) * N (s_{-1} = s0),
     against the dense 2 * T * B * N * N. stdp_seq: a term's product needs
     2 * min(nnz(P_k) * N, nnz(Q_k) * M) operations (the sparser side's
@@ -1406,16 +1443,11 @@ def work(name, args, out, kw=None):
     if name == "spikemm_gather":
         s, t = args
         M = s.shape[0]
-        d = t.device(s.device)
-        kb = -(-t.n_pre // t.bk)
-        col = torch.zeros(kb * t.bk, dtype=torch.int64, device=s.device)
-        col[:t.n_pre] = torch.count_nonzero(s, dim=0)
-        pre = d.kk.long()[:, None] * t.bk + torch.arange(t.bk,
-                                                         device=s.device)
-        fan = torch.count_nonzero(d.wblk, dim=2)      # (E, bk) per pre row
-        ops = 2 * int((col[pre] * fan).sum())
-        return (4 * (t.n_entries * t.bk * t.bn + M * t.n_pre
-                     + M * t.n_post), ops, 2 * M * t.n_pre * t.n_post)
+        hits, fan = gather_rows_met(s, t)
+        ops = 2 * int((hits * fan).sum())
+        nnz = int((fan * (hits > 0)).sum())
+        return (4 * (nnz + M * t.n_pre + M * t.n_post), ops,
+                2 * M * t.n_pre * t.n_post)
     if name == "linrec":
         a, x, h0 = args
         a_bytes = 4 * int(np.prod([n for n, st in zip(a.shape, a.stride())
@@ -1434,6 +1466,36 @@ def work(name, args, out, kw=None):
     return nbytes, ops, ops
 
 
+def gather_rows_met(s, t):
+    """For each patch row of the gather tables `t`, (E, bk) each: the rows
+    of the raster `s` in which its pre neuron spikes, and its nonzero
+    weights (0 on sentinels)."""
+    d = t.device(s.device)
+    kb = -(-t.n_pre // t.bk)
+    col = torch.zeros(kb * t.bk, dtype=torch.int64, device=s.device)
+    col[:t.n_pre] = torch.count_nonzero(s, dim=0)
+    pre = d.kk.long()[:, None] * t.bk + torch.arange(t.bk, device=s.device)
+    fan = torch.count_nonzero(d.wblk, dim=2) * (d.act != 0)[:, None]
+    return col[pre], fan
+
+
+def gather_read_bytes(s, t):
+    """The gather's bytes as `csrc/spikemm_gather.cu` reads them: bn
+    weights of every patch row that holds a nonzero weight and meets a
+    spike of the call, the raster and the output; printed beside `work`'s
+    (a bound of this design's reads, not of the function)."""
+    hits, fan = gather_rows_met(s, t)
+    rows = int(((fan > 0) & (hits > 0)).sum())
+    return 4 * (rows * t.bn + s.shape[0] * t.n_pre + s.shape[0] * t.n_post)
+
+
+def gather_patch_bytes(s, t):
+    """The gather's bytes if every active patch is read (a kernel that
+    walks every term), printed beside `work`'s."""
+    return 4 * (t.n_entries * t.bk * t.bn + s.shape[0] * t.n_pre
+                + s.shape[0] * t.n_post)
+
+
 @dataclasses.dataclass
 class Case:
     """One call of a kernel in the kernel phase. `path` names the path
@@ -1447,6 +1509,8 @@ class Case:
     library: Callable = None
     dense_w: torch.Tensor = None     # gather: also held against spikemm
     build_s: float = None            # gather: seconds to build its tables
+    rows_alone: bool = False         # gather: each row alone == its batch row
+    silent: bool = False             # the output must be +0 everywhere
     kw: dict = dataclasses.field(default_factory=dict)  # keyword arguments
     plain_iters: int = None          # timed calls of a slow plain version
     rtol: float = None               # spikemm: against the plain matmul
@@ -1481,16 +1545,19 @@ def banded(n, band, w=None, seed=0):
                        n_pre=n, n_post=n)
 
 
-def csr_product(enc, s):
-    """One `torch.sparse.mm` computing s @ W for the topology `enc`, with
-    W^T held as a CSR matrix on the card: the library yardstick where the
-    dense matrix does not fit."""
+def csr_product(enc):
+    """A function of s computing s @ W with one `torch.sparse.mm` for the
+    topology `enc`, W^T held as a CSR matrix on the card (built once): the
+    library yardstick where the dense matrix does not fit."""
     pre, post, w = enc.coo()
     wt = torch.sparse_coo_tensor(
         torch.from_numpy(np.stack([post, pre])), torch.from_numpy(w),
         (enc.n_post, enc.n_pre)).coalesce().to_sparse_csr().to(DEV)
-    st = s.t().contiguous()
-    return lambda: torch.sparse.mm(wt, st)
+
+    def product(s):
+        st = s.t().contiguous()
+        return lambda: torch.sparse.mm(wt, st)
+    return product
 
 
 def sparse_kernel_only(s, w):
@@ -1505,9 +1572,47 @@ def sparse_kernel_only(s, w):
     return lambda: launch_block_list(s, w, blocks, out)
 
 
+def gather_edge_tables(bk, bn, seed):
+    """Gather tables of a ragged topology (GATHER_EDGE_SHAPE at 8 %
+    density) whose posts from GATHER_EDGE_NO_FAN_IN on have no fan-in, so
+    that its last post blocks are made only of sentinels at every block
+    shape; after packing, about 5 % of the patch rows become all -0.0,
+    5 % all +0.0, and some zero weights -0.0."""
+    from repro_torch.kernels.spikemm.gather import build_gather_tables
+    rng = np.random.default_rng(seed)
+    n_pre, n_post = GATHER_EDGE_SHAPE
+    mask = rng.random((n_pre, n_post)) < 0.08
+    mask[:, GATHER_EDGE_NO_FAN_IN:] = False
+    pre, post = np.nonzero(mask)
+    w = rng.standard_normal(len(pre)).astype(np.float32)
+    t = build_gather_tables(pre, post, w, n_pre, n_post, bk=bk, bn=bn)
+    pick = rng.random(t.wblk.shape[:2])
+    t.wblk[pick < 0.05] = -0.0
+    t.wblk[(pick >= 0.05) & (pick < 0.1)] = 0.0
+    t.wblk[(t.wblk == 0) & (rng.random(t.wblk.shape) < 0.02)] = -0.0
+    return t
+
+
+def graded_raster(M, n, seed, rate=0.3):
+    """(M, n) graded spikes of either sign at `rate`, some zeros -0.0, and
+    (for M > 1) row M // 2 silent."""
+    rng = np.random.default_rng(seed)
+    x = np.where(rng.random((M, n)) < rate,
+                 rng.uniform(0.25, 2.0, (M, n)) * rng.choice([-1, 1], (M, n)),
+                 0.0).astype(np.float32)
+    x[(x == 0) & (rng.random((M, n)) < 0.05)] = -0.0
+    if M > 1:
+        x[M // 2] = 0.0
+    return x
+
+
 def gather_cases():
     """The gather kernel's cases: the banded path's chunk, the topology
-    benchmark's rows and the six ragged encodings of the JAX tests."""
+    benchmark's rows (scale_1e5 and scale_1e6 at each of GATHER_M rows),
+    the six ragged encodings of the JAX tests, and edge cases at each of
+    GATHER_EDGE_BLOCKS x GATHER_EDGE_M (graded spikes with -0.0, a silent
+    row, -0.0 and +0.0 patch rows, sentinel post blocks), an all-silent
+    raster and one where only the last pre neuron of each block fires."""
     from repro_torch.core import topology as topo
     s = torch.from_numpy(banded_input()[:BANDED_CHUNK].reshape(
         BANDED_CHUNK, BANDED_N)).to(DEV)
@@ -1525,16 +1630,19 @@ def gather_cases():
                       library=lambda s=s, wd=wd: torch.matmul(s, wd),
                       dense_w=wd))
     for label in ("scale_1e5", "scale_1e6"):
-        n, band, bk, m, rate = GATHER_ROWS[label]
+        n, band, bk, m_home, rate = GATHER_ROWS[label]
         t0 = time.perf_counter()
         enc = banded(n, band, seed=0)
         tables = enc.lowering(bk=bk, bn=bk)
         build = time.perf_counter() - t0
-        x = torch.from_numpy((np.random.default_rng(2).random((m, n)) < rate
-                              ).astype(np.float32)).to(DEV)
-        cases.append(Case(f"{label} n={n} band {band} bk=bn={bk}",
-                          (x, tables), timed=True,
-                          library=csr_product(enc, x), build_s=build))
+        csr = csr_product(enc)
+        for m in GATHER_M:
+            x = torch.from_numpy((np.random.default_rng(2).random((m, n))
+                                  < rate).astype(np.float32)).to(DEV)
+            cases.append(Case(
+                f"{label} n={n} band {band} bk=bn={bk}, M={m}", (x, tables),
+                timed=True, library=csr(x), build_s=build,
+                rows_alone=label == "scale_1e6" and m == m_home))
     rng = np.random.default_rng(3)
     dense = rng.standard_normal((37, 29)).astype(np.float32) * 0.3
     sp = dense * (rng.random((37, 29)) < 0.15)
@@ -1554,6 +1662,22 @@ def gather_cases():
         s = torch.from_numpy((rng.random((9, e.n_pre)) < 0.35).astype(
             np.float32)).to(DEV)
         cases.append(Case(f"ragged {label}", (s, tables)))
+    n_pre = GATHER_EDGE_SHAPE[0]
+    for i, (bk, bn) in enumerate(GATHER_EDGE_BLOCKS):
+        tables = gather_edge_tables(bk, bn, seed=10 + i)
+        tag = f"edge bk={bk} bn={bn}"
+        for m in GATHER_EDGE_M:
+            x = graded_raster(m, n_pre, seed=20 + 7 * i + m)
+            cases.append(Case(f"{tag}, graded M={m}",
+                              (torch.from_numpy(x).to(DEV), tables)))
+        last = np.zeros((9, n_pre), np.float32)
+        last[:, bk - 1::bk] = 1.0
+        last[:, n_pre - 1] = 1.0
+        cases.append(Case(f"{tag}, last pre neuron of each block fires, M=9",
+                          (torch.from_numpy(last).to(DEV), tables)))
+        cases.append(Case(f"{tag}, all silent, M=9",
+                          (torch.zeros((9, n_pre), device=DEV), tables),
+                          silent=True))
     return cases
 
 
@@ -1731,7 +1855,12 @@ def phase_kernels(cases):
             for g, r in zip(got, ref):
                 if not torch.isfinite(g).all():
                     raise AssertionError(f"{name} [{label}]: non-finite")
-                if not g.abs().sum() > 0:
+                if case.silent:
+                    if not torch.equal(g.view(torch.int32),
+                                       torch.zeros_like(g, dtype=torch.int32)):
+                        raise AssertionError(f"{name} [{label}]: a silent "
+                                             "input gave an output not +0")
+                elif not g.abs().sum() > 0:
                     raise AssertionError(f"{name} [{label}]: all zero, the "
                                          "comparison would be vacuous")
                 err = float((g - r).abs().max())
@@ -1747,11 +1876,20 @@ def phase_kernels(cases):
                             f"spikemm_chain_ref by "
                             f"{float((g - chain).abs().max()):.3e}")
                     extra = ", equal to spikemm_chain_ref bit for bit"
-                elif name in ("spikemm_sparse", "spikemm_gather"):
+                elif name == "spikemm_sparse":
                     torch.testing.assert_close(g, r, rtol=CHANNEL_TOL,
                                                atol=CHANNEL_TOL)
                     extra = (", bit for bit" if torch.equal(g, r)
                              else f", max abs err {err:.3e}")
+                elif name == "spikemm_gather":
+                    # the plain version's chain term for term (entries,
+                    # then k): equal bit for bit, signs of zeros included
+                    if not torch.equal(g.view(torch.int32),
+                                       r.view(torch.int32)):
+                        raise AssertionError(
+                            f"{name} [{label}]: not bit-identical to "
+                            f"spikemm_gather_ref (max abs err {err:.3e})")
+                    extra = ", bit for bit"
                 elif not same_bits(name, g, r):
                     raise AssertionError(
                         f"{name} [{label}]: not bit-identical to its plain "
@@ -1764,6 +1902,15 @@ def phase_kernels(cases):
                         f"{name} [{label}]: differs from the dense kernel "
                         f"by {float((got[0] - dense).abs().max()):.3e}")
                 extra += "; equal to the dense kernel bit for bit"
+            if case.rows_alone:
+                # a row's result does not depend on the rows batched with it
+                for i in range(args[0].shape[0]):
+                    alone = cuda[name](args[0][i:i + 1].contiguous(), args[1])
+                    if not torch.equal(alone[0], got[0][i]):
+                        raise AssertionError(f"{name} [{label}]: row {i} alone "
+                                             "differs from its row of the batch")
+                extra += (f"; each of the {args[0].shape[0]} rows alone equal "
+                          "to its row of the batch")
             if getattr(case, "dense_w", None) is not None:
                 dense = spikemm_cuda(args[0], case.dense_w)
                 torch.testing.assert_close(got[0], dense, rtol=0,
@@ -1808,6 +1955,12 @@ def phase_kernels(cases):
             nbytes, flops, dense = work(name, args, got, kw)
             b_ms, b_by = bound(nbytes, flops)
             d_ms, d_by = bound(nbytes, dense)
+            # beside it, the gather's bound at the patch rows the kernel
+            # reads, and if every active patch is read
+            rows_ms, patches_ms = ((bound(gather_read_bytes(*args), flops)[0],
+                                    bound(gather_patch_bytes(*args), flops)[0])
+                                   if name == "spikemm_gather"
+                                   else (None, None))
             T = args[1].shape[0] if name == "linrec" else (
                 args[0].shape[1] // kw["batch"] if name == "stdp_seq" else (
                     args[0].shape[0] if name not in (
@@ -1822,6 +1975,8 @@ def phase_kernels(cases):
                           "bytes": nbytes, "flops": flops,
                           "dense_flops": dense, "kernel_ms": kernel_ms,
                           "dense_kernel_ms": dense_ms,
+                          "bound_rows_ms": rows_ms,
+                          "bound_patches_ms": patches_ms,
                           "table_build_s": case.build_s})
             log(f"kernel {name} [{label}] {shapes}: {ms:.4f} ms on the card"
                 f"{'' if T is None else f' ({ms / T * 1e3:.3f} us/step)'} "
@@ -1830,6 +1985,7 @@ def phase_kernels(cases):
                 f"{b_ms:.5f} by {b_by}, dense bound {d_ms:.5f} by {d_by}, "
                 f"{ms / max(b_ms, floor):.2f}x max(bound, floor)"
                 f"{'' if kernel_ms is None else f', launch alone {kernel_ms:.4f}, dense kernel {dense_ms:.4f}'}"
+                f"{'' if patches_ms is None else f', read-rows bound {rows_ms:.5f}, every-patch bound {patches_ms:.5f}'}"
                 f"{'' if case.build_s is None else f', tables built in {case.build_s:.1f} s'})"
                 f"{extra}; max abs err so far {max_err:.3e}")
         src, rep = SOURCES[name]
@@ -1854,6 +2010,56 @@ def phase_kernels(cases):
                           else sum(c["kernel_ms"] for c in home)),
             "calls": calls}
     return results
+
+
+def phase_gather_rows(cases):
+    """The gather's rows a warp and columns a lane, measured: each timed
+    gather case with 8 rows or more launched under `gather_plan` at every
+    instantiation (R of GATHER_ROWS x C of GATHER_COLS, C dividing bn and
+    a warp no wider than bn, R x C <= GATHER_MAX_ACC; `launch_plan`,
+    uncounted), each
+    output equal to the wrapper's bit for bit, timed with `cuda_ms`.
+    {case: {"R x C": ms, "plan": the wrapper's}}."""
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.spikemm.gather import (GATHER_COLS,
+                                                    GATHER_MAX_ACC,
+                                                    GATHER_ROWS, gather_plan,
+                                                    launch_plan,
+                                                    spikemm_gather_cuda)
+    res = {}
+    for case in cases:
+        s, t = case.args
+        M = s.shape[0]
+        if not case.timed or M < 8:
+            continue
+        want = spikemm_gather_cuda(s, t)
+        n_sm = sm_count(s.device)
+        pick = gather_plan(M, t.bn, t.n_post_blocks, n_sm)
+        row = {"plan": f"{pick.rows} x {pick.cols}"}
+        for C in GATHER_COLS:
+            if t.bn % C or 32 * C > max(t.bn, 32):
+                continue
+            for R in GATHER_ROWS:
+                if R * C > GATHER_MAX_ACC:
+                    continue
+                plan = gather_plan(M, t.bn, t.n_post_blocks, n_sm, rows=R,
+                                   cols=C)
+                out = torch.empty_like(want)
+                launch_plan(s, t, out, plan)
+                sync()
+                if not torch.equal(out.view(torch.int32),
+                                   want.view(torch.int32)):
+                    raise AssertionError(
+                        f"spikemm_gather [{case.label}]: {R} rows a warp x "
+                        f"{C} columns a lane differs from the plan's")
+                row[f"{R} x {C}"] = cuda_ms(
+                    lambda: launch_plan(s, t, out, plan), iters=50)
+        log(f"gather rows a warp x columns a lane [{case.label}]: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()
+                        if k != "plan")
+            + f"; the plan takes {row['plan']}; all bit for bit")
+        res[case.label] = row
+    return res
 
 
 def same_bits(name, got, ref):
@@ -2418,9 +2624,15 @@ def phase_topology_banded(smi):
                                      f"{node}.{k} differs from one-shot")
     dev_ms, by_name = profile_ms(lambda: stream(BANDED_T))
     chunk_ms = wall * 1e3 / n_chunks
+    replays = []
+    for _ in range(BANDED_REPLAYS):
+        t0 = time.perf_counter()
+        stream(BANDED_T)
+        replays.append((time.perf_counter() - t0) * 1e3 / n_chunks)
     log(f"path [{tag}]: {n_chunks} chunks streamed, launches {counts}; "
         f"streamed == one-shot plan.run, outputs and final state, bit for "
-        f"bit; {chunk_ms:.3f} ms per chunk, card time "
+        f"bit; {chunk_ms:.3f} ms per chunk (replays "
+        f"{', '.join(f'{r:.3f}' for r in replays)}), card time "
         f"{None if dev_ms is None else round(dev_ms / n_chunks, 4)} ms "
         f"per chunk")
 
@@ -2429,6 +2641,12 @@ def phase_topology_banded(smi):
         card_vs_cpu(tag, nodes_c, params_c, x, st_gpu, o_gpu.cpu().numpy(),
                     r_gpu, tie_params={"w_input": banded_net()},
                     readout_rtol=BANDED_READOUT_RTOL)
+    # the gather and lif equal their plain versions bit for bit, so the
+    # card's hidden layer meets no threshold tie the CPU's does not
+    if n_ties:
+        raise AssertionError(f"[{tag}] {n_ties} hidden lanes flipped at "
+                             "threshold ties; the gather and lif are bit "
+                             "for bit their plain versions")
     log(f"path [{tag}]: card vs CPU: hidden spikes {int(s_cpu.sum())} "
         f"(rate {s_cpu.mean():.4f}), {n_ties} lanes flipped at threshold "
         f"ties, first divergence at step {int(first_div.min())} of "
@@ -2453,6 +2671,8 @@ def phase_topology_banded(smi):
             "readout_max_abs_err": err_plan,
             "readout_max_rel_err": err_rel, "state_max_abs_err": err_state,
             "stream_ms_per_chunk": chunk_ms,
+            "stream_ms_per_chunk_replays": replays,
+            "stream_ms_per_chunk_median": float(np.median(replays)),
             "device_ms_per_chunk": (None if dev_ms is None
                                     else dev_ms / n_chunks),
             "device_busy_share": (None if dev_ms is None
@@ -3226,15 +3446,35 @@ def phase_parity():
     return reports
 
 
+def path_phases():
+    """Each path's phase by its name, as `--path` takes it."""
+    return {**{p.name: functools.partial(phase_path, p) for p in PATHS},
+            "alif_ff": phase_alif_ff,
+            "topology_banded": phase_topology_banded,
+            "sparse_integ": phase_sparse_integ,
+            "plastic_ff": phase_plastic_ff,
+            "plastic_online": phase_plastic_online,
+            "stdp_step": phase_stdp_step,
+            "attention": lambda smi: phase_attention(smi)[1]}
+
+
 def main(argv):
-    if argv not in ([], ["--sweep"], ["--kernels"]):
+    one_path = len(argv) == 2 and argv[0] == "--path" \
+        and argv[1] in path_phases()
+    if argv not in ([], ["--sweep"], ["--kernels"]) and not one_path:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}; run it with "
-                         "none, --sweep or --kernels")
+                         f"none, --sweep, --kernels or --path NAME (one of "
+                         f"{', '.join(path_phases())})")
     smi = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     build_s = phase_build()
+    if one_path:
+        # one path alone: no kernel phase, no sweep
+        log(json.dumps({"slice": path_phases()[argv[1]](smi)}))
+        log(smi)
+        return
     if argv == ["--sweep"]:
         # the serial-chain kernels alone: their sweep, no paths
         log(json.dumps({"sweep": phase_sweep(sweep_cases())}))
@@ -3242,10 +3482,12 @@ def main(argv):
         return
     cases = kernel_cases(make_shd(True, DEV)[1])
     kernels = phase_kernels(cases)
+    gather_rows = phase_gather_rows(cases["spikemm_gather"])
     sweep = phase_sweep(cases)
     if argv == ["--kernels"]:
         # the kernel phase and the sweep alone, no paths (no launch counts)
         log(json.dumps({"kernels": list(kernels.values())}))
+        log(json.dumps({"gather_rows": gather_rows}))
         log(json.dumps({"sweep": sweep}))
         log(smi)
         return
@@ -3275,6 +3517,7 @@ def main(argv):
             for s in slices if s["path"] in by_path}
     slices[0]["build_s"] = build_s
     log(json.dumps({"kernels": list(kernels.values())}))
+    log(json.dumps({"gather_rows": gather_rows}))
     log(json.dumps({"sweep": sweep}))
     for s in slices:
         log(json.dumps({"slice": s}))

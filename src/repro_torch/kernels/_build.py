@@ -83,8 +83,7 @@ SIGNATURES = {
     "alif_f32": ((_P,) * 8 + (_I, _I, _I, _F, _F, _I, _I, _P), _I),
     "alifrec_f32": ((_P,) * 10 + (_I, _I, _I, _F, _F, _I, _P), _I),
     "spikemm_sparse_f32": ((_P,) * 6 + (_I, _I, _I, _P), _I),
-    "spikemm_gather_f32": ((_P,) * 6 + (_I,) * 6 + (_P,), _I),
-    "spikemm_gather_block_m": ((), _I),
+    "spikemm_gather_f32": ((_P,) * 6 + (_I,) * 10 + (_P,), _I),
     "stdp_seq_f32": ((_P,) * 5 + (_I,) * 5 + (_F, _F, _P), _I),
     "stdp_f32": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),
     "stdp_bf16": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),

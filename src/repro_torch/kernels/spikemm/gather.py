@@ -18,11 +18,23 @@ tables. Work scales with the number of occupied blocks E, never with
 n_pre * n_post: the dense matrix is never built.
 
 Registered as the `spikemm_gather` family: CUDA tensors launch
-`csrc/spikemm_gather.cu` (one CTA per output tile of a post block, walking
-that block's entries in order); CPU tensors run `spikemm_gather_ref`,
-which sums every output in the kernel's order (entries ascending, k
-ascending, a separately rounded multiply and add per term), so the card
-matches it bit for bit.
+`csrc/spikemm_gather.cu`, an event-driven walk of the tables; CPU tensors
+run `spikemm_gather_ref`, which sums every output in the kernel's order
+(entries ascending, k ascending, a separately rounded multiply and add
+per term), so the card matches it bit for bit.
+
+The kernel reads a patch row only where it holds a nonzero weight
+(`GatherTables.row_bitmap`, memoised on the device) and a spike of the
+warp's rows meets it (found in the kernel by `__ballot_sync`), so what
+bounds it is the bytes those rows, the raster and the output take, not
+the E * bk * bn of every patch; where every row meets a spike (many rows
+a call), the issue of the terms' separate multiplies and adds and the
+latency of each warp's loads. A warp owns R rows and 32 C columns of one
+post block, a thread C adjacent columns and R x C accumulators;
+`gather_plan` takes C from bn and R, the column warps and the row groups
+a CTA holds from M, bn and the SM count. Every term it skips is s * w
+with s or w = +-0, which for finite inputs changes no bit of the chain
+(see the kernel's header).
 
 Not ported yet: `GatherTables.transpose()` and the gather's VJP (the
 backward runs the same kernel on the transposed tables) wait for the
@@ -32,6 +44,8 @@ training slice.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from types import SimpleNamespace
 from typing import Dict
 
@@ -39,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, registry
+from repro_torch.kernels.common import sm_count
 
 DEFAULT_BK = 128
 DEFAULT_BN = 128
@@ -77,15 +92,35 @@ class GatherTables:
         return np.searchsorted(self.jj, np.arange(self.n_post_blocks + 1)
                                ).astype(np.int32)
 
+    def row_bitmap(self) -> np.ndarray:
+        """(E, ceil(bk / 32)) int32: bit k % 32 of word k // 32 of entry t
+        is set iff row k of `wblk[t]` holds a nonzero weight, the entry is
+        active and its pre neuron kk[t] * bk + k lies below n_pre. The
+        rows the kernel may read; derived from the tables, not part of
+        them."""
+        E, bk = len(self.jj), self.bk
+        words = -(-bk // 32)
+        rows = np.zeros((E, words * 32), bool)
+        rows[:, :bk] = ((self.wblk != 0).any(axis=2)
+                        & (self.act != 0)[:, None]
+                        & (self.kk.astype(np.int64)[:, None] * bk
+                           + np.arange(bk) < self.n_pre))
+        packed = np.packbits(rows.reshape(E, words, 32), axis=2,
+                             bitorder="little")
+        return np.ascontiguousarray(packed).view("<u4").reshape(
+            E, words).view(np.int32)
+
     def device(self, device: torch.device) -> SimpleNamespace:
-        """Memoised copies of the tables (and `jptr`) on `device`."""
+        """Memoised copies of the tables, `jptr` and, for the kernel,
+        `row_bitmap()` (as `rowbits`) on `device`."""
         device = torch.device(device)
         if device not in self._device:
             self._device[device] = SimpleNamespace(**{
                 k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                 for k, v in (("jj", self.jj), ("kk", self.kk),
                              ("act", self.act), ("wblk", self.wblk),
-                             ("jptr", self.jptr()))})
+                             ("jptr", self.jptr()),
+                             ("rowbits", self.row_bitmap()))})
         return self._device[device]
 
 
@@ -186,6 +221,103 @@ def spikemm_gather_ref(spikes: torch.Tensor, tables: GatherTables
     return acc.reshape(M, jb * bn)[:, :tables.n_post]
 
 
+# the kernel's rows a warp and columns a lane (its instantiations: at most
+# GATHER_MAX_ACC accumulators a thread), warps a CTA at most, and the warps
+# an SM the plan gives a call where it can (four a scheduler: a warp's next
+# listed rows wait on its loads)
+GATHER_ROWS = (1, 2, 4, 8)
+GATHER_COLS = (1, 4)
+GATHER_MAX_ACC = 16
+GATHER_WARPS_PER_SM = 16
+GATHER_MAX_WARPS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """How `csrc/spikemm_gather.cu` covers an (M, n_post) output.
+
+    A warp owns `rows` rows and 32 x `cols` columns of one post block (a
+    column warp), a lane `cols` adjacent columns; a post block takes
+    `col_warps` = ceil(bn / (32 cols)) of them. A CTA holds `groups` row
+    groups x `units` consecutive column warps, so `rows * groups` rows and
+    `units / col_warps` post blocks (a part of one where that is under 1);
+    the grid is (ceil(n_post_blocks * col_warps / units),
+    ceil(ceil(M / rows) / groups))."""
+    rows: int
+    cols: int
+    col_warps: int
+    units: int
+    groups: int
+    grid: tuple
+
+    @property
+    def warps(self) -> int:
+        return self.units * self.groups
+
+    @property
+    def rows_per_cta(self) -> int:
+        return self.rows * self.groups
+
+    @property
+    def post_blocks_per_cta(self) -> float:
+        return self.units / self.col_warps
+
+
+@functools.lru_cache(maxsize=256)
+def gather_plan(M: int, bn: int, n_post_blocks: int, n_sm: int, *,
+                rows: int = None, cols: int = None) -> GatherPlan:
+    """The gather kernel's plan for M rows of post blocks bn wide.
+
+    Columns a lane: 4 where 4 divides bn and bn >= 128 (a warp no wider
+    than the post block), else 1. Rows a warp: of
+    GATHER_ROWS up to the least that holds M, with at most GATHER_MAX_ACC
+    accumulators a thread, the most that still gives the card
+    GATHER_WARPS_PER_SM warps an SM, else 1. Every row of a warp shares
+    its weight loads (the rows a warp reads are the union of its rows'
+    events), but a warp's listed rows wait on its loads, so where the
+    rows are many (the banded chunk, 64) more warps of fewer rows win. A
+    CTA takes up to GATHER_MAX_WARPS warps: the row groups of a post block
+    first (they read the same weight rows, through the SM's L1), then
+    more post blocks; then, while the grid holds fewer CTAs than the card
+    has SMs, fewer post blocks and then fewer row groups a CTA. `rows` and
+    `cols` take another instantiation instead (`chip_smoke.py` times
+    each)."""
+    if cols is None:
+        cols = 4 if bn % 4 == 0 and bn >= 128 else 1
+    if M < 1 or n_post_blocks < 1 or cols not in GATHER_COLS or bn % cols:
+        raise ValueError(f"gather_plan: M={M}, bn={bn}, "
+                         f"n_post_blocks={n_post_blocks}, cols={cols}")
+    q = -(-bn // (32 * cols))
+    if rows is None:
+        fits = [r for r in GATHER_ROWS
+                if r * cols <= GATHER_MAX_ACC and r // 2 < M]
+        rows = next((r for r in fits[::-1] if n_post_blocks * q * -(-M // r)
+                     >= GATHER_WARPS_PER_SM * n_sm), fits[0])
+    if rows not in GATHER_ROWS or rows * cols > GATHER_MAX_ACC:
+        raise ValueError(f"gather_plan: rows={rows}, cols={cols}")
+    n_groups = -(-M // rows)
+    if q >= GATHER_MAX_WARPS:
+        units, groups = GATHER_MAX_WARPS, 1
+    else:
+        groups = min(n_groups, GATHER_MAX_WARPS // q)
+        units = q * max(1, GATHER_MAX_WARPS // (q * groups))
+
+    def grid(units, groups):
+        return (-(-n_post_blocks * q // units), -(-n_groups // groups))
+
+    while math.prod(grid(units, groups)) < n_sm:
+        if units > q and q < GATHER_MAX_WARPS:
+            units = q * max(1, units // q // 2)
+        elif groups > 1:
+            groups = max(1, groups // 2)
+        else:
+            break
+    g = grid(units, groups)
+    if g[1] > 65535:
+        raise ValueError(f"spikemm_gather: M={M} rows exceed one launch")
+    return GatherPlan(rows, cols, q, units, groups, g)
+
+
 def spikemm_gather_cuda(spikes: torch.Tensor, tables: GatherTables
                         ) -> torch.Tensor:
     """Launch `csrc/spikemm_gather.cu` on a CUDA raster."""
@@ -205,19 +337,26 @@ def spikemm_gather_cuda(spikes: torch.Tensor, tables: GatherTables
                       device=spikes.device)
     if out.numel() == 0:
         return out
+    launch_plan(spikes, tables, out, gather_plan(
+        M, tables.bn, tables.n_post_blocks, sm_count(spikes.device)))
+    spikemm_gather_cuda.launches += 1
+    return out
+
+
+def launch_plan(spikes: torch.Tensor, tables: GatherTables,
+                out: torch.Tensor, plan: GatherPlan) -> None:
+    """One launch of `csrc/spikemm_gather.cu` under `plan` into `out`, on
+    tensors `spikemm_gather_cuda` has checked (it counts the launch)."""
     lib = _build.library()
-    if -(-M // lib.spikemm_gather_block_m()) > 65535:
-        raise ValueError(f"spikemm_gather: M={M} rows exceed one launch")
     dt = tables.device(spikes.device)
     with torch.cuda.device(spikes.device):
         code = lib.spikemm_gather_f32(
-            spikes.data_ptr(), dt.wblk.data_ptr(), dt.jptr.data_ptr(),
-            dt.kk.data_ptr(), dt.act.data_ptr(), out.data_ptr(), M,
-            tables.n_pre, tables.n_post, tables.bk, tables.bn,
-            tables.n_post_blocks, torch.cuda.current_stream().cuda_stream)
+            spikes.data_ptr(), dt.wblk.data_ptr(), dt.rowbits.data_ptr(),
+            dt.jptr.data_ptr(), dt.kk.data_ptr(), out.data_ptr(),
+            spikes.shape[0], tables.n_pre, tables.n_post, tables.bk,
+            tables.bn, tables.n_post_blocks, plan.rows, plan.cols,
+            plan.units, plan.groups, torch.cuda.current_stream().cuda_stream)
     _build.check("spikemm_gather", code)
-    spikemm_gather_cuda.launches += 1
-    return out
 
 
 spikemm_gather_cuda.launches = 0
@@ -243,6 +382,8 @@ registry.register(registry.KernelSpec(
     name="spikemm_gather", plain=spikemm_gather_ref,
     cuda=spikemm_gather_cuda, make_inputs=_make_inputs, tol=1e-4))
 
-__all__ = ["GatherTables", "build_gather_tables", "spikemm_gather",
-           "spikemm_gather_cuda", "spikemm_gather_ref", "DEFAULT_BK",
-           "DEFAULT_BN"]
+__all__ = ["GatherTables", "GatherPlan", "build_gather_tables",
+           "gather_plan", "spikemm_gather", "spikemm_gather_cuda",
+           "spikemm_gather_ref", "DEFAULT_BK", "DEFAULT_BN", "GATHER_ROWS",
+           "GATHER_COLS", "GATHER_MAX_ACC", "GATHER_MAX_WARPS",
+           "GATHER_WARPS_PER_SM", "launch_plan"]

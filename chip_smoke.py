@@ -84,9 +84,16 @@ tree the same way, so two trees compare in one call.
             steps, and with signed zeros at thresholds of 0 and -0.5; the
             lane scans (`linrec`, `lif`, `alif`) are held bit for bit as
             fp32 bit patterns, signs of zeros included;
-            `spikemm_sparse` at the sparse_integ path's hidden INTEG,
-            `bench_kernels`' SPARSITY_SHAPE at four densities and two
-            ragged shapes, each also equal to the dense kernel bit for bit;
+            `spikemm_sparse` at the sparse_integ path's hidden INTEG
+            (densities 0.05 and 0.01) and its readout INTEG ((2048 x 512)
+            @ (512 x 20) at 0.01), an all-silent, an all-occupied and a
+            partly graded raster at the hidden INTEG's shape, 128 x 8192
+            @ 8192 x 64 (Kb = 128), 96 x 66000 @ 66000 x 24 (more k blocks
+            than a CTA lists at once), `bench_kernels`' SPARSITY_SHAPE at
+            four densities and two ragged shapes: each also equal to the
+            dense kernel bit for bit, its occupancy kernel's flags equal
+            to `block_occupancy` and its total to their sum; timed whole,
+            occupancy alone and product alone beside the dense kernel;
             `spikemm_gather` at the banded path's chunk, the topology
             benchmark's exec_vs_dense (also against the dense spikemm on
             `dense_equivalent()`), scale_1e5 and scale_1e6 rows at M = 1,
@@ -117,7 +124,14 @@ tree the same way, so two trees compare in one call.
             Then the gather's rows a warp x columns a lane: each timed
             gather case of 8 rows or more under every instantiation of
             `csrc/spikemm_gather.cu`, bit for bit the wrapper's, timed
-            beside the plan's pick (`phase_gather_rows`).
+            beside the plan's pick (`phase_gather_rows`). Then the sparse
+            channel's host syncs: it runs with and without flags under
+            `torch.cuda.set_sync_debug_mode("error")`, and one `auto`
+            dispatch gives exactly one sync warning under "warn", on a
+            raster routed sparse and on one routed dense
+            (`sparse_sync_checks`); and its product at every tile of
+            `SPARSE_TILES` on each timed case, bit for bit the wrapper's,
+            timed beside `sparse_tile`'s pick (`phase_sparse_tiles`).
             Then the sweep of the serial-chain kernels: the plastic_ff pair
             rule's `stdp_seq` planes, its pre-trace `linrec` call and its
             `lif` call cut to T = 1, 75, 150 and 300 steps, alif_ff's
@@ -182,7 +196,9 @@ tree the same way, so two trees compare in one call.
             4096 -> 512 -> 20, one eager `plan.run` (T=256, B=8) per
             population-packed density 0.01, 0.05, 0.2, 0.5 under `auto`:
             each INTEG's occupancy at the sparse kernel's block and the
-            channel its launch counters show (sparse at or below 0.25);
+            channel its launch counters show (sparse at or below 0.25),
+            and one occupancy launch an INTEG (`auto` measures once and
+            hands the flags on);
             `always` and `never` equal `auto` bit for bit; the card against
             the CPU under the tie rule at every density, where a density
             whose hidden layer fires under the 1 % floor is reported as not
@@ -249,7 +265,7 @@ tree the same way, so two trees compare in one call.
             wrapper and the sparse channel's against their plain versions
             at `make_inputs`, `attention` forward and VJP; 11 kernels.
 13. result  prints `{"kernels": [...]}`, `{"gather_rows": {...}}`,
-            `{"sweep": {...}}`, one
+            `{"sparse_tiles": {...}}`, `{"sweep": {...}}`, one
             `{"slice": {...}}` line per path, `{"parity": {...}}`, the
             card's name and power limit and, last, `{"ok": true,
             "device": {...}}`.
@@ -335,6 +351,11 @@ SPARSE_IN, SPARSE_HIDDEN, SPARSE_T, SPARSE_B = 4096, 512, 256, 8
 SPARSE_DENSITIES = (0.01, 0.05, 0.2, 0.5)
 SPARSE_HOME_DENSITY, SPARSE_SEED = 0.05, 5
 SPARSITY_SHAPE = (2048, 2048, 512)           # bench_kernels' sweep shape
+# the sparse channel's case of the kernel table's row, and a case that
+# `auto` routes dense (the sync checks dispatch both)
+SPARSE_HOME_CASE = f"sparse_integ hidden INTEG, density {SPARSE_HOME_DENSITY}"
+SPARSE_DENSE_CASE = "bench_kernels {}x{}x{}, density 0.5".format(
+    *SPARSITY_SHAPE)
 # plastic_ff: `bench_plasticity.measure_program`'s program, make_plastic_ff
 # at 256 -> 128 -> 4, one plan.run at T=300, B=8 of Bernoulli(0.15)
 PLASTIC_IN, PLASTIC_HIDDEN, PLASTIC_OUT = 256, 128, 4
@@ -1560,16 +1581,81 @@ def csr_product(enc):
     return product
 
 
-def sparse_kernel_only(s, w):
-    """A call that launches only `csrc/spikemm_sparse.cu` on the block list
-    of (s, w), built once here: the kernel's own time, without the
-    occupancy reduction and the compaction's host sync that
-    `spikemm_sparse_cuda` adds to every call."""
-    from repro_torch.kernels.spikemm.sparse import (block_list,
-                                                    launch_block_list)
-    blocks = block_list(s)
-    out = torch.empty((s.shape[0], w.shape[1]), device=s.device)
-    return lambda: launch_block_list(s, w, blocks, out)
+def sparse_parts(s, w):
+    """The sparse channel's two launches on (s, w), each a call of its
+    own: the occupancy kernel alone, and the product alone on flags
+    measured once here."""
+    from repro_torch.kernels.spikemm.sparse import (occupancy_cuda,
+                                                    spikemm_sparse_cuda)
+    flags, _ = occupancy_cuda(s)
+    return (lambda: occupancy_cuda(s),
+            lambda: spikemm_sparse_cuda(s, w, flags))
+
+
+def check_occupancy(label, s):
+    """The occupancy kernel's flags equal `block_occupancy` at
+    SPARSE_BLOCK exactly, and its total their sum."""
+    from repro_torch.kernels.spikemm.sparse import (SPARSE_BLOCK,
+                                                    block_occupancy,
+                                                    occupancy_cuda)
+    flags, total = occupancy_cuda(s)
+    want = block_occupancy(s, *SPARSE_BLOCK)
+    if not torch.equal(flags, want):
+        raise AssertionError(f"spikemm_sparse [{label}]: occupancy flags "
+                             f"differ from block_occupancy in "
+                             f"{int((flags != want).sum())} blocks")
+    if int(total) != int(want.sum()):
+        raise AssertionError(f"spikemm_sparse [{label}]: total {int(total)}"
+                             f", block_occupancy counts {int(want.sum())}")
+    return int(total), want.numel()
+
+
+def sparse_sync_checks(s, w, s_dense, w_dense):
+    """No host sync in the sparse channel, one in `auto`'s dispatch.
+
+    Under `torch.cuda.set_sync_debug_mode("error")` the channel runs with
+    and without flags handed in; under "warn", one `spikemm` dispatch in
+    `auto` gives exactly one sync warning, on a raster it routes sparse
+    (s, w) and on one it routes dense (s_dense, w_dense)."""
+    import warnings
+
+    from repro_torch.kernels.spikemm.ops import spikemm
+    from repro_torch.kernels.spikemm.sparse import (occupancy_cuda,
+                                                    spikemm_sparse_cuda)
+    env = "REPRO_SPIKEMM_SPARSE"
+    flags, _ = occupancy_cuda(s)
+    spikemm_sparse_cuda(s, w)                         # warm: build, sm count
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spikemm_sparse_cuda(s, w)
+        spikemm_sparse_cuda(s, w, flags)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    saved = os.environ.pop(env, None)
+    warned = []
+    try:
+        for x, y in ((s, w), (s_dense, w_dense)):
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    spikemm(x, y)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            warned.append(sum("synchroniz" in str(r.message) for r in rec))
+    finally:
+        if saved is not None:
+            os.environ[env] = saved
+    sync()
+    if warned != [1, 1]:
+        raise AssertionError(f"spikemm_sparse: auto dispatches gave {warned} "
+                             "sync warnings (sparse route, dense route); "
+                             "each should give one")
+    log("kernel spikemm_sparse: the channel runs under "
+        "set_sync_debug_mode('error') with and without flags; one auto "
+        "dispatch gives one sync warning on a sparse-routed raster and one "
+        "on a dense-routed one")
 
 
 def gather_edge_tables(bk, bn, seed):
@@ -1683,22 +1769,71 @@ def gather_cases():
 
 def sparse_cases():
     """The sparse channel's cases: the sparse_integ path's hidden INTEG at
-    the density whose run the kernel table records, `bench_kernels`'
-    SPARSITY_SHAPE at its four densities, and two ragged shapes."""
+    the density whose run the kernel table records and at density 0.01,
+    and its readout INTEG at 0.01 (the calls `auto` routes sparse there),
+    `bench_kernels`' SPARSITY_SHAPE at its four densities, an all-silent,
+    an all-occupied and a partly graded raster at the hidden INTEG's
+    shape, a raster of
+    128 k blocks whose occupied ones span three ballot words of a CTA's
+    list, one of more k blocks than a CTA lists at once, and two ragged
+    shapes."""
+    from repro_torch.core import plan
+    from repro_torch.kernels.spikemm.sparse import SPARSE_BLOCK
     g = torch.Generator().manual_seed(4)
-    _, params = make_sparse_integ(DEV)
-    s = torch.from_numpy(packed_raster(SPARSE_T * SPARSE_B, SPARSE_IN,
-                                       SPARSE_HOME_DENSITY, SPARSE_SEED)
-                         ).to(DEV)
-    cases = [Case(f"sparse_integ hidden INTEG, density "
-                  f"{SPARSE_HOME_DENSITY}", (s, params["hidden"]["w_input"]),
-                  path="sparse_integ", timed=True)]
+    nodes, params = make_sparse_integ(DEV)
+    w_in = params["hidden"]["w_input"]
+    M, K = SPARSE_T * SPARSE_B, SPARSE_IN
+    s = torch.from_numpy(packed_raster(M, K, SPARSE_HOME_DENSITY,
+                                       SPARSE_SEED)).to(DEV)
+    cases = [Case(SPARSE_HOME_CASE, (s, w_in), path="sparse_integ",
+                  timed=True)]
+    x = torch.from_numpy(packed_raster(M, K, SPARSE_DENSITIES[0],
+                                       SPARSE_SEED)).to(DEV)
+    cases.append(Case(f"sparse_integ hidden INTEG, density "
+                      f"{SPARSE_DENSITIES[0]}", (x, w_in), timed=True))
+    _, _, rec = plan.run(nodes, params, x.reshape(SPARSE_T, SPARSE_B, K),
+                         record=("hidden",), device=DEV)
+    cases.append(Case(f"sparse_integ readout INTEG, density "
+                      f"{SPARSE_DENSITIES[0]}",
+                      (rec["hidden"].reshape(M, -1).contiguous(),
+                       params["readout"]["w_hidden"]), timed=True))
+    cases.append(Case("all-silent raster at the hidden INTEG's shape",
+                      (torch.zeros((M, K), device=DEV), w_in), timed=True,
+                      silent=True))
+    # one spike in every (bm, bk) block, at a place drawn from seed 7
+    bm, bk = SPARSE_BLOCK
+    rng = np.random.default_rng(7)
+    full = np.zeros((M, K), np.float32)
+    full[np.arange(0, M, bm)[:, None] + rng.integers(0, bm, (M // bm, 1)),
+         np.arange(0, K, bk)[None, :] + rng.integers(0, bk, (1, K // bk))
+         ] = 1.0
+    cases.append(Case("all-occupied raster at the hidden INTEG's shape, "
+                      "one spike a block", (torch.from_numpy(full).to(DEV),
+                                            w_in), timed=True))
+    # graded spikes (0.5, 2, -1) in the first 1000 k of the active
+    # corner, 0/1 after: each term's fmaf rounds (a 0/1 spike's is exact)
+    graded = packed_raster(M, K, SPARSE_HOME_DENSITY, SPARSE_SEED)
+    graded[:, :1000] *= np.random.default_rng(10).choice(
+        np.array([0.5, 2.0, -1.0], np.float32), (M, 1000))
+    cases.append(Case("graded spikes (0.5, 2, -1) in k < 1000, 0/1 after, "
+                      "at the hidden INTEG's shape",
+                      (torch.from_numpy(graded).to(DEV), w_in), timed=True))
+    # packed at 2 %, its active corner 81 of 128 k blocks wide
+    s = torch.from_numpy(packed_raster(128, 8192, 0.02, 8, rate=0.05))
+    cases.append(Case("128x8192x64, packed at 0.02 (81 of 128 k blocks)",
+                      (s.to(DEV), torch.randn((8192, 64), generator=g)
+                       .to(DEV)), timed=True))
     M, K, N = SPARSITY_SHAPE
     w = torch.randn((K, N), generator=g).to(DEV)
     for d in SPARSE_DENSITIES:
         s = torch.from_numpy(packed_raster(M, K, d, 2)).to(DEV)
         cases.append(Case(f"bench_kernels {M}x{K}x{N}, density {d}", (s, w),
                           timed=True))
+    # Bernoulli(0.001): 1032 k blocks a row block, about 2 % of them silent
+    s = np.random.default_rng(9).random((96, 66000)) < 0.001
+    cases.append(Case("96x66000x24, Bernoulli(0.001) (1032 k blocks)",
+                      (torch.from_numpy(s.astype(np.float32)).to(DEV),
+                       torch.randn((66000, 24), generator=g).to(DEV))))
     for M, K, N in ((100, 300, 200), (130, 700, 64)):
         s = torch.from_numpy(packed_raster(M, K, 0.05, M)).to(DEV)
         cases.append(Case(f"ragged {M}x{K}x{N}, density 0.05",
@@ -1901,7 +2036,10 @@ def phase_kernels(cases):
                     raise AssertionError(
                         f"{name} [{label}]: differs from the dense kernel "
                         f"by {float((got[0] - dense).abs().max()):.3e}")
-                extra += "; equal to the dense kernel bit for bit"
+                occupied, blocks = check_occupancy(label, args[0])
+                extra += ("; equal to the dense kernel bit for bit; "
+                          f"occupancy kernel == block_occupancy ({occupied} "
+                          f"of {blocks} blocks, total == flags.sum())")
             if case.rows_alone:
                 # a row's result does not depend on the rows batched with it
                 for i in range(args[0].shape[0]):
@@ -1945,12 +2083,13 @@ def phase_kernels(cases):
                            warmup=1 if case.plain_iters else 3)
             lib = (None if case.library is None
                    else cuda_ms(case.library, iters=200))
-            # the sparse wrapper's time includes its occupancy reduction and
-            # the compaction's host sync; time the launch alone and the
-            # dense kernel on the same inputs beside it
-            kernel_ms = dense_ms = None
+            # the sparse channel is its occupancy measure and its product:
+            # time each alone, and the dense kernel on the same inputs
+            kernel_ms = dense_ms = occ_ms = None
             if name == "spikemm_sparse":
-                kernel_ms = cuda_ms(sparse_kernel_only(*args), iters=200)
+                occ, product = sparse_parts(*args)
+                occ_ms = cuda_ms(occ, iters=200)
+                kernel_ms = cuda_ms(product, iters=200)
                 dense_ms = cuda_ms(lambda: spikemm_cuda(*args), iters=200)
             nbytes, flops, dense = work(name, args, got, kw)
             b_ms, b_by = bound(nbytes, flops)
@@ -1974,6 +2113,7 @@ def phase_kernels(cases):
                           "ms_per_step": None if T is None else ms / T,
                           "bytes": nbytes, "flops": flops,
                           "dense_flops": dense, "kernel_ms": kernel_ms,
+                          "occupancy_ms": occ_ms,
                           "dense_kernel_ms": dense_ms,
                           "bound_rows_ms": rows_ms,
                           "bound_patches_ms": patches_ms,
@@ -1984,7 +2124,7 @@ def phase_kernels(cases):
                 f"library {lib if lib is None else round(lib, 4)}, bound "
                 f"{b_ms:.5f} by {b_by}, dense bound {d_ms:.5f} by {d_by}, "
                 f"{ms / max(b_ms, floor):.2f}x max(bound, floor)"
-                f"{'' if kernel_ms is None else f', launch alone {kernel_ms:.4f}, dense kernel {dense_ms:.4f}'}"
+                f"{'' if kernel_ms is None else f', occupancy alone {occ_ms:.4f}, product alone {kernel_ms:.4f}, dense kernel {dense_ms:.4f}'}"
                 f"{'' if patches_ms is None else f', read-rows bound {rows_ms:.5f}, every-patch bound {patches_ms:.5f}'}"
                 f"{'' if case.build_s is None else f', tables built in {case.build_s:.1f} s'})"
                 f"{extra}; max abs err so far {max_err:.3e}")
@@ -2008,6 +2148,9 @@ def phase_kernels(cases):
                            else sum(c["library_ms"] for c in home)),
             "kernel_ms": (None if any(c["kernel_ms"] is None for c in home)
                           else sum(c["kernel_ms"] for c in home)),
+            "occupancy_ms": (None if any(c["occupancy_ms"] is None
+                                         for c in home)
+                             else sum(c["occupancy_ms"] for c in home)),
             "calls": calls}
     return results
 
@@ -2683,6 +2826,45 @@ def phase_topology_banded(smi):
             "stream_peak_ratio": ratio, "card": smi}
 
 
+def phase_sparse_tiles(cases):
+    """The sparse product's CTA tile, measured: each timed sparse case
+    launched at every tile of SPARSE_TILES (`launch_product`, uncounted)
+    on flags measured once, each output equal to the wrapper's bit for
+    bit, timed with `cuda_ms`. {case: {"T x T": ms, "plan": `sparse_tile`'s
+    T}}."""
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.spikemm.sparse import (SPARSE_TILES,
+                                                    launch_product,
+                                                    occupancy_cuda,
+                                                    sparse_tile,
+                                                    spikemm_sparse_cuda)
+    res = {}
+    for case in cases:
+        if not case.timed:
+            continue
+        s, w = case.args
+        want = spikemm_sparse_cuda(s, w)
+        flags, _ = occupancy_cuda(s)
+        row = {"plan": sparse_tile(s.shape[0], w.shape[1],
+                                   sm_count(s.device))}
+        for tile in SPARSE_TILES:
+            out = torch.empty_like(want)
+            launch_product(s, w, flags, out, tile)
+            sync()
+            if not torch.equal(out, want):
+                raise AssertionError(f"spikemm_sparse [{case.label}]: the "
+                                     f"{tile} x {tile} tile differs from "
+                                     "the wrapper's")
+            row[f"{tile} x {tile}"] = cuda_ms(
+                lambda: launch_product(s, w, flags, out, tile), iters=100)
+        res[case.label] = row
+        log(f"sparse product tile [{case.label}]: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()
+                        if k != "plan")
+            + f"; the plan takes {row['plan']}; all bit for bit")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # 7. block-sparse INTEG: eager plan.run on population-packed rasters
 # ---------------------------------------------------------------------------
@@ -2695,6 +2877,7 @@ def phase_sparse_integ(smi):
     from repro_torch.kernels import registry
     from repro_torch.kernels.spikemm.ops import (occupancy_fraction,
                                                  sparse_threshold)
+    from repro_torch.kernels.spikemm.sparse import occupancy_cuda
     tag = "sparse_integ"
     env = "REPRO_SPIKEMM_SPARSE"
     nodes, params = make_sparse_integ(DEV)
@@ -2711,10 +2894,17 @@ def phase_sparse_integ(smi):
             xg = torch.from_numpy(x).to(DEV)
             occ_in = occupancy_fraction(xg.reshape(T * B, K))
             registry.reset_launches()
+            occupancy_cuda.launches = 0
             st_gpu, o_gpu, r_gpu = plan.run(nodes, params, xg,
                                             record=("hidden",), device=DEV)
             sync()
             counts = registry.launch_counts()
+            # `auto` measures each INTEG's occupancy once, and a sparse
+            # route takes the router's flags without measuring again
+            occ_launches = occupancy_cuda.launches
+            if occ_launches != 2:
+                raise AssertionError(f"[{tag} {d}] {occ_launches} occupancy "
+                                     "launches; one an INTEG expected")
             occ_ro = occupancy_fraction(r_gpu["hidden"].reshape(T * B, -1))
             th = sparse_threshold()
             route = {"input": "spikemm_sparse" if occ_in <= th else "spikemm",
@@ -2757,7 +2947,8 @@ def phase_sparse_integ(smi):
                 lambda: plan.run(nodes, params, xg, device=DEV))
             row = {"density": d, "input_occupancy": occ_in,
                    "readout_occupancy": occ_ro, "route": route,
-                   "launches": counts, "hidden_rate": rate,
+                   "launches": counts, "occupancy_launches": occ_launches,
+                   "hidden_rate": rate,
                    "counts_as_check": rate >= MIN_HIDDEN_RATE,
                    "tie_flips": n_ties,
                    "rows_diverged": int((first_div < T).sum()),
@@ -2771,7 +2962,8 @@ def phase_sparse_integ(smi):
             rows.append(row)
             log(f"path [{tag}] density {d}: occupancy {occ_in:.4f} (input), "
                 f"{occ_ro:.4f} (readout) at the kernel's block -> {route}; "
-                f"launches {counts}; always == never == auto bit for bit; "
+                f"launches {counts}, occupancy {occ_launches}; always == "
+                f"never == auto bit for bit; "
                 f"card vs CPU: hidden rate {rate:.4f}"
                 f"{'' if row['counts_as_check'] else ' (under the 1 % floor: this comparison does not count)'}"
                 f", {n_ties} tie flips, {row['rows_diverged']} rows diverged, "
@@ -3483,11 +3675,15 @@ def main(argv):
     cases = kernel_cases(make_shd(True, DEV)[1])
     kernels = phase_kernels(cases)
     gather_rows = phase_gather_rows(cases["spikemm_gather"])
+    sparse = {c.label: c.args for c in cases["spikemm_sparse"]}
+    sparse_sync_checks(*sparse[SPARSE_HOME_CASE], *sparse[SPARSE_DENSE_CASE])
+    sparse_tiles = phase_sparse_tiles(cases["spikemm_sparse"])
     sweep = phase_sweep(cases)
     if argv == ["--kernels"]:
         # the kernel phase and the sweep alone, no paths (no launch counts)
         log(json.dumps({"kernels": list(kernels.values())}))
         log(json.dumps({"gather_rows": gather_rows}))
+        log(json.dumps({"sparse_tiles": sparse_tiles}))
         log(json.dumps({"sweep": sweep}))
         log(smi)
         return
@@ -3518,6 +3714,7 @@ def main(argv):
     slices[0]["build_s"] = build_s
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"gather_rows": gather_rows}))
+    log(json.dumps({"sparse_tiles": sparse_tiles}))
     log(json.dumps({"sweep": sweep}))
     for s in slices:
         log(json.dumps({"slice": s}))

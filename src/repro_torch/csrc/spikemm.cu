@@ -27,9 +27,10 @@
 //            the events. A row with more than CAP events stops the scan.
 //   route    from that count, on the device and with no host sync: a tile
 //            with more than one event in four of its entries, or a row past
-//            CAP, runs the dense register-blocked loop (K in 32-deep
-//            steps through a 3-stage cp.async ring in shared memory,
-//            skipping (BM, 32) blocks with no spike); else
+//            CAP, runs the dense register-blocked loop (`ring_product` of
+//            spikemm_ring.cuh, which the sparse channel shares: K in
+//            32-deep steps through a 3-stage cp.async ring in shared
+//            memory, skipping (BM, 32) blocks with no spike); else
 //   LOCACC   each thread walks its rows' lists (its RPT rows interleaved
 //            and unrolled, so their loads of w are in flight together) and
 //            adds spike times w's row, read through L2 (w stays resident),
@@ -54,50 +55,24 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "async_copy.cuh"
+#include "spikemm_ring.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int LIST_ENTRIES = 4096;     // event list capacity of a CTA
 constexpr int INFLIGHT = 8;            // row slabs a lane reads at once
-constexpr int BK = 32;                 // depth of a dense step
-constexpr int STAGES = 3;              // dense steps in shared memory
-constexpr unsigned FULL = 0xffffffffu;
 
 template <int CW, int RPT>
-struct Tile {
-  static constexpr int TX = CW >= 16 ? 16 : 8;    // threads along columns
-  static constexpr int TY = THREADS / TX;         // threads along rows
-  static constexpr int CPT = CW / TX;             // columns per thread
-  static constexpr int BM = TY * RPT;             // rows per CTA
-  static constexpr int CAP = LIST_ENTRIES / BM;   // events a row may list
+struct Tile : RingTile<CW, RPT> {
+  using R = RingTile<CW, RPT>;
+  static constexpr int CAP = LIST_ENTRIES / R::BM;   // events a row may list
   // events of each row LOCACC takes at once: about 32 loads of w in flight
   static constexpr int UNROLL =
-      RPT * CPT >= 32 ? 1 : (32 / (RPT * CPT) > 8 ? 8 : 32 / (RPT * CPT));
-  static constexpr int ALD = BK + 4;              // dense A tile, per row
-  // 4-float slots of the dense step's A (BM x BK) and B (BK x CW) tiles
-  static constexpr int A_SLOTS = (BM * BK / 4 + THREADS - 1) / THREADS;
-  static constexpr int B_SLOTS = (BK * CW / 4 + THREADS - 1) / THREADS;
+      RPT * R::CPT >= 32 ? 1
+                         : (32 / (RPT * R::CPT) > 8 ? 8 : 32 / (RPT * R::CPT));
   // the lists (k, spike), their counts, and the dense ring
-  static constexpr int SMEM = LIST_ENTRIES * 8 + BM * 4 +
-                              STAGES * (BM * ALD + BK * CW) * 4;
-  static_assert(BM % WARPS == 0 && CPT <= 4, "tile shape");
+  static constexpr int SMEM = LIST_ENTRIES * 8 + R::BM * 4 + R::RING * 4;
 };
-
-template <int N>
-__device__ __forceinline__ void load_vec(float (&dst)[N], const float* p) {
-  if constexpr (N == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
-  } else if constexpr (N == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    dst[0] = v.x, dst[1] = v.y;
-  } else {
-    dst[0] = *p;
-  }
-}
 
 // FINDIDX over the CTA's rows. Work items are (row, slab of 32 PER k),
 // row = warp + WARPS r, taken INFLIGHT at a time per warp so that their
@@ -171,13 +146,12 @@ spikemm_kernel(const float* __restrict__ s, const float* __restrict__ w,
                float* __restrict__ out, int M, int K, int N) {
   using L = Tile<CW, RPT>;
   constexpr int BM = L::BM, CPT = L::CPT, TX = L::TX, CAP = L::CAP;
-  constexpr int ALD = L::ALD, UNROLL = L::UNROLL;
+  constexpr int UNROLL = L::UNROLL;
   extern __shared__ __align__(16) float smem[];
   int* klist = reinterpret_cast<int*>(smem);          // [BM][CAP]
   float* vlist = smem + LIST_ENTRIES;                  // [BM][CAP]
   int* counts = reinterpret_cast<int*>(vlist + LIST_ENTRIES);  // [BM]
-  float* As = vlist + LIST_ENTRIES + BM;               // [STAGES][BM][ALD]
-  float* Bs = As + STAGES * BM * ALD;                  // [STAGES][BK][CW]
+  float* ring = vlist + LIST_ENTRIES + BM;             // [L::RING]
   __shared__ int total, overflow;
 
   const int tid = threadIdx.x, lane = tid % 32;
@@ -204,93 +178,10 @@ spikemm_kernel(const float* __restrict__ s, const float* __restrict__ w,
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 
   if (overflow || 4LL * total > (long long)live * K) {
-    // dense: the register-blocked loop, K in BK-deep steps through a ring
-    // of STAGES shared-memory buffers filled by cp.async (zeros past M, K
-    // and N), STAGES - 1 steps in flight while one step's products run
-    auto fetch = [&](int st) {
-      const int k0 = st * BK, buf = st % STAGES;
-#pragma unroll
-      for (int u = 0; u < L::A_SLOTS; ++u) {
-        const int e = tid + THREADS * u;
-        if (e >= BM * BK / 4) break;
-        const int row = e / (BK / 4), k = k0 + (e % (BK / 4)) * 4;
-        const uint32_t dst = smem_u32(
-            As + (buf * BM + row) * ALD + (e % (BK / 4)) * 4);
-        const bool in = m0 + row < M;
-        const float* src = s + (in ? (size_t)(m0 + row) * K : 0);
-        if (vec_s) {
-          cp_async16(dst, src + k, in && k < K);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            cp_async4(dst + 4 * j, src + k + j, in && k + j < K);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < L::B_SLOTS; ++u) {
-        const int e = tid + THREADS * u;
-        if (e >= BK * CW / 4) break;
-        const int k = k0 + e / (CW / 4), n = n0 + (e % (CW / 4)) * 4;
-        const uint32_t dst = smem_u32(Bs + buf * BK * CW + e * 4);
-        const float* src = w + (k < K ? (size_t)k * N : 0);
-        if (vec_w) {
-          cp_async16(dst, src + n, k < K && n < N);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            cp_async4(dst + 4 * j, src + n + j, k < K && n + j < N);
-        }
-      }
-    };
-    // whether this thread's share of a step's spike tile holds a spike
-    auto any_spike = [&](int buf) {
-      bool nz = false;
-#pragma unroll
-      for (int u = 0; u < L::A_SLOTS; ++u) {
-        const int e = tid + THREADS * u;
-        if (e >= BM * BK / 4) break;
-        float t[4];
-        load_vec<4>(t, As + (buf * BM + e / (BK / 4)) * ALD +
-                           (e % (BK / 4)) * 4);
-        nz |= t[0] != 0.f || t[1] != 0.f || t[2] != 0.f || t[3] != 0.f;
-      }
-      return nz;
-    };
-    const int steps = (K + BK - 1) / BK;
-#pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-      if (st < steps) fetch(st);
-      cp_async_commit();
-    }
-    for (int st = 0; st < steps; ++st) {
-      const int buf = st % STAGES;
-      cp_async_wait<STAGES - 2>();       // this thread's copies of step st
-      // every copy of step st is in and step st - 1 is done: skip a
-      // (BM, BK) block with no spike, refill the buffer step st - 1 used
-      const bool live_step = __syncthreads_or(any_spike(buf));
-      if (st + STAGES - 1 < steps) fetch(st + STAGES - 1);
-      cp_async_commit();
-      if (!live_step) continue;
-      const float* A = As + (buf * BM + ty) * ALD;
-      const float* B = Bs + buf * BK * CW + tx * CPT;
-#pragma unroll
-      for (int k4 = 0; k4 < BK; k4 += 4) {
-        float a[RPT][4];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-          load_vec<4>(a[i], A + i * L::TY * ALD + k4);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          float bv[CPT];
-          load_vec<CPT>(bv, B + (k4 + u) * CW);
-#pragma unroll
-          for (int i = 0; i < RPT; ++i)
-#pragma unroll
-            for (int j = 0; j < CPT; ++j)
-              acc[i][j] = fmaf(a[i][u], bv[j], acc[i][j]);
-        }
-      }
-    }
+    // dense: every BK-deep step of K through the ring
+    ring_product<CW, RPT>(s, w, ring, m0, n0, M, K, N, vec_s, vec_w,
+                          (K + BK - 1) / BK, [](int st) { return st * BK; },
+                          acc);
   } else {
     // LOCACC: this thread's rows' events, interleaved, in ascending k,
     // UNROLL a row at a time with all their loads of w issued first. Past

@@ -82,7 +82,8 @@ SIGNATURES = {
     "rec_scan_w_in_smem": ((_I,), _I),
     "alif_f32": ((_P,) * 8 + (_I, _I, _I, _F, _F, _I, _I, _P), _I),
     "alifrec_f32": ((_P,) * 10 + (_I, _I, _I, _F, _F, _I, _P), _I),
-    "spikemm_sparse_f32": ((_P,) * 6 + (_I, _I, _I, _P), _I),
+    "spikemm_occupancy_f32": ((_P, _P, _P, _I, _I, _P), _I),
+    "spikemm_sparse_f32": ((_P,) * 4 + (_I,) * 4 + (_P,), _I),
     "spikemm_gather_f32": ((_P,) * 6 + (_I,) * 10 + (_P,), _I),
     "stdp_seq_f32": ((_P,) * 5 + (_I,) * 5 + (_F, _F, _P), _I),
     "stdp_f32": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),

@@ -69,20 +69,32 @@ def check_scan(name: str, current: torch.Tensor,
                              f"{current.device}")
 
 
-def check_matmul(name: str, spikes: torch.Tensor, w: torch.Tensor) -> None:
-    """The checks of a spike-matmul wrapper: CUDA tensors, a (M, K) raster
-    and a (K, N) weight, both float32, contiguous and on one device."""
+def check_raster(name: str, spikes: torch.Tensor) -> None:
+    """The checks of a raster-only wrapper: a contiguous float32 (M, K)
+    raster on a CUDA device."""
     if not spikes.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
                          f"{spikes.device}")
-    if spikes.dim() != 2 or w.dim() != 2 or spikes.shape[1] != w.shape[0]:
+    if spikes.dim() != 2:
+        raise ValueError(f"{name}: a raster is (M, K), got "
+                         f"{tuple(spikes.shape)}")
+    if spikes.dtype != torch.float32:
+        raise TypeError(f"{name}: spikes must be float32, got {spikes.dtype}")
+    if not spikes.is_contiguous():
+        raise ValueError(f"{name}: spikes must be contiguous")
+
+
+def check_matmul(name: str, spikes: torch.Tensor, w: torch.Tensor) -> None:
+    """The checks of a spike-matmul wrapper: a raster as `check_raster`
+    takes it and a (K, N) float32 contiguous weight on its device."""
+    check_raster(name, spikes)
+    if w.dim() != 2 or spikes.shape[1] != w.shape[0]:
         raise ValueError(f"{name}: shapes {tuple(spikes.shape)} @ "
                          f"{tuple(w.shape)} do not chain")
-    for nm, t in (("spikes", spikes), ("w", w)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {nm} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {nm} must be contiguous")
+    if w.dtype != torch.float32:
+        raise TypeError(f"{name}: w must be float32, got {w.dtype}")
+    if not w.is_contiguous():
+        raise ValueError(f"{name}: w must be contiguous")
     if spikes.device != w.device:
         raise ValueError(f"{name}: spikes on {spikes.device}, "
                          f"w on {w.device}")
@@ -176,8 +188,8 @@ def pad_axis(x: torch.Tensor, axis: int, mult: int, value=0.0):
     return F.pad(x, widths, value=value), n
 
 
-__all__ = ["resolve_device", "check_device", "check_scan", "check_matmul",
-           "sm_count", "MAX_WARPS", "lane_plan", "rec_route",
+__all__ = ["resolve_device", "check_device", "check_scan", "check_raster",
+           "check_matmul", "sm_count", "MAX_WARPS", "lane_plan", "rec_route",
            "rec_route_launch_counts", "REC_WARP", "REC_BLOCK",
            "REC_WARP_MAX_N", "w_in_smem", "tree_to", "pad_axis",
            "DeviceLike"]

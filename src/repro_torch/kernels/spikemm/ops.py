@@ -12,17 +12,19 @@ compute it, as in the JAX package:
     wrapper only picks the CTA's tile from the shapes and the SM count
     (`col_tile`, `rows_per_cta`). On CPU tensors the plain matmul
     `spikemm_ref`.
-  * **sparse** (`sparse.py`): `csrc/spikemm_sparse.cu` walks a compacted
-    list of the occupied `SPARSE_BLOCK` blocks only; its plain version is
-    the occupied-slab matmul.
+  * **sparse** (`sparse.py`): `csrc/spikemm_sparse.cu`, two launches and
+    no host sync: its occupancy kernel flags the occupied `SPARSE_BLOCK`
+    blocks, then its product walks those only; its plain version is the
+    occupied-slab matmul.
 
 `_select_channel` routes between them per call. The
 `REPRO_SPIKEMM_SPARSE=never|auto|always` environment variable pins the
 choice, with the JAX package's values and message; `auto` (the default)
-measures the block occupancy at the sparse kernel's block shape (one
-host sync), goes sparse at or below `_SPARSE_THRESHOLD_DEFAULT`, and
-hands the sparse channel the flags it measured, so one call reduces the
-raster to flags once.
+measures the block occupancy at the sparse kernel's block shape (on the
+card, one launch of the occupancy kernel and one host read of its 4-byte
+count: the sync the JAX package's eager router takes too), goes sparse
+at or below `_SPARSE_THRESHOLD_DEFAULT`, and hands the sparse channel the
+flags it measured, so one call reduces the raster to flags once.
 The JAX package routes a traced raster dense under `auto`, since its
 occupancy is unknowable; its serve engine's step is jitted, so serving
 always runs dense. The port has no tracers, so a caller that stands for
@@ -46,8 +48,7 @@ import torch
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.common import check_matmul, sm_count
 from repro_torch.kernels.spikemm.ref import spikemm_chain_ref, spikemm_ref
-from repro_torch.kernels.spikemm.sparse import (block_occupancy,
-                                                occupancy_flags,
+from repro_torch.kernels.spikemm.sparse import (block_occupancy, occupancy,
                                                 spikemm_sparse_cuda,
                                                 spikemm_sparse_ref)
 
@@ -76,12 +77,19 @@ def rows_per_cta(M: int, N: int, n_sm: int) -> int:
     return sizes[-1]
 
 
+def _fraction(flags: torch.Tensor, total: torch.Tensor) -> float:
+    """The occupied share of the blocks `flags` covers, `total` of them:
+    one host read of `total` (NaN, the mean of nothing, for no blocks)."""
+    n = flags.numel()
+    return total.item() / n if n else float("nan")
+
+
 def occupancy_fraction(spikes: torch.Tensor) -> float:
     """Fraction of spike blocks with events at the sparse kernel's own
-    block shape (`occupancy_flags`): the share of its work the kernel
-    does not skip. Ragged edges count as zero-padded blocks, as the
-    kernel sees them."""
-    return float(occupancy_flags(spikes).float().mean())
+    block shape (`occupancy`): the share of its work the kernel does not
+    skip. Ragged edges count as zero-padded blocks, as the kernel sees
+    them."""
+    return _fraction(*occupancy(spikes))
 
 
 def sparse_threshold() -> float:
@@ -95,7 +103,8 @@ def _select_channel(spikes: torch.Tensor, w: torch.Tensor, *,
                     ) -> Tuple[Optional[str], Dict[str, torch.Tensor]]:
     """Dispatch-time router: ("sparse", its kwargs) at or below the
     occupancy threshold, (None, {}) (dense) above it. Under `auto` the
-    kwargs carry the flags measured to decide."""
+    occupancy is measured once (on the card: its kernel, then one read of
+    the count) and the kwargs carry the flags measured to decide."""
     mode = os.environ.get(_ENV_SPARSE, "auto")
     if mode not in ("never", "auto", "always"):
         raise ValueError(f"{_ENV_SPARSE}={mode!r}: "
@@ -106,8 +115,8 @@ def _select_channel(spikes: torch.Tensor, w: torch.Tensor, *,
         return "sparse", {}
     if traced:
         return None, {}              # the JAX package's traced raster
-    flags = occupancy_flags(spikes)
-    if float(flags.float().mean()) <= sparse_threshold():
+    flags, total = occupancy(spikes)
+    if _fraction(flags, total) <= sparse_threshold():
         return "sparse", {"flags": flags}
     return None, {}
 

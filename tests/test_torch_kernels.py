@@ -48,13 +48,15 @@ from repro_torch.kernels.lif.ops import lif_cuda, lif_scan
 from repro_torch.kernels.lifrec.ops import lifrec_cuda, lifrec_scan
 from repro_torch.kernels.linrec.ops import linrec, linrec_cuda
 from repro_torch.kernels.spikemm import ops as spikemm_ops
+from repro_torch.kernels.spikemm import sparse as spikemm_sparse
 from repro_torch.kernels.spikemm.gather import (build_gather_tables,
                                                 spikemm_gather_cuda)
 from repro_torch.kernels.spikemm.ops import (block_occupancy, spikemm,
                                              spikemm_cuda)
 from repro_torch.kernels.spikemm.ref import spikemm_chain_ref, spikemm_ref
 from repro_torch.kernels.spikemm.sparse import (SPARSE_BLOCK,
-                                                compact_blocks,
+                                                compact_blocks, occupancy,
+                                                occupancy_cuda,
                                                 occupancy_flags,
                                                 spikemm_sparse_cuda,
                                                 spikemm_sparse_ref)
@@ -182,7 +184,7 @@ def test_spikemm_wrapper_launches_one_kernel_and_nothing_before(
     monkeypatch.setattr(spikemm_ops, "check_matmul", lambda *a: None)
     monkeypatch.setattr(spikemm_ops, "sm_count", lambda dev: 132)
     monkeypatch.setattr(spikemm_ops, "block_occupancy", refuse)
-    monkeypatch.setattr(spikemm_ops, "occupancy_flags", refuse)
+    monkeypatch.setattr(spikemm_ops, "occupancy", refuse)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -457,6 +459,198 @@ def test_router_at_below_and_above_the_threshold(monkeypatch):
     assert route(_block_raster(512, 512, 1, 0), w) == (None, {})
 
 
+def _occupancy_rasters():
+    """Rasters for the occupancy at SPARSE_BLOCK: all silent, all
+    occupied, ragged M and K, and Kb > 64 (a CTA's list spans several
+    ballot words)."""
+    rng = np.random.default_rng(12)
+    full = np.zeros((192, 256), np.float32)
+    full[::64, ::64] = 1.0                      # one spike in every block
+    wide = np.zeros((130, 64 * 130 + 5), np.float32)
+    wide[:, rng.permutation(wide.shape[1])[:90]] = 1.0
+    return {"all_silent": np.zeros((128, 320), np.float32),
+            "all_occupied": full,
+            "ragged": (rng.random((100, 300)) < 0.002).astype(np.float32),
+            "kb_over_64": wide}
+
+
+@pytest.mark.parametrize("label", sorted(_occupancy_rasters()))
+def test_block_occupancy_at_the_sparse_block_matches_reference(label):
+    """`block_occupancy` at SPARSE_BLOCK (what the occupancy kernel
+    computes, held to it on the card) against the JAX `block_occupancy`
+    on the zero-padded raster, and `occupancy` on the CPU gives those
+    flags and their count."""
+    bm, bk = SPARSE_BLOCK
+    s = _occupancy_rasters()[label]
+    sp, _ = jpad(jnp.asarray(s), 0, bm)
+    sp, _ = jpad(sp, 1, bk)
+    ref = np.asarray(jblock_occupancy(sp, bm, bk))
+    flags, total = occupancy(torch.from_numpy(s))
+    np.testing.assert_array_equal(flags.numpy(), ref)
+    assert total.dtype == torch.int32 and total.shape == (1,)
+    assert int(total) == int(ref.sum())
+    assert torch.equal(occupancy_flags(torch.from_numpy(s)), flags)
+
+
+@pytest.mark.parametrize("Mb,Kb,p", [(3, 65, 0.2), (4, 130, 0.05),
+                                     (2, 1100, 0.01), (5, 96, 1.0)])
+def test_compact_blocks_rows_match_reference(Mb, Kb, p):
+    """Row by row, the occupied k blocks in ascending k (the list a CTA of
+    the product builds for its block row, by ballot and popc) and the
+    sentinel of a silent row, against the JAX `compact_blocks`, with rows
+    whose lists span several 32-bit ballot words."""
+    rng = np.random.default_rng(Mb * Kb)
+    flags = (rng.random((Mb, Kb)) < p).astype(np.int32)
+    flags[1] = 0                                # a silent row block
+    ref = [np.asarray(a) for a in jcompact_blocks(jnp.asarray(flags))]
+    got = [a.numpy() for a in compact_blocks(torch.from_numpy(flags))]
+    for i in range(Mb):
+        rows = [(ii == i) for ii in (got[0], ref[0])]
+        for g, r in zip(got[1:], ref[1:]):
+            np.testing.assert_array_equal(g[rows[0]], r[rows[1]])
+        listed = got[1][rows[0] & (got[2] == 1)]
+        np.testing.assert_array_equal(listed, np.flatnonzero(flags[i]))
+        if not flags[i].any():
+            assert got[2][rows[0]].tolist() == [0]       # the sentinel
+
+
+@pytest.mark.parametrize("M,N,tile", [(2048, 512, 64), (2048, 20, 16),
+                                      (128, 64, 16), (100, 200, 16),
+                                      (8448, 64, 64)])
+def test_sparse_tile_plan(M, N, tile):
+    """The product's tile: 64 where the output holds a 64 x 64 tile for
+    each of 132 SMs, else 16."""
+    assert spikemm_sparse.sparse_tile(M, N, 132) == tile
+    assert tile in spikemm_sparse.SPARSE_TILES
+
+
+def _stand_in(monkeypatch, lib):
+    """CPU tensors through the CUDA wrappers: `lib` for the library, the
+    device checks and the stream stood in for, no host read allowed."""
+    from contextlib import nullcontext
+
+    def refuse(*a, **k):
+        raise AssertionError("a host read or a host-side compaction")
+    monkeypatch.setattr(spikemm_sparse, "check_matmul", lambda *a: None)
+    monkeypatch.setattr(spikemm_sparse, "check_raster", lambda *a: None)
+    monkeypatch.setattr(spikemm_sparse, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    for mod, name in ((torch, "nonzero"), (torch, "searchsorted"),
+                      (torch.Tensor, "nonzero"), (torch.Tensor, "item"),
+                      (torch.Tensor, "tolist"), (torch.Tensor, "cpu")):
+        monkeypatch.setattr(mod, name, refuse)
+
+
+@pytest.mark.parametrize("M,K,N", [(2048, 4096, 512), (2048, 512, 20),
+                                   (128, 8192, 64), (5, 0, 3)])
+@pytest.mark.parametrize("flags_given", [False, True])
+def test_sparse_wrapper_is_two_launches_and_no_host_read(monkeypatch, M, K,
+                                                         N, flags_given):
+    """With a recording stand-in for the library, `spikemm_sparse_cuda`
+    calls the occupancy kernel and then the product on the flags it wrote
+    (only the product when flags are handed in), on `sparse_tile`'s tile;
+    it calls no nonzero, searchsorted or item, and counts one launch."""
+    from unittest import mock
+    bm, bk = SPARSE_BLOCK
+    flags = torch.zeros((-(-M // bm), -(-K // bk)), dtype=torch.int32)
+    lib = mock.Mock(**{"spikemm_occupancy_f32.return_value": 0,
+                       "spikemm_sparse_f32.return_value": 0})
+    registry.reset_launches()
+    spikemm_sparse.occupancy_cuda.launches = 0
+    _stand_in(monkeypatch, lib)
+    out = spikemm_sparse_cuda(torch.zeros((M, K)), torch.zeros((K, N)),
+                              flags if flags_given else None)
+    assert out.shape == (M, N)
+    calls = [c[0] for c in lib.method_calls]
+    product = lib.spikemm_sparse_f32.call_args.args
+    assert product[4:8] == (M, K, N, spikemm_sparse.sparse_tile(M, N, 132))
+    if flags_given:
+        assert calls == ["spikemm_sparse_f32"]
+        assert product[2] == flags.data_ptr()
+    else:
+        assert calls == ["spikemm_occupancy_f32", "spikemm_sparse_f32"]
+        occ = lib.spikemm_occupancy_f32.call_args.args
+        assert occ[3:5] == (M, K)
+        assert product[2] == occ[1]       # the flags the occupancy wrote
+    assert registry.launch_counts()["spikemm_sparse"] == 1
+    assert spikemm_sparse.occupancy_cuda.launches == int(not flags_given)
+    registry.reset_launches()
+    spikemm_sparse.occupancy_cuda.launches = 0
+
+
+def test_sparse_wrapper_refuses_flags_it_cannot_take(monkeypatch):
+    """Handed-in flags must be the raster's (Mb, Kb) contiguous int32."""
+    from unittest import mock
+    _stand_in(monkeypatch, mock.Mock())
+    s, w = torch.zeros((130, 70)), torch.zeros((70, 8))
+    for bad in (torch.zeros((3, 2), dtype=torch.int64),
+                torch.zeros((2, 2), dtype=torch.int32),
+                torch.zeros((2, 6), dtype=torch.int32)[:, ::2]):
+        with pytest.raises(ValueError, match="flags must be"):
+            spikemm_sparse_cuda(s, w, bad)
+
+
+def _fake_occupancy(total_shift=0):
+    """A library stand-in whose occupancy kernel reads the raster through
+    its pointer and writes `block_occupancy` and its count (plus
+    `total_shift`) through theirs, as the kernel does on the card."""
+    import ctypes
+
+    def at(ptr, n, ct):
+        return np.ctypeslib.as_array((ct * max(n, 1)).from_address(ptr))[:n]
+
+    def occupancy_f32(s, flags, total, M, K, stream):
+        x = torch.from_numpy(at(s, M * K, ctypes.c_float).reshape(M, K))
+        f = block_occupancy(x, *SPARSE_BLOCK).numpy()
+        at(flags, f.size, ctypes.c_int32)[:] = f.ravel()
+        at(total, 1, ctypes.c_int32)[:] = f.sum() + total_shift
+        return 0
+    return type("Lib", (), {"spikemm_occupancy_f32":
+                            staticmethod(occupancy_f32)})()
+
+
+@pytest.mark.parametrize("n,want", [(15, "sparse"), (16, "sparse"),
+                                    (17, None)])
+def test_router_decides_from_the_kernels_total_with_one_read(monkeypatch, n,
+                                                             want):
+    """On the card `auto` launches the occupancy kernel and reads its
+    4-byte total once: it routes as `occupancy_fraction <= 0.25` does at
+    15, 16 and 17 of 64 blocks, hands the kernel's flags to the sparse
+    channel, and follows the total (a total one block higher routes as
+    one more block would)."""
+    monkeypatch.delenv("REPRO_SPIKEMM_SPARSE", raising=False)
+    s = _block_raster(512, 512, n, n)
+    w = torch.ones(512, 8)
+    assert (spikemm_ops.occupancy_fraction(s) <= 0.25) == (want is not None)
+    route = registry.get("spikemm").select_channel
+    real_item = torch.Tensor.item
+    reads = []
+
+    def item(self):
+        reads.append(tuple(self.shape))
+        return real_item(self)
+    for shift, expect in ((0, want), (1, "sparse" if n < 16 else None)):
+        _stand_in(monkeypatch, _fake_occupancy(shift))
+        monkeypatch.setattr(spikemm_sparse, "on_cuda", lambda args: True)
+        monkeypatch.setattr(torch.Tensor, "item", item)
+        reads.clear()
+        spikemm_sparse.occupancy_cuda.launches = 0
+        choice, measured = route(s, w)
+        assert reads == [(1,)]                   # the total, once
+        assert spikemm_sparse.occupancy_cuda.launches == 1
+        assert choice == expect, (n, shift)
+        if expect == "sparse":
+            assert torch.equal(measured.pop("flags"),
+                               block_occupancy(s, *SPARSE_BLOCK))
+        assert measured == {}
+        monkeypatch.undo()
+        monkeypatch.delenv("REPRO_SPIKEMM_SPARSE", raising=False)
+    spikemm_sparse.occupancy_cuda.launches = 0
+
+
 def test_sparse_env_refuses_a_bad_value(monkeypatch):
     monkeypatch.setenv("REPRO_SPIKEMM_SPARSE", "sometimes")
     with pytest.raises(ValueError, match="expected 'never', 'auto', or "
@@ -619,6 +813,7 @@ def test_dispatch_rejects_mixed_devices():
                          torch.ones(4), torch.ones(4), torch.zeros(2, 4),
                          torch.zeros(2, 4), torch.zeros(2, 4)),
     lambda: spikemm_sparse_cuda(torch.zeros(4, 3), torch.zeros(3, 2)),
+    lambda: occupancy_cuda(torch.zeros(4, 3)),
     lambda: spikemm_gather_cuda(torch.zeros(4, 3), build_gather_tables(
         [0], [1], [1.0], 3, 2, bk=4, bn=4)),
     lambda: stdp_update_cuda(torch.zeros(2, 3), torch.zeros(2, 4),

@@ -1,5 +1,5 @@
-"""Chip smoke test: serve the paper's SNNs, learn on-chip and run flash
-attention through `repro_torch` on one H100.
+"""Chip smoke test: serve the paper's SNNs, learn on-chip, train the SHD
+DH-SNN and run flash attention through `repro_torch` on one H100.
 
 Run from the repository root with no arguments:
 
@@ -21,7 +21,7 @@ the kernel phase and the sweep with no path, and
 
     python3 chip_smoke.py --path topology_banded
 
-the device and build phases and one path (any of 4.-10.'s names) alone:
+the device and build phases and one path (any of 4.-11.'s names) alone:
 copied into an older checkout, `--kernels` or `--path` measures that
 tree the same way, so two trees compare in one call.
 
@@ -107,6 +107,22 @@ tree the same way, so two trees compare in one call.
             on an all-silent raster (its output must be +0 everywhere);
             every gather case equal to `spikemm_gather_ref` as fp32 bit
             patterns;
+            `lif_bwd` (B1) and `linrec_bwd` (B2), the backward kernels:
+            each model's calls of one train_shd step (captured at the
+            registry; timed: the soma (60, 48, 64), the branches (60, 48,
+            256) and the readout (60, 48, 20)), `lif_bwd` with every
+            surrogate at alpha 0.5, 1, 2 and both resets at the JAX tests'
+            (37, 3, 130), and at (20, 3, 130), T = 1, T = 0 and ragged
+            (17, 1, 33), (5, 3, 7); `linrec_bwd` at (24, 3, 136), (37, 3,
+            136), T = 1, T = 0 and (17, 1, 33) with a full and a stride-0
+            decay, asked for every gradient, for g_x alone and for g_a
+            and g_x: each bit for bit its plain version as fp32 bit
+            patterns (sigmoid: rtol 1e-6, atol 1e-7, its expf), and
+            `linrec_bwd`'s gx also equal to the forward kernel run on the
+            flipped, one-shifted decay; the u scratch's bound printed
+            beside `lif_bwd`'s; the train_shd step's g_w products
+            ((700, 2880) @ (2880, 256), (64, 2880) @ (2880, 20)) on
+            `spikemm` and `spikemm_sparse`, timed beside `torch.matmul`;
             `spikemm` also at the parity harness's inputs, at the
             sparse_integ path's hidden INTEG at each density and at the
             topology_banded path's readout INTEG (64 x 8192 @ 8192 x 8);
@@ -230,7 +246,24 @@ tree the same way, so two trees compare in one call.
             `stdp_run(use_kernel=True)` at T=300, B=8, 256 x 128: 300 `stdp`
             launches; the weight equals `use_kernel=False` on the card and
             the CPU's plain version within 1e-5 (the JAX test's tolerance).
-11. attention
+11. train_shd
+            `examples/shd_dhsnn_torch.py`'s training at the published
+            widths: the DH-SNN (700 -> 64 x 4 -> 20) and its LIF ablation,
+            5 clipped-SGD steps at lr 0.2 on gen_shd_spikes(48, T=60)
+            through `plan.run`, forward and backward, counters set to 0
+            just before: per step spikemm x4 (2 INTEG, 2 g_w; dense or
+            sparse as `auto` routes), lif, lif_bwd, and a linrec and a
+            linrec_bwd for the readout and (dendritic) the branches; every
+            loss finite and printed; the first step against the CPU's
+            (loss within 1e-4 relative, each gradient leaf within a
+            relative L2 error of 1e-3), the forward's hidden trains under
+            the tie rule, lane-steps at a surrogate window edge counted;
+            the first step again under `auto`, `never` and `always`, the
+            channel of every spikemm call printed (g_w must cross both
+            kernels) and each within the same tolerances of the counted
+            run (bit equality printed); the step's ms by host clock (median
+            of 5 after 2 warm-ups) and the card's by kernel (profiler).
+12. attention
             `kernels.attention.ops.flash_attention` through the registry,
             once per case, counters set to 0 just before: the JAX kernel
             tests' grid (BH=4: (256, 256, 64), (512, 512, 128), (384, 640,
@@ -261,10 +294,12 @@ tree the same way, so two trees compare in one call.
             Then `_FlashST`'s straight-through VJP at T=256, S=160, d=64,
             causal with window 128 (the parity phase holds (2, 160, 64))
             against autograd through the plain version, within 2e-3.
-12. parity  `repro_torch.kernels.parity.check_all()`: every family's CUDA
+13. parity  `repro_torch.kernels.parity.check_all()`: every family's CUDA
             wrapper and the sparse channel's against their plain versions
-            at `make_inputs`, `attention` forward and VJP; 11 kernels.
-13. result  prints `{"kernels": [...]}`, `{"gather_rows": {...}}`,
+            at `make_inputs`, forward, and the VJP of `attention`, `lif`,
+            `linrec` and `spikemm` (both channels: CUDA forward and
+            backward against plain forward and backward); 11 kernels.
+14. result  prints `{"kernels": [...]}`, `{"gather_rows": {...}}`,
             `{"sparse_tiles": {...}}`, `{"sweep": {...}}`, one
             `{"slice": {...}}` line per path, `{"parity": {...}}`, the
             card's name and power limit and, last, `{"ok": true,
@@ -295,11 +330,17 @@ step, the two products and the clip of the single step), so their
 softmax weighs (every key of a row with no allowed key) against the peak
 of its input type: 67 TFLOP/s for fp32, 989 TFLOP/s (the tensor cores)
 for bf16; `bound_dense_ms` counts all T x S pairs. Its row in the kernel
-line is the qwen2_32k call.
+line is the qwen2_32k call. The backward kernels' bytes are the planes
+the function reads and writes once (`lif_bwd`: current, spikes and their
+cotangent in, g_current out, T x B x N each; `linrec_bwd`: g_y, a, and y
+for g_a, in, g_x and g_a out), `lif_bwd`'s u scratch printed beside;
+their rows are the dendritic train_shd step's calls, and no single
+PyTorch call computes either reverse recurrence (`library_ms` null).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import importlib.util
@@ -438,6 +479,20 @@ ATTN_PLAIN_BYTES = 2 ** 31
 PEAK_BF16_FLOPS = 989e12
 # the head dims of flash attention's tensor-core route (bf16)
 TC_HEAD_DIMS = (64, 128)
+# train_shd: `examples/shd_dhsnn_torch.py`'s training at the published
+# widths, on gen_shd_spikes(48, T=60): clipped SGD at lr 0.2, 5 steps
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 48, 60, 5, 0.2
+# the card's first step against the CPU's: the loss relative, each
+# gradient leaf as a relative L2 error (the card sums INTEG in another
+# order than the CPU's matmul)
+TRAIN_LOSS_RTOL, TRAIN_LEAF_RTOL = 1e-4, 1e-3
+# timed training steps (host clock, median) after TRAIN_WARMUP
+TRAIN_TIMED, TRAIN_WARMUP = 5, 2
+# lif_bwd under the sigmoid surrogate: its expf against PyTorch's sigmoid
+SIGMOID_RTOL, SIGMOID_ATOL = 1e-6, 1e-7
+# the backward lane scans, held bit for bit as fp32 bit patterns
+BWD_SCANS = ("lif_bwd", "linrec_bwd")
+SURROGATES = ("arctan", "rectangle", "sigmoid", "triangle")
 
 SOURCES = {
     "spikemm": ("src/repro_torch/csrc/spikemm.cu",
@@ -462,15 +517,23 @@ SOURCES = {
              "src/repro/kernels/stdp/kernel.py:114"),
     "attention": ("src/repro_torch/csrc/flash_attention.cu",
                   "src/repro/kernels/attention/kernel.py:106"),
+    # the backward kernels replace the JAX package's custom VJPs (jnp code,
+    # no Pallas kernel): B1 and B2
+    "lif_bwd": ("src/repro_torch/csrc/lif.cu",
+                "src/repro/kernels/lif/ops.py:78"),
+    "linrec_bwd": ("src/repro_torch/csrc/linrec.cu",
+                   "src/repro/kernels/linrec/ops.py:63"),
 }
 # the path whose serving calls make up a kernel's row in the kernel table
 HOME = {"spikemm": "shd", "linrec": "shd", "lif": "shd",
         "lifrec": "ecg_homogeneous", "alifrec": "ecg", "alif": "alif_ff",
         "spikemm_sparse": "sparse_integ", "spikemm_gather": "topology_banded",
         "stdp_seq": "plastic_ff", "stdp": "stdp_step",
-        "attention": "attention"}
-# elementwise fp32 operations per lane-step of the time kernels
-LANE_OPS = {"lif": 4, "lifrec": 6, "alif": 9, "alifrec": 10}
+        "attention": "attention", "lif_bwd": "train_shd",
+        "linrec_bwd": "train_shd"}
+# elementwise fp32 operations per lane-step of the time kernels (lif_bwd:
+# the u step and its reset, the surrogate, the adjoint, v_{t-1}, g_tau)
+LANE_OPS = {"lif": 4, "lifrec": 6, "alif": 9, "alifrec": 10, "lif_bwd": 20}
 
 
 def log(*a):
@@ -521,7 +584,9 @@ def phase_build():
     log(f"build: {secs:.1f} s ({len(_build.sources())} sources, one nvcc -c "
         f"each started together and one link, {lib.parent})")
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "Compiling entry function" in line:
+        if line.startswith("== ") and line.endswith(" s)"):
+            log("  " + line[3:])             # a source and its nvcc seconds
+        elif "Compiling entry function" in line:
             log("  " + line.split("'")[1])
         elif "registers" in line or "bytes stack" in line or "error" in line:
             log("  " + line.strip())
@@ -1222,9 +1287,10 @@ def path_lif_cases():
     captured = []
     real = plan.lif_scan
 
-    def spy(cur, tau, v0, v_th=1.0, reset="zero"):
+    def spy(cur, tau, v0, v_th=1.0, surrogate="rectangle", alpha=1.0,
+            reset="zero"):
         captured.append((cur.clone(), tau.clone(), v0.clone(), v_th, reset))
-        return real(cur, tau, v0, v_th, reset)
+        return real(cur, tau, v0, v_th, surrogate, alpha, reset)
 
     runs = []
     nodes, params = make_plastic("pair_stdp", DEV)
@@ -1475,6 +1541,18 @@ def work(name, args, out, kw=None):
                                    if st != 0]))
         ops = 2 * x.numel()
         return a_bytes + 4 * (2 * x.numel() + 2 * h0.numel()), ops, ops
+    if name == "linrec_bwd":
+        # reads gy, g_hT and a; writes gx; g_a also reads y (and h0) and
+        # writes g_a; g_h0 writes (B, D)
+        a, y, h0, gy, ghT = args
+        need_a, need_h0 = kw.get("need_a", True), kw.get("need_h0", True)
+        a_bytes = 4 * int(np.prod([n for n, st in zip(a.shape, a.stride())
+                                   if st != 0]))
+        n, m = y.numel(), h0.numel()
+        nbytes = a_bytes + 4 * (2 * n + m) + (4 * (2 * n + m) if need_a
+                                                else 0) + 4 * m * need_h0
+        ops = 2 * n + n * need_a + m * need_h0
+        return nbytes, ops, ops
     T, B, N = args[0].shape
     nbytes = 4 * (sum(t.numel() for t in tensors)
                   + sum(o.numel() for o in out))
@@ -1535,6 +1613,8 @@ class Case:
     kw: dict = dataclasses.field(default_factory=dict)  # keyword arguments
     plain_iters: int = None          # timed calls of a slow plain version
     rtol: float = None               # spikemm: against the plain matmul
+    atol: float = None               # lif_bwd under sigmoid: with rtol
+    zero_ok: bool = False            # outputs may be all zero (T = 0)
 
 
 def packed_raster(M, K, density, seed, rate=0.5):
@@ -1878,9 +1958,12 @@ def kernel_impls():
     from repro_torch.kernels.alifrec.ops import (alif_cuda, alif_scan_ref,
                                                  alifrec_cuda,
                                                  alifrec_scan_ref)
-    from repro_torch.kernels.lif.ops import lif_cuda, lif_scan_ref
+    from repro_torch.kernels.lif.ops import (lif_bwd_cuda, lif_cuda,
+                                             lif_scan_bwd_ref, lif_scan_ref)
     from repro_torch.kernels.lifrec.ops import lifrec_cuda, lifrec_scan_ref
-    from repro_torch.kernels.linrec.ops import linrec_cuda, linrec_ref
+    from repro_torch.kernels.linrec.ops import (linrec_bwd_cuda,
+                                                linrec_bwd_ref, linrec_cuda,
+                                                linrec_ref)
     from repro_torch.kernels.spikemm.gather import (spikemm_gather_cuda,
                                                     spikemm_gather_ref)
     from repro_torch.kernels.spikemm.ops import spikemm_cuda, spikemm_ref
@@ -1893,13 +1976,15 @@ def kernel_impls():
             "lifrec": lifrec_cuda, "alif": alif_cuda,
             "alifrec": alifrec_cuda, "spikemm_sparse": spikemm_sparse_cuda,
             "spikemm_gather": spikemm_gather_cuda, "stdp_seq": stdp_seq_cuda,
-            "stdp": stdp_update_cuda}
+            "stdp": stdp_update_cuda, "lif_bwd": lif_bwd_cuda,
+            "linrec_bwd": linrec_bwd_cuda}
     plain = {"spikemm": spikemm_ref, "linrec": linrec_ref,
              "lif": lif_scan_ref, "lifrec": lifrec_scan_ref,
              "alif": alif_scan_ref, "alifrec": alifrec_scan_ref,
              "spikemm_sparse": spikemm_sparse_ref,
              "spikemm_gather": spikemm_gather_ref,
-             "stdp_seq": stdp_seq_ref, "stdp": stdp_update_ref}
+             "stdp_seq": stdp_seq_ref, "stdp": stdp_update_ref,
+             "lif_bwd": lif_scan_bwd_ref, "linrec_bwd": linrec_bwd_ref}
     return cuda, plain
 
 
@@ -1930,6 +2015,8 @@ def kernel_cases(shd_params):
         for c in sparse_cases()]
     cases["spikemm_gather"] = gather_cases()
     for name, calls in serial_cases().items():
+        cases[name] += calls
+    for name, calls in train_cases().items():
         cases[name] += calls
     return cases
 
@@ -1987,6 +2074,14 @@ def phase_kernels(cases):
             extra = "" if route is None else (
                 f", {route} route (its counter "
                 f"{rec_route_launch_counts()[name][route]})")
+            if name == "linrec_bwd":
+                # g_a and g_h0 are None where not asked for, on both sides
+                if [g is None for g in got] != [r is None for r in ref]:
+                    raise AssertionError(f"{name} [{label}]: computed "
+                                         "other gradients than its plain "
+                                         "version")
+                got = tuple(g for g in got if g is not None)
+                ref = tuple(r for r in ref if r is not None)
             for g, r in zip(got, ref):
                 if not torch.isfinite(g).all():
                     raise AssertionError(f"{name} [{label}]: non-finite")
@@ -1995,10 +2090,10 @@ def phase_kernels(cases):
                                        torch.zeros_like(g, dtype=torch.int32)):
                         raise AssertionError(f"{name} [{label}]: a silent "
                                              "input gave an output not +0")
-                elif not g.abs().sum() > 0:
+                elif not g.abs().sum() > 0 and not case.zero_ok:
                     raise AssertionError(f"{name} [{label}]: all zero, the "
                                          "comparison would be vacuous")
-                err = float((g - r).abs().max())
+                err = float((g - r).abs().max()) if g.numel() else 0.0
                 max_err = max(max_err, err)
                 if name == "spikemm":
                     torch.testing.assert_close(g, r, rtol=case.rtol or
@@ -2015,6 +2110,12 @@ def phase_kernels(cases):
                     torch.testing.assert_close(g, r, rtol=CHANNEL_TOL,
                                                atol=CHANNEL_TOL)
                     extra = (", bit for bit" if torch.equal(g, r)
+                             else f", max abs err {err:.3e}")
+                elif name == "lif_bwd" and case.rtol is not None:
+                    # sigmoid: the kernel's expf against PyTorch's sigmoid
+                    torch.testing.assert_close(g, r, rtol=case.rtol,
+                                               atol=case.atol)
+                    extra = (", bit for bit" if same_bits(name, g, r)
                              else f", max abs err {err:.3e}")
                 elif name == "spikemm_gather":
                     # the plain version's chain term for term (entries,
@@ -2040,6 +2141,9 @@ def phase_kernels(cases):
                 extra += ("; equal to the dense kernel bit for bit; "
                           f"occupancy kernel == block_occupancy ({occupied} "
                           f"of {blocks} blocks, total == flags.sum())")
+            if name == "linrec_bwd" and args[1].shape[0] > 0:
+                extra += linrec_bwd_flipped(
+                    label, args, got[1 if kw.get("need_a", True) else 0])
             if case.rows_alone:
                 # a row's result does not depend on the rows batched with it
                 for i in range(args[0].shape[0]):
@@ -2076,7 +2180,7 @@ def phase_kernels(cases):
                     f"plain{extra} (max abs err so far {max_err:.3e})")
                 continue
             heavy = name in ("lifrec", "alifrec", "alif", "spikemm_gather",
-                             "stdp_seq")
+                             "stdp_seq", "lif_bwd", "linrec_bwd")
             ms = cuda_ms(lambda: cuda[name](*args, **kw), iters=200)
             p_ms = cuda_ms(lambda: plain[name](*args, **kw),
                            iters=case.plain_iters or (5 if heavy else 20),
@@ -2086,6 +2190,8 @@ def phase_kernels(cases):
             # the sparse channel is its occupancy measure and its product:
             # time each alone, and the dense kernel on the same inputs
             kernel_ms = dense_ms = occ_ms = None
+            if name == "lif_bwd":
+                kernel_ms = cuda_ms(lif_bwd_alone(args, kw), iters=200)
             if name == "spikemm_sparse":
                 occ, product = sparse_parts(*args)
                 occ_ms = cuda_ms(occ, iters=200)
@@ -2100,6 +2206,10 @@ def phase_kernels(cases):
                                     bound(gather_patch_bytes(*args), flops)[0])
                                    if name == "spikemm_gather"
                                    else (None, None))
+            # lif_bwd's u scratch (written in pass 1, read in pass 2): not
+            # the function's bytes, this design's, printed beside the bound
+            scratch_ms = (bound(nbytes + 2 * 4 * args[0].numel(), flops)[0]
+                          if name == "lif_bwd" else None)
             T = args[1].shape[0] if name == "linrec" else (
                 args[0].shape[1] // kw["batch"] if name == "stdp_seq" else (
                     args[0].shape[0] if name not in (
@@ -2117,6 +2227,7 @@ def phase_kernels(cases):
                           "dense_kernel_ms": dense_ms,
                           "bound_rows_ms": rows_ms,
                           "bound_patches_ms": patches_ms,
+                          "bound_scratch_ms": scratch_ms,
                           "table_build_s": case.build_s})
             log(f"kernel {name} [{label}] {shapes}: {ms:.4f} ms on the card"
                 f"{'' if T is None else f' ({ms / T * 1e3:.3f} us/step)'} "
@@ -2124,8 +2235,9 @@ def phase_kernels(cases):
                 f"library {lib if lib is None else round(lib, 4)}, bound "
                 f"{b_ms:.5f} by {b_by}, dense bound {d_ms:.5f} by {d_by}, "
                 f"{ms / max(b_ms, floor):.2f}x max(bound, floor)"
-                f"{'' if kernel_ms is None else f', occupancy alone {occ_ms:.4f}, product alone {kernel_ms:.4f}, dense kernel {dense_ms:.4f}'}"
+                f"{'' if occ_ms is None else f', occupancy alone {occ_ms:.4f}, product alone {kernel_ms:.4f}, dense kernel {dense_ms:.4f}'}"
                 f"{'' if patches_ms is None else f', read-rows bound {rows_ms:.5f}, every-patch bound {patches_ms:.5f}'}"
+                f"{'' if scratch_ms is None else f', bound with the u scratch {scratch_ms:.5f}, kernel alone {kernel_ms:.4f}'}"
                 f"{'' if case.build_s is None else f', tables built in {case.build_s:.1f} s'})"
                 f"{extra}; max abs err so far {max_err:.3e}")
         src, rep = SOURCES[name]
@@ -2211,8 +2323,8 @@ def same_bits(name, got, ref):
     fp32 bit patterns too, so that -0.0 and +0.0 differ."""
     if not torch.equal(got, ref):
         return False
-    return name not in LANE_SCANS or torch.equal(got.view(torch.int32),
-                                                 ref.view(torch.int32))
+    return (name not in LANE_SCANS + BWD_SCANS
+            or torch.equal(got.view(torch.int32), ref.view(torch.int32)))
 
 
 def cut_steps(name, args, kw, T):
@@ -3301,7 +3413,410 @@ def phase_stdp_step(smi):
 
 
 # ---------------------------------------------------------------------------
-# 11. attention and 12. parity
+# 11. training: the SHD DH-SNN, forward and backward through the kernels
+# ---------------------------------------------------------------------------
+
+
+def train_data(device):
+    """`examples/shd_dhsnn_torch.py`'s batch: gen_shd_spikes(48, T=60) as
+    (T, B, n_in) spikes and (B,) labels on `device`."""
+    from repro_torch.data.spikes import gen_shd_spikes
+    xs, ys = gen_shd_spikes(TRAIN_B, T=TRAIN_T, n_in=N_IN)
+    x = np.ascontiguousarray(xs.transpose(1, 0, 2))
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(ys).long().to(device))
+
+
+def param_leaves(tree, prefix=()):
+    """[(path, tensor)] of a parameter tree, in sorted key order."""
+    if isinstance(tree, dict):
+        return [pt for k in sorted(tree)
+                for pt in param_leaves(tree[k], prefix + (k,))]
+    return [] if tree is None else [(prefix, tree)]
+
+
+def train_model(dendritic, device):
+    """The SHD model (`make_shd`'s weights) with every parameter requiring
+    grad."""
+    nodes, params = make_shd(dendritic, device)
+    for _, p in param_leaves(params):
+        p.requires_grad_()
+    return nodes, params
+
+
+def train_step(nodes, params, x, y, keep=False):
+    """One step of the example's training through the user's entry point:
+    the loss (cross-entropy of the time-averaged readout) by `plan.run`,
+    its backward, and the clipped SGD update at TRAIN_LR. Returns (the
+    loss, {path: gradient} before the update where `keep`, else None)."""
+    from repro_torch.core import plan
+    _, outs, _ = plan.run(nodes, params, x, device=x.device)
+    loss = -torch.log_softmax(outs.mean(0), -1)[
+        torch.arange(len(y), device=y.device), y].mean()
+    loss.backward()
+    leaves = param_leaves(params)
+    grads = ({"/".join(k): p.grad.detach().clone() for k, p in leaves}
+             if keep else None)
+    gn = torch.sqrt(sum((p.grad ** 2).sum() for _, p in leaves))
+    sc = torch.clamp_max(1.0 / (gn + 1e-9), 1.0)
+    with torch.no_grad():
+        for _, p in leaves:
+            p -= TRAIN_LR * sc * p.grad
+            p.grad = None
+    return loss.detach(), grads
+
+
+def train_per_step(dendritic):
+    """Launches of one training step. Forward: INTEG x2 (spikemm), the
+    branches' and the readout's linrec (the ablation: the readout's), the
+    soma's lif; backward: lif_bwd, linrec_bwd per linrec, and g_w x2
+    through the spike product (dense or sparse channel, as routed)."""
+    n_lin = 2 if dendritic else 1
+    return {"spikemm+sparse": 4, "lif": 1, "linrec": n_lin, "lif_bwd": 1,
+            "linrec_bwd": n_lin}
+
+
+@contextlib.contextmanager
+def recording(routes=None, bwd_calls=None):
+    """Within it, each spikemm dispatch appends {raster, w, channel, args}
+    to `routes` (the router's choice, its arguments as they came), and
+    each backward kernel call its cloned (args, kwargs) to
+    `bwd_calls[name]`, through wrapped registry entries (restored after;
+    the launch counters are not to be read inside)."""
+    from repro_torch.kernels import registry
+    reg = registry._REGISTRY
+    saved = dict(reg)
+    try:
+        if routes is not None:
+            def select(*args, _route=registry.get("spikemm").select_channel,
+                       **kw):
+                choice, measured = _route(*args, **kw)
+                routes.append({"raster": list(args[0].shape),
+                               "w": list(args[1].shape),
+                               "channel": "spikemm" if choice is None
+                               else f"spikemm_{choice}", "args": args})
+                return choice, measured
+            reg["spikemm"] = dataclasses.replace(registry.get("spikemm"),
+                                                 select_channel=select)
+        for fam in (("lif", "linrec") if bwd_calls is not None else ()):
+            spec = registry.get(fam)
+
+            def rec(*a, _fn=spec.bwd.cuda, _name=f"{fam}_bwd", **kw):
+                bwd_calls[_name].append((tuple(
+                    t.detach().clone() if torch.is_tensor(t) else t
+                    for t in a), dict(kw)))
+                return _fn(*a, **kw)
+            reg[fam] = dataclasses.replace(
+                spec, bwd=dataclasses.replace(spec.bwd, cuda=rec))
+        yield
+    finally:
+        reg.clear()
+        reg.update(saved)
+
+
+def is_g_w(route):
+    """Whether a spikemm dispatch is a weight gradient: its raster is a
+    transposed (K, T * B) one."""
+    return route["raster"][1] == TRAIN_T * TRAIN_B
+
+
+def train_cases():
+    """{kernel: [Case]} of the training step. `lif_bwd` and `linrec_bwd`:
+    each model's backward calls of one step at full width (captured at the
+    registry; timed; path train_shd for the dendritic model, whose calls
+    make the kernel-table rows, train_shd_homogeneous for the ablation);
+    every surrogate (alpha 0.5, 1, 2) and both resets at the JAX tests'
+    (37, 3, 130), the JAX family's (20, 3, 130), T = 1 and 0, ragged
+    B x N (17 x 1 x 33, 5 x 3 x 7); `linrec_bwd` at the JAX shapes (24, 3,
+    136) and (37, 3, 136) with a full decay plane and a stride-0 one, each
+    asked for every gradient, for g_x alone (the readout's) and for g_a
+    and g_x (the branches'), at T = 1 and 0 and ragged. And spikemm's g_w
+    products of the dendritic step (the (K, T * B) transposed rasters),
+    timed beside `torch.matmul`, on the dense kernel and on the sparse
+    channel."""
+    from repro_torch.kernels.lif.ops import lif_cuda
+    from repro_torch.kernels.linrec.ops import linrec_cuda
+    out = {"lif_bwd": [], "linrec_bwd": [], "spikemm": [],
+           "spikemm_sparse": []}
+    x, y = train_data(DEV)
+    for dendritic in (True, False):
+        path = "train_shd" if dendritic else "train_shd_homogeneous"
+        nodes, params = train_model(dendritic, DEV)
+        calls = {"lif_bwd": [], "linrec_bwd": []}
+        routes = []
+        with recording(routes, calls):
+            train_step(nodes, params, x, y)
+        sync()
+        for name, got in calls.items():
+            for args, kw in got:
+                shape = tuple((args[1] if name == "linrec_bwd"
+                               else args[0]).shape)
+                what = ("soma" if dendritic else "hidden") \
+                    if name == "lif_bwd" else (
+                        "readout" if shape[2] == N_OUT else "branches")
+                out[name].append(Case(f"{path} {what} {shape}", args,
+                                      path=path, timed=True, kw=kw))
+        if dendritic:
+            for r in filter(is_g_w, routes):
+                s, gr = (a.detach().clone() for a in r["args"])
+                what = "hidden" if r["raster"][0] == N_IN else "readout"
+                label = (f"train_shd g_w {what} {tuple(s.shape)} @ "
+                         f"{tuple(gr.shape)}")
+                for name in ("spikemm", "spikemm_sparse"):
+                    out[name].append(Case(
+                        label, (s, gr), path="train_shd", timed=True,
+                        library=lambda a=(s, gr): torch.matmul(*a)))
+    g = torch.Generator().manual_seed(20)
+
+    def rnd(*shape, lo=0.0, hi=1.0):
+        return (lo + (hi - lo) * torch.rand(shape, generator=g)).to(DEV)
+
+    def lif_case(label, T, B, N, reset, sur, alpha):
+        hot = (torch.rand((B, N), generator=g) < 0.25).float() * 1.5
+        cur = (0.6 * torch.randn((T, B, N), generator=g) + hot).to(DEV)
+        tau, v0 = rnd(N, lo=0.7, hi=0.98), rnd(B, N, lo=-0.5, hi=0.9)
+        s, _ = lif_cuda(cur, tau, v0, 1.0, reset)
+        gs = torch.randn((T, B, N), generator=g).to(DEV)
+        gv = torch.randn((B, N), generator=g).to(DEV)
+        sig = sur == "sigmoid"
+        out["lif_bwd"].append(Case(
+            f"{label} ({T}, {B}, {N}), {reset} reset, {sur} alpha={alpha}",
+            (cur, tau, v0, s, gs, gv, 1.0, sur, alpha, reset),
+            rtol=SIGMOID_RTOL if sig else None,
+            atol=SIGMOID_ATOL if sig else None, zero_ok=T == 0))
+
+    for reset in ("zero", "subtract"):
+        for sur in SURROGATES:
+            for alpha in (0.5, 1.0, 2.0):
+                lif_case("JAX tests' shape", 37, 3, 130, reset, sur, alpha)
+        lif_case("JAX family's make_inputs", 20, 3, 130, reset,
+                 "rectangle", 1.0)
+        for T, B, N in ((1, 3, 130), (0, 3, 130), (17, 1, 33), (5, 3, 7)):
+            lif_case("edge", T, B, N, reset, "rectangle", 1.0)
+    for T, B, D in ((24, 3, 136), (37, 3, 136), (1, 3, 136), (0, 3, 136),
+                    (17, 1, 33)):
+        x = torch.randn((T, B, D), generator=g).to(DEV)
+        h0 = torch.randn((B, D), generator=g).to(DEV)
+        for kind, a in (("full decay plane", rnd(T, B, D, lo=0.5, hi=0.99)),
+                        ("stride-0 decay",
+                         rnd(D, lo=0.5, hi=0.99).expand(T, B, D))):
+            yv, _ = linrec_cuda(a, x, h0)
+            gy = torch.randn((T, B, D), generator=g).to(DEV)
+            ghT = torch.randn((B, D), generator=g).to(DEV)
+            for need in ((True, True), (False, False), (True, False)):
+                out["linrec_bwd"].append(Case(
+                    f"({T}, {B}, {D}), {kind}, g_a {need[0]}, g_h0 "
+                    f"{need[1]}", (a, yv, h0, gy, ghT),
+                    kw=dict(need_a=need[0], need_h0=need[1]),
+                    zero_ok=T == 0))
+    return out
+
+
+def lif_bwd_alone(args, kw):
+    """A launch of `lif_bwd_cuda(*args, **kw)`'s kernel alone, uncounted:
+    the C entry on outputs allocated once, without the wrapper's sum of
+    the per-lane g_tau partials over B (`sum(0)`)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import lane_plan, sm_count
+    from repro_torch.kernels.lif.ops import KERNEL_SURROGATES
+    cur, tau, v0, s, gs, gv, *rest = args
+    opts = {"v_th": 1.0, "surrogate": "rectangle", "alpha": 1.0,
+            "reset": "zero"}
+    opts.update(zip(opts, rest), **kw)
+    v_th, sur, alpha, reset = opts.values()
+    T, B, N = cur.shape
+    u, gc = torch.empty_like(cur), torch.empty_like(cur)
+    gt, g0 = torch.empty_like(v0), torch.empty_like(v0)
+    stages = lane_plan(B * N, T, sm_count(cur.device))[2]
+    lib = _build.library()
+
+    def launch():
+        _build.check("lif_bwd", lib.lif_bwd_f32(
+            cur.data_ptr(), tau.data_ptr(), v0.data_ptr(), s.data_ptr(),
+            gs.data_ptr(), gv.data_ptr(), u.data_ptr(), gc.data_ptr(),
+            gt.data_ptr(), g0.data_ptr(), T, B, N, float(v_th),
+            int(reset == "subtract"), KERNEL_SURROGATES.index(sur),
+            float(alpha), stages, torch.cuda.current_stream().cuda_stream))
+    return launch
+
+
+def linrec_bwd_flipped(label, args, gx):
+    """The JAX package's own route to gx: the forward recurrence on the
+    time-reversed decay shifted by one step (a_T = 0), g_hT folded into
+    the last step, from 0, here through `linrec.cu`'s forward kernel; it
+    must equal the backward kernel's gx bit for bit."""
+    from repro_torch.kernels.linrec.ops import linrec_cuda
+    a, y, h0, gy, ghT = args
+    ae = a.expand(y.shape)
+    a_rev = torch.cat([ae[1:], torch.zeros_like(ae[:1])]).flip(0)
+    gy1 = gy.clone()
+    gy1[-1] = gy1[-1] + ghT
+    rev, _ = linrec_cuda(a_rev.contiguous(), gy1.flip(0).contiguous(),
+                         torch.zeros_like(h0))
+    if not same_bits("linrec_bwd", rev.flip(0), gx):
+        raise AssertionError(f"linrec_bwd [{label}]: gx differs from the "
+                             "forward kernel on the flipped decay")
+    return "; gx == the forward kernel on the flipped decay, bit for bit"
+
+
+def rel_l2(got, ref):
+    ref = ref.double()
+    return float((got.double() - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def phase_train_shd(smi):
+    """TRAIN_STEPS clipped-SGD steps of the SHD DH-SNN and of its
+    homogeneous ablation at the published widths, forward and backward
+    through `plan.run` on the card."""
+    from repro_torch.core import plan
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.spikemm import sparse
+    from repro_torch.weights import params_to_numpy
+    tie = load_tie_rule()
+    tag = "train_shd"
+    x, y = train_data(DEV)
+    xc, yc = x.cpu(), y.cpu()
+    models, total, per_run = {}, {}, None
+    for dendritic in (True, False):
+        kind = "dendritic" if dendritic else "homogeneous"
+        nodes, params = train_model(dendritic, DEV)
+        sync()
+        registry.reset_launches()
+        occ0 = sparse.occupancy_cuda.launches
+        steps = [train_step(nodes, params, x, y, keep=i == 0)
+                 for i in range(TRAIN_STEPS)]
+        sync()
+        counts = registry.launch_counts()
+        occ = sparse.occupancy_cuda.launches - occ0
+        losses = [float(loss) for loss, _ in steps]
+        log(f"path [{tag}] {kind}: losses {losses}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"[{tag}] {kind}: a loss is not finite")
+        want = train_per_step(dendritic)
+        mm = counts["spikemm"] + counts["spikemm_sparse"]
+        rest = {k: v for k, v in counts.items()
+                if k not in ("spikemm", "spikemm_sparse")}
+        counted(f"{tag} {kind}", {k: v for k, v in want.items()
+                                  if k != "spikemm+sparse"},
+                TRAIN_STEPS, rest)
+        if mm != want["spikemm+sparse"] * TRAIN_STEPS:
+            raise AssertionError(f"[{tag}] {kind}: {mm} spikemm launches "
+                                 f"(both channels), want "
+                                 f"{want['spikemm+sparse'] * TRAIN_STEPS}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if dendritic:
+            per_run = {k: v // TRAIN_STEPS for k, v in counts.items()}
+        # the first step against the CPU's, from the same weights
+        nodes_c, params_c = train_model(dendritic, "cpu")
+        loss_c, grads_c = train_step(nodes_c, params_c, xc, yc, keep=True)
+        grads_g = steps[0][1]
+        loss_err = abs(losses[0] - float(loss_c)) / abs(float(loss_c))
+        leaf_err = {k: rel_l2(grads_g[k].cpu(), v)
+                    for k, v in grads_c.items()}
+        if not loss_err <= TRAIN_LOSS_RTOL or not max(
+                leaf_err.values()) <= TRAIN_LEAF_RTOL:
+            raise AssertionError(
+                f"[{tag}] {kind}: first step card vs CPU: loss relative "
+                f"{loss_err:.3e} (tol {TRAIN_LOSS_RTOL}), leaves {leaf_err} "
+                f"(tol {TRAIN_LEAF_RTOL})")
+        # the forward's hidden trains under the tie rule, and the hidden
+        # lane-steps at a surrogate window edge
+        n0, p0 = make_shd(dendritic, DEV)
+        nc0, pc0 = make_shd(dendritic, "cpu")
+        with torch.no_grad():
+            st_g, o_g, r_g = plan.run(n0, p0, x, record=("hidden",),
+                                      device=DEV)
+            s_cpu, first_div, n_ties, err_out, err_state, _, _ = \
+                card_vs_cpu(f"{tag} {kind}", nc0, pc0, xc.numpy(), st_g,
+                            o_g.cpu().numpy(), r_g, floor=False)
+        u, th = tie.hidden_membrane(nc0[0], params_to_numpy(pc0)["hidden"],
+                                    xc.numpy(), s_cpu)
+        edges = int(tie.surrogate_edges(u, th, nc0[0].neuron.surrogate,
+                                        nc0[0].neuron.alpha).sum())
+        # the first step again under each channel setting: g_w crosses
+        # the dense and the sparse kernel whatever `auto` picks
+        channels, first = {}, {}
+        for mode in ("auto", "never", "always"):
+            nm, pm = train_model(dendritic, DEV)
+            routes = []
+            old = os.environ.get("REPRO_SPIKEMM_SPARSE")
+            os.environ["REPRO_SPIKEMM_SPARSE"] = mode
+            try:
+                with recording(routes):
+                    lm, gm = train_step(nm, pm, x, y, keep=True)
+            finally:
+                if old is None:
+                    os.environ.pop("REPRO_SPIKEMM_SPARSE")
+                else:
+                    os.environ["REPRO_SPIKEMM_SPARSE"] = old
+            channels[mode] = [{"call": "g_w" if is_g_w(r) else "forward",
+                               "raster": r["raster"], "w": r["w"],
+                               "channel": r["channel"]} for r in routes]
+            first[mode] = (float(lm), gm)
+            log(f"path [{tag}] {kind} first step under {mode}: "
+                + "; ".join(f"{c['call']} {c['raster']}@{c['w']} -> "
+                            f"{c['channel']}" for c in channels[mode]))
+        gw = {c["channel"] for m in ("never", "always")
+              for c in channels[m] if c["call"] == "g_w"}
+        if gw != {"spikemm", "spikemm_sparse"}:
+            raise AssertionError(f"[{tag}] {kind}: g_w took {gw}")
+        same = {m: first[m][0] == losses[0] and all(
+            torch.equal(first[m][1][k], grads_g[k]) for k in grads_g)
+            for m in first}
+        for m, (lm, gm) in first.items():
+            if not abs(lm - losses[0]) <= TRAIN_LOSS_RTOL * abs(losses[0]) \
+                    or not all(rel_l2(gm[k], grads_g[k]) <= TRAIN_LEAF_RTOL
+                               for k in grads_g):
+                raise AssertionError(f"[{tag}] {kind}: the first step under "
+                                     f"{m} differs from the counted run's")
+        # the step's time, forward + backward + update, by host clock
+        nt, pt = train_model(dendritic, DEV)
+        for _ in range(TRAIN_WARMUP):
+            train_step(nt, pt, x, y)
+        sync()
+        step_ms = []
+        for _ in range(TRAIN_TIMED):
+            t0 = time.perf_counter()
+            train_step(nt, pt, x, y)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        card_ms, by_name = profile_ms(lambda: train_step(nt, pt, x, y))
+        log(f"path [{tag}] {kind}: launches {counts} (+{occ} occupancy); "
+            f"first step card vs CPU: loss {losses[0]:.6f} vs "
+            f"{float(loss_c):.6f} (relative {loss_err:.3e}), leaves "
+            + ", ".join(f"{k} {v:.3e}" for k, v in leaf_err.items())
+            + f"; hidden rate {s_cpu.mean():.4f}, {n_ties} lanes flipped at "
+            f"threshold ties, {edges} lane-steps within "
+            f"{tie.TIE_MARGIN:.0e} of a surrogate window edge; forward "
+            f"readout max abs err {err_out:.3e}; never/always bit-equal to "
+            f"auto {same}; step {np.median(step_ms):.3f} ms median "
+            f"(host clock), card "
+            f"{'not measured' if card_ms is None else f'{card_ms:.4f} ms'}")
+        models[kind] = {
+            "losses": losses, "launches": counts,
+            "launches_per_step": {k: v // TRAIN_STEPS
+                                  for k, v in counts.items()},
+            "occupancy_launches": occ, "loss_cpu": float(loss_c),
+            "loss_rel_err": loss_err, "leaf_rel_l2": leaf_err,
+            "hidden_rate": float(s_cpu.mean()), "tie_flips": n_ties,
+            "rows_diverged": int((first_div < TRAIN_T).sum()),
+            "window_edges": edges, "readout_max_abs_err": err_out,
+            "state_max_abs_err": err_state, "channels": channels,
+            "bit_equal_to_auto": same,
+            "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
+            "card_ms": card_ms,
+            "card_ms_by_kernel": top_per(by_name, 1, n=12)}
+    return {"path": tag, "model": f"make_dhsnn_shd {N_IN}->{N_HIDDEN}x"
+            f"{N_BRANCHES} DH-LIF->{N_OUT} LI and its LIF ablation, clipped "
+            f"SGD lr {TRAIN_LR}", "T": TRAIN_T, "batch": TRAIN_B,
+            "steps": TRAIN_STEPS, "input": f"gen_shd_spikes({TRAIN_B}, "
+            f"T={TRAIN_T})", "launches": total, "launches_per_run": per_run,
+            "models": models, "card": smi}
+
+
+# ---------------------------------------------------------------------------
+# 12. attention and 13. parity
 # ---------------------------------------------------------------------------
 
 
@@ -3631,9 +4146,16 @@ def phase_parity():
                 f"{r['forward_max_err']:.3e}"
                 + (f", VJP {r['vjp_max_err']:.3e}" if "vjp_max_err" in r
                    else ""))
-    if n != len(SOURCES):
+    # the backward kernels are held inside their families' VJP legs
+    forward = [k for k in SOURCES if k not in BWD_SCANS]
+    if n != len(forward):
         raise AssertionError(f"parity checked {n} kernels, the table has "
-                             f"{len(SOURCES)}")
+                             f"{len(forward)} forward kernels")
+    for fam in ("lif", "linrec", "spikemm"):
+        rows = [reports[fam]] + list(reports[fam].get("channels",
+                                                      {}).values())
+        if any("vjp_max_err" not in r for r in rows):
+            raise AssertionError(f"parity: {fam}'s VJP was not checked")
     log(f"parity OK for {n} kernels")
     return reports
 
@@ -3647,6 +4169,7 @@ def path_phases():
             "plastic_ff": phase_plastic_ff,
             "plastic_online": phase_plastic_online,
             "stdp_step": phase_stdp_step,
+            "train_shd": phase_train_shd,
             "attention": lambda smi: phase_attention(smi)[1]}
 
 
@@ -3694,6 +4217,7 @@ def main(argv):
     slices.append(phase_plastic_ff(smi))
     slices.append(phase_plastic_online(smi))
     slices.append(phase_stdp_step(smi))
+    slices.append(phase_train_shd(smi))
     kernels["attention"], attn = phase_attention(smi)
     kernels["attention"]["floor_ms"] = launch_floor_ms()
     slices.append(attn)

@@ -471,7 +471,8 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
             out, vT = lifrec_scan(cur, _self_weight(node, params), tau, v0,
                                   st["out"].contiguous(), th.base)
         else:
-            out, vT = lif_scan(cur, tau, v0, th.base, prog.reset)
+            out, vT = lif_scan(cur, tau, v0, th.base, node.neuron.surrogate,
+                               node.neuron.alpha, prog.reset)
         ns = {th.on: vT}
     elif lower == LOWER_ALIF:
         mem = next(s for s in prog.states if s.name == th.on)
@@ -508,7 +509,8 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
             soma_cur = soma_cur + d4[:, :, k]
         tau_s = _decay_vec(mem.decay, nparams, N, dev)
         out, vT = lif_scan(soma_cur.contiguous(), tau_s,
-                           st[mem.name].contiguous(), th.base)
+                           st[mem.name].contiguous(), th.base,
+                           node.neuron.surrogate, node.neuron.alpha)
         ns = {mem.name: vT, br.name: dT.reshape(B, K, N)}
     else:  # pragma: no cover - compile_program only emits known families
         raise ValueError(f"unknown FIRE lowering {lower!r}")
@@ -767,10 +769,15 @@ def _learn_conn(node: events.LayerNode, conn: events.Connection, lower: str,
     new_state[node.name] = ns
 
 
+@torch.no_grad()
 def _learn_pass(plan: Plan, nodes: List[events.LayerNode],
                 params: Dict[str, Any], outs: Dict[str, Tensor],
                 state: Dict[str, Any], new_state: Dict[str, Any],
                 T: int, B: int, mod: Any) -> None:
+    """Every plastic connection's learning rule over the window, out of
+    the autograd graph (the JAX package's `stop_gradient`): its weight and
+    trace writes carry no `grad_fn`, whatever the spike trains, synapse
+    state and modulator it reads require."""
     nodes_by_name = {n.name: n for n in nodes}
     order = {n.name: i for i, n in enumerate(nodes)}
     for p in plan.plastic:
@@ -815,7 +822,6 @@ def _run_stepper(nodes: List[events.LayerNode], params: Dict[str, Any],
     return new_state, out, {r: outs[r] for r in record}
 
 
-@torch.no_grad()
 def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
         state: Optional[Dict[str, Any]] = None, record: Tuple[str, ...] = (),
         plan: Optional[Plan] = None, mod: Any = None, learn: bool = True,
@@ -835,6 +841,13 @@ def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
     learning pass after it. `_traced=True` (the serve engine's window
     step) routes the hoisted INTEG as the JAX package routes its jitted
     step: spikemm's `auto` stays dense, with no occupancy sync.
+
+    Differentiable (surrogate-gradient BPTT): the outputs and final
+    states carry autograd graphs back to `params`, `x` and `state` where
+    they require grad, through the kernels' backward (`lif_scan`,
+    `linrec`, `spikemm`; the recurrent and ALIF scans and the gather
+    raise where a gradient would be needed). The learning pass stays out
+    of the graph. Callers that only infer run it under `torch.no_grad()`.
     """
     _refuse_unported(guard)
     mode = engine_mode()
@@ -878,7 +891,10 @@ def run_stream(nodes: List[events.LayerNode], params: Dict[str, Any],
     continues from the carried state's weight, while the forward reads
     `params` (chunked-online: merge with `apply_learned` to change that).
     The plan is compiled once up front; `mod`, when given, must be an
-    iterable aligned with `chunks` (one modulator window per chunk)."""
+    iterable aligned with `chunks` (one modulator window per chunk).
+    Like `run` it is differentiable: the carried state carries the graph
+    across chunks (BPTT through the stream), so a caller that only infers
+    runs it under `torch.no_grad()`, or its graph grows chunk by chunk."""
     if plan is None:
         plan = compile_program(nodes)
     mods = iter(mod) if mod is not None else None

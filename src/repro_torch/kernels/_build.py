@@ -10,7 +10,8 @@ when the package runs from a checkout (`build/` is git-ignored), and under
 installed copy; the digest covers the sources and headers, the flags and the compiler,
 so an edited kernel rebuilds and an unchanged one loads. The
 compiler's output (with `-Xptxas -v`: registers, shared memory and spills
-of each kernel) is kept beside the library as `build.log`.
+of each kernel), headed by each source's seconds from the start of the
+build to its object, is kept beside the library as `build.log`.
 
 Nothing here runs at import time. There is no fallback: a missing `nvcc`,
 a failed build or a failed load raises.
@@ -21,6 +22,7 @@ Each C entry point takes its pointers and the stream as `void*` and returns
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -28,6 +30,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import List, Optional
 
@@ -47,7 +50,8 @@ STDP_SEQ_GROUP = 32
 # a row (`common.rec_route`). Its one definition, -DREC_LANE_NEURONS.
 REC_LANE_NEURONS = 4
 # The lane scans' staging ring (`csrc/lane_scan.cuh`: `linrec`, `lif`,
-# `alif`): steps a stage holds and stages of the ring (chunks in flight:
+# `alif`, and the backward `lif_bwd` and `linrec_bwd`, which walk it
+# reversed): steps a stage holds and stages of the ring (chunks in flight:
 # one fewer). Their one definition, -DLANE_SCAN_CHUNK and
 # -DLANE_SCAN_STAGES; `common.lane_plan` sizes the ring from them. Four
 # stages: on an H100, eight made the SHD window's call 0.5 us slower (a
@@ -78,6 +82,9 @@ SIGNATURES = {
     "linrec_f32": ((_P, _L, _L, _L, _P, _P, _P, _P) + (_I,) * 5 + (_P,),
                    _I),
     "lif_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P), _I),
+    "lif_bwd_f32": ((_P,) * 10 + (_I, _I, _I, _F, _I, _I, _F, _I, _P), _I),
+    "linrec_bwd_f32": ((_P, _L, _L, _L) + (_P,) * 7 + (_I,) * 4 + (_P,),
+                       _I),
     "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _I, _P), _I),
     "rec_scan_w_in_smem": ((_I,), _I),
     "alif_f32": ((_P,) * 8 + (_I, _I, _I, _F, _F, _I, _I, _P), _I),
@@ -161,12 +168,20 @@ def build() -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [Path(tmp) / f"{s.stem}.o" for s in srcs]
+        t0 = time.perf_counter()
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o",
                                    str(o)], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(srcs, objs)]
-        logs = [f"== {s.name}\n{p.communicate()[0]}"
-                for s, p in zip(srcs, procs)]
+
+        def finish(p):                       # (output, seconds since start)
+            out = p.communicate()[0]
+            return out, time.perf_counter() - t0
+
+        with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+            done = list(pool.map(finish, procs))
+        logs = [f"== {s.name} ({secs:.1f} s)\n{out}"
+                for s, (out, secs) in zip(srcs, done)]
         failed = [(s.name, p.returncode) for s, p in zip(srcs, procs)
                   if p.returncode != 0]
         tmp_lib = Path(tmp) / LIB_NAME

@@ -24,7 +24,7 @@ from repro_torch.kernels import _build, registry
 from repro_torch.kernels.alifrec.ref import alif_scan_ref, alifrec_scan_ref
 from repro_torch.kernels.common import (REC_WARP, check_scan,
                                        count_rec_launch, lane_plan,
-                                       rec_route, sm_count)
+                                       rec_route, refuse_grad, sm_count)
 
 
 def _outputs(current: torch.Tensor, v0: torch.Tensor, a0: torch.Tensor):
@@ -91,7 +91,9 @@ def alif_scan(current: torch.Tensor, tau: torch.Tensor, rho: torch.Tensor,
     """Fused adaptive-threshold LIF over time. current: (T,B,N);
     tau/rho: (N,); v0/a0: (B,N).
 
-    Returns (spikes (T,B,N), v_final (B,N), a_final (B,N))."""
+    Returns (spikes (T,B,N), v_final (B,N), a_final (B,N)). No gradient
+    yet: raises where one is needed."""
+    refuse_grad("alif_scan", (current, tau, rho, v0, a0), "item 2b, B5")
     return registry.dispatch("alif", (current, tau, rho, v0, a0),
                              v_th=v_th, beta=beta)
 
@@ -103,7 +105,10 @@ def alifrec_scan(current: torch.Tensor, w_rec: torch.Tensor,
     """Fused self-recurrent adaptive-threshold LIF. current: (T,B,N);
     w_rec: (N,N); tau/rho: (N,); v0/a0/s0: (B,N).
 
-    Returns (spikes (T,B,N), v_final (B,N), a_final (B,N))."""
+    Returns (spikes (T,B,N), v_final (B,N), a_final (B,N)). No gradient
+    yet: raises where one is needed."""
+    refuse_grad("alifrec_scan", (current, w_rec, tau, rho, v0, a0, s0),
+                "item 2b, B5")
     return registry.dispatch("alifrec",
                              (current, w_rec, tau, rho, v0, a0, s0),
                              v_th=v_th, beta=beta)

@@ -69,6 +69,20 @@ def check_scan(name: str, current: torch.Tensor,
                              f"{current.device}")
 
 
+def check_planes(name: str, like: torch.Tensor, planes: Sequence) -> None:
+    """Each (name, tensor) of `planes` has `like`'s shape, dtype and
+    device, and is contiguous (a backward kernel's saved outputs and
+    cotangents)."""
+    for nm, t in planes:
+        if (t.shape != like.shape or t.dtype != like.dtype
+                or t.device != like.device):
+            raise ValueError(f"{name}: {nm} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} must match {tuple(like.shape)} "
+                             f"{like.dtype} on {like.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be contiguous")
+
+
 def check_raster(name: str, spikes: torch.Tensor) -> None:
     """The checks of a raster-only wrapper: a contiguous float32 (M, K)
     raster on a CUDA device."""
@@ -98,6 +112,17 @@ def check_matmul(name: str, spikes: torch.Tensor, w: torch.Tensor) -> None:
     if spikes.device != w.device:
         raise ValueError(f"{name}: spikes on {spikes.device}, "
                          f"w on {w.device}")
+
+
+def refuse_grad(name: str, args: Sequence[Any], roadmap_item: str) -> None:
+    """Raise where autograd would need a gradient through `name`, which has
+    no backward yet: a plain loop's `>=` would hand back a silent zero on
+    the CPU, and a kernel none at all on the card."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        raise NotImplementedError(
+            f"{name} has no backward yet (ROADMAP.md {roadmap_item}); call "
+            "it under torch.no_grad() or on tensors that need no gradient")
 
 
 _SM_COUNT = {}
@@ -188,7 +213,8 @@ def pad_axis(x: torch.Tensor, axis: int, mult: int, value=0.0):
     return F.pad(x, widths, value=value), n
 
 
-__all__ = ["resolve_device", "check_device", "check_scan", "check_raster",
+__all__ = ["resolve_device", "check_device", "check_scan", "check_planes",
+           "check_raster", "refuse_grad",
            "check_matmul", "sm_count", "MAX_WARPS", "lane_plan", "rec_route",
            "rec_route_launch_counts", "REC_WARP", "REC_BLOCK",
            "REC_WARP_MAX_N", "w_in_smem", "tree_to", "pad_axis",

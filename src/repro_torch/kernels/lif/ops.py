@@ -1,18 +1,27 @@
-"""Public fused-LIF entry point, dispatched via the registry.
+"""Public fused-LIF entry point with a surrogate-gradient VJP.
 
-`lif_scan(current, tau, v0, v_th, reset)` runs the serial-in-time LIF over
-(T, B, N): `csrc/lif.cu` on CUDA tensors, the plain scan on CPU tensors.
-Both the zero and the subtract reset are supported. Forward only: the
-surrogate-gradient backward comes with the training slice.
+`lif_scan(current, tau, v0, v_th, surrogate, alpha, reset)` runs the
+serial-in-time LIF over (T, B, N): `csrc/lif.cu` on CUDA tensors, the
+plain scan on CPU tensors. Both the zero and the subtract reset are
+supported. It is differentiable in (current, tau, v0) through `_LifScan`
+(STBP, as the JAX package's custom VJP): the backward is `lif.cu`'s
+`lif_bwd_f32` kernel on CUDA tensors (`lif_bwd_cuda`, its own launch
+counter, listed as `lif_bwd`) and `lif_scan_bwd_ref` on CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.surrogate import check_surrogate
 from repro_torch.kernels import _build, registry
-from repro_torch.kernels.common import check_scan, lane_plan, sm_count
-from repro_torch.kernels.lif.ref import lif_scan_ref
+from repro_torch.kernels.common import (check_planes, check_scan,
+                                        lane_plan, sm_count)
+from repro_torch.kernels.lif.ref import lif_scan_bwd_ref, lif_scan_ref
+
+# the surrogates `lif_bwd_f32` computes in registers (the others
+# `register` adds run on the CPU only)
+KERNEL_SURROGATES = ("arctan", "rectangle", "sigmoid", "triangle")
 
 
 def lif_cuda(current: torch.Tensor, tau: torch.Tensor, v0: torch.Tensor,
@@ -42,13 +51,93 @@ def lif_cuda(current: torch.Tensor, tau: torch.Tensor, v0: torch.Tensor,
     return spikes, vT
 
 
+def lif_bwd_cuda(current: torch.Tensor, tau: torch.Tensor,
+                 v0: torch.Tensor, spikes: torch.Tensor,
+                 g_spikes: torch.Tensor, g_vT: torch.Tensor,
+                 v_th: float = 1.0, surrogate: str = "rectangle",
+                 alpha: float = 1.0, reset: str = "zero"):
+    """Launch `csrc/lif.cu`'s backward kernel on CUDA tensors:
+    `lif_scan_bwd_ref`'s (g_current, g_tau, g_v0), the per-lane g_tau
+    partials summed over B here."""
+    if reset not in ("zero", "subtract"):
+        raise ValueError(f"lif: reset must be 'zero' or 'subtract', "
+                         f"got {reset!r}")
+    if surrogate not in KERNEL_SURROGATES:
+        check_surrogate(surrogate)
+        raise NotImplementedError(
+            f"lif_bwd: the kernel computes the surrogates "
+            f"{KERNEL_SURROGATES}; {surrogate!r} runs on the CPU only")
+    check_scan("lif_bwd", current, None, [("tau", tau)],
+               [("v0", v0), ("g_vT", g_vT)])
+    check_planes("lif_bwd", current, [("spikes", spikes),
+                                      ("g_spikes", g_spikes)])
+    T, B, N = current.shape
+    g_cur = torch.empty_like(current)
+    g_tau = torch.empty_like(v0)            # the per-lane partials
+    g_v0 = torch.empty_like(v0)
+    if T == 0 or v0.numel() == 0:
+        return g_cur, g_tau.zero_().sum(0), g_v0.copy_(g_vT)
+    u = torch.empty_like(current)
+    stages = lane_plan(B * N, T, sm_count(current.device))[2]
+    with torch.cuda.device(current.device):
+        code = _build.library().lif_bwd_f32(
+            current.data_ptr(), tau.data_ptr(), v0.data_ptr(),
+            spikes.data_ptr(), g_spikes.data_ptr(), g_vT.data_ptr(),
+            u.data_ptr(), g_cur.data_ptr(), g_tau.data_ptr(),
+            g_v0.data_ptr(), T, B, N, float(v_th),
+            int(reset == "subtract"), KERNEL_SURROGATES.index(surrogate),
+            float(alpha), stages, torch.cuda.current_stream().cuda_stream)
+    _build.check("lif_bwd", code)
+    lif_bwd_cuda.launches += 1
+    return g_cur, g_tau.sum(0), g_v0
+
+
+class _LifScan(torch.autograd.Function):
+    """`fwd` forward, `bwd` backward: the implementations `lif_scan`
+    dispatches to by device (None), or the pair the parity harness
+    holds against each other."""
+
+    @staticmethod
+    def forward(ctx, current, tau, v0, v_th, surrogate, alpha, reset, fwd,
+                bwd):
+        if fwd is None:
+            s, vT = registry.dispatch("lif", (current, tau, v0), v_th=v_th,
+                                      reset=reset)
+        else:
+            s, vT = fwd(current, tau, v0, v_th=v_th, reset=reset)
+        ctx.save_for_backward(current, tau, v0, s)
+        ctx.cfg = dict(v_th=v_th, surrogate=surrogate, alpha=alpha,
+                       reset=reset)
+        ctx.bwd = bwd
+        return s, vT
+
+    @staticmethod
+    def backward(ctx, g_s, g_vT):
+        current, tau, v0, s = ctx.saved_tensors
+        args = (current, tau, v0, s, g_s.contiguous(), g_vT.contiguous())
+        grads = (registry.dispatch_bwd("lif", args, **ctx.cfg)
+                 if ctx.bwd is None else ctx.bwd(*args, **ctx.cfg))
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad[:3])) + (None,) * 6
+
+
 def lif_scan(current: torch.Tensor, tau: torch.Tensor, v0: torch.Tensor,
-             v_th: float = 1.0, reset: str = "zero"):
+             v_th: float = 1.0, surrogate: str = "rectangle",
+             alpha: float = 1.0, reset: str = "zero"):
     """Fused LIF over time. current: (T,B,N); tau: (N,); v0: (B,N).
 
-    Returns (spikes (T,B,N), v_final (B,N))."""
-    return registry.dispatch("lif", (current, tau, v0), v_th=v_th,
-                             reset=reset)
+    reset: "zero" (hard reset) or "subtract" (v <- v - v_th on spike).
+    Returns (spikes (T,B,N), v_final (B,N)). Differentiable in (current,
+    tau, v0) through surrogate `surrogate` of sharpness `alpha` (STBP)."""
+    check_surrogate(surrogate)
+    return _LifScan.apply(current, tau, v0, v_th, surrogate, alpha, reset,
+                          None, None)
+
+
+def _vjp(fwd, bwd, current, tau, v0, v_th=1.0, surrogate="rectangle",
+         alpha=1.0, reset="zero"):
+    return _LifScan.apply(current, tau, v0, v_th, surrogate, alpha, reset,
+                          fwd, bwd)
 
 
 def _make_inputs(generator: torch.Generator):
@@ -61,6 +150,9 @@ def _make_inputs(generator: torch.Generator):
 
 registry.register(registry.KernelSpec(
     name="lif", plain=lif_scan_ref, cuda=lif_cuda,
-    make_inputs=_make_inputs, tol=1e-4))
+    make_inputs=_make_inputs, tol=1e-4, diff_argnums=(0, 1, 2),
+    bwd=registry.Channel(plain=lif_scan_bwd_ref, cuda=lif_bwd_cuda),
+    vjp=_vjp))
 
-__all__ = ["lif_scan", "lif_cuda", "lif_scan_ref"]
+__all__ = ["lif_scan", "lif_cuda", "lif_bwd_cuda", "lif_scan_ref",
+           "lif_scan_bwd_ref", "KERNEL_SURROGATES"]

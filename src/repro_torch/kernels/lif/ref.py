@@ -30,3 +30,55 @@ def lif_scan_ref(current: torch.Tensor, tau: torch.Tensor,
         spikes.append(s.to(dt))
     out = torch.stack(spikes) if spikes else current.new_empty(current.shape)
     return out, v.to(dt)
+
+
+def lif_scan_bwd_ref(current: torch.Tensor, tau: torch.Tensor,
+                     v0: torch.Tensor, spikes: torch.Tensor,
+                     g_spikes: torch.Tensor, g_vT: torch.Tensor,
+                     v_th: float = 1.0, surrogate: str = "rectangle",
+                     alpha: float = 1.0, reset: str = "zero"):
+    """The VJP of `lif_scan_ref` with a surrogate spike gradient (STBP):
+    (g_current (T, B, N), g_tau (N,), g_v0 (B, N)) from the forward's
+    inputs, its spikes and the cotangents of (spikes, v_final).
+
+    First the pre-reset membrane u_t = tau * v_{t-1} + I_t is recomputed
+    forward along the saved spikes (their resets; nothing is
+    re-thresholded), then the reverse scan, with g the surrogate at
+    u_t - v_th and Gv the membrane's cotangent (Gv_{T-1} = g_vT):
+      zero:     Gu = Gv (1 - s) + (Gs - Gv u) g
+      subtract: Gu = Gv (1 - v_th g) + Gs g
+      Gv_{t-1} = tau Gu_t
+    g_current = Gu, g_v0 = tau Gu_0 and g_tau = sum over (t, b) of
+    Gu_t v_{t-1}, summed per lane in descending t and then over B (the
+    order of `csrc/lif.cu`'s backward kernel, which equals this one bit
+    for bit: every step is one rounded fp32 operation)."""
+    from repro_torch.core.surrogate import surrogate_grad
+
+    if reset not in ("zero", "subtract"):
+        raise ValueError(f"lif: reset must be 'zero' or 'subtract', "
+                         f"got {reset!r}")
+    T = current.shape[0]
+    tau32, c32, s32 = tau.float(), current.float(), spikes.float()
+    v = v0.float()
+    us, v_prev = [], []
+    for t in range(T):
+        v_prev.append(v)
+        u = tau32 * v + c32[t]
+        us.append(u)
+        v = u - v_th * s32[t] if reset == "subtract" else u * (1.0 - s32[t])
+    gs = g_spikes.float()
+    gv = g_vT.float()
+    g_tau = torch.zeros_like(v)
+    gu_all = [None] * T
+    for t in range(T - 1, -1, -1):
+        g = surrogate_grad(us[t] - v_th, surrogate, alpha)
+        if reset == "subtract":
+            gu = gv * (1.0 - v_th * g) + gs[t] * g
+        else:
+            gu = gv * (1.0 - s32[t]) + (gs[t] - gv * us[t]) * g
+        gu_all[t] = gu
+        g_tau = g_tau + gu * v_prev[t]
+        gv = tau32 * gu
+    g_cur = (torch.stack(gu_all) if T else c32.new_empty(current.shape))
+    return (g_cur.to(current.dtype), g_tau.sum(0).to(tau.dtype),
+            gv.to(v0.dtype))

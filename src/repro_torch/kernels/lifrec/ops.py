@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.common import (REC_WARP, check_scan,
-                                       count_rec_launch, rec_route)
+                                       count_rec_launch, rec_route,
+                                       refuse_grad)
 from repro_torch.kernels.lifrec.ref import lifrec_scan_ref
 
 
@@ -54,7 +55,10 @@ def lifrec_scan(current: torch.Tensor, w_rec: torch.Tensor,
     """Fused recurrent LIF over time. current: (T,B,N); w_rec: (N,N);
     tau: (N,); v0/s0: (B,N).
 
-    Returns (spikes (T,B,N), v_final (B,N))."""
+    Returns (spikes (T,B,N), v_final (B,N)). No gradient yet: raises
+    where one is needed."""
+    refuse_grad("lifrec_scan", (current, w_rec, tau, v0, s0),
+                "item 2b, B4")
     return registry.dispatch("lifrec", (current, w_rec, tau, v0, s0),
                              v_th=v_th)
 

@@ -21,3 +21,47 @@ def linrec_ref(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor):
         ys.append(h)
     y = torch.stack(ys) if ys else x32.new_empty(x.shape)
     return y.to(dt), h.to(dt)
+
+
+# The JAX package's sequential-scan oracle (its `linrec_ref` is an
+# associative scan); here the plain version already is that fold.
+linrec_naive = linrec_ref
+
+
+def linrec_bwd_ref(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
+                   g_y: torch.Tensor, g_hT: torch.Tensor,
+                   need_a: bool = True, need_h0: bool = True):
+    """The VJP of `linrec_ref`: (g_a, g_x, g_h0) from the decay, the
+    forward's output y, h0 and the cotangents of (y, h_final).
+
+      gy_{T-1} += g_hT
+      gx_t = a_{t+1} gx_{t+1} + gy_t   (t = T-1 ... 0, a_T = 0, from 0)
+      ga_t = gx_t y_{t-1}              (y_{-1} = h0)
+      gh0  = gx_0 a_0
+
+    Each gx step is a rounded product then a rounded sum, so this equals
+    `csrc/linrec.cu`'s backward kernel bit for bit, and equals the
+    forward recurrence run on the time-reversed, one-shifted decay. g_a
+    comes back in x's shape (a broadcast decay's is reduced by autograd's
+    expand, or by the caller); None where `need_a` / `need_h0` is
+    false."""
+    T = y.shape[0]
+    dt = y.dtype
+    a32 = a.float().expand(y.shape)
+    gy = g_y.float()
+    gx = torch.zeros_like(h0, dtype=torch.float32)
+    a_next = torch.zeros_like(gx)
+    gxs = [None] * T
+    for t in range(T - 1, -1, -1):
+        g = gy[t] + g_hT.float() if t == T - 1 else gy[t]
+        gx = a_next * gx + g
+        gxs[t] = gx
+        a_next = a32[t]
+    g_x = torch.stack(gxs) if T else gy.new_empty(y.shape)
+    g_a = g_h0 = None
+    if need_a:
+        y_prev = torch.cat([h0.float()[None], y.float()[:-1]]) if T else g_x
+        g_a = (g_x * y_prev).to(dt)
+    if need_h0:
+        g_h0 = (gx * a32[0] if T else g_hT.float()).to(h0.dtype)
+    return g_a, g_x.to(dt), g_h0

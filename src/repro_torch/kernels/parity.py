@@ -8,8 +8,13 @@ version on the same inputs, on
 
   * the forward outputs (every leaf of the output), and
   * the VJP: gradients of a fixed nonlinear scalar loss with respect to
-    every `diff_argnums` input (`attention` today; the other families'
-    backward waits for the training slice).
+    every `diff_argnums` input. For a family with a `vjp` (`lif`,
+    `linrec`, `spikemm`) that is its autograd.Function run on the CUDA
+    forward and backward against the same Function on the plain forward
+    and backward (`spikemm`'s backward is its own product: each channel
+    computes its g_w with itself); `attention`'s CUDA wrapper is
+    differentiable itself and is held against autograd through its plain
+    version.
 
 It compares on the CUDA device only. Without a card both sides would be
 the plain version, so `check_kernel` raises there rather than compare the
@@ -23,6 +28,7 @@ line per kernel.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -91,6 +97,23 @@ def _grads(fn: Callable, args: Sequence[Any],
                  for a, g in zip(wrt, grads))
 
 
+def _vjp_legs(name: str, spec: registry.KernelSpec):
+    """[(label, plain differentiable fn, CUDA differentiable fn)]: the
+    family's pair and, for a family with a `vjp`, each channel's."""
+    if spec.vjp is None:
+        return [(name, spec.plain, spec.cuda)]
+    pairs = [(name, spec.plain, spec.cuda)] + [
+        (f"{name}_{key}", ch.plain, ch.cuda)
+        for key, ch in sorted(spec.channels.items())]
+    legs = []
+    for label, plain, cuda in pairs:
+        bp, bc = ((spec.bwd.plain, spec.bwd.cuda) if spec.bwd is not None
+                  else (plain, cuda))
+        legs.append((label, functools.partial(spec.vjp, plain, bp),
+                     functools.partial(spec.vjp, cuda, bc)))
+    return legs
+
+
 def check_kernel(name: str, *, seed: int = 0,
                  check_vjp: bool = True) -> Dict[str, Any]:
     """Assert forward (and VJP) parity of one family's CUDA wrappers with
@@ -114,16 +137,19 @@ def check_kernel(name: str, *, seed: int = 0,
             for key, ch in sorted(spec.channels.items())}
 
     if check_vjp and spec.diff_argnums:
-        worst = 0.0
-        for argnum, r, g in zip(spec.diff_argnums,
-                                _grads(spec.plain, args, spec),
-                                _grads(spec.cuda, args, spec)):
-            err = _max_err(r, g)
-            worst = max(worst, err)
-            if not err <= spec.tol:
-                raise AssertionError(f"{name}: VJP wrt arg {argnum} max|err| "
-                                     f"{err:.3e} > tol {spec.tol}")
-        report["vjp_max_err"] = worst
+        for label, plain, cuda in _vjp_legs(name, spec):
+            worst = 0.0
+            for argnum, r, g in zip(spec.diff_argnums,
+                                    _grads(plain, args, spec),
+                                    _grads(cuda, args, spec)):
+                err = _max_err(r, g)
+                worst = max(worst, err)
+                if not err <= spec.tol:
+                    raise AssertionError(
+                        f"{label}: VJP wrt arg {argnum} max|err| {err:.3e} "
+                        f"> tol {spec.tol}")
+            rep = report if label == name else report["channels"][label]
+            rep["vjp_max_err"] = worst
     return report
 
 

@@ -3,7 +3,14 @@
 Each family registers a `KernelSpec` once, at the bottom of its `ops.py`:
 its plain PyTorch version, its CUDA wrapper, a `make_inputs` for parity
 checks, the tolerance its parity is held to and, for a differentiable
-family, the arguments whose gradients `parity.py` compares.
+family, the arguments whose gradients `parity.py` compares, its backward
+pair (`bwd`: plain and CUDA, where the gradient is a kernel of its own:
+`lif`, `linrec`) and `vjp(fwd, bwd, *args, **static)`, its
+`torch.autograd.Function` run on a given forward and backward, so that
+the parity harness can hold the CUDA pair against the plain pair. The
+public entries run the same Function with the implementations chosen by
+device (`dispatch`, `dispatch_bwd`). `spikemm`'s gradient is its own
+product on the transposed raster, so it has a `vjp` and no `bwd`.
 
 Dispatch goes by the device of the tensors, and by nothing else: tensors
 on the CPU run the plain version, tensors on a CUDA device launch the hand
@@ -25,7 +32,8 @@ from one channel to another: a router that raises fails the call.
 Each CUDA wrapper keeps a plain integer count of its launches
 (`wrapper.launches`), which `launch_counts()` reads and `reset_launches()`
 zeroes, so a run can show that it went through the kernels. A channel's
-wrapper counts on its own, listed as `<family>_<channel>`.
+wrapper counts on its own, listed as `<family>_<channel>`, and so does a
+backward kernel's, as `<family>_bwd`.
 """
 
 from __future__ import annotations
@@ -61,6 +69,11 @@ class KernelSpec:
     # the arguments whose gradients the parity harness holds against the
     # plain version's (the JAX spec's); () for forward-only families
     diff_argnums: Tuple[int, ...] = ()
+    # the backward pair: bwd.plain / bwd.cuda(*saved, *cotangents, **static)
+    bwd: Optional[Channel] = None
+    # vjp(fwd, bwd, *args, **static): the family's autograd.Function with
+    # `fwd` forward and `bwd` backward (for spikemm: its g_w product)
+    vjp: Optional[Callable[..., Any]] = None
     # named alternative channels and the router that picks one per call:
     # select_channel(*args, traced=...) -> (a key of `channels` or None for
     # the (plain, cuda) pair above, kwargs for the chosen implementation)
@@ -74,6 +87,8 @@ class KernelSpec:
         out = {self.name: self.cuda}
         out.update({f"{self.name}_{k}": c.cuda
                     for k, c in sorted(self.channels.items())})
+        if self.bwd is not None:
+            out[f"{self.name}_bwd"] = self.bwd.cuda
         return out
 
 
@@ -151,6 +166,15 @@ def dispatch(name: str, args: Sequence[Any], traced: bool = False,
     return fn(*args, **static)
 
 
+def dispatch_bwd(name: str, args: Sequence[Any], **static) -> Any:
+    """Run family `name`'s backward: its CUDA kernel for CUDA tensors,
+    its plain version for CPU tensors."""
+    bwd = get(name).bwd
+    if bwd is None:
+        raise ValueError(f"kernel {name!r} has no backward of its own")
+    return (bwd.cuda if on_cuda(args) else bwd.plain)(*args, **static)
+
+
 def launch_counts() -> Dict[str, int]:
     """{wrapper: launches} of every family and channel."""
     ensure_registered()
@@ -168,5 +192,6 @@ def reset_launches() -> None:
 
 
 __all__ = ["Channel", "KernelSpec", "register", "get", "names", "dispatch",
+           "dispatch_bwd",
            "ensure_registered", "on_cuda", "launch_counts",
            "reset_launches"]

@@ -33,8 +33,20 @@ same routing, with no occupancy sync.
 
 The JAX package's per-shape threshold tuning (`sparse_threshold` looking
 up `spikemm.sparse_th` in its tuning cache) is not ported: those
-crossovers were timed on the CPU. Forward only: the straight-through
-gradient comes with the training slice.
+crossovers were timed on the CPU.
+
+`spikemm` is differentiable through `_SpikeMM`, which wraps the whole
+dispatch, both channels, as the JAX package's custom VJP wraps its
+router (its sparse channel has no VJP of its own):
+
+  * g_w = spikes^T @ g is event-gated by the same raster, so it is this
+    product again, `spikemm(spikes.T.contiguous(), g.contiguous())`
+    through the same dispatch: `csrc/spikemm.cu`, or, where the
+    transposed raster routes sparse, `csrc/spikemm_sparse.cu` (under
+    `auto` the (K, M) raster is routed afresh, one 4-byte host read);
+  * g_spikes = g @ w^T is a plain dense product (`torch.matmul`, as the
+    JAX package's `jnp.dot` outside any Pallas kernel), computed only
+    where the raster needs a gradient: an input layer's never does.
 """
 
 from __future__ import annotations
@@ -140,13 +152,45 @@ def spikemm_cuda(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _SpikeMM(torch.autograd.Function):
+    """`fwd` forward and `fwd` again for g_w: the routed dispatch (None),
+    or a channel's implementation the parity harness holds against
+    another."""
+
+    @staticmethod
+    def forward(ctx, spikes, w, traced, fwd):
+        ctx.save_for_backward(spikes, w)
+        ctx.traced, ctx.fwd = traced, fwd
+        if fwd is None:
+            return registry.dispatch("spikemm", (spikes, w), traced=traced)
+        return fwd(spikes, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        spikes, w = ctx.saved_tensors
+        need_s, need_w = ctx.needs_input_grad[:2]
+        g_s = (torch.matmul(g, w.t().to(g.dtype)).to(spikes.dtype)
+               if need_s else None)
+        g_w = None
+        if need_w:
+            args = (spikes.t().contiguous(), g.contiguous())
+            g_w = (registry.dispatch("spikemm", args, traced=ctx.traced)
+                   if ctx.fwd is None else ctx.fwd(*args)).to(w.dtype)
+        return g_s, g_w, None, None
+
+
 def spikemm(spikes: torch.Tensor, w: torch.Tensor, *,
             _traced: bool = False) -> torch.Tensor:
     """Event-gated spikes @ w. spikes: (M, K) 0/1; w: (K, N).
 
     `_traced=True` routes `auto` dense, as the JAX package routes a traced
-    raster (see the module docstring)."""
-    return registry.dispatch("spikemm", (spikes, w), traced=_traced)
+    raster (see the module docstring). Differentiable in both."""
+    return _SpikeMM.apply(spikes, w, _traced, None)
+
+
+def _vjp(fwd, bwd, spikes, w):
+    # spikemm's backward is its own product: `bwd` is `fwd`
+    return _SpikeMM.apply(spikes, w, False, fwd)
 
 
 def _make_inputs(generator: torch.Generator):
@@ -158,7 +202,7 @@ def _make_inputs(generator: torch.Generator):
 
 registry.register(registry.KernelSpec(
     name="spikemm", plain=spikemm_ref, cuda=spikemm_cuda,
-    make_inputs=_make_inputs, tol=1e-4,
+    make_inputs=_make_inputs, tol=1e-4, diff_argnums=(0, 1), vjp=_vjp,
     channels={"sparse": registry.Channel(plain=spikemm_sparse_ref,
                                          cuda=spikemm_sparse_cuda)},
     select_channel=_select_channel))

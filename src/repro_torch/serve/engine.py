@@ -259,6 +259,7 @@ class BatchedEngine:
             x[:, i, :] = xw
         return torch.from_numpy(x).to(device=self.device, dtype=self.dtype)
 
+    @torch.no_grad()     # serving builds no graph, whatever params require
     def _run_cohort(self, cohort: List[Tuple[Session, np.ndarray, int]],
                     states: List[Dict[str, Any]]
                     ) -> Tuple[List[Dict[str, Any]], List[np.ndarray]]:
@@ -284,6 +285,7 @@ class NaiveEngine(BatchedEngine):
 
     kind = "naive"
 
+    @torch.no_grad()
     def _run_cohort(self, cohort, states):
         news: List[Dict[str, Any]] = []
         outs: List[np.ndarray] = []

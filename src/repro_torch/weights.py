@@ -7,6 +7,10 @@ JAX side) and turns it into the port's tensors here. Nested dicts map to
 nested dicts, None stays None (e.g. a homogeneous model's "neuron"
 entry), and every array is copied into a contiguous tensor on `device`.
 
+Gradients travel back the same way: `grads_to_numpy` takes the `.grad`
+of each leaf, so a test compares the port's gradient tree with the
+reference's `jax.grad` tree leaf for leaf.
+
 A compressed topology is configuration, not an array: an `EncodedTopology`
 leaf (the port's own, encoded from the same numpy arrays as the
 reference's) passes through untouched, and its tables go to a device when
@@ -47,4 +51,15 @@ def params_to_numpy(tree: Any) -> Any:
     return tree.detach().cpu().numpy()
 
 
-__all__ = ["params_from_numpy", "params_to_numpy"]
+def grads_to_numpy(tree: Any) -> Any:
+    """The `.grad` of every tensor leaf of a parameter tree as numpy (None
+    where a leaf has none), shaped like the tree: to hold a backward pass
+    against the JAX package's gradient tree leaf for leaf."""
+    if tree is None or isinstance(tree, EncodedTopology):
+        return None
+    if isinstance(tree, dict):
+        return {k: grads_to_numpy(v) for k, v in tree.items()}
+    return None if tree.grad is None else params_to_numpy(tree.grad)
+
+
+__all__ = ["params_from_numpy", "params_to_numpy", "grads_to_numpy"]

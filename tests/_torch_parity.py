@@ -22,6 +22,14 @@ a layer the rule is row-wise (`rowwise=True`): a batch row may differ only
 from its first differing step, every lane that differs at that step must
 be at a tie, and from then on the whole row has diverged.
 
+Gradients extend the rule. A surrogate gradient is a function of the
+same pre-reset membrane, and `rectangle`'s is discontinuous at its window
+edge |u - th| = alpha / 2 (`triangle`'s kinks at 1 / alpha): where the
+reference's u lies within TIE_MARGIN of an edge, two engines may take
+different sides of it, and that lane's gradient may differ from that step
+back to its first step (the reverse scan carries it), and so may every
+gradient summed over it. `surrogate_edges` finds those lane-steps.
+
 `hidden_membrane` computes the reference's pre-reset membrane and
 threshold itself, in float64 numpy, along the reference's own spike train
 (its resets, its adaptation, its recurrent input), so the margin is checked
@@ -187,5 +195,19 @@ def max_err_before(ref: np.ndarray, test: np.ndarray,
     return err
 
 
+def surrogate_edges(u: np.ndarray, threshold, surrogate: str, alpha: float,
+                    margin: float = TIE_MARGIN) -> np.ndarray:
+    """(T, B, N) bool: where the reference's pre-reset membrane `u` lies
+    within `margin` of a window edge of a `rectangle` (|u - th| = alpha/2)
+    or `triangle` (|u - th| = 1/alpha) surrogate; all False for the
+    smooth ones."""
+    if surrogate not in ("rectangle", "triangle"):
+        return np.zeros(np.shape(u), bool)
+    edge = alpha / 2.0 if surrogate == "rectangle" else 1.0 / alpha
+    x = np.abs(np.asarray(u, np.float64)
+               - np.asarray(threshold, np.float64))
+    return np.abs(x - edge) < margin
+
+
 __all__ = ["TIE_MARGIN", "hidden_membrane", "is_recurrent", "tie_rule",
-           "max_err_before"]
+           "max_err_before", "surrogate_edges"]

@@ -792,7 +792,8 @@ def test_registry_make_inputs_run_plain_on_cpu():
                                 "lifrec", "linrec", "spikemm",
                                 "spikemm_gather", "stdp", "stdp_seq")
     assert registry.launch_counts() == {
-        n: 0 for n in registry.names() + ("spikemm_sparse",)}
+        n: 0 for n in registry.names() + ("spikemm_sparse", "lif_bwd",
+                                          "linrec_bwd")}
 
 
 def test_dispatch_rejects_mixed_devices():
@@ -849,7 +850,8 @@ def _fake_nvcc(tmp_path, exit_code):
 def test_build_is_one_nvcc_call(tmp_path, monkeypatch):
     """Every source is compiled for sm_90a by its own `nvcc -c`, all
     started together, and the objects are linked by one `nvcc -shared`
-    call into the digest directory; an unchanged tree reuses the build."""
+    call into the digest directory (`build.log` heads each source's output
+    with its seconds); an unchanged tree reuses the build."""
     nvcc, calls = _fake_nvcc(tmp_path, 0)
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
@@ -864,6 +866,10 @@ def test_build_is_one_nvcc_call(tmp_path, monkeypatch):
     assert sorted(a for a in link if a.endswith(".o")) == sorted(
         a[a.index("-o") + 1] for a in compiles)
     assert lib.parent.parent == tmp_path / "build" and lib.exists()
+    # build.log heads each source's output with its compile seconds
+    log = (lib.parent / "build.log").read_text()
+    assert all(re.search(rf"^== {re.escape(s.name)} \(\d+\.\d s\)$", log,
+                         re.M) for s in _build.sources())
     assert {s.name for s in _build.sources()} >= {
         "spikemm.cu", "linrec.cu", "lif.cu", "lifrec.cu", "alifrec.cu",
         "spikemm_sparse.cu", "spikemm_gather.cu", "stdp.cu",

@@ -41,9 +41,12 @@ def stand_in(monkeypatch):
     reg = dict(registry._REGISTRY)
     monkeypatch.setattr(registry, "_REGISTRY", reg)
 
-    def replace(name, cuda, channel=None):
+    def replace(name, cuda, channel=None, bwd=None):
         spec = registry.get(name)
-        if channel is None:
+        if bwd is not None:
+            reg[name] = dataclasses.replace(spec, bwd=dataclasses.replace(
+                spec.bwd, cuda=bwd))
+        elif channel is None:
             reg[name] = dataclasses.replace(spec, cuda=cuda)
         else:
             chans = dict(spec.channels)
@@ -54,21 +57,27 @@ def stand_in(monkeypatch):
 
 def test_all_families_pass_with_their_plain_versions(stand_in, capsys,
                                                      monkeypatch):
-    """With every CUDA wrapper replaced by its plain version, every family
-    passes, `attention` with its VJP, and `main` reports 11 kernels."""
+    """With every CUDA wrapper (forward and backward) replaced by its plain
+    version, every family passes, `attention`, `lif`, `linrec` and
+    `spikemm` (both channels) with their VJP, and `main` reports 11
+    kernels."""
     for name in registry.names():
         spec = registry.get(name)
         stand_in(name, spec.plain)
         for key, ch in spec.channels.items():
             stand_in(name, ch.plain, channel=key)
+        if spec.bwd is not None:
+            stand_in(name, None, bwd=spec.bwd.plain)
     reports = parity.check_all()
     assert set(reports) == set(registry.names())
-    assert reports["attention"] == {"forward_max_err": 0.0,
-                                    "vjp_max_err": 0.0}
+    for name in ("attention", "lif", "linrec"):
+        assert reports[name] == {"forward_max_err": 0.0,
+                                 "vjp_max_err": 0.0}
     assert reports["spikemm"]["channels"] == {
-        "spikemm_sparse": {"forward_max_err": 0.0}}
+        "spikemm_sparse": {"forward_max_err": 0.0, "vjp_max_err": 0.0}}
+    assert reports["spikemm"]["vjp_max_err"] == 0.0
     assert all("vjp_max_err" not in r for n, r in reports.items()
-               if n != "attention")
+               if n not in ("attention", "lif", "linrec", "spikemm"))
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda *a: "stand-in")
     parity.main()
@@ -110,12 +119,18 @@ def test_check_vjp_false_skips_the_gradients(stand_in):
 
 
 def test_names_and_diff_argnums():
-    """`attention` is registered and is the one differentiable family; the
-    others' backward waits for the training slice."""
+    """`attention` is registered; it, `lif`, `linrec` and `spikemm` are the
+    differentiable families, with the JAX specs' `diff_argnums`; `lif` and
+    `linrec` carry a backward pair of their own; the others' backward
+    waits for item 2b and B6."""
     names = registry.names()
     assert "attention" in names and len(names) == 10
     assert {n: registry.get(n).diff_argnums for n in names
-            if registry.get(n).diff_argnums} == {"attention": (0, 1, 2)}
+            if registry.get(n).diff_argnums} == {
+        "attention": (0, 1, 2), "lif": (0, 1, 2), "linrec": (0, 1, 2),
+        "spikemm": (0, 1)}
+    assert {n for n in names if registry.get(n).bwd is not None} == {
+        "lif", "linrec"}
 
 
 def test_loss_matches_the_jax_harness():

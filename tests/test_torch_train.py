@@ -1,0 +1,577 @@
+"""Training through the port held against the JAX package, on the CPU.
+
+* The VJP of each op of the SHD slice against `jax.vjp` of the JAX op on
+  the same numpy inputs and cotangents, at the family's `KernelSpec.tol`
+  (1e-4, relative and absolute):
+  - `lif_scan`: 4 surrogates x 2 resets x alpha 0.5, 1, 2, at a prime
+    T = 37; a lane-step whose reference membrane lies within 1e-5 of a
+    rectangle or triangle window edge may differ from that step back
+    (`tests/_torch_parity.py::surrogate_edges`), and the test asserts
+    there is none at these inputs;
+  - `linrec`: a full decay plane and a per-neuron decay broadcast over
+    (T, B) (a stride-0 view on the port's side);
+  - `spikemm`: under `REPRO_SPIKEMM_SPARSE=never` and `always`, on a
+    binary and a graded raster.
+* The SHD DH-SNN, dendritic and homogeneous, at the JAX test's sizes
+  (n_hidden 32, T 40, B 16): the loss and every gradient leaf of the
+  port's `plan.run` and `events.run` against `jax.value_and_grad` of the
+  JAX `plan.run` and `events.run` on the same weights: the loss within
+  `CROSS_ENGINE_ATOL`, each leaf within a relative L2 error of 1e-4, the
+  hidden spike trains under the threshold-tie rule; and three clipped-SGD
+  steps (`examples/shd_dhsnn.py`'s update) with the losses within 1e-4
+  relative of the reference's.
+* A port twin of `tests/test_events_and_apps.py::test_dhsnn_shd_learns`:
+  25 clipped-SGD steps at lr 0.3 lower the loss below 0.9x the first, on
+  both engines.
+* The learning pass stays out of the graph; the ops without a backward
+  yet refuse a gradient; serving builds no graph.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import events as jevents
+from repro.core import plan as jplan
+from repro.core.snn_layers import make_dhsnn_shd as jmake_dhsnn
+from repro.kernels.lif.ops import lif_scan as jlif_scan
+from repro.kernels.linrec.ops import linrec as jlinrec
+from repro.kernels.spikemm.ops import spikemm as jspikemm
+from repro_torch.core import events, plan
+from repro_torch.core.snn_layers import (make_dhsnn_shd, make_plastic_ff,
+                                         make_srnn_ecg)
+from repro_torch.data.spikes import gen_shd_spikes
+from repro_torch.kernels import registry
+from repro_torch.kernels.alifrec.ops import alif_scan, alifrec_scan
+from repro_torch.kernels.lif.ops import lif_scan
+from repro_torch.kernels.lifrec.ops import lifrec_scan
+from repro_torch.kernels.linrec.ops import linrec
+from repro_torch.kernels.linrec.ref import linrec_bwd_ref
+from repro_torch.kernels.spikemm.ops import spikemm
+from repro_torch.serve import EngineConfig, make_engine
+from repro_torch.weights import grads_to_numpy, params_from_numpy
+from tests._torch_parity import hidden_membrane, surrogate_edges, tie_rule
+
+TOL = 1e-4                       # the families' KernelSpec.tol
+LEAF_RTOL = 1e-4                 # relative L2 error of a gradient leaf
+N_HIDDEN, T_STEPS, BATCH = 32, 40, 16
+SURROGATES = ("arctan", "rectangle", "sigmoid", "triangle")
+
+
+def _np(t):
+    return t.detach().numpy() if isinstance(t, torch.Tensor) else \
+        np.asarray(t)
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL,
+                               atol=TOL, err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# the ops' VJPs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("alpha", (0.5, 1.0, 2.0))
+@pytest.mark.parametrize("reset", ("zero", "subtract"))
+@pytest.mark.parametrize("surrogate", SURROGATES)
+def test_lif_scan_vjp_matches_jax(surrogate, reset, alpha):
+    rng = np.random.default_rng(7)
+    T, B, N = 37, 3, 130
+    cur = (0.6 * rng.standard_normal((T, B, N))).astype(np.float32)
+    tau = rng.uniform(0.7, 0.98, N).astype(np.float32)
+    v0 = (0.3 * rng.standard_normal((B, N))).astype(np.float32)
+    gs = rng.standard_normal((T, B, N)).astype(np.float32)
+    gvT = rng.standard_normal((B, N)).astype(np.float32)
+    (s_j, vT_j), vjp = jax.vjp(
+        lambda c, t, v: jlif_scan(c, t, v, 1.0, surrogate, alpha, False,
+                                  reset), jnp.asarray(cur), jnp.asarray(tau),
+        jnp.asarray(v0))
+    g_j = vjp((jnp.asarray(gs), jnp.asarray(gvT)))
+    args = [torch.from_numpy(a).requires_grad_() for a in (cur, tau, v0)]
+    s_t, vT_t = lif_scan(*args, 1.0, surrogate, alpha, reset)
+    g_t = torch.autograd.grad((s_t, vT_t), args, (torch.from_numpy(gs),
+                                                  torch.from_numpy(gvT)))
+    np.testing.assert_array_equal(_np(s_t), np.asarray(s_j))
+    _close(vT_t, vT_j, "v_final")
+    # the reference's pre-reset membrane, in float64 along its spikes
+    s = np.asarray(s_j, np.float64)
+    u = np.zeros((T, B, N))
+    v = v0.astype(np.float64)
+    for t in range(T):
+        u[t] = tau * v + cur[t]
+        v = u[t] - s[t] if reset == "subtract" else u[t] * (1.0 - s[t])
+    edges = surrogate_edges(u, 1.0, surrogate, alpha)
+    assert not edges.any(), f"{int(edges.sum())} lane-steps at a window edge"
+    for name, got, want in zip(("g_current", "g_tau", "g_v0"), g_t, g_j):
+        _close(got, want, name)
+
+
+def test_surrogate_edges_find_the_window_edges():
+    u = np.array([1.5, 1.5 + 2e-5, 1.0])
+    assert surrogate_edges(u, 1.0, "rectangle", 1.0).tolist() == [
+        True, False, False]
+    assert not surrogate_edges(u, 1.0, "sigmoid", 1.0).any()
+
+
+@pytest.mark.parametrize("decay", ("full_plane", "per_neuron"))
+def test_linrec_vjp_matches_jax(decay):
+    rng = np.random.default_rng(3)
+    T, B, D = 37, 3, 136
+    a_shape = (T, B, D) if decay == "full_plane" else (D,)
+    a = rng.uniform(0.5, 0.99, a_shape).astype(np.float32)
+    x = rng.standard_normal((T, B, D)).astype(np.float32)
+    h0 = rng.standard_normal((B, D)).astype(np.float32)
+    gy = rng.standard_normal((T, B, D)).astype(np.float32)
+    ghT = rng.standard_normal((B, D)).astype(np.float32)
+    (y_j, hT_j), vjp = jax.vjp(
+        lambda a_, x_, h_: jlinrec(jnp.broadcast_to(a_, (T, B, D)), x_, h_),
+        jnp.asarray(a), jnp.asarray(x), jnp.asarray(h0))
+    g_j = vjp((jnp.asarray(gy), jnp.asarray(ghT)))
+    args = [torch.from_numpy(v).requires_grad_() for v in (a, x, h0)]
+    y_t, hT_t = linrec(args[0].expand(T, B, D), args[1], args[2])
+    g_t = torch.autograd.grad((y_t, hT_t), args, (torch.from_numpy(gy),
+                                                  torch.from_numpy(ghT)))
+    _close(y_t, y_j, "y")
+    _close(hT_t, hT_j, "h_final")
+    for name, got, want in zip(("g_a", "g_x", "g_h0"), g_t, g_j):
+        assert got.shape == tuple(np.shape(want))
+        _close(got, want, name)
+
+
+def test_linrec_bwd_computes_only_what_is_needed(monkeypatch):
+    """A constant decay and state (the LI readout's) need g_x alone: the
+    backward is asked for no g_a and no g_h0, and g_x is the reversed,
+    one-shifted forward recurrence."""
+    asked = []
+    spec = registry.get("linrec")
+
+    def recording(*args, **kw):
+        asked.append(kw)
+        return linrec_bwd_ref(*args, **kw)
+    monkeypatch.setattr(registry, "_REGISTRY", {
+        **registry._REGISTRY, "linrec": dataclasses.replace(
+            spec, bwd=dataclasses.replace(spec.bwd, plain=recording))})
+    rng = np.random.default_rng(4)
+    T, B, D = 9, 2, 5
+    a = torch.full((D,), 0.97).expand(T, B, D)
+    x = torch.from_numpy(rng.standard_normal((T, B, D)).astype(np.float32))
+    x.requires_grad_()
+    h0 = torch.zeros(B, D)
+    y, hT = linrec(a, x, h0)
+    gy = torch.from_numpy(rng.standard_normal((T, B, D)).astype(np.float32))
+    (gx,) = torch.autograd.grad(y, x, gy)
+    g_a, g_x, g_h0 = linrec_bwd_ref(a, y.detach(), h0, gy, torch.zeros(B, D),
+                                    need_a=False, need_h0=False)
+    assert g_a is None and g_h0 is None
+    assert asked == [dict(need_a=False, need_h0=False)]
+    assert torch.equal(gx, g_x)
+    a_rev = torch.cat([a[1:], torch.zeros(1, B, D)]).flip(0)
+    y_rev, _ = linrec(a_rev, gy.flip(0).contiguous(), torch.zeros(B, D))
+    assert torch.equal(y_rev.flip(0), gx)
+
+
+@pytest.mark.parametrize("raster", ("binary", "graded"))
+@pytest.mark.parametrize("mode", ("never", "always"))
+def test_spikemm_vjp_matches_jax(mode, raster, monkeypatch):
+    monkeypatch.setenv("REPRO_SPIKEMM_SPARSE", mode)
+    rng = np.random.default_rng(5)
+    M, K, N = 100, 300, 200
+    s = (rng.random((M, K)) < 0.13).astype(np.float32)
+    if raster == "graded":
+        s = s * rng.uniform(0.5, 2.0, (M, K)).astype(np.float32)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    g = rng.standard_normal((M, N)).astype(np.float32)
+    out_j, vjp = jax.vjp(jspikemm, jnp.asarray(s), jnp.asarray(w))
+    g_j = vjp(jnp.asarray(g))
+    args = [torch.from_numpy(v).requires_grad_() for v in (s, w)]
+    out_t = spikemm(*args)
+    g_t = torch.autograd.grad(out_t, args, torch.from_numpy(g))
+    _close(out_t, out_j, "out")
+    for name, got, want in zip(("g_spikes", "g_w"), g_t, g_j):
+        _close(got, want, name)
+
+
+def test_spikemm_input_raster_gets_no_gradient(monkeypatch):
+    """g_w alone where the raster needs no gradient (an input layer's):
+    the dense g_spikes product is skipped, and g_w is the spike product
+    again on the transposed raster."""
+    calls = []
+    spec = registry.get("spikemm")
+    real = spec.plain
+
+    def counting(s, w):
+        calls.append((tuple(s.shape), tuple(w.shape)))
+        return real(s, w)
+    monkeypatch.setattr(registry, "_REGISTRY", {
+        **registry._REGISTRY, "spikemm": dataclasses.replace(
+            spec, plain=counting)})
+    monkeypatch.setenv("REPRO_SPIKEMM_SPARSE", "never")
+    s = (torch.rand(12, 7, generator=torch.Generator().manual_seed(0))
+         < 0.3).float()
+    w = torch.randn(7, 5, requires_grad=True)
+    spikemm(s, w).sum().backward()
+    assert calls == [((12, 7), (7, 5)), ((7, 12), (12, 5))]
+    assert torch.allclose(w.grad, s.t() @ torch.ones(12, 5))
+
+
+# ---------------------------------------------------------------------------
+# the SHD DH-SNN end to end
+# ---------------------------------------------------------------------------
+
+
+def _shd_data():
+    xs, ys = gen_shd_spikes(BATCH, T=T_STEPS)
+    return np.ascontiguousarray(xs.transpose(1, 0, 2)), ys
+
+
+def _jax_loss(nodes, x, y, run):
+    def loss(p):
+        _, outs, _ = run(nodes, p, x)
+        logits = jnp.mean(outs, 0)
+        return -jnp.mean(jax.nn.log_softmax(logits)[jnp.arange(len(y)), y])
+    return loss
+
+
+def _port_loss(nodes, params, x, y, run):
+    _, outs, _ = run(nodes, params, x, device="cpu")
+    logits = outs.mean(0)
+    return -torch.log_softmax(logits, -1)[torch.arange(len(y)), y].mean()
+
+
+def _leaves_with_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves_with_paths(tree[k], prefix + (k,))
+    elif tree is not None:
+        yield prefix, tree
+
+
+def _requires_grad(tree):
+    for _, t in _leaves_with_paths(tree):
+        t.requires_grad_()
+    return tree
+
+
+def _clipped_sgd(params, grads, lr):
+    """`examples/shd_dhsnn.py`'s update: SGD with the global gradient norm
+    clipped to 1."""
+    gn = torch.sqrt(sum((g ** 2).sum() for _, g in _leaves_with_paths(
+        grads)))
+    sc = torch.clamp_max(1.0 / (gn + 1e-9), 1.0)
+    with torch.no_grad():
+        for path, p in _leaves_with_paths(params):
+            g = grads
+            for k in path:
+                g = g[k]
+            p -= lr * sc * g
+
+
+def _jax_sgd(params, grads, lr):
+    gn = jnp.sqrt(sum(jnp.sum(jnp.square(g))
+                      for g in jax.tree.leaves(grads)))
+    sc = jnp.minimum(1.0, 1.0 / (gn + 1e-9))
+    return jax.tree.map(lambda p, g: p - lr * sc * g, params, grads)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(dendritic, engine, steps=1):
+    """The JAX model's weights, data, and the losses, gradient trees and
+    recorded hidden spikes of `steps` clipped-SGD steps at lr 0.2."""
+    jn, jp = jmake_dhsnn(jax.random.PRNGKey(1), n_hidden=N_HIDDEN,
+                         dendritic=dendritic)
+    x, y = _shd_data()
+    run = jplan.run if engine == "plan" else jevents.run
+    vg = jax.jit(jax.value_and_grad(_jax_loss(jn, jnp.asarray(x),
+                                              jnp.asarray(y), run)))
+    p0 = jax.tree_util.tree_map(np.asarray, jp)
+    _, _, rec = run(jn, jp, jnp.asarray(x), record=("hidden",))
+    losses, grads = [], []
+    p = jp
+    for _ in range(steps):
+        loss, g = vg(p)
+        losses.append(float(loss))
+        grads.append(jax.tree_util.tree_map(np.asarray, g))
+        p = _jax_sgd(p, g, 0.2)
+    return jn, p0, x, y, losses, grads, np.asarray(rec["hidden"])
+
+
+def _port_model(dendritic, p0):
+    tn, _ = make_dhsnn_shd(torch.Generator().manual_seed(0),
+                           n_hidden=N_HIDDEN, dendritic=dendritic,
+                           device="cpu")
+    return tn, _requires_grad(params_from_numpy(p0, "cpu"))
+
+
+@pytest.mark.parametrize("engine", ("plan", "events"))
+@pytest.mark.parametrize("dendritic", (True, False),
+                         ids=("dendritic", "homogeneous"))
+def test_shd_dhsnn_loss_and_gradients_match_jax(dendritic, engine):
+    jn, p0, x, y, losses, grads, spikes_ref = _reference(dendritic, engine)
+    tn, tp = _port_model(dendritic, p0)
+    run = plan.run if engine == "plan" else events.run
+    xt = torch.from_numpy(x)
+    loss = _port_loss(tn, tp, xt, torch.from_numpy(y).long(), run)
+    loss.backward()
+    assert abs(loss.item() - losses[0]) <= plan.CROSS_ENGINE_ATOL
+    got = grads_to_numpy(tp)
+    want = dict(_leaves_with_paths(grads[0]))
+    got_leaves = dict(_leaves_with_paths(got))
+    assert set(got_leaves) == set(want)
+    # the hidden trains under the tie rule, and the window edges counted
+    with torch.no_grad():
+        _, _, rec = run(tn, tp, xt, record=("hidden",), device="cpu")
+    hp = {k: np.asarray(v) for k, v in p0["hidden"].items()
+          if k != "neuron"}
+    hp["neuron"] = p0["hidden"].get("neuron")
+    u, th = hidden_membrane(tn[0], hp, x, spikes_ref)
+    tie_rule(spikes_ref, rec["hidden"].numpy(), u, th)
+    edges = surrogate_edges(u, th, tn[0].neuron.surrogate,
+                            tn[0].neuron.alpha)
+    for path, w in want.items():
+        rel = np.linalg.norm(got_leaves[path] - w) / np.linalg.norm(w)
+        assert rel <= LEAF_RTOL, (
+            f"{'/'.join(path)}: relative L2 error {rel:.3e} "
+            f"({int(edges.sum())} hidden lane-steps at a window edge)")
+
+
+@pytest.mark.parametrize("dendritic", (True, False),
+                         ids=("dendritic", "homogeneous"))
+def test_shd_dhsnn_three_sgd_steps_follow_jax(dendritic):
+    _, p0, x, y, losses, _, _ = _reference(dendritic, "plan", steps=3)
+    tn, tp = _port_model(dendritic, p0)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y).long()
+    got = []
+    for _ in range(3):
+        for _, p in _leaves_with_paths(tp):
+            p.grad = None
+        loss = _port_loss(tn, tp, xt, yt, plan.run)
+        loss.backward()
+        got.append(loss.item())
+        _clipped_sgd(tp, grads_tree(tp), 0.2)
+    np.testing.assert_allclose(got, losses, rtol=1e-4)
+
+
+def grads_tree(params):
+    """The `.grad` tensors of a parameter tree, shaped like it."""
+    if isinstance(params, dict):
+        return {k: grads_tree(v) for k, v in params.items()
+                if v is not None}
+    return params.grad
+
+
+@pytest.mark.parametrize("engine", ("events", "plan"))
+def test_port_dhsnn_shd_learns(engine):
+    """The port's twin of `test_dhsnn_shd_learns`: 25 clipped-SGD steps at
+    lr 0.3 on the JAX test's data and sizes (weights from the port's own
+    generator)."""
+    x, y = _shd_data()
+    nodes, params = make_dhsnn_shd(torch.Generator().manual_seed(1),
+                                   n_hidden=N_HIDDEN, device="cpu")
+    _requires_grad(params)
+    run = plan.run if engine == "plan" else events.run
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y).long()
+    losses = []
+    for _ in range(25):
+        for _, p in _leaves_with_paths(params):
+            p.grad = None
+        loss = _port_loss(nodes, params, xt, yt, run)
+        loss.backward()
+        losses.append(loss.item())
+        _clipped_sgd(params, grads_tree(params), 0.3)
+    assert all(np.isfinite(losses))
+    assert losses[-1] < losses[0] * 0.9, losses
+
+
+# ---------------------------------------------------------------------------
+# what stays out of the graph, and what refuses a gradient
+# ---------------------------------------------------------------------------
+
+
+def test_learning_pass_stays_out_of_the_graph():
+    nodes, params = make_plastic_ff(torch.Generator().manual_seed(2),
+                                    device="cpu")
+    x = torch.from_numpy((np.random.default_rng(2).random((30, 4, 64))
+                          < 0.3).astype(np.float32))
+    grads = {}
+    for learn in (True, False):
+        p = {k: {kk: vv.clone().requires_grad_() for kk, vv in v.items()}
+             for k, v in params.items()}
+        state, out, _ = plan.run(nodes, p, x, learn=learn, device="cpu")
+        out.pow(2).mean().backward()
+        grads[learn] = grads_to_numpy(p)
+        if learn:
+            syn = state["hidden"]["syn:input"]
+            assert syn and all(v.grad_fn is None and not v.requires_grad
+                               for v in syn.values())
+    for path, g in _leaves_with_paths(grads[False]):
+        other = grads[True]
+        for k in path:
+            other = other[k]
+        assert np.abs(g).sum() > 0
+        np.testing.assert_array_equal(other, g)
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: lifrec_scan(t, torch.zeros(4, 4), torch.ones(4),
+                          torch.zeros(2, 4), torch.zeros(2, 4)),
+    lambda t: alif_scan(t, torch.ones(4), torch.ones(4), torch.zeros(2, 4),
+                        torch.zeros(2, 4)),
+    lambda t: alifrec_scan(t, torch.zeros(4, 4), torch.ones(4),
+                           torch.ones(4), torch.zeros(2, 4),
+                           torch.zeros(2, 4), torch.zeros(2, 4)),
+], ids=("lifrec", "alif", "alifrec"))
+def test_scans_without_a_backward_refuse_a_gradient(call):
+    cur = torch.zeros(5, 2, 4, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 2b"):
+        call(cur)
+    with torch.no_grad():
+        call(cur)                               # inference runs
+    call(cur.detach())
+
+
+def test_ecg_srnn_training_refuses_on_both_engines():
+    nodes, params = make_srnn_ecg(torch.Generator().manual_seed(0),
+                                  n_hidden=16, device="cpu")
+    _requires_grad(params)
+    x = torch.zeros(6, 2, 4)
+    with pytest.raises(NotImplementedError, match="item 2b"):
+        plan.run(nodes, params, x, device="cpu")
+    # the stepper differentiates through `surrogate.spike`, as the JAX
+    # package's does
+    _, out, _ = events.run(nodes, params, x, device="cpu")
+    assert out.grad_fn is not None
+
+
+def test_gather_refuses_a_gradient():
+    from repro_torch.core import topology as topo
+    rng = np.random.default_rng(0)
+    w = np.where(rng.random((40, 30)) < 0.1,
+                 rng.standard_normal((40, 30)), 0.0).astype(np.float32)
+    enc = topo.encode(w, kind="sparse", ie_type=1)
+    assert enc.exec_channel() != "dense"
+    x = (torch.rand(3, 40) < 0.5).float().requires_grad_()
+    with pytest.raises(NotImplementedError, match="B6"):
+        enc.apply_spikes(x)
+    with torch.no_grad():
+        assert enc.apply_spikes(x).shape == (3, 30)
+
+
+def test_serving_builds_no_graph():
+    nodes, params = make_dhsnn_shd(torch.Generator().manual_seed(0),
+                                   n_in=24, n_hidden=8, n_out=3,
+                                   device="cpu")
+    _requires_grad(params)
+    eng = make_engine(nodes, params, EngineConfig(window=4, capacity=2),
+                      device="cpu")
+    sid = eng.open()
+    eng.submit(sid, (np.random.default_rng(0).random((10, 24)) < 0.3)
+               .astype(np.float32))
+    eng.close(sid)
+    assert eng.drain() > 0
+    assert eng.outputs(sid).shape == (10, 3)
+    for nd in eng.state_of(sid).values():
+        for v in nd.values():
+            assert v.grad_fn is None and not v.requires_grad
+
+
+@pytest.mark.parametrize("surrogate", SURROGATES)
+def test_lif_bwd_wrapper_passes_the_kernel_its_arguments(monkeypatch,
+                                                         surrogate):
+    """With a recording stand-in for the library (no card here),
+    `lif_bwd_cuda` hands `lif_bwd_f32` the shape, the reset, the
+    surrogate's index in sorted names, alpha and `lane_plan`'s stages,
+    sums the per-lane g_tau partials over B and counts one launch."""
+    from contextlib import nullcontext
+    from unittest import mock
+    from repro_torch.kernels import _build, common
+    from repro_torch.kernels.lif import ops as lif_ops
+    lib = mock.Mock(**{"lif_bwd_f32.return_value": 0})
+    monkeypatch.setattr(lif_ops, "check_scan", lambda *a: None)
+    monkeypatch.setattr(lif_ops, "check_planes", lambda *a: None)
+    monkeypatch.setattr(lif_ops, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    T, B, N = 60, 48, 64
+    plane, lane = torch.zeros((T, B, N)), torch.zeros((B, N))
+    registry.reset_launches()
+    g_cur, g_tau, g_v0 = lif_ops.lif_bwd_cuda(
+        plane, torch.ones(N), lane, plane, plane, lane, 1.0, surrogate, 2.0,
+        "subtract")
+    (call,) = lib.lif_bwd_f32.call_args_list
+    stages = common.lane_plan(B * N, T, 132)[2]
+    assert call.args[10:19] == (T, B, N, 1.0, 1, SURROGATES.index(surrogate),
+                                2.0, stages, 0)
+    assert g_cur.shape == (T, B, N) and g_tau.shape == (N,)
+    assert registry.launch_counts()["lif_bwd"] == 1
+    registry.reset_launches()
+    with pytest.raises(ValueError, match="unknown surrogate"):
+        lif_ops.lif_bwd_cuda(plane, torch.ones(N), lane, plane, plane, lane,
+                             1.0, "nope")
+
+
+@pytest.mark.parametrize("need_a,need_h0", [(True, True), (False, False),
+                                            (True, False)])
+def test_linrec_bwd_wrapper_passes_the_kernel_its_arguments(
+        monkeypatch, need_a, need_h0):
+    """`linrec_bwd_cuda` hands `linrec_bwd_f32` the decay's strides (0 where
+    broadcast: never materialised), null pointers for the gradients not
+    asked for, `lane_plan`'s stages, and counts one launch."""
+    from contextlib import nullcontext
+    from unittest import mock
+    from repro_torch.kernels import _build, common
+    from repro_torch.kernels.linrec import ops as lin_ops
+    lib = mock.Mock(**{"linrec_bwd_f32.return_value": 0})
+    monkeypatch.setattr(lin_ops, "_check", lambda *a: None)
+    monkeypatch.setattr(lin_ops, "check_planes", lambda *a: None)
+    monkeypatch.setattr(lin_ops, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    T, B, D = 60, 48, 256
+    a = torch.rand(D).expand(T, B, D)
+    y, h = torch.zeros((T, B, D)), torch.zeros((B, D))
+    registry.reset_launches()
+    g_a, g_x, g_h0 = lin_ops.linrec_bwd_cuda(a, y, h, y, h, need_a, need_h0)
+    (call,) = lib.linrec_bwd_f32.call_args_list
+    assert call.args[1:4] == (0, 0, 1)
+    assert (call.args[9] is None) == (not need_a)
+    assert (call.args[10] is None) == (not need_h0)
+    assert call.args[11:15] == (T, B, D, common.lane_plan(B * D, T, 132)[2])
+    assert (g_a is None) == (not need_a) and (g_h0 is None) == (not need_h0)
+    assert g_x.shape == (T, B, D)
+    assert registry.launch_counts()["linrec_bwd"] == 1
+    registry.reset_launches()
+
+
+def test_run_stream_carries_the_graph_across_chunks():
+    """BPTT through `run_stream`: the loss over the streamed chunks'
+    outputs has the one-shot `run`'s gradients (the state carried between
+    chunks carries their cotangents back)."""
+    x, y = _shd_data()
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y).long()
+    grads = []
+    for chunks in (1, 2):
+        nodes, params = make_dhsnn_shd(torch.Generator().manual_seed(1),
+                                       n_hidden=N_HIDDEN, device="cpu")
+        _requires_grad(params)
+        outs = [o for _, o in plan.run_stream(
+            nodes, params, xt.chunk(chunks, dim=0), device="cpu")]
+        logits = torch.cat(outs).mean(0)
+        loss = -torch.log_softmax(logits, -1)[torch.arange(len(yt)),
+                                              yt].mean()
+        loss.backward()
+        grads.append(dict(_leaves_with_paths(grads_to_numpy(params))))
+    for path, g in grads[0].items():
+        assert np.abs(g).sum() > 0, path
+        np.testing.assert_allclose(grads[1][path], g, rtol=1e-5, atol=1e-7,
+                                   err_msg="/".join(path))

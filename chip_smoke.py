@@ -1,5 +1,6 @@
 """Chip smoke test: serve the paper's SNNs, learn on-chip, train the SHD
-DH-SNN and run flash attention through `repro_torch` on one H100.
+DH-SNN, the ECG SRNN and the ALIF feed-forward net, and run flash
+attention through `repro_torch` on one H100.
 
 Run from the repository root with no arguments:
 
@@ -21,7 +22,7 @@ the kernel phase and the sweep with no path, and
 
     python3 chip_smoke.py --path topology_banded
 
-the device and build phases and one path (any of 4.-11.'s names) alone:
+the device and build phases and one path (any of 4.-13.'s names) alone:
 copied into an older checkout, `--kernels` or `--path` measures that
 tree the same way, so two trees compare in one call.
 
@@ -121,8 +122,24 @@ tree the same way, so two trees compare in one call.
             `linrec_bwd`'s gx also equal to the forward kernel run on the
             flipped, one-shifted decay; the u scratch's bound printed
             beside `lif_bwd`'s; the train_shd step's g_w products
-            ((700, 2880) @ (2880, 256), (64, 2880) @ (2880, 20)) on
+            ((700, 2880) @ (2880, 256), (64, 2880) @ (2880, 20)) and the
+            train_ecg step's ((4, 3200) @ (3200, 64), the recurrent
+            (64, 3200) @ (3200, 64), (64, 3200) @ (3200, 6)) on
             `spikemm` and `spikemm_sparse`, timed beside `torch.matmul`;
+            `lifrec_bwd` (B4), `alifrec_bwd` and `alif_bwd` (B5): the
+            train_ecg and train_alif_ff steps' calls (timed: (200, 16,
+            64) under sigmoid alpha 4, (60, 48, 64)), the JAX families'
+            make_inputs shapes ((20, 3, 70); (20, 3, 130), the block
+            route), every surrogate at alpha 0.5, 1, 2, 4 at T = 37 from
+            a nonzero v0, a0, s0, the route edges N = 31, 32, 33, 64,
+            127, 128, 129, 1024 at B = 1, 3, 64 and N = 240, 241 (the
+            backward's block route holds W_rec in shared memory up to
+            240), a wide row (16, 16, 2048) through L2 (timed), T = 1
+            and 0, rows firing in most steps, `alif_bwd` on lane rows of
+            6, 20, 130, 4097 at T = 1, 15, 16, 17, 33 (beta 0.5), each
+            call's route read off `rec_route_launch_counts()`, each bit
+            for bit its plain version, the scratch planes' bound printed
+            beside;
             `spikemm` also at the parity harness's inputs, at the
             sparse_integ path's hidden INTEG at each density and at the
             topology_banded path's readout INTEG (64 x 8192 @ 8192 x 8);
@@ -263,7 +280,22 @@ tree the same way, so two trees compare in one call.
             kernels) and each within the same tolerances of the counted
             run (bit equality printed); the step's ms by host clock (median
             of 5 after 2 warm-ups) and the card's by kernel (profiler).
-12. attention
+12. train_ecg
+            `examples/ecg_srnn_torch.py`'s training at the published
+            widths: `make_srnn_ecg` 4 -> 64 self-recurrent ALIF -> 6 LI
+            (sigmoid surrogate, alpha 4) and its recurrent-LIF ablation,
+            5 clipped-SGD steps at lr 0.1 on gen_ecg_qtdb(16, T=200),
+            per-timestep cross-entropy, through `plan.run`: per step
+            spikemm x5 (2 INTEG, 3 g_w: input, recurrent, readout),
+            alifrec (lifrec) and its backward, linrec and linrec_bwd,
+            every recurrent launch on the warp route; the gates of 11.,
+            the hidden trains row-wise, the training firing rate printed
+            beside the 1 % floor.
+13. train_alif_ff
+            the ALIF feed-forward program of 5. (700 -> 64 ALIF -> 20 LI)
+            trained as 11. trains: per step spikemm x4, alif, alif_bwd,
+            linrec, linrec_bwd; the gates of 11.
+14. attention
             `kernels.attention.ops.flash_attention` through the registry,
             once per case, counters set to 0 just before: the JAX kernel
             tests' grid (BH=4: (256, 256, 64), (512, 512, 128), (384, 640,
@@ -294,12 +326,13 @@ tree the same way, so two trees compare in one call.
             Then `_FlashST`'s straight-through VJP at T=256, S=160, d=64,
             causal with window 128 (the parity phase holds (2, 160, 64))
             against autograd through the plain version, within 2e-3.
-13. parity  `repro_torch.kernels.parity.check_all()`: every family's CUDA
+15. parity  `repro_torch.kernels.parity.check_all()`: every family's CUDA
             wrapper and the sparse channel's against their plain versions
             at `make_inputs`, forward, and the VJP of `attention`, `lif`,
-            `linrec` and `spikemm` (both channels: CUDA forward and
-            backward against plain forward and backward); 11 kernels.
-14. result  prints `{"kernels": [...]}`, `{"gather_rows": {...}}`,
+            `linrec`, `lifrec`, `alif`, `alifrec` and `spikemm` (both
+            channels: CUDA forward and backward against plain forward and
+            backward); 11 kernels.
+16. result  prints `{"kernels": [...]}`, `{"gather_rows": {...}}`,
             `{"sparse_tiles": {...}}`, `{"sweep": {...}}`, one
             `{"slice": {...}}` line per path, `{"parity": {...}}`, the
             card's name and power limit and, last, `{"ok": true,
@@ -333,9 +366,14 @@ for bf16; `bound_dense_ms` counts all T x S pairs. Its row in the kernel
 line is the qwen2_32k call. The backward kernels' bytes are the planes
 the function reads and writes once (`lif_bwd`: current, spikes and their
 cotangent in, g_current out, T x B x N each; `linrec_bwd`: g_y, a, and y
-for g_a, in, g_x and g_a out), `lif_bwd`'s u scratch printed beside;
-their rows are the dendritic train_shd step's calls, and no single
-PyTorch call computes either reverse recurrence (`library_ms` null).
+for g_a, in, g_x and g_a out; B4 and B5: every input, cotangent and
+output tensor once), the scratch planes (u, and a_{t-1} for ALIF)
+printed beside; B4 and B5 count their elementwise steps and, recurrent,
+the dense adjoint Gu_{t+1} W^T, 2 * (T + 1) * B * N * N with g_s0. Their
+rows are the dendritic train_shd step's calls (B1, B2), the train_ecg
+step's (B4: the ablation's; B5's `alifrec_bwd`) and the train_alif_ff
+step's (`alif_bwd`), and no single PyTorch call computes a reverse
+recurrence (`library_ms` null).
 """
 
 from __future__ import annotations
@@ -488,11 +526,22 @@ TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 48, 60, 5, 0.2
 TRAIN_LOSS_RTOL, TRAIN_LEAF_RTOL = 1e-4, 1e-3
 # timed training steps (host clock, median) after TRAIN_WARMUP
 TRAIN_TIMED, TRAIN_WARMUP = 5, 2
-# lif_bwd under the sigmoid surrogate: its expf against PyTorch's sigmoid
+# train_ecg: `examples/ecg_srnn_torch.py`'s training at the published
+# widths (4 -> 64 -> 6) on gen_ecg_qtdb(16, T=200): per-timestep
+# cross-entropy, clipped SGD at lr 0.1, TRAIN_STEPS steps
+ECG_TRAIN_B, ECG_TRAIN_T, ECG_TRAIN_LR = 16, 200, 0.1
+# the backward kernels under the sigmoid surrogate: their expf against
+# PyTorch's sigmoid
 SIGMOID_RTOL, SIGMOID_ATOL = 1e-6, 1e-7
-# the backward lane scans, held bit for bit as fp32 bit patterns
-BWD_SCANS = ("lif_bwd", "linrec_bwd")
+# the backward scans, held bit for bit as fp32 bit patterns
+BWD_SCANS = ("lif_bwd", "linrec_bwd", "lifrec_bwd", "alif_bwd",
+             "alifrec_bwd")
+# the recurrent scans and their backward, which take `rec_route(N)`'s route
+REC_KERNELS = ("lifrec", "alifrec", "lifrec_bwd", "alifrec_bwd")
 SURROGATES = ("arctan", "rectangle", "sigmoid", "triangle")
+# the widest row whose W_rec the recurrent backward's block route holds in
+# shared memory (its Gu buffers take the forward's 241st row's room)
+BWD_SMEM_W_MAX_N = 240
 
 SOURCES = {
     "spikemm": ("src/repro_torch/csrc/spikemm.cu",
@@ -523,6 +572,13 @@ SOURCES = {
                 "src/repro/kernels/lif/ops.py:78"),
     "linrec_bwd": ("src/repro_torch/csrc/linrec.cu",
                    "src/repro/kernels/linrec/ops.py:63"),
+    # B4 and B5
+    "lifrec_bwd": ("src/repro_torch/csrc/rec_bwd.cu",
+                   "src/repro/kernels/lifrec/ops.py:86"),
+    "alifrec_bwd": ("src/repro_torch/csrc/rec_bwd.cu",
+                    "src/repro/kernels/alifrec/ops.py:96"),
+    "alif_bwd": ("src/repro_torch/csrc/alif_bwd.cu",
+                 "src/repro/kernels/alifrec/ops.py:96"),
 }
 # the path whose serving calls make up a kernel's row in the kernel table
 HOME = {"spikemm": "shd", "linrec": "shd", "lif": "shd",
@@ -530,10 +586,14 @@ HOME = {"spikemm": "shd", "linrec": "shd", "lif": "shd",
         "spikemm_sparse": "sparse_integ", "spikemm_gather": "topology_banded",
         "stdp_seq": "plastic_ff", "stdp": "stdp_step",
         "attention": "attention", "lif_bwd": "train_shd",
-        "linrec_bwd": "train_shd"}
-# elementwise fp32 operations per lane-step of the time kernels (lif_bwd:
-# the u step and its reset, the surrogate, the adjoint, v_{t-1}, g_tau)
-LANE_OPS = {"lif": 4, "lifrec": 6, "alif": 9, "alifrec": 10, "lif_bwd": 20}
+        "linrec_bwd": "train_shd", "lifrec_bwd": "train_ecg",
+        "alifrec_bwd": "train_ecg", "alif_bwd": "train_alif_ff"}
+# elementwise fp32 operations per lane-step of the time kernels (the
+# backward: the u step and its reset, the surrogate, the adjoint, v_{t-1},
+# g_tau; ALIF also the threshold, a's step, Ga and g_rho). The recurrent
+# ones add their N-term sums (`work`).
+LANE_OPS = {"lif": 4, "lifrec": 6, "alif": 9, "alifrec": 10, "lif_bwd": 20,
+            "lifrec_bwd": 21, "alif_bwd": 28, "alifrec_bwd": 29}
 
 
 def log(*a):
@@ -1485,7 +1545,9 @@ def work(name, args, out, kw=None):
     `gather_patch_bytes` every active patch, as a kernel that walks every
     term reads them.) The recurrent kernels add one W_rec row per
     spike of the previous step, 2 * nnz(s_{t-1}) * N (s_{-1} = s0),
-    against the dense 2 * T * B * N * N. stdp_seq: a term's product needs
+    against the dense 2 * T * B * N * N; their backward the dense adjoint
+    Gu_{t+1} W^T (Gu has no zeros to skip) and g_s0, 2 * (T + 1) * B * N
+    * N. stdp_seq: a term's product needs
     2 * min(nnz(P_k) * N, nnz(Q_k) * M) operations (the sparser side's
     nonzeros each add one row), plus 2 * T * M * N for the step sums and
     the clip; dense 2 * K * T * B * M * N. stdp: 2 * (nnz(s_post) * M +
@@ -1555,13 +1617,18 @@ def work(name, args, out, kw=None):
         return nbytes, ops, ops
     T, B, N = args[0].shape
     nbytes = 4 * (sum(t.numel() for t in tensors)
-                  + sum(o.numel() for o in out))
+                  + sum(o.numel() for o in out if o is not None))
     ops = LANE_OPS[name] * T * B * N
     if name in ("lifrec", "alifrec"):
         s0 = args[4] if name == "lifrec" else args[6]
         nnz = int(torch.count_nonzero(s0)) + int(torch.count_nonzero(
             out[0][:-1]))
         return nbytes, ops + 2 * nnz * N, ops + 2 * T * B * N * N
+    if name in ("lifrec_bwd", "alifrec_bwd"):
+        # the recurrent adjoint: Gu_{t+1} (dense) times W^T, N terms a
+        # neuron a step, and g_s0 = Gu_0 W^T
+        dense = ops + 2 * (T + 1) * B * N * N
+        return nbytes, dense, dense
     return nbytes, ops, ops
 
 
@@ -1955,12 +2022,18 @@ def spikemm_cases():
 
 def kernel_impls():
     """({kernel: CUDA wrapper}, {kernel: plain version})."""
-    from repro_torch.kernels.alifrec.ops import (alif_cuda, alif_scan_ref,
+    from repro_torch.kernels.alifrec.ops import (alif_bwd_cuda, alif_cuda,
+                                                 alif_scan_bwd_ref,
+                                                 alif_scan_ref,
+                                                 alifrec_bwd_cuda,
                                                  alifrec_cuda,
+                                                 alifrec_scan_bwd_ref,
                                                  alifrec_scan_ref)
     from repro_torch.kernels.lif.ops import (lif_bwd_cuda, lif_cuda,
                                              lif_scan_bwd_ref, lif_scan_ref)
-    from repro_torch.kernels.lifrec.ops import lifrec_cuda, lifrec_scan_ref
+    from repro_torch.kernels.lifrec.ops import (lifrec_bwd_cuda, lifrec_cuda,
+                                                lifrec_scan_bwd_ref,
+                                                lifrec_scan_ref)
     from repro_torch.kernels.linrec.ops import (linrec_bwd_cuda,
                                                 linrec_bwd_ref, linrec_cuda,
                                                 linrec_ref)
@@ -1977,14 +2050,18 @@ def kernel_impls():
             "alifrec": alifrec_cuda, "spikemm_sparse": spikemm_sparse_cuda,
             "spikemm_gather": spikemm_gather_cuda, "stdp_seq": stdp_seq_cuda,
             "stdp": stdp_update_cuda, "lif_bwd": lif_bwd_cuda,
-            "linrec_bwd": linrec_bwd_cuda}
+            "linrec_bwd": linrec_bwd_cuda, "lifrec_bwd": lifrec_bwd_cuda,
+            "alif_bwd": alif_bwd_cuda, "alifrec_bwd": alifrec_bwd_cuda}
     plain = {"spikemm": spikemm_ref, "linrec": linrec_ref,
              "lif": lif_scan_ref, "lifrec": lifrec_scan_ref,
              "alif": alif_scan_ref, "alifrec": alifrec_scan_ref,
              "spikemm_sparse": spikemm_sparse_ref,
              "spikemm_gather": spikemm_gather_ref,
              "stdp_seq": stdp_seq_ref, "stdp": stdp_update_ref,
-             "lif_bwd": lif_scan_bwd_ref, "linrec_bwd": linrec_bwd_ref}
+             "lif_bwd": lif_scan_bwd_ref, "linrec_bwd": linrec_bwd_ref,
+             "lifrec_bwd": lifrec_scan_bwd_ref,
+             "alif_bwd": alif_scan_bwd_ref,
+             "alifrec_bwd": alifrec_scan_bwd_ref}
     return cuda, plain
 
 
@@ -2058,13 +2135,15 @@ def phase_kernels(cases):
             before = rec_route_launch_counts()
             got = cuda[name](*args, **kw)
             route = None
-            if name in ("lifrec", "alifrec"):
+            if name in REC_KERNELS:
                 # the route the wrapper took: one launch on rec_route(N)'s
-                # counter and none on the other's
+                # counter and none on the other's (none at all for a call
+                # with no steps, which launches nothing)
                 route = rec_route(args[0].shape[2])
                 took = {r: n - before[name][r]
                         for r, n in rec_route_launch_counts()[name].items()}
-                if took != {r: int(r == route) for r in took}:
+                launched = args[0].numel() > 0
+                if took != {r: int(r == route and launched) for r in took}:
                     raise AssertionError(f"{name} [{label}]: route counters "
                                          f"moved {took}, planned {route}")
             ref = plain[name](*args, **kw)
@@ -2074,8 +2153,8 @@ def phase_kernels(cases):
             extra = "" if route is None else (
                 f", {route} route (its counter "
                 f"{rec_route_launch_counts()[name][route]})")
-            if name == "linrec_bwd":
-                # g_a and g_h0 are None where not asked for, on both sides
+            if name in BWD_SCANS:
+                # a gradient not asked for is None, on both sides
                 if [g is None for g in got] != [r is None for r in ref]:
                     raise AssertionError(f"{name} [{label}]: computed "
                                          "other gradients than its plain "
@@ -2111,7 +2190,7 @@ def phase_kernels(cases):
                                                atol=CHANNEL_TOL)
                     extra = (", bit for bit" if torch.equal(g, r)
                              else f", max abs err {err:.3e}")
-                elif name == "lif_bwd" and case.rtol is not None:
+                elif name in BWD_SCANS and case.rtol is not None:
                     # sigmoid: the kernel's expf against PyTorch's sigmoid
                     torch.testing.assert_close(g, r, rtol=case.rtol,
                                                atol=case.atol)
@@ -2168,19 +2247,21 @@ def phase_kernels(cases):
                 where = ""
                 if route == "block":
                     n = args[0].shape[2]
-                    smem = w_in_smem(n)
-                    if smem != (n <= SMEM_W_MAX_N):
+                    bwd = name.endswith("_bwd")
+                    smem = w_in_smem(n, backward=bwd)
+                    most = BWD_SMEM_W_MAX_N if bwd else SMEM_W_MAX_N
+                    if smem != (n <= most):
                         raise AssertionError(
                             f"{name} [{label}]: W_rec in shared memory is "
                             f"{smem}; this case is to run the "
-                            f"{'shared' if n <= SMEM_W_MAX_N else 'L2'} path")
+                            f"{'shared' if n <= most else 'L2'} path")
                     where = (", W_rec in shared memory" if smem
                              else ", W_rec through L2")
                 log(f"kernel {name} [{label}] {shapes}{where}: matches "
                     f"plain{extra} (max abs err so far {max_err:.3e})")
                 continue
             heavy = name in ("lifrec", "alifrec", "alif", "spikemm_gather",
-                             "stdp_seq", "lif_bwd", "linrec_bwd")
+                             "stdp_seq") + BWD_SCANS
             ms = cuda_ms(lambda: cuda[name](*args, **kw), iters=200)
             p_ms = cuda_ms(lambda: plain[name](*args, **kw),
                            iters=case.plain_iters or (5 if heavy else 20),
@@ -2206,10 +2287,13 @@ def phase_kernels(cases):
                                     bound(gather_patch_bytes(*args), flops)[0])
                                    if name == "spikemm_gather"
                                    else (None, None))
-            # lif_bwd's u scratch (written in pass 1, read in pass 2): not
-            # the function's bytes, this design's, printed beside the bound
-            scratch_ms = (bound(nbytes + 2 * 4 * args[0].numel(), flops)[0]
-                          if name == "lif_bwd" else None)
+            # the backward scans' u (and ALIF's a_{t-1}) scratch, written
+            # in pass 1 and read in pass 2: not the function's bytes, this
+            # design's, printed beside the bound
+            planes = {"lif_bwd": 1, "lifrec_bwd": 1, "alif_bwd": 2,
+                      "alifrec_bwd": 2}.get(name)
+            scratch_ms = (None if planes is None else bound(
+                nbytes + 2 * 4 * planes * args[0].numel(), flops)[0])
             T = args[1].shape[0] if name == "linrec" else (
                 args[0].shape[1] // kw["batch"] if name == "stdp_seq" else (
                     args[0].shape[0] if name not in (
@@ -2237,7 +2321,8 @@ def phase_kernels(cases):
                 f"{ms / max(b_ms, floor):.2f}x max(bound, floor)"
                 f"{'' if occ_ms is None else f', occupancy alone {occ_ms:.4f}, product alone {kernel_ms:.4f}, dense kernel {dense_ms:.4f}'}"
                 f"{'' if patches_ms is None else f', read-rows bound {rows_ms:.5f}, every-patch bound {patches_ms:.5f}'}"
-                f"{'' if scratch_ms is None else f', bound with the u scratch {scratch_ms:.5f}, kernel alone {kernel_ms:.4f}'}"
+                f"{'' if scratch_ms is None else f', bound with the scratch {scratch_ms:.5f}'}"
+                f"{'' if kernel_ms is None or occ_ms is not None else f', kernel alone {kernel_ms:.4f}'}"
                 f"{'' if case.build_s is None else f', tables built in {case.build_s:.1f} s'})"
                 f"{extra}; max abs err so far {max_err:.3e}")
         src, rep = SOURCES[name]
@@ -3427,6 +3512,28 @@ def train_data(device):
             torch.from_numpy(ys).long().to(device))
 
 
+def ecg_train_data(device):
+    """`examples/ecg_srnn_torch.py`'s batch: gen_ecg_qtdb(16, T=200) as
+    (T, B, 4) spikes and (T, B) band labels on `device`."""
+    from repro_torch.data.spikes import gen_ecg_qtdb
+    xs, ys = gen_ecg_qtdb(ECG_TRAIN_B, T=ECG_TRAIN_T)
+    x = np.ascontiguousarray(xs.transpose(1, 0, 2))
+    y = np.ascontiguousarray(ys.T)
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(y).long().to(device))
+
+
+def shd_loss(outs, y):
+    """Cross-entropy of the time-averaged readout (the SHD examples')."""
+    return -torch.log_softmax(outs.mean(0), -1)[
+        torch.arange(len(y), device=y.device), y].mean()
+
+
+def ecg_loss(outs, y):
+    """Per-timestep cross-entropy of the readout (the ECG examples')."""
+    return -torch.log_softmax(outs, -1).gather(-1, y[..., None]).mean()
+
+
 def param_leaves(tree, prefix=()):
     """[(path, tensor)] of a parameter tree, in sorted key order."""
     if isinstance(tree, dict):
@@ -3435,24 +3542,23 @@ def param_leaves(tree, prefix=()):
     return [] if tree is None else [(prefix, tree)]
 
 
-def train_model(dendritic, device):
-    """The SHD model (`make_shd`'s weights) with every parameter requiring
-    grad."""
-    nodes, params = make_shd(dendritic, device)
+def with_grad(model):
+    """A model's (nodes, params) with every parameter requiring grad."""
+    nodes, params = model
     for _, p in param_leaves(params):
         p.requires_grad_()
     return nodes, params
 
 
-def train_step(nodes, params, x, y, keep=False):
-    """One step of the example's training through the user's entry point:
-    the loss (cross-entropy of the time-averaged readout) by `plan.run`,
-    its backward, and the clipped SGD update at TRAIN_LR. Returns (the
-    loss, {path: gradient} before the update where `keep`, else None)."""
+def train_step(nodes, params, x, y, keep=False, loss_fn=shd_loss,
+               lr=TRAIN_LR):
+    """One step of an example's training through the user's entry point:
+    the loss by `plan.run`, its backward, and the clipped SGD update at
+    `lr`. Returns (the loss, {path: gradient} before the update where
+    `keep`, else None)."""
     from repro_torch.core import plan
     _, outs, _ = plan.run(nodes, params, x, device=x.device)
-    loss = -torch.log_softmax(outs.mean(0), -1)[
-        torch.arange(len(y), device=y.device), y].mean()
+    loss = loss_fn(outs, y)
     loss.backward()
     leaves = param_leaves(params)
     grads = ({"/".join(k): p.grad.detach().clone() for k, p in leaves}
@@ -3461,19 +3567,74 @@ def train_step(nodes, params, x, y, keep=False):
     sc = torch.clamp_max(1.0 / (gn + 1e-9), 1.0)
     with torch.no_grad():
         for _, p in leaves:
-            p -= TRAIN_LR * sc * p.grad
+            p -= lr * sc * p.grad
             p.grad = None
     return loss.detach(), grads
 
 
-def train_per_step(dendritic):
-    """Launches of one training step. Forward: INTEG x2 (spikemm), the
-    branches' and the readout's linrec (the ablation: the readout's), the
-    soma's lif; backward: lif_bwd, linrec_bwd per linrec, and g_w x2
-    through the spike product (dense or sparse channel, as routed)."""
-    n_lin = 2 if dendritic else 1
-    return {"spikemm+sparse": 4, "lif": 1, "linrec": n_lin, "lif_bwd": 1,
-            "linrec_bwd": n_lin}
+@dataclasses.dataclass(frozen=True)
+class TrainPath:
+    """A training path: an example's data (`data(device)` -> (x, y)), loss
+    and clipped-SGD update at `lr`, and its models, each (kind, the
+    function making its (nodes, params) on a device with the weights of
+    seed 0, its launches of one step)."""
+    name: str
+    describe: str
+    input: str
+    T: int
+    B: int
+    data: Callable
+    loss: Callable
+    lr: float
+    models: tuple
+
+
+def train_paths():
+    """{name: TrainPath}. Launches of one step: train_shd, INTEG x2
+    (spikemm), the branches' and the readout's linrec (the ablation: the
+    readout's), the soma's lif; backward lif_bwd, a linrec_bwd per linrec,
+    g_w x2 through the spike product (dense or sparse channel, as routed).
+    train_ecg: INTEG x2, the hidden layer's alifrec (the ablation:
+    lifrec), the readout's linrec; alifrec_bwd (lifrec_bwd), linrec_bwd,
+    g_w x3 (input, recurrent, readout). train_alif_ff: INTEG x2, alif,
+    linrec; alif_bwd, linrec_bwd, g_w x2."""
+    def shd(dendritic):
+        n_lin = 2 if dendritic else 1
+        return ("dendritic" if dendritic else "homogeneous",
+                functools.partial(make_shd, dendritic),
+                {"spikemm+sparse": 4, "lif": 1, "linrec": n_lin,
+                 "lif_bwd": 1, "linrec_bwd": n_lin})
+
+    def ecg(het):
+        scan = "alifrec" if het else "lifrec"
+        return ("heterogeneous" if het else "homogeneous",
+                functools.partial(make_ecg, het),
+                {"spikemm+sparse": 5, scan: 1, f"{scan}_bwd": 1,
+                 "linrec": 1, "linrec_bwd": 1})
+    shd_in = f"gen_shd_spikes({TRAIN_B}, T={TRAIN_T})"
+    return {p.name: p for p in (
+        TrainPath("train_shd", f"make_dhsnn_shd {N_IN}->{N_HIDDEN}x"
+                  f"{N_BRANCHES} DH-LIF->{N_OUT} LI and its LIF ablation, "
+                  f"clipped SGD lr {TRAIN_LR}", shd_in, TRAIN_T, TRAIN_B,
+                  train_data, shd_loss, TRAIN_LR, (shd(True), shd(False))),
+        TrainPath("train_ecg", f"make_srnn_ecg {ECG_IN}->{ECG_HIDDEN} "
+                  f"self-recurrent ALIF->{ECG_OUT} LI and its recurrent-LIF "
+                  f"ablation (sigmoid surrogate, alpha 4), clipped SGD lr "
+                  f"{ECG_TRAIN_LR}",
+                  f"gen_ecg_qtdb({ECG_TRAIN_B}, T={ECG_TRAIN_T})",
+                  ECG_TRAIN_T, ECG_TRAIN_B, ecg_train_data, ecg_loss,
+                  ECG_TRAIN_LR, (ecg(True), ecg(False))),
+        TrainPath("train_alif_ff", f"the ALIF feed-forward program {N_IN}->"
+                  f"{N_HIDDEN} ALIF(beta=0.5)->{N_OUT} LI(tau=0.97), clipped "
+                  f"SGD lr {TRAIN_LR}", shd_in, TRAIN_T, TRAIN_B, train_data,
+                  shd_loss, TRAIN_LR,
+                  (("alif", make_alif_ff,
+                    {"spikemm+sparse": 4, "alif": 1, "alif_bwd": 1,
+                     "linrec": 1, "linrec_bwd": 1}),)))}
+
+
+# the families whose backward is a kernel of its own (`KernelSpec.bwd`)
+BWD_FAMILIES = ("lif", "linrec", "lifrec", "alif", "alifrec")
 
 
 @contextlib.contextmanager
@@ -3498,11 +3659,11 @@ def recording(routes=None, bwd_calls=None):
                 return choice, measured
             reg["spikemm"] = dataclasses.replace(registry.get("spikemm"),
                                                  select_channel=select)
-        for fam in (("lif", "linrec") if bwd_calls is not None else ()):
+        for fam in (BWD_FAMILIES if bwd_calls is not None else ()):
             spec = registry.get(fam)
 
             def rec(*a, _fn=spec.bwd.cuda, _name=f"{fam}_bwd", **kw):
-                bwd_calls[_name].append((tuple(
+                bwd_calls.setdefault(_name, []).append((tuple(
                     t.detach().clone() if torch.is_tensor(t) else t
                     for t in a), dict(kw)))
                 return _fn(*a, **kw)
@@ -3514,58 +3675,79 @@ def recording(routes=None, bwd_calls=None):
         reg.update(saved)
 
 
-def is_g_w(route):
+def is_g_w(route, steps_rows):
     """Whether a spikemm dispatch is a weight gradient: its raster is a
-    transposed (K, T * B) one."""
-    return route["raster"][1] == TRAIN_T * TRAIN_B
+    transposed (K, T * B) one (`steps_rows` = T * B)."""
+    return route["raster"][1] == steps_rows
+
+
+def sigmoid_tols(kw):
+    """(rtol, atol) of a backward call under the sigmoid surrogate (the
+    kernels' expf), else (None, None): bit for bit."""
+    if kw.get("surrogate") == "sigmoid":
+        return SIGMOID_RTOL, SIGMOID_ATOL
+    return None, None
 
 
 def train_cases():
-    """{kernel: [Case]} of the training step. `lif_bwd` and `linrec_bwd`:
-    each model's backward calls of one step at full width (captured at the
-    registry; timed; path train_shd for the dendritic model, whose calls
-    make the kernel-table rows, train_shd_homogeneous for the ablation);
-    every surrogate (alpha 0.5, 1, 2) and both resets at the JAX tests'
-    (37, 3, 130), the JAX family's (20, 3, 130), T = 1 and 0, ragged
-    B x N (17 x 1 x 33, 5 x 3 x 7); `linrec_bwd` at the JAX shapes (24, 3,
-    136) and (37, 3, 136) with a full decay plane and a stride-0 one, each
-    asked for every gradient, for g_x alone (the readout's) and for g_a
-    and g_x (the branches'), at T = 1 and 0 and ragged. And spikemm's g_w
-    products of the dendritic step (the (K, T * B) transposed rasters),
-    timed beside `torch.matmul`, on the dense kernel and on the sparse
+    """{kernel: [Case]} of the training steps. The backward kernels: each
+    training path's calls of one step at full width (captured at the
+    registry; timed; a kernel's calls from the first model that makes
+    them are tagged with the path, the others with path_kind: the
+    kernel-table rows are train_shd's dendritic step, train_ecg's
+    heterogeneous step (lifrec_bwd: its ablation's) and train_alif_ff's);
+    `lif_bwd` with every surrogate (alpha 0.5, 1, 2) and both resets at
+    the JAX tests' (37, 3, 130), the JAX family's (20, 3, 130), T = 1 and
+    0, ragged B x N (17 x 1 x 33, 5 x 3 x 7); `linrec_bwd` at the JAX
+    shapes (24, 3, 136) and (37, 3, 136) with a full decay plane and a
+    stride-0 one, each asked for every gradient, for g_x alone (the
+    readout's) and for g_a and g_x (the branches'), at T = 1 and 0 and
+    ragged; `lifrec_bwd`, `alifrec_bwd` and `alif_bwd` at
+    `rec_bwd_cases()`. And spikemm's g_w products of the dendritic SHD
+    step and of the heterogeneous ECG step (the (K, T * B) transposed
+    rasters; the ECG's recurrent one (64, 3200) @ (3200, 64)), timed
+    beside `torch.matmul`, on the dense kernel and on the sparse
     channel."""
     from repro_torch.kernels.lif.ops import lif_cuda
     from repro_torch.kernels.linrec.ops import linrec_cuda
-    out = {"lif_bwd": [], "linrec_bwd": [], "spikemm": [],
-           "spikemm_sparse": []}
-    x, y = train_data(DEV)
-    for dendritic in (True, False):
-        path = "train_shd" if dendritic else "train_shd_homogeneous"
-        nodes, params = train_model(dendritic, DEV)
-        calls = {"lif_bwd": [], "linrec_bwd": []}
-        routes = []
-        with recording(routes, calls):
-            train_step(nodes, params, x, y)
-        sync()
-        for name, got in calls.items():
-            for args, kw in got:
-                shape = tuple((args[1] if name == "linrec_bwd"
-                               else args[0]).shape)
-                what = ("soma" if dendritic else "hidden") \
-                    if name == "lif_bwd" else (
-                        "readout" if shape[2] == N_OUT else "branches")
-                out[name].append(Case(f"{path} {what} {shape}", args,
-                                      path=path, timed=True, kw=kw))
-        if dendritic:
-            for r in filter(is_g_w, routes):
-                s, gr = (a.detach().clone() for a in r["args"])
-                what = "hidden" if r["raster"][0] == N_IN else "readout"
-                label = (f"train_shd g_w {what} {tuple(s.shape)} @ "
-                         f"{tuple(gr.shape)}")
-                for name in ("spikemm", "spikemm_sparse"):
-                    out[name].append(Case(
-                        label, (s, gr), path="train_shd", timed=True,
-                        library=lambda a=(s, gr): torch.matmul(*a)))
+    out = {k: [] for k in BWD_SCANS + ("spikemm", "spikemm_sparse")}
+    outs = (N_OUT, ECG_OUT)
+    for path in train_paths().values():
+        x, y = path.data(DEV)
+        seen = set()
+        for i, (kind, make, _) in enumerate(path.models):
+            nodes, params = with_grad(make(DEV))
+            calls, routes = {}, []
+            with recording(routes, calls):
+                train_step(nodes, params, x, y, loss_fn=path.loss,
+                           lr=path.lr)
+            sync()
+            for name, got in calls.items():
+                tag = path.name if name not in seen else \
+                    f"{path.name}_{kind}"
+                seen.add(name)
+                for args, kw in got:
+                    shape = tuple((args[1] if name == "linrec_bwd"
+                                   else args[0]).shape)
+                    what = ("soma" if kind == "dendritic" else "hidden") \
+                        if name != "linrec_bwd" else (
+                            "readout" if shape[2] in outs else "branches")
+                    rtol, atol = sigmoid_tols(kw)
+                    out[name].append(Case(f"{tag} {kind} {what} {shape}",
+                                          args, path=tag, timed=True, kw=kw,
+                                          rtol=rtol, atol=atol))
+            if i == 0 and path.name in ("train_shd", "train_ecg"):
+                for r in (r for r in routes if is_g_w(r, path.T * path.B)):
+                    s, gr = (a.detach().clone() for a in r["args"])
+                    what = "readout" if r["w"][1] in outs else (
+                        "recurrent" if r["raster"][0] == r["w"][1]
+                        else "hidden")
+                    label = (f"{path.name} g_w {what} {tuple(s.shape)} @ "
+                             f"{tuple(gr.shape)}")
+                    for name in ("spikemm", "spikemm_sparse"):
+                        out[name].append(Case(
+                            label, (s, gr), path=path.name, timed=True,
+                            library=lambda a=(s, gr): torch.matmul(*a)))
     g = torch.Generator().manual_seed(20)
 
     def rnd(*shape, lo=0.0, hi=1.0):
@@ -3609,6 +3791,88 @@ def train_cases():
                     f"{need[1]}", (a, yv, h0, gy, ghT),
                     kw=dict(need_a=need[0], need_h0=need[1]),
                     zero_ok=T == 0))
+    for name, cases in rec_bwd_cases().items():
+        out[name] += cases
+    return out
+
+
+# the adaptation strength of the backward cases of the ALIF pair: the
+# models' (ALIF(beta=0.5)); at the default 1.8 the adjoint grows a few
+# fold a step under the sharp surrogates
+BWD_BETA = 0.5
+
+
+def rec_bwd_cases():
+    """{kernel: [Case]} of `lifrec_bwd`, `alifrec_bwd` and `alif_bwd`
+    beyond the training paths' calls, each from its own forward kernel's
+    spikes: the JAX families' make_inputs shapes ((20, 3, 70) for lifrec,
+    (20, 3, 130) for alif and alifrec, the block route); every surrogate
+    at alpha 0.5, 1, 2 and 4 at a prime T = 37 from a nonzero v0, a0 and
+    s0 (N = 70 for lifrec, 130 for the ALIF pair); the recurrent ones at
+    the route edges N = 31, 32, 33, 64, 127, 128, 129 and 1024 at B = 1,
+    3 and 64, and at N = 240 and 241 (the block route's W_rec in shared
+    memory, then through L2); `alif_bwd` on lane rows of N = 6, 20 (B =
+    64), 130 (B = 3) and 4097 (B = 1) at T = 1, 15, 16, 17 and 33; a wide
+    row N = 2048 (T = 16, B = 16; timed: W_rec and W_rec^T through L2);
+    T = 1 and T = 0; rows that fire in most steps. beta = BWD_BETA."""
+    from repro_torch.kernels.alifrec.ops import alif_cuda, alifrec_cuda
+    from repro_torch.kernels.lifrec.ops import lifrec_cuda
+    g = torch.Generator().manual_seed(27)
+    out = {"lifrec_bwd": [], "alifrec_bwd": [], "alif_bwd": []}
+
+    def case(name, label, T, B, N, sur="rectangle", alpha=1.0, hot=0.25,
+             state=True, timed=False, plain_iters=None):
+        drive = (torch.rand((B, N), generator=g) < hot).float() * 1.2
+        cur = (0.6 * torch.randn((T, B, N), generator=g) + drive).to(DEV)
+        tau = (0.7 + 0.28 * torch.rand((N,), generator=g)).to(DEV)
+        rho = (0.85 + 0.14 * torch.rand((N,), generator=g)).to(DEV)
+        w = ((0.4 / N ** 0.5) * torch.randn((N, N), generator=g)).to(DEV)
+        v0 = (0.3 * torch.randn((B, N), generator=g) * state).to(DEV)
+        a0 = (0.5 * torch.rand((B, N), generator=g) * state).to(DEV)
+        s0 = ((torch.rand((B, N), generator=g) < 0.3).float()
+              * state).to(DEV)
+        gs = torch.randn((T, B, N), generator=g).to(DEV)
+        gv = torch.randn((B, N), generator=g).to(DEV)
+        ga = torch.randn((B, N), generator=g).to(DEV)
+        kw = dict(v_th=1.0, surrogate=sur, alpha=alpha)
+        if name == "lifrec_bwd":
+            s, _ = lifrec_cuda(cur, w, tau, v0, s0)
+            args = (cur, w, tau, v0, s0, s, gs, gv)
+        else:
+            kw["beta"] = BWD_BETA
+            if name == "alifrec_bwd":
+                s = alifrec_cuda(cur, w, tau, rho, v0, a0, s0,
+                                 beta=BWD_BETA)[0]
+                args = (cur, w, tau, rho, v0, a0, s0, s, gs, gv, ga)
+            else:
+                s = alif_cuda(cur, tau, rho, v0, a0, beta=BWD_BETA)[0]
+                args = (cur, tau, rho, v0, a0, s, gs, gv, ga)
+        rtol, atol = sigmoid_tols(kw)
+        out[name].append(Case(
+            f"{label} ({T}, {B}, {N}), {sur} alpha={alpha}", args, kw=kw,
+            timed=timed, rtol=rtol, atol=atol, zero_ok=T == 0,
+            plain_iters=plain_iters))
+
+    for name, n in (("lifrec_bwd", 70), ("alifrec_bwd", 130),
+                    ("alif_bwd", 130)):
+        case(name, "JAX family's make_inputs", 20, 3, n, state=False)
+        for sur in SURROGATES:
+            for alpha in (0.5, 1.0, 2.0, 4.0):
+                case(name, "prime T, nonzero state", 37, 3, n, sur, alpha)
+        for T in (1, 0):
+            case(name, "edge", T, 3, 64)
+        for n_hot in (64, 130):
+            case(name, "rows firing in most steps", 37, 3, n_hot, hot=0.9)
+    for name in ("lifrec_bwd", "alifrec_bwd"):
+        for n in (31, 32, 33, 64, 127, 128, 129, 1024):
+            for b in (1, 3, 64):
+                case(name, "route edge", 37, b, n)
+        for n in (BWD_SMEM_W_MAX_N, BWD_SMEM_W_MAX_N + 1):
+            case(name, "block route's shared W_rec edge", 37, 3, n)
+        case(name, "wide row", 16, 16, 2048, timed=True, plain_iters=1)
+    for b, n in ((64, 6), (64, 20), (3, 130), (1, 4097)):
+        for T in (1, 15, 16, 17, 33):
+            case("alif_bwd", "lane edge", T, b, n)
     return out
 
 
@@ -3664,26 +3928,28 @@ def rel_l2(got, ref):
     return float((got.double() - ref).norm() / ref.norm().clamp_min(1e-30))
 
 
-def phase_train_shd(smi):
-    """TRAIN_STEPS clipped-SGD steps of the SHD DH-SNN and of its
-    homogeneous ablation at the published widths, forward and backward
-    through `plan.run` on the card."""
+def phase_train(path, smi):
+    """TRAIN_STEPS clipped-SGD steps of each of the path's models at the
+    published widths, forward and backward through `plan.run` on the
+    card."""
     from repro_torch.core import plan
     from repro_torch.kernels import registry
+    from repro_torch.kernels.common import rec_route_launch_counts
     from repro_torch.kernels.spikemm import sparse
     from repro_torch.weights import params_to_numpy
     tie = load_tie_rule()
-    tag = "train_shd"
-    x, y = train_data(DEV)
+    tag = path.name
+    x, y = path.data(DEV)
     xc, yc = x.cpu(), y.cpu()
-    models, total, per_run = {}, {}, None
-    for dendritic in (True, False):
-        kind = "dendritic" if dendritic else "homogeneous"
-        nodes, params = train_model(dendritic, DEV)
+    step = functools.partial(train_step, loss_fn=path.loss, lr=path.lr)
+    models, total, per_run = {}, {}, {}
+    for kind, make, want in path.models:
+        nodes, params = with_grad(make(DEV))
         sync()
+        routes0 = rec_route_launch_counts()
         registry.reset_launches()
         occ0 = sparse.occupancy_cuda.launches
-        steps = [train_step(nodes, params, x, y, keep=i == 0)
+        steps = [step(nodes, params, x, y, keep=i == 0)
                  for i in range(TRAIN_STEPS)]
         sync()
         counts = registry.launch_counts()
@@ -3692,7 +3958,6 @@ def phase_train_shd(smi):
         log(f"path [{tag}] {kind}: losses {losses}")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"[{tag}] {kind}: a loss is not finite")
-        want = train_per_step(dendritic)
         mm = counts["spikemm"] + counts["spikemm_sparse"]
         rest = {k: v for k, v in counts.items()
                 if k not in ("spikemm", "spikemm_sparse")}
@@ -3703,13 +3968,14 @@ def phase_train_shd(smi):
             raise AssertionError(f"[{tag}] {kind}: {mm} spikemm launches "
                                  f"(both channels), want "
                                  f"{want['spikemm+sparse'] * TRAIN_STEPS}")
+        routes = rec_routes_taken(f"{tag} {kind}", routes0, counts,
+                                  nodes[0].out_dim)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-        if dendritic:
-            per_run = {k: v // TRAIN_STEPS for k, v in counts.items()}
+            per_run[k] = max(per_run.get(k, 0), v // TRAIN_STEPS)
         # the first step against the CPU's, from the same weights
-        nodes_c, params_c = train_model(dendritic, "cpu")
-        loss_c, grads_c = train_step(nodes_c, params_c, xc, yc, keep=True)
+        nodes_c, params_c = with_grad(make("cpu"))
+        loss_c, grads_c = step(nodes_c, params_c, xc, yc, keep=True)
         grads_g = steps[0][1]
         loss_err = abs(losses[0] - float(loss_c)) / abs(float(loss_c))
         leaf_err = {k: rel_l2(grads_g[k].cpu(), v)
@@ -3720,10 +3986,10 @@ def phase_train_shd(smi):
                 f"[{tag}] {kind}: first step card vs CPU: loss relative "
                 f"{loss_err:.3e} (tol {TRAIN_LOSS_RTOL}), leaves {leaf_err} "
                 f"(tol {TRAIN_LEAF_RTOL})")
-        # the forward's hidden trains under the tie rule, and the hidden
-        # lane-steps at a surrogate window edge
-        n0, p0 = make_shd(dendritic, DEV)
-        nc0, pc0 = make_shd(dendritic, "cpu")
+        # the forward's hidden trains under the tie rule (row-wise where
+        # recurrent), and the hidden lane-steps at a surrogate window edge
+        n0, p0 = make(DEV)
+        nc0, pc0 = make("cpu")
         with torch.no_grad():
             st_g, o_g, r_g = plan.run(n0, p0, x, record=("hidden",),
                                       device=DEV)
@@ -3738,21 +4004,22 @@ def phase_train_shd(smi):
         # the dense and the sparse kernel whatever `auto` picks
         channels, first = {}, {}
         for mode in ("auto", "never", "always"):
-            nm, pm = train_model(dendritic, DEV)
-            routes = []
+            nm, pm = with_grad(make(DEV))
+            taken = []
             old = os.environ.get("REPRO_SPIKEMM_SPARSE")
             os.environ["REPRO_SPIKEMM_SPARSE"] = mode
             try:
-                with recording(routes):
-                    lm, gm = train_step(nm, pm, x, y, keep=True)
+                with recording(taken):
+                    lm, gm = step(nm, pm, x, y, keep=True)
             finally:
                 if old is None:
                     os.environ.pop("REPRO_SPIKEMM_SPARSE")
                 else:
                     os.environ["REPRO_SPIKEMM_SPARSE"] = old
-            channels[mode] = [{"call": "g_w" if is_g_w(r) else "forward",
-                               "raster": r["raster"], "w": r["w"],
-                               "channel": r["channel"]} for r in routes]
+            channels[mode] = [
+                {"call": "g_w" if is_g_w(r, path.T * path.B) else "forward",
+                 "raster": r["raster"], "w": r["w"],
+                 "channel": r["channel"]} for r in taken]
             first[mode] = (float(lm), gm)
             log(f"path [{tag}] {kind} first step under {mode}: "
                 + "; ".join(f"{c['call']} {c['raster']}@{c['w']} -> "
@@ -3771,22 +4038,26 @@ def phase_train_shd(smi):
                 raise AssertionError(f"[{tag}] {kind}: the first step under "
                                      f"{m} differs from the counted run's")
         # the step's time, forward + backward + update, by host clock
-        nt, pt = train_model(dendritic, DEV)
+        nt, pt = with_grad(make(DEV))
         for _ in range(TRAIN_WARMUP):
-            train_step(nt, pt, x, y)
+            step(nt, pt, x, y)
         sync()
         step_ms = []
         for _ in range(TRAIN_TIMED):
             t0 = time.perf_counter()
-            train_step(nt, pt, x, y)
+            step(nt, pt, x, y)
             sync()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-        card_ms, by_name = profile_ms(lambda: train_step(nt, pt, x, y))
-        log(f"path [{tag}] {kind}: launches {counts} (+{occ} occupancy); "
-            f"first step card vs CPU: loss {losses[0]:.6f} vs "
-            f"{float(loss_c):.6f} (relative {loss_err:.3e}), leaves "
+        card_ms, by_name = profile_ms(lambda: step(nt, pt, x, y))
+        rate = float(s_cpu.mean())
+        log(f"path [{tag}] {kind}: launches {counts} (+{occ} occupancy; "
+            f"recurrent routes {routes}); first step card vs CPU: loss "
+            f"{losses[0]:.6f} vs {float(loss_c):.6f} (relative "
+            f"{loss_err:.3e}), leaves "
             + ", ".join(f"{k} {v:.3e}" for k, v in leaf_err.items())
-            + f"; hidden rate {s_cpu.mean():.4f}, {n_ties} lanes flipped at "
+            + f"; hidden rate {rate:.4f} ("
+            f"{'under' if rate < MIN_HIDDEN_RATE else 'over'} the "
+            f"{MIN_HIDDEN_RATE:.0%} floor), {n_ties} lanes flipped at "
             f"threshold ties, {edges} lane-steps within "
             f"{tie.TIE_MARGIN:.0e} of a surrogate window edge; forward "
             f"readout max abs err {err_out:.3e}; never/always bit-equal to "
@@ -3797,26 +4068,25 @@ def phase_train_shd(smi):
             "losses": losses, "launches": counts,
             "launches_per_step": {k: v // TRAIN_STEPS
                                   for k, v in counts.items()},
-            "occupancy_launches": occ, "loss_cpu": float(loss_c),
-            "loss_rel_err": loss_err, "leaf_rel_l2": leaf_err,
-            "hidden_rate": float(s_cpu.mean()), "tie_flips": n_ties,
-            "rows_diverged": int((first_div < TRAIN_T).sum()),
+            "occupancy_launches": occ, "rec_routes": routes,
+            "loss_cpu": float(loss_c), "loss_rel_err": loss_err,
+            "leaf_rel_l2": leaf_err, "hidden_rate": rate,
+            "tie_flips": n_ties,
+            "rows_diverged": int((first_div < path.T).sum()),
             "window_edges": edges, "readout_max_abs_err": err_out,
             "state_max_abs_err": err_state, "channels": channels,
             "bit_equal_to_auto": same,
             "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
             "card_ms": card_ms,
             "card_ms_by_kernel": top_per(by_name, 1, n=12)}
-    return {"path": tag, "model": f"make_dhsnn_shd {N_IN}->{N_HIDDEN}x"
-            f"{N_BRANCHES} DH-LIF->{N_OUT} LI and its LIF ablation, clipped "
-            f"SGD lr {TRAIN_LR}", "T": TRAIN_T, "batch": TRAIN_B,
-            "steps": TRAIN_STEPS, "input": f"gen_shd_spikes({TRAIN_B}, "
-            f"T={TRAIN_T})", "launches": total, "launches_per_run": per_run,
+    return {"path": tag, "model": path.describe, "T": path.T,
+            "batch": path.B, "steps": TRAIN_STEPS, "input": path.input,
+            "launches": total, "launches_per_run": per_run,
             "models": models, "card": smi}
 
 
 # ---------------------------------------------------------------------------
-# 12. attention and 13. parity
+# 14. attention and 15. parity
 # ---------------------------------------------------------------------------
 
 
@@ -4151,7 +4421,7 @@ def phase_parity():
     if n != len(forward):
         raise AssertionError(f"parity checked {n} kernels, the table has "
                              f"{len(forward)} forward kernels")
-    for fam in ("lif", "linrec", "spikemm"):
+    for fam in BWD_FAMILIES + ("spikemm",):
         rows = [reports[fam]] + list(reports[fam].get("channels",
                                                       {}).values())
         if any("vjp_max_err" not in r for r in rows):
@@ -4169,7 +4439,8 @@ def path_phases():
             "plastic_ff": phase_plastic_ff,
             "plastic_online": phase_plastic_online,
             "stdp_step": phase_stdp_step,
-            "train_shd": phase_train_shd,
+            **{name: functools.partial(phase_train, p)
+               for name, p in train_paths().items()},
             "attention": lambda smi: phase_attention(smi)[1]}
 
 
@@ -4217,7 +4488,7 @@ def main(argv):
     slices.append(phase_plastic_ff(smi))
     slices.append(phase_plastic_online(smi))
     slices.append(phase_stdp_step(smi))
-    slices.append(phase_train_shd(smi))
+    slices += [phase_train(p, smi) for p in train_paths().values()]
     kernels["attention"], attn = phase_attention(smi)
     kernels["attention"]["floor_ms"] = launch_floor_ms()
     slices.append(attn)

@@ -454,6 +454,7 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
     prog = node.neuron.program
     nparams = params.get(node.name, {}).get("neuron")
     th = prog.threshold
+    sur, alpha = node.neuron.surrogate, node.neuron.alpha
     N = node.out_dim
     dev = cur.device
     st = state[node.name]
@@ -469,10 +470,10 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
         v0 = st[th.on].contiguous()
         if kind == FUSED_REC:
             out, vT = lifrec_scan(cur, _self_weight(node, params), tau, v0,
-                                  st["out"].contiguous(), th.base)
+                                  st["out"].contiguous(), th.base, sur,
+                                  alpha)
         else:
-            out, vT = lif_scan(cur, tau, v0, th.base, node.neuron.surrogate,
-                               node.neuron.alpha, prog.reset)
+            out, vT = lif_scan(cur, tau, v0, th.base, sur, alpha, prog.reset)
         ns = {th.on: vT}
     elif lower == LOWER_ALIF:
         mem = next(s for s in prog.states if s.name == th.on)
@@ -483,10 +484,10 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
         if kind == FUSED_REC:
             out, vT, aT = alifrec_scan(cur, _self_weight(node, params), tau,
                                        rho, v0, a0, st["out"].contiguous(),
-                                       th.base, th.scale)
+                                       th.base, th.scale, sur, alpha)
         else:
             out, vT, aT = alif_scan(cur, tau, rho, v0, a0, th.base,
-                                    th.scale)
+                                    th.scale, sur, alpha)
         ns = {mem.name: vT, ad.name: aT}
     elif lower == LOWER_DHLIF:
         # branch-integrate prologue: the dendrites never reset, so they are
@@ -509,8 +510,7 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
             soma_cur = soma_cur + d4[:, :, k]
         tau_s = _decay_vec(mem.decay, nparams, N, dev)
         out, vT = lif_scan(soma_cur.contiguous(), tau_s,
-                           st[mem.name].contiguous(), th.base,
-                           node.neuron.surrogate, node.neuron.alpha)
+                           st[mem.name].contiguous(), th.base, sur, alpha)
         ns = {mem.name: vT, br.name: dT.reshape(B, K, N)}
     else:  # pragma: no cover - compile_program only emits known families
         raise ValueError(f"unknown FIRE lowering {lower!r}")
@@ -845,9 +845,10 @@ def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
     Differentiable (surrogate-gradient BPTT): the outputs and final
     states carry autograd graphs back to `params`, `x` and `state` where
     they require grad, through the kernels' backward (`lif_scan`,
-    `linrec`, `spikemm`; the recurrent and ALIF scans and the gather
-    raise where a gradient would be needed). The learning pass stays out
-    of the graph. Callers that only infer run it under `torch.no_grad()`.
+    `linrec`, `spikemm`, `lifrec_scan`, `alif_scan`, `alifrec_scan`, each
+    under its node's surrogate and alpha; the gather raises where a
+    gradient would be needed). The learning pass stays out of the
+    graph. Callers that only infer run it under `torch.no_grad()`.
     """
     _refuse_unported(guard)
     mode = engine_mode()

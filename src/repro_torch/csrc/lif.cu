@@ -73,6 +73,7 @@
 #include <cstdint>
 
 #include "lane_scan.cuh"
+#include "surrogate.cuh"
 
 namespace {
 
@@ -100,31 +101,6 @@ lif_kernel(const float* __restrict__ cur, const float* __restrict__ tau,
     sp += lanes;
   });
   vT[idx] = v;
-}
-
-constexpr float HALF_PI = 1.57079637050628662109375f;   // fp32(pi / 2)
-
-// d spike / d x at x = u - v_th: 0 arctan, 1 rectangle (its window
-// indicator; the kernel maps it to the quotient), 2 sigmoid, 3 triangle
-// (the plain versions' arithmetic, `core/surrogate.py`)
-template <int SUR>
-__device__ __forceinline__ float surrogate(float x, float alpha) {
-  if constexpr (SUR == 0) {
-    const float y = __fmul_rn(__fmul_rn(HALF_PI, alpha), x);
-    return __fdiv_rn(alpha,
-                     __fmul_rn(2.f, __fadd_rn(1.f, __fmul_rn(y, y))));
-  } else if constexpr (SUR == 1) {
-    // 1/alpha or 0/alpha: both quotients hoisted by the caller (a division
-    // of 0 takes the slow path of __fdiv_rn at every step)
-    return fabsf(x) < __fmul_rn(alpha, 0.5f) ? 1.f : 0.f;
-  } else if constexpr (SUR == 2) {
-    const float sg =
-        __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(alpha, x))));
-    return __fmul_rn(__fmul_rn(alpha, sg), __fsub_rn(1.f, sg));
-  } else {
-    return __fmul_rn(
-        fmaxf(0.f, __fsub_rn(1.f, fabsf(__fmul_rn(alpha, x)))), alpha);
-  }
 }
 
 template <bool SUBTRACT>

@@ -46,12 +46,13 @@ SPARSE_BLOCK = (64, 64)
 # definition, passed as -DSTDP_SEQ_GROUP.
 STDP_SEQ_GROUP = 32
 # The most neurons a lane owns on the recurrent scan's warp route
-# (`csrc/rec_scan.cuh`): rows of up to 32 times as many neurons run a warp
-# a row (`common.rec_route`). Its one definition, -DREC_LANE_NEURONS.
+# (`csrc/rec_scan.cuh`, and its backward `csrc/rec_bwd.cu`): rows of up to
+# 32 times as many neurons run a warp a row (`common.rec_route`). Its one
+# definition, -DREC_LANE_NEURONS.
 REC_LANE_NEURONS = 4
 # The lane scans' staging ring (`csrc/lane_scan.cuh`: `linrec`, `lif`,
-# `alif`, and the backward `lif_bwd` and `linrec_bwd`, which walk it
-# reversed): steps a stage holds and stages of the ring (chunks in flight:
+# `alif`, and the backward `lif_bwd`, `linrec_bwd` and `alif_bwd`, which
+# walk it reversed): steps a stage holds and stages of the ring (chunks in flight:
 # one fewer). Their one definition, -DLANE_SCAN_CHUNK and
 # -DLANE_SCAN_STAGES; `common.lane_plan` sizes the ring from them. Four
 # stages: on an H100, eight made the SHD window's call 0.5 us slower (a
@@ -87,6 +88,11 @@ SIGNATURES = {
                        _I),
     "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _I, _P), _I),
     "rec_scan_w_in_smem": ((_I,), _I),
+    "lifrec_bwd_f32": ((_P,) * 14 + (_I, _I, _I, _F, _I, _F, _I, _P), _I),
+    "alifrec_bwd_f32": ((_P,) * 20 + (_I, _I, _I, _F, _F, _I, _F, _I, _P),
+                        _I),
+    "rec_bwd_w_in_smem": ((_I,), _I),
+    "alif_bwd_f32": ((_P,) * 16 + (_I, _I, _I, _F, _F, _I, _F, _I, _P), _I),
     "alif_f32": ((_P,) * 8 + (_I, _I, _I, _F, _F, _I, _I, _P), _I),
     "alifrec_f32": ((_P,) * 10 + (_I, _I, _I, _F, _F, _I, _P), _I),
     "spikemm_occupancy_f32": ((_P, _P, _P, _I, _I, _P), _I),
@@ -195,8 +201,15 @@ def build() -> Path:
         log = "\n".join(logs)
         (out_dir / "build.log").write_text(log)
         if failed:
+            # each failed source's own messages, without ptxas's reports
+            why = "\n".join(
+                f"== {n}\n" + "\n".join(
+                    ln for ln in (done[srcs.index(CSRC / n)][0] if n != "link"
+                                  else logs[-1]).splitlines()
+                    if not ln.startswith(("ptxas info", "    "))
+                )[:3000] for n, _ in failed)
             raise RuntimeError(f"nvcc exited {failed[0][1]} building "
-                               f"{[n for n, _ in failed]}:\n{log[-4000:]}")
+                               f"{[n for n, _ in failed]}:\n{why}")
         os.replace(tmp_lib, lib)
     return lib
 

@@ -13,6 +13,8 @@ a spike-driven adaptation trace that raises the effective threshold:
 the self-recurrent one (`alifrec`). Every step is a rounded product or
 sum in the order written, the arithmetic of `csrc/alifrec.cu`; the
 recurrent term is `lifrec.ref.recurrent_current`'s fixed-order sum.
+`alif_scan_bwd_ref` and `alifrec_scan_bwd_ref` are their backward
+(`lifrec.ref.scan_bwd_core`).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.lifrec.ref import recurrent_current
+from repro_torch.kernels.lifrec.ref import (recurrent_current,
+                                            scan_bwd_core)
 
 
 def _scan(current: torch.Tensor, w_rec: Optional[torch.Tensor],
@@ -66,3 +69,38 @@ def alifrec_scan_ref(current: torch.Tensor, w_rec: torch.Tensor,
 
     Returns (spikes (T, B, N), v_final (B, N), a_final (B, N))."""
     return _scan(current, w_rec, tau, rho, v0, a0, s0, v_th, beta)
+
+
+def alif_scan_bwd_ref(current: torch.Tensor, tau: torch.Tensor,
+                      rho: torch.Tensor, v0: torch.Tensor, a0: torch.Tensor,
+                      spikes: torch.Tensor, g_spikes: torch.Tensor,
+                      g_vT: torch.Tensor, g_aT: torch.Tensor,
+                      v_th: float = 1.0, beta: float = 1.8,
+                      surrogate: str = "rectangle", alpha: float = 1.0,
+                      need_tau: bool = True, need_rho: bool = True,
+                      need_v0: bool = True, need_a0: bool = True):
+    """The VJP of `alif_scan_ref` (`scan_bwd_core`): (g_current
+    (T, B, N), g_tau (N,), g_rho (N,), g_v0 (B, N), g_a0 (B, N)), None
+    where not needed."""
+    return scan_bwd_core(current, None, tau, rho, v0, a0, None, spikes,
+                         g_spikes, g_vT, g_aT, v_th, beta, surrogate, alpha,
+                         need_tau=need_tau, need_rho=need_rho,
+                         need_v0=need_v0, need_a0=need_a0)[:5]
+
+
+def alifrec_scan_bwd_ref(current: torch.Tensor, w_rec: torch.Tensor,
+                         tau: torch.Tensor, rho: torch.Tensor,
+                         v0: torch.Tensor, a0: torch.Tensor,
+                         s0: torch.Tensor, spikes: torch.Tensor,
+                         g_spikes: torch.Tensor, g_vT: torch.Tensor,
+                         g_aT: torch.Tensor, v_th: float = 1.0,
+                         beta: float = 1.8, surrogate: str = "rectangle",
+                         alpha: float = 1.0, need_tau: bool = True,
+                         need_rho: bool = True, need_v0: bool = True,
+                         need_a0: bool = True, need_s0: bool = True):
+    """The VJP of `alifrec_scan_ref` but for g_W (`scan_bwd_core`):
+    (g_current, g_tau, g_rho, g_v0, g_a0, g_s0), None where not needed."""
+    return scan_bwd_core(current, w_rec, tau, rho, v0, a0, s0, spikes,
+                         g_spikes, g_vT, g_aT, v_th, beta, surrogate, alpha,
+                         need_tau=need_tau, need_rho=need_rho,
+                         need_v0=need_v0, need_a0=need_a0, need_s0=need_s0)

@@ -165,13 +165,14 @@ def lane_plan(lanes: int, T: int, n_sm: int):
 REC_WARP, REC_BLOCK = "warp", "block"
 REC_WARP_MAX_N = 32 * _build.REC_LANE_NEURONS
 _REC_ROUTE_LAUNCHES = {k: {REC_WARP: 0, REC_BLOCK: 0}
-                       for k in ("lifrec", "alifrec")}
+                       for k in ("lifrec", "alifrec", "lifrec_bwd",
+                                 "alifrec_bwd")}
 
 
 def rec_route(n: int) -> str:
-    """The route of the recurrent kernels (`lifrec`, `alifrec`) for rows of
-    n neurons: a warp a batch row up to REC_WARP_MAX_N, a block a row
-    above."""
+    """The route of the recurrent kernels (`lifrec`, `alifrec` and their
+    backward `lifrec_bwd`, `alifrec_bwd`) for rows of n neurons: a warp a
+    batch row up to REC_WARP_MAX_N, a block a row above."""
     return REC_WARP if n <= REC_WARP_MAX_N else REC_BLOCK
 
 
@@ -186,13 +187,21 @@ def count_rec_launch(kernel: str, route: str) -> None:
     _REC_ROUTE_LAUNCHES[kernel][route] += 1
 
 
-def w_in_smem(n: int) -> bool:
-    """Whether the recurrent kernels' block route keeps an (n, n) W_rec in
+def w_in_smem(n: int, backward: bool = False) -> bool:
+    """Whether the recurrent kernels' block route (with `backward`, their
+    backward's, which also holds two rows of Gu) keeps an (n, n) W_rec in
     shared memory on the current device; else it reads W_rec through L2.
     (The warp route always holds it in shared memory.)"""
-    code = _build.library().rec_scan_w_in_smem(n)
+    lib = _build.library()
+    code = (lib.rec_bwd_w_in_smem if backward else lib.rec_scan_w_in_smem)(n)
     _build.check("rec_scan", max(-code, 0))
     return bool(code)
+
+
+def optional_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's data pointer, or None (a null pointer for the C entry
+    points) for an output that is not asked for."""
+    return None if t is None else t.data_ptr()
 
 
 def tree_to(tree: Any, device: DeviceLike) -> Any:
@@ -217,5 +226,6 @@ __all__ = ["resolve_device", "check_device", "check_scan", "check_planes",
            "check_raster", "refuse_grad",
            "check_matmul", "sm_count", "MAX_WARPS", "lane_plan", "rec_route",
            "rec_route_launch_counts", "REC_WARP", "REC_BLOCK",
-           "REC_WARP_MAX_N", "w_in_smem", "tree_to", "pad_axis",
+           "REC_WARP_MAX_N", "w_in_smem", "optional_ptr", "tree_to",
+           "pad_axis",
            "DeviceLike"]

@@ -19,9 +19,21 @@ from repro_torch.kernels.common import (check_planes, check_scan,
                                         lane_plan, sm_count)
 from repro_torch.kernels.lif.ref import lif_scan_bwd_ref, lif_scan_ref
 
-# the surrogates `lif_bwd_f32` computes in registers (the others
+# the surrogates the backward kernels compute in registers (the others
 # `register` adds run on the CPU only)
 KERNEL_SURROGATES = ("arctan", "rectangle", "sigmoid", "triangle")
+
+
+def kernel_surrogate(name: str, surrogate: str) -> int:
+    """The index the backward kernels (`lif_bwd`, `lifrec_bwd`, `alif_bwd`,
+    `alifrec_bwd`) take for `surrogate`; raises for one they do not
+    compute."""
+    if surrogate not in KERNEL_SURROGATES:
+        check_surrogate(surrogate)
+        raise NotImplementedError(
+            f"{name}: the kernel computes the surrogates "
+            f"{KERNEL_SURROGATES}; {surrogate!r} runs on the CPU only")
+    return KERNEL_SURROGATES.index(surrogate)
 
 
 def lif_cuda(current: torch.Tensor, tau: torch.Tensor, v0: torch.Tensor,
@@ -62,11 +74,7 @@ def lif_bwd_cuda(current: torch.Tensor, tau: torch.Tensor,
     if reset not in ("zero", "subtract"):
         raise ValueError(f"lif: reset must be 'zero' or 'subtract', "
                          f"got {reset!r}")
-    if surrogate not in KERNEL_SURROGATES:
-        check_surrogate(surrogate)
-        raise NotImplementedError(
-            f"lif_bwd: the kernel computes the surrogates "
-            f"{KERNEL_SURROGATES}; {surrogate!r} runs on the CPU only")
+    sur = kernel_surrogate("lif_bwd", surrogate)
     check_scan("lif_bwd", current, None, [("tau", tau)],
                [("v0", v0), ("g_vT", g_vT)])
     check_planes("lif_bwd", current, [("spikes", spikes),
@@ -85,8 +93,8 @@ def lif_bwd_cuda(current: torch.Tensor, tau: torch.Tensor,
             spikes.data_ptr(), g_spikes.data_ptr(), g_vT.data_ptr(),
             u.data_ptr(), g_cur.data_ptr(), g_tau.data_ptr(),
             g_v0.data_ptr(), T, B, N, float(v_th),
-            int(reset == "subtract"), KERNEL_SURROGATES.index(surrogate),
-            float(alpha), stages, torch.cuda.current_stream().cuda_stream)
+            int(reset == "subtract"), sur, float(alpha), stages,
+            torch.cuda.current_stream().cuda_stream)
     _build.check("lif_bwd", code)
     lif_bwd_cuda.launches += 1
     return g_cur, g_tau.sum(0), g_v0
@@ -155,4 +163,4 @@ registry.register(registry.KernelSpec(
     vjp=_vjp))
 
 __all__ = ["lif_scan", "lif_cuda", "lif_bwd_cuda", "lif_scan_ref",
-           "lif_scan_bwd_ref", "KERNEL_SURROGATES"]
+           "lif_scan_bwd_ref", "KERNEL_SURROGATES", "kernel_surrogate"]

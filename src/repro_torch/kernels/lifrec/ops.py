@@ -1,25 +1,35 @@
-"""Public fused recurrent-LIF entry point, dispatched via the registry.
+"""Public fused recurrent-LIF entry point with a surrogate-gradient VJP.
 
-`lifrec_scan(current, w_rec, tau, v0, s0, v_th)` runs the recurrent LIF
-over (T, B, N) with the hard reset: `csrc/lifrec.cu` on CUDA tensors, the
-plain scan on CPU tensors. s0 holds the 0/1 spikes of the step before the
-first. Forward only: the STBP backward comes with the training slice.
+`lifrec_scan(current, w_rec, tau, v0, s0, v_th, surrogate, alpha)` runs
+the recurrent LIF over (T, B, N) with the hard reset: `csrc/lifrec.cu` on
+CUDA tensors, the plain scan on CPU tensors. s0 holds the 0/1 spikes of
+the step before the first. It is differentiable in (current, w_rec, tau,
+v0, s0) through `_LifRecScan` (STBP, as the JAX package's custom VJP):
+the backward is `csrc/rec_bwd.cu`'s `lifrec_bwd_f32` kernel on CUDA
+tensors (`lifrec_bwd_cuda`, its own launch counter, listed as
+`lifrec_bwd`) and `lifrec_scan_bwd_ref` on CPU tensors, and g_W, the
+spike product sum_t s_{t-1}^T Gu_t, goes to `spikemm`'s dispatch on the
+transposed, one-step-shifted raster (`rec_g_w`).
 
-The kernel takes one of the two routes of `csrc/rec_scan.cuh` by the
-row's width, `common.rec_route(N)` (a warp a batch row up to 128 neurons,
-a block a row above), and counts each launch on that route's counter
-(`common.rec_route_launch_counts()`) as well as on its registry counter.
+The kernels take one of the two routes of `csrc/rec_scan.cuh` (and of
+`rec_bwd.cu`) by the row's width, `common.rec_route(N)` (a warp a batch
+row up to 128 neurons, a block a row above), and count each launch on
+that route's counter (`common.rec_route_launch_counts()`) as well as on
+their registry counters.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.surrogate import check_surrogate
 from repro_torch.kernels import _build, registry
-from repro_torch.kernels.common import (REC_WARP, check_scan,
-                                       count_rec_launch, rec_route,
-                                       refuse_grad)
-from repro_torch.kernels.lifrec.ref import lifrec_scan_ref
+from repro_torch.kernels.common import (REC_WARP, check_planes, check_scan,
+                                        count_rec_launch, optional_ptr,
+                                        rec_route)
+from repro_torch.kernels.lif.ops import kernel_surrogate
+from repro_torch.kernels.lifrec.ref import (lifrec_scan_bwd_ref,
+                                            lifrec_scan_ref)
 
 
 def lifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
@@ -49,18 +59,114 @@ def lifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
     return spikes, vT
 
 
+def lifrec_bwd_cuda(current: torch.Tensor, w_rec: torch.Tensor,
+                    tau: torch.Tensor, v0: torch.Tensor, s0: torch.Tensor,
+                    spikes: torch.Tensor, g_spikes: torch.Tensor,
+                    g_vT: torch.Tensor, v_th: float = 1.0,
+                    surrogate: str = "rectangle", alpha: float = 1.0,
+                    need_tau: bool = True, need_v0: bool = True,
+                    need_s0: bool = True):
+    """Launch `csrc/rec_bwd.cu`'s `lifrec_bwd_f32` on CUDA tensors, on the
+    route `rec_route(N)` picks: `lifrec_scan_bwd_ref`'s (g_current, g_tau,
+    g_v0, g_s0), None where not needed, the per-lane g_tau partials summed
+    over B here."""
+    sur = kernel_surrogate("lifrec_bwd", surrogate)
+    check_scan("lifrec_bwd", current, w_rec, [("tau", tau)],
+               [("v0", v0), ("s0", s0), ("g_vT", g_vT)])
+    check_planes("lifrec_bwd", current, [("spikes", spikes),
+                                         ("g_spikes", g_spikes)])
+    T, B, N = current.shape
+    g_cur = torch.empty_like(current)
+    g_tau = torch.empty_like(v0) if need_tau else None
+    g_v0 = torch.empty_like(v0) if need_v0 else None
+    g_s0 = torch.empty_like(s0) if need_s0 else None
+    if T == 0 or v0.numel() == 0:
+        return (g_cur, None if g_tau is None else g_tau.zero_().sum(0),
+                None if g_v0 is None else g_v0.copy_(g_vT),
+                None if g_s0 is None else g_s0.zero_())
+    u = torch.empty_like(current)
+    w_t = w_rec.t().contiguous()
+    route = rec_route(N)
+    with torch.cuda.device(current.device):
+        code = _build.library().lifrec_bwd_f32(
+            current.data_ptr(), w_rec.data_ptr(), w_t.data_ptr(),
+            tau.data_ptr(), v0.data_ptr(), s0.data_ptr(), spikes.data_ptr(),
+            g_spikes.data_ptr(), g_vT.data_ptr(), u.data_ptr(),
+            g_cur.data_ptr(), optional_ptr(g_tau), optional_ptr(g_v0),
+            optional_ptr(g_s0), T, B, N, float(v_th), sur, float(alpha),
+            int(route == REC_WARP),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check("lifrec_bwd", code)
+    lifrec_bwd_cuda.launches += 1
+    count_rec_launch("lifrec_bwd", route)
+    return g_cur, None if g_tau is None else g_tau.sum(0), g_v0, g_s0
+
+
+def rec_g_w(s0: torch.Tensor, spikes: torch.Tensor,
+            gu: torch.Tensor) -> torch.Tensor:
+    """g_W = sum_t s_{t-1}^T Gu_t of a self-recurrent scan, the spike
+    product on the (N, T * B) transposed, one-step-shifted raster
+    [s0; s_0 .. s_{T-2}] through `spikemm`'s dispatch (its dense kernel
+    or its sparse channel on the card, the plain product on the CPU)."""
+    T, B, N = spikes.shape
+    if T == 0:
+        return torch.zeros((N, N), dtype=gu.dtype, device=gu.device)
+    shifted = torch.cat([s0[None].to(spikes.dtype), spikes[:-1]])
+    raster = shifted.reshape(T * B, N).t().contiguous()
+    return registry.dispatch("spikemm", (raster, gu.reshape(T * B, N)))
+
+
+class _LifRecScan(torch.autograd.Function):
+    """`fwd` forward, `bwd` backward: the implementations `lifrec_scan`
+    dispatches to by device (None), or the pair the parity harness holds
+    against each other."""
+
+    @staticmethod
+    def forward(ctx, current, w_rec, tau, v0, s0, v_th, surrogate, alpha,
+                fwd, bwd):
+        args = (current, w_rec, tau, v0, s0)
+        s, vT = (registry.dispatch("lifrec", args, v_th=v_th) if fwd is None
+                 else fwd(*args, v_th=v_th))
+        ctx.save_for_backward(*args, s)
+        ctx.cfg = dict(v_th=v_th, surrogate=surrogate, alpha=alpha)
+        ctx.bwd = bwd
+        return s, vT
+
+    @staticmethod
+    def backward(ctx, g_s, g_vT):
+        current, w_rec, tau, v0, s0, s = ctx.saved_tensors
+        need_c, need_w, need_tau, need_v0, need_s0 = ctx.needs_input_grad[:5]
+        args = (current, w_rec, tau, v0, s0, s, g_s.contiguous(),
+                g_vT.contiguous())
+        kw = dict(ctx.cfg, need_tau=need_tau, need_v0=need_v0,
+                  need_s0=need_s0)
+        g_cur, g_tau, g_v0, g_s0 = (
+            registry.dispatch_bwd("lifrec", args, **kw) if ctx.bwd is None
+            else ctx.bwd(*args, **kw))
+        g_w = rec_g_w(s0, s, g_cur).to(w_rec.dtype) if need_w else None
+        return ((g_cur if need_c else None, g_w, g_tau, g_v0, g_s0)
+                + (None,) * 5)
+
+
 def lifrec_scan(current: torch.Tensor, w_rec: torch.Tensor,
                 tau: torch.Tensor, v0: torch.Tensor, s0: torch.Tensor,
-                v_th: float = 1.0):
+                v_th: float = 1.0, surrogate: str = "rectangle",
+                alpha: float = 1.0):
     """Fused recurrent LIF over time. current: (T,B,N); w_rec: (N,N);
     tau: (N,); v0/s0: (B,N).
 
-    Returns (spikes (T,B,N), v_final (B,N)). No gradient yet: raises
-    where one is needed."""
-    refuse_grad("lifrec_scan", (current, w_rec, tau, v0, s0),
-                "item 2b, B4")
-    return registry.dispatch("lifrec", (current, w_rec, tau, v0, s0),
-                             v_th=v_th)
+    Returns (spikes (T,B,N), v_final (B,N)). Differentiable in every
+    tensor argument through surrogate `surrogate` of sharpness `alpha`
+    (STBP/BPTT)."""
+    check_surrogate(surrogate)
+    return _LifRecScan.apply(current, w_rec, tau, v0, s0, v_th, surrogate,
+                             alpha, None, None)
+
+
+def _vjp(fwd, bwd, current, w_rec, tau, v0, s0, v_th=1.0,
+         surrogate="rectangle", alpha=1.0):
+    return _LifRecScan.apply(current, w_rec, tau, v0, s0, v_th, surrogate,
+                             alpha, fwd, bwd)
 
 
 def _make_inputs(generator: torch.Generator):
@@ -75,6 +181,9 @@ def _make_inputs(generator: torch.Generator):
 
 registry.register(registry.KernelSpec(
     name="lifrec", plain=lifrec_scan_ref, cuda=lifrec_cuda,
-    make_inputs=_make_inputs, tol=1e-4))
+    make_inputs=_make_inputs, tol=1e-4, diff_argnums=(0, 1, 2, 3, 4),
+    bwd=registry.Channel(plain=lifrec_scan_bwd_ref, cuda=lifrec_bwd_cuda),
+    vjp=_vjp))
 
-__all__ = ["lifrec_scan", "lifrec_cuda", "lifrec_scan_ref"]
+__all__ = ["lifrec_scan", "lifrec_cuda", "lifrec_bwd_cuda",
+           "lifrec_scan_ref", "lifrec_scan_bwd_ref", "rec_g_w"]

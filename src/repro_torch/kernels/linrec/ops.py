@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.common import (MAX_WARPS, check_planes, lane_plan,
-                                        sm_count)
+                                        optional_ptr, sm_count)
 from repro_torch.kernels.linrec.ref import (linrec_bwd_ref, linrec_naive,
                                             linrec_ref)
 
@@ -82,9 +82,8 @@ def linrec_bwd_cuda(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
         code = _build.library().linrec_bwd_f32(
             av.data_ptr(), av.stride(0), av.stride(1), av.stride(2),
             y.data_ptr(), h0.data_ptr(), g_y.data_ptr(), g_hT.data_ptr(),
-            g_x.data_ptr(), None if g_a is None else g_a.data_ptr(),
-            None if g_h0 is None else g_h0.data_ptr(), T, B, D, stages,
-            torch.cuda.current_stream().cuda_stream)
+            g_x.data_ptr(), optional_ptr(g_a), optional_ptr(g_h0), T, B, D,
+            stages, torch.cuda.current_stream().cuda_stream)
     _build.check("linrec_bwd", code)
     linrec_bwd_cuda.launches += 1
     return g_a, g_x, g_h0

@@ -9,9 +9,10 @@ version on the same inputs, on
   * the forward outputs (every leaf of the output), and
   * the VJP: gradients of a fixed nonlinear scalar loss with respect to
     every `diff_argnums` input. For a family with a `vjp` (`lif`,
-    `linrec`, `spikemm`) that is its autograd.Function run on the CUDA
-    forward and backward against the same Function on the plain forward
-    and backward (`spikemm`'s backward is its own product: each channel
+    `linrec`, `lifrec`, `alif`, `alifrec`, `spikemm`) that is its
+    autograd.Function run on the CUDA forward and backward against the
+    same Function on the plain forward and backward (`spikemm`'s
+    backward is its own product: each channel
     computes its g_w with itself); `attention`'s CUDA wrapper is
     differentiable itself and is held against autograd through its plain
     version.

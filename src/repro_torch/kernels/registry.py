@@ -5,7 +5,8 @@ its plain PyTorch version, its CUDA wrapper, a `make_inputs` for parity
 checks, the tolerance its parity is held to and, for a differentiable
 family, the arguments whose gradients `parity.py` compares, its backward
 pair (`bwd`: plain and CUDA, where the gradient is a kernel of its own:
-`lif`, `linrec`) and `vjp(fwd, bwd, *args, **static)`, its
+`lif`, `linrec`, `lifrec`, `alif`, `alifrec`) and
+`vjp(fwd, bwd, *args, **static)`, its
 `torch.autograd.Function` run on a given forward and backward, so that
 the parity harness can hold the CUDA pair against the plain pair. The
 public entries run the same Function with the implementations chosen by

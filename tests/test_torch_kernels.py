@@ -793,7 +793,8 @@ def test_registry_make_inputs_run_plain_on_cpu():
                                 "spikemm_gather", "stdp", "stdp_seq")
     assert registry.launch_counts() == {
         n: 0 for n in registry.names() + ("spikemm_sparse", "lif_bwd",
-                                          "linrec_bwd")}
+                                          "linrec_bwd", "lifrec_bwd",
+                                          "alif_bwd", "alifrec_bwd")}
 
 
 def test_dispatch_rejects_mixed_devices():
@@ -903,6 +904,30 @@ def test_build_failure_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc exited 1"):
         _build.build()
     assert not list((tmp_path / "build").rglob(_build.LIB_NAME))
+
+
+def test_build_failure_shows_each_failed_sources_messages(tmp_path,
+                                                          monkeypatch):
+    """A source that fails to compile is named in the error with its own
+    messages, however much ptxas reported for the sources that built."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\nimport sys\n"
+        "src = sys.argv[sys.argv.index('-c') + 1]\n"
+        "if src.endswith('rec_bwd.cu'):\n"
+        "    print(src + '(12): error: boom')\n"
+        "    sys.exit(2)\n"
+        "print('ptxas info    : Used 32 registers\\n' * 400)\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'wb').close()\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError) as err:
+        _build.build()
+    msg = str(err.value)
+    assert "nvcc exited 2 building ['rec_bwd.cu']" in msg
+    assert "== rec_bwd.cu" in msg and "error: boom" in msg
+    assert "ptxas info" not in msg
 
 
 def test_build_root_is_the_checkout_or_a_user_cache(tmp_path, monkeypatch):

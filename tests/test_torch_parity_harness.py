@@ -58,9 +58,9 @@ def stand_in(monkeypatch):
 def test_all_families_pass_with_their_plain_versions(stand_in, capsys,
                                                      monkeypatch):
     """With every CUDA wrapper (forward and backward) replaced by its plain
-    version, every family passes, `attention`, `lif`, `linrec` and
-    `spikemm` (both channels) with their VJP, and `main` reports 11
-    kernels."""
+    version, every family passes, `attention`, `lif`, `linrec`, `lifrec`,
+    `alif`, `alifrec` and `spikemm` (both channels) with their VJP, and
+    `main` reports 11 kernels."""
     for name in registry.names():
         spec = registry.get(name)
         stand_in(name, spec.plain)
@@ -70,14 +70,15 @@ def test_all_families_pass_with_their_plain_versions(stand_in, capsys,
             stand_in(name, None, bwd=spec.bwd.plain)
     reports = parity.check_all()
     assert set(reports) == set(registry.names())
-    for name in ("attention", "lif", "linrec"):
+    vjp = ("attention", "lif", "linrec", "lifrec", "alif", "alifrec")
+    for name in vjp:
         assert reports[name] == {"forward_max_err": 0.0,
                                  "vjp_max_err": 0.0}
     assert reports["spikemm"]["channels"] == {
         "spikemm_sparse": {"forward_max_err": 0.0, "vjp_max_err": 0.0}}
     assert reports["spikemm"]["vjp_max_err"] == 0.0
     assert all("vjp_max_err" not in r for n, r in reports.items()
-               if n not in ("attention", "lif", "linrec", "spikemm"))
+               if n not in vjp + ("spikemm",))
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda *a: "stand-in")
     parity.main()
@@ -119,18 +120,20 @@ def test_check_vjp_false_skips_the_gradients(stand_in):
 
 
 def test_names_and_diff_argnums():
-    """`attention` is registered; it, `lif`, `linrec` and `spikemm` are the
-    differentiable families, with the JAX specs' `diff_argnums`; `lif` and
-    `linrec` carry a backward pair of their own; the others' backward
-    waits for item 2b and B6."""
+    """`attention` is registered; it, `lif`, `linrec`, `spikemm`,
+    `lifrec`, `alif` and `alifrec` are the differentiable families,
+    with the JAX specs' `diff_argnums`; the five scans carry a backward
+    pair of their own; the gather's backward waits for B6, the STDP
+    kernels have none (the learning pass stays out of the graph)."""
     names = registry.names()
     assert "attention" in names and len(names) == 10
     assert {n: registry.get(n).diff_argnums for n in names
             if registry.get(n).diff_argnums} == {
         "attention": (0, 1, 2), "lif": (0, 1, 2), "linrec": (0, 1, 2),
-        "spikemm": (0, 1)}
+        "spikemm": (0, 1), "lifrec": (0, 1, 2, 3, 4),
+        "alif": (0, 1, 2, 3, 4), "alifrec": (0, 1, 2, 3, 4, 5, 6)}
     assert {n for n in names if registry.get(n).bwd is not None} == {
-        "lif", "linrec"}
+        "lif", "linrec", "lifrec", "alif", "alifrec"}
 
 
 def test_loss_matches_the_jax_harness():

@@ -23,8 +23,11 @@
 * A port twin of `tests/test_events_and_apps.py::test_dhsnn_shd_learns`:
   25 clipped-SGD steps at lr 0.3 lower the loss below 0.9x the first, on
   both engines.
-* The learning pass stays out of the graph; the ops without a backward
-  yet refuse a gradient; serving builds no graph.
+* The learning pass stays out of the graph; the recurrent and ALIF
+  scans pass a gradient (their backward, B4 and B5, is held against the
+  JAX package in `tests/test_torch_train_ecg.py`), and the ECG SRNN's
+  gradients agree across the two engines; the gather refuses a gradient;
+  serving builds no graph.
 """
 
 import dataclasses
@@ -390,7 +393,7 @@ def test_port_dhsnn_shd_learns(engine):
 
 
 # ---------------------------------------------------------------------------
-# what stays out of the graph, and what refuses a gradient
+# what stays out of the graph, what passes a gradient and what refuses one
 # ---------------------------------------------------------------------------
 
 
@@ -428,25 +431,45 @@ def test_learning_pass_stays_out_of_the_graph():
                            torch.zeros(2, 4), torch.zeros(2, 4)),
 ], ids=("lifrec", "alif", "alifrec"))
 def test_scans_without_a_backward_refuse_a_gradient(call):
-    cur = torch.zeros(5, 2, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 2b"):
-        call(cur)
+    """The recurrent and ALIF scans have their backward (B4, B5): a
+    gradient flows through each (a current that fires in some steps
+    gets a nonzero one, under the default surrogate), and inference under
+    `no_grad` or on tensors that need none builds no graph."""
+    cur = torch.full((5, 2, 4), 0.6).requires_grad_()
+    out = call(cur)
+    assert out[0].grad_fn is not None
+    assert out[0].sum() > 0                     # some steps fire
+    (g,) = torch.autograd.grad(out[1].sum() + out[0].sum(), cur)
+    assert g.shape == cur.shape and torch.isfinite(g).all()
+    assert g.abs().sum() > 0
     with torch.no_grad():
-        call(cur)                               # inference runs
-    call(cur.detach())
+        assert call(cur)[0].grad_fn is None     # inference runs
+    assert call(cur.detach())[0].grad_fn is None
 
 
 def test_ecg_srnn_training_refuses_on_both_engines():
-    nodes, params = make_srnn_ecg(torch.Generator().manual_seed(0),
-                                  n_hidden=16, device="cpu")
-    _requires_grad(params)
-    x = torch.zeros(6, 2, 4)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        plan.run(nodes, params, x, device="cpu")
-    # the stepper differentiates through `surrogate.spike`, as the JAX
-    # package's does
-    _, out, _ = events.run(nodes, params, x, device="cpu")
-    assert out.grad_fn is not None
+    """The ECG SRNN trains on both engines: `plan.run` (the
+    fused `alifrec`, its backward kernel's plain version and `spikemm`'s
+    g_w) and `events.run` (autograd through `surrogate.spike`) give the
+    same loss and gradients on the same weights."""
+    x = torch.from_numpy((np.random.default_rng(0).random((30, 2, 4))
+                          < 0.3).astype(np.float32))
+    grads, losses = {}, {}
+    for engine, run in (("plan", plan.run), ("events", events.run)):
+        nodes, params = make_srnn_ecg(torch.Generator().manual_seed(0),
+                                      n_hidden=16, device="cpu")
+        _requires_grad(params)
+        _, out, _ = run(nodes, params, x, device="cpu")
+        loss = out.pow(2).mean()
+        loss.backward()
+        losses[engine] = loss.item()
+        grads[engine] = dict(_leaves_with_paths(grads_to_numpy(params)))
+    assert abs(losses["plan"] - losses["events"]) <= plan.CROSS_ENGINE_ATOL
+    assert set(grads["plan"]) == set(grads["events"])
+    for path, g in grads["events"].items():
+        assert np.abs(g).sum() > 0, path
+        rel = np.linalg.norm(grads["plan"][path] - g) / np.linalg.norm(g)
+        assert rel <= LEAF_RTOL, f"{'/'.join(path)}: {rel:.3e}"
 
 
 def test_gather_refuses_a_gradient():

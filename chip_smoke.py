@@ -33,7 +33,8 @@ tree the same way, so two trees compare in one call.
 2. build    `kernels/_build.py` compiles every CUDA source with its own
             `nvcc -c`, all started together, and links them with one
             `nvcc -shared`; prints the seconds and what ptxas reports of
-            each kernel.
+            each kernel, and fails if the recurrent backward's warp route
+            spills at N = 64 (its W rows in registers).
 3. kernels  first the launch floor: `cuda_ms` of a one-element in-place
             `add_`, the least a launch costs back to back, printed on its
             own line and beside every kernel row (`floor_ms`); a call is
@@ -131,15 +132,24 @@ tree the same way, so two trees compare in one call.
             64) under sigmoid alpha 4, (60, 48, 64)), the JAX families'
             make_inputs shapes ((20, 3, 70); (20, 3, 130), the block
             route), every surrogate at alpha 0.5, 1, 2, 4 at T = 37 from
-            a nonzero v0, a0, s0, the route edges N = 31, 32, 33, 64,
-            127, 128, 129, 1024 at B = 1, 3, 64 and N = 240, 241 (the
-            backward's block route holds W_rec in shared memory up to
-            240), a wide row (16, 16, 2048) through L2 (timed), T = 1
-            and 0, rows firing in most steps, `alif_bwd` on lane rows of
-            6, 20, 130, 4097 at T = 1, 15, 16, 17, 33 (beta 0.5), each
-            call's route read off `rec_route_launch_counts()`, each bit
-            for bit its plain version, the scratch planes' bound printed
-            beside;
+            a nonzero v0, a0, s0, the route edges and the warp route's
+            splits N = 31, 32, 33, 63, 64, 65, 96, 97, 127, 128, 129,
+            1024 at B = 1, 3, 64, a block a row (B = 15, 16, 17 at
+            N = 64; 301 x 64, 500 x 33, 1000 x 128) and the edges of its
+            chunks (T = 2, 5, 31, 32, 33, 65 at N = 64; 16, 17 at
+            N = 128), N = 240, 241 (the backward's block route
+            holds W_rec in shared memory up to 240), a wide row (16, 16,
+            2048) through L2 (timed), T = 1 and 0, rows firing in most
+            steps, `alif_bwd` on lane rows of 6, 20, 130, 4097 at T = 1,
+            15, 16, 17, 33 (beta 0.5), each call's route read off
+            `rec_route_launch_counts()`, each bit for bit its plain
+            version, the scratch planes' bound printed beside, and for
+            `lifrec_bwd` and `alifrec_bwd` the chain floor (T x N adds
+            of an assumed 4 cycles at the card's highest SM clock,
+            `nvidia-smi`'s clocks.max.sm), and their cycles by pass
+            at train_ecg's call (a build of `rec_bwd.cu` with
+            -DREC_BWD_PASS_CLOCKS, made beside the library, bit for
+            bit the library's outputs);
             `spikemm` also at the parity harness's inputs, at the
             sparse_integ path's hidden INTEG at each density and at the
             topology_banded path's readout INTEG (64 x 8192 @ 8192 x 8);
@@ -169,9 +179,11 @@ tree the same way, so two trees compare in one call.
             rule's `stdp_seq` planes, its pre-trace `linrec` call and its
             `lif` call cut to T = 1, 75, 150 and 300 steps, alif_ff's
             `alif` call to T = 1, 64, 128 and 250, the ECG windows'
-            `alifrec` and `lifrec` calls to T = 1, 8 and 32, each bit for
-            bit and timed; the fit ms = a + b T splits a call into its
-            launch and prologue (a) and a step (b).
+            `alifrec` and `lifrec` calls to T = 1, 8 and 32, the
+            train_ecg step's `alifrec_bwd` and `lifrec_bwd` calls to
+            T = 1, 50, 100 and 200, each bit for bit (the backward's
+            sigmoid within its tolerance) and timed; the fit ms = a + b T
+            splits a call into its launch and prologue (a) and a step (b).
 4. paths    each path served through the engine, with every launch counter
             set to 0 just before its run and read just after:
             * shd: `make_dhsnn_shd` at 700 -> 64 (x4 branches) -> 20, 128
@@ -379,12 +391,14 @@ recurrence (`library_ms` null).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -460,12 +474,14 @@ SMEM_W_MAX_N = 241
 # the learning window's clips (stdp_seq, stdp)
 SERIAL = ("lifrec", "alifrec", "stdp_seq", "stdp")
 # the sweep: each serial-chain kernel's home-path call, the lane scans'
-# longest path calls (linrec's and lif's of plastic_ff) and alif's
-# alif_ff call, cut to these step counts (plastic_ff's T = 300, alif_ff's
-# 250, the ECG window's 32)
+# longest path calls (linrec's and lif's of plastic_ff), alif's alif_ff
+# call and the recurrent backward's train_ecg calls, cut to these step
+# counts (plastic_ff's T = 300, alif_ff's 250, the ECG window's 32, the
+# ECG training window's 200)
 SWEEP_T = {"stdp_seq": (1, 75, 150, 300), "alifrec": (1, 8, 32),
            "lifrec": (1, 8, 32), "linrec": (1, 75, 150, 300),
-           "lif": (1, 75, 150, 300), "alif": (1, 64, 128, 250)}
+           "lif": (1, 75, 150, 300), "alif": (1, 64, 128, 250),
+           "lifrec_bwd": (1, 50, 100, 200), "alifrec_bwd": (1, 50, 100, 200)}
 # the call each kernel's sweep cuts, by its label, where it is not the
 # kernel's HOME-path call
 SWEEP_CALL = {"linrec": "plastic_ff pair pre trace",
@@ -542,6 +558,14 @@ SURROGATES = ("arctan", "rectangle", "sigmoid", "triangle")
 # the widest row whose W_rec the recurrent backward's block route holds in
 # shared memory (its Gu buffers take the forward's 241st row's room)
 BWD_SMEM_W_MAX_N = 240
+# the recurrent backward's warp route at rows of 33-64 neurons (either
+# ADAPT: two instantiations), as its mangled name holds it: W's rows in
+# registers, and the build fails if it spills or if not both are found
+REC_BWD_NO_SPILL = r"rec_bwd_row_kernelILb[01]ELi64E"
+# an assumed latency of a dependent fp32 add on an H100 SM, in cycles (not
+# measured here): the chain floor of the recurrent backward is T x N such
+# adds (the plain version's order) at the card's highest SM clock
+FADD_CYCLES = 4
 
 SOURCES = {
     "spikemm": ("src/repro_torch/csrc/spikemm.cu",
@@ -636,10 +660,18 @@ def phase_device():
 
 
 def phase_build():
+    global _PASS_LIB
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    lib = _build.build()
-    _build.library()
+    stamped = start_pass_clock_build()    # beside the library's sources
+    try:
+        lib = _build.build()
+        _build.library()
+    except BaseException:
+        stamped[0].kill()
+        stamped[0].wait()
+        raise
+    _PASS_LIB = finish_pass_clock_build(*stamped)
     secs = time.perf_counter() - t0
     log(f"build: {secs:.1f} s ({len(_build.sources())} sources, one nvcc -c "
         f"each started together and one link, {lib.parent})")
@@ -650,7 +682,78 @@ def phase_build():
             log("  " + line.split("'")[1])
         elif "registers" in line or "bytes stack" in line or "error" in line:
             log("  " + line.strip())
+    # the recurrent backward's warp route at the ECG's N = 64 keeps W's
+    # rows in registers: it must not spill
+    held = {name: spills for name, spills in ptxas_spills(
+        (lib.parent / "build.log").read_text()).items()
+        if re.search(REC_BWD_NO_SPILL, name)}
+    if len(held) != 2:
+        raise AssertionError(f"build: {len(held)} instantiation(s) match "
+                             f"{REC_BWD_NO_SPILL!r}, not 2 (one an ADAPT): "
+                             "the spill check would check nothing")
+    for name, spills in held.items():
+        if spills:
+            raise AssertionError(f"build: {name} spills {spills} bytes "
+                                 "(stores + loads)")
+    log(f"build: {len(held)} instantiation(s) of the recurrent backward's "
+        "warp route at N = 64, no spill")
     return secs
+
+
+# the clock-stamped build of `csrc/rec_bwd.cu` (-DREC_BWD_PASS_CLOCKS),
+# loaded by `phase_build`
+_PASS_LIB = None
+
+
+def start_pass_clock_build():
+    """Start nvcc on `csrc/rec_bwd.cu` with -DREC_BWD_PASS_CLOCKS (the warp
+    route's clock stamps by pass) into `build/rec_bwd_passes/`, a shared
+    library of its own; returns (process, library path)."""
+    from repro_torch.kernels import _build
+    out = _build.BUILD_ROOT.parent / "rec_bwd_passes"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "librecbwdpasses.so"
+    proc = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-DREC_BWD_PASS_CLOCKS",
+         "-shared", str(_build.CSRC / "rec_bwd.cu"), "-o", str(lib)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def finish_pass_clock_build(proc, lib):
+    """Wait for `start_pass_clock_build`'s nvcc; the loaded library, with
+    the two backward entry points' signatures and the package library's
+    error strings (for `_build.check`)."""
+    from repro_torch.kernels import _build
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc exited {proc.returncode} building the "
+                           f"clock-stamped rec_bwd.cu:\n{out[-3000:]}")
+    dll = ctypes.CDLL(str(lib))
+    for name in ("lifrec_bwd_f32", "alifrec_bwd_f32"):
+        argtypes, restype = _build.SIGNATURES[name]
+        getattr(dll, name).argtypes = list(argtypes)
+        getattr(dll, name).restype = restype
+    dll.rec_bwd_pass_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    dll.rec_bwd_pass_clocks.restype = ctypes.c_int
+    dll.cuda_error_string = _build.library().cuda_error_string
+    return dll
+
+
+def ptxas_spills(text):
+    """{kernel's mangled name: spill store + load bytes} from ptxas -v's
+    output (each 'Compiling entry function' line, then its 'bytes stack
+    frame' line)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes spill stores" in line and name is not None:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[name] = nums[1] + nums[2]
+            name = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -927,6 +1030,24 @@ def launch_floor_ms():
         log(f"launch floor: {_FLOOR_MS:.5f} ms (cuda_ms of a one-element "
             "add_ on the card)")
     return _FLOOR_MS
+
+
+@functools.lru_cache(maxsize=None)
+def sm_max_clock_mhz():
+    """The card's highest SM clock in MHz (`nvidia-smi`'s clocks.max.sm,
+    read once): a clock sampled after a timing may read an idle one."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0]
+    return int(out)
+
+
+def chain_floor_ms(T, N):
+    """A floor under the recurrent backward's reverse pass in the order its
+    plain version fixes: T steps, each an N-term chain of dependent rounded
+    adds (rec_t) of FADD_CYCLES cycles (assumed) at the highest SM clock."""
+    return T * N * FADD_CYCLES / (sm_max_clock_mhz() * 1e3)
 
 
 def bound(bytes_, flops):
@@ -2263,6 +2384,12 @@ def phase_kernels(cases):
             heavy = name in ("lifrec", "alifrec", "alif", "spikemm_gather",
                              "stdp_seq") + BWD_SCANS
             ms = cuda_ms(lambda: cuda[name](*args, **kw), iters=200)
+            # the recurrent backward's chain floor: T x N dependent adds at
+            # the highest SM clock
+            chain_ms = clock = None
+            if name in ("lifrec_bwd", "alifrec_bwd"):
+                clock = sm_max_clock_mhz()
+                chain_ms = chain_floor_ms(*args[0].shape[::2])
             p_ms = cuda_ms(lambda: plain[name](*args, **kw),
                            iters=case.plain_iters or (5 if heavy else 20),
                            warmup=1 if case.plain_iters else 3)
@@ -2312,6 +2439,7 @@ def phase_kernels(cases):
                           "bound_rows_ms": rows_ms,
                           "bound_patches_ms": patches_ms,
                           "bound_scratch_ms": scratch_ms,
+                          "chain_floor_ms": chain_ms, "sm_max_clock_mhz": clock,
                           "table_build_s": case.build_s})
             log(f"kernel {name} [{label}] {shapes}: {ms:.4f} ms on the card"
                 f"{'' if T is None else f' ({ms / T * 1e3:.3f} us/step)'} "
@@ -2322,6 +2450,7 @@ def phase_kernels(cases):
                 f"{'' if occ_ms is None else f', occupancy alone {occ_ms:.4f}, product alone {kernel_ms:.4f}, dense kernel {dense_ms:.4f}'}"
                 f"{'' if patches_ms is None else f', read-rows bound {rows_ms:.5f}, every-patch bound {patches_ms:.5f}'}"
                 f"{'' if scratch_ms is None else f', bound with the scratch {scratch_ms:.5f}'}"
+                f"{'' if chain_ms is None else f', chain floor {chain_ms:.5f} at the highest SM clock {clock} MHz ({ms / chain_ms:.2f}x)'}"
                 f"{'' if kernel_ms is None or occ_ms is not None else f', kernel alone {kernel_ms:.4f}'}"
                 f"{'' if case.build_s is None else f', tables built in {case.build_s:.1f} s'})"
                 f"{extra}; max abs err so far {max_err:.3e}")
@@ -2345,11 +2474,58 @@ def phase_kernels(cases):
                            else sum(c["library_ms"] for c in home)),
             "kernel_ms": (None if any(c["kernel_ms"] is None for c in home)
                           else sum(c["kernel_ms"] for c in home)),
+            "chain_floor_ms": (None if any(c["chain_floor_ms"] is None
+                                           for c in home)
+                               else sum(c["chain_floor_ms"] for c in home)),
             "occupancy_ms": (None if any(c["occupancy_ms"] is None
                                          for c in home)
                              else sum(c["occupancy_ms"] for c in home)),
             "calls": calls}
     return results
+
+
+def phase_rec_bwd_passes(cases):
+    """Where the recurrent backward's warp route spends its time, by pass:
+    `lifrec_bwd` and `alifrec_bwd` at train_ecg's captured step call,
+    through their wrappers on the clock-stamped build (`phase_build`),
+    whose outputs must equal the library's bit for bit. Mean cycles of the
+    prologue, pass 1 and pass 2 over the blocks (a stamped call after the
+    timing), and the stamped build's own ms. Launches here are not the
+    main path's: its counts are set to 0 before each path."""
+    from repro_torch.kernels import _build
+    cuda = kernel_impls()[0]
+    out = {}
+    for name in ("lifrec_bwd", "alifrec_bwd"):
+        case = next(c for c in cases[name] if c.path == "train_ecg")
+        T, B = case.args[0].shape[:2]
+        ref = cuda[name](*case.args, **case.kw)
+        package = _build.library
+        _build.library = lambda: _PASS_LIB
+        try:
+            ms = cuda_ms(lambda: cuda[name](*case.args, **case.kw),
+                         iters=200)
+            got = cuda[name](*case.args, **case.kw)
+            sync()
+        finally:
+            _build.library = package
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)
+                   if g is not None):
+            raise AssertionError(f"{name}: the clock-stamped build's "
+                                 "outputs differ from the library's")
+        clk = torch.zeros(4 * B, dtype=torch.int64)
+        _build.check(name, _PASS_LIB.rec_bwd_pass_clocks(clk.data_ptr(),
+                                                         4 * B))
+        d = clk.view(B, 4).double().diff(dim=1).mean(0).tolist()
+        steps2 = max(T - 1, 1)
+        out[name] = {"call": case.label, "stamped_ms": ms,
+                     "prologue_cycles": d[0], "pass1_cycles": d[1],
+                     "pass2_cycles": d[2], "pass1_cycles_a_step": d[1] / T,
+                     "pass2_cycles_a_step": d[2] / steps2}
+        log(f"passes {name} [{case.label}]: stamped build {ms:.4f} ms; "
+            f"prologue {d[0]:.0f}, pass 1 {d[1]:.0f} ({d[1] / T:.1f} a "
+            f"step), pass 2 {d[2]:.0f} ({d[2] / steps2:.1f} a step) cycles, "
+            f"mean of {B} blocks; bit for bit the library's")
+    return out
 
 
 def phase_gather_rows(cases):
@@ -2421,6 +2597,9 @@ def cut_steps(name, args, kw, T):
     if name == "linrec":
         a, x, h0 = args                # a stays a view: stride 0 stays 0
         return (a[:T] if a.dim() == x.dim() else a, x[:T].contiguous(), h0)
+    if name in BWD_SCANS:              # the current, spikes and cotangent
+        return tuple(a[:T].contiguous() if torch.is_tensor(a)
+                     and a.shape == args[0].shape else a for a in args)
     return (args[0][:T].contiguous(),) + tuple(args[1:])
 
 
@@ -2435,7 +2614,8 @@ def sweep_cases():
     plastic_ff pair rule's `stdp_seq` planes and the ECG window's hidden
     layer, heterogeneous (`alifrec`) and homogeneous (`lifrec`); and the
     lane scans' calls: the plastic_ff pair rule's `linrec` calls, the four
-    paths' `lif` calls and alif_ff's `alif` call."""
+    paths' `lif` calls and alif_ff's `alif` call; and the recurrent
+    backward's calls of a train_ecg step (`train_cases`)."""
     return {"stdp_seq": plastic_seq_cases(("pair_stdp",)),
             "alifrec": [Case("ECG hidden", ecg_window(True)["alifrec"][0][1],
                              path="ecg", timed=True)],
@@ -2444,7 +2624,9 @@ def sweep_cases():
             "linrec": plastic_linrec_cases(),
             "lif": path_lif_cases(),
             "alif": [Case("ALIF-ff hidden", alif_ff_run_inputs(),
-                          path="alif_ff", timed=True)]}
+                          path="alif_ff", timed=True)],
+            **{name: calls for name, calls in train_cases().items()
+               if name in ("lifrec_bwd", "alifrec_bwd")}}
 
 
 def phase_sweep(cases):
@@ -2467,7 +2649,12 @@ def phase_sweep(cases):
             sync()
             for g, r in zip(got if isinstance(got, tuple) else (got,),
                             ref if isinstance(ref, tuple) else (ref,)):
-                if not same_bits(name, g, r):
+                if g is None and r is None:
+                    continue
+                if case.rtol is not None:   # sigmoid: the kernel's expf
+                    torch.testing.assert_close(g, r, rtol=case.rtol,
+                                               atol=case.atol)
+                elif not same_bits(name, g, r):
                     raise AssertionError(
                         f"sweep {name} [{case.label}] T={T}: not bit-identical"
                         f" to its plain version "
@@ -2480,7 +2667,8 @@ def phase_sweep(cases):
         log(f"sweep {name} [{case.label}]: " + ", ".join(
             f"T={T} {t:.5f} ms" for T, t in zip(steps, ms))
             + f"; fit a = {a:.5f} ms, b = {b * 1e3:.4f} us a step "
-            "(bit for bit at every T)")
+            + ("(within the sigmoid tolerance at every T)"
+               if case.rtol is not None else "(bit for bit at every T)"))
     return out
 
 
@@ -3809,9 +3997,13 @@ def rec_bwd_cases():
     (20, 3, 130) for alif and alifrec, the block route); every surrogate
     at alpha 0.5, 1, 2 and 4 at a prime T = 37 from a nonzero v0, a0 and
     s0 (N = 70 for lifrec, 130 for the ALIF pair); the recurrent ones at
-    the route edges N = 31, 32, 33, 64, 127, 128, 129 and 1024 at B = 1,
-    3 and 64, and at N = 240 and 241 (the block route's W_rec in shared
-    memory, then through L2); `alif_bwd` on lane rows of N = 6, 20 (B =
+    the route edges and where the warp route's warps a row or W's place
+    change, N = 31, 32, 33, 63, 64, 65, 96, 97, 127, 128, 129 and 1024 at
+    B = 1, 3 and 64, at B = 15, 16, 17 (N = 64) and B = 301, 500, 1000
+    (more rows, a block each, than SMs), at T = 2, 5, 31, 32, 33 and 65
+    (N = 64) and 16, 17 (N = 128) (the edges of the warp route's chunks),
+    and at N = 240 and 241 (the block route's W_rec in shared memory, then
+    through L2); `alif_bwd` on lane rows of N = 6, 20 (B =
     64), 130 (B = 3) and 4097 (B = 1) at T = 1, 15, 16, 17 and 33; a wide
     row N = 2048 (T = 16, B = 16; timed: W_rec and W_rec^T through L2);
     T = 1 and T = 0; rows that fire in most steps. beta = BWD_BETA."""
@@ -3864,9 +4056,20 @@ def rec_bwd_cases():
         for n_hot in (64, 130):
             case(name, "rows firing in most steps", 37, 3, n_hot, hot=0.9)
     for name in ("lifrec_bwd", "alifrec_bwd"):
-        for n in (31, 32, 33, 64, 127, 128, 129, 1024):
+        for n in (31, 32, 33, 63, 64, 65, 96, 97, 127, 128, 129, 1024):
             for b in (1, 3, 64):
                 case(name, "route edge", 37, b, n)
+        # the warp route's launch, a block a row: B around the ECG's 16,
+        # more rows than SMs, and step counts at the edges of the chunks
+        # its helpers stage (32 steps; 16 above 64 neurons)
+        for b in (15, 16, 17):
+            case(name, "a block a row", 37, b, 64)
+        for b, n in ((301, 64), (500, 33), (1000, 128)):
+            case(name, "more rows than SMs", 37, b, n)
+        for T in (2, 5, 31, 32, 33, 65):
+            case(name, "chunk edge", T, 16, 64)
+        for T in (16, 17):
+            case(name, "chunk edge", T, 3, 128)
         for n in (BWD_SMEM_W_MAX_N, BWD_SMEM_W_MAX_N + 1):
             case(name, "block route's shared W_rec edge", 37, 3, n)
         case(name, "wide row", 16, 16, 2048, timed=True, plain_iters=1)
@@ -4468,6 +4671,7 @@ def main(argv):
         return
     cases = kernel_cases(make_shd(True, DEV)[1])
     kernels = phase_kernels(cases)
+    passes = phase_rec_bwd_passes(cases)
     gather_rows = phase_gather_rows(cases["spikemm_gather"])
     sparse = {c.label: c.args for c in cases["spikemm_sparse"]}
     sparse_sync_checks(*sparse[SPARSE_HOME_CASE], *sparse[SPARSE_DENSE_CASE])
@@ -4476,6 +4680,7 @@ def main(argv):
     if argv == ["--kernels"]:
         # the kernel phase and the sweep alone, no paths (no launch counts)
         log(json.dumps({"kernels": list(kernels.values())}))
+        log(json.dumps({"rec_bwd_passes": passes}))
         log(json.dumps({"gather_rows": gather_rows}))
         log(json.dumps({"sparse_tiles": sparse_tiles}))
         log(json.dumps({"sweep": sweep}))
@@ -4508,6 +4713,7 @@ def main(argv):
             for s in slices if s["path"] in by_path}
     slices[0]["build_s"] = build_s
     log(json.dumps({"kernels": list(kernels.values())}))
+    log(json.dumps({"rec_bwd_passes": passes}))
     log(json.dumps({"gather_rows": gather_rows}))
     log(json.dumps({"sparse_tiles": sparse_tiles}))
     log(json.dumps({"sweep": sweep}))

@@ -40,57 +40,79 @@ __device__ __forceinline__ float surrogate(float x, float alpha) {
   }
 }
 
-// The surrogate chosen at run time (the index above; warp-uniform, so the
-// switch costs a branch a step and not a divergence), with rectangle's
-// quotients in_win = 1/alpha and out_win = 0/alpha, the same bits as the
-// plain version's per-element division.
-__device__ __forceinline__ float surrogate_rt(int sur, float x, float alpha,
-                                              float in_win, float out_win) {
-  switch (sur) {
-    case 0:
-      return surrogate<0>(x, alpha);
-    case 1:
-      return surrogate<1>(x, alpha) != 0.f ? in_win : out_win;
-    case 2:
-      return surrogate<2>(x, alpha);
-    default:
-      return surrogate<3>(x, alpha);
-  }
-}
-
-// The run-time surrogate and its constants (`make_surrogate`, once a
-// thread).
+// The surrogate chosen at run time (the index above) and its constants:
+// rectangle's quotients in_win = 1/alpha and out_win = 0/alpha, the same
+// bits as the plain version's per-element division (`make_surrogate`,
+// once a thread).
 struct Surrogate {
   int sur;
   float alpha, in_win, out_win;
-  __device__ __forceinline__ float operator()(float x) const {
-    return surrogate_rt(sur, x, alpha, in_win, out_win);
-  }
+  __device__ __forceinline__ float operator()(float x) const;
 };
 
 __device__ __forceinline__ Surrogate make_surrogate(int sur, float alpha) {
   return Surrogate{sur, alpha, __fdiv_rn(1.f, alpha), __fdiv_rn(0.f, alpha)};
 }
 
+// g[i] = g(x[i]) for a group of G values with one switch on the surrogate
+// (warp-uniform, so a branch and not a divergence), so that the G
+// evaluations run side by side and not behind a branch each.
+template <int G>
+__device__ __forceinline__ void surrogate_group(float (&g)[G],
+                                                const float (&x)[G],
+                                                const Surrogate& g_of) {
+  switch (g_of.sur) {
+    case 0:
+#pragma unroll
+      for (int i = 0; i < G; ++i) g[i] = surrogate<0>(x[i], g_of.alpha);
+      break;
+    case 1:
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        g[i] = surrogate<1>(x[i], g_of.alpha) != 0.f ? g_of.in_win
+                                                     : g_of.out_win;
+      break;
+    case 2:
+#pragma unroll
+      for (int i = 0; i < G; ++i) g[i] = surrogate<2>(x[i], g_of.alpha);
+      break;
+    default:
+#pragma unroll
+      for (int i = 0; i < G; ++i) g[i] = surrogate<3>(x[i], g_of.alpha);
+  }
+}
+
+__device__ __forceinline__ float Surrogate::operator()(float x) const {
+  float g[1];
+  const float xs[1] = {x};
+  surrogate_group<1>(g, xs, *this);
+  return g[0];
+}
+
 // One reverse step of a hard-reset neuron (LIF, or ALIF with ADAPT), the
 // STBP adjoint of the JAX package's custom VJPs: from its pre-reset u_t,
-// threshold th_t (v_th, or v_th + beta a_{t-1}), spike s_t, the spike's
-// outer cotangent gs_t and, where REC, the recurrent adjoint rec_t =
-// sum_k Gu_{t+1}[k] W[j, k]; with (gv, ga) the cotangents of (v_t, a_t):
+// its surrogate gradient g = g(u_t - th_t) (th_t = v_th, or v_th + beta
+// a_{t-1}), spike s_t, the spike's outer cotangent gs_t and, where REC,
+// the recurrent adjoint rec_t = sum_k Gu_{t+1}[k] W[j, k]; with (gv, ga)
+// the cotangents of (v_t, a_t):
 //   Gs~   = (gs [+ ga]) [+ rec]
-//   Sig   = (Gs~ - gv u) g(u - th)
+//   Sig   = (Gs~ - gv u) g
 //   Gu    = gv (1 - s) + Sig
 //   gv   <- tau Gu;   ga <- rho ga - beta Sig   (ADAPT)
 // and acc_rho += ga_t a_{t-1} (ADAPT: the lane's g_rho partial, before ga
-// moves). Returns Gu_t.
-template <bool ADAPT, bool REC>
-__device__ __forceinline__ float neuron_adjoint(
-    float u, float th, float ap, float s, float gs, float rec, float tn,
-    float rn, float beta, const Surrogate& g_of, float& gv, float& ga,
-    float& acc_rho) {
+// moves). Returns Gu_t. This is the step's one body; g_at() gives g,
+// evaluated between Gs~ and Sig: `neuron_adjoint_g` takes g computed
+// ahead (the recurrent backward's warp route, off its chain) and
+// `neuron_adjoint` computes it there from th_t. (Computing g before Gs~,
+// as an argument, put the surrogate's switch ahead of the adds and made
+// the recurrent backward's block route slower on an H100.)
+template <bool ADAPT, bool REC, class GAt>
+__device__ __forceinline__ float adjoint_step(
+    float u, const GAt& g_at, float ap, float s, float gs, float rec,
+    float tn, float rn, float beta, float& gv, float& ga, float& acc_rho) {
   float gst = ADAPT ? __fadd_rn(gs, ga) : gs;
   if (REC) gst = __fadd_rn(gst, rec);
-  const float g = g_of(__fsub_rn(u, th));
+  const float g = g_at();
   const float sig = __fmul_rn(__fsub_rn(gst, __fmul_rn(gv, u)), g);
   const float gu = __fadd_rn(__fmul_rn(gv, __fsub_rn(1.f, s)), sig);
   if (ADAPT) {
@@ -99,6 +121,24 @@ __device__ __forceinline__ float neuron_adjoint(
   }
   gv = __fmul_rn(tn, gu);
   return gu;
+}
+
+template <bool ADAPT, bool REC>
+__device__ __forceinline__ float neuron_adjoint_g(
+    float u, float g, float ap, float s, float gs, float rec, float tn,
+    float rn, float beta, float& gv, float& ga, float& acc_rho) {
+  return adjoint_step<ADAPT, REC>(
+      u, [g] { return g; }, ap, s, gs, rec, tn, rn, beta, gv, ga, acc_rho);
+}
+
+template <bool ADAPT, bool REC>
+__device__ __forceinline__ float neuron_adjoint(
+    float u, float th, float ap, float s, float gs, float rec, float tn,
+    float rn, float beta, const Surrogate& g_of, float& gv, float& ga,
+    float& acc_rho) {
+  return adjoint_step<ADAPT, REC>(
+      u, [&] { return g_of(__fsub_rn(u, th)); }, ap, s, gs, rec, tn, rn,
+      beta, gv, ga, acc_rho);
 }
 
 // th_t of a neuron: v_th, or v_th + beta a_{t-1} (the forward's order)

@@ -523,6 +523,68 @@ def test_port_srnn_ecg_learns(heterogeneous):
 
 
 # ---------------------------------------------------------------------------
+# the warp route's padded rows
+# ---------------------------------------------------------------------------
+
+
+def _pad(x, n, axes):
+    """x zero-padded to n along each of `axes`."""
+    out = x.new_zeros([n if i in axes else d for i, d in enumerate(x.shape)])
+    out[tuple(slice(0, d) for d in x.shape)] = x
+    return out
+
+
+@pytest.mark.parametrize("N", (33, 63, 64, 65))
+@pytest.mark.parametrize("surrogate", ("arctan", "triangle"))
+@pytest.mark.parametrize("op", ("lifrec", "alifrec"))
+def test_warp_route_padding_changes_no_bit(op, surrogate, N):
+    """`csrc/rec_bwd.cu`'s warp route gives a row KP = 32 ceil(N / 32)
+    threads and sums each rec_t over all KP terms, W's and Gu's zero past
+    N. Those +0 terms change no bit of a sum that starts at +0: the plain
+    version on the row padded to KP neurons with no weights, input, state
+    or cotangent equals it on the row itself, every output sliced to N
+    (one batch row has zero cotangents, so its terms are +-0). The
+    surrogates are the ones whose plain arithmetic is the same in every
+    lane of a CPU vector: PyTorch's sigmoid may round an element one way
+    in a vector lane and another in the scalar tail."""
+    from repro_torch.kernels.alifrec.ref import (alifrec_scan_bwd_ref,
+                                                 alifrec_scan_ref)
+    from repro_torch.kernels.lifrec.ref import (lifrec_scan_bwd_ref,
+                                                lifrec_scan_ref)
+    rng = np.random.default_rng(28 + N)
+    T, B, KP = 37, 3, 32 * -(-N // 32)
+
+    def f32(*shape, lo=0.0, hi=1.0):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    cur = f32(T, B, N, lo=-0.6, hi=1.4)
+    w = f32(N, N, lo=-0.5, hi=0.5) / N ** 0.5
+    tau, rho = f32(N, lo=0.7, hi=0.98), f32(N, lo=0.85, hi=0.99)
+    v0, a0 = f32(B, N, lo=-0.3, hi=0.9), f32(B, N, hi=0.5)
+    s0 = (f32(B, N) < 0.3).float()
+    gs, gv, ga = f32(T, B, N, lo=-1), f32(B, N, lo=-1), f32(B, N, lo=-1)
+    for g in (gs, gv, ga):
+        g[..., 1, :] = 0.0
+    kw = dict(v_th=V_TH, surrogate=surrogate, alpha=4.0)
+    if op == "lifrec":
+        s, _ = lifrec_scan_ref(cur, w, tau, v0, s0)
+        args = [cur, w, tau, v0, s0, s, gs, gv]
+        bwd = lifrec_scan_bwd_ref
+    else:
+        kw["beta"] = BETA
+        s = alifrec_scan_ref(cur, w, tau, rho, v0, a0, s0, beta=BETA)[0]
+        args = [cur, w, tau, rho, v0, a0, s0, s, gs, gv, ga]
+        bwd = alifrec_scan_bwd_ref
+    want = bwd(*args, **kw)
+    got = bwd(*[_pad(a, KP, {a.dim() - 1} if a is not w else {0, 1})
+                for a in args], **kw)
+    assert len(got) == len(want)
+    for g, r in zip(got, want):
+        g = g[..., :N]
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
 # the CUDA wrappers, against a stand-in library
 # ---------------------------------------------------------------------------
 

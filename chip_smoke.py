@@ -122,11 +122,26 @@ tree the same way, so two trees compare in one call.
             patterns (sigmoid: rtol 1e-6, atol 1e-7, its expf), and
             `linrec_bwd`'s gx also equal to the forward kernel run on the
             flipped, one-shifted decay; the u scratch's bound printed
-            beside `lif_bwd`'s; the train_shd step's g_w products
-            ((700, 2880) @ (2880, 256), (64, 2880) @ (2880, 20)) and the
-            train_ecg step's ((4, 3200) @ (3200, 64), the recurrent
-            (64, 3200) @ (3200, 64), (64, 3200) @ (3200, 6)) on
-            `spikemm` and `spikemm_sparse`, timed beside `torch.matmul`;
+            beside `lif_bwd`'s; `spikemm_wgrad` (B3) at every g_w call
+            of one step of the three training paths (train_shd's
+            (700, 2880) @ (2880, 256) and (64, 2880) @ (2880, 20),
+            train_ecg's (4, 3200) @ (3200, 64), the recurrent
+            (64, 3200) @ (3200, 64) from s0 and the spikes plane and
+            (64, 3200) @ (3200, 6), train_alif_ff's (700, 2880) @
+            (2880, 64) and its readout's), timed beside `torch.matmul`
+            and the route it replaced (the dense kernel on the transposed
+            raster), and at the edges of its split and tiles (R = 0, 1,
+            31, 33, 1000, 4097; one chunk and the most chunks; K = 1 to
+            100, N = 1 to 300 across the columns-a-lane plans; a raster
+            off 16-byte alignment, one shifted from a head, an all-zero
+            one whose output must be +0, one firing everywhere), each
+            within 1e-5 of the plain product and bit for bit
+            `spikemm_wgrad_chain_ref`; then each training g_w through
+            `spikemm_g_w` under `auto` and set_sync_debug_mode("error"):
+            one `spikemm_wgrad` launch, no occupancy launch; the train_shd
+            and train_ecg g_w products also on the route it replaced,
+            `spikemm` and `spikemm_sparse` on the transposed raster,
+            timed beside `torch.matmul`;
             `lifrec_bwd` (B4), `alifrec_bwd` and `alif_bwd` (B5): the
             train_ecg and train_alif_ff steps' calls (timed: (200, 16,
             64) under sigmoid alpha 4, (60, 48, 64)), the JAX families'
@@ -147,9 +162,15 @@ tree the same way, so two trees compare in one call.
             `lifrec_bwd` and `alifrec_bwd` the chain floor (T x N adds
             of an assumed 4 cycles at the card's highest SM clock,
             `nvidia-smi`'s clocks.max.sm), and their cycles by pass
-            at train_ecg's call (a build of `rec_bwd.cu` with
-            -DREC_BWD_PASS_CLOCKS, made beside the library, bit for
-            bit the library's outputs);
+            at train_ecg's call, `alif_bwd`'s by phase (load, forward,
+            surrogate, reverse, store, the sums over B) at
+            train_alif_ff's, and `spikemm_wgrad`'s by phase (waits,
+            copies' issue, products, the cluster barrier, the combine;
+            the steps computed) at each training g_w (a build of
+            `rec_bwd.cu`, `alif_bwd.cu` and `spikemm_wgrad.cu` with
+            -DREC_BWD_PASS_CLOCKS, -DALIF_BWD_PASS_CLOCKS and
+            -DWGRAD_PASS_CLOCKS, made beside the library, bit for bit the
+            library's outputs);
             `spikemm` also at the parity harness's inputs, at the
             sparse_integ path's hidden INTEG at each density and at the
             topology_banded path's readout INTEG (64 x 8192 @ 8192 x 8);
@@ -280,16 +301,19 @@ tree the same way, so two trees compare in one call.
             widths: the DH-SNN (700 -> 64 x 4 -> 20) and its LIF ablation,
             5 clipped-SGD steps at lr 0.2 on gen_shd_spikes(48, T=60)
             through `plan.run`, forward and backward, counters set to 0
-            just before: per step spikemm x4 (2 INTEG, 2 g_w; dense or
-            sparse as `auto` routes), lif, lif_bwd, and a linrec and a
+            just before: per step spikemm x2 (the INTEGs; dense or
+            sparse as `auto` routes, one occupancy launch each and none
+            for a g_w), spikemm_wgrad x2 (g_w), lif, lif_bwd, and a
+            linrec and a
             linrec_bwd for the readout and (dendritic) the branches; every
             loss finite and printed; the first step against the CPU's
             (loss within 1e-4 relative, each gradient leaf within a
             relative L2 error of 1e-3), the forward's hidden trains under
             the tie rule, lane-steps at a surrogate window edge counted;
             the first step again under `auto`, `never` and `always`, the
-            channel of every spikemm call printed (g_w must cross both
-            kernels) and each within the same tolerances of the counted
+            channel of every spikemm call printed (g_w must take
+            `spikemm_wgrad` under auto and never and the sparse channel
+            under always) and each within the same tolerances of the counted
             run (bit equality printed); the step's ms by host clock (median
             of 5 after 2 warm-ups) and the card's by kernel (profiler).
 12. train_ecg
@@ -298,14 +322,16 @@ tree the same way, so two trees compare in one call.
             (sigmoid surrogate, alpha 4) and its recurrent-LIF ablation,
             5 clipped-SGD steps at lr 0.1 on gen_ecg_qtdb(16, T=200),
             per-timestep cross-entropy, through `plan.run`: per step
-            spikemm x5 (2 INTEG, 3 g_w: input, recurrent, readout),
+            spikemm x2 (INTEG), spikemm_wgrad x3 (g_w: input,
+            recurrent, readout),
             alifrec (lifrec) and its backward, linrec and linrec_bwd,
             every recurrent launch on the warp route; the gates of 11.,
             the hidden trains row-wise, the training firing rate printed
             beside the 1 % floor.
 13. train_alif_ff
             the ALIF feed-forward program of 5. (700 -> 64 ALIF -> 20 LI)
-            trained as 11. trains: per step spikemm x4, alif, alif_bwd,
+            trained as 11. trains: per step spikemm x2, spikemm_wgrad
+            x2, alif, alif_bwd,
             linrec, linrec_bwd; the gates of 11.
 14. attention
             `kernels.attention.ops.flash_attention` through the registry,
@@ -342,9 +368,11 @@ tree the same way, so two trees compare in one call.
             wrapper and the sparse channel's against their plain versions
             at `make_inputs`, forward, and the VJP of `attention`, `lif`,
             `linrec`, `lifrec`, `alif`, `alifrec` and `spikemm` (both
-            channels: CUDA forward and backward against plain forward and
-            backward); 11 kernels.
-16. result  prints `{"kernels": [...]}`, `{"gather_rows": {...}}`,
+            channels: CUDA forward and backward, spikemm's backward its
+            `spikemm_wgrad` pair, against plain forward and backward); 11
+            kernels.
+16. result  prints `{"kernels": [...]}`, `{"bwd_passes": {...}}`,
+            `{"gather_rows": {...}}`,
             `{"sparse_tiles": {...}}`, `{"sweep": {...}}`, one
             `{"slice": {...}}` line per path, `{"parity": {...}}`, the
             card's name and power limit and, last, `{"ok": true,
@@ -385,7 +413,11 @@ the dense adjoint Gu_{t+1} W^T, 2 * (T + 1) * B * N * N with g_s0. Their
 rows are the dendritic train_shd step's calls (B1, B2), the train_ecg
 step's (B4: the ablation's; B5's `alifrec_bwd`) and the train_alif_ff
 step's (`alif_bwd`), and no single PyTorch call computes a reverse
-recurrence (`library_ms` null).
+recurrence (`library_ms` null). `spikemm_wgrad` (B3) counts the raster
+(its R x K, the head rows among them), g and the output once, and
+2 * nnz(raster) * N operations (dense 2 * R * K * N); its row is the
+train_ecg step's three g_w products, `library_ms` `torch.matmul` on the
+raster's transpose.
 """
 
 from __future__ import annotations
@@ -603,7 +635,14 @@ SOURCES = {
                     "src/repro/kernels/alifrec/ops.py:96"),
     "alif_bwd": ("src/repro_torch/csrc/alif_bwd.cu",
                  "src/repro/kernels/alifrec/ops.py:96"),
+    # B3, spikemm's weight gradient (the JAX package's g_w is its Pallas
+    # spike kernel on the transposed raster)
+    "spikemm_wgrad": ("src/repro_torch/csrc/spikemm_wgrad.cu",
+                      "src/repro/kernels/spikemm/ops.py:186"),
 }
+# the kernels that compute only a gradient: no forward of their own for
+# the parity harness to check (it holds them in their families' VJP legs)
+BWD_ONLY = BWD_SCANS + ("spikemm_wgrad",)
 # the path whose serving calls make up a kernel's row in the kernel table
 HOME = {"spikemm": "shd", "linrec": "shd", "lif": "shd",
         "lifrec": "ecg_homogeneous", "alifrec": "ecg", "alif": "alif_ff",
@@ -611,7 +650,8 @@ HOME = {"spikemm": "shd", "linrec": "shd", "lif": "shd",
         "stdp_seq": "plastic_ff", "stdp": "stdp_step",
         "attention": "attention", "lif_bwd": "train_shd",
         "linrec_bwd": "train_shd", "lifrec_bwd": "train_ecg",
-        "alifrec_bwd": "train_ecg", "alif_bwd": "train_alif_ff"}
+        "alifrec_bwd": "train_ecg", "alif_bwd": "train_alif_ff",
+        "spikemm_wgrad": "train_ecg"}
 # elementwise fp32 operations per lane-step of the time kernels (the
 # backward: the u step and its reset, the surrogate, the adjoint, v_{t-1},
 # g_tau; ALIF also the threshold, a's step, Ga and g_rho). The recurrent
@@ -701,41 +741,53 @@ def phase_build():
 
 
 # the clock-stamped build of `csrc/rec_bwd.cu` (-DREC_BWD_PASS_CLOCKS),
-# loaded by `phase_build`
+# `csrc/alif_bwd.cu` (-DALIF_BWD_PASS_CLOCKS) and `csrc/spikemm_wgrad.cu`
+# (-DWGRAD_PASS_CLOCKS), loaded by `phase_build`
 _PASS_LIB = None
+# the backward entry points of the stamped build, and its stamp readers
+PASS_SOURCES = ("rec_bwd.cu", "alif_bwd.cu", "spikemm_wgrad.cu")
+PASS_ENTRIES = ("lifrec_bwd_f32", "alifrec_bwd_f32", "alif_bwd_f32",
+                "spikemm_wgrad_f32")
+PASS_READERS = ("rec_bwd_pass_clocks", "alif_bwd_pass_clocks",
+                "wgrad_pass_clocks")
 
 
 def start_pass_clock_build():
     """Start nvcc on `csrc/rec_bwd.cu` with -DREC_BWD_PASS_CLOCKS (the warp
-    route's clock stamps by pass) into `build/rec_bwd_passes/`, a shared
-    library of its own; returns (process, library path)."""
+    route's clock stamps by pass), `csrc/alif_bwd.cu` with
+    -DALIF_BWD_PASS_CLOCKS and `csrc/spikemm_wgrad.cu` with
+    -DWGRAD_PASS_CLOCKS (their cycles by phase) into `build/bwd_passes/`,
+    a shared library of their own; returns (process, library path)."""
     from repro_torch.kernels import _build
-    out = _build.BUILD_ROOT.parent / "rec_bwd_passes"
+    out = _build.BUILD_ROOT.parent / "bwd_passes"
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / "librecbwdpasses.so"
+    lib = out / "libbwdpasses.so"
     proc = subprocess.Popen(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-DREC_BWD_PASS_CLOCKS",
-         "-shared", str(_build.CSRC / "rec_bwd.cu"), "-o", str(lib)],
+         "-DALIF_BWD_PASS_CLOCKS", "-DWGRAD_PASS_CLOCKS", "-shared",
+         *(str(_build.CSRC / src) for src in PASS_SOURCES), "-o", str(lib)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, lib
 
 
 def finish_pass_clock_build(proc, lib):
     """Wait for `start_pass_clock_build`'s nvcc; the loaded library, with
-    the two backward entry points' signatures and the package library's
-    error strings (for `_build.check`)."""
+    the backward entry points' signatures, its stamp readers and the
+    package library's error strings (for `_build.check`)."""
     from repro_torch.kernels import _build
     out = proc.communicate()[0]
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc exited {proc.returncode} building the "
-                           f"clock-stamped rec_bwd.cu:\n{out[-3000:]}")
+                           f"clock-stamped {', '.join(PASS_SOURCES)}:\n"
+                           f"{out[-3000:]}")
     dll = ctypes.CDLL(str(lib))
-    for name in ("lifrec_bwd_f32", "alifrec_bwd_f32"):
+    for name in PASS_ENTRIES:
         argtypes, restype = _build.SIGNATURES[name]
         getattr(dll, name).argtypes = list(argtypes)
         getattr(dll, name).restype = restype
-    dll.rec_bwd_pass_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    dll.rec_bwd_pass_clocks.restype = ctypes.c_int
+    for name in PASS_READERS:
+        getattr(dll, name).argtypes = [ctypes.c_void_p, ctypes.c_int]
+        getattr(dll, name).restype = ctypes.c_int
     dll.cuda_error_string = _build.library().cuda_error_string
     return dll
 
@@ -1699,6 +1751,10 @@ def work(name, args, out, kw=None):
         N = w.shape[1]
         nnz = int(torch.count_nonzero(s))
         return 4 * (M * K + K * N + M * N), 2 * nnz * N, 2 * M * K * N
+    if name == "spikemm_wgrad":
+        R, K, N = wgrad_shape(args)
+        nnz = int(torch.count_nonzero(wgrad_raster(args, kw)))
+        return 4 * (R * K + R * N + K * N), 2 * nnz * N, 2 * R * K * N
     if name == "spikemm_sparse":
         from repro_torch.kernels.spikemm.sparse import (SPARSE_BLOCK,
                                                         occupancy_flags)
@@ -1751,6 +1807,17 @@ def work(name, args, out, kw=None):
         dense = ops + 2 * (T + 1) * B * N * N
         return nbytes, dense, dense
     return nbytes, ops, ops
+
+
+def wgrad_shape(args):
+    """(R, K, N) of a `spikemm_wgrad` call on (spikes, g)."""
+    return args[1].shape[0], args[0].shape[1], args[1].shape[1]
+
+
+def wgrad_raster(args, kw):
+    """The (R, K) raster of a `spikemm_wgrad` call, its `head` rows first."""
+    from repro_torch.kernels.spikemm.ref import shifted_raster
+    return shifted_raster(args[0], args[1].shape[0], kw.get("head"))
 
 
 def gather_rows_met(s, t):
@@ -1924,6 +1991,47 @@ def sparse_sync_checks(s, w, s_dense, w_dense):
         "set_sync_debug_mode('error') with and without flags; one auto "
         "dispatch gives one sync warning on a sparse-routed raster and one "
         "on a dense-routed one")
+
+
+def wgrad_sync_checks(cases):
+    """g_w under `auto` takes no host read and measures no occupancy: each
+    training g_w call of `spikemm_wgrad`'s cases through `spikemm_g_w`
+    (the backward's route) under `torch.cuda.set_sync_debug_mode("error")`
+    launches the weight-gradient kernel once and the occupancy kernel
+    never, and equals the kernel called alone bit for bit."""
+    from repro_torch.kernels.spikemm.ops import (spikemm_g_w,
+                                                 spikemm_wgrad_cuda)
+    from repro_torch.kernels.spikemm.sparse import occupancy_cuda
+    env = "REPRO_SPIKEMM_SPARSE"
+    saved = os.environ.pop(env, None)
+    n = 0
+    try:
+        for c in cases:
+            if not c.path:
+                continue
+            want = spikemm_wgrad_cuda(*c.args, **c.kw)
+            sync()
+            occ0, k0 = occupancy_cuda.launches, spikemm_wgrad_cuda.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = spikemm_g_w(*c.args, **c.kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sync()
+            moved = (occupancy_cuda.launches - occ0,
+                     spikemm_wgrad_cuda.launches - k0)
+            if moved != (0, 1) or not torch.equal(got, want):
+                raise AssertionError(
+                    f"spikemm_wgrad [{c.label}]: under auto, g_w launched "
+                    f"{moved} (occupancy, weight gradient), want (0, 1), "
+                    f"equal {torch.equal(got, want)}")
+            n += 1
+    finally:
+        if saved is not None:
+            os.environ[env] = saved
+    log(f"kernel spikemm_wgrad: {n} training g_w calls under auto, each one "
+        "weight-gradient launch, no occupancy launch, under "
+        "set_sync_debug_mode('error')")
 
 
 def gather_edge_tables(bk, bn, seed):
@@ -2160,7 +2268,9 @@ def kernel_impls():
                                                 linrec_ref)
     from repro_torch.kernels.spikemm.gather import (spikemm_gather_cuda,
                                                     spikemm_gather_ref)
-    from repro_torch.kernels.spikemm.ops import spikemm_cuda, spikemm_ref
+    from repro_torch.kernels.spikemm.ops import (spikemm_cuda, spikemm_ref,
+                                                 spikemm_wgrad_cuda,
+                                                 spikemm_wgrad_ref)
     from repro_torch.kernels.spikemm.sparse import (spikemm_sparse_cuda,
                                                     spikemm_sparse_ref)
     from repro_torch.kernels.stdp.ops import (stdp_seq_cuda, stdp_seq_ref,
@@ -2172,7 +2282,8 @@ def kernel_impls():
             "spikemm_gather": spikemm_gather_cuda, "stdp_seq": stdp_seq_cuda,
             "stdp": stdp_update_cuda, "lif_bwd": lif_bwd_cuda,
             "linrec_bwd": linrec_bwd_cuda, "lifrec_bwd": lifrec_bwd_cuda,
-            "alif_bwd": alif_bwd_cuda, "alifrec_bwd": alifrec_bwd_cuda}
+            "alif_bwd": alif_bwd_cuda, "alifrec_bwd": alifrec_bwd_cuda,
+            "spikemm_wgrad": spikemm_wgrad_cuda}
     plain = {"spikemm": spikemm_ref, "linrec": linrec_ref,
              "lif": lif_scan_ref, "lifrec": lifrec_scan_ref,
              "alif": alif_scan_ref, "alifrec": alifrec_scan_ref,
@@ -2182,7 +2293,8 @@ def kernel_impls():
              "lif_bwd": lif_scan_bwd_ref, "linrec_bwd": linrec_bwd_ref,
              "lifrec_bwd": lifrec_scan_bwd_ref,
              "alif_bwd": alif_scan_bwd_ref,
-             "alifrec_bwd": alifrec_scan_bwd_ref}
+             "alifrec_bwd": alifrec_scan_bwd_ref,
+             "spikemm_wgrad": spikemm_wgrad_ref}
     return cuda, plain
 
 
@@ -2243,7 +2355,9 @@ def phase_kernels(cases):
                                             rec_route_launch_counts,
                                             w_in_smem)
     from repro_torch.kernels.spikemm.ops import spikemm_cuda
-    from repro_torch.kernels.spikemm.ref import spikemm_chain_ref
+    from repro_torch.kernels.spikemm.ref import (spikemm_chain_ref,
+                                                 spikemm_wgrad_chain_ref)
+    from repro_torch.kernels.spikemm.wgrad import wgrad_chunk, wgrad_chunks
     cuda, plain = kernel_impls()
     results = {}
     floor = launch_floor_ms()
@@ -2306,6 +2420,22 @@ def phase_kernels(cases):
                             f"spikemm_chain_ref by "
                             f"{float((g - chain).abs().max()):.3e}")
                     extra = ", equal to spikemm_chain_ref bit for bit"
+                elif name == "spikemm_wgrad":
+                    torch.testing.assert_close(g, r, rtol=case.rtol or
+                                               SPIKEMM_TOL, atol=SPIKEMM_TOL)
+                    # and bit for bit its split chain (atol = 0)
+                    R, K, N = wgrad_shape(args)
+                    chain = spikemm_wgrad_chain_ref(
+                        *args, wgrad_chunk(R, K, N), **kw)
+                    if not torch.equal(g.view(torch.int32),
+                                       chain.view(torch.int32)):
+                        raise AssertionError(
+                            f"{name} [{label}]: differs from "
+                            f"spikemm_wgrad_chain_ref by "
+                            f"{float((g - chain).abs().max()):.3e}")
+                    extra = (f", {wgrad_chunks(R, K, N)} chunk(s) of "
+                             f"{wgrad_chunk(R, K, N)} rows, equal to "
+                             "spikemm_wgrad_chain_ref bit for bit")
                 elif name == "spikemm_sparse":
                     torch.testing.assert_close(g, r, rtol=CHANNEL_TOL,
                                                atol=CHANNEL_TOL)
@@ -2400,11 +2530,19 @@ def phase_kernels(cases):
             kernel_ms = dense_ms = occ_ms = None
             if name == "lif_bwd":
                 kernel_ms = cuda_ms(lif_bwd_alone(args, kw), iters=200)
+            if name == "alif_bwd":
+                kernel_ms = cuda_ms(alif_bwd_alone(args, kw), iters=200)
             if name == "spikemm_sparse":
                 occ, product = sparse_parts(*args)
                 occ_ms = cuda_ms(occ, iters=200)
                 kernel_ms = cuda_ms(product, iters=200)
                 dense_ms = cuda_ms(lambda: spikemm_cuda(*args), iters=200)
+            if name == "spikemm_wgrad":
+                # the route it replaced: the dense kernel on the transposed
+                # raster, the copy made before the timing
+                raster_t = wgrad_raster(args, kw).t().contiguous()
+                dense_ms = cuda_ms(lambda: spikemm_cuda(raster_t, args[1]),
+                                   iters=200)
             nbytes, flops, dense = work(name, args, got, kw)
             b_ms, b_by = bound(nbytes, flops)
             d_ms, d_by = bound(nbytes, dense)
@@ -2417,7 +2555,7 @@ def phase_kernels(cases):
             # the backward scans' u (and ALIF's a_{t-1}) scratch, written
             # in pass 1 and read in pass 2: not the function's bytes, this
             # design's, printed beside the bound
-            planes = {"lif_bwd": 1, "lifrec_bwd": 1, "alif_bwd": 2,
+            planes = {"lif_bwd": 1, "lifrec_bwd": 1,
                       "alifrec_bwd": 2}.get(name)
             scratch_ms = (None if planes is None else bound(
                 nbytes + 2 * 4 * planes * args[0].numel(), flops)[0])
@@ -2425,7 +2563,7 @@ def phase_kernels(cases):
                 args[0].shape[1] // kw["batch"] if name == "stdp_seq" else (
                     args[0].shape[0] if name not in (
                         "spikemm", "spikemm_sparse", "spikemm_gather",
-                        "stdp") else None))
+                        "stdp", "spikemm_wgrad") else None))
             calls.append({"call": label, "path": case.path, "shape": shapes,
                           "route": route, "ms": ms, "plain_ms": p_ms,
                           "library_ms": lib,
@@ -2448,6 +2586,7 @@ def phase_kernels(cases):
                 f"{b_ms:.5f} by {b_by}, dense bound {d_ms:.5f} by {d_by}, "
                 f"{ms / max(b_ms, floor):.2f}x max(bound, floor)"
                 f"{'' if occ_ms is None else f', occupancy alone {occ_ms:.4f}, product alone {kernel_ms:.4f}, dense kernel {dense_ms:.4f}'}"
+                f"{'' if name != 'spikemm_wgrad' else f', the dense kernel on the transposed raster {dense_ms:.4f}'}"
                 f"{'' if patches_ms is None else f', read-rows bound {rows_ms:.5f}, every-patch bound {patches_ms:.5f}'}"
                 f"{'' if scratch_ms is None else f', bound with the scratch {scratch_ms:.5f}'}"
                 f"{'' if chain_ms is None else f', chain floor {chain_ms:.5f} at the highest SM clock {clock} MHz ({ms / chain_ms:.2f}x)'}"
@@ -2526,6 +2665,108 @@ def phase_rec_bwd_passes(cases):
             f"step), pass 2 {d[2]:.0f} ({d[2] / steps2:.1f} a step) cycles, "
             f"mean of {B} blocks; bit for bit the library's")
     return out
+
+
+# alif_bwd's phases, in the order of its -DALIF_BWD_PASS_CLOCKS slots
+# (`csrc/alif_bwd.cu`: summed over its segments)
+ALIF_BWD_PHASES = ("load", "forward", "surrogate", "reverse", "store",
+                   "sums")
+ALIF_BWD_SLOTS = 8
+
+
+def phase_alif_bwd_passes(cases):
+    """Where `alif_bwd` spends its time, by phase: train_alif_ff's
+    captured step call through the wrapper on the clock-stamped build
+    (`phase_build`), its outputs equal to the library's bit for bit. Mean
+    cycles of each phase over the blocks (a stamped call after the
+    timing), the whole kernel's, and the stamped build's own ms."""
+    from repro_torch.kernels import _build
+    cuda = kernel_impls()[0]
+    case = next(c for c in cases["alif_bwd"] if c.path == "train_alif_ff")
+    T, B, N = case.args[0].shape
+    blocks = -(-B * N // 32)
+    ref = cuda["alif_bwd"](*case.args, **case.kw)
+    package = _build.library
+    _build.library = lambda: _PASS_LIB
+    try:
+        ms = cuda_ms(lambda: cuda["alif_bwd"](*case.args, **case.kw),
+                     iters=200)
+        got = cuda["alif_bwd"](*case.args, **case.kw)
+        sync()
+    finally:
+        _build.library = package
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)
+               if g is not None):
+        raise AssertionError("alif_bwd: the clock-stamped build's outputs "
+                             "differ from the library's")
+    clk = torch.zeros(ALIF_BWD_SLOTS * blocks, dtype=torch.int64)
+    _build.check("alif_bwd", _PASS_LIB.alif_bwd_pass_clocks(
+        clk.data_ptr(), ALIF_BWD_SLOTS * blocks))
+    mean = clk.view(blocks, ALIF_BWD_SLOTS).double().mean(0).tolist()
+    phases = dict(zip(ALIF_BWD_PHASES, mean))
+    out = {"call": case.label, "stamped_ms": ms, "blocks": blocks,
+           "cycles": phases, "cycles_a_step": {k: v / T
+                                               for k, v in phases.items()},
+           "total_cycles": mean[-1]}
+    log(f"passes alif_bwd [{case.label}]: stamped build {ms:.4f} ms; "
+        + ", ".join(f"{k} {v:.0f} ({v / T:.1f} a step)"
+                    for k, v in phases.items())
+        + f", whole kernel {mean[-1]:.0f} cycles, mean of {blocks} blocks; "
+        "bit for bit the library's")
+    return {"alif_bwd": out}
+
+
+# spikemm_wgrad's phases, in the order of its -DWGRAD_PASS_CLOCKS slots
+# (slot 4 counts the steps computed)
+WGRAD_PHASES = ("wait", "issue", "products", "barrier", "live steps",
+                "combine")
+
+
+def phase_wgrad_passes(cases):
+    """Where `spikemm_wgrad` spends its time, by phase: each training g_w
+    call through the wrapper on the clock-stamped build (`phase_build`),
+    its output equal to the library's bit for bit. Mean cycles of each
+    phase over the CTAs, the steps computed, the whole kernel's (mean and
+    most), and the stamped build's own ms."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.spikemm.wgrad import (spikemm_wgrad_cuda,
+                                                   wgrad_tile, wgrad_tiles)
+    out = {}
+    for case in (c for c in cases["spikemm_wgrad"] if c.path):
+        R, K, N = wgrad_shape(case.args)
+        kt, nt = wgrad_tiles(K, N)
+        blocks = kt * nt * wgrad_tile(K, N)[2]
+        ref = spikemm_wgrad_cuda(*case.args, **case.kw)
+        package = _build.library
+        _build.library = lambda: _PASS_LIB
+        try:
+            ms = cuda_ms(lambda: spikemm_wgrad_cuda(*case.args, **case.kw),
+                         iters=100)
+            got = spikemm_wgrad_cuda(*case.args, **case.kw)
+            sync()
+        finally:
+            _build.library = package
+        if not torch.equal(got, ref):
+            raise AssertionError(f"spikemm_wgrad [{case.label}]: the "
+                                 "clock-stamped build differs from the "
+                                 "library")
+        clk = torch.zeros(8 * blocks, dtype=torch.int64)
+        _build.check("spikemm_wgrad",
+                     _PASS_LIB.wgrad_pass_clocks(clk.data_ptr(), 8 * blocks))
+        v = clk.view(blocks, 8).double()
+        mean = v.mean(0).tolist()
+        phases = dict(zip(WGRAD_PHASES, mean))
+        out[case.label] = {"stamped_ms": ms, "ctas": blocks,
+                           "tile": list(wgrad_tile(K, N)),
+                           "cycles": phases, "total_cycles": mean[7],
+                           "most_cycles": float(v[:, 7].max())}
+        log(f"passes spikemm_wgrad [{case.label}]: stamped build {ms:.4f} "
+            f"ms, tile {wgrad_tile(K, N)}, {blocks} CTAs; "
+            + ", ".join(f"{k} {x:.1f}" if k == "live steps"
+                        else f"{k} {x:.0f}" for k, x in phases.items())
+            + f", whole kernel {mean[7]:.0f} (most {v[:, 7].max():.0f}) "
+            "cycles, mean over the CTAs; bit for bit the library's")
+    return {"spikemm_wgrad": out}
 
 
 def phase_gather_rows(cases):
@@ -3781,7 +4022,7 @@ def train_paths():
     """{name: TrainPath}. Launches of one step: train_shd, INTEG x2
     (spikemm), the branches' and the readout's linrec (the ablation: the
     readout's), the soma's lif; backward lif_bwd, a linrec_bwd per linrec,
-    g_w x2 through the spike product (dense or sparse channel, as routed).
+    g_w x2 through spikemm_wgrad (under `auto`, the counted run's).
     train_ecg: INTEG x2, the hidden layer's alifrec (the ablation:
     lifrec), the readout's linrec; alifrec_bwd (lifrec_bwd), linrec_bwd,
     g_w x3 (input, recurrent, readout). train_alif_ff: INTEG x2, alif,
@@ -3790,15 +4031,15 @@ def train_paths():
         n_lin = 2 if dendritic else 1
         return ("dendritic" if dendritic else "homogeneous",
                 functools.partial(make_shd, dendritic),
-                {"spikemm+sparse": 4, "lif": 1, "linrec": n_lin,
-                 "lif_bwd": 1, "linrec_bwd": n_lin})
+                {"spikemm+sparse": 2, "spikemm_wgrad": 2, "lif": 1,
+                 "linrec": n_lin, "lif_bwd": 1, "linrec_bwd": n_lin})
 
     def ecg(het):
         scan = "alifrec" if het else "lifrec"
         return ("heterogeneous" if het else "homogeneous",
                 functools.partial(make_ecg, het),
-                {"spikemm+sparse": 5, scan: 1, f"{scan}_bwd": 1,
-                 "linrec": 1, "linrec_bwd": 1})
+                {"spikemm+sparse": 2, "spikemm_wgrad": 3, scan: 1,
+                 f"{scan}_bwd": 1, "linrec": 1, "linrec_bwd": 1})
     shd_in = f"gen_shd_spikes({TRAIN_B}, T={TRAIN_T})"
     return {p.name: p for p in (
         TrainPath("train_shd", f"make_dhsnn_shd {N_IN}->{N_HIDDEN}x"
@@ -3817,8 +4058,8 @@ def train_paths():
                   f"SGD lr {TRAIN_LR}", shd_in, TRAIN_T, TRAIN_B, train_data,
                   shd_loss, TRAIN_LR,
                   (("alif", make_alif_ff,
-                    {"spikemm+sparse": 4, "alif": 1, "alif_bwd": 1,
-                     "linrec": 1, "linrec_bwd": 1}),)))}
+                    {"spikemm+sparse": 2, "spikemm_wgrad": 2, "alif": 1,
+                     "alif_bwd": 1, "linrec": 1, "linrec_bwd": 1}),)))}
 
 
 # the families whose backward is a kernel of its own (`KernelSpec.bwd`)
@@ -3828,13 +4069,19 @@ BWD_FAMILIES = ("lif", "linrec", "lifrec", "alif", "alifrec")
 @contextlib.contextmanager
 def recording(routes=None, bwd_calls=None):
     """Within it, each spikemm dispatch appends {raster, w, channel, args}
-    to `routes` (the router's choice, its arguments as they came), and
-    each backward kernel call its cloned (args, kwargs) to
-    `bwd_calls[name]`, through wrapped registry entries (restored after;
+    to `routes` (the router's choice, its arguments as they came) and so
+    does each g_w on the weight-gradient kernel's pair (channel
+    `spikemm_wgrad`, marked `g_w`), and each backward kernel call its
+    cloned (args, kwargs) to `bwd_calls[name]` (spikemm's weight gradient
+    as `spikemm_wgrad`), through wrapped registry entries (restored after;
     the launch counters are not to be read inside)."""
     from repro_torch.kernels import registry
+    registry.ensure_registered()        # the snapshot restored after is whole
     reg = registry._REGISTRY
     saved = dict(reg)
+
+    def clone(t):
+        return t.detach().clone() if torch.is_tensor(t) else t
     try:
         if routes is not None:
             def select(*args, _route=registry.get("spikemm").select_channel,
@@ -3847,13 +4094,21 @@ def recording(routes=None, bwd_calls=None):
                 return choice, measured
             reg["spikemm"] = dataclasses.replace(registry.get("spikemm"),
                                                  select_channel=select)
-        for fam in (BWD_FAMILIES if bwd_calls is not None else ()):
+        for fam in ((BWD_FAMILIES + ("spikemm",))
+                    if routes is not None or bwd_calls is not None else ()):
             spec = registry.get(fam)
+            name = spec.bwd_name or f"{fam}_bwd"
 
-            def rec(*a, _fn=spec.bwd.cuda, _name=f"{fam}_bwd", **kw):
-                bwd_calls.setdefault(_name, []).append((tuple(
-                    t.detach().clone() if torch.is_tensor(t) else t
-                    for t in a), dict(kw)))
+            def rec(*a, _fn=spec.bwd.cuda, _name=name, **kw):
+                if bwd_calls is not None:
+                    bwd_calls.setdefault(_name, []).append((
+                        tuple(clone(t) for t in a),
+                        {k: clone(v) for k, v in kw.items()}))
+                if routes is not None and _name == "spikemm_wgrad":
+                    R, K, N = wgrad_shape(a)
+                    routes.append({"raster": [R, K], "w": [R, N],
+                                   "channel": _name, "g_w": True,
+                                   "args": a})
                 return _fn(*a, **kw)
             reg[fam] = dataclasses.replace(
                 spec, bwd=dataclasses.replace(spec.bwd, cuda=rec))
@@ -3864,9 +4119,10 @@ def recording(routes=None, bwd_calls=None):
 
 
 def is_g_w(route, steps_rows):
-    """Whether a spikemm dispatch is a weight gradient: its raster is a
-    transposed (K, T * B) one (`steps_rows` = T * B)."""
-    return route["raster"][1] == steps_rows
+    """Whether a spikemm dispatch is a weight gradient: the weight-gradient
+    kernel's, or one on a transposed (K, T * B) raster (`steps_rows` =
+    T * B)."""
+    return route.get("g_w", False) or route["raster"][1] == steps_rows
 
 
 def sigmoid_tols(kw):
@@ -3891,14 +4147,18 @@ def train_cases():
     stride-0 one, each asked for every gradient, for g_x alone (the
     readout's) and for g_a and g_x (the branches'), at T = 1 and 0 and
     ragged; `lifrec_bwd`, `alifrec_bwd` and `alif_bwd` at
-    `rec_bwd_cases()`. And spikemm's g_w products of the dendritic SHD
-    step and of the heterogeneous ECG step (the (K, T * B) transposed
-    rasters; the ECG's recurrent one (64, 3200) @ (3200, 64)), timed
-    beside `torch.matmul`, on the dense kernel and on the sparse
-    channel."""
+    `rec_bwd_cases()`. And spikemm's g_w products: `spikemm_wgrad` at
+    every g_w call of the three paths' first models (captured at the
+    registry; the ECG's recurrent one from s0 and the spikes plane),
+    timed beside `torch.matmul` and the route it replaced, and at
+    `wgrad_edge_cases()`; the dendritic SHD step's and the heterogeneous
+    ECG step's also on the route it replaced, the (K, T * B) transposed
+    rasters through the dense kernel and the sparse channel, timed beside
+    `torch.matmul`."""
     from repro_torch.kernels.lif.ops import lif_cuda
     from repro_torch.kernels.linrec.ops import linrec_cuda
-    out = {k: [] for k in BWD_SCANS + ("spikemm", "spikemm_sparse")}
+    out = {k: [] for k in BWD_SCANS + ("spikemm", "spikemm_sparse",
+                                       "spikemm_wgrad")}
     outs = (N_OUT, ECG_OUT)
     for path in train_paths().values():
         x, y = path.data(DEV)
@@ -3914,6 +4174,10 @@ def train_cases():
                 tag = path.name if name not in seen else \
                     f"{path.name}_{kind}"
                 seen.add(name)
+                if name == "spikemm_wgrad":
+                    if i == 0:
+                        out[name] += g_w_cases(path, got, outs)
+                    continue
                 for args, kw in got:
                     shape = tuple((args[1] if name == "linrec_bwd"
                                    else args[0]).shape)
@@ -3925,16 +4189,16 @@ def train_cases():
                                           args, path=tag, timed=True, kw=kw,
                                           rtol=rtol, atol=atol))
             if i == 0 and path.name in ("train_shd", "train_ecg"):
-                for r in (r for r in routes if is_g_w(r, path.T * path.B)):
-                    s, gr = (a.detach().clone() for a in r["args"])
-                    what = "readout" if r["w"][1] in outs else (
-                        "recurrent" if r["raster"][0] == r["w"][1]
-                        else "hidden")
-                    label = (f"{path.name} g_w {what} {tuple(s.shape)} @ "
-                             f"{tuple(gr.shape)}")
+                # the route it replaced: the spike product on the transposed
+                # raster, through the dense kernel and the sparse channel
+                for c in out["spikemm_wgrad"]:
+                    if c.path != path.name:
+                        continue
+                    s = wgrad_raster(c.args, c.kw).t().contiguous()
+                    gr = c.args[1]
                     for name in ("spikemm", "spikemm_sparse"):
                         out[name].append(Case(
-                            label, (s, gr), path=path.name, timed=True,
+                            c.label, (s, gr), path=path.name, timed=True,
                             library=lambda a=(s, gr): torch.matmul(*a)))
     g = torch.Generator().manual_seed(20)
 
@@ -3981,6 +4245,74 @@ def train_cases():
                     zero_ok=T == 0))
     for name, cases in rec_bwd_cases().items():
         out[name] += cases
+    out["spikemm_wgrad"] += wgrad_edge_cases()
+    return out
+
+
+def g_w_cases(path, calls, outs):
+    """[Case] of `spikemm_wgrad` at a training step's captured g_w calls
+    (spikes, g, head=), timed beside `torch.matmul` on the raster's
+    transpose (a view: the product PyTorch makes of it)."""
+    cases = []
+    for args, kw in calls:
+        R, K, N = wgrad_shape(args)
+        what = "readout" if N in outs else (
+            "recurrent" if kw.get("head") is not None else "input")
+        raster = wgrad_raster(args, kw)
+        cases.append(Case(
+            f"{path.name} g_w {what} ({K}, {R}) @ ({R}, {N})", args,
+            path=path.name, timed=True, kw=kw,
+            library=lambda a=(raster, args[1]): torch.matmul(a[0].t(),
+                                                             a[1])))
+    return cases
+
+
+def wgrad_edge_cases():
+    """[Case] of `spikemm_wgrad` at the edges of its split and its tiles:
+    R = 0, 1, 31, 33 and ragged (R = 1000, 4097: not a multiple of the
+    chunk), one chunk (R = 16) and 64 (R = 20000 at a small tile: a
+    cluster's 8 CTAs of 8 groups), K = 1, 3, 7, 8, 9, 33 and 100 (under
+    and over a tile's 8 to 64 rows; over 64 the 64-row tiles, walking
+    their events at 32 columns; odd K takes the 4-byte copies), N = 1, 6,
+    31, 32, 33, 64, 65, 129, 256 and 300 at K = 40 (the tiles small
+    products spread over), K = 100 at N = 6 (a 64-row tile of four
+    groups), 65 and 300 (the event walk at 128 and 256 columns), K = 32
+    at N = 2048 (the dense route at 128 columns), a raster
+    16-byte aligned with K % 4 == 0 and one that is not (a one-element
+    offset), a shifted raster from `head` (the recurrent g_W's), an
+    all-zero raster (the output +0 everywhere), a raster firing in every
+    entry, and an input-like 4-column raster."""
+    g = torch.Generator().manual_seed(29)
+    out = []
+
+    def case(label, R, K, N, rate=0.05, head=0, offset=0, silent=False):
+        body = (torch.rand((R - head) * K + offset, generator=g)
+                < rate).float().to(DEV)[offset:].view(R - head, K)
+        gr = torch.randn((R, N), generator=g).to(DEV)
+        kw = {}
+        if head:
+            kw["head"] = (torch.rand((head, K), generator=g)
+                          < rate).float().to(DEV)
+        out.append(Case(f"{label} ({K}, {R}) @ ({R}, {N})", (body, gr),
+                        kw=kw, silent=silent or R == 0, zero_ok=R == 0))
+
+    for R in (0, 1, 31, 33, 1000, 4097):
+        case("rows", R, 64, 64)
+    case("64 chunks", 20000, 8, 6)
+    case("one chunk", 16, 700, 256)
+    case("64-row tile of four groups", 1000, 100, 6, rate=0.1)
+    for N in (65, 300):
+        case("64-row event tile", 600, 100, N, rate=0.05)
+    case("128-column tile", 300, 32, 2048, rate=0.1)
+    for K in (1, 3, 7, 8, 9, 33, 100):
+        case("k", 500, K, 20, rate=0.2)
+    for N in (1, 6, 31, 32, 33, 64, 65, 129, 256, 300):
+        case("n", 700, 40, N, rate=0.1)
+    case("off 16-byte alignment", 640, 64, 64, offset=1)
+    case("shifted raster from head", 48 * 30, 64, 64, head=48)
+    case("all-zero raster", 2880, 64, 20, rate=0.0, silent=True)
+    case("every entry fires", 600, 16, 48, rate=1.1)
+    case("input-like", 3200, 4, 64, rate=0.3)
     return out
 
 
@@ -4107,6 +4439,43 @@ def lif_bwd_alone(args, kw):
     return launch
 
 
+def alif_bwd_alone(args, kw):
+    """A launch of `alif_bwd_cuda(*args, **kw)`'s kernel alone, uncounted:
+    the C entry on outputs and scratch allocated once (the kernel sums
+    g_tau and g_rho over B itself, so this is the wrapper without its
+    allocations)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import zeroed_counters
+    from repro_torch.kernels.lif.ops import KERNEL_SURROGATES
+    cur, tau, rho, v0, a0, s, gs, gv, ga = args[:9]
+    opts = {"v_th": 1.0, "beta": 1.8, "surrogate": "rectangle",
+            "alpha": 1.0}
+    opts.update(zip(opts, args[9:]), **{k: v for k, v in kw.items()
+                                         if k in opts})
+    v_th, beta, sur, alpha = opts.values()
+    T, B, N = cur.shape
+    gc = torch.empty_like(cur)
+    gt, gr = torch.empty_like(tau), torch.empty_like(rho)
+    g0, a0g = torch.empty_like(v0), torch.empty_like(a0)
+    segs = -(-T // _build.ALIF_BWD_SEG)
+    ckpt = torch.empty((segs, 2, B, N), device=cur.device)
+    part = torch.empty((2, B, N), device=cur.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    count = zeroed_counters(cur.device, stream, 1)
+    lib = _build.library()
+
+    def launch():
+        _build.check("alif_bwd", lib.alif_bwd_f32(
+            cur.data_ptr(), tau.data_ptr(), rho.data_ptr(), v0.data_ptr(),
+            a0.data_ptr(), s.data_ptr(), gs.data_ptr(), gv.data_ptr(),
+            ga.data_ptr(), ckpt.data_ptr(), part.data_ptr(),
+            count.data_ptr(), gc.data_ptr(), gt.data_ptr(), gr.data_ptr(),
+            g0.data_ptr(), a0g.data_ptr(), T, B, N, float(v_th),
+            float(beta), KERNEL_SURROGATES.index(sur), float(alpha),
+            stream))
+    return launch
+
+
 def linrec_bwd_flipped(label, args, gx):
     """The JAX package's own route to gx: the forward recurrence on the
     time-reversed decay shifted by one step (a_T = 0), g_hT folded into
@@ -4171,6 +4540,10 @@ def phase_train(path, smi):
             raise AssertionError(f"[{tag}] {kind}: {mm} spikemm launches "
                                  f"(both channels), want "
                                  f"{want['spikemm+sparse'] * TRAIN_STEPS}")
+        # under auto one occupancy measure a forward INTEG, none for a g_w
+        if occ != want["spikemm+sparse"] * TRAIN_STEPS:
+            raise AssertionError(f"[{tag}] {kind}: {occ} occupancy launches, "
+                                 "want one a forward INTEG and none a g_w")
         routes = rec_routes_taken(f"{tag} {kind}", routes0, counts,
                                   nodes[0].out_dim)
         for k, v in counts.items():
@@ -4227,9 +4600,12 @@ def phase_train(path, smi):
             log(f"path [{tag}] {kind} first step under {mode}: "
                 + "; ".join(f"{c['call']} {c['raster']}@{c['w']} -> "
                             f"{c['channel']}" for c in channels[mode]))
-        gw = {c["channel"] for m in ("never", "always")
-              for c in channels[m] if c["call"] == "g_w"}
-        if gw != {"spikemm", "spikemm_sparse"}:
+        # g_w: the weight-gradient kernel under auto and never, the sparse
+        # channel under always (which pins it)
+        gw = {m: {c["channel"] for c in channels[m] if c["call"] == "g_w"}
+              for m in channels}
+        if gw != {"auto": {"spikemm_wgrad"}, "never": {"spikemm_wgrad"},
+                  "always": {"spikemm_sparse"}}:
             raise AssertionError(f"[{tag}] {kind}: g_w took {gw}")
         same = {m: first[m][0] == losses[0] and all(
             torch.equal(first[m][1][k], grads_g[k]) for k in grads_g)
@@ -4620,7 +4996,7 @@ def phase_parity():
                 + (f", VJP {r['vjp_max_err']:.3e}" if "vjp_max_err" in r
                    else ""))
     # the backward kernels are held inside their families' VJP legs
-    forward = [k for k in SOURCES if k not in BWD_SCANS]
+    forward = [k for k in SOURCES if k not in BWD_ONLY]
     if n != len(forward):
         raise AssertionError(f"parity checked {n} kernels, the table has "
                              f"{len(forward)} forward kernels")
@@ -4672,15 +5048,18 @@ def main(argv):
     cases = kernel_cases(make_shd(True, DEV)[1])
     kernels = phase_kernels(cases)
     passes = phase_rec_bwd_passes(cases)
+    passes.update(phase_alif_bwd_passes(cases))
+    passes.update(phase_wgrad_passes(cases))
     gather_rows = phase_gather_rows(cases["spikemm_gather"])
     sparse = {c.label: c.args for c in cases["spikemm_sparse"]}
     sparse_sync_checks(*sparse[SPARSE_HOME_CASE], *sparse[SPARSE_DENSE_CASE])
+    wgrad_sync_checks(cases["spikemm_wgrad"])
     sparse_tiles = phase_sparse_tiles(cases["spikemm_sparse"])
     sweep = phase_sweep(cases)
     if argv == ["--kernels"]:
         # the kernel phase and the sweep alone, no paths (no launch counts)
         log(json.dumps({"kernels": list(kernels.values())}))
-        log(json.dumps({"rec_bwd_passes": passes}))
+        log(json.dumps({"bwd_passes": passes}))
         log(json.dumps({"gather_rows": gather_rows}))
         log(json.dumps({"sparse_tiles": sparse_tiles}))
         log(json.dumps({"sweep": sweep}))
@@ -4713,7 +5092,7 @@ def main(argv):
             for s in slices if s["path"] in by_path}
     slices[0]["build_s"] = build_s
     log(json.dumps({"kernels": list(kernels.values())}))
-    log(json.dumps({"rec_bwd_passes": passes}))
+    log(json.dumps({"bwd_passes": passes}))
     log(json.dumps({"gather_rows": gather_rows}))
     log(json.dumps({"sparse_tiles": sparse_tiles}))
     log(json.dumps({"sweep": sweep}))

@@ -5,43 +5,129 @@
 //           Pallas kernel: src/repro/kernels/alifrec/ops.py::_bwd_core
 //           (through `_alif_bwd`, w_rec None).
 //
-// Per (b, n) lane, in two passes, as `lif.cu`'s `lif_bwd_f32`:
-//   1. forward, along the saved spikes (their resets and adaptation;
-//      nothing is re-thresholded), with the forward's rounded steps: the
-//      pre-reset membrane u_t = (tau v_{t-1}) + I_t and the adaptation
-//      a_{t-1} before its update, written to two (T, B, N) scratch planes;
-//   2. reverse, t = T - 1 .. 0, with (gv, ga) the cotangents of (v_t, a_t)
-//      (gv_{T-1} = g_vT, ga_{T-1} = g_aT) and th = v_th + beta a_{t-1},
-//      `surrogate.cuh`'s `neuron_adjoint` without a recurrent term:
-//        Gs~ = gs + ga;  Sig = (Gs~ - gv u) g(u - th)
-//        Gu  = gv (1 - s) + Sig;  gv <- tau Gu;  ga <- rho ga - beta Sig
-//      writing g_current = Gu and the lane's g_tau partial (Gu_t v_{t-1},
-//      descending t; v_{t-1} rebuilt from u_{t-1} and s_{t-1}, a step
-//      late) and g_rho partial (ga_t a_{t-1}, descending t), which the
-//      wrapper sums over B; after t = 0, g_v0 = gv and g_a0 = ga. A null
-//      output pointer skips that output.
+// Per (b, n) lane:
+//   forward  along the saved spikes (their resets and adaptation; nothing
+//            is re-thresholded), with the forward's rounded steps: the
+//            pre-reset membrane u_t = (tau v_{t-1}) + I_t and the
+//            adaptation a_{t-1} before its update;
+//   reverse  t = T - 1 .. 0, with (gv, ga) the cotangents of (v_t, a_t)
+//            (gv_{T-1} = g_vT, ga_{T-1} = g_aT), g = g(u_t - th_t) and
+//            th_t = v_th + beta a_{t-1}, `surrogate.cuh`'s adjoint without
+//            a recurrent term:
+//              Gs~ = gs + ga;  Sig = (Gs~ - gv u) g
+//              Gu  = gv (1 - s) + Sig;  gv <- tau Gu;  ga <- rho ga - beta Sig
+//            writing g_current = Gu, the lane's g_tau partial (Gu_{t+1}
+//            v_t, descending t, then Gu_0 v0) and g_rho partial (ga_t
+//            a_{t-1}, descending t); after t = 0, g_v0 = gv and g_a0 = ga.
+//   sums     g_tau and g_rho, the partials summed over B in ascending b,
+//            by the kernel's last CTA to finish. A null output pointer
+//            skips that output.
 //
-// What bounds it on an H100: like `lif_bwd`, a lane's serial chain, not
-// the bytes (current, spikes and their cotangent in, g_current out, four
-// bytes each a lane-step) or the few dozen operations a lane-step. Lanes
-// are independent, so there is no exchange: one thread owns one lane with
-// its carries in registers, and both passes run `lane_scan.cuh`'s cp.async
-// ring, as the forward does: pass 1 over (I, s) forward, pass 2 over
-// (u, a_{t-1}, s, Gs) reversed (base at t = T - 1, stride -B N). CTAs of
-// one warp, as `lif_bwd_f32`'s: a training step's lanes are few.
+// What bounds it on an H100: a lane's serial chain, not the bytes
+// (current, spikes and their cotangent in, g_current out, four bytes each
+// a lane-step: 0.90 us at (60, 48, 64)) or the few dozen operations a
+// lane-step. The reverse step's chain is five rounded operations deep on
+// gv (gv u, Gs~ - gv u, times g, + gv (1 - s), tau Gu) and as many on ga;
+// the forward's three on v.
+//
+// Design. A CTA owns 32 lanes (a warp's width): a chain warp, whose thread
+// l carries lane l's state in registers, and three helper warps. Time is
+// cut into segments of SEG steps (ALIF_BWD_SEG, from kernels/_build.py);
+// a segment's planes live in shared memory, [plane][step][lane]:
+//   load     all four warps copy the segment's current, spikes and (for
+//            the reverse) their cotangent by cp.async, 16 bytes (four
+//            lanes) a copy where the planes allow, the cotangent in a
+//            commit group of its own that lands while the forward runs;
+//   forward  the chain warp runs the segment's forward steps from its
+//            checkpoint (v, a) and writes u_t and a_{t-1};
+//   g        all four warps evaluate the surrogate g(u_t - th_t) of every
+//            (step, lane) of the segment, four a thread at once, with its
+//            division and, under sigmoid, its expf, in place of the
+//            current;
+//   reverse  the chain warp runs the segment's reverse steps, every load
+//            from shared memory, and writes Gu in place of the cotangent;
+//   store    all four warps write the segment's g_current, coalesced.
+// With more than one segment, a first forward pass over segments 0 ..
+// S - 2 writes each segment's starting (v, a) to the `ckpt` scratch
+// ((S, 2, B, N); the wrapper allocates it only for T > SEG), and the
+// reverse walks the segments from the last, each recomputing its forward
+// from its checkpoint: no (T, B, N) scratch plane. Then the partials of
+// g_tau and g_rho go to a (2, B, N) scratch and the last CTA to finish (a
+// counter of the stream, `__threadfence`) sums them over B, so that the
+// wrapper launches nothing after the kernel. (A lane a thread in CTAs of
+// one warp, pass 1 writing u and a_{t-1} to two (T, B, N) scratch planes
+// that pass 2 read back, and the sums over B two PyTorch launches, took
+// 548 cycles a reverse step on the H100: the surrogate, the loads and the
+// stores on the one warp of an SM.)
 //
 // Rounding: every operation is one rounded fp32 step in the order of
 // `kernels/alifrec/ref.py::alif_scan_bwd_ref`, so the kernel equals it bit
-// for bit (sigmoid: within its expf). The surrogate is a run-time
-// argument: one instantiation a ring layout keeps the build short.
+// for bit (sigmoid: within its expf); computing g off the chain changes no
+// operation, only where it runs, and the sums over B follow
+// `sum_rows_ascending`, the plain version's. The surrogate is a run-time
+// argument (one switch a group of values, warp-uniform).
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "lane_scan.cuh"
+#include "async_copy.cuh"
 #include "surrogate.cuh"
 
+#ifndef ALIF_BWD_SEG
+#error "alif_bwd.cu needs -DALIF_BWD_SEG (kernels/_build.py passes it)"
+#endif
+
+// Cycles by phase, in a build with -DALIF_BWD_PASS_CLOCKS (`chip_smoke.py`
+// makes one beside the library): thread 0 of block b adds the clock64()
+// cycles of each phase k (after the barrier that ends it) into its
+// register and writes them to alif_bwd_pass_clk[PASS_CLK_SLOTS b + k] at
+// the end, the whole kernel's in the last slot; `alif_bwd_pass_clocks`
+// copies them out. Without the flag the stamps compile to nothing.
+constexpr int PASS_CLK_SLOTS = 8;
+#ifdef ALIF_BWD_PASS_CLOCKS
+constexpr int PASS_CLK_BLOCKS = 65536;
+__device__ long long alif_bwd_pass_clk[PASS_CLK_SLOTS * PASS_CLK_BLOCKS];
+#define PASS_CLK_BEGIN                                        \
+  long long clk_at = clock64(), clk_first = clk_at;           \
+  long long clk_sum[PASS_CLK_SLOTS - 1] = {}
+#define PASS_CLK(k)                                           \
+  do {                                                        \
+    const long long now = clock64();                          \
+    clk_sum[k] += now - clk_at;                               \
+    clk_at = now;                                             \
+  } while (0)
+#define PASS_CLK_END                                                   \
+  if (threadIdx.x == 0 && blockIdx.x < PASS_CLK_BLOCKS) {              \
+    long long* dst = alif_bwd_pass_clk + PASS_CLK_SLOTS * blockIdx.x;  \
+    for (int k = 0; k < PASS_CLK_SLOTS - 1; ++k) dst[k] = clk_sum[k];  \
+    dst[PASS_CLK_SLOTS - 1] = clock64() - clk_first;                   \
+  }
+
+extern "C" int alif_bwd_pass_clocks(long long* dst, int n) {
+  if (n < 0 || n > PASS_CLK_SLOTS * PASS_CLK_BLOCKS)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(dst, alif_bwd_pass_clk,
+                                   n * sizeof(long long));
+}
+#else
+#define PASS_CLK_BEGIN
+#define PASS_CLK(k)
+#define PASS_CLK_END
+#endif
+
 namespace {
+
+constexpr int SEG = ALIF_BWD_SEG;          // steps a segment
+constexpr int WARPS = 4;                   // the chain warp and 3 helpers
+constexpr int THREADS = 32 * WARPS;
+constexpr int GQ = 4;                      // surrogates a thread at once
+// the phases the clock stamps sum (chip_smoke.py's ALIF_BWD_PHASES)
+enum { CLK_LOAD, CLK_FORWARD, CLK_G, CLK_REVERSE, CLK_STORE, CLK_SUMS };
+// the segment's planes in shared memory, [plane][step][lane]: the current
+// (then g), the spikes, their cotangent (then Gu), u_t, a_{t-1}
+enum { P_I, P_S, P_GS, P_U, P_A, PLANES };
+constexpr size_t SMEM = (size_t)PLANES * SEG * 32 * sizeof(float);
+static_assert(SEG > 0, "a segment of steps");
 
 struct AlifBwdArgs {
   const float* cur;  // (T, B, N)
@@ -53,79 +139,228 @@ struct AlifBwdArgs {
   const float* gs;   // (T, B, N): their cotangent
   const float* gvT;  // (B, N)
   const float* gaT;  // (B, N)
-  float* ubuf;       // (T, B, N) scratch: u_t
-  float* abuf;       // (T, B, N) scratch: a_{t-1}
+  float* ckpt;       // (S, 2, B, N): segment k's starting (v, a), S > 1
+  float* part;       // (2, B, N): the per-lane g_tau, g_rho partials
+  unsigned* count;   // a counter at 0: the CTAs done with their partials
   float* gc;         // (T, B, N): g_current
-  float* gtau;       // (B, N): g_tau partials, or null
-  float* grho;       // (B, N): g_rho partials, or null
+  float* gtau;       // (N,), or null
+  float* grho;       // (N,), or null
   float* gv0;        // (B, N), or null
   float* ga0;        // (B, N), or null
   int T, B, N;
   float v_th, beta, alpha;
   int sur;
+  bool vec;          // B N % 4 == 0 and the planes 16-byte aligned
 };
 
-template <int THREADS, bool VEC>
+__device__ __forceinline__ float* at(float* sm, int plane, int u) {
+  return sm + (plane * SEG + u) * 32;
+}
+
+// All four warps copy steps t0 .. t0 + n - 1 of NP planes (src[i] into
+// plane pl[i]) of the CTA's 32 lanes from `base` on into shared memory:
+// 16 bytes (four lanes) a copy where p.vec, else a lane; lanes past the
+// tensor's end read zeros. One commit group.
+template <int NP>
+__device__ __forceinline__ void load_planes(float* sm, const AlifBwdArgs& p,
+                                            int64_t lanes, int64_t base,
+                                            int t0, int n,
+                                            const float* const (&src)[NP],
+                                            const int (&pl)[NP]) {
+  if (p.vec) {
+    for (int e = threadIdx.x; e < n * NP * 8; e += THREADS) {
+      const int row = e / 8, q = e % 8, u = row / NP, i = row % NP;
+      const int64_t col = base + 4 * q;
+      const bool in = col < lanes;
+      cp_async16(smem_u32(at(sm, pl[i], u) + 4 * q),
+                 src[i] + (int64_t)(t0 + u) * lanes + (in ? col : 0), in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * NP * 32; e += THREADS) {
+      const int row = e / 32, l = e % 32, u = row / NP, i = row % NP;
+      const int64_t col = base + l;
+      const bool in = col < lanes;
+      cp_async4(smem_u32(at(sm, pl[i], u) + l),
+                src[i] + (int64_t)(t0 + u) * lanes + (in ? col : 0), in);
+    }
+  }
+  cp_async_commit();
+}
+
+// The chain warp's forward over a segment's n steps from (v, a); with
+// KEEP, u_t and a_{t-1} go to the planes.
+template <bool KEEP>
+__device__ __forceinline__ void forward(float* sm, int n, float tn, float rn,
+                                        float& v, float& a) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll 4
+  for (int u = 0; u < n; ++u) {
+    const float s = at(sm, P_S, u)[lane];
+    const float ut = __fadd_rn(__fmul_rn(tn, v), at(sm, P_I, u)[lane]);
+    if (KEEP) {
+      at(sm, P_U, u)[lane] = ut;
+      at(sm, P_A, u)[lane] = a;
+    }
+    v = __fmul_rn(ut, __fsub_rn(1.f, s));
+    a = __fadd_rn(__fmul_rn(rn, a), s);
+  }
+}
+
 __global__ void __launch_bounds__(THREADS) alif_bwd_kernel(
     const AlifBwdArgs p) {
-  extern __shared__ __align__(16) float ring_smem[];
+  extern __shared__ __align__(16) float sm[];
+  PASS_CLK_BEGIN;
   const int64_t lanes = (int64_t)p.B * p.N;
-  const int64_t idx = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= lanes) return;                 // no barrier below: leave
-  const int n = (int)(idx % p.N);
-  const float tn = p.tau[n], rn = p.rho[n];
-  const float v_init = p.v0[idx];
-  {  // 1. u and a_{t-1} forward, along the saved spikes
-    const float* base[2] = {p.cur + idx, p.sp + idx};
-    const int64_t stride[2] = {lanes, lanes};
-    LaneRing<2, THREADS, VEC> ring(ring_smem, base, stride, p.T);
-    float v = v_init, a = p.a0[idx];
-    float* up = p.ubuf + idx;
-    float* ap = p.abuf + idx;
-    lane_scan(ring, [&](const auto& in, int k) {
-      const float u = __fadd_rn(__fmul_rn(tn, v), in[0][k]);
-      const float s = in[1][k];
-      *up = u;
-      *ap = a;
-      up += lanes;
-      ap += lanes;
-      v = __fmul_rn(u, __fsub_rn(1.f, s));
-      a = __fadd_rn(__fmul_rn(rn, a), s);
-    });
+  const int lane = threadIdx.x % 32;
+  const bool chain = threadIdx.x < 32;       // warp 0
+  const int64_t base = (int64_t)blockIdx.x * 32, idx = base + lane;
+  const bool in = idx < lanes;
+  const int n_of = in ? (int)(idx % p.N) : 0;
+  const float tn = p.tau[n_of], rn = p.rho[n_of];
+  const float v_init = in ? p.v0[idx] : 0.f;
+  const float a_init = in ? p.a0[idx] : 0.f;
+  const int segs = (p.T + SEG - 1) / SEG;
+  const float* const in_src[2] = {p.cur, p.sp};
+  const int in_pl[2] = {P_I, P_S};
+  const float* const gs_src[1] = {p.gs};
+  const int gs_pl[1] = {P_GS};
+
+  // forward over segments 0 .. segs - 2: their successors' checkpoints
+  float v = v_init, a = a_init;
+  for (int k = 0; k + 1 < segs; ++k) {
+    load_planes<2>(sm, p, lanes, base, k * SEG, SEG, in_src, in_pl);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (chain) {
+      forward<false>(sm, SEG, tn, rn, v, a);
+      if (in) {
+        p.ckpt[(2 * (int64_t)(k + 1)) * lanes + idx] = v;
+        p.ckpt[(2 * (int64_t)(k + 1) + 1) * lanes + idx] = a;
+      }
+    }
+    __syncthreads();                         // before the planes refill
   }
-  // VEC: the warp's u stores are read back by its neighbours' copies, and
-  // the ring's slots are refilled: every thread is past pass 1
-  __threadfence_block();
-  if (VEC) __syncwarp();
-  {  // 2. the reverse scan
-    const int64_t last = (int64_t)(p.T - 1) * lanes + idx;
-    const float* base[4] = {p.ubuf + last, p.abuf + last, p.sp + last,
-                            p.gs + last};
-    const int64_t stride[4] = {-lanes, -lanes, -lanes, -lanes};
-    LaneRing<4, THREADS, VEC> ring(ring_smem, base, stride, p.T);
-    const Surrogate g_of = make_surrogate(p.sur, p.alpha);
-    float gv = p.gvT[idx], ga = p.gaT[idx];
-    float acc = 0.f, accr = 0.f, gnext = 0.f;
-    bool first = true;
-    float* gp = p.gc + last;
-    lane_scan(ring, [&](const auto& in, int k) {
-      const float u = in[0][k], ap = in[1][k], s = in[2][k];
-      if (!first)                            // Gu_{t+1} v_t
-        acc = __fadd_rn(acc,
-                        __fmul_rn(gnext, __fmul_rn(u, __fsub_rn(1.f, s))));
-      first = false;
-      const float gu = neuron_adjoint<true, false>(
-          u, threshold<true>(p.v_th, p.beta, ap), ap, s, in[3][k], 0.f, tn,
-          rn, p.beta, g_of, gv, ga, accr);
-      *gp = gu;
-      gp -= lanes;
-      gnext = gu;
-    });
-    if (p.gtau) p.gtau[idx] = __fadd_rn(acc, __fmul_rn(gnext, v_init));
-    if (p.grho) p.grho[idx] = accr;
+  PASS_CLK(CLK_FORWARD);
+
+  // the reverse, a segment at a time from the last
+  const Surrogate g_of = make_surrogate(p.sur, p.alpha);
+  float gv = in ? p.gvT[idx] : 0.f, ga = in ? p.gaT[idx] : 0.f;
+  float acc = 0.f, accr = 0.f, gnext = 0.f;
+  bool first = true;
+  for (int k = segs - 1; k >= 0; --k) {
+    const int t0 = k * SEG, n = min(SEG, p.T - t0);
+    load_planes<2>(sm, p, lanes, base, t0, n, in_src, in_pl);
+    load_planes<1>(sm, p, lanes, base, t0, n, gs_src, gs_pl);
+    cp_async_wait<1>();                      // the current and the spikes
+    __syncthreads();
+    PASS_CLK(CLK_LOAD);
+    if (chain) {
+      // this thread's checkpoint from the first pass, or the call's state
+      v = k == 0 ? v_init : (in ? p.ckpt[2 * (int64_t)k * lanes + idx] : 0.f);
+      a = k == 0 ? a_init
+                 : (in ? p.ckpt[(2 * (int64_t)k + 1) * lanes + idx] : 0.f);
+      forward<true>(sm, n, tn, rn, v, a);
+    }
+    __syncthreads();
+    PASS_CLK(CLK_FORWARD);
+    // g(u_t - th_t) of every (step, lane) in place of the current, GQ a
+    // thread at once, all four warps
+    for (int e0 = threadIdx.x; e0 < n * 32; e0 += GQ * THREADS) {
+      float x[GQ], g[GQ];
+#pragma unroll
+      for (int q = 0; q < GQ; ++q) {
+        const int e = min(e0 + q * THREADS, n * 32 - 1);
+        x[q] = __fsub_rn(at(sm, P_U, 0)[e],
+                         threshold<true>(p.v_th, p.beta, at(sm, P_A, 0)[e]));
+      }
+      surrogate_group<GQ>(g, x, g_of);
+#pragma unroll
+      for (int q = 0; q < GQ; ++q)
+        if (e0 + q * THREADS < n * 32) at(sm, P_I, 0)[e0 + q * THREADS] = g[q];
+    }
+    cp_async_wait<0>();                      // the cotangent
+    __syncthreads();
+    PASS_CLK(CLK_G);
+    if (chain) {
+#pragma unroll 4
+      for (int u = n - 1; u >= 0; --u) {
+        const float ut = at(sm, P_U, u)[lane], ap = at(sm, P_A, u)[lane];
+        const float s = at(sm, P_S, u)[lane], g = at(sm, P_I, u)[lane];
+        if (!first)                          // Gu_{t+1} v_t
+          acc = __fadd_rn(acc,
+                          __fmul_rn(gnext, __fmul_rn(ut, __fsub_rn(1.f, s))));
+        first = false;
+        const float gu = neuron_adjoint_g<true, false>(
+            ut, g, ap, s, at(sm, P_GS, u)[lane], 0.f, tn, rn, p.beta, gv, ga,
+            accr);
+        at(sm, P_GS, u)[lane] = gu;
+        gnext = gu;
+      }
+    }
+    __syncthreads();
+    PASS_CLK(CLK_REVERSE);
+    // g_current of the segment, all four warps
+    if (p.vec) {
+      for (int e = threadIdx.x; e < n * 8; e += THREADS) {
+        const int u = e / 8, q = e % 8;
+        const int64_t col = base + 4 * q;
+        if (col < lanes)
+          *reinterpret_cast<float4*>(p.gc + (int64_t)(t0 + u) * lanes + col) =
+              *reinterpret_cast<const float4*>(at(sm, P_GS, u) + 4 * q);
+      }
+    } else {
+      for (int e = threadIdx.x; e < n * 32; e += THREADS) {
+        const int64_t col = base + e % 32;
+        if (col < lanes)
+          p.gc[(int64_t)(t0 + e / 32) * lanes + col] = at(sm, P_GS, 0)[e];
+      }
+    }
+    __syncthreads();                         // before the planes refill
+    PASS_CLK(CLK_STORE);
+  }
+  if (chain && in) {
     if (p.gv0) p.gv0[idx] = gv;
     if (p.ga0) p.ga0[idx] = ga;
   }
+  if (!p.gtau && !p.grho) {
+    PASS_CLK_END
+    return;
+  }
+
+  // g_tau and g_rho over B, in ascending b, by the last CTA to finish
+  if (chain && in) {
+    p.part[idx] = __fadd_rn(acc, __fmul_rn(gnext, v_init));
+    p.part[lanes + idx] = accr;
+  }
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(p.count, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    constexpr int BB = 16;                   // loads in flight a thread
+    for (int q = threadIdx.x; q < 2 * p.N; q += THREADS) {
+      float* dst = q < p.N ? p.gtau : p.grho;
+      if (!dst) continue;
+      const float* src = p.part + (q < p.N ? 0 : lanes) + q % p.N;
+      float sum = __ldcg(src);
+      for (int b0 = 1; b0 < p.B; b0 += BB) {
+        float x[BB];
+#pragma unroll
+        for (int j = 0; j < BB; ++j)
+          x[j] = b0 + j < p.B ? __ldcg(src + (int64_t)(b0 + j) * p.N) : 0.f;
+#pragma unroll
+        for (int j = 0; j < BB; ++j)
+          if (b0 + j < p.B) sum = __fadd_rn(sum, x[j]);
+      }
+      dst[q % p.N] = sum;
+    }
+    if (threadIdx.x == 0) *p.count = 0;      // ready for the next launch
+  }
+  PASS_CLK(CLK_SUMS);
+  PASS_CLK_END
 }
 
 }  // namespace
@@ -133,31 +368,40 @@ __global__ void __launch_bounds__(THREADS) alif_bwd_kernel(
 extern "C" {
 
 // The backward of alif_f32 (see above): g_current (T, B, N), and where not
-// null the per-lane g_tau and g_rho partials (B, N), g_v0 and g_a0 (B, N),
-// with u and a_{t-1} (T, B, N) as scratch. surrogate: 0 arctan,
-// 1 rectangle, 2 sigmoid, 3 triangle; stages as alif_f32's (`lane_plan`).
-// The ring holds four planes (pass 2's; pass 1 uses two).
+// null g_tau and g_rho (N,), summed over B in ascending b, g_v0 and g_a0
+// (B, N). `ckpt` holds (ceil(T / ALIF_BWD_SEG), 2, B, N) floats of scratch
+// where T is over one segment (else it may be null); `part` (2, B, N)
+// floats and `count` a zeroed counter (left at 0) where g_tau or g_rho is
+// asked for. surrogate: 0 arctan, 1 rectangle, 2 sigmoid, 3 triangle.
 int alif_bwd_f32(const float* cur, const float* tau, const float* rho,
                  const float* v0, const float* a0, const float* spikes,
                  const float* gs, const float* gvT, const float* gaT,
-                 float* ubuf, float* abuf, float* gc, float* gtau,
-                 float* grho, float* gv0, float* ga0, int T, int B, int N,
-                 float v_th, float beta, int surrogate, float alpha,
-                 int stages, void* stream) {
-  if (T < 1 || B < 1 || N < 1 || stages != lane_ring_stages(T) ||
-      surrogate < 0 || surrogate > 3)
+                 float* ckpt, float* part, unsigned* count, float* gc,
+                 float* gtau, float* grho, float* gv0, float* ga0, int T,
+                 int B, int N, float v_th, float beta, int surrogate,
+                 float alpha, void* stream) {
+  if (T < 1 || B < 1 || N < 1 || (T > SEG && !ckpt) ||
+      ((gtau || grho) && (!part || !count)) || surrogate < 0 ||
+      surrogate > 3)
     return (int)cudaErrorInvalidValue;
-  const AlifBwdArgs p{cur,  tau,  rho,  v0,  a0,  spikes, gs,   gvT,
-                      gaT,  ubuf, abuf, gc,  gtau, grho,  gv0,  ga0,
-                      T,    B,    N,    v_th, beta, alpha, surrogate};
   const int64_t lanes = (int64_t)B * N;
-  const cudaStream_t st = (cudaStream_t)stream;
-  // pass 1 copies the current, pass 2 the u scratch, 16 bytes a thread
-  const bool vec = lane_vec(cur, lanes) && lane_vec(ubuf, lanes);
-  return vec ? launch_lane_scan<32, 4>(alif_bwd_kernel<32, true>, lanes,
-                                      stages, st, p)
-             : launch_lane_scan<32, 4>(alif_bwd_kernel<32, false>, lanes,
-                                      stages, st, p);
+  const bool vec = lanes % 4 == 0 &&
+                   ((uintptr_t)cur | (uintptr_t)spikes | (uintptr_t)gs |
+                    (uintptr_t)gc) % 16 == 0;
+  const AlifBwdArgs p{cur,  tau,  rho,   v0,   a0,   spikes, gs,   gvT,
+                      gaT,  ckpt, part,  count, gc,  gtau,   grho, gv0,
+                      ga0,  T,    B,     N,    v_th, beta,   alpha, surrogate,
+                      vec};
+  // the planes' dynamic shared memory is 48 KB at SEG = 64; with the
+  // kernel's static `last` that takes the opt-in
+  const cudaError_t e = cudaFuncSetAttribute(
+      alif_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t blocks = (lanes + 31) / 32;
+  alif_bwd_kernel<<<(unsigned)blocks, THREADS, SMEM, (cudaStream_t)stream>>>(
+      p);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

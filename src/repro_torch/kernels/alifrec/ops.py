@@ -13,7 +13,7 @@ VJPs): the backward is `csrc/alif_bwd.cu`'s `alif_bwd_f32` and
 `csrc/rec_bwd.cu`'s `alifrec_bwd_f32` on CUDA tensors (`alif_bwd_cuda`,
 `alifrec_bwd_cuda`; counted as `alif_bwd`, `alifrec_bwd`), the plain
 `alif_scan_bwd_ref` and `alifrec_scan_bwd_ref` on CPU tensors; the
-recurrent g_W is `spikemm`'s product (`lifrec.ops.rec_g_w`).
+recurrent g_W is spikemm's weight gradient (`lifrec.ops.rec_g_w`).
 
 The recurrent kernels take one of the two routes of `csrc/rec_scan.cuh`
 (and of `rec_bwd.cu`) by the row's width, `common.rec_route(N)` (a warp a
@@ -34,7 +34,8 @@ from repro_torch.kernels.alifrec.ref import (alif_scan_bwd_ref,
                                              alifrec_scan_ref)
 from repro_torch.kernels.common import (REC_WARP, check_planes, check_scan,
                                         count_rec_launch, lane_plan,
-                                        optional_ptr, rec_route, sm_count)
+                                        optional_ptr, rec_route, sm_count,
+                                        zeroed_counters)
 from repro_torch.kernels.lif.ops import kernel_surrogate
 from repro_torch.kernels.lifrec.ops import rec_g_w
 
@@ -128,33 +129,49 @@ def alif_bwd_cuda(current: torch.Tensor, tau: torch.Tensor,
                   need_rho: bool = True, need_v0: bool = True,
                   need_a0: bool = True):
     """Launch `csrc/alif_bwd.cu` on CUDA tensors: `alif_scan_bwd_ref`'s
-    (g_current, g_tau, g_rho, g_v0, g_a0), None where not needed, the
-    per-lane g_tau and g_rho partials summed over B here."""
+    (g_current, g_tau, g_rho, g_v0, g_a0), None where not needed, g_tau
+    and g_rho summed over B by the kernel (in ascending b, as the plain
+    version sums them). One launch: a call of more than
+    `_build.ALIF_BWD_SEG` steps hands it a checkpoint scratch of
+    (segments, 2, B, N), and g_tau or g_rho a (2, B, N) scratch of
+    per-lane partials and a zeroed counter of the stream."""
     sur = kernel_surrogate("alif_bwd", surrogate)
     check_scan("alif_bwd", current, None, [("tau", tau), ("rho", rho)],
                [("v0", v0), ("a0", a0), ("g_vT", g_vT), ("g_aT", g_aT)])
     check_planes("alif_bwd", current, [("spikes", spikes),
                                        ("g_spikes", g_spikes)])
     T, B, N = current.shape
-    g_cur, g_tau, g_rho, g_v0, g_a0 = _bwd_outputs(
-        current, v0, a0, need_tau, need_rho, need_v0, need_a0)
+    g_cur = torch.empty_like(current)
+    g_tau, g_rho = (torch.empty_like(tau) if need else None
+                    for need in (need_tau, need_rho))
+    g_v0 = torch.empty_like(v0) if need_v0 else None
+    g_a0 = torch.empty_like(a0) if need_a0 else None
     if T == 0 or v0.numel() == 0:
-        return _bwd_empty(g_cur, g_tau, g_rho, g_v0, g_a0, g_vT, g_aT)
-    u, ap = torch.empty_like(current), torch.empty_like(current)
-    stages = lane_plan(B * N, T, sm_count(current.device))[2]
+        return (g_cur, None if g_tau is None else g_tau.zero_(),
+                None if g_rho is None else g_rho.zero_(),
+                None if g_v0 is None else g_v0.copy_(g_vT),
+                None if g_a0 is None else g_a0.copy_(g_aT))
+    segs = -(-T // _build.ALIF_BWD_SEG)
+    ckpt = (torch.empty((segs, 2, B, N), dtype=torch.float32,
+                        device=current.device) if segs > 1 else None)
     with torch.cuda.device(current.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        part = count = None
+        if need_tau or need_rho:
+            part = torch.empty((2, B, N), dtype=torch.float32,
+                               device=current.device)
+            count = zeroed_counters(current.device, stream, 1)
         code = _build.library().alif_bwd_f32(
             current.data_ptr(), tau.data_ptr(), rho.data_ptr(),
             v0.data_ptr(), a0.data_ptr(), spikes.data_ptr(),
             g_spikes.data_ptr(), g_vT.data_ptr(), g_aT.data_ptr(),
-            u.data_ptr(), ap.data_ptr(), g_cur.data_ptr(),
-            optional_ptr(g_tau), optional_ptr(g_rho), optional_ptr(g_v0),
-            optional_ptr(g_a0), T, B, N, float(v_th), float(beta), sur,
-            float(alpha), stages,
-            torch.cuda.current_stream().cuda_stream)
+            optional_ptr(ckpt), optional_ptr(part), optional_ptr(count),
+            g_cur.data_ptr(), optional_ptr(g_tau), optional_ptr(g_rho),
+            optional_ptr(g_v0), optional_ptr(g_a0), T, B, N, float(v_th),
+            float(beta), sur, float(alpha), stream)
     _build.check("alif_bwd", code)
     alif_bwd_cuda.launches += 1
-    return (g_cur, *_sum_partials(g_tau, g_rho), g_v0, g_a0)
+    return g_cur, g_tau, g_rho, g_v0, g_a0
 
 
 def alifrec_bwd_cuda(current: torch.Tensor, w_rec: torch.Tensor,

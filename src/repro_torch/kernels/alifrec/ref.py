@@ -24,7 +24,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.lifrec.ref import (recurrent_current,
-                                            scan_bwd_core)
+                                            scan_bwd_core,
+                                            sum_rows_ascending)
 
 
 def _scan(current: torch.Tensor, w_rec: Optional[torch.Tensor],
@@ -81,11 +82,13 @@ def alif_scan_bwd_ref(current: torch.Tensor, tau: torch.Tensor,
                       need_v0: bool = True, need_a0: bool = True):
     """The VJP of `alif_scan_ref` (`scan_bwd_core`): (g_current
     (T, B, N), g_tau (N,), g_rho (N,), g_v0 (B, N), g_a0 (B, N)), None
-    where not needed."""
+    where not needed; g_tau and g_rho summed over B in ascending order
+    (`sum_rows_ascending`), as `csrc/alif_bwd.cu` sums them."""
     return scan_bwd_core(current, None, tau, rho, v0, a0, None, spikes,
                          g_spikes, g_vT, g_aT, v_th, beta, surrogate, alpha,
                          need_tau=need_tau, need_rho=need_rho,
-                         need_v0=need_v0, need_a0=need_a0)[:5]
+                         need_v0=need_v0, need_a0=need_a0,
+                         sum_b=sum_rows_ascending)[:5]
 
 
 def alifrec_scan_bwd_ref(current: torch.Tensor, w_rec: torch.Tensor,

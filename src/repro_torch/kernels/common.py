@@ -8,7 +8,7 @@ the package continues on the CPU behind the caller's back.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -198,6 +198,25 @@ def w_in_smem(n: int, backward: bool = False) -> bool:
     return bool(code)
 
 
+# zeroed int32 counters for each (device, stream): a kernel whose last CTA
+# to finish combines the others' partials (`spikemm_wgrad`, `alif_bwd`)
+# counts its CTAs on them and sets them back to 0 before it ends, so the
+# kernels of one stream, which run one after another, share them
+_COUNTERS: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
+
+
+def zeroed_counters(device: torch.device, stream: int,
+                    n: int) -> torch.Tensor:
+    """At least n int32 counters at 0 on `device` for kernels launched on
+    `stream`; allocated (and zeroed) once, grown for a larger n."""
+    key = (device.index, stream)
+    have = _COUNTERS.get(key)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = have
+    return have
+
+
 def optional_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """A tensor's data pointer, or None (a null pointer for the C entry
     points) for an output that is not asked for."""
@@ -226,6 +245,7 @@ __all__ = ["resolve_device", "check_device", "check_scan", "check_planes",
            "check_raster", "refuse_grad",
            "check_matmul", "sm_count", "MAX_WARPS", "lane_plan", "rec_route",
            "rec_route_launch_counts", "REC_WARP", "REC_BLOCK",
-           "REC_WARP_MAX_N", "w_in_smem", "optional_ptr", "tree_to",
+           "REC_WARP_MAX_N", "w_in_smem", "zeroed_counters", "optional_ptr",
+           "tree_to",
            "pad_axis",
            "DeviceLike"]

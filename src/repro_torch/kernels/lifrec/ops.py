@@ -8,8 +8,8 @@ v0, s0) through `_LifRecScan` (STBP, as the JAX package's custom VJP):
 the backward is `csrc/rec_bwd.cu`'s `lifrec_bwd_f32` kernel on CUDA
 tensors (`lifrec_bwd_cuda`, its own launch counter, listed as
 `lifrec_bwd`) and `lifrec_scan_bwd_ref` on CPU tensors, and g_W, the
-spike product sum_t s_{t-1}^T Gu_t, goes to `spikemm`'s dispatch on the
-transposed, one-step-shifted raster (`rec_g_w`).
+spike product sum_t s_{t-1}^T Gu_t, goes to spikemm's weight gradient on
+the one-step-shifted raster (`rec_g_w`).
 
 The kernels take one of the two routes of `csrc/rec_scan.cuh` (and of
 `rec_bwd.cu`) by the row's width, `common.rec_route(N)` (a warp a batch
@@ -28,6 +28,7 @@ from repro_torch.kernels.common import (REC_WARP, check_planes, check_scan,
                                         count_rec_launch, optional_ptr,
                                         rec_route)
 from repro_torch.kernels.lif.ops import kernel_surrogate
+from repro_torch.kernels.spikemm.ops import spikemm_g_w
 from repro_torch.kernels.lifrec.ref import (lifrec_scan_bwd_ref,
                                             lifrec_scan_ref)
 
@@ -104,16 +105,17 @@ def lifrec_bwd_cuda(current: torch.Tensor, w_rec: torch.Tensor,
 
 def rec_g_w(s0: torch.Tensor, spikes: torch.Tensor,
             gu: torch.Tensor) -> torch.Tensor:
-    """g_W = sum_t s_{t-1}^T Gu_t of a self-recurrent scan, the spike
-    product on the (N, T * B) transposed, one-step-shifted raster
-    [s0; s_0 .. s_{T-2}] through `spikemm`'s dispatch (its dense kernel
-    or its sparse channel on the card, the plain product on the CPU)."""
+    """g_W = sum_t s_{t-1}^T Gu_t of a self-recurrent scan: spikemm's
+    weight gradient (`spikemm_g_w`) on the (T * B, N) one-step-shifted
+    raster [s0; s_0 .. s_{T-2}], handed over as s0 (`head`) and the spikes
+    plane, with no `cat` and no transposed copy (on the card
+    `csrc/spikemm_wgrad.cu` reads both where they lie; the plain product
+    on the CPU)."""
     T, B, N = spikes.shape
     if T == 0:
         return torch.zeros((N, N), dtype=gu.dtype, device=gu.device)
-    shifted = torch.cat([s0[None].to(spikes.dtype), spikes[:-1]])
-    raster = shifted.reshape(T * B, N).t().contiguous()
-    return registry.dispatch("spikemm", (raster, gu.reshape(T * B, N)))
+    return spikemm_g_w(spikes.reshape(T * B, N), gu.reshape(T * B, N),
+                       head=s0.to(spikes.dtype).contiguous())
 
 
 class _LifRecScan(torch.autograd.Function):

@@ -36,6 +36,18 @@ def recurrent_current(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return rec
 
 
+def sum_rows_ascending(x: torch.Tensor) -> torch.Tensor:
+    """x (B, N) summed over B as ((x[0] + x[1]) + x[2]) + ..., one rounded
+    add a row in ascending order: the order of `csrc/alif_bwd.cu`'s
+    in-kernel sums over B (zeros for B = 0)."""
+    if x.shape[0] == 0:
+        return torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
+    out = x[0]
+    for b in range(1, x.shape[0]):
+        out = out + x[b]
+    return out
+
+
 def lifrec_scan_ref(current: torch.Tensor, w_rec: torch.Tensor,
                     tau: torch.Tensor, v0: torch.Tensor, s0: torch.Tensor,
                     v_th: float = 1.0):
@@ -81,7 +93,8 @@ def scan_bwd_core(current: torch.Tensor, w_rec: Optional[torch.Tensor],
                   g_aT: Optional[torch.Tensor], v_th: float, beta: float,
                   surrogate: str, alpha: float, need_tau: bool = True,
                   need_rho: bool = True, need_v0: bool = True,
-                  need_a0: bool = True, need_s0: bool = True):
+                  need_a0: bool = True, need_s0: bool = True,
+                  sum_b=None):
     """The VJP of the hard-reset LIF scan with a surrogate spike gradient
     (STBP): recurrent where `w_rec` is given, adaptive (ALIF) where `rho`
     is. Returns (g_current, g_tau, g_rho, g_v0, g_a0, g_s0), None where the
@@ -99,9 +112,10 @@ def scan_bwd_core(current: torch.Tensor, w_rec: Optional[torch.Tensor],
       Gv    <- tau Gu;  Ga <- rho Ga - beta Sig
     g_current = Gu, g_v0 = Gv and g_a0 = Ga after t = 0, g_s0 = sum_k
     Gu_0[k] W[j, k]; g_tau sums Gu_t v_{t-1} and g_rho Ga_t a_{t-1} per
-    lane in descending t, then over B (`.sum(0)`). Every step is one
-    rounded fp32 operation, the order of the kernels, which equal this
-    bit for bit."""
+    lane in descending t, then over B with `sum_b` (default `.sum(0)`, the
+    wrappers' of `rec_bwd.cu`; `alif` passes `sum_rows_ascending`, its
+    kernel's). Every step is one rounded fp32 operation, the order of the
+    kernels, which equal this bit for bit."""
     from repro_torch.core.surrogate import surrogate_grad
 
     adapt = rho is not None
@@ -152,9 +166,10 @@ def scan_bwd_core(current: torch.Tensor, w_rec: Optional[torch.Tensor],
     if w32 is not None and need_s0:
         g_s0 = (recurrent_adjoint(gu, w32) if T
                 else torch.zeros_like(gv)).to(s0.dtype)
+    sum_b = sum_b or (lambda x: x.sum(0))
     return (g_cur.to(current.dtype),
-            g_tau.sum(0).to(tau.dtype) if need_tau else None,
-            g_rho.sum(0).to(rho.dtype) if adapt and need_rho else None,
+            sum_b(g_tau).to(tau.dtype) if need_tau else None,
+            sum_b(g_rho).to(rho.dtype) if adapt and need_rho else None,
             gv.to(v0.dtype) if need_v0 else None,
             ga.to(a0.dtype) if adapt and need_a0 else None,
             g_s0)

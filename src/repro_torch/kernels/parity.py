@@ -12,8 +12,8 @@ version on the same inputs, on
     `linrec`, `lifrec`, `alif`, `alifrec`, `spikemm`) that is its
     autograd.Function run on the CUDA forward and backward against the
     same Function on the plain forward and backward (`spikemm`'s
-    backward is its own product: each channel
-    computes its g_w with itself); `attention`'s CUDA wrapper is
+    backward pair is its weight-gradient kernel, under each channel's
+    forward); `attention`'s CUDA wrapper is
     differentiable itself and is held against autograd through its plain
     version.
 

@@ -5,13 +5,12 @@ its plain PyTorch version, its CUDA wrapper, a `make_inputs` for parity
 checks, the tolerance its parity is held to and, for a differentiable
 family, the arguments whose gradients `parity.py` compares, its backward
 pair (`bwd`: plain and CUDA, where the gradient is a kernel of its own:
-`lif`, `linrec`, `lifrec`, `alif`, `alifrec`) and
-`vjp(fwd, bwd, *args, **static)`, its
+`lif`, `linrec`, `lifrec`, `alif`, `alifrec`, and `spikemm`'s weight
+gradient) and `vjp(fwd, bwd, *args, **static)`, its
 `torch.autograd.Function` run on a given forward and backward, so that
 the parity harness can hold the CUDA pair against the plain pair. The
 public entries run the same Function with the implementations chosen by
-device (`dispatch`, `dispatch_bwd`). `spikemm`'s gradient is its own
-product on the transposed raster, so it has a `vjp` and no `bwd`.
+device (`dispatch`, `dispatch_bwd`).
 
 Dispatch goes by the device of the tensors, and by nothing else: tensors
 on the CPU run the plain version, tensors on a CUDA device launch the hand
@@ -34,7 +33,8 @@ Each CUDA wrapper keeps a plain integer count of its launches
 (`wrapper.launches`), which `launch_counts()` reads and `reset_launches()`
 zeroes, so a run can show that it went through the kernels. A channel's
 wrapper counts on its own, listed as `<family>_<channel>`, and so does a
-backward kernel's, as `<family>_bwd`.
+backward kernel's, as `<family>_bwd` or its spec's `bwd_name`
+(`spikemm_wgrad`).
 """
 
 from __future__ import annotations
@@ -72,8 +72,10 @@ class KernelSpec:
     diff_argnums: Tuple[int, ...] = ()
     # the backward pair: bwd.plain / bwd.cuda(*saved, *cotangents, **static)
     bwd: Optional[Channel] = None
+    # its launch counter's name in `launch_counts()` (default <name>_bwd)
+    bwd_name: Optional[str] = None
     # vjp(fwd, bwd, *args, **static): the family's autograd.Function with
-    # `fwd` forward and `bwd` backward (for spikemm: its g_w product)
+    # `fwd` forward and `bwd` backward
     vjp: Optional[Callable[..., Any]] = None
     # named alternative channels and the router that picks one per call:
     # select_channel(*args, traced=...) -> (a key of `channels` or None for
@@ -89,7 +91,7 @@ class KernelSpec:
         out.update({f"{self.name}_{k}": c.cuda
                     for k, c in sorted(self.channels.items())})
         if self.bwd is not None:
-            out[f"{self.name}_bwd"] = self.bwd.cuda
+            out[self.bwd_name or f"{self.name}_bwd"] = self.bwd.cuda
         return out
 
 

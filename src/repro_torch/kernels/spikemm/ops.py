@@ -39,11 +39,18 @@ crossovers were timed on the CPU.
 dispatch, both channels, as the JAX package's custom VJP wraps its
 router (its sparse channel has no VJP of its own):
 
-  * g_w = spikes^T @ g is event-gated by the same raster, so it is this
-    product again, `spikemm(spikes.T.contiguous(), g.contiguous())`
-    through the same dispatch: `csrc/spikemm.cu`, or, where the
-    transposed raster routes sparse, `csrc/spikemm_sparse.cu` (under
-    `auto` the (K, M) raster is routed afresh, one 4-byte host read);
+  * g_w = spikes^T @ g goes to `spikemm_g_w`. Under `auto` and `never` it
+    is the family's backward pair (`registry.dispatch_bwd`): on the card
+    `csrc/spikemm_wgrad.cu` (`wgrad.py`, counted as `spikemm_wgrad`), its
+    own kernel for this product, reading the raster and g as they are
+    (no transposed copy), its reduction split into chunks of
+    `wgrad_chunk(R, K, N)` rows; with no occupancy launch and no host
+    read. On the CPU the plain product `spikemm_wgrad_ref`. Under
+    `always` it is the spike product on the transposed raster through
+    the sparse channel, which that setting pins
+    (`csrc/spikemm_sparse.cu` on the card). The recurrent g_W
+    (`lifrec.ops.rec_g_w`) takes the same route, its one-step-shifted
+    raster given as s0 and the spikes plane (`head`), not concatenated.
   * g_spikes = g @ w^T is a plain dense product (`torch.matmul`, as the
     JAX package's `jnp.dot` outside any Pallas kernel), computed only
     where the raster needs a gradient: an input layer's never does.
@@ -59,10 +66,14 @@ import torch
 
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.common import check_matmul, sm_count
-from repro_torch.kernels.spikemm.ref import spikemm_chain_ref, spikemm_ref
+from repro_torch.kernels.spikemm.ref import (shifted_raster,
+                                             spikemm_chain_ref, spikemm_ref,
+                                             spikemm_wgrad_chain_ref,
+                                             spikemm_wgrad_ref)
 from repro_torch.kernels.spikemm.sparse import (block_occupancy, occupancy,
                                                 spikemm_sparse_cuda,
                                                 spikemm_sparse_ref)
+from repro_torch.kernels.spikemm.wgrad import spikemm_wgrad_cuda, wgrad_chunk
 
 _ENV_SPARSE = "REPRO_SPIKEMM_SPARSE"
 _SPARSE_THRESHOLD_DEFAULT = 0.25
@@ -110,6 +121,15 @@ def sparse_threshold() -> float:
     return _SPARSE_THRESHOLD_DEFAULT
 
 
+def _mode() -> str:
+    """`REPRO_SPIKEMM_SPARSE`: never, auto (the default) or always."""
+    mode = os.environ.get(_ENV_SPARSE, "auto")
+    if mode not in ("never", "auto", "always"):
+        raise ValueError(f"{_ENV_SPARSE}={mode!r}: "
+                         "expected 'never', 'auto', or 'always'")
+    return mode
+
+
 def _select_channel(spikes: torch.Tensor, w: torch.Tensor, *,
                     traced: bool = False
                     ) -> Tuple[Optional[str], Dict[str, torch.Tensor]]:
@@ -117,10 +137,7 @@ def _select_channel(spikes: torch.Tensor, w: torch.Tensor, *,
     occupancy threshold, (None, {}) (dense) above it. Under `auto` the
     occupancy is measured once (on the card: its kernel, then one read of
     the count) and the kwargs carry the flags measured to decide."""
-    mode = os.environ.get(_ENV_SPARSE, "auto")
-    if mode not in ("never", "auto", "always"):
-        raise ValueError(f"{_ENV_SPARSE}={mode!r}: "
-                         "expected 'never', 'auto', or 'always'")
+    mode = _mode()
     if mode == "never":
         return None, {}
     if mode == "always":
@@ -152,15 +169,30 @@ def spikemm_cuda(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def spikemm_g_w(spikes: torch.Tensor, g: torch.Tensor,
+                head: Optional[torch.Tensor] = None, *,
+                traced: bool = False) -> torch.Tensor:
+    """spikemm's weight gradient raster^T @ g, routed (see the module
+    docstring): the raster's R = g.shape[0] rows are `head`'s, then
+    `spikes`' (`shifted_raster`). Under `always` the sparse channel on the
+    transposed raster; else the backward pair, `spikemm_wgrad_cuda` on the
+    card, with no occupancy measure and no host read."""
+    if _mode() == "always":
+        raster = shifted_raster(spikes, g.shape[0], head)
+        return registry.dispatch("spikemm", (raster.t().contiguous(), g),
+                                 traced=traced)
+    return registry.dispatch_bwd("spikemm", (spikes, g), head=head)
+
+
 class _SpikeMM(torch.autograd.Function):
-    """`fwd` forward and `fwd` again for g_w: the routed dispatch (None),
-    or a channel's implementation the parity harness holds against
-    another."""
+    """`fwd` forward and `bwd` for g_w: the routed dispatch and
+    `spikemm_g_w` (both None), or a channel's implementation and the
+    backward pair the parity harness holds against another."""
 
     @staticmethod
-    def forward(ctx, spikes, w, traced, fwd):
+    def forward(ctx, spikes, w, traced, fwd, bwd):
         ctx.save_for_backward(spikes, w)
-        ctx.traced, ctx.fwd = traced, fwd
+        ctx.traced, ctx.fwd, ctx.bwd = traced, fwd, bwd
         if fwd is None:
             return registry.dispatch("spikemm", (spikes, w), traced=traced)
         return fwd(spikes, w)
@@ -173,10 +205,10 @@ class _SpikeMM(torch.autograd.Function):
                if need_s else None)
         g_w = None
         if need_w:
-            args = (spikes.t().contiguous(), g.contiguous())
-            g_w = (registry.dispatch("spikemm", args, traced=ctx.traced)
-                   if ctx.fwd is None else ctx.fwd(*args)).to(w.dtype)
-        return g_s, g_w, None, None
+            g = g.contiguous()
+            g_w = (spikemm_g_w(spikes, g, traced=ctx.traced)
+                   if ctx.bwd is None else ctx.bwd(spikes, g)).to(w.dtype)
+        return g_s, g_w, None, None, None
 
 
 def spikemm(spikes: torch.Tensor, w: torch.Tensor, *,
@@ -185,12 +217,11 @@ def spikemm(spikes: torch.Tensor, w: torch.Tensor, *,
 
     `_traced=True` routes `auto` dense, as the JAX package routes a traced
     raster (see the module docstring). Differentiable in both."""
-    return _SpikeMM.apply(spikes, w, _traced, None)
+    return _SpikeMM.apply(spikes, w, _traced, None, None)
 
 
 def _vjp(fwd, bwd, spikes, w):
-    # spikemm's backward is its own product: `bwd` is `fwd`
-    return _SpikeMM.apply(spikes, w, False, fwd)
+    return _SpikeMM.apply(spikes, w, False, fwd, bwd)
 
 
 def _make_inputs(generator: torch.Generator):
@@ -203,11 +234,15 @@ def _make_inputs(generator: torch.Generator):
 registry.register(registry.KernelSpec(
     name="spikemm", plain=spikemm_ref, cuda=spikemm_cuda,
     make_inputs=_make_inputs, tol=1e-4, diff_argnums=(0, 1), vjp=_vjp,
+    bwd=registry.Channel(plain=spikemm_wgrad_ref, cuda=spikemm_wgrad_cuda),
+    bwd_name="spikemm_wgrad",
     channels={"sparse": registry.Channel(plain=spikemm_sparse_ref,
                                          cuda=spikemm_sparse_cuda)},
     select_channel=_select_channel))
 
 __all__ = ["spikemm", "spikemm_cuda", "spikemm_ref", "spikemm_chain_ref",
+           "spikemm_g_w", "spikemm_wgrad_cuda", "spikemm_wgrad_ref",
+           "spikemm_wgrad_chain_ref", "wgrad_chunk",
            "block_occupancy", "col_tile", "rows_per_cta",
            "occupancy_fraction", "sparse_threshold", "spikemm_sparse_cuda",
            "spikemm_sparse_ref"]

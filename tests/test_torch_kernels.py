@@ -794,7 +794,8 @@ def test_registry_make_inputs_run_plain_on_cpu():
     assert registry.launch_counts() == {
         n: 0 for n in registry.names() + ("spikemm_sparse", "lif_bwd",
                                           "linrec_bwd", "lifrec_bwd",
-                                          "alif_bwd", "alifrec_bwd")}
+                                          "alif_bwd", "alifrec_bwd",
+                                          "spikemm_wgrad")}
 
 
 def test_dispatch_rejects_mixed_devices():

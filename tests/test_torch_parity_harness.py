@@ -122,9 +122,10 @@ def test_check_vjp_false_skips_the_gradients(stand_in):
 def test_names_and_diff_argnums():
     """`attention` is registered; it, `lif`, `linrec`, `spikemm`,
     `lifrec`, `alif` and `alifrec` are the differentiable families,
-    with the JAX specs' `diff_argnums`; the five scans carry a backward
-    pair of their own; the gather's backward waits for B6, the STDP
-    kernels have none (the learning pass stays out of the graph)."""
+    with the JAX specs' `diff_argnums`; the five scans and spikemm (its
+    weight gradient, counted as `spikemm_wgrad`) carry a backward pair of
+    their own; the gather's backward waits for B6, the STDP kernels have
+    none (the learning pass stays out of the graph)."""
     names = registry.names()
     assert "attention" in names and len(names) == 10
     assert {n: registry.get(n).diff_argnums for n in names
@@ -133,7 +134,9 @@ def test_names_and_diff_argnums():
         "spikemm": (0, 1), "lifrec": (0, 1, 2, 3, 4),
         "alif": (0, 1, 2, 3, 4), "alifrec": (0, 1, 2, 3, 4, 5, 6)}
     assert {n for n in names if registry.get(n).bwd is not None} == {
-        "lif", "linrec", "lifrec", "alif", "alifrec"}
+        "lif", "linrec", "lifrec", "alif", "alifrec", "spikemm"}
+    assert registry.get("spikemm").bwd_name == "spikemm_wgrad"
+    assert "spikemm_wgrad" in registry.launch_counts()
 
 
 def test_loss_matches_the_jax_harness():

@@ -203,24 +203,31 @@ def test_spikemm_vjp_matches_jax(mode, raster, monkeypatch):
 
 def test_spikemm_input_raster_gets_no_gradient(monkeypatch):
     """g_w alone where the raster needs no gradient (an input layer's):
-    the dense g_spikes product is skipped, and g_w is the spike product
-    again on the transposed raster."""
-    calls = []
+    the dense g_spikes product is skipped, and g_w goes to spikemm's
+    backward pair (its weight-gradient kernel on the card), handed the
+    raster as it is, untransposed."""
+    calls, g_w_calls = [], []
     spec = registry.get("spikemm")
-    real = spec.plain
+    real, real_bwd = spec.plain, spec.bwd.plain
 
     def counting(s, w):
         calls.append((tuple(s.shape), tuple(w.shape)))
         return real(s, w)
+
+    def counting_bwd(s, g, head=None):
+        g_w_calls.append((tuple(s.shape), tuple(g.shape), head))
+        return real_bwd(s, g, head=head)
     monkeypatch.setattr(registry, "_REGISTRY", {
         **registry._REGISTRY, "spikemm": dataclasses.replace(
-            spec, plain=counting)})
+            spec, plain=counting, bwd=dataclasses.replace(
+                spec.bwd, plain=counting_bwd))})
     monkeypatch.setenv("REPRO_SPIKEMM_SPARSE", "never")
     s = (torch.rand(12, 7, generator=torch.Generator().manual_seed(0))
          < 0.3).float()
     w = torch.randn(7, 5, requires_grad=True)
     spikemm(s, w).sum().backward()
-    assert calls == [((12, 7), (7, 5)), ((7, 12), (12, 5))]
+    assert calls == [((12, 7), (7, 5))]
+    assert g_w_calls == [((12, 7), (12, 5), None)]
     assert torch.allclose(w.grad, s.t() @ torch.ones(12, 5))
 
 

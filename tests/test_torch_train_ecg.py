@@ -243,21 +243,30 @@ def test_each_cotangent_alone_is_the_same(op, arg, monkeypatch):
 
 
 def test_recurrent_g_w_goes_through_the_spike_product(monkeypatch):
-    """g_W of a self-recurrent scan is `spikemm`'s product on the (N, T *
-    B) transposed raster shifted one step, [s0; s_0 .. s_{T-2}]: one
-    dispatch, and it is the JAX package's g_W."""
-    calls = []
+    """g_W of a self-recurrent scan is spikemm's weight gradient on the
+    (T * B, N) raster shifted one step, [s0; s_0 .. s_{T-2}], handed over
+    as s0 (`head`) and the spikes plane, not concatenated: one dispatch
+    to spikemm's backward pair and none to its forward, and it is the JAX
+    package's g_W."""
+    calls, g_w_calls = [], []
     spec = registry.get("spikemm")
 
     def counting(s, w, _plain=spec.plain):
         calls.append((tuple(s.shape), tuple(w.shape)))
         return _plain(s, w)
+
+    def counting_bwd(s, g, head=None, _plain=spec.bwd.plain):
+        g_w_calls.append((tuple(s.shape), tuple(g.shape),
+                          None if head is None else tuple(head.shape)))
+        return _plain(s, g, head=head)
     monkeypatch.setattr(registry, "_REGISTRY", {
         **registry._REGISTRY, "spikemm": dataclasses.replace(
-            spec, plain=counting)})
+            spec, plain=counting, bwd=dataclasses.replace(
+                spec.bwd, plain=counting_bwd))})
     monkeypatch.setenv("REPRO_SPIKEMM_SPARSE", "never")
     outs, (g_w,) = _port_vjp("lifrec", 70, "sigmoid", 4.0, wrt=[1])
-    assert calls == [((70, 37 * 3), (37 * 3, 70))]
+    assert calls == []
+    assert g_w_calls == [((37 * 3, 70), (37 * 3, 70), (3, 70))]
     _, grads_j = _jax_vjp("lifrec", 70, "sigmoid", 4.0)
     _close_to_scale(g_w, grads_j[1], "g_w_rec")
 
@@ -680,10 +689,12 @@ def test_alifrec_bwd_wrapper_passes_the_kernel_its_arguments(
 
 
 def test_alif_bwd_wrapper_passes_the_kernel_its_arguments(stand_in_library):
-    """`alif_bwd_cuda` hands `alif_bwd_f32` its planes, two scratch planes,
-    the surrogate index, alpha and `lane_plan`'s stages; sums g_tau and
-    g_rho over B; refuses a surrogate the kernel does not compute."""
-    from repro_torch.kernels import common
+    """`alif_bwd_cuda` hands `alif_bwd_f32` its planes, a checkpoint
+    scratch of (segments, 2, B, N) for a call over one segment, a (2, B,
+    N) scratch of partials and a zeroed counter for g_tau and g_rho (N,),
+    which the kernel sums over B, the surrogate index and alpha; refuses a
+    surrogate the kernel does not compute."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.alifrec import ops
     T, B, N = 250, 64, 64
     cur, s, gs = (torch.zeros((T, B, N)) for _ in range(3))
@@ -695,12 +706,45 @@ def test_alif_bwd_wrapper_passes_the_kernel_its_arguments(stand_in_library):
     (call,) = stand_in_library.alif_bwd_f32.call_args_list
     a = call.args
     assert a[:9] == _ptrs(cur, tau, rho, v0, a0, s, gs, gv, ga)
-    assert a[11] == g_cur.data_ptr() and a[13] is None
-    assert a[14] == g_v0.data_ptr() and a[15] == g_a0.data_ptr()
-    assert a[16:24] == (T, B, N, 1.0, 0.5, SURROGATES.index("triangle"), 2.0,
-                        common.lane_plan(B * N, T, 132)[2])
+    assert T > _build.ALIF_BWD_SEG and a[9] is not None
+    assert a[10] is not None and a[11] is not None
+    assert a[12] == g_cur.data_ptr() and a[13] == g_tau.data_ptr()
+    assert a[14] is None
+    assert a[15] == g_v0.data_ptr() and a[16] == g_a0.data_ptr()
+    assert a[17:] == (T, B, N, 1.0, 0.5, SURROGATES.index("triangle"), 2.0,
+                      0)
     assert g_tau.shape == (N,) and g_rho is None
     assert registry.launch_counts()["alif_bwd"] == 1
     with pytest.raises(ValueError, match="unknown surrogate"):
         ops.alif_bwd_cuda(cur, tau, rho, v0, a0, s, gs, gv, ga, 1.0, 0.5,
                           "nope")
+
+
+@pytest.mark.parametrize("T", (1, 60, 64, 65, 200))
+def test_alif_bwd_checkpoints_only_past_one_segment(stand_in_library, T):
+    """The checkpoint scratch exists only for a call of more than one
+    segment, and then holds a (v, a) pair a segment and lane; beside it
+    only the (2, B, N) partials of g_tau and g_rho are allocated for the
+    kernel (no (T, B, N) scratch plane)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.alifrec import ops
+    B, N = 48, 64
+    cur, s, gs = (torch.zeros((T, B, N)) for _ in range(3))
+    tau, rho = torch.ones(N), torch.ones(N)
+    v0, a0, gv, ga = (torch.zeros((B, N)) for _ in range(4))
+    sizes = []
+    real = torch.empty
+
+    def empty(*shape, **kw):
+        sizes.append(tuple(shape[0]) if len(shape) == 1 else shape)
+        return real(*shape, **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "empty", empty)
+        ops.alif_bwd_cuda(cur, tau, rho, v0, a0, s, gs, gv, ga, 1.0, 0.5,
+                          "sigmoid", 4.0)
+    (call,) = stand_in_library.alif_bwd_f32.call_args_list
+    segs = -(-T // _build.ALIF_BWD_SEG)
+    assert (call.args[9] is None) == (segs == 1)
+    assert sizes == ([] if segs == 1 else [(segs, 2, B, N)]) + [(2, B, N)]
+
+

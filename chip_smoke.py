@@ -115,14 +115,18 @@ tree the same way, so two trees compare in one call.
             256) and the readout (60, 48, 20)), `lif_bwd` with every
             surrogate at alpha 0.5, 1, 2 and both resets at the JAX tests'
             (37, 3, 130), and at (20, 3, 130), T = 1, T = 0 and ragged
-            (17, 1, 33), (5, 3, 7); `linrec_bwd` at (24, 3, 136), (37, 3,
+            (17, 1, 33), (5, 3, 7), and across the segments of its lane
+            backward (T = SEG - 1, SEG, SEG + 1, 2 SEG + 5 and 300 at the
+            soma's 48 x 64 lanes and ragged 1 x 33, 3 x 7, 3 x 130, every
+            surrogate, both resets, alpha 2), and one launch a call (the
+            profiler sees one kernel and no PyTorch op after it);
+            `linrec_bwd` at (24, 3, 136), (37, 3,
             136), T = 1, T = 0 and (17, 1, 33) with a full and a stride-0
             decay, asked for every gradient, for g_x alone and for g_a
             and g_x: each bit for bit its plain version as fp32 bit
             patterns (sigmoid: rtol 1e-6, atol 1e-7, its expf), and
             `linrec_bwd`'s gx also equal to the forward kernel run on the
-            flipped, one-shifted decay; the u scratch's bound printed
-            beside `lif_bwd`'s; `spikemm_wgrad` (B3) at every g_w call
+            flipped, one-shifted decay; `spikemm_wgrad` (B3) at every g_w call
             of one step of the three training paths (train_shd's
             (700, 2880) @ (2880, 256) and (64, 2880) @ (2880, 20),
             train_ecg's (4, 3200) @ (3200, 64), the recurrent
@@ -162,15 +166,16 @@ tree the same way, so two trees compare in one call.
             `lifrec_bwd` and `alifrec_bwd` the chain floor (T x N adds
             of an assumed 4 cycles at the card's highest SM clock,
             `nvidia-smi`'s clocks.max.sm), and their cycles by pass
-            at train_ecg's call, `alif_bwd`'s by phase (load, forward,
-            surrogate, reverse, store, the sums over B) at
-            train_alif_ff's, and `spikemm_wgrad`'s by phase (waits,
-            copies' issue, products, the cluster barrier, the combine;
-            the steps computed) at each training g_w (a build of
-            `rec_bwd.cu`, `alif_bwd.cu` and `spikemm_wgrad.cu` with
-            -DREC_BWD_PASS_CLOCKS, -DALIF_BWD_PASS_CLOCKS and
-            -DWGRAD_PASS_CLOCKS, made beside the library, bit for bit the
-            library's outputs);
+            at train_ecg's call, `alif_bwd`'s and `lif_bwd`'s by phase
+            (load, forward, surrogate, reverse, store, the sums over B) at
+            train_alif_ff's and train_shd's soma call, and
+            `spikemm_wgrad`'s by phase (waits, copies' issue, products,
+            the cluster barrier, the combine; the steps computed) at each
+            training g_w (a build of `rec_bwd.cu`, `alif_bwd.cu`,
+            `lif_bwd.cu` and `spikemm_wgrad.cu` with
+            -DREC_BWD_PASS_CLOCKS, -DALIF_BWD_PASS_CLOCKS,
+            -DLIF_BWD_PASS_CLOCKS and -DWGRAD_PASS_CLOCKS, made beside the
+            library, bit for bit the library's outputs);
             `spikemm` also at the parity harness's inputs, at the
             sparse_integ path's hidden INTEG at each density and at the
             topology_banded path's readout INTEG (64 x 8192 @ 8192 x 8);
@@ -407,9 +412,10 @@ line is the qwen2_32k call. The backward kernels' bytes are the planes
 the function reads and writes once (`lif_bwd`: current, spikes and their
 cotangent in, g_current out, T x B x N each; `linrec_bwd`: g_y, a, and y
 for g_a, in, g_x and g_a out; B4 and B5: every input, cotangent and
-output tensor once), the scratch planes (u, and a_{t-1} for ALIF)
-printed beside; B4 and B5 count their elementwise steps and, recurrent,
-the dense adjoint Gu_{t+1} W^T, 2 * (T + 1) * B * N * N with g_s0. Their
+output tensor once), the recurrent backward's scratch planes (u, and
+a_{t-1} for ALIF) printed beside; B4 and B5 count their elementwise
+steps and, recurrent, the dense adjoint Gu_{t+1} W^T,
+2 * (T + 1) * B * N * N with g_s0. Their
 rows are the dendritic train_shd step's calls (B1, B2), the train_ecg
 step's (B4: the ablation's; B5's `alifrec_bwd`) and the train_alif_ff
 step's (`alif_bwd`), and no single PyTorch call computes a reverse
@@ -594,6 +600,9 @@ BWD_SMEM_W_MAX_N = 240
 # ADAPT: two instantiations), as its mangled name holds it: W's rows in
 # registers, and the build fails if it spills or if not both are found
 REC_BWD_NO_SPILL = r"rec_bwd_row_kernelILb[01]ELi64E"
+# `lif_bwd` at either reset, as its mangled names hold it: the build fails
+# if it spills or if not both are found
+LIF_BWD_NO_SPILL = r"\dlif_bwd_kernelILb[01]EE"
 # an assumed latency of a dependent fp32 add on an H100 SM, in cycles (not
 # measured here): the chain floor of the recurrent backward is T x N such
 # adds (the plain version's order) at the card's highest SM clock
@@ -624,7 +633,7 @@ SOURCES = {
                   "src/repro/kernels/attention/kernel.py:106"),
     # the backward kernels replace the JAX package's custom VJPs (jnp code,
     # no Pallas kernel): B1 and B2
-    "lif_bwd": ("src/repro_torch/csrc/lif.cu",
+    "lif_bwd": ("src/repro_torch/csrc/lif_bwd.cu",
                 "src/repro/kernels/lif/ops.py:78"),
     "linrec_bwd": ("src/repro_torch/csrc/linrec.cu",
                    "src/repro/kernels/linrec/ops.py:63"),
@@ -706,18 +715,25 @@ def phase_build():
     stamped = start_pass_clock_build()    # beside the library's sources
     try:
         lib = _build.build()
+        lib_s = time.perf_counter() - t0
         _build.library()
     except BaseException:
-        stamped[0].kill()
-        stamped[0].wait()
+        for proc, _ in stamped[0]:
+            proc.kill()
+            proc.wait()
         raise
     _PASS_LIB = finish_pass_clock_build(*stamped)
     secs = time.perf_counter() - t0
-    log(f"build: {secs:.1f} s ({len(_build.sources())} sources, one nvcc -c "
-        f"each started together and one link, {lib.parent})")
+    log(f"build: {secs:.1f} s, the library {lib_s:.1f} s "
+        f"({len(_build.sources())} sources, one nvcc -c each started "
+        f"together and one link, {lib.parent}; the clock-stamped "
+        f"{', '.join(PASS_SOURCES)} beside them)")
+    nvcc_s = {}
     for line in (lib.parent / "build.log").read_text().splitlines():
         if line.startswith("== ") and line.endswith(" s)"):
             log("  " + line[3:])             # a source and its nvcc seconds
+            name, secs_s = line[3:-3].split(" (")
+            nvcc_s[name] = float(secs_s)
         elif "Compiling entry function" in line:
             log("  " + line.split("'")[1])
         elif "registers" in line or "bytes stack" in line or "error" in line:
@@ -737,49 +753,71 @@ def phase_build():
                                  "(stores + loads)")
     log(f"build: {len(held)} instantiation(s) of the recurrent backward's "
         "warp route at N = 64, no spill")
-    return secs
+    # lif_bwd keeps its chain's state in registers: no spill either
+    lane = {name: spills for name, spills in ptxas_spills(
+        (lib.parent / "build.log").read_text()).items()
+        if re.search(LIF_BWD_NO_SPILL, name)}
+    if len(lane) != 2 or any(lane.values()):
+        raise AssertionError(f"build: lif_bwd's instantiations {lane} "
+                             "(want its two resets, neither spilling)")
+    log(f"build: nvcc seconds by source {json.dumps(nvcc_s)}; lif_bwd's "
+        f"{len(lane)} instantiations, no spill")
+    return {"build_s": secs, "library_s": lib_s, "nvcc_s": nvcc_s}
 
 
 # the clock-stamped build of `csrc/rec_bwd.cu` (-DREC_BWD_PASS_CLOCKS),
-# `csrc/alif_bwd.cu` (-DALIF_BWD_PASS_CLOCKS) and `csrc/spikemm_wgrad.cu`
-# (-DWGRAD_PASS_CLOCKS), loaded by `phase_build`
+# `csrc/alif_bwd.cu` (-DALIF_BWD_PASS_CLOCKS), `csrc/lif_bwd.cu`
+# (-DLIF_BWD_PASS_CLOCKS) and `csrc/spikemm_wgrad.cu` (-DWGRAD_PASS_CLOCKS),
+# loaded by `phase_build`
 _PASS_LIB = None
 # the backward entry points of the stamped build, and its stamp readers
-PASS_SOURCES = ("rec_bwd.cu", "alif_bwd.cu", "spikemm_wgrad.cu")
+PASS_SOURCES = ("rec_bwd.cu", "alif_bwd.cu", "lif_bwd.cu",
+                "spikemm_wgrad.cu")
 PASS_ENTRIES = ("lifrec_bwd_f32", "alifrec_bwd_f32", "alif_bwd_f32",
-                "spikemm_wgrad_f32")
+                "lif_bwd_f32", "spikemm_wgrad_f32")
 PASS_READERS = ("rec_bwd_pass_clocks", "alif_bwd_pass_clocks",
-                "wgrad_pass_clocks")
+                "lif_bwd_pass_clocks", "wgrad_pass_clocks")
 
 
 def start_pass_clock_build():
     """Start nvcc on `csrc/rec_bwd.cu` with -DREC_BWD_PASS_CLOCKS (the warp
-    route's clock stamps by pass), `csrc/alif_bwd.cu` with
-    -DALIF_BWD_PASS_CLOCKS and `csrc/spikemm_wgrad.cu` with
-    -DWGRAD_PASS_CLOCKS (their cycles by phase) into `build/bwd_passes/`,
-    a shared library of their own; returns (process, library path)."""
+    route's clock stamps by pass), `csrc/alif_bwd.cu`, `csrc/lif_bwd.cu`
+    and `csrc/spikemm_wgrad.cu` with -DALIF_BWD_PASS_CLOCKS,
+    -DLIF_BWD_PASS_CLOCKS and -DWGRAD_PASS_CLOCKS (their cycles by phase):
+    one `nvcc -c` a source, all started together, into `build/bwd_passes/`
+    for a shared library of their own; returns ([(process, source)],
+    objects, library path)."""
     from repro_torch.kernels import _build
     out = _build.BUILD_ROOT.parent / "bwd_passes"
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libbwdpasses.so"
-    proc = subprocess.Popen(
+    objs = [out / f"{Path(src).stem}.o" for src in PASS_SOURCES]
+    procs = [(subprocess.Popen(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-DREC_BWD_PASS_CLOCKS",
-         "-DALIF_BWD_PASS_CLOCKS", "-DWGRAD_PASS_CLOCKS", "-shared",
-         *(str(_build.CSRC / src) for src in PASS_SOURCES), "-o", str(lib)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, lib
+         "-DALIF_BWD_PASS_CLOCKS", "-DLIF_BWD_PASS_CLOCKS",
+         "-DWGRAD_PASS_CLOCKS", "-c", str(_build.CSRC / src), "-o",
+         str(obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True), src) for src, obj in zip(PASS_SOURCES, objs)]
+    return procs, objs, out / "libbwdpasses.so"
 
 
-def finish_pass_clock_build(proc, lib):
-    """Wait for `start_pass_clock_build`'s nvcc; the loaded library, with
-    the backward entry points' signatures, its stamp readers and the
-    package library's error strings (for `_build.check`)."""
+def finish_pass_clock_build(procs, objs, lib):
+    """Wait for `start_pass_clock_build`'s nvcc processes and link their
+    objects; the loaded library, with the backward entry points'
+    signatures, its stamp readers and the package library's error strings
+    (for `_build.check`)."""
     from repro_torch.kernels import _build
-    out = proc.communicate()[0]
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc exited {proc.returncode} building the "
+    for proc, src in procs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc exited {proc.returncode} building the "
+                               f"clock-stamped {src}:\n{out[-3000:]}")
+    link = subprocess.run([_build.nvcc_path(), *_build.LINK_FLAGS,
+                           *map(str, objs), "-o", str(lib)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc exited {link.returncode} linking the "
                            f"clock-stamped {', '.join(PASS_SOURCES)}:\n"
-                           f"{out[-3000:]}")
+                           f"{(link.stdout + link.stderr)[-3000:]}")
     dll = ctypes.CDLL(str(lib))
     for name in PASS_ENTRIES:
         argtypes, restype = _build.SIGNATURES[name]
@@ -2530,6 +2568,11 @@ def phase_kernels(cases):
             kernel_ms = dense_ms = occ_ms = None
             if name == "lif_bwd":
                 kernel_ms = cuda_ms(lif_bwd_alone(args, kw), iters=200)
+                # one launch a call: the kernel and nothing after it
+                ran = device_kernels(lambda: cuda[name](*args, **kw))
+                if len(ran) != 1 or "lif_bwd_kernel" not in ran[0]:
+                    raise AssertionError(f"lif_bwd [{label}]: a call ran "
+                                         f"{ran}, not its one kernel")
             if name == "alif_bwd":
                 kernel_ms = cuda_ms(alif_bwd_alone(args, kw), iters=200)
             if name == "spikemm_sparse":
@@ -2555,8 +2598,7 @@ def phase_kernels(cases):
             # the backward scans' u (and ALIF's a_{t-1}) scratch, written
             # in pass 1 and read in pass 2: not the function's bytes, this
             # design's, printed beside the bound
-            planes = {"lif_bwd": 1, "lifrec_bwd": 1,
-                      "alifrec_bwd": 2}.get(name)
+            planes = {"lifrec_bwd": 1, "alifrec_bwd": 2}.get(name)
             scratch_ms = (None if planes is None else bound(
                 nbytes + 2 * 4 * planes * args[0].numel(), flops)[0])
             T = args[1].shape[0] if name == "linrec" else (
@@ -2667,53 +2709,60 @@ def phase_rec_bwd_passes(cases):
     return out
 
 
-# alif_bwd's phases, in the order of its -DALIF_BWD_PASS_CLOCKS slots
-# (`csrc/alif_bwd.cu`: summed over its segments)
-ALIF_BWD_PHASES = ("load", "forward", "surrogate", "reverse", "store",
-                   "sums")
-ALIF_BWD_SLOTS = 8
+# the lane backward kernels' phases (`lif_bwd`, `alif_bwd`), in the order
+# of their -DLIF_BWD_PASS_CLOCKS / -DALIF_BWD_PASS_CLOCKS slots
+# (`csrc/lane_bwd.cuh`: summed over their segments), and each kernel's
+# home call: its training path's step
+LANE_BWD_PHASES = ("load", "forward", "surrogate", "reverse", "store",
+                   "sums", "cotangent wait")
+LANE_BWD_SLOTS = 8
+LANE_BWD_HOME = {"lif_bwd": "train_shd", "alif_bwd": "train_alif_ff"}
 
 
-def phase_alif_bwd_passes(cases):
-    """Where `alif_bwd` spends its time, by phase: train_alif_ff's
-    captured step call through the wrapper on the clock-stamped build
-    (`phase_build`), its outputs equal to the library's bit for bit. Mean
-    cycles of each phase over the blocks (a stamped call after the
-    timing), the whole kernel's, and the stamped build's own ms."""
+def phase_lane_bwd_passes(cases, name):
+    """Where a lane backward kernel (`lif_bwd`, `alif_bwd`) spends its
+    time, by phase: its training path's captured step call through the
+    wrapper on the clock-stamped build (`phase_build`), its outputs equal
+    to the library's bit for bit. Mean cycles of each phase over the
+    blocks (a stamped call after the timing), the whole kernel's, and the
+    stamped build's own ms."""
     from repro_torch.kernels import _build
     cuda = kernel_impls()[0]
-    case = next(c for c in cases["alif_bwd"] if c.path == "train_alif_ff")
+    case = next(c for c in cases[name] if c.path == LANE_BWD_HOME[name])
     T, B, N = case.args[0].shape
     blocks = -(-B * N // 32)
-    ref = cuda["alif_bwd"](*case.args, **case.kw)
+    ref = cuda[name](*case.args, **case.kw)
     package = _build.library
     _build.library = lambda: _PASS_LIB
     try:
-        ms = cuda_ms(lambda: cuda["alif_bwd"](*case.args, **case.kw),
-                     iters=200)
-        got = cuda["alif_bwd"](*case.args, **case.kw)
+        ms = cuda_ms(lambda: cuda[name](*case.args, **case.kw), iters=200)
+        got = cuda[name](*case.args, **case.kw)
         sync()
     finally:
         _build.library = package
     if not all(torch.equal(g, r) for g, r in zip(got, ref)
                if g is not None):
-        raise AssertionError("alif_bwd: the clock-stamped build's outputs "
+        raise AssertionError(f"{name}: the clock-stamped build's outputs "
                              "differ from the library's")
-    clk = torch.zeros(ALIF_BWD_SLOTS * blocks, dtype=torch.int64)
-    _build.check("alif_bwd", _PASS_LIB.alif_bwd_pass_clocks(
-        clk.data_ptr(), ALIF_BWD_SLOTS * blocks))
-    mean = clk.view(blocks, ALIF_BWD_SLOTS).double().mean(0).tolist()
-    phases = dict(zip(ALIF_BWD_PHASES, mean))
+    clk = torch.zeros(LANE_BWD_SLOTS * blocks, dtype=torch.int64)
+    _build.check(name, getattr(_PASS_LIB, f"{name}_pass_clocks")(
+        clk.data_ptr(), LANE_BWD_SLOTS * blocks))
+    per_block = clk.view(blocks, LANE_BWD_SLOTS).double()
+    mean = per_block.mean(0).tolist()
+    most = per_block.max(0).values.tolist()
+    phases = dict(zip(LANE_BWD_PHASES, mean))
     out = {"call": case.label, "stamped_ms": ms, "blocks": blocks,
            "cycles": phases, "cycles_a_step": {k: v / T
                                                for k, v in phases.items()},
-           "total_cycles": mean[-1]}
-    log(f"passes alif_bwd [{case.label}]: stamped build {ms:.4f} ms; "
+           "most_cycles": dict(zip(LANE_BWD_PHASES, most)),
+           "total_cycles": mean[-1], "most_total_cycles": most[-1]}
+    log(f"passes {name} [{case.label}]: stamped build {ms:.4f} ms; "
         + ", ".join(f"{k} {v:.0f} ({v / T:.1f} a step)"
                     for k, v in phases.items())
-        + f", whole kernel {mean[-1]:.0f} cycles, mean of {blocks} blocks; "
+        + f", whole kernel {mean[-1]:.0f} cycles, mean of {blocks} blocks "
+        f"(the slowest block's: {most[-1]:.0f} in all, sums {most[5]:.0f}); "
         "bit for bit the library's")
-    return {"alif_bwd": out}
+    return {name: out}
 
 
 # spikemm_wgrad's phases, in the order of its -DWGRAD_PASS_CLOCKS slots
@@ -4142,7 +4191,10 @@ def train_cases():
     heterogeneous step (lifrec_bwd: its ablation's) and train_alif_ff's);
     `lif_bwd` with every surrogate (alpha 0.5, 1, 2) and both resets at
     the JAX tests' (37, 3, 130), the JAX family's (20, 3, 130), T = 1 and
-    0, ragged B x N (17 x 1 x 33, 5 x 3 x 7); `linrec_bwd` at the JAX
+    0, ragged B x N (17 x 1 x 33, 5 x 3 x 7), and at T = SEG - 1, SEG,
+    SEG + 1, 2 SEG + 5 and 300 (SEG the lane backward's segment) on the
+    soma's 48 x 64 lanes and ragged 1 x 33, 3 x 7, 3 x 130, every
+    surrogate, both resets, alpha 2; `linrec_bwd` at the JAX
     shapes (24, 3, 136) and (37, 3, 136) with a full decay plane and a
     stride-0 one, each asked for every gradient, for g_x alone (the
     readout's) and for g_a and g_x (the branches'), at T = 1 and 0 and
@@ -4155,6 +4207,7 @@ def train_cases():
     ECG step's also on the route it replaced, the (K, T * B) transposed
     rasters through the dense kernel and the sparse channel, timed beside
     `torch.matmul`."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.lif.ops import lif_cuda
     from repro_torch.kernels.linrec.ops import linrec_cuda
     out = {k: [] for k in BWD_SCANS + ("spikemm", "spikemm_sparse",
@@ -4227,6 +4280,13 @@ def train_cases():
                  "rectangle", 1.0)
         for T, B, N in ((1, 3, 130), (0, 3, 130), (17, 1, 33), (5, 3, 7)):
             lif_case("edge", T, B, N, reset, "rectangle", 1.0)
+        # across the lane backward's segments: the soma's lanes and ragged
+        # ones (not a multiple of 32 or of 4)
+        seg = _build.LANE_BWD_SEG
+        for T in (seg - 1, seg, seg + 1, 2 * seg + 5, 300):
+            for B, N in ((TRAIN_B, N_HIDDEN), (1, 33), (3, 7), (3, 130)):
+                for sur in SURROGATES:
+                    lif_case("segment edge", T, B, N, reset, sur, 2.0)
     for T, B, D in ((24, 3, 136), (37, 3, 136), (1, 3, 136), (0, 3, 136),
                     (17, 1, 33)):
         x = torch.randn((T, B, D), generator=g).to(DEV)
@@ -4413,30 +4473,50 @@ def rec_bwd_cases():
 
 def lif_bwd_alone(args, kw):
     """A launch of `lif_bwd_cuda(*args, **kw)`'s kernel alone, uncounted:
-    the C entry on outputs allocated once, without the wrapper's sum of
-    the per-lane g_tau partials over B (`sum(0)`)."""
+    the C entry on outputs and scratch allocated once (the kernel sums
+    g_tau over B itself, so this is the wrapper without its
+    allocations)."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.common import lane_plan, sm_count
+    from repro_torch.kernels.common import zeroed_counters
     from repro_torch.kernels.lif.ops import KERNEL_SURROGATES
     cur, tau, v0, s, gs, gv, *rest = args
     opts = {"v_th": 1.0, "surrogate": "rectangle", "alpha": 1.0,
             "reset": "zero"}
-    opts.update(zip(opts, rest), **kw)
+    opts.update(zip(opts, rest), **{k: v for k, v in kw.items()
+                                    if k in opts})
     v_th, sur, alpha, reset = opts.values()
     T, B, N = cur.shape
-    u, gc = torch.empty_like(cur), torch.empty_like(cur)
-    gt, g0 = torch.empty_like(v0), torch.empty_like(v0)
-    stages = lane_plan(B * N, T, sm_count(cur.device))[2]
+    gc, gt, g0 = torch.empty_like(cur), torch.empty_like(tau), \
+        torch.empty_like(v0)
+    segs = -(-T // _build.LANE_BWD_SEG)
+    ckpt = torch.empty((segs, B, N), device=cur.device)
+    part = torch.empty((B, N), device=cur.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    count = zeroed_counters(cur.device, stream, 1)
     lib = _build.library()
 
     def launch():
         _build.check("lif_bwd", lib.lif_bwd_f32(
             cur.data_ptr(), tau.data_ptr(), v0.data_ptr(), s.data_ptr(),
-            gs.data_ptr(), gv.data_ptr(), u.data_ptr(), gc.data_ptr(),
-            gt.data_ptr(), g0.data_ptr(), T, B, N, float(v_th),
-            int(reset == "subtract"), KERNEL_SURROGATES.index(sur),
-            float(alpha), stages, torch.cuda.current_stream().cuda_stream))
+            gs.data_ptr(), gv.data_ptr(), ckpt.data_ptr(), part.data_ptr(),
+            count.data_ptr(), gc.data_ptr(), gt.data_ptr(), g0.data_ptr(), T,
+            B, N, float(v_th), int(reset == "subtract"),
+            KERNEL_SURROGATES.index(sur), float(alpha), stream))
     return launch
+
+
+def device_kernels(fn):
+    """The names of the device kernels `fn` runs, in launch order, traced
+    with torch.profiler (empty when the trace holds no device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    return [ev.name for ev in sorted(evs, key=lambda e: e.time_range.start)]
 
 
 def alif_bwd_alone(args, kw):
@@ -4457,7 +4537,7 @@ def alif_bwd_alone(args, kw):
     gc = torch.empty_like(cur)
     gt, gr = torch.empty_like(tau), torch.empty_like(rho)
     g0, a0g = torch.empty_like(v0), torch.empty_like(a0)
-    segs = -(-T // _build.ALIF_BWD_SEG)
+    segs = -(-T // _build.LANE_BWD_SEG)
     ckpt = torch.empty((segs, 2, B, N), device=cur.device)
     part = torch.empty((2, B, N), device=cur.device)
     stream = torch.cuda.current_stream().cuda_stream
@@ -4628,6 +4708,18 @@ def phase_train(path, smi):
             sync()
             step_ms.append((time.perf_counter() - t0) * 1e3)
         card_ms, by_name = profile_ms(lambda: step(nt, pt, x, y))
+        # what the card runs right after each lif_bwd: no PyTorch sum of
+        # its partials (the kernel sums g_tau over B itself)
+        after = None
+        if counts.get("lif_bwd"):
+            ran = device_kernels(lambda: step(nt, pt, x, y))
+            after = [ran[i + 1] if i + 1 < len(ran) else None
+                     for i, k in enumerate(ran) if "lif_bwd_kernel" in k]
+            if len(after) != counts["lif_bwd"] // TRAIN_STEPS or any(
+                    k is not None and "reduce" in k for k in after):
+                raise AssertionError(f"[{tag}] {kind}: the kernels after "
+                                     f"lif_bwd in a step: {after}")
+            log(f"path [{tag}] {kind}: the kernel after lif_bwd: {after}")
         rate = float(s_cpu.mean())
         log(f"path [{tag}] {kind}: launches {counts} (+{occ} occupancy; "
             f"recurrent routes {routes}); first step card vs CPU: loss "
@@ -4657,7 +4749,8 @@ def phase_train(path, smi):
             "bit_equal_to_auto": same,
             "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
             "card_ms": card_ms,
-            "card_ms_by_kernel": top_per(by_name, 1, n=12)}
+            "card_ms_by_kernel": top_per(by_name, 1, n=12),
+            "after_lif_bwd": after}
     return {"path": tag, "model": path.describe, "T": path.T,
             "batch": path.B, "steps": TRAIN_STEPS, "input": path.input,
             "launches": total, "launches_per_run": per_run,
@@ -5048,7 +5141,8 @@ def main(argv):
     cases = kernel_cases(make_shd(True, DEV)[1])
     kernels = phase_kernels(cases)
     passes = phase_rec_bwd_passes(cases)
-    passes.update(phase_alif_bwd_passes(cases))
+    for name in LANE_BWD_HOME:
+        passes.update(phase_lane_bwd_passes(cases, name))
     passes.update(phase_wgrad_passes(cases))
     gather_rows = phase_gather_rows(cases["spikemm_gather"])
     sparse = {c.label: c.args for c in cases["spikemm_sparse"]}
@@ -5090,7 +5184,8 @@ def main(argv):
             s["path"]: s.get("launches_per_window",
                              s.get("launches_per_run"))[name]
             for s in slices if s["path"] in by_path}
-    slices[0]["build_s"] = build_s
+    slices[0]["build_s"] = build_s["build_s"]
+    slices[0]["build"] = build_s
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"bwd_passes": passes}))
     log(json.dumps({"gather_rows": gather_rows}))

@@ -30,10 +30,12 @@
 // gv (gv u, Gs~ - gv u, times g, + gv (1 - s), tau Gu) and as many on ga;
 // the forward's three on v.
 //
-// Design. A CTA owns 32 lanes (a warp's width): a chain warp, whose thread
-// l carries lane l's state in registers, and three helper warps. Time is
-// cut into segments of SEG steps (ALIF_BWD_SEG, from kernels/_build.py);
-// a segment's planes live in shared memory, [plane][step][lane]:
+// Design (its skeleton, the load, the store and the sums over B, in
+// `lane_bwd.cuh`, shared with `lif_bwd.cu`). A CTA owns 32 lanes (a
+// warp's width): a chain warp, whose thread l carries lane l's state in
+// registers, and three helper warps. Time is cut into segments of SEG
+// steps (LANE_BWD_SEG, from kernels/_build.py); a segment's planes live
+// in shared memory, [plane][step][lane]:
 //   load     all four warps copy the segment's current, spikes and (for
 //            the reverse) their cotangent by cp.async, 16 bytes (four
 //            lanes) a copy where the planes allow, the cotangent in a
@@ -53,7 +55,7 @@
 // reverse walks the segments from the last, each recomputing its forward
 // from its checkpoint: no (T, B, N) scratch plane. Then the partials of
 // g_tau and g_rho go to a (2, B, N) scratch and the last CTA to finish (a
-// counter of the stream, `__threadfence`) sums them over B, so that the
+// counter of the stream) sums them over B, so that the
 // wrapper launches nothing after the kernel. (A lane a thread in CTAs of
 // one warp, pass 1 writing u and a_{t-1} to two (T, B, N) scratch planes
 // that pass 2 read back, and the sums over B two PyTorch launches, took
@@ -70,64 +72,21 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "async_copy.cuh"
+#ifdef ALIF_BWD_PASS_CLOCKS
+#define LANE_BWD_CLK alif_bwd_pass_clk
+#endif
+#include "lane_bwd.cuh"
 #include "surrogate.cuh"
 
-#ifndef ALIF_BWD_SEG
-#error "alif_bwd.cu needs -DALIF_BWD_SEG (kernels/_build.py passes it)"
-#endif
-
-// Cycles by phase, in a build with -DALIF_BWD_PASS_CLOCKS (`chip_smoke.py`
-// makes one beside the library): thread 0 of block b adds the clock64()
-// cycles of each phase k (after the barrier that ends it) into its
-// register and writes them to alif_bwd_pass_clk[PASS_CLK_SLOTS b + k] at
-// the end, the whole kernel's in the last slot; `alif_bwd_pass_clocks`
-// copies them out. Without the flag the stamps compile to nothing.
-constexpr int PASS_CLK_SLOTS = 8;
-#ifdef ALIF_BWD_PASS_CLOCKS
-constexpr int PASS_CLK_BLOCKS = 65536;
-__device__ long long alif_bwd_pass_clk[PASS_CLK_SLOTS * PASS_CLK_BLOCKS];
-#define PASS_CLK_BEGIN                                        \
-  long long clk_at = clock64(), clk_first = clk_at;           \
-  long long clk_sum[PASS_CLK_SLOTS - 1] = {}
-#define PASS_CLK(k)                                           \
-  do {                                                        \
-    const long long now = clock64();                          \
-    clk_sum[k] += now - clk_at;                               \
-    clk_at = now;                                             \
-  } while (0)
-#define PASS_CLK_END                                                   \
-  if (threadIdx.x == 0 && blockIdx.x < PASS_CLK_BLOCKS) {              \
-    long long* dst = alif_bwd_pass_clk + PASS_CLK_SLOTS * blockIdx.x;  \
-    for (int k = 0; k < PASS_CLK_SLOTS - 1; ++k) dst[k] = clk_sum[k];  \
-    dst[PASS_CLK_SLOTS - 1] = clock64() - clk_first;                   \
-  }
-
-extern "C" int alif_bwd_pass_clocks(long long* dst, int n) {
-  if (n < 0 || n > PASS_CLK_SLOTS * PASS_CLK_BLOCKS)
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaMemcpyFromSymbol(dst, alif_bwd_pass_clk,
-                                   n * sizeof(long long));
-}
-#else
-#define PASS_CLK_BEGIN
-#define PASS_CLK(k)
-#define PASS_CLK_END
-#endif
+// cycles by phase, in a build with -DALIF_BWD_PASS_CLOCKS (`lane_bwd.cuh`)
+LANE_BWD_CLK_READER(alif_bwd_pass_clocks)
 
 namespace {
 
-constexpr int SEG = ALIF_BWD_SEG;          // steps a segment
-constexpr int WARPS = 4;                   // the chain warp and 3 helpers
-constexpr int THREADS = 32 * WARPS;
-constexpr int GQ = 4;                      // surrogates a thread at once
-// the phases the clock stamps sum (chip_smoke.py's ALIF_BWD_PHASES)
-enum { CLK_LOAD, CLK_FORWARD, CLK_G, CLK_REVERSE, CLK_STORE, CLK_SUMS };
 // the segment's planes in shared memory, [plane][step][lane]: the current
 // (then g), the spikes, their cotangent (then Gu), u_t, a_{t-1}
 enum { P_I, P_S, P_GS, P_U, P_A, PLANES };
 constexpr size_t SMEM = (size_t)PLANES * SEG * 32 * sizeof(float);
-static_assert(SEG > 0, "a segment of steps");
 
 struct AlifBwdArgs {
   const float* cur;  // (T, B, N)
@@ -153,40 +112,6 @@ struct AlifBwdArgs {
   bool vec;          // B N % 4 == 0 and the planes 16-byte aligned
 };
 
-__device__ __forceinline__ float* at(float* sm, int plane, int u) {
-  return sm + (plane * SEG + u) * 32;
-}
-
-// All four warps copy steps t0 .. t0 + n - 1 of NP planes (src[i] into
-// plane pl[i]) of the CTA's 32 lanes from `base` on into shared memory:
-// 16 bytes (four lanes) a copy where p.vec, else a lane; lanes past the
-// tensor's end read zeros. One commit group.
-template <int NP>
-__device__ __forceinline__ void load_planes(float* sm, const AlifBwdArgs& p,
-                                            int64_t lanes, int64_t base,
-                                            int t0, int n,
-                                            const float* const (&src)[NP],
-                                            const int (&pl)[NP]) {
-  if (p.vec) {
-    for (int e = threadIdx.x; e < n * NP * 8; e += THREADS) {
-      const int row = e / 8, q = e % 8, u = row / NP, i = row % NP;
-      const int64_t col = base + 4 * q;
-      const bool in = col < lanes;
-      cp_async16(smem_u32(at(sm, pl[i], u) + 4 * q),
-                 src[i] + (int64_t)(t0 + u) * lanes + (in ? col : 0), in);
-    }
-  } else {
-    for (int e = threadIdx.x; e < n * NP * 32; e += THREADS) {
-      const int row = e / 32, l = e % 32, u = row / NP, i = row % NP;
-      const int64_t col = base + l;
-      const bool in = col < lanes;
-      cp_async4(smem_u32(at(sm, pl[i], u) + l),
-                src[i] + (int64_t)(t0 + u) * lanes + (in ? col : 0), in);
-    }
-  }
-  cp_async_commit();
-}
-
 // The chain warp's forward over a segment's n steps from (v, a); with
 // KEEP, u_t and a_{t-1} go to the planes.
 template <bool KEEP>
@@ -209,6 +134,7 @@ __device__ __forceinline__ void forward(float* sm, int n, float tn, float rn,
 __global__ void __launch_bounds__(THREADS) alif_bwd_kernel(
     const AlifBwdArgs p) {
   extern __shared__ __align__(16) float sm[];
+  __shared__ bool last;                      // this CTA counted last
   PASS_CLK_BEGIN;
   const int64_t lanes = (int64_t)p.B * p.N;
   const int lane = threadIdx.x % 32;
@@ -228,7 +154,7 @@ __global__ void __launch_bounds__(THREADS) alif_bwd_kernel(
   // forward over segments 0 .. segs - 2: their successors' checkpoints
   float v = v_init, a = a_init;
   for (int k = 0; k + 1 < segs; ++k) {
-    load_planes<2>(sm, p, lanes, base, k * SEG, SEG, in_src, in_pl);
+    load_planes<2>(sm, p.vec, lanes, base, k * SEG, SEG, in_src, in_pl);
     cp_async_wait<0>();
     __syncthreads();
     if (chain) {
@@ -249,8 +175,8 @@ __global__ void __launch_bounds__(THREADS) alif_bwd_kernel(
   bool first = true;
   for (int k = segs - 1; k >= 0; --k) {
     const int t0 = k * SEG, n = min(SEG, p.T - t0);
-    load_planes<2>(sm, p, lanes, base, t0, n, in_src, in_pl);
-    load_planes<1>(sm, p, lanes, base, t0, n, gs_src, gs_pl);
+    load_planes<2>(sm, p.vec, lanes, base, t0, n, in_src, in_pl);
+    load_planes<1>(sm, p.vec, lanes, base, t0, n, gs_src, gs_pl);
     cp_async_wait<1>();                      // the current and the spikes
     __syncthreads();
     PASS_CLK(CLK_LOAD);
@@ -299,22 +225,17 @@ __global__ void __launch_bounds__(THREADS) alif_bwd_kernel(
     }
     __syncthreads();
     PASS_CLK(CLK_REVERSE);
-    // g_current of the segment, all four warps
-    if (p.vec) {
-      for (int e = threadIdx.x; e < n * 8; e += THREADS) {
-        const int u = e / 8, q = e % 8;
-        const int64_t col = base + 4 * q;
-        if (col < lanes)
-          *reinterpret_cast<float4*>(p.gc + (int64_t)(t0 + u) * lanes + col) =
-              *reinterpret_cast<const float4*>(at(sm, P_GS, u) + 4 * q);
+    // the call's last segment done: the chain warp writes its lanes' sum
+    // partials and counts the CTA done while the others store
+    if (k == 0 && chain && (p.gtau || p.grho)) {
+      if (in) {
+        p.part[idx] = __fadd_rn(acc, __fmul_rn(gnext, v_init));
+        p.part[lanes + idx] = accr;
       }
-    } else {
-      for (int e = threadIdx.x; e < n * 32; e += THREADS) {
-        const int64_t col = base + e % 32;
-        if (col < lanes)
-          p.gc[(int64_t)(t0 + e / 32) * lanes + col] = at(sm, P_GS, 0)[e];
-      }
+      arrive(p.count, last);
     }
+    // g_current of the segment, all four warps
+    store_plane(sm, P_GS, p.gc, p.vec, lanes, base, t0, n);
     __syncthreads();                         // before the planes refill
     PASS_CLK(CLK_STORE);
   }
@@ -322,43 +243,10 @@ __global__ void __launch_bounds__(THREADS) alif_bwd_kernel(
     if (p.gv0) p.gv0[idx] = gv;
     if (p.ga0) p.ga0[idx] = ga;
   }
-  if (!p.gtau && !p.grho) {
-    PASS_CLK_END
-    return;
-  }
-
   // g_tau and g_rho over B, in ascending b, by the last CTA to finish
-  if (chain && in) {
-    p.part[idx] = __fadd_rn(acc, __fmul_rn(gnext, v_init));
-    p.part[lanes + idx] = accr;
-  }
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(p.count, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (last) {
-    __threadfence();
-    constexpr int BB = 16;                   // loads in flight a thread
-    for (int q = threadIdx.x; q < 2 * p.N; q += THREADS) {
-      float* dst = q < p.N ? p.gtau : p.grho;
-      if (!dst) continue;
-      const float* src = p.part + (q < p.N ? 0 : lanes) + q % p.N;
-      float sum = __ldcg(src);
-      for (int b0 = 1; b0 < p.B; b0 += BB) {
-        float x[BB];
-#pragma unroll
-        for (int j = 0; j < BB; ++j)
-          x[j] = b0 + j < p.B ? __ldcg(src + (int64_t)(b0 + j) * p.N) : 0.f;
-#pragma unroll
-        for (int j = 0; j < BB; ++j)
-          if (b0 + j < p.B) sum = __fadd_rn(sum, x[j]);
-      }
-      dst[q % p.N] = sum;
-    }
-    if (threadIdx.x == 0) *p.count = 0;      // ready for the next launch
-  }
+  float* const dst[2] = {p.gtau, p.grho};
+  if (p.gtau || p.grho)
+    sum_over_b<2>(p.part, dst, p.count, last, lanes, p.B, p.N);
   PASS_CLK(CLK_SUMS);
   PASS_CLK_END
 }
@@ -369,7 +257,7 @@ extern "C" {
 
 // The backward of alif_f32 (see above): g_current (T, B, N), and where not
 // null g_tau and g_rho (N,), summed over B in ascending b, g_v0 and g_a0
-// (B, N). `ckpt` holds (ceil(T / ALIF_BWD_SEG), 2, B, N) floats of scratch
+// (B, N). `ckpt` holds (ceil(T / LANE_BWD_SEG), 2, B, N) floats of scratch
 // where T is over one segment (else it may be null); `part` (2, B, N)
 // floats and `count` a zeroed counter (left at 0) where g_tau or g_rho is
 // asked for. surrogate: 0 arctan, 1 rectangle, 2 sigmoid, 3 triangle.
@@ -385,23 +273,11 @@ int alif_bwd_f32(const float* cur, const float* tau, const float* rho,
       surrogate > 3)
     return (int)cudaErrorInvalidValue;
   const int64_t lanes = (int64_t)B * N;
-  const bool vec = lanes % 4 == 0 &&
-                   ((uintptr_t)cur | (uintptr_t)spikes | (uintptr_t)gs |
-                    (uintptr_t)gc) % 16 == 0;
   const AlifBwdArgs p{cur,  tau,  rho,   v0,   a0,   spikes, gs,   gvT,
                       gaT,  ckpt, part,  count, gc,  gtau,   grho, gv0,
                       ga0,  T,    B,     N,    v_th, beta,   alpha, surrogate,
-                      vec};
-  // the planes' dynamic shared memory is 48 KB at SEG = 64; with the
-  // kernel's static `last` that takes the opt-in
-  const cudaError_t e = cudaFuncSetAttribute(
-      alif_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const int64_t blocks = (lanes + 31) / 32;
-  alif_bwd_kernel<<<(unsigned)blocks, THREADS, SMEM, (cudaStream_t)stream>>>(
-      p);
-  return (int)cudaGetLastError();
+                      lane_bwd_vec(lanes, cur, spikes, gs, gc)};
+  return launch_lane_bwd(alif_bwd_kernel, SMEM, lanes, p, stream);
 }
 
 }  // extern "C"

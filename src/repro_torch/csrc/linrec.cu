@@ -161,7 +161,7 @@ extern "C" {
 
 // The backward of linrec_f32 (see above): gx (T, B, D); ga (T, B, D) where
 // not null (then y and h0 are read), gh0 (B, D) where not null. stages as
-// linrec_f32's (`lane_plan`); CTAs of one warp, as `lif_bwd_f32`'s.
+// linrec_f32's (`lane_plan`); CTAs of one warp.
 int linrec_bwd_f32(const float* a, int64_t sa_t, int64_t sa_b, int64_t sa_d,
                    const float* y, const float* h0, const float* gy,
                    const float* ghT, float* gx, float* ga, float* gh0, int T,

@@ -23,7 +23,7 @@
 //        gv <- tau Gu, ga <- rho ga - beta Sig;
 //      writing g_current = Gu, the lane's g_tau partial (Gu_t v_{t-1}
 //      summed in descending t; v_{t-1} = u_{t-1} (1 - s_{t-1}) arrives one
-//      step late, as in `lif_bwd_f32`) and, for ALIF, its g_rho partial
+//      step late) and, for ALIF, its g_rho partial
 //      (ga_t a_{t-1}, descending t); the wrapper sums the partials over B.
 //      After t = 0: g_v0 = gv, g_a0 = ga and g_s0 = sum_k Gu_0[k] W[j, k],
 //      the recurrent adjoint the chain would add at t = -1. A null output

@@ -1,7 +1,7 @@
 // The surrogate spike gradients and one neuron's reverse step, shared by
-// the backward kernels: `lif.cu`'s `lif_bwd_f32` (B1), `rec_bwd.cu`'s
+// the backward kernels: `lif_bwd.cu`'s `lif_bwd_f32` (B1), `rec_bwd.cu`'s
 // `lifrec_bwd_f32` (B4) and `alifrec_bwd_f32` (B5), `alif_bwd.cu`'s
-// `alif_bwd_f32` (B5).
+// `alif_bwd_f32` (B5). Each takes the surrogate as a run-time argument.
 //
 // Every operation is one rounded fp32 step (__fmul_rn, __fadd_rn,
 // __fsub_rn, __fdiv_rn: nvcc cannot contract them into an FMA), in the

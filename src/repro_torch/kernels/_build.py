@@ -51,19 +51,20 @@ STDP_SEQ_GROUP = 32
 # definition, -DREC_LANE_NEURONS.
 REC_LANE_NEURONS = 4
 # The lane scans' staging ring (`csrc/lane_scan.cuh`: `linrec`, `lif`,
-# `alif`, and the backward `lif_bwd` and `linrec_bwd`, which walk it
-# reversed): steps a stage holds and stages of the ring (chunks in flight:
-# one fewer). Their one definition, -DLANE_SCAN_CHUNK and
+# `alif`, and the backward `linrec_bwd`, which walks it reversed): steps
+# a stage holds and stages of the ring (chunks in flight: one fewer).
+# Their one definition, -DLANE_SCAN_CHUNK and
 # -DLANE_SCAN_STAGES; `common.lane_plan` sizes the ring from them. Four
 # stages: on an H100, eight made the SHD window's call 0.5 us slower (a
 # longer prologue) and two left too few steps in flight at T = 300.
 LANE_SCAN_CHUNK = 16
 LANE_SCAN_STAGES = 4
-# The steps of a segment of `alif_bwd` (`csrc/alif_bwd.cu`), whose planes
-# it holds in shared memory (six planes of 32 lanes: 48 KB at 64); a call
-# of more steps keeps a checkpoint a segment. Its one definition,
-# -DALIF_BWD_SEG; the wrapper sizes the checkpoint scratch from it.
-ALIF_BWD_SEG = 64
+# The steps of a segment of the lane backward kernels `lif_bwd` and
+# `alif_bwd` (`csrc/lane_bwd.cuh`, their shared skeleton), whose planes
+# they hold in shared memory (five planes of 32 lanes: 40 KB at 64); a
+# call of more steps keeps a checkpoint a segment. Its one definition,
+# -DLANE_BWD_SEG; the wrappers size the checkpoint scratch from it.
+LANE_BWD_SEG = 64
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # compile flags (each source with -c), then the link's
 NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -74,7 +75,7 @@ NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                       f"-DREC_LANE_NEURONS={REC_LANE_NEURONS}",
                       f"-DLANE_SCAN_CHUNK={LANE_SCAN_CHUNK}",
                       f"-DLANE_SCAN_STAGES={LANE_SCAN_STAGES}",
-                      f"-DALIF_BWD_SEG={ALIF_BWD_SEG}")
+                      f"-DLANE_BWD_SEG={LANE_BWD_SEG}")
 LINK_FLAGS = _ARCH + ("-shared",)
 LIB_NAME = "libreprotorch.so"
 
@@ -90,7 +91,7 @@ SIGNATURES = {
     "linrec_f32": ((_P, _L, _L, _L, _P, _P, _P, _P) + (_I,) * 5 + (_P,),
                    _I),
     "lif_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P), _I),
-    "lif_bwd_f32": ((_P,) * 10 + (_I, _I, _I, _F, _I, _I, _F, _I, _P), _I),
+    "lif_bwd_f32": ((_P,) * 12 + (_I, _I, _I, _F, _I, _I, _F, _P), _I),
     "linrec_bwd_f32": ((_P, _L, _L, _L) + (_P,) * 7 + (_I,) * 4 + (_P,),
                        _I),
     "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _I, _P), _I),

@@ -132,7 +132,7 @@ def alif_bwd_cuda(current: torch.Tensor, tau: torch.Tensor,
     (g_current, g_tau, g_rho, g_v0, g_a0), None where not needed, g_tau
     and g_rho summed over B by the kernel (in ascending b, as the plain
     version sums them). One launch: a call of more than
-    `_build.ALIF_BWD_SEG` steps hands it a checkpoint scratch of
+    `_build.LANE_BWD_SEG` steps hands it a checkpoint scratch of
     (segments, 2, B, N), and g_tau or g_rho a (2, B, N) scratch of
     per-lane partials and a zeroed counter of the stream."""
     sur = kernel_surrogate("alif_bwd", surrogate)
@@ -151,7 +151,7 @@ def alif_bwd_cuda(current: torch.Tensor, tau: torch.Tensor,
                 None if g_rho is None else g_rho.zero_(),
                 None if g_v0 is None else g_v0.copy_(g_vT),
                 None if g_a0 is None else g_a0.copy_(g_aT))
-    segs = -(-T // _build.ALIF_BWD_SEG)
+    segs = -(-T // _build.LANE_BWD_SEG)
     ckpt = (torch.empty((segs, 2, B, N), dtype=torch.float32,
                         device=current.device) if segs > 1 else None)
     with torch.cuda.device(current.device):

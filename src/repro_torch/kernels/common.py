@@ -199,7 +199,7 @@ def w_in_smem(n: int, backward: bool = False) -> bool:
 
 
 # zeroed int32 counters for each (device, stream): a kernel whose last CTA
-# to finish combines the others' partials (`spikemm_wgrad`, `alif_bwd`)
+# to finish combines the others' partials (`spikemm_wgrad`, `alif_bwd`, `lif_bwd`)
 # counts its CTAs on them and sets them back to 0 before it ends, so the
 # kernels of one stream, which run one after another, share them
 _COUNTERS: Dict[Tuple[Optional[int], int], torch.Tensor] = {}

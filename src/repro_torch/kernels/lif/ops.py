@@ -4,9 +4,10 @@
 serial-in-time LIF over (T, B, N): `csrc/lif.cu` on CUDA tensors, the
 plain scan on CPU tensors. Both the zero and the subtract reset are
 supported. It is differentiable in (current, tau, v0) through `_LifScan`
-(STBP, as the JAX package's custom VJP): the backward is `lif.cu`'s
-`lif_bwd_f32` kernel on CUDA tensors (`lif_bwd_cuda`, its own launch
-counter, listed as `lif_bwd`) and `lif_scan_bwd_ref` on CPU tensors.
+(STBP, as the JAX package's custom VJP): the backward is
+`csrc/lif_bwd.cu`'s `lif_bwd_f32` kernel on CUDA tensors (`lif_bwd_cuda`,
+its own launch counter, listed as `lif_bwd`) and `lif_scan_bwd_ref` on
+CPU tensors, each computing only the gradients autograd asks for.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 from repro_torch.core.surrogate import check_surrogate
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.common import (check_planes, check_scan,
-                                        lane_plan, sm_count)
+                                        lane_plan, optional_ptr, sm_count,
+                                        zeroed_counters)
 from repro_torch.kernels.lif.ref import lif_scan_bwd_ref, lif_scan_ref
 
 # the surrogates the backward kernels compute in registers (the others
@@ -67,10 +69,15 @@ def lif_bwd_cuda(current: torch.Tensor, tau: torch.Tensor,
                  v0: torch.Tensor, spikes: torch.Tensor,
                  g_spikes: torch.Tensor, g_vT: torch.Tensor,
                  v_th: float = 1.0, surrogate: str = "rectangle",
-                 alpha: float = 1.0, reset: str = "zero"):
-    """Launch `csrc/lif.cu`'s backward kernel on CUDA tensors:
-    `lif_scan_bwd_ref`'s (g_current, g_tau, g_v0), the per-lane g_tau
-    partials summed over B here."""
+                 alpha: float = 1.0, reset: str = "zero",
+                 need_tau: bool = True, need_v0: bool = True):
+    """Launch `csrc/lif_bwd.cu` on CUDA tensors: `lif_scan_bwd_ref`'s
+    (g_current, g_tau, g_v0), None where not needed, g_tau summed over B
+    by the kernel (in ascending b, as the plain version sums it). One
+    launch and nothing after it: a call of more than `_build.LANE_BWD_SEG`
+    steps hands it a checkpoint scratch of (segments, B, N), and g_tau a
+    (B, N) scratch of per-lane partials and a zeroed counter of the
+    stream."""
     if reset not in ("zero", "subtract"):
         raise ValueError(f"lif: reset must be 'zero' or 'subtract', "
                          f"got {reset!r}")
@@ -81,23 +88,31 @@ def lif_bwd_cuda(current: torch.Tensor, tau: torch.Tensor,
                                       ("g_spikes", g_spikes)])
     T, B, N = current.shape
     g_cur = torch.empty_like(current)
-    g_tau = torch.empty_like(v0)            # the per-lane partials
-    g_v0 = torch.empty_like(v0)
+    g_tau = torch.empty_like(tau) if need_tau else None
+    g_v0 = torch.empty_like(v0) if need_v0 else None
     if T == 0 or v0.numel() == 0:
-        return g_cur, g_tau.zero_().sum(0), g_v0.copy_(g_vT)
-    u = torch.empty_like(current)
-    stages = lane_plan(B * N, T, sm_count(current.device))[2]
+        return (g_cur, None if g_tau is None else g_tau.zero_(),
+                None if g_v0 is None else g_v0.copy_(g_vT))
+    segs = -(-T // _build.LANE_BWD_SEG)
+    ckpt = (torch.empty((segs, B, N), dtype=torch.float32,
+                        device=current.device) if segs > 1 else None)
     with torch.cuda.device(current.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        part = count = None
+        if need_tau:
+            part = torch.empty((B, N), dtype=torch.float32,
+                               device=current.device)
+            count = zeroed_counters(current.device, stream, 1)
         code = _build.library().lif_bwd_f32(
             current.data_ptr(), tau.data_ptr(), v0.data_ptr(),
             spikes.data_ptr(), g_spikes.data_ptr(), g_vT.data_ptr(),
-            u.data_ptr(), g_cur.data_ptr(), g_tau.data_ptr(),
-            g_v0.data_ptr(), T, B, N, float(v_th),
-            int(reset == "subtract"), sur, float(alpha), stages,
-            torch.cuda.current_stream().cuda_stream)
+            optional_ptr(ckpt), optional_ptr(part), optional_ptr(count),
+            g_cur.data_ptr(), optional_ptr(g_tau), optional_ptr(g_v0), T, B,
+            N, float(v_th), int(reset == "subtract"), sur, float(alpha),
+            stream)
     _build.check("lif_bwd", code)
     lif_bwd_cuda.launches += 1
-    return g_cur, g_tau.sum(0), g_v0
+    return g_cur, g_tau, g_v0
 
 
 class _LifScan(torch.autograd.Function):
@@ -122,11 +137,12 @@ class _LifScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_s, g_vT):
         current, tau, v0, s = ctx.saved_tensors
+        need_c, need_tau, need_v0 = ctx.needs_input_grad[:3]
         args = (current, tau, v0, s, g_s.contiguous(), g_vT.contiguous())
-        grads = (registry.dispatch_bwd("lif", args, **ctx.cfg)
-                 if ctx.bwd is None else ctx.bwd(*args, **ctx.cfg))
-        return tuple(g if need else None for g, need in
-                     zip(grads, ctx.needs_input_grad[:3])) + (None,) * 6
+        kw = dict(ctx.cfg, need_tau=need_tau, need_v0=need_v0)
+        g_cur, g_tau, g_v0 = (registry.dispatch_bwd("lif", args, **kw)
+                              if ctx.bwd is None else ctx.bwd(*args, **kw))
+        return (g_cur if need_c else None, g_tau, g_v0) + (None,) * 6
 
 
 def lif_scan(current: torch.Tensor, tau: torch.Tensor, v0: torch.Tensor,

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.lifrec.ref import sum_rows_ascending
+
 
 def lif_scan_ref(current: torch.Tensor, tau: torch.Tensor,
                  v0: torch.Tensor, v_th: float = 1.0, reset: str = "zero"):
@@ -36,10 +38,12 @@ def lif_scan_bwd_ref(current: torch.Tensor, tau: torch.Tensor,
                      v0: torch.Tensor, spikes: torch.Tensor,
                      g_spikes: torch.Tensor, g_vT: torch.Tensor,
                      v_th: float = 1.0, surrogate: str = "rectangle",
-                     alpha: float = 1.0, reset: str = "zero"):
+                     alpha: float = 1.0, reset: str = "zero",
+                     need_tau: bool = True, need_v0: bool = True):
     """The VJP of `lif_scan_ref` with a surrogate spike gradient (STBP):
     (g_current (T, B, N), g_tau (N,), g_v0 (B, N)) from the forward's
-    inputs, its spikes and the cotangents of (spikes, v_final).
+    inputs, its spikes and the cotangents of (spikes, v_final); g_tau and
+    g_v0 None where not needed.
 
     First the pre-reset membrane u_t = tau * v_{t-1} + I_t is recomputed
     forward along the saved spikes (their resets; nothing is
@@ -49,9 +53,25 @@ def lif_scan_bwd_ref(current: torch.Tensor, tau: torch.Tensor,
       subtract: Gu = Gv (1 - v_th g) + Gs g
       Gv_{t-1} = tau Gu_t
     g_current = Gu, g_v0 = tau Gu_0 and g_tau = sum over (t, b) of
-    Gu_t v_{t-1}, summed per lane in descending t and then over B (the
-    order of `csrc/lif.cu`'s backward kernel, which equals this one bit
-    for bit: every step is one rounded fp32 operation)."""
+    Gu_t v_{t-1}, summed per lane in descending t (`lif_scan_bwd_partials`)
+    and then over B in ascending b (`sum_rows_ascending`): the order of
+    `csrc/lif_bwd.cu`, which equals this one bit for bit (every step is
+    one rounded fp32 operation)."""
+    g_cur, part, g_v0 = lif_scan_bwd_partials(
+        current, tau, v0, spikes, g_spikes, g_vT, v_th, surrogate, alpha,
+        reset)
+    return (g_cur, sum_rows_ascending(part).to(tau.dtype) if need_tau
+            else None, g_v0 if need_v0 else None)
+
+
+def lif_scan_bwd_partials(current: torch.Tensor, tau: torch.Tensor,
+                          v0: torch.Tensor, spikes: torch.Tensor,
+                          g_spikes: torch.Tensor, g_vT: torch.Tensor,
+                          v_th: float = 1.0, surrogate: str = "rectangle",
+                          alpha: float = 1.0, reset: str = "zero"):
+    """`lif_scan_bwd_ref`'s reverse scan: (g_current (T, B, N), the
+    per-lane g_tau partials (B, N) in fp32, g_v0 (B, N)); the partial of
+    lane (b, n) is sum over t of Gu_t v_{t-1}, in descending t."""
     from repro_torch.core.surrogate import surrogate_grad
 
     if reset not in ("zero", "subtract"):
@@ -80,5 +100,4 @@ def lif_scan_bwd_ref(current: torch.Tensor, tau: torch.Tensor,
         g_tau = g_tau + gu * v_prev[t]
         gv = tau32 * gu
     g_cur = (torch.stack(gu_all) if T else c32.new_empty(current.shape))
-    return (g_cur.to(current.dtype), g_tau.sum(0).to(tau.dtype),
-            gv.to(v0.dtype))
+    return g_cur.to(current.dtype), g_tau, gv.to(v0.dtype)

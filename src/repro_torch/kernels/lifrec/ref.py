@@ -11,7 +11,8 @@ compiler (one all-T spikemm); only the self-term is serial.
 `scan_bwd_core` is the STBP adjoint shared by `lifrec`, `alif` and
 `alifrec` (the JAX package's `_lifrec_bwd` and `_bwd_core`), in the
 rounding order of their backward kernels (`csrc/rec_bwd.cu`,
-`csrc/alif_bwd.cu`).
+`csrc/alif_bwd.cu`); `lif/ref.py::lif_scan_bwd_ref` sums over B in its
+order too (`sum_rows_ascending`).
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ def recurrent_current(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def sum_rows_ascending(x: torch.Tensor) -> torch.Tensor:
     """x (B, N) summed over B as ((x[0] + x[1]) + x[2]) + ..., one rounded
-    add a row in ascending order: the order of `csrc/alif_bwd.cu`'s
-    in-kernel sums over B (zeros for B = 0)."""
+    add a row in ascending order: the order of `csrc/lane_bwd.cuh`'s
+    in-kernel sums over B (`alif_bwd`, `lif_bwd`; zeros for B = 0)."""
     if x.shape[0] == 0:
         return torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
     out = x[0]

@@ -706,7 +706,7 @@ def test_alif_bwd_wrapper_passes_the_kernel_its_arguments(stand_in_library):
     (call,) = stand_in_library.alif_bwd_f32.call_args_list
     a = call.args
     assert a[:9] == _ptrs(cur, tau, rho, v0, a0, s, gs, gv, ga)
-    assert T > _build.ALIF_BWD_SEG and a[9] is not None
+    assert T > _build.LANE_BWD_SEG and a[9] is not None
     assert a[10] is not None and a[11] is not None
     assert a[12] == g_cur.data_ptr() and a[13] == g_tau.data_ptr()
     assert a[14] is None
@@ -743,7 +743,7 @@ def test_alif_bwd_checkpoints_only_past_one_segment(stand_in_library, T):
         ops.alif_bwd_cuda(cur, tau, rho, v0, a0, s, gs, gv, ga, 1.0, 0.5,
                           "sigmoid", 4.0)
     (call,) = stand_in_library.alif_bwd_f32.call_args_list
-    segs = -(-T // _build.ALIF_BWD_SEG)
+    segs = -(-T // _build.LANE_BWD_SEG)
     assert (call.args[9] is None) == (segs == 1)
     assert sizes == ([] if segs == 1 else [(segs, 2, B, N)]) + [(2, B, N)]
 

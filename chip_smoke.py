@@ -1,6 +1,7 @@
 """Chip smoke test: serve the paper's SNNs, learn on-chip, train the SHD
-DH-SNN, the ECG SRNN and the ALIF feed-forward net, and run flash
-attention through `repro_torch` on one H100.
+DH-SNN, the ECG SRNN, the ALIF feed-forward net and the BCI cross-day
+decoder (with its on-chip fine-tune), and run flash attention through
+`repro_torch` on one H100.
 
 Run from the repository root with no arguments:
 
@@ -22,7 +23,8 @@ the kernel phase and the sweep with no path, and
 
     python3 chip_smoke.py --path topology_banded
 
-the device and build phases and one path (any of 4.-13.'s names) alone:
+the device and build phases and one path (any of 4.-15.'s names, `bci`
+among them) alone:
 copied into an older checkout, `--kernels` or `--path` measures that
 tree the same way, so two trees compare in one call.
 
@@ -120,6 +122,14 @@ tree the same way, so two trees compare in one call.
             soma's 48 x 64 lanes and ragged 1 x 33, 3 x 7, 3 x 130, every
             surrogate, both resets, alpha 2), and one launch a call (the
             profiler sees one kernel and no PyTorch op after it);
+            `lif` and `lif_bwd` (B1) also at the bci path's day-0
+            training step, (50, 128, 512) at the default BCIConfig
+            (captured: the forward at `snn_layers.lif_scan`, zero reset;
+            the backward at the registry, the `LIF()` rectangle surrogate
+            at alpha 1, need_tau=False and need_v0=False: tau and v0 are
+            constants), each timed and bit for bit its plain version,
+            tagged with the bci path (the kernel table's "2, bci" and
+            "B1, bci" rows);
             `linrec_bwd` at (24, 3, 136), (37, 3,
             136), T = 1, T = 0 and (17, 1, 33) with a full and a stride-0
             decay, asked for every gradient, for g_x alone and for g_a
@@ -338,7 +348,36 @@ tree the same way, so two trees compare in one call.
             trained as 11. trains: per step spikemm x2, spikemm_wgrad
             x2, alif, alif_bwd,
             linrec, linrec_bwd; the gates of 11.
-14. attention
+14. bci    `examples/bci_onchip_torch.py`'s decoder at the default
+            BCIConfig, the paper's widths (128 channels x 50 bins of
+            20 ms, 16 paths x 32, kernel_t 5, 4 classes), weights from
+            torch.Generator seed 2, counters set to 0 just before:
+            TRAIN_STEPS clipped-SGD steps at lr 0.05 on
+            gen_bci_trials(128, day=0) (per step one `lif` and one
+            `lif_bwd`), then on each of days 1-3 the accuracy on 64 test
+            trials before and after `bci_finetune_fc`'s 25 steps at lr
+            0.05 on 32 trials (one `lif` a forward, no `lif_bwd`: the
+            features need no gradient); no other kernel launches. Gates:
+            every loss finite; the first training step against the CPU's
+            (loss within 1e-4 relative, each gradient leaf within a
+            relative L2 error of 1e-3); the day-0 spike record of the
+            first step's weights against the CPU's under the threshold-tie
+            rule (the float64 membrane of the CPU's own features), logits
+            within 1e-4 on every trial with no flipped lane, and the LIF
+            layer firing in at least 1 % of its lane-steps; the first
+            fine-tune day whose 32-trial record has no lane flipped at a
+            tie (every day's record is held to the tie rule) fine-tuned on
+            the CPU from the card's trained weights, its 25 losses, fc_w
+            and fc_b within a relative L2 error of 1e-4 of the card's.
+            Prints the accuracies (not gated: five steps on synthetic data
+            say nothing of accuracy), the firing rate, the step's ms by
+            host clock (median of 5 after 2 warm-ups), the card's by
+            kernel (profiler) and the simulated TaiBai power and
+            efficiency of the fine-tuned decoder's test records
+            (`core/simulator.py` on `bench_applications.bci_task`'s layer
+            statistics: a behavioural model of the paper's chip and its
+            RTX 3090 comparator, not a measurement of this card).
+15. attention
             `kernels.attention.ops.flash_attention` through the registry,
             once per case, counters set to 0 just before: the JAX kernel
             tests' grid (BH=4: (256, 256, 64), (512, 512, 128), (384, 640,
@@ -369,14 +408,14 @@ tree the same way, so two trees compare in one call.
             Then `_FlashST`'s straight-through VJP at T=256, S=160, d=64,
             causal with window 128 (the parity phase holds (2, 160, 64))
             against autograd through the plain version, within 2e-3.
-15. parity  `repro_torch.kernels.parity.check_all()`: every family's CUDA
+16. parity  `repro_torch.kernels.parity.check_all()`: every family's CUDA
             wrapper and the sparse channel's against their plain versions
             at `make_inputs`, forward, and the VJP of `attention`, `lif`,
             `linrec`, `lifrec`, `alif`, `alifrec` and `spikemm` (both
             channels: CUDA forward and backward, spikemm's backward its
             `spikemm_wgrad` pair, against plain forward and backward); 11
             kernels.
-16. result  prints `{"kernels": [...]}`, `{"bwd_passes": {...}}`,
+17. result  prints `{"kernels": [...]}`, `{"bwd_passes": {...}}`,
             `{"gather_rows": {...}}`,
             `{"sparse_tiles": {...}}`, `{"sweep": {...}}`, one
             `{"slice": {...}}` line per path, `{"parity": {...}}`, the
@@ -584,6 +623,21 @@ TRAIN_TIMED, TRAIN_WARMUP = 5, 2
 # widths (4 -> 64 -> 6) on gen_ecg_qtdb(16, T=200): per-timestep
 # cross-entropy, clipped SGD at lr 0.1, TRAIN_STEPS steps
 ECG_TRAIN_B, ECG_TRAIN_T, ECG_TRAIN_LR = 16, 200, 0.1
+# bci: the BCI decoder at the default BCIConfig (the paper's widths),
+# `examples/bci_onchip_torch.py`'s training and fine-tune: 128 day-0
+# trials, TRAIN_STEPS clipped-SGD steps at lr 0.05, then on each of days
+# 1-3 the 25-step fine-tune of the readout at lr 0.05 on 32 trials
+# (seed 100 + day) and the accuracy on 64 test trials (seed day) before
+# and after; weights from torch.Generator seed 2 (the example's)
+BCI_TRAIN_B, BCI_TEST_B, BCI_FEW_B = 128, 64, 32
+BCI_LR, BCI_FT_LR, BCI_FT_STEPS, BCI_DAYS, BCI_SEED = 0.05, 0.05, 25, \
+    (1, 2, 3), 2
+# bci_forward's LIF(tau=0.8): v_th 1, the rectangle surrogate at alpha 1
+BCI_LIF_TAU, BCI_V_TH, BCI_SURROGATE, BCI_ALPHA = 0.8, 1.0, "rectangle", 1.0
+# the card's logits against the CPU's on trials with no flipped lane (the
+# same accumulated spikes times fc_w: two sum orders of 512 terms), and a
+# fine-tuned day's losses, fc_w and fc_b as relative L2 errors
+BCI_LOGIT_TOL, BCI_FT_RTOL = 1e-4, 1e-4
 # the backward kernels under the sigmoid surrogate: their expf against
 # PyTorch's sigmoid
 SIGMOID_RTOL, SIGMOID_ATOL = 1e-6, 1e-7
@@ -2366,6 +2420,8 @@ def kernel_cases(shd_params):
         cases[name] += calls
     for name, calls in train_cases().items():
         cases[name] += calls
+    for name, calls in bci_cases().items():
+        cases[name] += calls
     return cases
 
 
@@ -4038,16 +4094,24 @@ def train_step(nodes, params, x, y, keep=False, loss_fn=shd_loss,
     _, outs, _ = plan.run(nodes, params, x, device=x.device)
     loss = loss_fn(outs, y)
     loss.backward()
-    leaves = param_leaves(params)
-    grads = ({"/".join(k): p.grad.detach().clone() for k, p in leaves}
+    return loss.detach(), clipped_sgd(
+        [("/".join(k), p) for k, p in param_leaves(params)], lr, keep)
+
+
+def clipped_sgd(named, lr, keep):
+    """The examples' update of the (name, leaf) pairs `named` from their
+    `.grad`: p -= lr * min(1, 1 / |g|) * g, |g| the global norm, the
+    grads cleared. Returns {name: gradient} before the update where
+    `keep`, else None."""
+    grads = ({k: p.grad.detach().clone() for k, p in named}
              if keep else None)
-    gn = torch.sqrt(sum((p.grad ** 2).sum() for _, p in leaves))
+    gn = torch.sqrt(sum((p.grad ** 2).sum() for _, p in named))
     sc = torch.clamp_max(1.0 / (gn + 1e-9), 1.0)
     with torch.no_grad():
-        for _, p in leaves:
+        for _, p in named:
             p -= lr * sc * p.grad
             p.grad = None
-    return loss.detach(), grads
+    return grads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -4475,9 +4539,10 @@ def lif_bwd_alone(args, kw):
     """A launch of `lif_bwd_cuda(*args, **kw)`'s kernel alone, uncounted:
     the C entry on outputs and scratch allocated once (the kernel sums
     g_tau over B itself, so this is the wrapper without its
-    allocations)."""
+    allocations), g_tau with its scratch and g_v0 only where `kw` asks
+    for them, as the wrapper computes them."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.common import zeroed_counters
+    from repro_torch.kernels.common import optional_ptr, zeroed_counters
     from repro_torch.kernels.lif.ops import KERNEL_SURROGATES
     cur, tau, v0, s, gs, gv, *rest = args
     opts = {"v_th": 1.0, "surrogate": "rectangle", "alpha": 1.0,
@@ -4485,22 +4550,26 @@ def lif_bwd_alone(args, kw):
     opts.update(zip(opts, rest), **{k: v for k, v in kw.items()
                                     if k in opts})
     v_th, sur, alpha, reset = opts.values()
+    need_tau, need_v0 = kw.get("need_tau", True), kw.get("need_v0", True)
     T, B, N = cur.shape
-    gc, gt, g0 = torch.empty_like(cur), torch.empty_like(tau), \
-        torch.empty_like(v0)
+    gc = torch.empty_like(cur)
+    gt = torch.empty_like(tau) if need_tau else None
+    g0 = torch.empty_like(v0) if need_v0 else None
     segs = -(-T // _build.LANE_BWD_SEG)
     ckpt = torch.empty((segs, B, N), device=cur.device)
-    part = torch.empty((B, N), device=cur.device)
     stream = torch.cuda.current_stream().cuda_stream
-    count = zeroed_counters(cur.device, stream, 1)
+    part = count = None
+    if need_tau:
+        part = torch.empty((B, N), device=cur.device)
+        count = zeroed_counters(cur.device, stream, 1)
     lib = _build.library()
 
     def launch():
         _build.check("lif_bwd", lib.lif_bwd_f32(
             cur.data_ptr(), tau.data_ptr(), v0.data_ptr(), s.data_ptr(),
-            gs.data_ptr(), gv.data_ptr(), ckpt.data_ptr(), part.data_ptr(),
-            count.data_ptr(), gc.data_ptr(), gt.data_ptr(), g0.data_ptr(), T,
-            B, N, float(v_th), int(reset == "subtract"),
+            gs.data_ptr(), gv.data_ptr(), ckpt.data_ptr(), optional_ptr(part),
+            optional_ptr(count), gc.data_ptr(), optional_ptr(gt),
+            optional_ptr(g0), T, B, N, float(v_th), int(reset == "subtract"),
             KERNEL_SURROGATES.index(sur), float(alpha), stream))
     return launch
 
@@ -4758,7 +4827,289 @@ def phase_train(path, smi):
 
 
 # ---------------------------------------------------------------------------
-# 14. attention and 15. parity
+# 14. the BCI cross-day decoder: day-0 training and the on-chip fine-tune
+# ---------------------------------------------------------------------------
+
+
+def make_bci(device, grad=False):
+    """The default `BCIConfig` (the paper's widths) and its parameters from
+    torch.Generator seed BCI_SEED on `device`, every leaf requiring grad
+    where `grad`."""
+    from repro_torch.core.snn_layers import BCIConfig, bci_init
+    cfg = BCIConfig()
+    params = bci_init(torch.Generator().manual_seed(BCI_SEED), cfg,
+                      device=device)
+    for p in params.values():
+        p.requires_grad_(grad)
+    return cfg, params
+
+
+def bci_trials(n, day, seed, device, cfg):
+    """gen_bci_trials(n, day, seed) at `cfg`'s widths: (n, C, T) signals
+    and (n,) labels on `device`."""
+    from repro_torch.data.spikes import gen_bci_trials
+    x, y = gen_bci_trials(n, day=day, seed=seed, n_channels=cfg.n_channels,
+                          n_bins=cfg.n_steps)
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(y).long().to(device))
+
+
+def bci_step(params, x, y, cfg, keep=False, lr=BCI_LR):
+    """One step of `examples/bci_onchip_torch.py`'s day-0 training: the
+    cross-entropy of `bci_forward`'s logits, its backward, the clipped SGD
+    update at `lr`. Returns (the loss, {leaf: gradient} before the update
+    where `keep`, else None)."""
+    from repro_torch.core.snn_layers import bci_forward
+    logits, _ = bci_forward(params, x, cfg)
+    loss = -torch.log_softmax(logits, -1)[
+        torch.arange(len(y), device=y.device), y].mean()
+    loss.backward()
+    return loss.detach(), clipped_sgd(list(params.items()), lr, keep)
+
+
+def bci_cases():
+    """{"lif": [Case], "lif_bwd": [Case]}: the LIF layer's calls of one
+    day-0 training step of the bci path on the card, (50, 128, 512) at
+    the default `BCIConfig`: the forward captured at `snn_layers.lif_scan`
+    (zero reset), the backward at the registry (the `LIF()` surrogate,
+    `need_tau=False`, `need_v0=False`: tau and v0 are constants). Timed,
+    tagged with the bci path."""
+    from repro_torch.core import snn_layers
+    cfg, params = make_bci(DEV, grad=True)
+    x, y = bci_trials(BCI_TRAIN_B, 0, 0, DEV, cfg)
+    fwd, calls = [], {}
+    real = snn_layers.lif_scan
+
+    def spy(cur, tau, v0, v_th=1.0, surrogate="rectangle", alpha=1.0,
+            reset="zero"):
+        fwd.append((cur.detach().clone(), tau.clone(), v0.clone(), v_th,
+                    reset))
+        return real(cur, tau, v0, v_th, surrogate, alpha, reset)
+
+    snn_layers.lif_scan = spy
+    try:
+        with recording(bwd_calls=calls):
+            bci_step(params, x, y, cfg)
+    finally:
+        snn_layers.lif_scan = real
+    sync()
+    (args,), ((bargs, bkw),) = fwd, calls["lif_bwd"]
+    want = (cfg.n_steps, BCI_TRAIN_B, cfg.n_paths * cfg.d_path)
+    if tuple(args[0].shape) != want or not bool(
+            (args[1] == BCI_LIF_TAU).all()) or args[3] != BCI_V_TH \
+            or (bkw["need_tau"], bkw["need_v0"]) \
+            != (False, False) or (bkw["reset"], bkw["surrogate"],
+                                  bkw["alpha"]) != ("zero", BCI_SURROGATE,
+                                                    BCI_ALPHA):
+        raise AssertionError(f"bci: lif {tuple(args[0].shape)} (want {want}, "
+                             f"tau {BCI_LIF_TAU}, v_th {BCI_V_TH}), lif_bwd "
+                             f"{bkw}")
+    shape = tuple(args[0].shape)
+    return {"lif": [Case(f"bci day-0 step {shape}, zero reset", args,
+                         path="bci", timed=True)],
+            "lif_bwd": [Case(f"bci day-0 step {shape}, {bkw['surrogate']} "
+                             f"alpha={bkw['alpha']}, no g_tau, no g_v0",
+                             bargs, path="bci", timed=True, kw=bkw)]}
+
+
+def bci_record_vs_cpu(tag, tie, params_g, params_c, x, cfg):
+    """The decoder's forward on the card against the CPU's on the same
+    trials `x` (on the card): spikes under the threshold-tie rule (the
+    float64 membrane of the CPU's own features), logits within
+    BCI_LOGIT_TOL on every trial where no lane flipped. Returns (CPU
+    spikes, the CPU's float64 pre-reset membrane, flips, trials with a
+    flipped lane, logits error)."""
+    from repro_torch.core.snn_layers import bci_features, bci_forward
+    xc = x.cpu()
+    with torch.no_grad():
+        lg, sg = bci_forward(params_g, x, cfg)
+        lc, sc = bci_forward(params_c, xc, cfg)
+        feat = bci_features(params_c, xc, cfg).numpy()
+    s_cpu = sc.numpy()
+    u = tie.lif_membrane(feat, BCI_LIF_TAU, s_cpu, BCI_V_TH)
+    first_div, flips = tie.tie_rule(s_cpu, sg.cpu().numpy(), u, BCI_V_TH)
+    ok = torch.from_numpy(first_div >= cfg.n_steps)
+    err = (lg.cpu() - lc).abs()[ok]
+    err = float(err.max()) if err.numel() else 0.0
+    if not err <= BCI_LOGIT_TOL:
+        raise AssertionError(f"[{tag}] logits card vs CPU {err:.3e} > "
+                             f"{BCI_LOGIT_TOL} on trials with no flipped lane")
+    return s_cpu, u, flips, int((~ok).sum()), err
+
+
+def phase_bci(smi):
+    """The BCI decoder at the paper's widths: TRAIN_STEPS clipped-SGD
+    steps on 128 day-0 trials, then on each of days 1-3 the accuracy on
+    64 test trials before and after the 32-sample, BCI_FT_STEPS-step
+    fine-tune of the readout, all on the card; the launch counters, the
+    card against the CPU, the host and card time of a step, the firing
+    rate and the simulated TaiBai power of the spike record."""
+    from repro_torch.core.simulator import simulate, spike_stats_from_records
+    from repro_torch.core.snn_layers import bci_finetune_fc, bci_forward
+    from repro_torch.kernels import registry
+    tie = load_tie_rule()
+    tag = "bci"
+    cfg, params = make_bci(DEV, grad=True)
+    x0, y0 = bci_trials(BCI_TRAIN_B, 0, 0, DEV, cfg)
+
+    def accuracy(p, x, y):
+        with torch.no_grad():
+            logits, spikes = bci_forward(p, x, cfg)
+        return float((logits.argmax(-1) == y).float().mean()), spikes
+
+    sync()
+    registry.reset_launches()
+    steps = [bci_step(params, x0, y0, cfg, keep=i == 0)
+             for i in range(TRAIN_STEPS)]
+    sync()
+    train_counts = registry.launch_counts()
+    days, records = {}, []
+    for day in BCI_DAYS:
+        xt, yt = bci_trials(BCI_TEST_B, day, day, DEV, cfg)
+        xf, yf = bci_trials(BCI_FEW_B, day, 100 + day, DEV, cfg)
+        before, _ = accuracy(params, xt, yt)
+        t0 = time.perf_counter()
+        tuned, ft_losses = bci_finetune_fc(params, xf, yf, cfg,
+                                           lr=BCI_FT_LR, steps=BCI_FT_STEPS)
+        sync()
+        ft_ms = (time.perf_counter() - t0) * 1e3
+        after, spikes = accuracy(tuned, xt, yt)
+        records.append(spikes)
+        days[day] = {"before": before, "after": after,
+                     "finetune_losses": [float(v) for v in ft_losses],
+                     "finetune_ms": ft_ms, "trials": (xf, yf),
+                     "tuned": tuned}
+    sync()
+    counts = registry.launch_counts()
+    # lif once a forward, lif_bwd once a training step; the fine-tune's
+    # features need no gradient, so it launches no lif_bwd
+    counted(f"{tag} day-0 training", {"lif": 1, "lif_bwd": 1}, TRAIN_STEPS,
+            train_counts)
+    forwards = len(BCI_DAYS) * (BCI_FT_STEPS + 2)
+    tuning = {k: counts[k] - train_counts[k] for k in counts}
+    counted(f"{tag} fine-tune and accuracies", {"lif": 1}, forwards, tuning)
+    losses = [float(loss) for loss, _ in steps]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[{tag}] a training loss is not finite: "
+                             f"{losses}")
+    # the first training step against the CPU's, from the same weights
+    _, params_c = make_bci("cpu", grad=True)
+    loss_c, grads_c = bci_step(params_c, x0.cpu(), y0.cpu(), cfg, keep=True)
+    loss_err = abs(losses[0] - float(loss_c)) / abs(float(loss_c))
+    leaf_err = {k: rel_l2(steps[0][1][k].cpu(), v)
+                for k, v in grads_c.items()}
+    if not loss_err <= TRAIN_LOSS_RTOL or not max(
+            leaf_err.values()) <= TRAIN_LEAF_RTOL:
+        raise AssertionError(
+            f"[{tag}] first step card vs CPU: loss relative {loss_err:.3e} "
+            f"(tol {TRAIN_LOSS_RTOL}), leaves {leaf_err} (tol "
+            f"{TRAIN_LEAF_RTOL})")
+    # the day-0 record of the first step's weights under the tie rule,
+    # the logits, the firing floor
+    _, p0 = make_bci(DEV)
+    _, p0c = make_bci("cpu")
+    s_cpu, u, flips, flipped, logit_err = bci_record_vs_cpu(
+        f"{tag} day 0", tie, p0, p0c, x0, cfg)
+    rate = float(s_cpu.mean())
+    if not rate >= MIN_HIDDEN_RATE:
+        raise AssertionError(f"[{tag}] the LIF layer fires in {rate:.4%} of "
+                             f"its lane-steps, under {MIN_HIDDEN_RATE:.0%}")
+    edges = int(tie.surrogate_edges(u, BCI_V_TH, BCI_SURROGATE,
+                                    BCI_ALPHA).sum())
+    # one day's fine-tune against the CPU's from the same trained weights:
+    # the first day whose few-shot record has no lane flipped at a tie (a
+    # flipped lane moves that trial's accumulated spikes, and every later
+    # step of the fine-tune with them)
+    trained_c = {k: v.detach().cpu() for k, v in params.items()}
+    trained_g = {k: v.detach() for k, v in params.items()}
+    ft_flips, gated = {}, None
+    for day, d in days.items():
+        xf, yf = d["trials"]
+        ft_flips[day] = bci_record_vs_cpu(f"{tag} day {day} few-shot", tie,
+                                          trained_g, trained_c, xf, cfg)[2]
+        if gated is None and ft_flips[day] == 0:
+            gated = day
+    if gated is None:
+        raise AssertionError(f"[{tag}] every fine-tune day's record has a "
+                             f"lane flipped at a tie: {ft_flips}")
+    xf, yf = days[gated]["trials"]
+    tuned_c, ft_losses_c = bci_finetune_fc(trained_c, xf.cpu(), yf.cpu(), cfg,
+                                           lr=BCI_FT_LR, steps=BCI_FT_STEPS)
+    ft_err = {"losses": rel_l2(torch.tensor(days[gated]["finetune_losses"]),
+                               ft_losses_c)}
+    ft_err.update({k: rel_l2(days[gated]["tuned"][k].detach().cpu(),
+                             tuned_c[k]) for k in ("fc_w", "fc_b")})
+    if not max(ft_err.values()) <= BCI_FT_RTOL:
+        raise AssertionError(f"[{tag}] day {gated}'s fine-tune card vs CPU: "
+                             f"{ft_err} (relative L2, tol {BCI_FT_RTOL})")
+    # the step's time (host clock, median) and the card's by kernel
+    _, pt = make_bci(DEV, grad=True)
+    for _ in range(TRAIN_WARMUP):
+        bci_step(pt, x0, y0, cfg)
+    sync()
+    step_ms = []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        bci_step(pt, x0, y0, cfg)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    card_ms, by_name = profile_ms(lambda: bci_step(pt, x0, y0, cfg))
+    # the simulated TaiBai power of the fine-tuned decoder's spike record
+    # on the three days' test trials, in bench_applications.bci_task's
+    # layer statistics (fan-out the channels, dense FLOPs a step
+    # 2 x features x channels x bins), over its 100 timesteps
+    n_feat = cfg.n_paths * cfg.d_path
+    stats = spike_stats_from_records(
+        {"paths": torch.cat(records, dim=1)}, {"paths": cfg.n_channels},
+        {"paths": 2.0 * n_feat * cfg.n_channels * cfg.n_steps})
+    stats = [dataclasses.replace(s, spike_rate=max(s.spike_rate, 1e-3))
+             for s in stats]
+    sim = simulate(stats, timesteps=100).asdict()
+    step_med = float(np.median(step_ms))
+    log(f"path [{tag}] losses {losses}; launches {counts}; first step card "
+        f"vs CPU: loss {losses[0]:.6f} vs {float(loss_c):.6f} (relative "
+        f"{loss_err:.3e}), leaves "
+        + ", ".join(f"{k} {v:.3e}" for k, v in leaf_err.items())
+        + f"; day-0 record: rate {rate:.4f}, {flips} lanes flipped at "
+        f"threshold ties ({flipped} trials), {edges} lane-steps within "
+        f"{tie.TIE_MARGIN:.0e} of the surrogate window's edge, logits max "
+        f"abs err {logit_err:.3e}; few-shot flips by day {ft_flips}, day "
+        f"{gated}'s fine-tune card vs CPU {ft_err}; accuracy before/after "
+        + ", ".join(f"day {k} {v['before']:.3f}/{v['after']:.3f}"
+                    for k, v in days.items())
+        + f"; step {step_med:.3f} ms median (host clock), card "
+        f"{'not measured' if card_ms is None else f'{card_ms:.4f} ms'}; "
+        f"simulated TaiBai {sim['power_w']:.4f} W, efficiency "
+        f"{sim['efficiency_x']:.1f}x the modelled RTX 3090")
+    return {"path": tag, "model": f"BCIConfig() {cfg.n_channels} channels x "
+            f"{cfg.n_steps} bins, {cfg.n_paths} paths x {cfg.d_path}, "
+            f"kernel_t {cfg.kernel_t}, {cfg.n_out} classes; clipped SGD lr "
+            f"{BCI_LR}, fine-tune lr {BCI_FT_LR} x {BCI_FT_STEPS} steps",
+            "input": f"gen_bci_trials({BCI_TRAIN_B}, day=0); days "
+            f"{list(BCI_DAYS)}: {BCI_TEST_B} test, {BCI_FEW_B} few-shot",
+            "T": cfg.n_steps, "batch": BCI_TRAIN_B, "steps": TRAIN_STEPS,
+            "launches": counts, "launches_per_run": {
+                k: int(k in ("lif", "lif_bwd")) for k in counts},
+            "launches_training": train_counts, "losses": losses,
+            "loss_cpu": float(loss_c), "loss_rel_err": loss_err,
+            "leaf_rel_l2": leaf_err, "hidden_rate": rate,
+            "tie_flips": flips, "trials_flipped": flipped,
+            "window_edges": edges, "logits_max_abs_err": logit_err,
+            "finetune_flips": ft_flips, "finetune_day_gated": gated,
+            "finetune_rel_l2": ft_err,
+            "days": {k: {kk: v[kk] for kk in ("before", "after",
+                                               "finetune_losses",
+                                               "finetune_ms")}
+                     for k, v in days.items()},
+            "step_ms_median": step_med, "step_ms": step_ms,
+            "card_ms": card_ms,
+            "busy_share": None if card_ms is None else card_ms / step_med,
+            "card_ms_by_kernel": top_per(by_name, 1, n=12),
+            "simulated": sim, "card": smi}
+
+
+# ---------------------------------------------------------------------------
+# 15. attention and 16. parity
 # ---------------------------------------------------------------------------
 
 
@@ -5113,6 +5464,7 @@ def path_phases():
             "stdp_step": phase_stdp_step,
             **{name: functools.partial(phase_train, p)
                for name, p in train_paths().items()},
+            "bci": phase_bci,
             "attention": lambda smi: phase_attention(smi)[1]}
 
 
@@ -5167,6 +5519,7 @@ def main(argv):
     slices.append(phase_plastic_online(smi))
     slices.append(phase_stdp_step(smi))
     slices += [phase_train(p, smi) for p in train_paths().values()]
+    slices.append(phase_bci(smi))
     kernels["attention"], attn = phase_attention(smi)
     kernels["attention"]["floor_ms"] = launch_floor_ms()
     slices.append(attn)

@@ -37,9 +37,14 @@ so params keep their values until `apply_learned` swaps them.
 
 The legacy pair-STDP API (`STDPConfig`, `stdp_step`, `stdp_run`) is kept;
 `use_kernel=True` routes its weight update through the `stdp` kernel,
-`use_kernel=False` is its own einsum form. The accumulated-spike readout
-(`accumulated_spike_fc`, `fuse_bn1d_fc`) comes with the BCI slice
-(ROADMAP.md, Open items 1, item 4).
+`use_kernel=False` is its own einsum form.
+
+The accumulated-spike readout (`accumulated_spike_fc`, an
+`autograd.Function` whose backward keeps only the time-summed spikes) and
+the BN1d+FC fusion (`fuse_bn1d_fc`) are the BCI decoder's on-chip
+learning (`core/snn_layers.py::bci_finetune_fc`). Both are dense products
+that the JAX package leaves to `jnp` outside any Pallas kernel, so
+`torch.sum` and `torch.matmul` compute them here.
 """
 
 from __future__ import annotations
@@ -470,9 +475,66 @@ def stdp_run(cfg: STDPConfig, w: Tensor, pre_spikes: Tensor,
     return w
 
 
+# ---------------------------------------------------------------------------
+# Accumulated-spike backprop (the paper's on-chip BPTT memory optimization)
+# ---------------------------------------------------------------------------
+
+
+class _AccumulatedSpikeFC(torch.autograd.Function):
+    """logits = (sum_t s_t) @ W + T * b, saving only the accumulated spikes
+    (and W), not the (T, B, N) history."""
+
+    @staticmethod
+    def forward(ctx, spikes_t, w, b):
+        T = spikes_t.shape[0]
+        acc = torch.sum(spikes_t, dim=0)       # the only stored activation
+        ctx.save_for_backward(acc, w)
+        ctx.T = T
+        return acc @ w + T * b
+
+    @staticmethod
+    def backward(ctx, ct):
+        acc, w = ctx.saved_tensors
+        T = ctx.T
+        need_s, need_w, need_b = ctx.needs_input_grad
+        # upstream sees the gradient spread uniformly over time (the
+        # accumulated approximation of §IV-B: 'accumulated spikes are used
+        # instead of timestep-by-timestep spikes'): a stride-0 view over T
+        d_spikes = ((ct @ w.T)[None].expand((T,) + acc.shape)
+                    if need_s else None)
+        dw = acc.T @ ct if need_w else None    # exact: delta (x) sum_t s_t
+        db = T * torch.sum(ct, dim=0) if need_b else None
+        return d_spikes, dw, db
+
+
+def accumulated_spike_fc(spikes_t: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """Time-summed FC readout: logits = (sum_t s_t) @ W + T*b.
+
+    Forward is mathematically identical to sum_t (s_t @ W + b); backward
+    stores ONLY the accumulated spikes (not the (T, B, N) history), which is
+    the paper's on-chip learning trick. Input: (T, B, N). Output: (B, M).
+    Gradients: d_acc = ct W^T broadcast over T to the spikes, dW = acc^T ct,
+    db = T sum_b ct, each computed only where autograd asks for it."""
+    return _AccumulatedSpikeFC.apply(spikes_t, w, b)
+
+
+def fuse_bn1d_fc(gamma, beta, mean, var, eps, w, b):
+    """BN1d + FC fusion (paper Fig. 9d: 'fused weights'/'fused bias').
+
+    y = ((x - mean)/sqrt(var+eps) * gamma + beta) @ W + b
+      =  x @ W' + b'  with  W' = diag(gamma/std) W,  b' = (beta - mean*gamma/std) @ W + b
+    """
+    std = torch.sqrt(var + eps)
+    scale = gamma / std
+    w_fused = scale[:, None] * w
+    b_fused = (beta - mean * scale) @ w + b
+    return w_fused, b_fused
+
+
 __all__ = ["TraceVar", "UpdateTerm", "SynapseProgram",
            "validate_synapse_program", "synapse_init", "mod_plane",
            "synapse_step", "synapse_run", "pair_stdp", "triplet_stdp",
            "reward_stdp", "accumulated_spike", "SYNAPSE_REGISTRY",
            "register_synapse", "make_synapse", "apply_learned",
-           "STDPConfig", "stdp_init", "stdp_step", "stdp_run"]
+           "STDPConfig", "stdp_init", "stdp_step", "stdp_run",
+           "accumulated_spike_fc", "fuse_bn1d_fc"]

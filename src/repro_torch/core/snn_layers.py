@@ -12,22 +12,30 @@ The port of `repro/core/snn_layers.py`, serving slices:
                  `dendritic=False` is the homogeneous LIF ablation.
   plastic_ff   — a 2-layer LIF stack whose input connection learns on-chip
                  (the plasticity bench, the online-STDP example).
+  bci          — the cross-day BCI decoder: 16 sub-paths of (linear
+                 transform, channel attention, temporal conv), Hadamard
+                 fusion, concat -> LIF -> fused BN1d+FC readout with
+                 accumulated-spike on-chip learning (`BCIConfig`,
+                 `bci_init`, `bci_forward`, `bci_finetune_fc`).
 
 Weights are drawn on the CPU from a torch.Generator and then moved, so one
-seed gives the same weights on every device. The BCI decoder comes with
-a later slice (ROADMAP.md, Open items 1, item 4).
+seed gives the same weights on every device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import events
 from repro_torch.core.neuron import ALIF, DHLIF, LI, LIF, locacc
-from repro_torch.core.plasticity import SynapseProgram, pair_stdp
+from repro_torch.core.plasticity import (SynapseProgram,
+                                         accumulated_spike_fc, pair_stdp)
 from repro_torch.kernels.common import DeviceLike, resolve_device, tree_to
+from repro_torch.kernels.lif.ops import lif_scan
 
 
 def _dense_init(generator: torch.Generator, n_in: int, n_out: int,
@@ -176,5 +184,111 @@ def make_dhsnn_shd(generator: torch.Generator, n_in: int = 700,
     return nodes, tree_to(params, dev)
 
 
+# ---------------------------------------------------------------------------
+# BCI cross-day decoder (16 sub-paths + on-chip learning)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BCIConfig:
+    n_channels: int = 128       # M1 array channels
+    n_steps: int = 50           # 20 ms windows
+    n_paths: int = 16
+    d_path: int = 32            # per-path feature width
+    kernel_t: int = 5           # temporal conv width
+    n_out: int = 4              # hand-movement classes
+
+
+def bci_init(generator: torch.Generator, cfg: BCIConfig,
+             device: DeviceLike = "cuda"):
+    """The decoder's parameters {lin, attn, tconv, fc_w, fc_b}, drawn on
+    the CPU from `generator` and moved to `device`."""
+    dev = resolve_device(device)
+    C, P, D = cfg.n_channels, cfg.n_paths, cfg.d_path
+    s = 1.0 / math.sqrt(C)
+    params = {
+        "lin": s * torch.randn((P, C, D), generator=generator),
+        "attn": s * torch.randn((P, C, C), generator=generator),
+        "tconv": (1.0 / math.sqrt(cfg.kernel_t)) * torch.randn(
+            (P, cfg.kernel_t, D), generator=generator),
+        # fused BN1d+FC readout (Fig. 9d): trained as the fused tensors
+        "fc_w": (1.0 / math.sqrt(P * D)) * torch.randn(
+            (P * D, cfg.n_out), generator=generator),
+        "fc_b": torch.zeros((cfg.n_out,)),
+    }
+    return tree_to(params, dev)
+
+
+def bci_features(params, x: torch.Tensor, cfg: BCIConfig) -> torch.Tensor:
+    """The LIF layer's input currents (T, batch, P*D) of `bci_forward`.
+
+    Sub-path: linear transform (x) channel attention (x) temporal conv,
+    fused by Hadamard product + addition (paper §V-B3), concatenated over
+    the paths. The attention projection sums e and c each on its own, as
+    the JAX package's einsum does (ROADMAP.md § 3)."""
+    B, C, T = x.shape
+    # linear transform module: (B, P, T, D)
+    lin = torch.einsum("bct,pcd->bptd", x, params["lin"])
+    # channel attention: softmax over channels, then project
+    att = torch.softmax(torch.einsum("bct,pce->bpet", x, params["attn"]),
+                        dim=2)
+    att = torch.einsum("bpet,pcd->bptd", att * x[:, None], params["lin"])
+    # temporal convolution along t (same-padded, depthwise over D)
+    pad = cfg.kernel_t // 2
+    lp = F.pad(lin, (0, 0, pad, cfg.kernel_t - 1 - pad))
+    idx = (torch.arange(T, device=x.device)[:, None]
+           + torch.arange(cfg.kernel_t, device=x.device)[None, :])
+    tconv = torch.einsum("bptkd,pkd->bptd", lp[:, :, idx], params["tconv"])
+    # Hadamard fusion + addition
+    fused = lin * att + tconv                                   # (B, P, T, D)
+    return fused.permute(2, 0, 1, 3).reshape(
+        T, B, cfg.n_paths * cfg.d_path).contiguous()
+
+
+def bci_forward(params, x: torch.Tensor, cfg: BCIConfig, lif=LIF(tau=0.8)):
+    """x: (batch, n_channels, n_steps) filtered/binned neural signal, on
+    the params' device.
+
+    The sub-paths' features (`bci_features`) -> LIF over time ->
+    accumulated-spike FC readout (on-chip-learnable). Returns logits
+    (batch, n_out) and the spike record (T, batch, P*D). The LIF runs the
+    whole (T, B, P*D) current block in one `lif_scan`: `csrc/lif.cu`
+    forward and `csrc/lif_bwd.cu` backward on the card."""
+    feat = bci_features(params, x, cfg)
+    T, B, n_feat = feat.shape
+    v0 = torch.zeros((B, n_feat), dtype=feat.dtype, device=feat.device)
+    tau = torch.full((n_feat,), lif.tau, dtype=torch.float32,
+                     device=feat.device)
+    spikes, _ = lif_scan(feat, tau, v0, lif.v_th, lif.surrogate,
+                         lif.alpha)                             # (T, B, P*D)
+    logits = accumulated_spike_fc(spikes, params["fc_w"], params["fc_b"])
+    return logits, spikes
+
+
+def bci_finetune_fc(params, x_few: torch.Tensor, y_few: torch.Tensor,
+                    cfg: BCIConfig, lr: float = 0.05, steps: int = 20):
+    """Cross-day on-chip learning (§V-B3): update ONLY the fused FC with
+    accumulated-spike backprop on the few samples `x_few`, `y_few` (long).
+
+    Plain SGD, `steps` steps, each re-running the forward (the features
+    need no gradient, so no LIF backward runs). Returns (params with the
+    tuned `fc_w`/`fc_b`, the (steps,) losses)."""
+    frozen = {k: v.detach() for k, v in params.items()
+              if k not in ("fc_w", "fc_b")}
+    fc = {"fc_w": params["fc_w"].detach(), "fc_b": params["fc_b"].detach()}
+    losses = []
+    for _ in range(steps):
+        leaves = {k: v.requires_grad_() for k, v in fc.items()}
+        logits, _ = bci_forward(dict(frozen, **leaves), x_few, cfg)
+        logp = torch.log_softmax(logits, dim=-1)
+        loss = -torch.mean(logp.gather(1, y_few[:, None]))
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            fc = {k: p - lr * gg for (k, p), gg in zip(leaves.items(), g)}
+        losses.append(loss.detach())
+    return dict(params, **fc), torch.stack(losses)
+
+
 __all__ = ["ff_integrate", "branch_integrate", "make_srnn_ecg",
-           "make_plastic_ff", "make_dhsnn_shd"]
+           "make_plastic_ff", "make_dhsnn_shd", "BCIConfig", "bci_init",
+           "bci_features", "bci_forward", "bci_finetune_fc"]

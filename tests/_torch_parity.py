@@ -30,6 +30,9 @@ different sides of it, and that lane's gradient may differ from that step
 back to its first step (the reverse scan carries it), and so may every
 gradient summed over it. `surrogate_edges` finds those lane-steps.
 
+`lif_membrane` does the same for a LIF layer given its currents (the BCI
+decoder's features), which is not a `LayerNode`.
+
 `hidden_membrane` computes the reference's pre-reset membrane and
 threshold itself, in float64 numpy, along the reference's own spike train
 (its resets, its adaptation, its recurrent input), so the margin is checked
@@ -117,6 +120,24 @@ def hidden_membrane(node, params: Dict[str, Any], x: np.ndarray,
             a = rho * a + s
         s_prev = s
     return u, thr
+
+
+def lif_membrane(current: np.ndarray, tau, spikes_ref: np.ndarray,
+                 v_th: float = 1.0, reset: str = "zero") -> np.ndarray:
+    """Pre-reset membrane u (T, B, N) float64 of a LIF layer driven by the
+    given (T, B, N) currents from a zero membrane, resetting where
+    `spikes_ref` spiked: the tie rule's membrane for a layer that is not a
+    `LayerNode` (the BCI decoder's, whose currents are its features)."""
+    cur = np.asarray(current, np.float64)
+    s_ref = np.asarray(spikes_ref, np.float64)
+    tau = np.asarray(tau, np.float64)
+    v = np.zeros(cur.shape[1:])
+    u = np.zeros(cur.shape)
+    for t in range(cur.shape[0]):
+        u[t] = tau * v + cur[t]
+        v = u[t] - v_th * s_ref[t] if reset == "subtract" \
+            else u[t] * (1.0 - s_ref[t])
+    return u
 
 
 def _drive(x: np.ndarray, w) -> np.ndarray:
@@ -209,5 +230,5 @@ def surrogate_edges(u: np.ndarray, threshold, surrogate: str, alpha: float,
     return np.abs(x - edge) < margin
 
 
-__all__ = ["TIE_MARGIN", "hidden_membrane", "is_recurrent", "tie_rule",
-           "max_err_before", "surrogate_edges"]
+__all__ = ["TIE_MARGIN", "hidden_membrane", "lif_membrane", "is_recurrent",
+           "tie_rule", "max_err_before", "surrogate_edges"]

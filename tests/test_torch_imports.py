@@ -1,9 +1,9 @@
 """Import hygiene: the port never imports JAX or the JAX package.
 
 Every module of `repro_torch` is imported in a fresh interpreter whose
-import system refuses `jax*` and `repro`/`repro.*`; `chip_smoke.py` is
-parsed and must import neither, and so is the tie-rule helper it shares
-with the tests.
+import system refuses `jax*` and `repro`/`repro.*`; `chip_smoke.py` and
+the port's examples are parsed and must import neither, and so is the
+tie-rule helper `chip_smoke.py` shares with the tests.
 """
 
 import ast
@@ -11,6 +11,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -36,10 +38,14 @@ assert not bad, bad
 print(len(mods), " ".join(mods))
 """
 
-# the modules of the serving slices, compressed topology, plasticity and
-# flash attention with the parity harness (ROADMAP.md, Open items 1,
-# items 1, 3, 5, 6 and 11's kernel)
+# the modules of the serving slices, compressed topology, plasticity,
+# flash attention with the parity harness, the BCI decoder (in
+# core.snn_layers and core.plasticity), and the mapping compiler, the
+# behavioural simulator and the Table II configs (ROADMAP.md, Open items
+# 1, items 1, 3, 4, 5, 6, 11's kernel and 12)
 EXPECTED = {
+    "repro_torch.core.mapping", "repro_torch.core.simulator",
+    "repro_torch.configs", "repro_torch.configs.snn_models",
     "repro_torch.kernels.attention.ops", "repro_torch.kernels.attention.ref",
     "repro_torch.kernels.parity",
     "repro_torch.core.plasticity", "repro_torch.kernels.stdp.ops",
@@ -90,6 +96,18 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
     names = _imported_names(ROOT / "chip_smoke.py")
     assert "repro_torch.serve" in names or any(
         n.startswith("repro_torch") for n in names)
+    bad = [n for n in names if n.split(".")[0] == "repro"
+           or n.split(".")[0].startswith("jax")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("example", ["bci_onchip_torch.py",
+                                     "quickstart_torch.py",
+                                     "shd_dhsnn_torch.py",
+                                     "ecg_srnn_torch.py"])
+def test_torch_examples_import_no_jax_and_no_reference(example):
+    names = _imported_names(ROOT / "examples" / example)
+    assert any(n.startswith("repro_torch") for n in names)
     bad = [n for n in names if n.split(".")[0] == "repro"
            or n.split(".")[0].startswith("jax")]
     assert not bad, bad

@@ -1,6 +1,7 @@
-"""Chip smoke test: serve the paper's SNNs, learn on-chip, train the SHD
-DH-SNN, the ECG SRNN, the ALIF feed-forward net and the BCI cross-day
-decoder (with its on-chip fine-tune), and run flash attention through
+"""Chip smoke test: serve the paper's SNNs (and a plastic one that learns
+per session), learn on-chip, train the SHD DH-SNN, the ECG SRNN, the ALIF
+feed-forward net, a banded-topology program and the BCI cross-day decoder
+(with its on-chip fine-tune), and run flash attention through
 `repro_torch` on one H100.
 
 Run from the repository root with no arguments:
@@ -23,8 +24,8 @@ the kernel phase and the sweep with no path, and
 
     python3 chip_smoke.py --path topology_banded
 
-the device and build phases and one path (any of 4.-15.'s names, `bci`
-among them) alone:
+the device and build phases and one path (any of 4.-17.'s names, `bci`,
+`serve_plastic` and `train_banded` among them) alone:
 copied into an older checkout, `--kernels` or `--path` measures that
 tree the same way, so two trees compare in one call.
 
@@ -110,7 +111,23 @@ tree the same way, so two trees compare in one call.
             raster where only the last pre neuron of each block fires, and
             on an all-silent raster (its output must be +0 everywhere);
             every gather case equal to `spikemm_gather_ref` as fp32 bit
-            patterns;
+            patterns; B6, the gather's backward (`spikemm_gather_bwd`:
+            the kernel on `GatherTables.transpose()`), at train_banded's
+            captured call (d_spikes of the band, (1024, 8192)) and on the
+            transposed tables of topology_banded's band and of scale_1e5
+            at 1024 and 64 rows of a dense graded g, each equal to
+            `spikemm_gather_bwd_ref` as fp32 bit patterns and timed beside
+            one CSR `torch.sparse.mm` of W;
+            the session axis of kernels 1 and 7 at serve_plastic's window
+            (32 steps, 256 -> 128; S = 1, 7 and 64 sessions, each on its own
+            weight, captured at plan's calls in one learning `plan.run` of
+            stacked sessions; the pair rule's two term planes and the
+            triplet rule's four): `spikemm_sessions` within 1e-5 of its
+            plain version and bit for bit `spikemm_sessions_chain_ref`,
+            `stdp_seq_sessions` bit for bit its plain version, and each
+            session of both equal bit for bit to the unbatched kernel on
+            its rows alone (`spikemm` on its (T, K) rows; `stdp_seq` at
+            batch 1); `spikemm_sessions` timed beside `torch.bmm`;
             `lif_bwd` (B1) and `linrec_bwd` (B2), the backward kernels:
             each model's calls of one train_shd step (captured at the
             registry; timed: the soma (60, 48, 64), the branches (60, 48,
@@ -120,8 +137,11 @@ tree the same way, so two trees compare in one call.
             (17, 1, 33), (5, 3, 7), and across the segments of its lane
             backward (T = SEG - 1, SEG, SEG + 1, 2 SEG + 5 and 300 at the
             soma's 48 x 64 lanes and ragged 1 x 33, 3 x 7, 3 x 130, every
-            surrogate, both resets, alpha 2), and one launch a call (the
-            profiler sees one kernel and no PyTorch op after it);
+            surrogate, both resets, alpha 2), and one launch a call (a
+            CUDA graph of a call holds that one kernel node and nothing
+            else, read through the driver; the profiler, where its trace
+            holds a device event, sees that one kernel; no PyTorch op runs
+            after it);
             `lif` and `lif_bwd` (B1) also at the bci path's day-0
             training step, (50, 128, 512) at the default BCIConfig
             (captured: the forward at `snn_layers.lif_scan`, zero reset;
@@ -311,6 +331,23 @@ tree the same way, so two trees compare in one call.
             `stdp_run(use_kernel=True)` at T=300, B=8, 256 x 128: 300 `stdp`
             launches; the weight equals `use_kernel=False` on the card and
             the CPU's plain version within 1e-5 (the JAX test's tolerance).
+10a. serve_plastic
+            `EngineConfig(window=32, capacity=64, learn=True)` serving
+            `make_plastic_ff` at 256 -> 128 -> 4 with pair STDP (the
+            plastic_ff widths), 128 sessions of Bernoulli(0.15) input in
+            ragged chunks (96..152 steps each), every session learning on
+            its own weight: per window one `spikemm_sessions` (the plastic
+            INTEG) and one `stdp_seq_sessions`, a `spikemm` (the readout),
+            a `lif` and three `linrec` (the readout and two traces);
+            params never written; every window's hidden trains held to the
+            CPU engine's session by session under the threshold-tie rule
+            (the CPU's float64 membrane from its entry membrane and entry
+            weight), readouts within 1e-4 before a session's divergence,
+            and every undiverged session's learned weight and traces
+            within 1e-4 of the CPU's; the hidden layer at or over the 1 %
+            floor; one session solo equal bit for bit to itself in the
+            full cohort, its learned synapses included; p50/p99 window
+            latency, sessions/s, card ms a window by kernel.
 11. train_shd
             `examples/shd_dhsnn_torch.py`'s training at the published
             widths: the DH-SNN (700 -> 64 x 4 -> 20) and its LIF ablation,
@@ -348,6 +385,21 @@ tree the same way, so two trees compare in one call.
             trained as 11. trains: per step spikemm x2, spikemm_wgrad
             x2, alif, alif_bwd,
             linrec, linrec_bwd; the gates of 11.
+13a. train_banded
+            topology_banded's band (8192 LIF(0.8, 0.6) behind a +-64 band at
+            0.05) with a trainable dense layer in front (700 -> 8192
+            LIF(0.8, 0.6), w_input at 2 / sqrt(700): at 1 / sqrt(700) the
+            front fires under the floor and the band not at all; PERF.md)
+            and 20 LI(0.9) read out through w_hidden; 5 clipped-SGD steps
+            at lr 0.2 of the cross-entropy of the summed readout on
+            gen_shd_spikes(16, T=64): per step spikemm x2, spikemm_gather
+            x2 (the forward and B6; B6 also counted as
+            spikemm_gather_bwd), lif x2, lif_bwd x2, linrec, linrec_bwd,
+            spikemm_wgrad x2; the gates of 11., and the forward: the front
+            layer's trains under the tie rule, the band layer's in the rows
+            where the front never diverged (its membrane from the CPU's
+            front spikes through the band's tables), both layers at or over
+            the 1 % floor.
 14. bci    `examples/bci_onchip_torch.py`'s decoder at the default
             BCIConfig, the paper's widths (128 channels x 50 bins of
             20 ms, 16 paths x 32, kernel_t 5, 4 classes), weights from
@@ -413,8 +465,9 @@ tree the same way, so two trees compare in one call.
             at `make_inputs`, forward, and the VJP of `attention`, `lif`,
             `linrec`, `lifrec`, `alif`, `alifrec` and `spikemm` (both
             channels: CUDA forward and backward, spikemm's backward its
-            `spikemm_wgrad` pair, against plain forward and backward); 11
-            kernels.
+            `spikemm_wgrad` pair, against plain forward and backward) and
+            `spikemm_gather` (its backward B6); the session axis of
+            `spikemm` and `stdp_seq`; 13 kernels.
 17. result  prints `{"kernels": [...]}`, `{"bwd_passes": {...}}`,
             `{"gather_rows": {...}}`,
             `{"sparse_tiles": {...}}`, `{"sweep": {...}}`, one
@@ -515,6 +568,24 @@ BANDED_T, BANDED_SHORT_T, BANDED_CHUNK, BANDED_RATE = 2048, 256, 64, 0.2
 BANDED_REPLAYS = 5          # streams timed on the host clock after the counted one
 # the streamed peak over the short stream's, as the JAX package's test holds
 STREAM_PEAK_RATIO = 1.25
+# train_banded: topology_banded's band (BANDED_N LIF(0.8, 0.6) behind a
+# +-BANDED_BAND band at BANDED_W) with a trainable dense layer in front:
+# `front` BANDED_N LIF(0.8, 0.6) fed by the N_IN inputs through w_input,
+# `hidden` the band fed by `front`, `readout` BANDED_TRAIN_OUT LI(0.9)
+# through w_hidden; TRAIN_STEPS clipped-SGD steps of the cross-entropy of
+# the summed readout at TRAIN_LR on gen_shd_spikes(16, T=64). w_input is
+# drawn as `snn_layers._dense_init` draws it, at BANDED_FRONT_SCALE /
+# sqrt(N_IN): at 1 / sqrt(N_IN) the front layer fires under the 1 % floor
+# on these ~1 % rasters and the band layer not at all (PERF.md § 4)
+BANDED_TRAIN_B, BANDED_TRAIN_T, BANDED_TRAIN_OUT = 16, 64, 20
+BANDED_FRONT_SCALE = 2.0
+# serve_plastic: make_plastic_ff at the plastic_ff widths (pair STDP) served
+# with EngineConfig(window=32, capacity=64, learn=True): 128 sessions of
+# Bernoulli(0.15) input (numpy seed SERVE_PLASTIC_SEED), 96..152 steps
+# each in ragged chunks
+SERVE_PLASTIC_SESSIONS, SERVE_PLASTIC_SEED = 128, 11
+# the session axis' kernel cases: sessions a window (one, ragged, full)
+SESSION_S = (1, 7, CAPACITY)
 # sparse_integ: `bench_snn_engine.run_sparsity_rows`, the homogeneous
 # DH-SNN at n_in=4096, eager plan.run on population-packed rasters
 SPARSE_IN, SPARSE_HIDDEN, SPARSE_T, SPARSE_B = 4096, 512, 256, 8
@@ -702,10 +773,20 @@ SOURCES = {
     # spike kernel on the transposed raster)
     "spikemm_wgrad": ("src/repro_torch/csrc/spikemm_wgrad.cu",
                       "src/repro/kernels/spikemm/ops.py:186"),
+    # B6, the gather's backward: kernel 10 on the transposed tables (the
+    # JAX package's custom VJP runs its Pallas kernel there)
+    "spikemm_gather_bwd": ("src/repro_torch/csrc/spikemm_gather.cu",
+                           "src/repro/kernels/spikemm/gather.py:303"),
+    # kernels 1 and 7 with a session axis (the JAX package's per-session
+    # vmap of its Pallas kernels in a learning serve window)
+    "spikemm_sessions": ("src/repro_torch/csrc/spikemm.cu",
+                         "src/repro/kernels/spikemm/kernel.py:61"),
+    "stdp_seq_sessions": ("src/repro_torch/csrc/stdp.cu",
+                          "src/repro/kernels/stdp/kernel.py:87"),
 }
 # the kernels that compute only a gradient: no forward of their own for
 # the parity harness to check (it holds them in their families' VJP legs)
-BWD_ONLY = BWD_SCANS + ("spikemm_wgrad",)
+BWD_ONLY = BWD_SCANS + ("spikemm_wgrad", "spikemm_gather_bwd")
 # the path whose serving calls make up a kernel's row in the kernel table
 HOME = {"spikemm": "shd", "linrec": "shd", "lif": "shd",
         "lifrec": "ecg_homogeneous", "alifrec": "ecg", "alif": "alif_ff",
@@ -714,7 +795,9 @@ HOME = {"spikemm": "shd", "linrec": "shd", "lif": "shd",
         "attention": "attention", "lif_bwd": "train_shd",
         "linrec_bwd": "train_shd", "lifrec_bwd": "train_ecg",
         "alifrec_bwd": "train_ecg", "alif_bwd": "train_alif_ff",
-        "spikemm_wgrad": "train_ecg"}
+        "spikemm_wgrad": "train_ecg", "spikemm_gather_bwd": "train_banded",
+        "spikemm_sessions": "serve_plastic",
+        "stdp_seq_sessions": "serve_plastic"}
 # elementwise fp32 operations per lane-step of the time kernels (the
 # backward: the u step and its reset, the surrogate, the adjoint, v_{t-1},
 # g_tau; ALIF also the threshold, a's step, Ga and g_rho). The recurrent
@@ -958,6 +1041,49 @@ def make_sparse_integ(device):
 def banded_net():
     """The banded topology of the topology_banded path, encoded once."""
     return banded(BANDED_N, BANDED_BAND, w=BANDED_W)
+
+
+def make_train_banded(device):
+    """train_banded's program: input --w_input--> BANDED_N LIF `front`
+    --topology--> BANDED_N LIF `hidden` --w_hidden--> BANDED_TRAIN_OUT LI,
+    the dense weights from torch.Generator seed 0 (`_dense_init`, w_input
+    at BANDED_FRONT_SCALE / sqrt(N_IN)); the band has no parameter."""
+    from repro_torch.core import events
+    from repro_torch.core.neuron import LI, LIF
+    from repro_torch.core.snn_layers import _dense_init, ff_integrate
+    g = torch.Generator().manual_seed(0)
+    nodes = [events.LayerNode("front", LIF(tau=0.8, v_th=0.6), ff_integrate,
+                              ("input",), BANDED_N),
+             events.LayerNode("hidden", LIF(tau=0.8, v_th=0.6), ff_integrate,
+                              (events.Connection("front",
+                                                 topology=banded_net()),),
+                              BANDED_N),
+             events.LayerNode("readout", LI(tau=0.9), ff_integrate,
+                              ("hidden",), BANDED_TRAIN_OUT)]
+    params = {"front": {"w_input": _dense_init(
+                  g, N_IN, BANDED_N,
+                  scale=BANDED_FRONT_SCALE / math.sqrt(N_IN))},
+              "hidden": {},
+              "readout": {"w_hidden": _dense_init(g, BANDED_N,
+                                                  BANDED_TRAIN_OUT)}}
+    return nodes, {k: {n: v.to(device) for n, v in d.items()}
+                   for k, d in params.items()}
+
+
+def banded_train_data(device):
+    """train_banded's batch: gen_shd_spikes(16, T=64) as (T, B, N_IN)
+    spikes and (B,) labels on `device`."""
+    from repro_torch.data.spikes import gen_shd_spikes
+    xs, ys = gen_shd_spikes(BANDED_TRAIN_B, T=BANDED_TRAIN_T, n_in=N_IN)
+    x = np.ascontiguousarray(xs.transpose(1, 0, 2))
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(ys % BANDED_TRAIN_OUT).long().to(device))
+
+
+def banded_loss(outs, y):
+    """Cross-entropy of the readout summed over time."""
+    return -torch.log_softmax(outs.sum(0), -1)[
+        torch.arange(len(y), device=y.device), y].mean()
 
 
 def make_banded(device):
@@ -1524,7 +1650,7 @@ def stdp_seq_no_rows():
     amp = (ctypes.c_float * K)(*amps)
     code = _build.library().stdp_seq_f32(
         P.data_ptr(), Q.data_ptr(), w.data_ptr(), out.data_ptr(),
-        ctypes.addressof(amp), K, T, 0, M, N, -0.5, 0.5,
+        ctypes.addressof(amp), K, T, 0, M, N, 1, -0.5, 0.5,
         torch.cuda.current_stream().cuda_stream)
     _build.check("stdp_seq", code)
     want = w.clone()
@@ -1817,8 +1943,30 @@ def work(name, args, out, kw=None):
     nonzeros each add one row), plus 2 * T * M * N for the step sums and
     the clip; dense 2 * K * T * B * M * N. stdp: 2 * (nnz(s_post) * M +
     nnz(s_pre) * N) for its two products, plus 3 * M * N; dense
-    4 * B * M * N + 3 * M * N."""
+    4 * B * M * N + 3 * M * N. The session axis counts as its unbatched
+    kernel does over all sessions: `spikemm_sessions` the raster, every
+    session's weight and the output once and 2 * nnz * N;
+    `stdp_seq_sessions` every weight read and written once, the planes
+    once, and stdp_seq's operations with the step sums of S weights.
+    B6 (`spikemm_gather_bwd`) is the gather's function on the transposed
+    tables (the caller passes those)."""
     tensors = [a for a in args if torch.is_tensor(a)]
+    if name == "stdp_seq_sessions":
+        P, Q, w = args
+        K, TS, M = P.shape
+        S, _, N = w.shape
+        ops = 2 * sum(min(int(torch.count_nonzero(P[k])) * N,
+                          int(torch.count_nonzero(Q[k])) * M)
+                      for k in range(K)) + 2 * TS * M * N
+        return (4 * (2 * S * M * N + K * TS * (M + N)), ops,
+                2 * K * TS * M * N)
+    if name == "spikemm_sessions":
+        s, w = args
+        T, S, K = s.shape
+        N = w.shape[2]
+        nnz = int(torch.count_nonzero(s))
+        return (4 * (T * S * K + S * K * N + T * S * N), 2 * nnz * N,
+                2 * T * S * K * N)
     if name == "stdp_seq":
         P, Q, w = args
         K, TB, M = P.shape
@@ -1993,14 +2141,17 @@ def banded(n, band, w=None, seed=0):
                        n_pre=n, n_post=n)
 
 
-def csr_product(enc):
-    """A function of s computing s @ W with one `torch.sparse.mm` for the
-    topology `enc`, W^T held as a CSR matrix on the card (built once): the
-    library yardstick where the dense matrix does not fit."""
+def csr_product(enc, transpose=False):
+    """A function of s computing s @ W (s @ W^T where `transpose`: the
+    gather's backward) with one `torch.sparse.mm` for the topology `enc`,
+    W^T (W) held as a CSR matrix on the card (built once): the library
+    yardstick where the dense matrix does not fit."""
     pre, post, w = enc.coo()
+    rows, cols, shape = ((pre, post, (enc.n_pre, enc.n_post)) if transpose
+                         else (post, pre, (enc.n_post, enc.n_pre)))
     wt = torch.sparse_coo_tensor(
-        torch.from_numpy(np.stack([post, pre])), torch.from_numpy(w),
-        (enc.n_post, enc.n_pre)).coalesce().to_sparse_csr().to(DEV)
+        torch.from_numpy(np.stack([rows, cols])), torch.from_numpy(w),
+        shape).coalesce().to_sparse_csr().to(DEV)
 
     def product(s):
         st = s.t().contiguous()
@@ -2235,6 +2386,90 @@ def gather_cases():
     return cases
 
 
+def gather_bwd_cases():
+    """B6's cases: the gather's backward, d_spikes = g @ W^T, the kernel on
+    the transposed tables of topology_banded's band and of scale_1e5, at
+    train_banded's backward rows (T x B = 1024) and at 64 rows, each on a
+    dense graded g (a cotangent has no zeros to skip), timed beside one
+    CSR `torch.sparse.mm` of W."""
+    out = []
+    for label, enc, bk in (("topology_banded", banded_net(), None),
+                           ("scale_1e5", banded(*GATHER_ROWS["scale_1e5"][:2],
+                                               seed=0),
+                            GATHER_ROWS["scale_1e5"][2])):
+        tables = enc.lowering(bk=bk, bn=bk)
+        csr = csr_product(enc, transpose=True)
+        for m in (BANDED_TRAIN_T * BANDED_TRAIN_B, 64):
+            g = torch.randn((m, enc.n_post), generator=torch.Generator()
+                            .manual_seed(m)).to(DEV)
+            out.append(Case(f"{label} transposed tables, dense g, M={m}",
+                            (g, tables), timed=True, library=csr(g)))
+    return out
+
+
+def session_cases():
+    """{kernel: [Case]} of the session axis at serve_plastic's window
+    (WINDOW steps, PLASTIC_IN -> PLASTIC_HIDDEN): `spikemm_sessions` (the
+    plastic INTEG, (32, S, 256) @ (S, 256, 128)) and `stdp_seq_sessions`
+    (the pair rule's two term planes; the triplet rule's four), captured
+    at plan's calls in one learning `plan.run` of S sessions stacked as the
+    serve engine stacks them, each on its own weight (the seed's plus 0.05
+    x normal), at S = 1, 7 and CAPACITY; the pair rule's full cohort is the
+    path's home call. `spikemm_sessions` is timed beside `torch.bmm` (a
+    yardstick; the port never calls it)."""
+    from repro_torch.core import events, plan, plasticity
+    from repro_torch.serve.engine import _stack_sessions
+    out = {"spikemm_sessions": [], "stdp_seq_sessions": []}
+    real = (plan.spikemm_sessions, plan.stdp_seq_sessions)
+    got = []
+
+    def spy_mm(s, w):
+        got.append(("spikemm_sessions", (s, w), {}))
+        return real[0](s, w)
+
+    def spy_seq(P, Q, w, **kw):
+        got.append(("stdp_seq_sessions", (P, Q, w), kw))
+        return real[1](P, Q, w, **kw)
+
+    plan.spikemm_sessions, plan.stdp_seq_sessions = spy_mm, spy_seq
+    try:
+        for rule_name, S in ([("pair_stdp", n) for n in SESSION_S]
+                             + [("triplet_stdp", CAPACITY)]):
+            nodes, params = make_plastic(rule_name, DEV)
+            gen = torch.Generator().manual_seed(S)
+            states = []
+            for _ in range(S):
+                st = events.init_state(nodes, 1, torch.float32, params,
+                                       device=DEV)
+                syn = st["hidden"]["syn:input"]
+                syn["w"] = syn["w"] + 0.05 * torch.randn(
+                    syn["w"].shape, generator=gen).to(DEV)
+                states.append(st)
+            stacked = _stack_sessions(states)
+            x = torch.from_numpy((np.random.default_rng(S).random(
+                (WINDOW, S, PLASTIC_IN)) < PLASTIC_RATE).astype(
+                    np.float32)).to(DEV)
+            del got[:]
+            with torch.no_grad():
+                plan.run(nodes, plasticity.apply_learned(nodes, params,
+                                                         stacked),
+                         x, state=stacked, device=DEV, _traced=True)
+            home = rule_name == "pair_stdp" and S == CAPACITY
+            for name, args, kw in got:
+                out[name].append(Case(
+                    f"serve_plastic window, {rule_name}, S={S}"
+                    + (f", K={args[0].shape[0]}" if name ==
+                       "stdp_seq_sessions" else ""), args, kw=kw,
+                    path="serve_plastic" if home else None, timed=True,
+                    library=(lambda a=args: torch.bmm(a[0].transpose(0, 1),
+                                                      a[1]))
+                    if name == "spikemm_sessions" else None,
+                    plain_iters=2 if name == "stdp_seq_sessions" else None))
+    finally:
+        plan.spikemm_sessions, plan.stdp_seq_sessions = real
+    return out
+
+
 def sparse_cases():
     """The sparse channel's cases: the sparse_integ path's hidden INTEG at
     the density whose run the kernel table records and at density 0.01,
@@ -2358,14 +2593,20 @@ def kernel_impls():
     from repro_torch.kernels.linrec.ops import (linrec_bwd_cuda,
                                                 linrec_bwd_ref, linrec_cuda,
                                                 linrec_ref)
-    from repro_torch.kernels.spikemm.gather import (spikemm_gather_cuda,
+    from repro_torch.kernels.spikemm.gather import (spikemm_gather_bwd_cuda,
+                                                    spikemm_gather_bwd_ref,
+                                                    spikemm_gather_cuda,
                                                     spikemm_gather_ref)
     from repro_torch.kernels.spikemm.ops import (spikemm_cuda, spikemm_ref,
+                                                 spikemm_sessions_cuda,
+                                                 spikemm_sessions_ref,
                                                  spikemm_wgrad_cuda,
                                                  spikemm_wgrad_ref)
     from repro_torch.kernels.spikemm.sparse import (spikemm_sparse_cuda,
                                                     spikemm_sparse_ref)
     from repro_torch.kernels.stdp.ops import (stdp_seq_cuda, stdp_seq_ref,
+                                              stdp_seq_sessions_cuda,
+                                              stdp_seq_sessions_ref,
                                               stdp_update_cuda,
                                               stdp_update_ref)
     cuda = {"spikemm": spikemm_cuda, "linrec": linrec_cuda, "lif": lif_cuda,
@@ -2375,7 +2616,10 @@ def kernel_impls():
             "stdp": stdp_update_cuda, "lif_bwd": lif_bwd_cuda,
             "linrec_bwd": linrec_bwd_cuda, "lifrec_bwd": lifrec_bwd_cuda,
             "alif_bwd": alif_bwd_cuda, "alifrec_bwd": alifrec_bwd_cuda,
-            "spikemm_wgrad": spikemm_wgrad_cuda}
+            "spikemm_wgrad": spikemm_wgrad_cuda,
+            "spikemm_gather_bwd": spikemm_gather_bwd_cuda,
+            "spikemm_sessions": spikemm_sessions_cuda,
+            "stdp_seq_sessions": stdp_seq_sessions_cuda}
     plain = {"spikemm": spikemm_ref, "linrec": linrec_ref,
              "lif": lif_scan_ref, "lifrec": lifrec_scan_ref,
              "alif": alif_scan_ref, "alifrec": alifrec_scan_ref,
@@ -2386,7 +2630,10 @@ def kernel_impls():
              "lifrec_bwd": lifrec_scan_bwd_ref,
              "alif_bwd": alif_scan_bwd_ref,
              "alifrec_bwd": alifrec_scan_bwd_ref,
-             "spikemm_wgrad": spikemm_wgrad_ref}
+             "spikemm_wgrad": spikemm_wgrad_ref,
+             "spikemm_gather_bwd": spikemm_gather_bwd_ref,
+             "spikemm_sessions": spikemm_sessions_ref,
+             "stdp_seq_sessions": stdp_seq_sessions_ref}
     return cuda, plain
 
 
@@ -2416,6 +2663,9 @@ def kernel_cases(shd_params):
         dataclasses.replace(c, library=lambda a=c.args: torch.matmul(*a))
         for c in sparse_cases()]
     cases["spikemm_gather"] = gather_cases()
+    cases["spikemm_gather_bwd"] += gather_bwd_cases()
+    for name, calls in session_cases().items():
+        cases[name] += calls
     for name, calls in serial_cases().items():
         cases[name] += calls
     for name, calls in train_cases().items():
@@ -2449,6 +2699,7 @@ def phase_kernels(cases):
                                             rec_route_launch_counts,
                                             w_in_smem)
     from repro_torch.kernels.spikemm.ops import spikemm_cuda
+    from repro_torch.kernels.spikemm.ops import spikemm_sessions_chain_ref
     from repro_torch.kernels.spikemm.ref import (spikemm_chain_ref,
                                                  spikemm_wgrad_chain_ref)
     from repro_torch.kernels.spikemm.wgrad import wgrad_chunk, wgrad_chunks
@@ -2541,7 +2792,18 @@ def phase_kernels(cases):
                                                atol=case.atol)
                     extra = (", bit for bit" if same_bits(name, g, r)
                              else f", max abs err {err:.3e}")
-                elif name == "spikemm_gather":
+                elif name == "spikemm_sessions":
+                    torch.testing.assert_close(g, r, rtol=SPIKEMM_TOL,
+                                               atol=SPIKEMM_TOL)
+                    # and bit for bit the kernel's chain a session at a time
+                    chain = spikemm_sessions_chain_ref(*args)
+                    if not torch.equal(g, chain):
+                        raise AssertionError(
+                            f"{name} [{label}]: differs from "
+                            f"spikemm_sessions_chain_ref by "
+                            f"{float((g - chain).abs().max()):.3e}")
+                    extra = ", equal to spikemm_sessions_chain_ref bit for bit"
+                elif name in ("spikemm_gather", "spikemm_gather_bwd"):
                     # the plain version's chain term for term (entries,
                     # then k): equal bit for bit, signs of zeros included
                     if not torch.equal(g.view(torch.int32),
@@ -2565,6 +2827,8 @@ def phase_kernels(cases):
                 extra += ("; equal to the dense kernel bit for bit; "
                           f"occupancy kernel == block_occupancy ({occupied} "
                           f"of {blocks} blocks, total == flags.sum())")
+            if name in ("spikemm_sessions", "stdp_seq_sessions"):
+                extra += sessions_alone(name, args, kw, got[0])
             if name == "linrec_bwd" and args[1].shape[0] > 0:
                 extra += linrec_bwd_flipped(
                     label, args, got[1 if kw.get("need_a", True) else 0])
@@ -2584,7 +2848,7 @@ def phase_kernels(cases):
                 extra += (f"; against the dense spikemm on dense_equivalent()"
                           f" {float((got[0] - dense).abs().max()):.3e}")
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-            if name == "spikemm_gather":
+            if name in ("spikemm_gather", "spikemm_gather_bwd"):
                 t = args[1]
                 shapes.append(f"E={len(t.jj)} ({t.n_entries} active), "
                               f"bk={t.bk}, bn={t.bn}")
@@ -2606,7 +2870,8 @@ def phase_kernels(cases):
                     f"plain{extra} (max abs err so far {max_err:.3e})")
                 continue
             heavy = name in ("lifrec", "alifrec", "alif", "spikemm_gather",
-                             "stdp_seq") + BWD_SCANS
+                             "stdp_seq", "spikemm_gather_bwd",
+                             "stdp_seq_sessions") + BWD_SCANS
             ms = cuda_ms(lambda: cuda[name](*args, **kw), iters=200)
             # the recurrent backward's chain floor: T x N dependent adds at
             # the highest SM clock
@@ -2621,14 +2886,37 @@ def phase_kernels(cases):
                    else cuda_ms(case.library, iters=200))
             # the sparse channel is its occupancy measure and its product:
             # time each alone, and the dense kernel on the same inputs
-            kernel_ms = dense_ms = occ_ms = None
+            kernel_ms = dense_ms = occ_ms = witness = None
             if name == "lif_bwd":
                 kernel_ms = cuda_ms(lif_bwd_alone(args, kw), iters=200)
-                # one launch a call: the kernel and nothing after it
+                # one launch a call: the kernel and nothing after it, on
+                # the host (its counter, no PyTorch op that runs a kernel),
+                # on the device (a CUDA graph of the call holds that one
+                # kernel node and nothing else) and in the profiler's trace
+                # where the tracer recorded one
+                before = cuda[name].launches
+                ops = host_ops(lambda: cuda[name](*args, **kw))
+                if ops or cuda[name].launches != before + 1:
+                    raise AssertionError(
+                        f"lif_bwd [{label}]: a call made "
+                        f"{cuda[name].launches - before} launches and the "
+                        f"PyTorch ops {ops}, not its one kernel alone")
+                captured = graph_kernels(lambda: cuda[name](*args, **kw))
                 ran = device_kernels(lambda: cuda[name](*args, **kw))
-                if len(ran) != 1 or "lif_bwd_kernel" not in ran[0]:
-                    raise AssertionError(f"lif_bwd [{label}]: a call ran "
-                                         f"{ran}, not its one kernel")
+                for seen, how in ((captured, "captured"), (ran, "ran")):
+                    if seen and (len(seen) != 1
+                                 or "lif_bwd_kernel" not in seen[0]):
+                        raise AssertionError(f"lif_bwd [{label}]: a call "
+                                             f"{how} {seen}, not its one "
+                                             "kernel")
+                if not captured:
+                    raise AssertionError(f"lif_bwd [{label}]: a CUDA graph "
+                                         "of a call holds no node")
+                if not ran:
+                    log(f"lif_bwd [{label}]: the profiler recorded no device "
+                        "event; held by the CUDA graph's one node, the "
+                        "launch counter and host ops")
+                witness = {"graph": captured, "profiler": ran}
             if name == "alif_bwd":
                 kernel_ms = cuda_ms(alif_bwd_alone(args, kw), iters=200)
             if name == "spikemm_sparse":
@@ -2642,14 +2930,19 @@ def phase_kernels(cases):
                 raster_t = wgrad_raster(args, kw).t().contiguous()
                 dense_ms = cuda_ms(lambda: spikemm_cuda(raster_t, args[1]),
                                    iters=200)
-            nbytes, flops, dense = work(name, args, got, kw)
+            # B6 is the gather's function on the transposed tables
+            wname, wargs = (("spikemm_gather", (args[0], args[1].transpose()))
+                            if name == "spikemm_gather_bwd" else (name, args))
+            nbytes, flops, dense = work(wname, wargs, got, kw)
             b_ms, b_by = bound(nbytes, flops)
             d_ms, d_by = bound(nbytes, dense)
             # beside it, the gather's bound at the patch rows the kernel
             # reads, and if every active patch is read
-            rows_ms, patches_ms = ((bound(gather_read_bytes(*args), flops)[0],
-                                    bound(gather_patch_bytes(*args), flops)[0])
-                                   if name == "spikemm_gather"
+            rows_ms, patches_ms = ((bound(gather_read_bytes(*wargs),
+                                          flops)[0],
+                                    bound(gather_patch_bytes(*wargs),
+                                          flops)[0])
+                                   if wname == "spikemm_gather"
                                    else (None, None))
             # the backward scans' u (and ALIF's a_{t-1}) scratch, written
             # in pass 1 and read in pass 2: not the function's bytes, this
@@ -2659,9 +2952,12 @@ def phase_kernels(cases):
                 nbytes + 2 * 4 * planes * args[0].numel(), flops)[0])
             T = args[1].shape[0] if name == "linrec" else (
                 args[0].shape[1] // kw["batch"] if name == "stdp_seq" else (
-                    args[0].shape[0] if name not in (
-                        "spikemm", "spikemm_sparse", "spikemm_gather",
-                        "stdp", "spikemm_wgrad") else None))
+                    args[0].shape[1] // args[2].shape[0]
+                    if name == "stdp_seq_sessions" else (
+                        args[0].shape[0] if name not in (
+                            "spikemm", "spikemm_sparse", "spikemm_gather",
+                            "stdp", "spikemm_wgrad", "spikemm_gather_bwd",
+                            "spikemm_sessions") else None)))
             calls.append({"call": label, "path": case.path, "shape": shapes,
                           "route": route, "ms": ms, "plain_ms": p_ms,
                           "library_ms": lib,
@@ -2676,7 +2972,8 @@ def phase_kernels(cases):
                           "bound_patches_ms": patches_ms,
                           "bound_scratch_ms": scratch_ms,
                           "chain_floor_ms": chain_ms, "sm_max_clock_mhz": clock,
-                          "table_build_s": case.build_s})
+                          "table_build_s": case.build_s,
+                          "device_kernels": witness})
             log(f"kernel {name} [{label}] {shapes}: {ms:.4f} ms on the card"
                 f"{'' if T is None else f' ({ms / T * 1e3:.3f} us/step)'} "
                 f"(plain {p_ms:.4f}, "
@@ -2719,6 +3016,32 @@ def phase_kernels(cases):
                              else sum(c["occupancy_ms"] for c in home)),
             "calls": calls}
     return results
+
+
+def sessions_alone(name, args, kw, got):
+    """Each session of a session-axis call (`spikemm_sessions`,
+    `stdp_seq_sessions`) equals, bit for bit, the unbatched kernel on that
+    session's rows alone (`spikemm` on its (T, K) rows against its weight;
+    `stdp_seq` at batch 1 on rows t * S + s): the isolation invariant of
+    learning serve windows. Raises, or returns what it checked."""
+    from repro_torch.kernels.spikemm.ops import spikemm_cuda
+    from repro_torch.kernels.stdp.ops import stdp_seq_cuda
+    S = (args[2] if name == "stdp_seq_sessions" else args[1]).shape[0]
+    for i in range(S):
+        if name == "spikemm_sessions":
+            alone = spikemm_cuda(args[0][:, i].contiguous(), args[1][i])
+            mine = got[:, i].contiguous()
+        else:
+            P, Q, w = args
+            alone = stdp_seq_cuda(P[:, i::S].contiguous(),
+                                  Q[:, i::S].contiguous(), w[i], batch=1,
+                                  **kw)
+            mine = got[i]
+        if not torch.equal(alone.view(torch.int32), mine.view(torch.int32)):
+            raise AssertionError(f"{name}: session {i} differs from the "
+                                 "unbatched kernel on its rows alone")
+    return (f"; each of the {S} sessions equal to the unbatched kernel on "
+            "its rows alone, bit for bit")
 
 
 def phase_rec_bwd_passes(cases):
@@ -3881,6 +4204,236 @@ def phase_plastic_ff(smi):
             "rules": rows, "card": smi}
 
 
+def plastic_streams():
+    """{sid: (steps, PLASTIC_IN)}: session i streams 96 + 8 * (i % 8) steps
+    of Bernoulli(PLASTIC_RATE) spikes from numpy's generator with seed
+    SERVE_PLASTIC_SEED."""
+    x = (np.random.default_rng(SERVE_PLASTIC_SEED).random(
+        (SERVE_PLASTIC_SESSIONS, 152, PLASTIC_IN)) < PLASTIC_RATE).astype(
+            np.float32)
+    return {f"s{i}": x[i, :96 + 8 * (i % 8)]
+            for i in range(SERVE_PLASTIC_SESSIONS)}
+
+
+@contextlib.contextmanager
+def window_records(eng, windows):
+    """Within it, each window `eng` serves appends to `windows` its live
+    sessions in slot order ("sids"), their valid steps ("valid"), and on
+    the host the input ("x"), each slot's plastic weight ("w") and hidden
+    membrane ("v0") at the window's entry and the hidden layer's spike
+    train ("hidden"): the engine's `plan.run` runs with
+    record=("hidden",), which changes nothing it computes."""
+    from repro_torch.core import plan as plan_mod
+    real_run, real_cohort = plan_mod.run, eng._run_cohort
+    cur = {}
+
+    def run(*a, **kw):
+        ns, out, rec = real_run(*a, **{**kw, "record": ("hidden",)})
+        nodes, params, x = a[:3]
+        mem = nodes[0].neuron.program.threshold.on
+        windows.append({**cur, "x": x.cpu().numpy(),
+                        "w": params["hidden"]["w_input"].cpu().numpy(),
+                        "v0": kw["state"]["hidden"][mem].cpu().numpy(),
+                        "hidden": rec["hidden"].cpu().numpy()})
+        return ns, out, rec
+
+    def cohort(c, states):
+        cur.update(sids=[sess.sid for sess, _, _ in c],
+                   valid=[v for _, _, v in c])
+        return real_cohort(c, states)
+
+    eng._run_cohort = cohort
+    plan_mod.run = run
+    try:
+        yield
+    finally:
+        plan_mod.run = real_run
+        del eng._run_cohort                 # the class's method again
+
+
+def sessions_vs_cpu(tag, node, card, cpu):
+    """Hold the card's learning windows (`window_records`) to the CPU's,
+    session by session, under the threshold-tie rule: within a window a
+    session's hidden train may differ from the CPU's only from a step where
+    the CPU's float64 pre-reset membrane (from its entry membrane, through
+    its own entry weight) lies within the tie margin of the threshold; from
+    there the session has diverged. Returns {sid: the step of its stream
+    where it diverged}, for the sessions that did."""
+    tie = load_tie_rule()
+    prog = node.neuron.program
+    tau = prog.states[0].decay.value
+    th = float(prog.threshold.base)
+    if [w["sids"] for w in card] != [w["sids"] for w in cpu]:
+        raise AssertionError(f"[{tag}] the card and the CPU served other "
+                             "cohorts")
+    done, diverged = {}, {}
+    for wg, wc in zip(card, cpu):
+        for i, (sid, n) in enumerate(zip(wg["sids"], wg["valid"])):
+            t0 = done.get(sid, 0)
+            done[sid] = t0 + n
+            s_g, s_c = wg["hidden"][:n, i], wc["hidden"][:n, i]
+            if sid in diverged or np.array_equal(s_g, s_c):
+                continue
+            x = wc["x"][:n, i].astype(np.float64)
+            drive = x @ wc["w"][i].astype(np.float64)
+            v = wc["v0"][i].astype(np.float64)
+            u = np.zeros((n, len(v)))
+            for t in range(n):
+                u[t] = tau * v + drive[t]
+                v = (u[t] - th * s_c[t] if prog.reset == "subtract"
+                     else u[t] * (1.0 - s_c[t]))
+            first, _ = tie.tie_rule(s_c[:, None], s_g[:, None], u[:, None],
+                                    th)
+            diverged[sid] = t0 + int(first[0])
+    return diverged
+
+
+def phase_serve_plastic(smi):
+    """`EngineConfig(learn=True)` serving on the card: make_plastic_ff at
+    PLASTIC_IN -> PLASTIC_HIDDEN -> PLASTIC_OUT with pair STDP, 128
+    sessions, window 32, capacity 64, each session learning on its own
+    weight through the session-batched spikemm and stdp_seq."""
+    from repro_torch.kernels import registry
+    from repro_torch.serve import EngineConfig, make_engine
+    tag = "serve_plastic"
+    nodes, params = make_plastic("pair_stdp", DEV)
+    nodes_c, params_c = make_plastic("pair_stdp", "cpu")
+    cfg = EngineConfig(window=WINDOW, capacity=CAPACITY, queue_limit=None,
+                       learn=True)
+    streams = plastic_streams()
+    trace = make_trace(streams)
+    w0 = params["hidden"]["w_input"].clone()
+    per_window = {"spikemm_sessions": 1, "stdp_seq_sessions": 1,
+                  "spikemm": 1, "lif": 1, "linrec": 3}
+
+    # warm-up outside the measured run
+    replay(make_engine(nodes, params, cfg, device=DEV),
+           make_trace({k: v[:64] for k, v in list(streams.items())[:4]}))
+    sync()
+
+    # -- the main path: launch counters from 0 --------------------------------
+    registry.reset_launches()
+    lat, walls = [], []
+
+    def timed_replay():
+        t0 = time.perf_counter()
+        e = replay(make_engine(nodes, params, cfg, device=DEV), trace, lat)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        return e
+
+    eng = timed_replay()
+    counts = registry.launch_counts()
+    wins = eng.metrics.windows_run
+    counted(tag, per_window, wins, counts)
+    if not torch.equal(params["hidden"]["w_input"], w0):
+        raise AssertionError(f"[{tag}] learning wrote into params")
+    log(f"path [{tag}]: {len(streams)} sessions, {wins} windows, launches "
+        f"{counts} ({per_window} per window)")
+
+    # -- the card against the CPU engine, session by session -----------------
+    card_w, cpu_w = [], []
+    eng_g = make_engine(nodes, params, cfg, device=DEV)
+    with window_records(eng_g, card_w):
+        replay(eng_g, trace)
+    eng_c = make_engine(nodes_c, params_c, cfg, device="cpu")
+    with window_records(eng_c, cpu_w):
+        replay(eng_c, trace)
+    diverged = sessions_vs_cpu(tag, nodes_c[0], card_w, cpu_w)
+    rate = float(np.mean([w["hidden"][:n, i].mean() for w in cpu_w
+                          for i, n in enumerate(w["valid"])]))
+    if rate < MIN_HIDDEN_RATE:
+        raise AssertionError(f"[{tag}] hidden rate {rate:.4%} under the "
+                             f"{MIN_HIDDEN_RATE:.0%} floor")
+    err_out, err_w, err_tr, moved = 0.0, 0.0, 0.0, []
+    for sid, v in streams.items():
+        got = eng.outputs(sid)
+        if got.shape != (len(v), PLASTIC_OUT) or not np.all(np.isfinite(got)):
+            raise AssertionError(f"[{tag}] {sid}: outputs {got.shape}")
+        if not np.array_equal(got, eng_g.outputs(sid)):
+            raise AssertionError(f"[{tag}] {sid}: two card replays differ")
+        t0 = diverged.get(sid, len(v))
+        err_out = max(err_out, float(np.max(np.abs(
+            got[:t0] - eng_c.outputs(sid)[:t0]), initial=0.0)))
+        syn_g = eng.state_of(sid)["hidden"]["syn:input"]
+        moved.append(float((syn_g["w"] - w0).abs().max()))
+        if sid in diverged:
+            continue
+        syn_c = eng_c.state_of(sid)["hidden"]["syn:input"]
+        for k, ref in syn_c.items():
+            torch.testing.assert_close(syn_g[k].cpu(), ref, rtol=LEARN_TOL,
+                                       atol=LEARN_TOL, msg=lambda m: (
+                                           f"[{tag}] {sid} learned {k} card "
+                                           f"vs CPU: {m}"))
+            e = float((syn_g[k].cpu() - ref).abs().max())
+            err_w, err_tr = ((max(err_w, e), err_tr) if k == "w"
+                             else (err_w, max(err_tr, e)))
+    if err_out > READOUT_TOL:
+        raise AssertionError(f"[{tag}] readout card vs CPU {err_out:.3e} > "
+                             f"{READOUT_TOL}")
+    if not min(moved) > 0:
+        raise AssertionError(f"[{tag}] a session learned nothing")
+    log(f"path [{tag}]: card vs CPU engine: hidden rate {rate:.4f}, "
+        f"{len(diverged)} sessions diverged at threshold ties {diverged}; "
+        f"readout max abs err {err_out:.3e}; learned w max abs err "
+        f"{err_w:.3e}, traces {err_tr:.3e} (the other "
+        f"{len(streams) - len(diverged)} sessions); w moved "
+        f"{min(moved):.3e}..{max(moved):.3e}")
+
+    # -- one session solo against the full cohort ----------------------------
+    solo_sid = next(iter(streams))
+    solo = replay(make_engine(nodes, params, cfg, device=DEV),
+                  [e for e in trace if e[1] == solo_sid])
+    if not np.array_equal(solo.outputs(solo_sid), eng.outputs(solo_sid)):
+        raise AssertionError(f"[{tag}] {solo_sid}: solo != cohort outputs")
+    st_solo, st_cohort = solo.state_of(solo_sid), eng.state_of(solo_sid)
+    for node, nd in st_solo.items():
+        for k, v in nd.items():
+            pairs = (v.items() if isinstance(v, dict) else [(None, v)])
+            for e, t in pairs:
+                other = st_cohort[node][k] if e is None \
+                    else st_cohort[node][k][e]
+                if not torch.equal(t.view(torch.int32),
+                                   other.view(torch.int32)):
+                    raise AssertionError(f"[{tag}] {solo_sid}: solo != "
+                                         f"cohort state {node}.{k}.{e}")
+    log(f"path [{tag}]: {solo_sid} solo == in the full cohort, outputs and "
+        "state (learned synapses included) bit for bit")
+
+    for _ in range(REPLAYS - 1):
+        timed_replay()
+    wall = float(np.median(walls))
+    dev_ms, top = device_profile(
+        lambda: make_engine(nodes, params, cfg, device=DEV), trace)
+    host = host_breakdown(make_engine(nodes, params, cfg, device=DEV), trace)
+    mean_ms = float(np.mean(lat)) * 1e3
+    out = {"path": tag, "model": f"make_plastic_ff {PLASTIC_IN}->"
+           f"{PLASTIC_HIDDEN}->{PLASTIC_OUT}, pair STDP, learn=True",
+           "window": WINDOW, "capacity": CAPACITY, "sessions": len(streams),
+           "windows": wins, "launches": counts,
+           "launches_per_window": per_window,
+           "input": f"bernoulli({PLASTIC_RATE})", "hidden_rate": rate,
+           "sessions_diverged": diverged, "readout_max_abs_err": err_out,
+           "learned_w_max_abs_err": err_w,
+           "learned_traces_max_abs_err": err_tr,
+           "w_moved_min": min(moved), "w_moved_max": max(moved),
+           "replays": len(walls), "window_samples": len(lat),
+           "p50_window_ms": float(np.percentile(lat, 50)) * 1e3,
+           "p99_window_ms": float(np.percentile(lat, 99)) * 1e3,
+           "mean_window_ms": mean_ms,
+           "sessions_per_s": len(streams) / wall,
+           "median_replay_wall_s": wall,
+           "device_ms_per_window": dev_ms,
+           "device_busy_share": (None if dev_ms is None
+                                 else dev_ms / mean_ms),
+           "device_ms_per_window_by_kernel": top,
+           "host_ms_per_window_by_stage": host, "card": smi}
+    log(f"path [{tag}]: p50 window {out['p50_window_ms']:.3f} ms, p99 "
+        f"{out['p99_window_ms']:.3f}, {out['sessions_per_s']:.1f} sessions/s, "
+        f"card {dev_ms} ms a window")
+    return out
+
+
 def phase_plastic_online(smi):
     """`examples/stdp_online.py`'s loop at the bench widths: ONLINE_CHUNKS
     chunks, chunked (apply_learned between chunks) and streamed
@@ -4129,6 +4682,9 @@ class TrainPath:
     loss: Callable
     lr: float
     models: tuple
+    # forward_check(tag, make, x) -> the forward's card-vs-CPU report (see
+    # `hidden_forward_vs_cpu`, the default)
+    forward_check: Callable = None
 
 
 def train_paths():
@@ -4139,7 +4695,12 @@ def train_paths():
     train_ecg: INTEG x2, the hidden layer's alifrec (the ablation:
     lifrec), the readout's linrec; alifrec_bwd (lifrec_bwd), linrec_bwd,
     g_w x3 (input, recurrent, readout). train_alif_ff: INTEG x2, alif,
-    linrec; alif_bwd, linrec_bwd, g_w x2."""
+    linrec; alif_bwd, linrec_bwd, g_w x2. train_banded: the front INTEG
+    and the readout's (spikemm x2), the band's gather forward and its
+    backward (B6, the gather on the transposed tables: spikemm_gather x2,
+    one of them counted as spikemm_gather_bwd), lif x2 and lif_bwd x2,
+    the readout's linrec and linrec_bwd, g_w x2 (w_input, w_hidden); the
+    band has no weight gradient."""
     def shd(dendritic):
         n_lin = 2 if dendritic else 1
         return ("dendritic" if dendritic else "homogeneous",
@@ -4172,7 +4733,101 @@ def train_paths():
                   shd_loss, TRAIN_LR,
                   (("alif", make_alif_ff,
                     {"spikemm+sparse": 2, "spikemm_wgrad": 2, "alif": 1,
-                     "alif_bwd": 1, "linrec": 1, "linrec_bwd": 1}),)))}
+                     "alif_bwd": 1, "linrec": 1, "linrec_bwd": 1}),)),
+        TrainPath("train_banded", f"{N_IN} -> {BANDED_N} LIF(0.8, 0.6) "
+                  f"(w_input at {BANDED_FRONT_SCALE}/sqrt({N_IN})) -> "
+                  f"{BANDED_N} LIF(0.8, 0.6) through the +-{BANDED_BAND} "
+                  f"band at {BANDED_W} -> {BANDED_TRAIN_OUT} LI(0.9), "
+                  f"clipped SGD lr {TRAIN_LR}",
+                  f"gen_shd_spikes({BANDED_TRAIN_B}, T={BANDED_TRAIN_T})",
+                  BANDED_TRAIN_T, BANDED_TRAIN_B, banded_train_data,
+                  banded_loss, TRAIN_LR,
+                  (("banded", make_train_banded,
+                    {"spikemm+sparse": 2, "spikemm_wgrad": 2,
+                     "spikemm_gather": 2, "spikemm_gather_bwd": 1, "lif": 2,
+                     "lif_bwd": 2, "linrec": 1, "linrec_bwd": 1}),),
+                  forward_check=banded_forward_vs_cpu))}
+
+
+def hidden_forward_vs_cpu(tag, make, x):
+    """The forward of the weights `make` draws, on the card and on the CPU:
+    the hidden layer's trains under the tie rule (row-wise where
+    recurrent), its lane-steps at a surrogate window edge and the readout
+    before each row's first divergence. Returns {"rate": the CPU hidden
+    rate, "first_div", "tie_flips", "readout_max_abs_err",
+    "state_max_abs_err", "window_edges"}."""
+    from repro_torch.core import plan
+    from repro_torch.weights import params_to_numpy
+    tie = load_tie_rule()
+    xc = x.cpu()
+    n0, p0 = make(DEV)
+    nc0, pc0 = make("cpu")
+    with torch.no_grad():
+        st_g, o_g, r_g = plan.run(n0, p0, x, record=("hidden",), device=DEV)
+        s_cpu, first_div, n_ties, err_out, err_state, _, _ = \
+            card_vs_cpu(tag, nc0, pc0, xc.numpy(), st_g, o_g.cpu().numpy(),
+                        r_g, floor=False)
+    u, th = tie.hidden_membrane(nc0[0], params_to_numpy(pc0)["hidden"],
+                                xc.numpy(), s_cpu)
+    edges = int(tie.surrogate_edges(u, th, nc0[0].neuron.surrogate,
+                                    nc0[0].neuron.alpha).sum())
+    return {"rate": float(s_cpu.mean()), "first_div": first_div,
+            "tie_flips": n_ties, "readout_max_abs_err": err_out,
+            "state_max_abs_err": err_state, "window_edges": edges}
+
+
+def banded_forward_vs_cpu(tag, make, x):
+    """train_banded's forward on the card and on the CPU: the front layer's
+    trains under the tie rule (its float64 membrane from the input), the
+    band layer's in the rows where the front never diverged (its membrane
+    from the CPU's front spikes through the band's tables), both layers at
+    or over the 1 % floor, surrogate window edges counted in both, the
+    readout within 1e-4 before each row's first divergence. Returns `hidden_forward_vs_cpu`'s report, its
+    rate the band layer's, with "rates" of both layers."""
+    from repro_torch.core import plan
+    tie = load_tie_rule()
+    xc = x.cpu()
+    n0, p0 = make(DEV)
+    nc0, pc0 = make("cpu")
+    rec = ("front", "hidden")
+    with torch.no_grad():
+        _, o_g, r_g = plan.run(n0, p0, x, record=rec, device=DEV)
+        _, o_c, r_c = plan.run(nc0, pc0, xc, record=rec, device="cpu")
+    T = x.shape[0]
+    s_front = r_c["front"].numpy()
+    u_f, th_f = tie.hidden_membrane(
+        nc0[0], {"w_input": pc0["front"]["w_input"].numpy()}, xc.numpy(),
+        s_front)
+    div_f, ties_f = tie.tie_rule(s_front, r_g["front"].cpu().numpy(), u_f,
+                                 th_f)
+    ok = div_f >= T
+    s_hid = r_c["hidden"].numpy()
+    u_h, th_h = tie.hidden_membrane(nc0[1], {"w_input": banded_net()},
+                                    s_front, s_hid)
+    div_h, ties_h = tie.tie_rule(s_hid[:, ok], r_g["hidden"].cpu().numpy()[
+        :, ok], u_h[:, ok], th_h)
+    first_div = div_f.copy()
+    first_div[ok] = div_h
+    o_c = o_c.numpy()
+    err_out = tie.max_err_before(o_c, o_g.cpu().numpy(), first_div)
+    if err_out > READOUT_TOL:
+        raise AssertionError(f"[{tag}] readout card vs CPU {err_out:.3e} > "
+                             f"{READOUT_TOL}")
+    rates = {"front": float(s_front.mean()), "hidden": float(s_hid.mean())}
+    if min(rates.values()) < MIN_HIDDEN_RATE:
+        raise AssertionError(f"[{tag}] firing {rates}: a layer under the "
+                             f"{MIN_HIDDEN_RATE:.0%} floor")
+    edges = sum(int(tie.surrogate_edges(u, th, n.neuron.surrogate,
+                                        n.neuron.alpha).sum())
+                for u, th, n in ((u_f, th_f, nc0[0]), (u_h, th_h, nc0[1])))
+    log(f"path [{tag}]: forward card vs CPU: firing {rates}, tie flips "
+        f"front {ties_f}, band "
+        f"{ties_h} in the {int(ok.sum())} rows whose front never diverged; "
+        f"readout max abs err {err_out:.3e}")
+    return {"rate": rates["hidden"], "rates": rates,
+            "first_div": first_div,
+            "tie_flips": ties_f + ties_h, "readout_max_abs_err": err_out,
+            "state_max_abs_err": None, "window_edges": edges}
 
 
 # the families whose backward is a kernel of its own (`KernelSpec.bwd`)
@@ -4207,7 +4862,7 @@ def recording(routes=None, bwd_calls=None):
                 return choice, measured
             reg["spikemm"] = dataclasses.replace(registry.get("spikemm"),
                                                  select_channel=select)
-        for fam in ((BWD_FAMILIES + ("spikemm",))
+        for fam in ((BWD_FAMILIES + ("spikemm", "spikemm_gather"))
                     if routes is not None or bwd_calls is not None else ()):
             spec = registry.get(fam)
             name = spec.bwd_name or f"{fam}_bwd"
@@ -4275,7 +4930,8 @@ def train_cases():
     from repro_torch.kernels.lif.ops import lif_cuda
     from repro_torch.kernels.linrec.ops import linrec_cuda
     out = {k: [] for k in BWD_SCANS + ("spikemm", "spikemm_sparse",
-                                       "spikemm_wgrad")}
+                                       "spikemm_wgrad",
+                                       "spikemm_gather_bwd")}
     outs = (N_OUT, ECG_OUT)
     for path in train_paths().values():
         x, y = path.data(DEV)
@@ -4294,6 +4950,15 @@ def train_cases():
                 if name == "spikemm_wgrad":
                     if i == 0:
                         out[name] += g_w_cases(path, got, outs)
+                    continue
+                if name == "spikemm_gather_bwd":
+                    # B6: d_spikes of the band's input, beside one CSR
+                    # torch.sparse.mm of the same product
+                    bwd_csr = csr_product(banded_net(), transpose=True)
+                    out[name] += [Case(
+                        f"{tag} band d_spikes {tuple(a[0].shape)}", a,
+                        path=tag, timed=True, library=bwd_csr(a[0]))
+                        for a, _ in got]
                     continue
                 for args, kw in got:
                     shape = tuple((args[1] if name == "linrec_bwd"
@@ -4574,18 +5239,112 @@ def lif_bwd_alone(args, kw):
     return launch
 
 
-def device_kernels(fn):
+# PyTorch ops that only allocate or view memory: no device work
+_NO_KERNEL_OPS = ("aten.empty", "aten.empty_like", "aten.empty_strided",
+                  "aten.view", "aten._unsafe_view", "aten._reshape_alias",
+                  "aten.reshape", "aten.t", "aten.expand", "aten.slice",
+                  "aten.select", "aten.as_strided", "aten.detach",
+                  "aten.alias", "aten.unsqueeze", "aten.squeeze",
+                  "aten.permute", "aten.transpose", "aten.lift_fresh")
+
+
+def host_ops(fn):
+    """The PyTorch ops `fn` dispatches that may run device work (those
+    that only allocate or view memory left out), recorded on the host by a
+    `TorchDispatchMode`: a check that needs no device tracer."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return [op for op in seen
+            if op.rsplit(".", 1)[0] not in _NO_KERNEL_OPS]
+
+
+def device_kernels(fn, traces=3):
     """The names of the device kernels `fn` runs, in launch order, traced
-    with torch.profiler (empty when the trace holds no device events)."""
+    with torch.profiler. A trace that holds no device event at all recorded
+    nothing (the profiler's device tracing dropped it: `fn` launches at
+    least one kernel), so it is traced again, up to `traces` times, after
+    the allocator's cached blocks are released (the tracer's own device
+    buffers need free memory); empty when none holds one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(traces):
         sync()
-    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        evs = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA]
+        if evs:
+            break
+        free, total = torch.cuda.mem_get_info()
+        log(f"device_kernels: a trace with no device event and "
+            f"{len(prof.events())} host events (free "
+            f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB, PyTorch "
+            f"reserves {torch.cuda.memory_reserved() / 2**30:.2f}); cached "
+            "blocks released, traced again")
+        torch.cuda.empty_cache()
     return [ev.name for ev in sorted(evs, key=lambda e: e.time_range.start)]
+
+
+_GRAPH_STREAM = []
+
+
+def graph_kernels(fn):
+    """The device work of one call of `fn`, read without the profiler: the
+    call is captured in a CUDA graph and the graph's nodes listed through
+    the driver (`cuGraphGetNodes`), a kernel node by its name
+    (`cuFuncGetName`), any other node by its type. A call on the capture
+    stream goes first, so that what `fn` makes once for a stream (its
+    zeroed counters) is not made inside the capture."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(code, what):
+        if code:
+            raise AssertionError(f"graph_kernels: {what} returned {code}")
+    if not _GRAPH_STREAM:
+        _GRAPH_STREAM.append(torch.cuda.Stream())
+    side = _GRAPH_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    sync()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:                   # CU_GRAPH_NODE_TYPE_KERNEL
+            names.append(f"graph node of type {kind.value}")
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2 (72 bytes), its CUfunction first
+        params = (ctypes.c_void_p * 16)()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
+              "cuGraphKernelNodeGetParams_v2")
+        name = ctypes.c_char_p()
+        check(cu.cuFuncGetName(ctypes.byref(name),
+                               ctypes.c_void_p(params[0])), "cuFuncGetName")
+        names.append(name.value.decode())
+    del graph
+    return names
 
 
 def alif_bwd_alone(args, kw):
@@ -4653,11 +5412,9 @@ def phase_train(path, smi):
     """TRAIN_STEPS clipped-SGD steps of each of the path's models at the
     published widths, forward and backward through `plan.run` on the
     card."""
-    from repro_torch.core import plan
     from repro_torch.kernels import registry
     from repro_torch.kernels.common import rec_route_launch_counts
     from repro_torch.kernels.spikemm import sparse
-    from repro_torch.weights import params_to_numpy
     tie = load_tie_rule()
     tag = path.name
     x, y = path.data(DEV)
@@ -4713,18 +5470,12 @@ def phase_train(path, smi):
                 f"(tol {TRAIN_LEAF_RTOL})")
         # the forward's hidden trains under the tie rule (row-wise where
         # recurrent), and the hidden lane-steps at a surrogate window edge
-        n0, p0 = make(DEV)
-        nc0, pc0 = make("cpu")
-        with torch.no_grad():
-            st_g, o_g, r_g = plan.run(n0, p0, x, record=("hidden",),
-                                      device=DEV)
-            s_cpu, first_div, n_ties, err_out, err_state, _, _ = \
-                card_vs_cpu(f"{tag} {kind}", nc0, pc0, xc.numpy(), st_g,
-                            o_g.cpu().numpy(), r_g, floor=False)
-        u, th = tie.hidden_membrane(nc0[0], params_to_numpy(pc0)["hidden"],
-                                    xc.numpy(), s_cpu)
-        edges = int(tie.surrogate_edges(u, th, nc0[0].neuron.surrogate,
-                                        nc0[0].neuron.alpha).sum())
+        fwd = (path.forward_check or hidden_forward_vs_cpu)(
+            f"{tag} {kind}", make, x)
+        first_div, n_ties = fwd["first_div"], fwd["tie_flips"]
+        err_out, err_state = (fwd["readout_max_abs_err"],
+                              fwd["state_max_abs_err"])
+        edges = fwd["window_edges"]
         # the first step again under each channel setting: g_w crosses
         # the dense and the sparse kernel whatever `auto` picks
         channels, first = {}, {}
@@ -4789,7 +5540,7 @@ def phase_train(path, smi):
                 raise AssertionError(f"[{tag}] {kind}: the kernels after "
                                      f"lif_bwd in a step: {after}")
             log(f"path [{tag}] {kind}: the kernel after lif_bwd: {after}")
-        rate = float(s_cpu.mean())
+        rate = fwd["rate"]
         log(f"path [{tag}] {kind}: launches {counts} (+{occ} occupancy; "
             f"recurrent routes {routes}); first step card vs CPU: loss "
             f"{losses[0]:.6f} vs {float(loss_c):.6f} (relative "
@@ -4819,7 +5570,8 @@ def phase_train(path, smi):
             "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
             "card_ms": card_ms,
             "card_ms_by_kernel": top_per(by_name, 1, n=12),
-            "after_lif_bwd": after}
+            "after_lif_bwd": after,
+            **{k: fwd[k] for k in ("rates",) if k in fwd}}
     return {"path": tag, "model": path.describe, "T": path.T,
             "batch": path.B, "steps": TRAIN_STEPS, "input": path.input,
             "launches": total, "launches_per_run": per_run,
@@ -5444,7 +6196,7 @@ def phase_parity():
     if n != len(forward):
         raise AssertionError(f"parity checked {n} kernels, the table has "
                              f"{len(forward)} forward kernels")
-    for fam in BWD_FAMILIES + ("spikemm",):
+    for fam in BWD_FAMILIES + ("spikemm", "spikemm_gather"):
         rows = [reports[fam]] + list(reports[fam].get("channels",
                                                       {}).values())
         if any("vjp_max_err" not in r for r in rows):
@@ -5462,6 +6214,7 @@ def path_phases():
             "plastic_ff": phase_plastic_ff,
             "plastic_online": phase_plastic_online,
             "stdp_step": phase_stdp_step,
+            "serve_plastic": phase_serve_plastic,
             **{name: functools.partial(phase_train, p)
                for name, p in train_paths().items()},
             "bci": phase_bci,
@@ -5518,6 +6271,7 @@ def main(argv):
     slices.append(phase_plastic_ff(smi))
     slices.append(phase_plastic_online(smi))
     slices.append(phase_stdp_step(smi))
+    slices.append(phase_serve_plastic(smi))
     slices += [phase_train(p, smi) for p in train_paths().values()]
     slices.append(phase_bci(smi))
     kernels["attention"], attn = phase_attention(smi)

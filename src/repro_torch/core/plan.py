@@ -31,7 +31,11 @@ interpreted forward): within one run window the forward uses the entry
 weights, and the learned weight + final traces are published in
 `state[node]["syn:<conn>"]` (chunked-online semantics; merge with
 `plasticity.apply_learned` between windows). The learned weight is a new
-tensor: params and the entry state are never written.
+tensor: params and the entry state are never written. A plastic weight
+with a leading batch axis, (B, n_pre, n_post), is one weight a batch row
+(the serve engine's learning cohort, a session a row): its INTEG runs on
+`spikemm_sessions` and its `stdp_seq` lowering on `stdp_seq_sessions`,
+each row against its own weight; everything else runs on the flat batch.
 
 The matchers, the segment schedule and `Plan.describe()` (with its TB2xx
 codes and its `| learn` tag) are identical to the reference's. Every fused
@@ -81,8 +85,8 @@ from repro_torch.kernels.alifrec.ops import alif_scan, alifrec_scan
 from repro_torch.kernels.lif.ops import lif_scan
 from repro_torch.kernels.lifrec.ops import lifrec_scan
 from repro_torch.kernels.linrec.ops import linrec
-from repro_torch.kernels.spikemm.ops import spikemm
-from repro_torch.kernels.stdp.ops import stdp_seq
+from repro_torch.kernels.spikemm.ops import spikemm, spikemm_sessions
+from repro_torch.kernels.stdp.ops import stdp_seq, stdp_seq_sessions
 
 Tensor = torch.Tensor
 
@@ -420,14 +424,31 @@ def _hoisted_current(node: events.LayerNode, params: Dict[str, Any],
         else:
             w = params[node.name][conn.weight_key]
             s = _as_float(s, w.dtype)
-            c = spikemm(s.reshape(T * B, -1).contiguous(), w.contiguous(),
-                        _traced=traced).reshape(T, B, -1)
+            if w.dim() == 3:
+                # one weight a batch row (a learning serve window's session
+                # axis): row b's spikes against w[b], in one launch
+                _check_sessions(node, conn, w, B)
+                c = spikemm_sessions(s.contiguous(), w.contiguous())
+            else:
+                c = spikemm(s.reshape(T * B, -1).contiguous(),
+                            w.contiguous(), _traced=traced).reshape(T, B, -1)
         cur = c if cur is None else cur + c
     if cur is None:
         x = outs["input"]
         cur = torch.zeros((T, B, node.out_dim),
                           dtype=events.state_dtype(x.dtype), device=x.device)
     return cur
+
+
+def _check_sessions(node: events.LayerNode, conn: events.Connection,
+                    w: Tensor, B: int) -> None:
+    """A weight with a leading session axis is a plastic connection's, one
+    (n_pre, n_post) weight a batch row."""
+    if conn.plastic is None or w.shape[0] != B:
+        raise ValueError(
+            f"node {node.name!r}: connection {conn.key!r} has a weight of "
+            f"shape {tuple(w.shape)}; a leading session axis is taken only "
+            f"on a plastic connection, one weight a batch row (B = {B})")
 
 
 def _decay_vec(decay: Decay, nparams: Optional[Dict[str, Tensor]], n: int,
@@ -557,6 +578,37 @@ def _refuse_check() -> None:
         raise NotImplementedError(
             f"the compile-time checker (REPRO_CHECK={check_mode()}) is not "
             f"ported yet: {_ROADMAP}, item 9 (verifier)")
+
+
+def _refuse_sessions_off_the_plan(plan: Plan, nodes: List[events.LayerNode],
+                                  params: Dict[str, Any], mode: str,
+                                  learn: bool) -> None:
+    """A plastic weight with a session axis (a learning serve window) runs
+    on the fused segments and learns on the `stdp_seq` lowering only: the
+    stepper and the per-step synapse interpreter (TB210) read one weight
+    for every batch row, so raise rather than mix the sessions' weights."""
+    fallback = {n for s in plan.segments if s.kind == FALLBACK
+                for n in s.names}
+    step = {(p.node, p.conn) for p in plan.plastic if p.lower == SYN_STEP}
+    for n in nodes:
+        for c in n.connections:
+            w = params.get(n.name, {}).get(c.weight_key)
+            if c.plastic is None or not (torch.is_tensor(w)
+                                         and w.dim() == 3):
+                continue
+            if mode == "stepper":
+                where = "the stepper (REPRO_SNN_ENGINE=stepper)"
+            elif n.name in fallback:
+                where = "the stepper (a fallback segment)"
+            elif learn and (n.name, c.key) in step:
+                where = "the per-step synapse lowering (TB210)"
+            else:
+                continue
+            raise NotImplementedError(
+                f"node {n.name!r}: the session axis of a learning serve "
+                f"window runs on the fused plan and the stdp_seq lowering, "
+                f"not on {where}: {_ROADMAP}, item 7 (plasticity in "
+                "serving)")
 
 
 def _refuse_unported(guard) -> None:
@@ -718,9 +770,15 @@ def _learn_fused(prog: plasticity.SynapseProgram, syn0: Dict[str, Tensor],
 
     P = torch.stack([plane(t.pre, pre_full) for t in prog.terms])
     Q = torch.stack([plane(t.post, post_full) for t in prog.terms])
-    w1 = stdp_seq(P, Q, syn0["w"].contiguous(),
-                  amps=tuple(t.amp for t in prog.terms),
-                  w_min=prog.w_min, w_max=prog.w_max, batch=B)
+    amps = tuple(t.amp for t in prog.terms)
+    if syn0["w"].dim() == 3:
+        # a weight a batch row (the session axis): row b of each step
+        # updates w[b] alone, at batch 1
+        w1 = stdp_seq_sessions(P, Q, syn0["w"].contiguous(), amps=amps,
+                               w_min=prog.w_min, w_max=prog.w_max)
+    else:
+        w1 = stdp_seq(P, Q, syn0["w"].contiguous(), amps=amps,
+                      w_min=prog.w_min, w_max=prog.w_max, batch=B)
     out = {"w": w1}
     out.update(finals)
     return out
@@ -846,9 +904,10 @@ def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
     states carry autograd graphs back to `params`, `x` and `state` where
     they require grad, through the kernels' backward (`lif_scan`,
     `linrec`, `spikemm`, `lifrec_scan`, `alif_scan`, `alifrec_scan`, each
-    under its node's surrogate and alpha; the gather raises where a
-    gradient would be needed). The learning pass stays out of the
-    graph. Callers that only infer run it under `torch.no_grad()`.
+    under its node's surrogate and alpha, and `spikemm_gather`, whose
+    backward is the gather on the transposed tables). The learning pass
+    stays out of the graph. Callers that only infer run it under
+    `torch.no_grad()`.
     """
     _refuse_unported(guard)
     mode = engine_mode()
@@ -857,6 +916,7 @@ def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
     if plan is None:
         plan = compile_program(nodes)
     do_learn = learn and bool(plan.plastic)
+    _refuse_sessions_off_the_plan(plan, nodes, params, mode, do_learn)
     if mode == "stepper" or plan.fully_fallback:
         return _run_stepper(nodes, params, x, state, record, plan, mod,
                             do_learn, dev)

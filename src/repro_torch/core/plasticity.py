@@ -390,7 +390,9 @@ def apply_learned(nodes, params: Dict[str, Any],
     For every plastic Connection, `state[node]["syn:<conn>"]["w"]` replaces
     `params[node][<weight key>]` — call between chunks to make the next
     window's forward pass see the updates (chunked-online semantics). The
-    result is a new params tree; `params` itself is not changed.
+    result is a new params tree; `params` itself is not changed. A state
+    whose weights are stacked into (S, n_pre, n_post), as the serve engine
+    stacks a learning cohort, gives `plan.run` one weight a batch row.
     """
     out = dict(params)
     for n in nodes:

@@ -55,7 +55,6 @@ import torch
 from repro_torch.kernels.spikemm.gather import (DEFAULT_BK, DEFAULT_BN,
                                                 build_gather_tables,
                                                 spikemm_gather)
-from repro_torch.kernels.common import refuse_grad
 from repro_torch.kernels.spikemm.ops import spikemm
 
 # ---------------------------------------------------------------------------
@@ -229,12 +228,11 @@ class EncodedTopology:
         channels; `_traced` as there) on its incremental-addressed weight
         matrix, copied once to the spikes' device; sparse/conv/pool IE
         tables route to `spikemm_gather` without a dense
-        materialization. The FC route is differentiable in x (spikemm's
-        VJP); the gather has no backward yet and raises where autograd
-        would need one."""
+        materialization. Both routes are differentiable in x: the FC
+        route through spikemm's VJP, the gather through its own (the
+        gather on the transposed tables); the tables get no gradient."""
         if self.exec_channel() == "dense":
             return spikemm(x, self._weights_on(x.device), _traced=_traced)
-        refuse_grad("apply_spikes (spikemm_gather)", (x,), "§ 2, B6")
         return spikemm_gather(x, self.lowering())
 
     def _weights_on(self, device: torch.device) -> torch.Tensor:

@@ -58,15 +58,18 @@ __device__ __forceinline__ void load_vec(float (&dst)[N], const float* p) {
 // (tid % TX, tid / TX), its rows m = m0 + ty + TY i and its columns
 // n = n0 + tx CPT + j, over k in [k_at(st), k_at(st) + BK) for
 // st = 0 .. steps - 1 (k_at block-uniform, a multiple of 4 when vec_s);
-// zeros are read past M, K and N. `ring` holds RING floats. vec_s / vec_w:
-// the raster's / w's rows may be copied 16 bytes at a time (K / N a
-// multiple of 4, 16-byte aligned). Ends with no copy of a listed step in
-// flight; a caller that refills the ring or what k_at reads afterwards
-// passes a barrier first.
+// zeros are read past M, K and N. Row m of the raster starts lds floats
+// after row m - 1 (K for a raster of its own; a session's rows of a
+// (T, S, K) raster are S K apart). `ring` holds RING floats. vec_s /
+// vec_w: the raster's / w's rows may be copied 16 bytes at a time (K and
+// lds / N a multiple of 4, 16-byte aligned). Ends with no copy of a
+// listed step in flight; a caller that refills the ring or what k_at
+// reads afterwards passes a barrier first.
 template <int CW, int RPT, class KAt>
 __device__ __forceinline__ void ring_product(
     const float* __restrict__ s, const float* __restrict__ w, float* ring,
-    int m0, int n0, int M, int K, int N, bool vec_s, bool vec_w, int steps,
+    int m0, int n0, int M, int K, int N, size_t lds, bool vec_s, bool vec_w,
+    int steps,
     KAt k_at, float (&acc)[RPT][RingTile<CW, RPT>::CPT]) {
   using L = RingTile<CW, RPT>;
   constexpr int BM = L::BM, CPT = L::CPT, ALD = L::ALD;
@@ -83,7 +86,7 @@ __device__ __forceinline__ void ring_product(
       const uint32_t dst =
           smem_u32(As + (buf * BM + row) * ALD + (e % (BK / 4)) * 4);
       const bool in = m0 + row < M;
-      const float* src = s + (in ? (size_t)(m0 + row) * K : 0);
+      const float* src = s + (in ? (size_t)(m0 + row) * lds : 0);
       if (vec_s) {
         cp_async16(dst, src + k, in && k < K);
       } else {

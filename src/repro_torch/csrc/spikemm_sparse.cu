@@ -176,7 +176,7 @@ spikemm_sparse_kernel(const float* __restrict__ s, const float* __restrict__ w,
   for (int kw = 0; kw < Kb; kw += LIST) {
     const int n = list_blocks(frow, kw, min(LIST, Kb - kw), list, warp_n);
     ring_product<T, RPT>(
-        s, w, ring, m0, n0, M, K, N, vec_s, vec_w, n * SPB,
+        s, w, ring, m0, n0, M, K, N, K, vec_s, vec_w, n * SPB,
         [&](int st) { return list[st / SPB] * SBK + st % SPB * BK; }, acc);
   }
 

@@ -83,14 +83,16 @@ def check_planes(name: str, like: torch.Tensor, planes: Sequence) -> None:
             raise ValueError(f"{name}: {nm} must be contiguous")
 
 
-def check_raster(name: str, spikes: torch.Tensor) -> None:
+def check_raster(name: str, spikes: torch.Tensor,
+                 sessions: bool = False) -> None:
     """The checks of a raster-only wrapper: a contiguous float32 (M, K)
-    raster on a CUDA device."""
+    raster on a CUDA device, (T, S, K) with `sessions`."""
     if not spikes.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
                          f"{spikes.device}")
-    if spikes.dim() != 2:
-        raise ValueError(f"{name}: a raster is (M, K), got "
+    if spikes.dim() != 2 + sessions:
+        raise ValueError(f"{name}: a raster is "
+                         f"{'(T, S, K)' if sessions else '(M, K)'}, got "
                          f"{tuple(spikes.shape)}")
     if spikes.dtype != torch.float32:
         raise TypeError(f"{name}: spikes must be float32, got {spikes.dtype}")
@@ -98,11 +100,15 @@ def check_raster(name: str, spikes: torch.Tensor) -> None:
         raise ValueError(f"{name}: spikes must be contiguous")
 
 
-def check_matmul(name: str, spikes: torch.Tensor, w: torch.Tensor) -> None:
+def check_matmul(name: str, spikes: torch.Tensor, w: torch.Tensor,
+                 sessions: bool = False) -> None:
     """The checks of a spike-matmul wrapper: a raster as `check_raster`
-    takes it and a (K, N) float32 contiguous weight on its device."""
-    check_raster(name, spikes)
-    if w.dim() != 2 or spikes.shape[1] != w.shape[0]:
+    takes it and a (K, N) float32 contiguous weight on its device; with
+    `sessions`, a (T, S, K) raster and S weights (S, K, N)."""
+    check_raster(name, spikes, sessions)
+    chain = (spikes.shape[1:] == w.shape[:2] if sessions
+             else spikes.shape[1] == w.shape[0])
+    if w.dim() != spikes.dim() or not chain:
         raise ValueError(f"{name}: shapes {tuple(spikes.shape)} @ "
                          f"{tuple(w.shape)} do not chain")
     if w.dtype != torch.float32:
@@ -112,17 +118,6 @@ def check_matmul(name: str, spikes: torch.Tensor, w: torch.Tensor) -> None:
     if spikes.device != w.device:
         raise ValueError(f"{name}: spikes on {spikes.device}, "
                          f"w on {w.device}")
-
-
-def refuse_grad(name: str, args: Sequence[Any], roadmap_item: str) -> None:
-    """Raise where autograd would need a gradient through `name`, which has
-    no backward yet: a plain loop's `>=` would hand back a silent zero on
-    the CPU, and a kernel none at all on the card."""
-    if torch.is_grad_enabled() and any(
-            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
-        raise NotImplementedError(
-            f"{name} has no backward yet (ROADMAP.md {roadmap_item}); call "
-            "it under torch.no_grad() or on tensors that need no gradient")
 
 
 _SM_COUNT = {}
@@ -242,7 +237,7 @@ def pad_axis(x: torch.Tensor, axis: int, mult: int, value=0.0):
 
 
 __all__ = ["resolve_device", "check_device", "check_scan", "check_planes",
-           "check_raster", "refuse_grad",
+           "check_raster",
            "check_matmul", "sm_count", "MAX_WARPS", "lane_plan", "rec_route",
            "rec_route_launch_counts", "REC_WARP", "REC_BLOCK",
            "REC_WARP_MAX_N", "w_in_smem", "zeroed_counters", "optional_ptr",

@@ -36,9 +36,18 @@ a CTA holds from M, bn and the SM count. Every term it skips is s * w
 with s or w = +-0, which for finite inputs changes no bit of the chain
 (see the kernel's header).
 
-Not ported yet: `GatherTables.transpose()` and the gather's VJP (the
-backward runs the same kernel on the transposed tables) wait for the
-training slice.
+The gather is differentiable in the raster (`_SpikeMMGather`, as the JAX
+package's custom VJP): d_spikes = g @ W^T is the same family's dispatch on
+`GatherTables.transpose()` (the ROADMAP's B6), so on the card it is
+`csrc/spikemm_gather.cu` as it stands, walking the transposed tables, and
+on the CPU `spikemm_gather_ref`. The tables get no cotangent: topology
+weights are configuration, not parameters. g is dense, and the kernel's
+skip rule drops only terms whose s or w is +-0, which is sound for any
+finite input, so a dense g is a valid raster; but every patch row with a
+nonzero weight then meets an event, so the backward reads every such row
+and costs more than the forward at the same M. Each backward launch also
+counts on `spikemm_gather_bwd_cuda` (the registry's `spikemm_gather_bwd`),
+beside the family's own count.
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ class GatherTables:
 
     def __post_init__(self):
         self._device: Dict[torch.device, SimpleNamespace] = {}
+        self._transposed = None
 
     @property
     def n_entries(self) -> int:
@@ -122,6 +132,22 @@ class GatherTables:
                              ("jptr", self.jptr()),
                              ("rowbits", self.row_bitmap()))})
         return self._device[device]
+
+    def transpose(self) -> "GatherTables":
+        """Tables for x @ W^T: the active entries with their block roles
+        swapped and each patch transposed, finished as a forward table is
+        (sorted post-block-major, a sentinel a post block with no entry).
+        Memoised, with the back-link, so `t.transpose().transpose() is t`
+        and each side's device copies are built once."""
+        if self._transposed is None:
+            real = self.act != 0
+            self._transposed = _finalize_tables(
+                self.kk[real], self.jj[real],
+                self.wblk[real].transpose(0, 2, 1),
+                n_pre=self.n_post, n_post=self.n_pre,
+                bk=self.bn, bn=self.bk)
+            self._transposed._transposed = self
+        return self._transposed
 
 
 def _finalize_tables(jj, kk, wblk, *, n_pre, n_post, bk, bn) -> GatherTables:
@@ -362,10 +388,53 @@ def launch_plan(spikes: torch.Tensor, tables: GatherTables,
 spikemm_gather_cuda.launches = 0
 
 
+def spikemm_gather_bwd_ref(g: torch.Tensor, tables: GatherTables
+                           ) -> torch.Tensor:
+    """B6's plain version: d_spikes = g @ W^T, `spikemm_gather_ref` on the
+    transposed tables."""
+    return spikemm_gather_ref(g, tables.transpose())
+
+
+def spikemm_gather_bwd_cuda(g: torch.Tensor, tables: GatherTables
+                            ) -> torch.Tensor:
+    """B6 on the card: `csrc/spikemm_gather.cu` on the transposed tables
+    (`spikemm_gather_cuda`, which counts the launch in the family), counted
+    here as the backward's too."""
+    out = spikemm_gather_cuda(g, tables.transpose())
+    spikemm_gather_bwd_cuda.launches += 1
+    return out
+
+
+class _SpikeMMGather(torch.autograd.Function):
+    """`fwd` forward and `bwd` backward of the gather: the registry's
+    dispatch on the tables and on their transpose (both None), or a given
+    pair (the parity harness's VJP leg). The backward returns g's dtype
+    and no cotangent for the tables."""
+
+    @staticmethod
+    def forward(ctx, spikes, tables, fwd, bwd):
+        ctx.tables, ctx.bwd = tables, bwd
+        if fwd is None:
+            return registry.dispatch("spikemm_gather", (spikes, tables))
+        return fwd(spikes, tables)
+
+    @staticmethod
+    def backward(ctx, g):
+        g32 = g.contiguous().float()
+        gs = (registry.dispatch_bwd("spikemm_gather", (g32, ctx.tables))
+              if ctx.bwd is None else ctx.bwd(g32, ctx.tables))
+        return gs.to(g.dtype), None, None, None
+
+
 def spikemm_gather(spikes: torch.Tensor, tables: GatherTables
                    ) -> torch.Tensor:
-    """IE-table contraction: (M, n_pre) spikes -> (M, n_post) currents."""
-    return registry.dispatch("spikemm_gather", (spikes, tables))
+    """IE-table contraction: (M, n_pre) spikes -> (M, n_post) currents.
+    Differentiable in `spikes` (B6: the gather on `tables.transpose()`)."""
+    return _SpikeMMGather.apply(spikes, tables, None, None)
+
+
+def _vjp(fwd, bwd, spikes, tables):
+    return _SpikeMMGather.apply(spikes, tables, fwd, bwd)
 
 
 def _make_inputs(generator: torch.Generator):
@@ -380,10 +449,15 @@ def _make_inputs(generator: torch.Generator):
 
 registry.register(registry.KernelSpec(
     name="spikemm_gather", plain=spikemm_gather_ref,
-    cuda=spikemm_gather_cuda, make_inputs=_make_inputs, tol=1e-4))
+    cuda=spikemm_gather_cuda, make_inputs=_make_inputs, tol=1e-4,
+    diff_argnums=(0,), vjp=_vjp,
+    bwd=registry.Channel(plain=spikemm_gather_bwd_ref,
+                         cuda=spikemm_gather_bwd_cuda),
+    bwd_name="spikemm_gather_bwd"))
 
 __all__ = ["GatherTables", "GatherPlan", "build_gather_tables",
            "gather_plan", "spikemm_gather", "spikemm_gather_cuda",
-           "spikemm_gather_ref", "DEFAULT_BK", "DEFAULT_BN", "GATHER_ROWS",
+           "spikemm_gather_ref", "spikemm_gather_bwd_cuda",
+           "spikemm_gather_bwd_ref", "DEFAULT_BK", "DEFAULT_BN", "GATHER_ROWS",
            "GATHER_COLS", "GATHER_MAX_ACC", "GATHER_MAX_WARPS",
            "GATHER_WARPS_PER_SM", "launch_plan"]

@@ -54,6 +54,19 @@ router (its sparse channel has no VJP of its own):
   * g_spikes = g @ w^T is a plain dense product (`torch.matmul`, as the
     JAX package's `jnp.dot` outside any Pallas kernel), computed only
     where the raster needs a gradient: an input layer's never does.
+
+`spikemm_sessions(spikes, w)` is the same product with a session axis,
+registered as its own family (`spikemm_sessions`): a learning serve window
+(`EngineConfig(learn=True)`) gives each of S sessions its own weight,
+w (S, K, N), and its row of each step of a (T, S, K) raster; session s's
+(T, N) rows are its rows @ w[s]. It is what the JAX package's per-session
+`vmap` of the spike kernel computes. On the card one launch of
+`csrc/spikemm.cu`'s kernel covers every session (grid.z), reading the
+raster's rows in place, and each session's result is bit for bit the
+unbatched kernel's on its rows alone; its plain version loops the
+unbatched plain version over the sessions. It takes the dense channel
+only (the serve window routes dense, as the flat window does) and has no
+backward: it runs in serving, under `no_grad`.
 """
 
 from __future__ import annotations
@@ -86,16 +99,17 @@ def col_tile(N: int) -> int:
     return 8 if N <= 8 else 16 if N <= 16 else 32 if N <= 32 else 64
 
 
-def rows_per_cta(M: int, N: int, n_sm: int) -> int:
+def rows_per_cta(M: int, N: int, n_sm: int, sessions: int = 1) -> int:
     """Rows a CTA of `csrc/spikemm.cu` owns: the largest of 128, 64, 32
-    and 16 (32 at the 8-wide column tile) whose grid still holds about a
-    wave of CTAs (three quarters of the SM count), else the smallest.
-    Larger tiles make the dense loop's loads go further; more CTAs keep
-    the card busy where the events are few."""
+    and 16 (32 at the 8-wide column tile) whose grid (over `sessions`
+    sessions of M rows each) still holds about a wave of CTAs (three
+    quarters of the SM count), else the smallest. Larger tiles make the
+    dense loop's loads go further; more CTAs keep the card busy where the
+    events are few."""
     cw = col_tile(N)
     sizes = (128, 64, 32) if cw == 8 else (128, 64, 32, 16)
     for bm in sizes:
-        if math.ceil(M / bm) * math.ceil(N / cw) * 4 >= 3 * n_sm:
+        if sessions * math.ceil(M / bm) * math.ceil(N / cw) * 4 >= 3 * n_sm:
             return bm
     return sizes[-1]
 
@@ -150,23 +164,33 @@ def _select_channel(spikes: torch.Tensor, w: torch.Tensor, *,
     return None, {}
 
 
+def _launch(wrapper, name: str, spikes: torch.Tensor,
+            w: torch.Tensor) -> torch.Tensor:
+    """`csrc/spikemm.cu`'s one launch, nothing before it (K = 0 gives zeros
+    from the kernel too): spikes (M, K) @ w (K, N), or a (T, S, K) raster
+    against S weights (S, K, N), the sessions on the grid's z. Counted on
+    `wrapper`."""
+    S = w.shape[0] if w.dim() == 3 else 1
+    M, K, N = spikes.shape[0], spikes.shape[-1], w.shape[-1]
+    out = torch.empty(spikes.shape[:-1] + (N,), dtype=torch.float32,
+                      device=spikes.device)
+    if out.numel() == 0:
+        return out
+    bm = rows_per_cta(M, N, sm_count(spikes.device), sessions=S)
+    with torch.cuda.device(spikes.device):
+        code = _build.library().spikemm_f32(
+            spikes.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, bm,
+            col_tile(N), S, torch.cuda.current_stream().cuda_stream)
+    _build.check(name, code)
+    wrapper.launches += 1
+    return out
+
+
 def spikemm_cuda(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch `csrc/spikemm.cu` on CUDA tensors: one kernel, nothing
     before it (K = 0 gives zeros from the kernel too)."""
     check_matmul("spikemm", spikes, w)
-    M, K = spikes.shape
-    N = w.shape[1]
-    out = torch.empty((M, N), dtype=torch.float32, device=spikes.device)
-    if out.numel() == 0:
-        return out
-    bm = rows_per_cta(M, N, sm_count(spikes.device))
-    with torch.cuda.device(spikes.device):
-        code = _build.library().spikemm_f32(
-            spikes.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, bm,
-            col_tile(N), torch.cuda.current_stream().cuda_stream)
-    _build.check("spikemm", code)
-    spikemm_cuda.launches += 1
-    return out
+    return _launch(spikemm_cuda, "spikemm", spikes, w)
 
 
 def spikemm_g_w(spikes: torch.Tensor, g: torch.Tensor,
@@ -224,12 +248,59 @@ def _vjp(fwd, bwd, spikes, w):
     return _SpikeMM.apply(spikes, w, False, fwd, bwd)
 
 
+def spikemm_sessions_ref(spikes: torch.Tensor, w: torch.Tensor
+                         ) -> torch.Tensor:
+    """The session axis' plain version: spikes (T, S, K), w (S, K, N) ->
+    (T, S, N), `spikemm_ref` on each session's rows and weight in turn."""
+    return torch.stack([spikemm_ref(spikes[:, i].contiguous(), w[i])
+                        for i in range(w.shape[0])], dim=1)
+
+
+def spikemm_sessions_chain_ref(spikes: torch.Tensor, w: torch.Tensor
+                               ) -> torch.Tensor:
+    """The session axis as the card sums it: `spikemm_chain_ref` (the
+    kernel's fmaf chain, bit for bit) on each session in turn."""
+    return torch.stack([spikemm_chain_ref(spikes[:, i], w[i])
+                        for i in range(w.shape[0])], dim=1)
+
+
+def spikemm_sessions_cuda(spikes: torch.Tensor, w: torch.Tensor
+                          ) -> torch.Tensor:
+    """Launch `csrc/spikemm.cu` on a (T, S, K) raster against S weights
+    (S, K, N): one launch, the sessions on the grid's z."""
+    check_matmul("spikemm_sessions", spikes, w, sessions=True)
+    return _launch(spikemm_sessions_cuda, "spikemm_sessions", spikes, w)
+
+
+def spikemm_sessions(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Session-batched spikes @ w: spikes (T, S, K) 0/1, w (S, K, N) ->
+    (T, S, N), session s's rows against w[s]. Not differentiable: it
+    raises where autograd would need a gradient (serve under no_grad)."""
+    if torch.is_grad_enabled() and (spikes.requires_grad
+                                    or w.requires_grad):
+        raise NotImplementedError(
+            "spikemm_sessions has no backward (a learning serve window runs "
+            "under torch.no_grad())")
+    return registry.dispatch("spikemm_sessions", (spikes, w))
+
+
 def _make_inputs(generator: torch.Generator):
     M, K, N = 100, 300, 200                   # ragged against every block
     spikes = (torch.rand((M, K), generator=generator) < 0.13).float()
     w = torch.randn((K, N), generator=generator)
     return spikes, w
 
+
+def _make_session_inputs(generator: torch.Generator):
+    T, S, K, N = 37, 5, 130, 70               # ragged against every block
+    spikes = (torch.rand((T, S, K), generator=generator) < 0.15).float()
+    w = torch.randn((S, K, N), generator=generator)
+    return spikes, w
+
+
+registry.register(registry.KernelSpec(
+    name="spikemm_sessions", plain=spikemm_sessions_ref,
+    cuda=spikemm_sessions_cuda, make_inputs=_make_session_inputs, tol=1e-4))
 
 registry.register(registry.KernelSpec(
     name="spikemm", plain=spikemm_ref, cuda=spikemm_cuda,
@@ -245,4 +316,5 @@ __all__ = ["spikemm", "spikemm_cuda", "spikemm_ref", "spikemm_chain_ref",
            "spikemm_wgrad_chain_ref", "wgrad_chunk",
            "block_occupancy", "col_tile", "rows_per_cta",
            "occupancy_fraction", "sparse_threshold", "spikemm_sparse_cuda",
-           "spikemm_sparse_ref"]
+           "spikemm_sparse_ref", "spikemm_sessions", "spikemm_sessions_cuda",
+           "spikemm_sessions_ref", "spikemm_sessions_chain_ref"]

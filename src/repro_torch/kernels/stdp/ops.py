@@ -8,6 +8,15 @@ plan compiler lowers matching `SynapseProgram`s to it (`core/plan.py`).
 Both run `csrc/stdp.cu` on CUDA tensors and their plain versions on CPU
 tensors, and both return a new weight tensor. They are weight writes, not
 differentiable ops.
+
+`stdp_seq_sessions(P, Q, w, amps=, w_min=, w_max=)` — `stdp_seq` with a
+session axis, its own family (`stdp_seq_sessions`): w (S, M, N) holds one
+weight a session, and session s's weight takes, at each step t, only row
+t * S + s of each flat (K, T * S, .) plane, with batch-1 arithmetic (the
+JAX package's per-session `vmap` of the learning pass). One launch of
+`csrc/stdp.cu`'s `stdp_seq_kernel` covers every session (grid.z); each
+session's weight is bit for bit the unbatched kernel's at batch 1 on its
+rows alone. Its plain version loops `stdp_seq_ref` over the sessions.
 """
 
 from __future__ import annotations
@@ -18,7 +27,9 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import _build, registry
-from repro_torch.kernels.stdp.ref import stdp_seq_ref, stdp_update_ref
+from repro_torch.kernels.stdp.ref import (stdp_seq_ref,
+                                         stdp_seq_sessions_ref,
+                                         stdp_update_ref)
 
 MAX_TERMS = 4             # the most term planes `csrc/stdp.cu` takes
 _TRACE_TYPES = (torch.float32, torch.bfloat16)
@@ -74,23 +85,28 @@ def stdp_update_cuda(x_pre: torch.Tensor, s_post: torch.Tensor,
     return out
 
 
-def stdp_seq_cuda(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor, *,
-                  amps: Sequence[float], w_min: float, w_max: float,
-                  batch: int) -> torch.Tensor:
-    """Launch `csrc/stdp.cu`'s multi-step kernel on CUDA tensors."""
-    if P.dim() != 3 or w.dim() != 2:
-        raise ValueError(f"stdp_seq: P {tuple(P.shape)} must be (K, T*B, M) "
-                         f"and w {tuple(w.shape)} (M, N)")
-    K, TB, _ = P.shape
-    M, N = w.shape
+def _seq_launch(wrapper, name: str, P: torch.Tensor, Q: torch.Tensor,
+                w: torch.Tensor, amps: Sequence[float], w_min: float,
+                w_max: float, batch: int) -> torch.Tensor:
+    """`csrc/stdp.cu`'s multi-step kernel, one launch: w (M, N) with `batch`
+    rows a step of P (K, T*B, M) and Q (K, T*B, N), or S weights (S, M, N),
+    each one row of every step (batch 1), the sessions on the grid's z.
+    Counted on `wrapper`."""
+    what = "(S, M, N)" if w.dim() == 3 else "(M, N)"
+    if P.dim() != 3 or w.dim() not in (2, 3):
+        raise ValueError(f"{name}: P {tuple(P.shape)} must be (K, rows, M) "
+                         f"and w {tuple(w.shape)} {what}")
+    K, rows, _ = P.shape
+    S = w.shape[0] if w.dim() == 3 else 1
+    M, N = w.shape[-2:]
     if not 1 <= K <= MAX_TERMS or len(amps) != K:
-        raise ValueError(f"stdp_seq: {K} term planes and {len(amps)} amps; "
+        raise ValueError(f"{name}: {K} term planes and {len(amps)} amps; "
                          f"the kernel takes 1 to {MAX_TERMS} of each, as many "
                          "amps as planes")
-    if batch < 1 or TB % batch:
-        raise ValueError(f"stdp_seq: {TB} rows are not whole steps of "
-                         f"batch {batch}")
-    _check("stdp_seq", [("P", P, (K, TB, M)), ("Q", Q, (K, TB, N))], w,
+    if batch < 1 or S < 1 or rows % (S * batch):
+        raise ValueError(f"{name}: {rows} rows are not whole steps of "
+                         f"{S} sessions of batch {batch}")
+    _check(name, [("P", P, (K, rows, M)), ("Q", Q, (K, rows, N))], w,
            (torch.float32,))
     out = torch.empty_like(w)
     if out.numel() == 0:
@@ -99,12 +115,34 @@ def stdp_seq_cuda(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor, *,
     with torch.cuda.device(w.device):
         code = _build.library().stdp_seq_f32(
             P.data_ptr(), Q.data_ptr(), w.data_ptr(), out.data_ptr(),
-            ctypes.addressof(amp), K, TB // batch, batch, M, N,
+            ctypes.addressof(amp), K, rows // (S * batch), batch, M, N, S,
             float(w_min), float(w_max),
             torch.cuda.current_stream().cuda_stream)
-    _build.check("stdp_seq", code)
-    stdp_seq_cuda.launches += 1
+    _build.check(name, code)
+    wrapper.launches += 1
     return out
+
+
+def stdp_seq_cuda(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor, *,
+                  amps: Sequence[float], w_min: float, w_max: float,
+                  batch: int) -> torch.Tensor:
+    """Launch `csrc/stdp.cu`'s multi-step kernel on CUDA tensors."""
+    if w.dim() != 2:
+        raise ValueError(f"stdp_seq: w {tuple(w.shape)} must be (M, N)")
+    return _seq_launch(stdp_seq_cuda, "stdp_seq", P, Q, w, amps, w_min,
+                       w_max, batch)
+
+
+def stdp_seq_sessions_cuda(P: torch.Tensor, Q: torch.Tensor,
+                           w: torch.Tensor, *, amps: Sequence[float],
+                           w_min: float, w_max: float) -> torch.Tensor:
+    """Launch `csrc/stdp.cu`'s multi-step kernel with a session axis:
+    w (S, M, N), P (K, T * S, M), Q (K, T * S, N); one launch."""
+    if w.dim() != 3:
+        raise ValueError(f"stdp_seq_sessions: w {tuple(w.shape)} must be "
+                         "(S, M, N)")
+    return _seq_launch(stdp_seq_sessions_cuda, "stdp_seq_sessions", P, Q, w,
+                       amps, w_min, w_max, 1)
 
 
 def stdp_update(x_pre: torch.Tensor, s_post: torch.Tensor,
@@ -126,6 +164,16 @@ def stdp_seq(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor, *,
     w_max)."""
     return registry.dispatch("stdp_seq", (P, Q, w), amps=tuple(amps),
                              w_min=w_min, w_max=w_max, batch=batch)
+
+
+def stdp_seq_sessions(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor, *,
+                      amps: Sequence[float], w_min: float,
+                      w_max: float) -> torch.Tensor:
+    """Session-batched learning window. P: (K, T*S, M); Q: (K, T*S, N);
+    w: (S, M, N). Per step t and session s: w[s] <- clip(w[s] + sum_k
+    amps[k] * P_k[t S + s]^T Q_k[t S + s], w_min, w_max)."""
+    return registry.dispatch("stdp_seq_sessions", (P, Q, w),
+                             amps=tuple(amps), w_min=w_min, w_max=w_max)
 
 
 def _make_inputs(generator: torch.Generator):
@@ -153,10 +201,27 @@ registry.register(registry.KernelSpec(
     name="stdp_seq", plain=stdp_seq_ref, cuda=stdp_seq_cuda,
     make_inputs=_make_seq_inputs, static=_SEQ_STATIC, tol=1e-4))
 
+_SESSIONS_STATIC = dict(amps=(0.01, -0.012), w_min=-1.0, w_max=1.0)
+
+
+def _make_session_inputs(generator: torch.Generator):
+    K, T, S, M, N = 2, 12, 5, 130, 140        # the family's, 5 sessions
+    P = torch.rand((K, T * S, M), generator=generator)
+    Q = (torch.rand((K, T * S, N), generator=generator) < 0.2).float()
+    w = 0.5 * torch.randn((S, M, N), generator=generator)
+    return P, Q, w
+
+
+registry.register(registry.KernelSpec(
+    name="stdp_seq_sessions", plain=stdp_seq_sessions_ref,
+    cuda=stdp_seq_sessions_cuda, make_inputs=_make_session_inputs,
+    static=_SESSIONS_STATIC, tol=1e-4))
+
 registry.register(registry.KernelSpec(
     name="stdp", plain=stdp_update_ref, cuda=stdp_update_cuda,
     make_inputs=_make_inputs, tol=1e-4,
     static=dict(a_plus=0.01, a_minus=0.012, w_min=-1.0, w_max=1.0)))
 
 __all__ = ["stdp_update", "stdp_seq", "stdp_update_cuda", "stdp_seq_cuda",
-           "stdp_update_ref", "stdp_seq_ref", "MAX_TERMS"]
+           "stdp_update_ref", "stdp_seq_ref", "stdp_seq_sessions",
+           "stdp_seq_sessions_cuda", "stdp_seq_sessions_ref", "MAX_TERMS"]

@@ -5,6 +5,9 @@
 `stdp_seq_ref` — K signed outer-product term planes over T serial steps:
     w <- clip(w + sum_k amp_k * P_k[t]^T Q_k[t]) for t = 0 .. T-1
 (the clip makes the recurrence non-associative, hence the serial loop).
+`stdp_seq_sessions_ref` — the same with a session axis: S weights, session
+s taking row t * S + s of each plane at step t (`stdp_seq_ref` at batch 1
+on its rows, a session at a time).
 
 Both are loops in the kernels' order (`csrc/stdp.cu`): every outer
 product is summed from zeros over the batch rows b ascending, one rounded
@@ -57,3 +60,12 @@ def stdp_seq_ref(P, Q, w, *, amps, w_min, w_max, batch):
             dw = dw + amp[k] * outer_sum(P32[k, rows], Q32[k, rows])
         w32 = torch.clamp(w32 + dw, w_min, w_max)
     return w32.to(w.dtype)
+
+
+def stdp_seq_sessions_ref(P, Q, w, *, amps, w_min, w_max):
+    """P: (K, T*S, M); Q: (K, T*S, N); w: (S, M, N): `stdp_seq_ref` at
+    batch 1 on each session's rows (every S-th, from s) and weight."""
+    S = w.shape[0]
+    return torch.stack([
+        stdp_seq_ref(P[:, s::S], Q[:, s::S], w[s], amps=amps, w_min=w_min,
+                     w_max=w_max, batch=1) for s in range(S)])

@@ -37,8 +37,25 @@ A program with plastic connections serves with frozen weights
 ("syn:") entries stay in its own state tree, are never packed into a cohort
 (their weight plane has no batch axis), and come back unchanged.
 
-Not ported yet: `learn=True` (the per-session plasticity path) and
-`guard=`; both raise NotImplementedError naming their ROADMAP.md items.
+With `EngineConfig(learn=True)` on a plastic program every session learns
+on its own synapses, as the reference's per-session `vmap` of a learning
+`plan.run` does; here the `vmap` is written out as a session axis. The
+cohort's states, free slots as the zero template, are stacked along the
+batch axis, their `syn:` weights into one (S, n_pre, n_post) tensor a
+connection (`_stack_sessions`), which `plasticity.apply_learned` hands the
+forward as one weight a batch row (the chunked-online contract, per
+session). One `plan.run(learn=True)` serves the window for every session:
+the plastic connection's INTEG is the session-batched spike product
+(`spikemm_sessions`) and its learning pass the session-batched `stdp_seq`
+(`stdp_seq_sessions`), one launch each a window whatever the number of
+live sessions; the lane scans, the traces and the non-plastic readout run
+on the flat batch as they do unbatched. The results are unstacked per
+session. Both kernels give each session, bit for bit, what they give its
+rows alone, so the isolation invariant holds with learning on. The naive
+engine runs the same path a session at a time (S = 1).
+
+Not ported yet: `guard=` raises NotImplementedError naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -50,7 +67,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import events
+from repro_torch.core import events, plasticity
 from repro_torch.core import plan as plan_mod
 from repro_torch.kernels.common import DeviceLike, check_device, resolve_device
 from repro_torch.serve.metrics import ServeMetrics
@@ -69,8 +86,9 @@ class EngineConfig:
                  rejected (backpressure). None = unbounded.
     cache_bytes: hot-state byte budget for the LRU cache; LRU sessions
                  spill to host beyond it. None = unbounded.
-    learn:       per-session on-chip plasticity (not ported yet: raises);
-                 with False a plastic program serves with frozen weights.
+    learn:       per-session on-chip plasticity (the `learn=` path of
+                 `plan.run`, one weight a session); with False a plastic
+                 program serves with frozen weights.
     guard:       numerical guardrail policy (not ported yet: raises).
     """
 
@@ -118,6 +136,43 @@ def _merge_syn(core: Dict[str, Any], syn: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _stack_sessions(states: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """One cohort state of batch-1 session states: the neuron state packed
+    along the batch axis (`plan.pack_states`), each `syn:` weight stacked
+    into (S, n_pre, n_post) and each trace concatenated along its batch
+    axis."""
+    cores, syns = zip(*(_split_syn(s) for s in states))
+    stacked: Dict[str, Any] = {}
+    for node, entries in syns[0].items():
+        stacked[node] = {
+            key: {k: (torch.stack if k == "w" else torch.cat)(
+                [sy[node][key][k] for sy in syns]) for k in syn0}
+            for key, syn0 in entries.items()}
+    return _merge_syn(plan_mod.pack_states(list(cores)), stacked)
+
+
+def _sessions_of(state: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """The first n sessions' batch-1 states out of a stacked cohort state:
+    the inverse of their `_stack_sessions` slots. Their `syn:` entries are
+    copies, not views: a view of the stacked (S, n_pre, n_post) weight
+    would keep the whole stack alive while a session's cache entry counts
+    its own share only. All of them are copied at once
+    (`torch._foreach_copy_`, a multi-tensor copy: a launch or a few for the
+    cohort, not one a tensor)."""
+    core, syn = _split_syn(state)
+    views = [(i, node, key, k, v[i] if k == "w" else v[i:i + 1])
+             for i in range(n) for node, entries in syn.items()
+             for key, entry in entries.items() for k, v in entry.items()]
+    owned = [torch.empty_like(v) for *_, v in views]
+    if owned:
+        torch._foreach_copy_(owned, [v for *_, v in views])
+    syns: List[Dict[str, Any]] = [{} for _ in range(n)]
+    for (i, node, key, k, _), t in zip(views, owned):
+        syns[i].setdefault(node, {}).setdefault(key, {})[k] = t
+    return [_merge_syn(plan_mod.unpack_state(core, i), syns[i])
+            for i in range(n)]
+
+
 class BatchedEngine:
     """Continuous-batching multi-tenant engine (see module docstring)."""
 
@@ -128,11 +183,6 @@ class BatchedEngine:
                  plan: Optional[plan_mod.Plan] = None,
                  dtype: torch.dtype = torch.float32,
                  device: DeviceLike = "cuda"):
-        if cfg.learn:
-            raise NotImplementedError(
-                "EngineConfig(learn=True), the per-session plasticity path, "
-                "is not ported yet: ROADMAP.md, Open items 1, item 7 "
-                "(plasticity in serving)")
         plan_mod._refuse_unported(cfg.guard)
         self.device = resolve_device(device)
         _check_params(params, self.device)
@@ -150,7 +200,18 @@ class BatchedEngine:
                                    metrics=self.metrics)
         self.cache = StateCache(cfg.cache_bytes, metrics=self.metrics,
                                 device=self.device)
+        self._learn = cfg.learn and bool(self.plan.plastic)
         self._sid_counter = 0
+        # zero template for padding free learning slots (results discarded)
+        self._zero_full = None
+        if self._learn:
+            tmpl = events.init_state(self.nodes, 1, self.dtype, params,
+                                     device=self.device)
+            self._zero_full = {
+                node: {k: ({kk: torch.zeros_like(vv) for kk, vv in v.items()}
+                           if isinstance(v, dict) else torch.zeros_like(v))
+                       for k, v in nd.items()}
+                for node, nd in tmpl.items()}
 
     def _infer_n_in(self) -> int:
         for n in self.nodes:
@@ -259,14 +320,38 @@ class BatchedEngine:
             x[:, i, :] = xw
         return torch.from_numpy(x).to(device=self.device, dtype=self.dtype)
 
+    @torch.no_grad()
+    def _run_learning(self, xs: List[np.ndarray],
+                      states: List[Dict[str, Any]], slots: int
+                      ) -> Tuple[List[Dict[str, Any]], np.ndarray]:
+        """One learning window of `slots` sessions (free slots the zero
+        template): their states stacked, each session's learned weights its
+        connection's weight of its batch row, one `plan.run(learn=True)`.
+        Returns the live sessions' new states and the (W, slots, n_out)
+        outputs on the host."""
+        sts = list(states) + (slots - len(states)) * [self._zero_full]
+        stacked = _stack_sessions(sts)
+        params = plasticity.apply_learned(self.nodes, self.params, stacked)
+        ns, out, _ = plan_mod.run(self.nodes, params,
+                                  self._window(xs, slots), state=stacked,
+                                  plan=self.plan, learn=True,
+                                  device=self.device, _traced=True)
+        out_np = out.cpu().numpy()              # one transfer per window
+        return _sessions_of(ns, len(states)), out_np
+
     @torch.no_grad()     # serving builds no graph, whatever params require
     def _run_cohort(self, cohort: List[Tuple[Session, np.ndarray, int]],
                     states: List[Dict[str, Any]]
                     ) -> Tuple[List[Dict[str, Any]], List[np.ndarray]]:
+        C = self.cfg.capacity
+        if self._learn:
+            # the session axis: every slot owns its learned weights
+            news, out_np = self._run_learning([xw for _, xw, _ in cohort],
+                                              states, C)
+            return news, [out_np[:, i, :] for i in range(len(cohort))]
         # flat path: sessions concatenated along the batch axis, padded to
         # capacity with zero slots whose results are discarded; syn entries
         # stay per session
-        C = self.cfg.capacity
         cores, syns = zip(*(_split_syn(s) for s in states))
         packed = plan_mod.pack_states(list(cores), pad_to=C)
         x = self._window([xw for _, xw, _ in cohort], C)
@@ -290,6 +375,11 @@ class NaiveEngine(BatchedEngine):
         news: List[Dict[str, Any]] = []
         outs: List[np.ndarray] = []
         for (_, xw, _), state in zip(cohort, states):
+            if self._learn:
+                (ns,), out_np = self._run_learning([xw], [state], 1)
+                news.append(ns)
+                outs.append(out_np[:, 0, :])
+                continue
             core, syn = _split_syn(state)
             ns, out, _ = plan_mod.run(self.nodes, self.params,
                                       self._window([xw], 1), state=core,

@@ -41,8 +41,8 @@ print(len(mods), " ".join(mods))
 # the modules of the serving slices, compressed topology, plasticity,
 # flash attention with the parity harness, the BCI decoder (in
 # core.snn_layers and core.plasticity), and the mapping compiler, the
-# behavioural simulator and the Table II configs (ROADMAP.md, Open items
-# 1, items 1, 3, 4, 5, 6, 11's kernel and 12)
+# behavioural simulator and the Table II configs, and the streaming client
+# (ROADMAP.md, Open items 1, items 1, 3, 4, 5, 6, 7, 11's kernel and 12)
 EXPECTED = {
     "repro_torch.core.mapping", "repro_torch.core.simulator",
     "repro_torch.configs", "repro_torch.configs.snn_models",
@@ -64,7 +64,7 @@ EXPECTED = {
     "repro_torch.core.snn_layers", "repro_torch.data.spikes",
     "repro_torch.serve.metrics", "repro_torch.serve.scheduler",
     "repro_torch.serve.sessions", "repro_torch.serve.engine",
-    "repro_torch.weights",
+    "repro_torch.serve.client", "repro_torch.weights",
 }
 
 

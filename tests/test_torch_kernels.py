@@ -790,12 +790,14 @@ def test_registry_make_inputs_run_plain_on_cpu():
             assert torch.isfinite(o).all()
     assert registry.names() == ("alif", "alifrec", "attention", "lif",
                                 "lifrec", "linrec", "spikemm",
-                                "spikemm_gather", "stdp", "stdp_seq")
+                                "spikemm_gather", "spikemm_sessions", "stdp",
+                                "stdp_seq", "stdp_seq_sessions")
     assert registry.launch_counts() == {
         n: 0 for n in registry.names() + ("spikemm_sparse", "lif_bwd",
                                           "linrec_bwd", "lifrec_bwd",
                                           "alif_bwd", "alifrec_bwd",
-                                          "spikemm_wgrad")}
+                                          "spikemm_wgrad",
+                                          "spikemm_gather_bwd")}
 
 
 def test_dispatch_rejects_mixed_devices():

@@ -59,8 +59,9 @@ def test_all_families_pass_with_their_plain_versions(stand_in, capsys,
                                                      monkeypatch):
     """With every CUDA wrapper (forward and backward) replaced by its plain
     version, every family passes, `attention`, `lif`, `linrec`, `lifrec`,
-    `alif`, `alifrec` and `spikemm` (both channels) with their VJP, and
-    `main` reports 11 kernels."""
+    `alif`, `alifrec`, `spikemm_gather` (B6) and `spikemm` (both channels)
+    with their VJP, and `main` reports 13 kernels (the session axis of
+    `spikemm` and `stdp_seq` among them)."""
     for name in registry.names():
         spec = registry.get(name)
         stand_in(name, spec.plain)
@@ -70,7 +71,8 @@ def test_all_families_pass_with_their_plain_versions(stand_in, capsys,
             stand_in(name, None, bwd=spec.bwd.plain)
     reports = parity.check_all()
     assert set(reports) == set(registry.names())
-    vjp = ("attention", "lif", "linrec", "lifrec", "alif", "alifrec")
+    vjp = ("attention", "lif", "linrec", "lifrec", "alif", "alifrec",
+           "spikemm_gather")
     for name in vjp:
         assert reports[name] == {"forward_max_err": 0.0,
                                  "vjp_max_err": 0.0}
@@ -83,8 +85,8 @@ def test_all_families_pass_with_their_plain_versions(stand_in, capsys,
                         lambda *a: "stand-in")
     parity.main()
     lines = capsys.readouterr().out.splitlines()
-    assert lines[-1] == "parity OK for 11 kernels (device=stand-in)"
-    assert len(lines) == 12
+    assert lines[-1] == "parity OK for 13 kernels (device=stand-in)"
+    assert len(lines) == 14
     assert any(line.startswith("spikemm_sparse ") for line in lines)
 
 
@@ -121,22 +123,29 @@ def test_check_vjp_false_skips_the_gradients(stand_in):
 
 def test_names_and_diff_argnums():
     """`attention` is registered; it, `lif`, `linrec`, `spikemm`,
-    `lifrec`, `alif` and `alifrec` are the differentiable families,
-    with the JAX specs' `diff_argnums`; the five scans and spikemm (its
-    weight gradient, counted as `spikemm_wgrad`) carry a backward pair of
-    their own; the gather's backward waits for B6, the STDP kernels have
-    none (the learning pass stays out of the graph)."""
+    `lifrec`, `alif`, `alifrec` and `spikemm_gather` are the
+    differentiable families, with the JAX specs' `diff_argnums` (the
+    gather's: its raster); the five scans, spikemm (its weight gradient,
+    counted as `spikemm_wgrad`) and the gather (B6, counted as
+    `spikemm_gather_bwd`) carry a backward pair of their own; the STDP
+    kernels and the session axis (`spikemm_sessions`,
+    `stdp_seq_sessions`) have none (the learning pass and serving stay
+    out of the graph)."""
     names = registry.names()
-    assert "attention" in names and len(names) == 10
+    assert "attention" in names and len(names) == 12
     assert {n: registry.get(n).diff_argnums for n in names
             if registry.get(n).diff_argnums} == {
         "attention": (0, 1, 2), "lif": (0, 1, 2), "linrec": (0, 1, 2),
         "spikemm": (0, 1), "lifrec": (0, 1, 2, 3, 4),
-        "alif": (0, 1, 2, 3, 4), "alifrec": (0, 1, 2, 3, 4, 5, 6)}
+        "alif": (0, 1, 2, 3, 4), "alifrec": (0, 1, 2, 3, 4, 5, 6),
+        "spikemm_gather": (0,)}
     assert {n for n in names if registry.get(n).bwd is not None} == {
-        "lif", "linrec", "lifrec", "alif", "alifrec", "spikemm"}
+        "lif", "linrec", "lifrec", "alif", "alifrec", "spikemm",
+        "spikemm_gather"}
     assert registry.get("spikemm").bwd_name == "spikemm_wgrad"
-    assert "spikemm_wgrad" in registry.launch_counts()
+    assert registry.get("spikemm_gather").bwd_name == "spikemm_gather_bwd"
+    assert {"spikemm_wgrad", "spikemm_gather_bwd"} <= set(
+        registry.launch_counts())
 
 
 def test_loss_matches_the_jax_harness():

@@ -18,8 +18,13 @@
 * The engine's window step routes spikemm as the JAX package's jitted
   step does: dense under `auto` whatever the occupancy (no occupancy is
   measured), sparse only where `REPRO_SPIKEMM_SPARSE=always` pins it.
-* `learn=True` and entry points called without a device on a machine with
-  no card raise.
+* `EngineConfig(learn=True)` on a plastic program (a weight a session:
+  the session-batched spikemm and stdp_seq) against the JAX engine's
+  per-session `vmap`, both engines: outputs and every session's learned
+  synapses; each session's synapses stay its own (solo == interleaved ==
+  evicted and restored, bit for bit), and learn=True on a program without
+  plasticity serves the flat path.
+* Entry points called without a device on a machine with no card raise.
 * A program whose input edge is a compressed topology serves: the engine
   reads the input width from the topology.
 """
@@ -32,11 +37,13 @@ import pytest
 import torch
 
 from repro.core.snn_layers import make_dhsnn_shd as jmake_dhsnn
+from repro.core.snn_layers import make_plastic_ff as jmake_plastic_ff
 from repro.core.snn_layers import make_srnn_ecg as jmake_srnn
 from repro.serve import EngineConfig as JEngineConfig
 from repro.serve import make_engine as jmake_engine
 from repro_torch.core import events, plan
-from repro_torch.core.snn_layers import make_dhsnn_shd, make_srnn_ecg
+from repro_torch.core.snn_layers import (make_dhsnn_shd, make_plastic_ff,
+                                         make_srnn_ecg)
 from repro_torch.kernels import registry
 from repro_torch.kernels.incidents import clear, incidents
 from repro_torch.serve import EngineConfig, make_engine
@@ -151,6 +158,23 @@ def _run(kind, data, model, cache_bytes=None):
 
 def _leaves(state):
     return [state[n][k] for n in sorted(state) for k in sorted(state[n])]
+
+
+@pytest.mark.parametrize("kind", ["batched", "naive"])
+def test_a_learning_session_owns_its_synapse_storage(kind):
+    """Each session's learned synapse state is a tensor of its own, not a
+    view of the window's stacked (S, n_pre, n_post) weight or traces: a
+    retired cohort's stack is freed, and the bytes the cache counts for a
+    session are the bytes it keeps alive."""
+    _, model = _plastic_models()
+    data = _streams(3, 20, 3, n_in=10)
+    eng = _learn_run(kind, data, model, device="cpu")
+    for sid in data:
+        syn = _syn(eng.state_of(sid))
+        assert syn
+        for k, v in syn.items():
+            assert v.untyped_storage().nbytes() == (
+                v.numel() * v.element_size()), (sid, k)
 
 
 @pytest.mark.parametrize("kind", ["batched", "naive"])
@@ -284,10 +308,176 @@ def test_backpressure_matches_reference():
     assert len(incidents(kind="serve")) == n_rejected
 
 
-def test_learn_raises():
+def _plastic_models():
+    """`tests/test_serve_engine.py`'s `_plastic_model` (make_plastic_ff, 10
+    -> 12 LIF with pair STDP on its input -> 3 LI, JAX seed 1) in both
+    packages, the JAX weights copied into the port's."""
+    jn, jp = jmake_plastic_ff(jax.random.PRNGKey(1), n_in=10, n_hidden=12,
+                              n_out=3)
+    tn, _ = make_plastic_ff(torch.Generator().manual_seed(1), n_in=10,
+                            n_hidden=12, n_out=3, device="cpu")
+    return (jn, jp), (tn, params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jp), "cpu"))
+
+
+def _learn_run(kind, data, model, make=make_engine, cache_bytes=None,
+               **kw):
+    """`tests/test_serve_engine.py`'s `_run` with learning on: open every
+    session, submit its whole stream, close it, drain."""
+    nodes, params = model
+    cfg = (JEngineConfig if make is jmake_engine else EngineConfig)(
+        window=W, capacity=C, cache_bytes=cache_bytes, learn=True)
+    eng = make(nodes, params, cfg, kind=kind, **kw)
+    for sid in data:
+        eng.open(sid)
+    for sid, x in data.items():
+        assert eng.submit(sid, x)
+        eng.close(sid)
+    eng.drain()
+    return eng
+
+
+def _syn(state):
+    """{(node, key, entry): tensor} of a session's synapse state."""
+    return {(n, k, e): v for n, d in state.items() for k, syn in d.items()
+            if k.startswith("syn:") for e, v in syn.items()}
+
+
+@pytest.mark.parametrize("kind", ["batched", "naive"])
+def test_learn_engine_matches_reference(kind):
+    """`EngineConfig(learn=True)` on a plastic program: the port's engine
+    against the JAX engine (its per-session `vmap` of a learning
+    `plan.run`) on the same ragged streams, W, C = 8, 4. Every session's
+    outputs agree within CROSS_ENGINE_ATOL (no hidden lane of these
+    streams sits at a threshold tie: a flip would move the readout past
+    it), and its learned `syn:` weight and traces within the tolerance
+    `tests/test_torch_synapse_plan.py` holds `plan.run(learn=True)` to;
+    the weights learned away from the seed, differently per session."""
+    (jn, jp), (tn, tp) = _plastic_models()
+    data = {f"s{i}": v for i, v in enumerate(
+        _streams(6, 30, 1, n_in=10).values())}
+    for i, n in enumerate((20, 13, 30, 8, 27, 17)):
+        data[f"s{i}"] = data[f"s{i}"][:n]
+    assert _hidden_rate_learning(tn, tp, data) >= 0.01
+    jeng = _learn_run(kind, data, (jn, jp), make=jmake_engine)
+    teng = _learn_run(kind, data, (tn, tp), device="cpu")
+    assert teng.stats()["windows_run"] == jeng.stats()["windows_run"]
+    w0 = tp["hidden"]["w_input"]
+    learned = []
+    for sid in data:
+        assert teng.finished(sid)
+        np.testing.assert_allclose(teng.outputs(sid), jeng.outputs(sid),
+                                   rtol=0, atol=plan.CROSS_ENGINE_ATOL,
+                                   err_msg=sid)
+        got, ref = _syn(teng.state_of(sid)), _syn(jeng.state_of(sid))
+        assert set(got) == set(ref) and got
+        for k, v in ref.items():
+            torch.testing.assert_close(got[k], torch.from_numpy(
+                np.array(v)), atol=1e-5, rtol=1e-5, msg=str(k))
+        w = got[("hidden", "syn:input", "w")]
+        assert w.shape == w0.shape and not torch.equal(w, w0)
+        learned.append(w)
+    assert not torch.equal(learned[0], learned[1])
+
+
+def _hidden_rate_learning(nodes, params, data):
+    """Share of hidden lane-steps that fire when the sessions' streams run
+    side by side through one `plan.run` from the seed weights."""
+    x = np.zeros((max(len(v) for v in data.values()), len(data), 10),
+                 np.float32)
+    for b, v in enumerate(data.values()):
+        x[:len(v), b] = v
+    with torch.no_grad():
+        _, _, rec = plan.run(nodes, params, torch.from_numpy(x),
+                             record=("hidden",), learn=False, device="cpu")
+    return float(rec["hidden"].mean())
+
+
+@pytest.mark.parametrize("kind", ["batched", "naive"])
+def test_learned_weights_stay_per_session(kind):
+    """The twin of `tests/test_serve_engine.py`'s: with learn=True each
+    session owns its synapse weights: s0's learned tensors are
+    bit-identical solo and interleaved, and differ from a stranger fed
+    other spikes (no batch-summed contamination); s0's outputs too."""
+    _, model = _plastic_models()
+    data = _streams(3, 20, 3, n_in=10)
+    solo = _learn_run(kind, {"s0": data["s0"]}, model, device="cpu")
+    inter = _learn_run(kind, data, model, device="cpu")
+    ws, wi = _syn(solo.state_of("s0")), _syn(inter.state_of("s0"))
+    assert ws, "plastic model produced no syn entries"
+    for k in ws:
+        assert torch.equal(ws[k], wi[k]), k
+    k = ("hidden", "syn:input", "w")
+    assert not torch.equal(_syn(inter.state_of("s1"))[k], wi[k])
+    assert torch.equal(torch.from_numpy(solo.outputs("s0")),
+                       torch.from_numpy(inter.outputs("s0")))
+
+
+@pytest.mark.parametrize("kind", ["batched", "naive"])
+def test_a_learning_session_owns_its_synapse_storage(kind):
+    """Each session's learned synapse state is a tensor of its own, not a
+    view of the window's stacked (S, n_pre, n_post) weight or traces: a
+    retired cohort's stack is freed, and the bytes the cache counts for a
+    session are the bytes it keeps alive."""
+    _, model = _plastic_models()
+    data = _streams(3, 20, 3, n_in=10)
+    eng = _learn_run(kind, data, model, device="cpu")
+    for sid in data:
+        syn = _syn(eng.state_of(sid))
+        assert syn
+        for k, v in syn.items():
+            assert v.untyped_storage().nbytes() == (
+                v.numel() * v.element_size()), (sid, k)
+
+
+@pytest.mark.parametrize("kind", ["batched", "naive"])
+@pytest.mark.parametrize("n_extra,T,seed", [(1, 3, 0), (2, 17, 1),
+                                            (3, 40, 2)])
+def test_learn_isolation_solo_interleaved_evict_restore(n_extra, T, seed,
+                                                        kind):
+    """The isolation property with learning on: session s0's outputs and
+    whole final state, its learned synapses included, are identical solo,
+    interleaved with strangers, and under a 1-byte cache that evicts and
+    restores every session every window."""
+    _, model = _plastic_models()
+    data = _streams(1 + n_extra, T, seed, n_in=10)
+    solo = _learn_run(kind, {"s0": data["s0"]}, model, device="cpu")
+    inter = _learn_run(kind, data, model, device="cpu")
+    evict = _learn_run(kind, data, model, cache_bytes=1, device="cpu")
+    assert evict.metrics.cache_evictions > 0
+    for other in (inter, evict):
+        assert torch.equal(torch.from_numpy(solo.outputs("s0")),
+                           torch.from_numpy(other.outputs("s0")))
+        a, b = solo.state_of("s0"), other.state_of("s0")
+        assert set(a) == set(b)
+        for node in a:
+            assert set(a[node]) == set(b[node])
+            for k, v in a[node].items():
+                if isinstance(v, dict):
+                    for e in v:
+                        assert torch.equal(v[e], b[node][k][e]), (node, k, e)
+                else:
+                    assert torch.equal(v, b[node][k]), (node, k)
+
+
+def test_learn_on_a_program_without_plasticity_serves_flat():
+    """learn=True on a program with no plastic connection serves on the
+    flat path, as the reference's engine does: the same outputs as
+    learn=False."""
     _, (tn, tp) = _models(True)
-    with pytest.raises(NotImplementedError, match="plasticity"):
-        make_engine(tn, tp, EngineConfig(learn=True), device="cpu")
+    data = _streams(3, 19, 8)
+    outs = []
+    for learn in (False, True):
+        eng = make_engine(tn, tp, EngineConfig(window=W, capacity=C,
+                                               learn=learn), device="cpu")
+        for sid, x in data.items():
+            eng.open(sid)
+            assert eng.submit(sid, x)
+            eng.close(sid)
+        eng.drain()
+        outs.append([eng.outputs(sid) for sid in data])
+    for a, b in zip(*outs):
+        assert torch.equal(torch.from_numpy(a), torch.from_numpy(b))
 
 
 def test_entry_points_without_device_raise_when_no_card(monkeypatch):

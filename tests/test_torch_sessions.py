@@ -1,0 +1,238 @@
+"""The session axis of kernels 1 and 7 (a learning serve window), on the CPU.
+
+* The plain versions of the session-batched `spikemm` and `stdp_seq` equal,
+  bit for bit, the unbatched plain versions on each session's rows alone
+  (`spikemm_ref` on rows (T, K) against w[s]; `stdp_seq_ref` at batch 1 on
+  rows t * S + s), at S = 1 and at ragged (S, M, N); and
+  `spikemm_sessions_chain_ref`, the card's chain, equals `spikemm_chain_ref`
+  session by session.
+* With a recording stand-in for the kernel library (no card here), each
+  CUDA wrapper makes one C call for all sessions with the shape and tile
+  the kernel is to take, and counts one launch.
+* `plan.run(learn=True)` with one weight a batch row (a (B, n_pre, n_post)
+  plastic weight and stacked synapse state) equals the unbatched
+  `plan.run` of each row alone, bit for bit: outputs, neuron state and the
+  learned weight and traces, on the fused `stdp_seq` lowering. The
+  per-step synapse interpreter (TB210), the stepper engine and a weight
+  with a session axis on a connection that does not learn are refused.
+"""
+
+import dataclasses
+from contextlib import nullcontext
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import plan, plasticity
+from repro_torch.core.snn_layers import make_plastic_ff
+from repro_torch.kernels import _build, registry
+from repro_torch.kernels.spikemm import ops as spikemm_ops
+from repro_torch.kernels.spikemm.ops import (spikemm_sessions,
+                                             spikemm_sessions_chain_ref,
+                                             spikemm_sessions_cuda,
+                                             spikemm_sessions_ref)
+from repro_torch.kernels.spikemm.ref import spikemm_chain_ref, spikemm_ref
+from repro_torch.kernels.stdp import ops as stdp_ops
+from repro_torch.kernels.stdp.ops import (stdp_seq_sessions,
+                                          stdp_seq_sessions_cuda)
+from repro_torch.kernels.stdp.ref import stdp_seq_ref, stdp_seq_sessions_ref
+
+# (T, S, K, N): one session, and ragged against every tile
+SPIKE_SHAPES = [(32, 1, 256, 128), (37, 5, 130, 70), (9, 3, 7, 1)]
+# (K terms, T, S, M, N)
+STDP_SHAPES = [(2, 32, 1, 256, 128), (2, 12, 5, 130, 140),
+               (4, 7, 3, 9, 5)]
+AMPS = (0.01, -0.012, 0.003, -0.02)
+
+
+def _raster(shape, seed, rate=0.15):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(shape, generator=g) < rate).float()
+
+
+@pytest.mark.parametrize("T,S,K,N", SPIKE_SHAPES)
+def test_spikemm_sessions_plain_is_the_unbatched_plain_a_session_at_a_time(
+        T, S, K, N):
+    s = _raster((T, S, K), T * S)
+    w = torch.randn((S, K, N), generator=torch.Generator().manual_seed(K))
+    got = spikemm_sessions(s, w)
+    chain = spikemm_sessions_chain_ref(s, w)
+    assert got.shape == chain.shape == (T, S, N)
+    for i in range(S):
+        alone = s[:, i].contiguous()
+        assert torch.equal(got[:, i], spikemm_ref(alone, w[i]))
+        assert torch.equal(chain[:, i], spikemm_chain_ref(alone, w[i]))
+    torch.testing.assert_close(got, chain, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, spikemm_sessions_ref(s, w))
+
+
+@pytest.mark.parametrize("K,T,S,M,N", STDP_SHAPES)
+def test_stdp_seq_sessions_plain_is_the_unbatched_plain_at_batch_1(
+        K, T, S, M, N):
+    g = torch.Generator().manual_seed(M)
+    P = torch.rand((K, T * S, M), generator=g)
+    Q = (torch.rand((K, T * S, N), generator=g) < 0.3).float()
+    w = 0.5 * torch.randn((S, M, N), generator=g)
+    kw = dict(amps=AMPS[:K], w_min=-0.4, w_max=0.4)
+    got = stdp_seq_sessions(P, Q, w, **kw)
+    assert got.shape == w.shape and not torch.equal(got, w)
+    for i in range(S):
+        rows = torch.arange(i, T * S, S)
+        alone = stdp_seq_ref(P[:, rows].contiguous(), Q[:, rows].contiguous(),
+                             w[i], batch=1, **kw)
+        assert torch.equal(got[i], alone)
+    assert torch.equal(got, stdp_seq_sessions_ref(P, Q, w, **kw))
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """A recording stand-in for the kernel library: CPU tensors through the
+    CUDA wrappers, device and stream stood in for."""
+    lib = mock.Mock(**{"spikemm_f32.return_value": 0,
+                       "stdp_seq_f32.return_value": 0})
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(spikemm_ops, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    registry.reset_launches()
+    yield lib
+    registry.reset_launches()
+
+
+@pytest.mark.parametrize("T,S,K,N", SPIKE_SHAPES + [(32, 64, 256, 128)])
+def test_spikemm_sessions_wrapper_is_one_launch(stand_in, T, S, K, N):
+    out = spikemm_sessions_cuda(torch.zeros((T, S, K)),
+                                torch.zeros((S, K, N)))
+    assert out.shape == (T, S, N)
+    assert [c[0] for c in stand_in.method_calls] == ["spikemm_f32"]
+    assert stand_in.spikemm_f32.call_args.args[3:9] == (
+        T, K, N, spikemm_ops.rows_per_cta(T, N, 132, sessions=S),
+        spikemm_ops.col_tile(N), S)
+    assert registry.launch_counts()["spikemm_sessions"] == 1
+
+
+@pytest.mark.parametrize("K,T,S,M,N", STDP_SHAPES)
+def test_stdp_seq_sessions_wrapper_is_one_launch(stand_in, K, T, S, M, N):
+    out = stdp_seq_sessions_cuda(torch.zeros((K, T * S, M)),
+                                 torch.zeros((K, T * S, N)),
+                                 torch.zeros((S, M, N)), amps=AMPS[:K],
+                                 w_min=-1.0, w_max=1.0)
+    assert out.shape == (S, M, N)
+    assert [c[0] for c in stand_in.method_calls] == ["stdp_seq_f32"]
+    assert stand_in.stdp_seq_f32.call_args.args[5:11] == (
+        K, T, 1, M, N, S)
+    assert registry.launch_counts()["stdp_seq_sessions"] == 1
+
+
+def test_session_wrappers_refuse_shapes_they_cannot_take(stand_in):
+    with pytest.raises(ValueError, match="do not chain"):
+        spikemm_sessions_cuda(torch.zeros((4, 3, 5)), torch.zeros((2, 5, 6)))
+    with pytest.raises(ValueError, match="whole steps"):
+        stdp_seq_sessions_cuda(torch.zeros((1, 7, 4)), torch.zeros((1, 7, 3)),
+                               torch.zeros((2, 4, 3)), amps=(0.1,),
+                               w_min=-1.0, w_max=1.0)
+    assert registry.launch_counts()["spikemm_sessions"] == 0
+
+
+def test_spikemm_sessions_refuses_a_gradient():
+    w = torch.zeros((2, 5, 3), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        spikemm_sessions(torch.zeros((4, 2, 5)), w)
+    with torch.no_grad():
+        assert spikemm_sessions(torch.zeros((4, 2, 5)), w).shape == (4, 2, 3)
+
+
+def _model(rule="pair_stdp"):
+    return make_plastic_ff(torch.Generator().manual_seed(5), n_in=20,
+                           n_hidden=16, n_out=3,
+                           rule=plasticity.make_synapse(rule), device="cpu")
+
+
+def _stacked(nodes, params, states):
+    """Stacked state and params of per-row states (the serve engine's
+    cohort: weights stacked, traces and neuron state along the batch)."""
+    from repro_torch.serve.engine import _stack_sessions
+    st = _stack_sessions(states)
+    return st, plasticity.apply_learned(nodes, params, st)
+
+
+@pytest.mark.parametrize("rule", ["pair_stdp", "triplet_stdp"])
+def test_plan_run_with_a_weight_a_row_equals_each_row_alone(rule):
+    """Two windows: the first from the seed, the second from each row's own
+    learned weight (distinct per row); the stacked run of the second equals
+    the unbatched run of each row alone, bit for bit."""
+    nodes, params = _model(rule)
+    compiled = plan.compile_program(nodes)
+    rng = np.random.default_rng(2)
+    B, T = 4, 19
+    x1, x2 = (torch.from_numpy((rng.random((T, B, 20)) < 0.3).astype(
+        np.float32)) for _ in range(2))
+    with torch.no_grad():
+        rows = []
+        for b in range(B):
+            st, _, _ = plan.run(nodes, params, x1[:, b:b + 1],
+                                plan=compiled, device="cpu")
+            rows.append(st)
+        assert not torch.equal(rows[0]["hidden"]["syn:input"]["w"],
+                               rows[1]["hidden"]["syn:input"]["w"])
+        st, p = _stacked(nodes, params, rows)
+        assert p["hidden"]["w_input"].shape == (B, 20, 16)
+        ns, out, _ = plan.run(nodes, p, x2, state=st, plan=compiled,
+                              device="cpu")
+        for b in range(B):
+            pb = plasticity.apply_learned(nodes, params, rows[b])
+            nb, ob, _ = plan.run(nodes, pb, x2[:, b:b + 1], state=rows[b],
+                                 plan=compiled, device="cpu")
+            assert torch.equal(out[:, b:b + 1], ob)
+            for node, nd in nb.items():
+                for k, v in nd.items():
+                    if k.startswith("syn:"):
+                        for e, t in v.items():
+                            got = ns[node][k][e]
+                            got = got[b] if e == "w" else got[b:b + 1]
+                            assert torch.equal(got, t), (node, k, e)
+                    else:
+                        assert torch.equal(ns[node][k][b:b + 1], v), (node, k)
+
+
+@pytest.mark.parametrize("rule", ["pair_stdp", "triplet_stdp"])
+def test_a_weight_a_row_is_refused_on_the_per_step_synapse_lowering(rule):
+    """The per-step synapse interpreter (TB210) has no session axis: a
+    learning run with a weight a row raises, naming item 7; without
+    learning the forward takes the weights a row on the fused plan."""
+    nodes, params = _model(rule)
+    compiled = plan.compile_program(nodes)
+    compiled = dataclasses.replace(compiled, plastic=tuple(
+        dataclasses.replace(p, lower=plan.SYN_STEP)
+        for p in compiled.plastic))
+    p = dict(params)
+    p["hidden"] = {"w_input": params["hidden"]["w_input"].expand(
+        2, 20, 16).contiguous()}
+    x = torch.zeros((5, 2, 20))
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError,
+                           match="per-step synapse lowering.*item 7"):
+            plan.run(nodes, p, x, plan=compiled, device="cpu")
+        _, out, _ = plan.run(nodes, p, x, plan=compiled, device="cpu",
+                             learn=False)
+    assert out.shape == (5, 2, 3)
+
+
+def test_a_weight_a_row_is_refused_off_the_fused_plan(monkeypatch):
+    nodes, params = _model()
+    p = dict(params)
+    p["hidden"] = {"w_input": params["hidden"]["w_input"].expand(
+        2, 20, 16).contiguous()}
+    x = torch.zeros((5, 2, 20))
+    monkeypatch.setenv("REPRO_SNN_ENGINE", "stepper")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        plan.run(nodes, p, x, device="cpu")
+    monkeypatch.delenv("REPRO_SNN_ENGINE")
+    p["readout"] = {"w_hidden": params["readout"]["w_hidden"].expand(
+        2, 16, 3).contiguous()}
+    with torch.no_grad(), pytest.raises(ValueError, match="plastic"):
+        plan.run(nodes, p, x, device="cpu", learn=False)

@@ -605,7 +605,8 @@ def test_pack_states_refuses_synapse_state():
 def test_engine_serves_plastic_program_with_frozen_weights(kind):
     """`EngineConfig(learn=False)` serves a plastic program as the
     reference does: the syn entries stay per session and unchanged, and
-    each session's outputs equal a one-shot `plan.run(learn=False)`."""
+    each session's outputs equal a one-shot `plan.run(learn=False)`; with
+    learn=True every session's weight learns."""
     _, _, tn, tp = _plastic_ff(17, "pair_stdp", n_in=8, n_hidden=12)
     rng = np.random.default_rng(9)
     streams = {f"s{i}": _spikes(rng, (11 + 3 * i, 8)) for i in range(3)}
@@ -623,5 +624,17 @@ def test_engine_serves_plastic_program_with_frozen_weights(kind):
         syn = eng.state_of(sid)["hidden"]["syn:input"]
         assert syn["w"] is tp["hidden"]["w_input"]
         assert torch.equal(syn["x_pre"], torch.zeros(1, 8))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_engine(tn, tp, EngineConfig(learn=True), device="cpu")
+    # learn=True is the session axis (tests/test_torch_serve.py): the
+    # same streams learn, each session on its own weight
+    eng = make_engine(tn, tp, EngineConfig(window=4, capacity=2, learn=True),
+                      kind=kind, device="cpu")
+    for sid, v in streams.items():
+        eng.open(sid)
+        eng.submit(sid, v)
+        eng.close(sid)
+    eng.drain()
+    learned = [eng.state_of(sid)["hidden"]["syn:input"]["w"]
+               for sid in streams]
+    assert all(w.shape == tp["hidden"]["w_input"].shape
+               and not torch.equal(w, tp["hidden"]["w_input"])
+               for w in learned)

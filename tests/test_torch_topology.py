@@ -3,7 +3,9 @@
 * The six encodings of `tests/test_topology_exec.py` (one per IE type,
   plus pool), built from the same numpy arrays in both packages, have
   equal storage accounting, equal `coo()` triples and bit-for-bit equal
-  gather tables (`jj`, `kk`, `act`, `wblk`).
+  gather tables (`jj`, `kk`, `act`, `wblk`), and so do their transposes
+  (`GatherTables.transpose()`, the gather's backward tables), whose row
+  bitmap lists the forward patches' nonzero columns.
 * `apply_spikes` and the plain `spikemm_gather` agree with the JAX
   reference (`_ref_impl`, through its registry) and the JAX Pallas kernel
   in interpret mode within the family's `KernelSpec.tol` (1e-4).
@@ -37,7 +39,8 @@ from repro_torch.core import topology as topo
 from repro_torch.core.neuron import LI, LIF
 from repro_torch.core.snn_layers import ff_integrate, make_dhsnn_shd
 from repro_torch.kernels import registry
-from repro_torch.kernels.spikemm.gather import (build_gather_tables,
+from repro_torch.kernels.spikemm.gather import (GatherTables,
+                                                build_gather_tables,
                                                 spikemm_gather,
                                                 spikemm_gather_ref)
 from repro_torch.weights import params_from_numpy
@@ -47,6 +50,8 @@ ATOL = plan.CROSS_ENGINE_ATOL
 MIN_RATE = 0.01
 NAMES = ["fc_t2", "sparse_t0", "sparse_t1", "sparse_coo_t1", "conv_t3",
          "pool_t0"]
+# the encodings that execute through the gather (every one but type-2 FC)
+GATHER_NAMES = NAMES[1:]
 
 
 def _encodings(mod, rng):
@@ -107,6 +112,44 @@ def test_encodings_and_tables_equal_reference(encs, name):
             np.testing.assert_array_equal(a, b, err_msg=f)
         assert (tt.n_pre, tt.n_post, tt.bk, tt.bn) == \
             (jt.n_pre, jt.n_post, jt.bk, jt.bn)
+
+
+@pytest.mark.parametrize("bk,bn", [(None, None), (8, 4)])
+@pytest.mark.parametrize("name", GATHER_NAMES)
+def test_transposed_tables_equal_reference(encs, name, bk, bn):
+    """`GatherTables.transpose()` (the gather's backward, B6): its `jj`,
+    `kk`, `act` and `wblk` equal the JAX package's; it is memoised with
+    the back-link, and built afresh from its own arrays it transposes back
+    to the original's; its `row_bitmap` lists exactly the patch rows that
+    are columns of a forward patch holding a nonzero weight of a real
+    post neuron."""
+    je, te = encs[name]
+    t, jt = te.lowering(bk, bn), je.lowering(bk, bn).transpose()
+    tt = t.transpose()
+    for f in ("jj", "kk", "act", "wblk"):
+        a, b = getattr(tt, f), getattr(jt, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert (tt.n_pre, tt.n_post, tt.bk, tt.bn) == \
+        (jt.n_pre, jt.n_post, jt.bk, jt.bn) == (t.n_post, t.n_pre, t.bn, t.bk)
+    assert tt.transpose() is t and t.transpose() is tt
+    assert tt.device("cpu") is tt.device("cpu")
+    fresh = GatherTables(tt.jj, tt.kk, tt.act, tt.wblk, tt.n_pre,
+                         tt.n_post, tt.bk, tt.bn).transpose()
+    for f in ("jj", "kk", "act", "wblk"):
+        np.testing.assert_array_equal(getattr(fresh, f), getattr(t, f))
+    fwd = {(int(j), int(k)): t.wblk[e]
+           for e, (j, k) in enumerate(zip(t.jj, t.kk)) if t.act[e]}
+    bits = tt.row_bitmap()
+    for e in range(len(tt.jj)):
+        rows = {r for r in range(tt.bk)
+                if bits[e, r // 32] >> (r % 32) & 1}
+        want = set()
+        if tt.act[e]:
+            patch = fwd[(int(tt.kk[e]), int(tt.jj[e]))]       # (bk, bn)
+            want = {c for c in range(t.bn) if patch[:, c].any()
+                    and int(tt.kk[e]) * tt.bk + c < t.n_post}
+        assert rows == want, e
 
 
 def test_skip_encoding_and_relay_baseline_equal_reference(encs):

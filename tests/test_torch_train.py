@@ -30,8 +30,16 @@
 * The learning pass stays out of the graph; the recurrent and ALIF
   scans pass a gradient (their backward, B4 and B5, is held against the
   JAX package in `tests/test_torch_train_ecg.py`), and the ECG SRNN's
-  gradients agree across the two engines; the gather refuses a gradient;
-  serving builds no graph.
+  gradients agree across the two engines; serving builds no graph.
+* The gather's backward (B6, the gather on the transposed tables) against
+  `jax.grad` through the JAX package's custom VJP, for each encoding of
+  `tests/test_topology_exec.py` that executes through the gather.
+* `train_banded` at a small size (48 -> 256 LIF -> a +-8 band of 256 LIF
+  -> 20 LI, T = 16, B = 4, built from both packages' parts): the loss and
+  every leaf against `jax.value_and_grad` of the JAX `plan.run`.
+* The seven programs of `tests/test_torch_plan.py` (`_six_programs`,
+  `_delayed_program`): loss mean(out^2) and every leaf against
+  `jax.value_and_grad` of the JAX `plan.run`.
 """
 
 import dataclasses
@@ -495,7 +503,7 @@ def test_learning_pass_stays_out_of_the_graph():
                            torch.ones(4), torch.zeros(2, 4),
                            torch.zeros(2, 4), torch.zeros(2, 4)),
 ], ids=("lifrec", "alif", "alifrec"))
-def test_scans_without_a_backward_refuse_a_gradient(call):
+def test_recurrent_and_alif_scans_pass_a_gradient(call):
     """The recurrent and ALIF scans have their backward (B4, B5): a
     gradient flows through each (a current that fires in some steps
     gets a nonzero one, under the default surrogate), and inference under
@@ -512,7 +520,7 @@ def test_scans_without_a_backward_refuse_a_gradient(call):
     assert call(cur.detach())[0].grad_fn is None
 
 
-def test_ecg_srnn_training_refuses_on_both_engines():
+def test_ecg_srnn_trains_alike_on_both_engines():
     """The ECG SRNN trains on both engines: `plan.run` (the
     fused `alifrec`, its backward kernel's plain version and `spikemm`'s
     g_w) and `events.run` (autograd through `surrogate.spike`) give the
@@ -537,18 +545,41 @@ def test_ecg_srnn_training_refuses_on_both_engines():
         assert rel <= LEAF_RTOL, f"{'/'.join(path)}: {rel:.3e}"
 
 
-def test_gather_refuses_a_gradient():
+@pytest.fixture(scope="module")
+def gather_encs():
+    """{name: (JAX encoding, port encoding)} of `tests/test_topology_exec.py`'s
+    fixture (the same numpy arrays in both packages), the encodings that
+    execute through the gather."""
+    from repro.core import topology as jtopo
     from repro_torch.core import topology as topo
-    rng = np.random.default_rng(0)
-    w = np.where(rng.random((40, 30)) < 0.1,
-                 rng.standard_normal((40, 30)), 0.0).astype(np.float32)
-    enc = topo.encode(w, kind="sparse", ie_type=1)
-    assert enc.exec_channel() != "dense"
-    x = (torch.rand(3, 40) < 0.5).float().requires_grad_()
-    with pytest.raises(NotImplementedError, match="B6"):
-        enc.apply_spikes(x)
+    from tests.test_torch_topology import GATHER_NAMES, _encodings
+    j = _encodings(jtopo, np.random.default_rng(3))
+    t = _encodings(topo, np.random.default_rng(3))
+    return {k: (j[k], t[k]) for k in GATHER_NAMES}
+
+
+@pytest.mark.parametrize("name", ["sparse_t0", "sparse_t1", "sparse_coo_t1",
+                                  "conv_t3", "pool_t0"])
+def test_gather_gradient_matches_jax(gather_encs, name):
+    """B6: `apply_spikes`' gradient through the gather (the gather on the
+    transposed tables) against `jax.grad` through the JAX package's custom
+    VJP (`tests/test_topology_exec.py::test_gather_vjp_matches_dense`'s
+    loss), within 1e-4; the same call under `no_grad` builds no graph."""
+    jenc, tenc = gather_encs[name]
+    assert tenc.exec_channel() == jenc.exec_channel() == "gather"
+    x = (np.random.default_rng(7).random((6, tenc.n_pre)) < 0.35).astype(
+        np.float32)
+    want = jax.grad(lambda s: jnp.sum(jnp.tanh(jenc.apply_spikes(s))))(
+        jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    (got,) = torch.autograd.grad(torch.tanh(tenc.apply_spikes(xt)).sum(), xt)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    assert float(got.abs().sum()) > 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
     with torch.no_grad():
-        assert enc.apply_spikes(x).shape == (3, 30)
+        out = tenc.apply_spikes(xt)
+    assert out.grad_fn is None and out.shape == (6, tenc.n_post)
 
 
 def test_serving_builds_no_graph():
@@ -710,3 +741,137 @@ def test_run_stream_carries_the_graph_across_chunks():
         assert np.abs(g).sum() > 0, path
         np.testing.assert_allclose(grads[1][path], g, rtol=1e-5, atol=1e-7,
                                    err_msg="/".join(path))
+
+
+# ---------------------------------------------------------------------------
+# programs against jax.value_and_grad of the JAX plan.run
+# ---------------------------------------------------------------------------
+
+
+def _assert_grads_match_jax(jn, jp, tn, tp, x, loss_j, loss_t):
+    """The loss and every gradient leaf of the port's `plan.run` (params
+    `tp`, made to require grad) against `jax.value_and_grad` of the JAX
+    `plan.run` on the same weights: the loss within `CROSS_ENGINE_ATOL`
+    relative to max(1, |loss|), each leaf within a relative L2 error of
+    LEAF_RTOL. Leaves that hold no tensor (a topology) have no gradient."""
+    value, grads = jax.value_and_grad(
+        lambda p: loss_j(jplan.run(jn, p, jnp.asarray(x))[1]))(jp)
+    _requires_grad({k: {n: v for n, v in d.items()
+                        if isinstance(v, (torch.Tensor, dict))}
+                    for k, d in tp.items()})
+    loss = loss_t(plan.run(tn, tp, torch.from_numpy(x), device="cpu")[1])
+    loss.backward()
+    assert abs(loss.item() - float(value)) <= \
+        plan.CROSS_ENGINE_ATOL * max(1.0, abs(float(value)))
+    want = {p: np.asarray(g) for p, g in _leaves_with_paths(grads)
+            if hasattr(g, "shape")}
+    got = {p: t.grad.numpy() for p, t in _leaves_with_paths(tp)
+           if isinstance(t, torch.Tensor)}
+    assert set(got) == set(want) and want
+    for path, w in want.items():
+        assert np.abs(w).sum() > 0, path
+        rel = np.linalg.norm(got[path] - w) / np.linalg.norm(w)
+        assert rel <= LEAF_RTOL, f"{'/'.join(path)}: {rel:.3e}"
+
+
+@pytest.mark.parametrize("name", ["ff_subtract", "rec_subtract", "ff_plif",
+                                  "rec_plif", "back_ref", "self_at_2",
+                                  "delayed"])
+def test_plan_programs_gradients_match_jax(name):
+    """The seven programs of `tests/test_torch_plan.py` (feed-forward and
+    self-recurrent subtract reset and PLIF, a back-reference and a
+    self-connection two steps late, both on the fallback stepper, and the
+    delayed three-layer program): loss mean(out^2), every leaf."""
+    from repro.core import neuron as jneuron
+    from repro.core.neuron import LI as JLI, LIF as JLIF
+    from repro.core.snn_layers import ff_integrate as jff
+    from repro_torch.core import neuron
+    from repro_torch.core.neuron import LI, LIF
+    from repro_torch.core.snn_layers import ff_integrate
+    from tests.test_torch_plan import (_delayed_program, _raster,
+                                       _six_params, _six_programs)
+    if name == "delayed":
+        jn, jp, tn, tp = _delayed_program()
+        x = _raster(37, 3, 20, 0.3, seed=2)
+    else:
+        jn = _six_programs(jevents, JLIF, jneuron.PLIF, JLI, jff)[name]
+        tn = _six_programs(events, LIF, neuron.PLIF, LI, ff_integrate)[name]
+        jp, tp = _six_params(name)
+        x = _raster(37, 3, 12, 0.3, seed=22)
+    _assert_grads_match_jax(jn, jp, tn, tp, x,
+                            lambda o: jnp.mean(jnp.square(o)),
+                            lambda o: o.pow(2).mean())
+
+
+# train_banded at a small size: input -> front (LIF) -> a band of hidden
+# LIF (a +-BANDED_SMALL[1] sparse_coo topology) -> readout (LI)
+BANDED_SMALL = dict(n_in=48, n=256, band=8, w=0.1, n_out=20, T=16, B=4)
+
+
+def _train_banded_small():
+    """(JAX nodes, JAX params, port nodes, port params, x, y) of the small
+    train_banded: each package's LayerNode, Connection(topology=), LIF, LI
+    and ff_integrate, the band encoded by each from the same arrays, the
+    dense weights from numpy (seed 4)."""
+    from repro.core import topology as jtopo
+    from repro.core.neuron import LI as JLI, LIF as JLIF
+    from repro.core.snn_layers import ff_integrate as jff
+    from repro_torch.core import topology as topo
+    from repro_torch.core.neuron import LI, LIF
+    from repro_torch.core.snn_layers import ff_integrate
+    c = BANDED_SMALL
+    n, band = c["n"], c["band"]
+    rows = np.repeat(np.arange(n), 2 * band + 1)
+    cols = rows + np.tile(np.arange(-band, band + 1), n)
+    keep = (cols >= 0) & (cols < n)
+    coo = (rows[keep], cols[keep], np.full(keep.sum(), c["w"], np.float32))
+    rng = np.random.default_rng(4)
+    w = {"front": {"w_input": (2.0 / np.sqrt(c["n_in"])) * rng.standard_normal(
+            (c["n_in"], n))},
+         "hidden": {},
+         "readout": {"w_hidden": rng.standard_normal((n, c["n_out"]))
+                     / np.sqrt(n)}}
+    w = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), w)
+    x = (rng.random((c["T"], c["B"], c["n_in"])) < 0.1).astype(np.float32)
+    y = rng.integers(0, c["n_out"], c["B"])
+
+    def build(ev, enc, lif, li, ff):
+        return [ev.LayerNode("front", lif(tau=0.8, v_th=0.6), ff,
+                             ("input",), n),
+                ev.LayerNode("hidden", lif(tau=0.8, v_th=0.6), ff,
+                             (ev.Connection("front", topology=enc),), n),
+                ev.LayerNode("readout", li(tau=0.9), ff, ("hidden",),
+                             c["n_out"])]
+    jenc = jtopo.encode(coo, kind="sparse_coo", n_pre=n, n_post=n)
+    tenc = topo.encode(coo, kind="sparse_coo", n_pre=n, n_post=n)
+    return (build(jevents, jenc, JLIF, JLI, jff),
+            jax.tree_util.tree_map(jnp.asarray, w),
+            build(events, tenc, LIF, LI, ff_integrate),
+            params_from_numpy(w, "cpu"), x, y)
+
+
+def test_train_banded_small_matches_jax():
+    """The train_banded program at a small size: both LIF layers fire in
+    at least 1 % of their lane-steps, the trains equal the JAX package's,
+    and the loss (cross-entropy of the summed readout) and each leaf
+    (w_input, w_hidden; the band has none) match `jax.value_and_grad`. The
+    gradient of w_input reaches it only through the band's backward."""
+    jn, jp, tn, tp, x, y = _train_banded_small()
+    _, _, jr = jplan.run(jn, jp, jnp.asarray(x), record=("front", "hidden"))
+    with torch.no_grad():
+        _, _, tr = plan.run(tn, tp, torch.from_numpy(x),
+                            record=("front", "hidden"), device="cpu")
+    for layer in ("front", "hidden"):
+        ref = np.asarray(jr[layer])
+        assert ref.mean() >= 0.01, f"{layer} fires in {ref.mean():.2%}"
+        np.testing.assert_array_equal(tr[layer].numpy(), ref,
+                                      err_msg=layer)
+
+    def loss_j(o):
+        return -jnp.mean(jax.nn.log_softmax(jnp.sum(o, 0))[
+            jnp.arange(len(y)), y])
+
+    def loss_t(o):
+        return -torch.log_softmax(o.sum(0), -1)[torch.arange(len(y)),
+                                                torch.from_numpy(y)].mean()
+    _assert_grads_match_jax(jn, jp, tn, tp, x, loss_j, loss_t)

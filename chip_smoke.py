@@ -112,12 +112,15 @@ tree the same way, so two trees compare in one call.
             on an all-silent raster (its output must be +0 everywhere);
             every gather case equal to `spikemm_gather_ref` as fp32 bit
             patterns; B6, the gather's backward (`spikemm_gather_bwd`:
-            the kernel on `GatherTables.transpose()`), at train_banded's
-            captured call (d_spikes of the band, (1024, 8192)) and on the
-            transposed tables of topology_banded's band and of scale_1e5
-            at 1024 and 64 rows of a dense graded g, each equal to
-            `spikemm_gather_bwd_ref` as fp32 bit patterns and timed beside
-            one CSR `torch.sparse.mm` of W;
+            `csrc/spikemm_gather_bwd.cu` on `GatherTables.transpose()`),
+            at train_banded's captured call (d_spikes of the band, (1024,
+            8192)) and on the transposed tables of topology_banded's band
+            and of scale_1e5 at 1024 and 64 rows of a dense graded g, each
+            equal to `spikemm_gather_bwd_ref` as fp32 bit patterns and
+            timed beside one CSR `torch.sparse.mm` of W, beside the route
+            it replaced (the forward's event walk on the transposed tables,
+            bit for bit the same) and at each rows a thread, with its
+            issue floor (two fp32 issues a needed term);
             the session axis of kernels 1 and 7 at serve_plastic's window
             (32 steps, 256 -> 128; S = 1, 7 and 64 sessions, each on its own
             weight, captured at plan's calls in one learning `plan.run` of
@@ -127,7 +130,10 @@ tree the same way, so two trees compare in one call.
             `stdp_seq_sessions` bit for bit its plain version, and each
             session of both equal bit for bit to the unbatched kernel on
             its rows alone (`spikemm` on its (T, K) rows; `stdp_seq` at
-            batch 1); `spikemm_sessions` timed beside `torch.bmm`;
+            batch 1); `spikemm_sessions` (`csrc/spikemm_sessions.cu`)
+            timed beside `torch.bmm`, beside the route it replaced (the
+            event kernel of `csrc/spikemm.cu` on grid.z at its old tile,
+            bit for bit the same) and at each column slab;
             `lif_bwd` (B1) and `linrec_bwd` (B2), the backward kernels:
             each model's calls of one train_shd step (captured at the
             registry; timed: the soma (60, 48, 64), the branches (60, 48,
@@ -775,11 +781,11 @@ SOURCES = {
                       "src/repro/kernels/spikemm/ops.py:186"),
     # B6, the gather's backward: kernel 10 on the transposed tables (the
     # JAX package's custom VJP runs its Pallas kernel there)
-    "spikemm_gather_bwd": ("src/repro_torch/csrc/spikemm_gather.cu",
+    "spikemm_gather_bwd": ("src/repro_torch/csrc/spikemm_gather_bwd.cu",
                            "src/repro/kernels/spikemm/gather.py:303"),
     # kernels 1 and 7 with a session axis (the JAX package's per-session
     # vmap of its Pallas kernels in a learning serve window)
-    "spikemm_sessions": ("src/repro_torch/csrc/spikemm.cu",
+    "spikemm_sessions": ("src/repro_torch/csrc/spikemm_sessions.cu",
                          "src/repro/kernels/spikemm/kernel.py:61"),
     "stdp_seq_sessions": ("src/repro_torch/csrc/stdp.cu",
                           "src/repro/kernels/stdp/kernel.py:87"),
@@ -2884,6 +2890,27 @@ def phase_kernels(cases):
                            warmup=1 if case.plain_iters else 3)
             lib = (None if case.library is None
                    else cuda_ms(case.library, iters=200))
+            parent_ms = variants = issue_ms = walk_ms = None
+            if name in REDESIGNED:
+                # the route this kernel replaced, and each tile it can
+                # take: bit for bit its output, timed on the same inputs
+                runs = {"parent": parent_route(name, args),
+                        **tile_variants(name, args)}
+                for tile, run in runs.items():
+                    y = run()
+                    sync()
+                    if not torch.equal(y.view(torch.int32),
+                                       got[0].view(torch.int32)):
+                        raise AssertionError(f"{name} [{label}]: {tile} "
+                                             "differs from the kernel")
+                times = {tile: cuda_ms(run, iters=200)
+                         for tile, run in runs.items()}
+                parent_ms = times.pop("parent")
+                variants = times
+                extra += (f"; the parent route and {len(variants)} tiles "
+                          "bit for bit the same")
+                if name == "spikemm_gather_bwd":
+                    issue_ms, walk_ms = b6_floors(args)
             # the sparse channel is its occupancy measure and its product:
             # time each alone, and the dense kernel on the same inputs
             kernel_ms = dense_ms = occ_ms = witness = None
@@ -2973,7 +3000,10 @@ def phase_kernels(cases):
                           "bound_scratch_ms": scratch_ms,
                           "chain_floor_ms": chain_ms, "sm_max_clock_mhz": clock,
                           "table_build_s": case.build_s,
-                          "device_kernels": witness})
+                          "device_kernels": witness,
+                          "parent_ms": parent_ms, "tile_ms": variants,
+                          "issue_floor_ms": issue_ms,
+                          "walk_floor_ms": walk_ms})
             log(f"kernel {name} [{label}] {shapes}: {ms:.4f} ms on the card"
                 f"{'' if T is None else f' ({ms / T * 1e3:.3f} us/step)'} "
                 f"(plain {p_ms:.4f}, "
@@ -2986,7 +3016,9 @@ def phase_kernels(cases):
                 f"{'' if scratch_ms is None else f', bound with the scratch {scratch_ms:.5f}'}"
                 f"{'' if chain_ms is None else f', chain floor {chain_ms:.5f} at the highest SM clock {clock} MHz ({ms / chain_ms:.2f}x)'}"
                 f"{'' if kernel_ms is None or occ_ms is not None else f', kernel alone {kernel_ms:.4f}'}"
-                f"{'' if case.build_s is None else f', tables built in {case.build_s:.1f} s'})"
+                f"{'' if case.build_s is None else f', tables built in {case.build_s:.1f} s'}"
+                f"{'' if parent_ms is None else f', parent route {parent_ms:.4f} ({parent_ms / ms:.2f}x), by tile ' + ', '.join(f'{k} {v:.4f}' for k, v in variants.items())}"
+                f"{'' if issue_ms is None else f', issue floor {issue_ms:.5f} (needed terms), {walk_ms:.5f} (walked sub-tiles)'})"
                 f"{extra}; max abs err so far {max_err:.3e}")
         src, rep = SOURCES[name]
         home = [c for c in calls if c["path"] == HOME[name]]
@@ -3014,6 +3046,11 @@ def phase_kernels(cases):
             "occupancy_ms": (None if any(c["occupancy_ms"] is None
                                          for c in home)
                              else sum(c["occupancy_ms"] for c in home)),
+            "parent_ms": (None if any(c["parent_ms"] is None for c in home)
+                          else sum(c["parent_ms"] for c in home)),
+            "issue_floor_ms": (None if any(c["issue_floor_ms"] is None
+                                           for c in home)
+                               else sum(c["issue_floor_ms"] for c in home)),
             "calls": calls}
     return results
 
@@ -3042,6 +3079,103 @@ def sessions_alone(name, args, kw, got):
                                  "unbatched kernel on its rows alone")
     return (f"; each of the {S} sessions equal to the unbatched kernel on "
             "its rows alone, bit for bit")
+
+
+# the kernels with a route before them (the session axis on `spikemm.cu`'s
+# grid.z; B6 on the forward's event walk): each is timed beside that route
+# and at each tile it can take, on the same inputs
+REDESIGNED = ("spikemm_sessions", "spikemm_gather_bwd")
+
+
+def parent_route(name, args):
+    """A function of no argument that launches, uncounted, the route `name`
+    replaced on the same inputs and returns its output: for
+    `spikemm_sessions` the event kernel of `csrc/spikemm.cu` with the
+    sessions on grid.z at `rows_per_cta(T, N, n_sm, sessions=S)`'s rows
+    and `col_tile(N)`; for B6 the forward's event walk
+    (`csrc/spikemm_gather.cu`) on the transposed tables under
+    `gather_plan`."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.spikemm import gather, ops
+    n_sm = sm_count(args[0].device)
+    if name == "spikemm_sessions":
+        s, w = args
+        T, S, K = s.shape
+        N = w.shape[2]
+        out = torch.empty((T, S, N), device=DEV)
+        bm = ops.rows_per_cta(T, N, n_sm, sessions=S)
+
+        def run():
+            code = _build.library().spikemm_f32(
+                s.data_ptr(), w.data_ptr(), out.data_ptr(), T, K, N, bm,
+                ops.col_tile(N), S, torch.cuda.current_stream().cuda_stream)
+            _build.check("spikemm_f32", code)
+            return out
+        return run
+    g, tables = args
+    t = tables.transpose()
+    out = torch.empty((g.shape[0], t.n_post), device=DEV)
+    plan = gather.gather_plan(g.shape[0], t.bn, t.n_post_blocks, n_sm)
+
+    def run():
+        gather.launch_plan(g, t, out, plan)
+        return out
+    return run
+
+
+def tile_variants(name, args):
+    """{tile: function of no argument launching `name` there, uncounted}:
+    `spikemm_sessions` at each column slab (the least row tile that holds
+    T at it), B6 at each rows a thread its plan may take."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.spikemm import gather, ops
+    out = {}
+    if name == "spikemm_sessions":
+        s, w = args
+        T, S, K = s.shape
+        N = w.shape[2]
+        y = torch.empty((T, S, N), device=DEV)
+        for cw in ops.SESSION_COLS:
+            bm, _ = ops.session_tile(T, N, sm_count(s.device), S, cw=cw)
+
+            def run(bm=bm, cw=cw):
+                code = _build.library().spikemm_sessions_f32(
+                    s.data_ptr(), w.data_ptr(), y.data_ptr(), T, K, N, S,
+                    bm, cw, torch.cuda.current_stream().cuda_stream)
+                _build.check("spikemm_sessions_f32", code)
+                return y
+            out[f"bm={bm} cw={cw}"] = run
+        return out
+    g, tables = args
+    t = tables.transpose()
+    M = g.shape[0]
+    y = torch.empty((M, t.n_post), device=DEV)
+    for r in gather.GATHER_BWD_RPT:
+        if r > 1 and gather.GATHER_BWD_THREAD_ROWS * r >= 2 * M:
+            continue
+        plan = gather.gather_bwd_plan(M, t.bn, t.n_post_blocks,
+                                      sm_count(g.device), rows=r)
+
+        def run(plan=plan):
+            gather.launch_bwd_plan(g, t, y, plan)
+            return y
+        out[f"rows={r} ({plan.rows_per_cta} a CTA)"] = run
+    return out
+
+
+def b6_floors(args):
+    """B6's issue floors in ms at the highest SM clock, two fp32 issues (a
+    multiply, an add) a term on 128 lanes an SM: the terms the function
+    needs (M x the nonzero weights) and the terms its walk adds (M x the
+    listed (32 x 32) sub-tiles x 1024)."""
+    from repro_torch.kernels.common import sm_count
+    g, tables = args
+    rate = sm_count(g.device) * 128 * sm_max_clock_mhz() * 1e3   # per ms
+    need = g.shape[0] * int(np.count_nonzero(tables.wblk))
+    walked = g.shape[0] * len(tables.transpose().bwd_steps()[1]) * 1024
+    return 2 * need / rate, 2 * walked / rate
 
 
 def phase_rec_bwd_passes(cases):
@@ -3404,6 +3538,15 @@ def top_per(by_name, units, n=10):
     """The `n` largest entries of {kernel: ms}, each divided by `units`."""
     return {k: v / units for k, v in
             sorted(by_name.items(), key=lambda kv: -kv[1])[:n]}
+
+
+def kernel_share(by_name, total, needle):
+    """(ms, share of `total`) of the kernels of {kernel: ms} whose name
+    holds `needle`, or (None, None) where the trace holds none of them."""
+    ms = sum(v for k, v in by_name.items() if needle in k)
+    if not ms or not total:
+        return None, None
+    return ms, ms / total
 
 
 def device_profile(eng_factory, trace):
@@ -4428,9 +4571,14 @@ def phase_serve_plastic(smi):
                                  else dev_ms / mean_ms),
            "device_ms_per_window_by_kernel": top,
            "host_ms_per_window_by_stage": host, "card": smi}
+    mm_ms, mm_share = kernel_share(top, dev_ms, "spikemm_sessions_kernel")
+    out["spikemm_sessions_ms_per_window"] = mm_ms
+    out["spikemm_sessions_share"] = mm_share
     log(f"path [{tag}]: p50 window {out['p50_window_ms']:.3f} ms, p99 "
         f"{out['p99_window_ms']:.3f}, {out['sessions_per_s']:.1f} sessions/s, "
-        f"card {dev_ms} ms a window")
+        f"card {dev_ms} ms a window, spikemm_sessions "
+        + ("not in the trace's top kernels" if mm_ms is None
+           else f"{mm_ms:.4f} ms of it ({mm_share:.1%})"))
     return out
 
 
@@ -5528,6 +5676,12 @@ def phase_train(path, smi):
             sync()
             step_ms.append((time.perf_counter() - t0) * 1e3)
         card_ms, by_name = profile_ms(lambda: step(nt, pt, x, y))
+        b6_ms, b6_share = kernel_share(by_name, card_ms, "gather_bwd_kernel")
+        if counts.get("spikemm_gather_bwd"):
+            log(f"path [{tag}] {kind}: B6 (gather_bwd_kernel) "
+                + ("not in the trace" if b6_ms is None else
+                   f"{b6_ms:.4f} ms of the step's {card_ms:.4f} ms of card "
+                   f"({b6_share:.1%})"))
         # what the card runs right after each lif_bwd: no PyTorch sum of
         # its partials (the kernel sums g_tau over B itself)
         after = None
@@ -5570,6 +5724,7 @@ def phase_train(path, smi):
             "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
             "card_ms": card_ms,
             "card_ms_by_kernel": top_per(by_name, 1, n=12),
+            "b6_card_ms": b6_ms, "b6_share": b6_share,
             "after_lif_bwd": after,
             **{k: fwd[k] for k in ("rates",) if k in fwd}}
     return {"path": tag, "model": path.describe, "T": path.T,

@@ -52,15 +52,18 @@
 // Ragged edges (M = 2048, K = 700, N = 20 on the serving path) are masked
 // in the loads and the store; nothing is padded in device memory.
 //
-// Session axis (`spikemm_f32`'s S): a learning serve window gives
-// each of S sessions its own weight, W (S, K, N), and its rows of one
-// (T, S, K) raster, row t S + s for session s. One launch covers them all:
-// blockIdx.z is the session, whose CTAs read its rows in place, S K floats
-// apart (no transposed copy of the raster), its weight W[s], and write its
-// rows of the (T, S, N) output, S N floats apart. Each session's CTAs run
-// the code above on its T rows, so its result is, bit for bit, what
-// the kernel gives at S = 1 on those rows alone (the chain of an element
-// depends on nothing but its row and its weight).
+// Session axis (`spikemm_f32`'s S): S sessions, each with its own weight,
+// W (S, K, N), and its rows of one (T, S, K) raster, row t S + s for
+// session s. blockIdx.z is the session, whose CTAs read its rows in place,
+// S K floats apart, its weight W[s], and write its rows of the (T, S, N)
+// output, S N floats apart, running the code above on its T rows: each
+// session's result is, bit for bit, what the kernel gives at S = 1 on
+// those rows alone. No wrapper launches it at S > 1: a learning serve
+// window's session family runs `spikemm_sessions.cu`, which sizes its
+// tile from a session's rows and reads each W[s] slab once through the
+// ring. This axis, the family's route before, stays as the yardstick
+// `chip_smoke.py` times beside that kernel; the unbatched wrapper passes
+// S = 1.
 
 #include <cuda_runtime.h>
 #include <cstdint>

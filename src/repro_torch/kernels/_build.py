@@ -87,6 +87,7 @@ _L = ctypes.c_int64
 # C signatures, one per exported symbol: (argtypes, restype)
 SIGNATURES = {
     "spikemm_f32": ((_P, _P, _P) + (_I,) * 6 + (_P,), _I),
+    "spikemm_sessions_f32": ((_P, _P, _P) + (_I,) * 6 + (_P,), _I),
     "spikemm_wgrad_f32": ((_P, _I) + (_P,) * 4 + (_I,) * 7 + (_P,), _I),
     "linrec_f32": ((_P, _L, _L, _L, _P, _P, _P, _P) + (_I,) * 5 + (_P,),
                    _I),
@@ -106,6 +107,7 @@ SIGNATURES = {
     "spikemm_occupancy_f32": ((_P, _P, _P, _I, _I, _P), _I),
     "spikemm_sparse_f32": ((_P,) * 4 + (_I,) * 4 + (_P,), _I),
     "spikemm_gather_f32": ((_P,) * 6 + (_I,) * 10 + (_P,), _I),
+    "spikemm_gather_bwd_f32": ((_P,) * 6 + (_I,) * 7 + (_P,), _I),
     "stdp_seq_f32": ((_P,) * 5 + (_I,) * 6 + (_F, _F, _P), _I),
     "stdp_f32": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),
     "stdp_bf16": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),

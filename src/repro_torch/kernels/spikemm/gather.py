@@ -37,17 +37,22 @@ with s or w = +-0, which for finite inputs changes no bit of the chain
 (see the kernel's header).
 
 The gather is differentiable in the raster (`_SpikeMMGather`, as the JAX
-package's custom VJP): d_spikes = g @ W^T is the same family's dispatch on
-`GatherTables.transpose()` (the ROADMAP's B6), so on the card it is
-`csrc/spikemm_gather.cu` as it stands, walking the transposed tables, and
-on the CPU `spikemm_gather_ref`. The tables get no cotangent: topology
-weights are configuration, not parameters. g is dense, and the kernel's
-skip rule drops only terms whose s or w is +-0, which is sound for any
-finite input, so a dense g is a valid raster; but every patch row with a
-nonzero weight then meets an event, so the backward reads every such row
-and costs more than the forward at the same M. Each backward launch also
-counts on `spikemm_gather_bwd_cuda` (the registry's `spikemm_gather_bwd`),
-beside the family's own count.
+package's custom VJP): d_spikes = g @ W^T is the gather's function on
+`GatherTables.transpose()` (the ROADMAP's B6); the tables get no
+cotangent: topology weights are configuration, not parameters. g is
+dense, so an event walk has nothing to skip (it would list every nonzero
+patch row and read each again for every few rows of g). On the card B6
+is a kernel of its own, `csrc/spikemm_gather_bwd.cu`: a CTA owns BM rows
+of g and a 32-column slab of one transposed post block
+(`gather_bwd_plan`), walks the (32 x 32) sub-tiles of its post block's
+patches that hold a nonzero weight (`GatherTables.tile_mask`, listed once
+per slab by `bwd_steps` and memoised on the device), stages g's tile and
+the patch's through a cp.async ring in shared memory, and adds the terms
+in registers in the plain version's order: bit for bit
+`spikemm_gather_bwd_ref` (`spikemm_gather_ref` on the transposed
+tables). Each backward launch counts on `spikemm_gather_bwd_cuda` (the
+registry's `spikemm_gather_bwd`) and, as the forward's do, on the family's
+`spikemm_gather_cuda`.
 """
 
 from __future__ import annotations
@@ -120,9 +125,46 @@ class GatherTables:
         return np.ascontiguousarray(packed).view("<u4").reshape(
             E, words).view(np.int32)
 
-    def device(self, device: torch.device) -> SimpleNamespace:
+    def tile_mask(self) -> np.ndarray:
+        """(E, ceil(bk / 32), ceil(bn / 32)) bool: whether the (32 x 32)
+        sub-tile (rows 32 w.., columns 32 c..) of entry t's patch holds a
+        nonzero weight of the dense matrix: the entry is active and the
+        weight's pre neuron kk[t] * bk + k lies below n_pre and its post
+        neuron jj[t] * bn + n below n_post. The sub-tiles B6's kernel
+        reads; derived from the tables, not part of them."""
+        E, bk, bn = len(self.jj), self.bk, self.bn
+        kw, cw = -(-bk // 32), -(-bn // 32)
+        nz = np.zeros((E, kw * 32, cw * 32), bool)
+        nz[:, :bk, :bn] = (
+            (self.wblk != 0)
+            & (self.act != 0)[:, None, None]
+            & (self.kk.astype(np.int64)[:, None, None] * bk
+               + np.arange(bk)[None, :, None] < self.n_pre)
+            & (self.jj.astype(np.int64)[:, None, None] * bn
+               + np.arange(bn)[None, None, :] < self.n_post))
+        return nz.reshape(E, kw, 32, cw, 32).any(axis=(2, 4))
+
+    def bwd_steps(self):
+        """B6's step lists, from `tile_mask`: (sptr, steps), int32. For
+        post block j and 32-column slab c (b = j * slabs + c, slabs =
+        ceil(bn / 32)), steps[sptr[b]:sptr[b + 1]] lists t * ceil(bk / 32)
+        + w for the sub-tiles (t, w, c) that hold a nonzero weight: the
+        block's entries in list order, each one's words ascending."""
+        mask = self.tile_mask()
+        kw, cw = mask.shape[1], mask.shape[2]
+        t, w, c = np.nonzero(mask)
+        block = self.jj[t].astype(np.int64) * cw + c
+        order = np.lexsort((w, t, block))
+        steps = (t.astype(np.int64) * kw + w)[order]
+        sptr = np.searchsorted(block[order],
+                               np.arange(self.n_post_blocks * cw + 1))
+        return sptr.astype(np.int32), steps.astype(np.int32)
+
+    def device(self, device: torch.device, *, bwd: bool = False
+               ) -> SimpleNamespace:
         """Memoised copies of the tables, `jptr` and, for the kernel,
-        `row_bitmap()` (as `rowbits`) on `device`."""
+        `row_bitmap()` (as `rowbits`) on `device`; with `bwd`, also
+        `bwd_steps()` (as `sptr`, `steps`), built on first use."""
         device = torch.device(device)
         if device not in self._device:
             self._device[device] = SimpleNamespace(**{
@@ -131,7 +173,12 @@ class GatherTables:
                              ("act", self.act), ("wblk", self.wblk),
                              ("jptr", self.jptr()),
                              ("rowbits", self.row_bitmap()))})
-        return self._device[device]
+        dt = self._device[device]
+        if bwd and not hasattr(dt, "steps"):
+            sptr, steps = self.bwd_steps()
+            dt.sptr = torch.from_numpy(sptr).to(device)
+            dt.steps = torch.from_numpy(steps).to(device)
+        return dt
 
     def transpose(self) -> "GatherTables":
         """Tables for x @ W^T: the active entries with their block roles
@@ -344,20 +391,23 @@ def gather_plan(M: int, bn: int, n_post_blocks: int, n_sm: int, *,
     return GatherPlan(rows, cols, q, units, groups, g)
 
 
+def _check_input(name: str, x: torch.Tensor, n: int) -> None:
+    """A gather kernel's input: a contiguous float32 (M, n) CUDA tensor."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"{x.device}")
+    if x.dim() != 2 or x.shape[1] != n:
+        raise ValueError(f"{name}: input {tuple(x.shape)} must be (M, {n})")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: input must be float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+
+
 def spikemm_gather_cuda(spikes: torch.Tensor, tables: GatherTables
                         ) -> torch.Tensor:
     """Launch `csrc/spikemm_gather.cu` on a CUDA raster."""
-    if not spikes.is_cuda:
-        raise ValueError(f"spikemm_gather: the CUDA kernel takes CUDA "
-                         f"tensors, got {spikes.device}")
-    if spikes.dim() != 2 or spikes.shape[1] != tables.n_pre:
-        raise ValueError(f"spikemm_gather: spikes {tuple(spikes.shape)} "
-                         f"must be (M, {tables.n_pre})")
-    if spikes.dtype != torch.float32:
-        raise TypeError(f"spikemm_gather: spikes must be float32, got "
-                        f"{spikes.dtype}")
-    if not spikes.is_contiguous():
-        raise ValueError("spikemm_gather: spikes must be contiguous")
+    _check_input("spikemm_gather", spikes, tables.n_pre)
     M = spikes.shape[0]
     out = torch.empty((M, tables.n_post), dtype=torch.float32,
                       device=spikes.device)
@@ -395,13 +445,90 @@ def spikemm_gather_bwd_ref(g: torch.Tensor, tables: GatherTables
     return spikemm_gather_ref(g, tables.transpose())
 
 
+# B6's kernel: rows of g a thread (16 threads along the rows of a CTA) and
+# columns a CTA (one slab of a post block; `csrc/spikemm_gather_bwd.cu`'s
+# SLAB, which the step lists of `GatherTables.bwd_steps` also assume)
+GATHER_BWD_RPT = (4, 2, 1)
+GATHER_BWD_THREAD_ROWS = 16
+GATHER_BWD_SLAB = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherBwdPlan:
+    """How `csrc/spikemm_gather_bwd.cu` covers an (M, n_post) output: a CTA
+    owns `rows_per_cta` = 16 x `rows` rows and one 32-column slab of a post
+    block; the grid is (post blocks x slabs, ceil(M / rows_per_cta))."""
+    rows: int
+    grid: tuple
+
+    @property
+    def rows_per_cta(self) -> int:
+        return GATHER_BWD_THREAD_ROWS * self.rows
+
+
+@functools.lru_cache(maxsize=256)
+def gather_bwd_plan(M: int, bn: int, n_post_blocks: int, n_sm: int, *,
+                    rows: int = None) -> GatherBwdPlan:
+    """B6's plan for M rows of g against post blocks bn wide: the most rows
+    a thread (4, 2, 1) whose CTA holds fewer than twice M's rows (16 x
+    rows < 2 M, or 1 row a thread) and whose grid still holds two CTAs an
+    SM, else the fewest such. More rows a thread make each weight a thread
+    loads from shared memory serve more terms; more CTAs keep the card
+    busy at few rows. (8 rows a thread measured slower at every B6 call of
+    `chip_smoke.py`: 168 registers leave 3 CTAs an SM.) `rows` takes
+    another instantiation instead (`chip_smoke.py` times each)."""
+    if M < 1 or bn < 1 or n_post_blocks < 1:
+        raise ValueError(f"gather_bwd_plan: M={M}, bn={bn}, "
+                         f"n_post_blocks={n_post_blocks}")
+    slabs = n_post_blocks * -(-bn // GATHER_BWD_SLAB)
+
+    def grid(r):
+        return (slabs, -(-M // (GATHER_BWD_THREAD_ROWS * r)))
+    if rows is None:
+        fits = [r for r in GATHER_BWD_RPT
+                if r == 1 or GATHER_BWD_THREAD_ROWS * r < 2 * M]
+        rows = next((r for r in fits if math.prod(grid(r)) >= 2 * n_sm),
+                    fits[-1])
+    if rows not in GATHER_BWD_RPT:
+        raise ValueError(f"gather_bwd_plan: rows={rows}")
+    g = grid(rows)
+    if g[1] > 65535:
+        raise ValueError(f"spikemm_gather_bwd: M={M} rows exceed one launch")
+    return GatherBwdPlan(rows, g)
+
+
+def launch_bwd_plan(g: torch.Tensor, tables: GatherTables,
+                    out: torch.Tensor, plan: GatherBwdPlan) -> None:
+    """One launch of `csrc/spikemm_gather_bwd.cu` under `plan` into `out`,
+    `tables` the transposed tables (g is (M, tables.n_pre)), on tensors
+    `spikemm_gather_bwd_cuda` has checked (it counts the launch)."""
+    lib = _build.library()
+    dt = tables.device(g.device, bwd=True)
+    with torch.cuda.device(g.device):
+        code = lib.spikemm_gather_bwd_f32(
+            g.data_ptr(), dt.wblk.data_ptr(), dt.sptr.data_ptr(),
+            dt.steps.data_ptr(), dt.kk.data_ptr(), out.data_ptr(),
+            g.shape[0], tables.n_pre, tables.n_post, tables.bk, tables.bn,
+            tables.n_post_blocks, plan.rows,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check("spikemm_gather_bwd", code)
+
+
 def spikemm_gather_bwd_cuda(g: torch.Tensor, tables: GatherTables
                             ) -> torch.Tensor:
-    """B6 on the card: `csrc/spikemm_gather.cu` on the transposed tables
-    (`spikemm_gather_cuda`, which counts the launch in the family), counted
-    here as the backward's too."""
-    out = spikemm_gather_cuda(g, tables.transpose())
+    """B6 on the card: one launch of `csrc/spikemm_gather_bwd.cu` on the
+    transposed tables, counted here and in the family
+    (`spikemm_gather_cuda`)."""
+    t = tables.transpose()
+    _check_input("spikemm_gather_bwd", g, t.n_pre)
+    M = g.shape[0]
+    out = torch.empty((M, t.n_post), dtype=torch.float32, device=g.device)
+    if out.numel() == 0:
+        return out
+    launch_bwd_plan(g, t, out, gather_bwd_plan(
+        M, t.bn, t.n_post_blocks, sm_count(g.device)))
     spikemm_gather_bwd_cuda.launches += 1
+    spikemm_gather_cuda.launches += 1
     return out
 
 
@@ -455,9 +582,11 @@ registry.register(registry.KernelSpec(
                          cuda=spikemm_gather_bwd_cuda),
     bwd_name="spikemm_gather_bwd"))
 
-__all__ = ["GatherTables", "GatherPlan", "build_gather_tables",
-           "gather_plan", "spikemm_gather", "spikemm_gather_cuda",
-           "spikemm_gather_ref", "spikemm_gather_bwd_cuda",
-           "spikemm_gather_bwd_ref", "DEFAULT_BK", "DEFAULT_BN", "GATHER_ROWS",
-           "GATHER_COLS", "GATHER_MAX_ACC", "GATHER_MAX_WARPS",
-           "GATHER_WARPS_PER_SM", "launch_plan"]
+__all__ = ["GatherTables", "GatherPlan", "GatherBwdPlan",
+           "build_gather_tables", "gather_plan", "gather_bwd_plan",
+           "spikemm_gather", "spikemm_gather_cuda", "spikemm_gather_ref",
+           "spikemm_gather_bwd_cuda", "spikemm_gather_bwd_ref", "DEFAULT_BK",
+           "DEFAULT_BN", "GATHER_ROWS", "GATHER_COLS", "GATHER_MAX_ACC",
+           "GATHER_MAX_WARPS", "GATHER_WARPS_PER_SM", "GATHER_BWD_RPT",
+           "GATHER_BWD_SLAB", "GATHER_BWD_THREAD_ROWS", "launch_plan",
+           "launch_bwd_plan"]

@@ -60,13 +60,18 @@ registered as its own family (`spikemm_sessions`): a learning serve window
 (`EngineConfig(learn=True)`) gives each of S sessions its own weight,
 w (S, K, N), and its row of each step of a (T, S, K) raster; session s's
 (T, N) rows are its rows @ w[s]. It is what the JAX package's per-session
-`vmap` of the spike kernel computes. On the card one launch of
-`csrc/spikemm.cu`'s kernel covers every session (grid.z), reading the
-raster's rows in place, and each session's result is bit for bit the
-unbatched kernel's on its rows alone; its plain version loops the
-unbatched plain version over the sessions. It takes the dense channel
-only (the serve window routes dense, as the flat window does) and has no
-backward: it runs in serving, under `no_grad`.
+`vmap` of the spike kernel computes. On the card it is one launch of
+`csrc/spikemm_sessions.cu`, a kernel of its own shaped for the session:
+a CTA owns one session's T rows (rounded up to its tile) and a column
+slab (`session_tile`), and streams that slab of w[s] once through the
+dense route's cp.async ring, reading the raster's rows in place. Each
+session's result is bit for bit the unbatched kernel's on its rows alone
+(the same fmaf chain); its plain version loops the unbatched plain
+version over the sessions. It takes the dense channel only (the serve
+window routes dense, as the flat window does) and has no backward: it
+runs in serving, under `no_grad`. (`csrc/spikemm.cu`'s own session axis,
+the event kernel on grid.z at `rows_per_cta(..., sessions=S)`, was this
+family's route before; no wrapper launches it.)
 """
 
 from __future__ import annotations
@@ -101,17 +106,52 @@ def col_tile(N: int) -> int:
 
 def rows_per_cta(M: int, N: int, n_sm: int, sessions: int = 1) -> int:
     """Rows a CTA of `csrc/spikemm.cu` owns: the largest of 128, 64, 32
-    and 16 (32 at the 8-wide column tile) whose grid (over `sessions`
-    sessions of M rows each) still holds about a wave of CTAs (three
-    quarters of the SM count), else the smallest. Larger tiles make the
-    dense loop's loads go further; more CTAs keep the card busy where the
-    events are few."""
+    and 16 (32 at the 8-wide column tile) whose grid still holds about a
+    wave of CTAs (three quarters of the SM count), else the smallest.
+    Larger tiles make the dense loop's loads go further; more CTAs keep the
+    card busy where the events are few. `sessions` counts the grid of that
+    kernel's own session axis (S sessions of M rows each on grid.z), which
+    no wrapper launches: the session family takes `session_tile`. That
+    count does not look at how many rows a session has, so at a serve
+    window (M = 32, S = 64) it gives 128 rows, three quarters of them
+    idle."""
     cw = col_tile(N)
     sizes = (128, 64, 32) if cw == 8 else (128, 64, 32, 16)
     for bm in sizes:
         if sessions * math.ceil(M / bm) * math.ceil(N / cw) * 4 >= 3 * n_sm:
             return bm
     return sizes[-1]
+
+
+SESSION_COLS = (64, 32, 16, 8)    # `csrc/spikemm_sessions.cu`'s column slabs
+
+
+def session_tile(T: int, N: int, n_sm: int, sessions: int, *,
+                 cw: Optional[int] = None) -> Tuple[int, int]:
+    """(bm, cw): the tile of a CTA of `csrc/spikemm_sessions.cu` (128
+    threads) for `sessions` sessions of T rows each against N columns. bm
+    is the least of 8, 16, 32, 64 (16 to 128 at the 8-wide slab) that
+    holds a session's T rows, the largest above: no CTA owns rows its
+    session does not have, past the tile's rounding. cw is the column
+    slab, the least of 8, 16, 32, 64 that covers N, 64 above, halved (down
+    to 8) while the grid, sessions x row tiles x column slabs, holds fewer
+    CTAs than the card has SMs: each CTA reads its slab of the session's
+    weight once, so narrower slabs cost only the raster's rows read again
+    (from L2). `cw` takes another slab instead (`chip_smoke.py` times
+    each)."""
+    if T < 1 or N < 1 or sessions < 1 or cw not in (None,) + SESSION_COLS:
+        raise ValueError(f"session_tile: T={T}, N={N}, sessions={sessions}, "
+                         f"cw={cw}")
+
+    def rows(cw):
+        least = 16 if cw == 8 else 8
+        return min(8 * least, max(least, 1 << (T - 1).bit_length()))
+    if cw is None:
+        cw = min(col_tile(N), SESSION_COLS[0])
+        while (cw > SESSION_COLS[-1] and sessions * math.ceil(T / rows(cw))
+               * math.ceil(N / cw) < n_sm):
+            cw //= 2
+    return rows(cw), cw
 
 
 def _fraction(flags: torch.Tensor, total: torch.Tensor) -> float:
@@ -164,33 +204,23 @@ def _select_channel(spikes: torch.Tensor, w: torch.Tensor, *,
     return None, {}
 
 
-def _launch(wrapper, name: str, spikes: torch.Tensor,
-            w: torch.Tensor) -> torch.Tensor:
-    """`csrc/spikemm.cu`'s one launch, nothing before it (K = 0 gives zeros
-    from the kernel too): spikes (M, K) @ w (K, N), or a (T, S, K) raster
-    against S weights (S, K, N), the sessions on the grid's z. Counted on
-    `wrapper`."""
-    S = w.shape[0] if w.dim() == 3 else 1
-    M, K, N = spikes.shape[0], spikes.shape[-1], w.shape[-1]
-    out = torch.empty(spikes.shape[:-1] + (N,), dtype=torch.float32,
-                      device=spikes.device)
-    if out.numel() == 0:
-        return out
-    bm = rows_per_cta(M, N, sm_count(spikes.device), sessions=S)
-    with torch.cuda.device(spikes.device):
-        code = _build.library().spikemm_f32(
-            spikes.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, bm,
-            col_tile(N), S, torch.cuda.current_stream().cuda_stream)
-    _build.check(name, code)
-    wrapper.launches += 1
-    return out
-
-
 def spikemm_cuda(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch `csrc/spikemm.cu` on CUDA tensors: one kernel, nothing
     before it (K = 0 gives zeros from the kernel too)."""
     check_matmul("spikemm", spikes, w)
-    return _launch(spikemm_cuda, "spikemm", spikes, w)
+    M, K = spikes.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=spikes.device)
+    if out.numel() == 0:
+        return out
+    bm = rows_per_cta(M, N, sm_count(spikes.device))
+    with torch.cuda.device(spikes.device):
+        code = _build.library().spikemm_f32(
+            spikes.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, bm,
+            col_tile(N), 1, torch.cuda.current_stream().cuda_stream)
+    _build.check("spikemm", code)
+    spikemm_cuda.launches += 1
+    return out
 
 
 def spikemm_g_w(spikes: torch.Tensor, g: torch.Tensor,
@@ -266,10 +296,23 @@ def spikemm_sessions_chain_ref(spikes: torch.Tensor, w: torch.Tensor
 
 def spikemm_sessions_cuda(spikes: torch.Tensor, w: torch.Tensor
                           ) -> torch.Tensor:
-    """Launch `csrc/spikemm.cu` on a (T, S, K) raster against S weights
-    (S, K, N): one launch, the sessions on the grid's z."""
+    """Launch `csrc/spikemm_sessions.cu` on a (T, S, K) raster against S
+    weights (S, K, N): one launch, the sessions on the grid's z, the tile
+    `session_tile`'s."""
     check_matmul("spikemm_sessions", spikes, w, sessions=True)
-    return _launch(spikemm_sessions_cuda, "spikemm_sessions", spikes, w)
+    T, S, K = spikes.shape
+    N = w.shape[2]
+    out = torch.empty((T, S, N), dtype=torch.float32, device=spikes.device)
+    if out.numel() == 0:
+        return out
+    bm, cw = session_tile(T, N, sm_count(spikes.device), S)
+    with torch.cuda.device(spikes.device):
+        code = _build.library().spikemm_sessions_f32(
+            spikes.data_ptr(), w.data_ptr(), out.data_ptr(), T, K, N, S, bm,
+            cw, torch.cuda.current_stream().cuda_stream)
+    _build.check("spikemm_sessions", code)
+    spikemm_sessions_cuda.launches += 1
+    return out
 
 
 def spikemm_sessions(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -314,7 +357,7 @@ registry.register(registry.KernelSpec(
 __all__ = ["spikemm", "spikemm_cuda", "spikemm_ref", "spikemm_chain_ref",
            "spikemm_g_w", "spikemm_wgrad_cuda", "spikemm_wgrad_ref",
            "spikemm_wgrad_chain_ref", "wgrad_chunk",
-           "block_occupancy", "col_tile", "rows_per_cta",
+           "block_occupancy", "col_tile", "rows_per_cta", "session_tile",
            "occupancy_fraction", "sparse_threshold", "spikemm_sparse_cuda",
            "spikemm_sparse_ref", "spikemm_sessions", "spikemm_sessions_cuda",
            "spikemm_sessions_ref", "spikemm_sessions_chain_ref"]

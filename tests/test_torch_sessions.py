@@ -90,7 +90,7 @@ def test_stdp_seq_sessions_plain_is_the_unbatched_plain_at_batch_1(
 def stand_in(monkeypatch):
     """A recording stand-in for the kernel library: CPU tensors through the
     CUDA wrappers, device and stream stood in for."""
-    lib = mock.Mock(**{"spikemm_f32.return_value": 0,
+    lib = mock.Mock(**{"spikemm_sessions_f32.return_value": 0,
                        "stdp_seq_f32.return_value": 0})
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(spikemm_ops, "sm_count", lambda dev: 132)
@@ -108,11 +108,37 @@ def test_spikemm_sessions_wrapper_is_one_launch(stand_in, T, S, K, N):
     out = spikemm_sessions_cuda(torch.zeros((T, S, K)),
                                 torch.zeros((S, K, N)))
     assert out.shape == (T, S, N)
-    assert [c[0] for c in stand_in.method_calls] == ["spikemm_f32"]
-    assert stand_in.spikemm_f32.call_args.args[3:9] == (
-        T, K, N, spikemm_ops.rows_per_cta(T, N, 132, sessions=S),
-        spikemm_ops.col_tile(N), S)
+    assert [c[0] for c in stand_in.method_calls] == ["spikemm_sessions_f32"]
+    assert stand_in.spikemm_sessions_f32.call_args.args[3:9] == (
+        (T, K, N, S) + spikemm_ops.session_tile(T, N, 132, S))
     assert registry.launch_counts()["spikemm_sessions"] == 1
+    assert registry.launch_counts()["spikemm"] == 0
+
+
+# (T, N, S) -> (bm, cw): serve_plastic's window at S = 64 (four 32-wide
+# slabs a session: 256 CTAs), 7 and 1; a ragged window; rows past a tile
+SESSION_TILES = {(32, 128, 64): (32, 32), (32, 128, 7): (32, 8),
+                 (32, 128, 1): (32, 8), (37, 70, 5): (64, 8),
+                 (9, 1, 3): (16, 8), (16, 300, 200): (16, 64),
+                 (300, 128, 64): (64, 64)}
+
+
+@pytest.mark.parametrize("T,N,S", sorted(SESSION_TILES))
+def test_session_tile_plan(T, N, S):
+    """No CTA owns more rows than its session has, past the rounding to
+    the least tile that holds them (8, 16, 32, 64; 16 to 128 at the 8-wide
+    slab); the slab is the least that covers N (up to 64), narrowed while
+    the grid holds fewer CTAs than 132 SMs; at serve_plastic's window the
+    grid holds at least a wave."""
+    bm, cw = spikemm_ops.session_tile(T, N, 132, S)
+    assert (bm, cw) == SESSION_TILES[(T, N, S)]
+    least = 16 if cw == 8 else 8
+    assert bm == min(8 * least, max(least, 1 << (T - 1).bit_length()))
+    assert cw in spikemm_ops.SESSION_COLS
+    ctas = S * -(-T // bm) * -(-N // cw)
+    assert cw == 8 or ctas >= 132
+    if (T, N, S) == (32, 128, 64):
+        assert ctas >= 132 and bm == T
 
 
 @pytest.mark.parametrize("K,T,S,M,N", STDP_SHAPES)

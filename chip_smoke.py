@@ -119,8 +119,8 @@ tree the same way, so two trees compare in one call.
             equal to `spikemm_gather_bwd_ref` as fp32 bit patterns and
             timed beside one CSR `torch.sparse.mm` of W, beside the route
             it replaced (the forward's event walk on the transposed tables,
-            bit for bit the same) and at each rows a thread, with its
-            issue floor (two fp32 issues a needed term);
+            bit for bit the same), with its issue floor (two fp32 issues a
+            needed term);
             the session axis of kernels 1 and 7 at serve_plastic's window
             (32 steps, 256 -> 128; S = 1, 7 and 64 sessions, each on its own
             weight, captured at plan's calls in one learning `plan.run` of
@@ -131,9 +131,7 @@ tree the same way, so two trees compare in one call.
             session of both equal bit for bit to the unbatched kernel on
             its rows alone (`spikemm` on its (T, K) rows; `stdp_seq` at
             batch 1); `spikemm_sessions` (`csrc/spikemm_sessions.cu`)
-            timed beside `torch.bmm`, beside the route it replaced (the
-            event kernel of `csrc/spikemm.cu` on grid.z at its old tile,
-            bit for bit the same) and at each column slab;
+            timed beside `torch.bmm`;
             `lif_bwd` (B1) and `linrec_bwd` (B2), the backward kernels:
             each model's calls of one train_shd step (captured at the
             registry; timed: the soma (60, 48, 64), the branches (60, 48,
@@ -399,13 +397,12 @@ tree the same way, so two trees compare in one call.
             and 20 LI(0.9) read out through w_hidden; 5 clipped-SGD steps
             at lr 0.2 of the cross-entropy of the summed readout on
             gen_shd_spikes(16, T=64): per step spikemm x2, spikemm_gather
-            x2 (the forward and B6; B6 also counted as
-            spikemm_gather_bwd), lif x2, lif_bwd x2, linrec, linrec_bwd,
-            spikemm_wgrad x2; the gates of 11., and the forward: the front
-            layer's trains under the tie rule, the band layer's in the rows
-            where the front never diverged (its membrane from the CPU's
-            front spikes through the band's tables), both layers at or over
-            the 1 % floor.
+            (the forward), spikemm_gather_bwd (B6), lif x2, lif_bwd x2,
+            linrec, linrec_bwd, spikemm_wgrad x2; the gates of 11., and
+            the forward: the front layer's trains under the tie rule, the
+            band layer's in the rows where the front never diverged (its
+            membrane from the CPU's front spikes through the band's
+            tables), both layers at or over the 1 % floor.
 14. bci    `examples/bci_onchip_torch.py`'s decoder at the default
             BCIConfig, the paper's widths (128 channels x 50 bins of
             20 ms, 16 paths x 32, kernel_t 5, 4 classes), weights from
@@ -2890,27 +2887,20 @@ def phase_kernels(cases):
                            warmup=1 if case.plain_iters else 3)
             lib = (None if case.library is None
                    else cuda_ms(case.library, iters=200))
-            parent_ms = variants = issue_ms = walk_ms = None
-            if name in REDESIGNED:
-                # the route this kernel replaced, and each tile it can
-                # take: bit for bit its output, timed on the same inputs
-                runs = {"parent": parent_route(name, args),
-                        **tile_variants(name, args)}
-                for tile, run in runs.items():
-                    y = run()
-                    sync()
-                    if not torch.equal(y.view(torch.int32),
-                                       got[0].view(torch.int32)):
-                        raise AssertionError(f"{name} [{label}]: {tile} "
-                                             "differs from the kernel")
-                times = {tile: cuda_ms(run, iters=200)
-                         for tile, run in runs.items()}
-                parent_ms = times.pop("parent")
-                variants = times
-                extra += (f"; the parent route and {len(variants)} tiles "
-                          "bit for bit the same")
-                if name == "spikemm_gather_bwd":
-                    issue_ms, walk_ms = b6_floors(args)
+            parent_ms = issue_ms = walk_ms = None
+            if name == "spikemm_gather_bwd":
+                # the route B6 replaced: bit for bit its output, timed on
+                # the same inputs
+                run = parent_route(args)
+                y = run()
+                sync()
+                if not torch.equal(y.view(torch.int32),
+                                   got[0].view(torch.int32)):
+                    raise AssertionError(f"{name} [{label}]: the parent "
+                                         "route differs from the kernel")
+                parent_ms = cuda_ms(run, iters=200)
+                extra += "; the parent route bit for bit the same"
+                issue_ms, walk_ms = b6_floors(args)
             # the sparse channel is its occupancy measure and its product:
             # time each alone, and the dense kernel on the same inputs
             kernel_ms = dense_ms = occ_ms = witness = None
@@ -3001,7 +2991,7 @@ def phase_kernels(cases):
                           "chain_floor_ms": chain_ms, "sm_max_clock_mhz": clock,
                           "table_build_s": case.build_s,
                           "device_kernels": witness,
-                          "parent_ms": parent_ms, "tile_ms": variants,
+                          "parent_ms": parent_ms,
                           "issue_floor_ms": issue_ms,
                           "walk_floor_ms": walk_ms})
             log(f"kernel {name} [{label}] {shapes}: {ms:.4f} ms on the card"
@@ -3017,7 +3007,7 @@ def phase_kernels(cases):
                 f"{'' if chain_ms is None else f', chain floor {chain_ms:.5f} at the highest SM clock {clock} MHz ({ms / chain_ms:.2f}x)'}"
                 f"{'' if kernel_ms is None or occ_ms is not None else f', kernel alone {kernel_ms:.4f}'}"
                 f"{'' if case.build_s is None else f', tables built in {case.build_s:.1f} s'}"
-                f"{'' if parent_ms is None else f', parent route {parent_ms:.4f} ({parent_ms / ms:.2f}x), by tile ' + ', '.join(f'{k} {v:.4f}' for k, v in variants.items())}"
+                f"{'' if parent_ms is None else f', parent route {parent_ms:.4f} ({parent_ms / ms:.2f}x)'}"
                 f"{'' if issue_ms is None else f', issue floor {issue_ms:.5f} (needed terms), {walk_ms:.5f} (walked sub-tiles)'})"
                 f"{extra}; max abs err so far {max_err:.3e}")
         src, rep = SOURCES[name]
@@ -3081,88 +3071,23 @@ def sessions_alone(name, args, kw, got):
             "its rows alone, bit for bit")
 
 
-# the kernels with a route before them (the session axis on `spikemm.cu`'s
-# grid.z; B6 on the forward's event walk): each is timed beside that route
-# and at each tile it can take, on the same inputs
-REDESIGNED = ("spikemm_sessions", "spikemm_gather_bwd")
-
-
-def parent_route(name, args):
-    """A function of no argument that launches, uncounted, the route `name`
-    replaced on the same inputs and returns its output: for
-    `spikemm_sessions` the event kernel of `csrc/spikemm.cu` with the
-    sessions on grid.z at `rows_per_cta(T, N, n_sm, sessions=S)`'s rows
-    and `col_tile(N)`; for B6 the forward's event walk
-    (`csrc/spikemm_gather.cu`) on the transposed tables under
-    `gather_plan`."""
-    from repro_torch.kernels import _build
+def parent_route(args):
+    """A function of no argument that launches, uncounted, the route B6
+    replaced on the same inputs and returns its output: the forward
+    gather's event walk (`csrc/spikemm_gather.cu`, still the forward's
+    kernel) on the transposed tables under `gather_plan`."""
     from repro_torch.kernels.common import sm_count
-    from repro_torch.kernels.spikemm import gather, ops
-    n_sm = sm_count(args[0].device)
-    if name == "spikemm_sessions":
-        s, w = args
-        T, S, K = s.shape
-        N = w.shape[2]
-        out = torch.empty((T, S, N), device=DEV)
-        bm = ops.rows_per_cta(T, N, n_sm, sessions=S)
-
-        def run():
-            code = _build.library().spikemm_f32(
-                s.data_ptr(), w.data_ptr(), out.data_ptr(), T, K, N, bm,
-                ops.col_tile(N), S, torch.cuda.current_stream().cuda_stream)
-            _build.check("spikemm_f32", code)
-            return out
-        return run
+    from repro_torch.kernels.spikemm import gather
     g, tables = args
     t = tables.transpose()
     out = torch.empty((g.shape[0], t.n_post), device=DEV)
-    plan = gather.gather_plan(g.shape[0], t.bn, t.n_post_blocks, n_sm)
+    plan = gather.gather_plan(g.shape[0], t.bn, t.n_post_blocks,
+                              sm_count(g.device))
 
     def run():
         gather.launch_plan(g, t, out, plan)
         return out
     return run
-
-
-def tile_variants(name, args):
-    """{tile: function of no argument launching `name` there, uncounted}:
-    `spikemm_sessions` at each column slab (the least row tile that holds
-    T at it), B6 at each rows a thread its plan may take."""
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.common import sm_count
-    from repro_torch.kernels.spikemm import gather, ops
-    out = {}
-    if name == "spikemm_sessions":
-        s, w = args
-        T, S, K = s.shape
-        N = w.shape[2]
-        y = torch.empty((T, S, N), device=DEV)
-        for cw in ops.SESSION_COLS:
-            bm, _ = ops.session_tile(T, N, sm_count(s.device), S, cw=cw)
-
-            def run(bm=bm, cw=cw):
-                code = _build.library().spikemm_sessions_f32(
-                    s.data_ptr(), w.data_ptr(), y.data_ptr(), T, K, N, S,
-                    bm, cw, torch.cuda.current_stream().cuda_stream)
-                _build.check("spikemm_sessions_f32", code)
-                return y
-            out[f"bm={bm} cw={cw}"] = run
-        return out
-    g, tables = args
-    t = tables.transpose()
-    M = g.shape[0]
-    y = torch.empty((M, t.n_post), device=DEV)
-    for r in gather.GATHER_BWD_RPT:
-        if r > 1 and gather.GATHER_BWD_THREAD_ROWS * r >= 2 * M:
-            continue
-        plan = gather.gather_bwd_plan(M, t.bn, t.n_post_blocks,
-                                      sm_count(g.device), rows=r)
-
-        def run(plan=plan):
-            gather.launch_bwd_plan(g, t, y, plan)
-            return y
-        out[f"rows={r} ({plan.rows_per_cta} a CTA)"] = run
-    return out
 
 
 def b6_floors(args):
@@ -4844,9 +4769,9 @@ def train_paths():
     lifrec), the readout's linrec; alifrec_bwd (lifrec_bwd), linrec_bwd,
     g_w x3 (input, recurrent, readout). train_alif_ff: INTEG x2, alif,
     linrec; alif_bwd, linrec_bwd, g_w x2. train_banded: the front INTEG
-    and the readout's (spikemm x2), the band's gather forward and its
-    backward (B6, the gather on the transposed tables: spikemm_gather x2,
-    one of them counted as spikemm_gather_bwd), lif x2 and lif_bwd x2,
+    and the readout's (spikemm x2), the band's gather forward
+    (spikemm_gather) and its backward (B6, spikemm_gather_bwd: its own
+    kernel on the transposed tables), lif x2 and lif_bwd x2,
     the readout's linrec and linrec_bwd, g_w x2 (w_input, w_hidden); the
     band has no weight gradient."""
     def shd(dendritic):
@@ -4892,7 +4817,7 @@ def train_paths():
                   banded_loss, TRAIN_LR,
                   (("banded", make_train_banded,
                     {"spikemm+sparse": 2, "spikemm_wgrad": 2,
-                     "spikemm_gather": 2, "spikemm_gather_bwd": 1, "lif": 2,
+                     "spikemm_gather": 1, "spikemm_gather_bwd": 1, "lif": 2,
                      "lif_bwd": 2, "linrec": 1, "linrec_bwd": 1}),),
                   forward_check=banded_forward_vs_cpu))}
 

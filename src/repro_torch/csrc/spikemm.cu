@@ -51,19 +51,6 @@
 //
 // Ragged edges (M = 2048, K = 700, N = 20 on the serving path) are masked
 // in the loads and the store; nothing is padded in device memory.
-//
-// Session axis (`spikemm_f32`'s S): S sessions, each with its own weight,
-// W (S, K, N), and its rows of one (T, S, K) raster, row t S + s for
-// session s. blockIdx.z is the session, whose CTAs read its rows in place,
-// S K floats apart, its weight W[s], and write its rows of the (T, S, N)
-// output, S N floats apart, running the code above on its T rows: each
-// session's result is, bit for bit, what the kernel gives at S = 1 on
-// those rows alone. No wrapper launches it at S > 1: a learning serve
-// window's session family runs `spikemm_sessions.cu`, which sizes its
-// tile from a session's rows and reads each W[s] slab once through the
-// ring. This axis, the family's route before, stays as the yardstick
-// `chip_smoke.py` times beside that kernel; the unbatched wrapper passes
-// S = 1.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -95,7 +82,7 @@ struct Tile : RingTile<CW, RPT> {
 // this warp listed.
 template <int PER, int BM, int CAP>
 __device__ __forceinline__ int findidx(const float* __restrict__ s, int m0,
-                                       int M, int K, size_t lds, int* klist,
+                                       int M, int K, int* klist,
                                        float* vlist, int* counts,
                                        int* overflow) {
   constexpr int STEP = 32 * PER;
@@ -112,7 +99,7 @@ __device__ __forceinline__ int findidx(const float* __restrict__ s, int m0,
       const int it = g + u, row = warp + WARPS * (it / slabs);
       const int k = (it % slabs) * STEP + lane * PER, m = m0 + row;
       if (it < items && m < M && k < K) {
-        load_vec<PER>(x[u], s + (size_t)m * lds + k);
+        load_vec<PER>(x[u], s + (size_t)m * K + k);
       } else {
 #pragma unroll
         for (int j = 0; j < PER; ++j) x[u][j] = 0.f;
@@ -156,8 +143,7 @@ __device__ __forceinline__ int findidx(const float* __restrict__ s, int m0,
 template <int CW, int RPT>
 __global__ void __launch_bounds__(THREADS, RPT < 8 ? 2 : 1)
 spikemm_kernel(const float* __restrict__ s, const float* __restrict__ w,
-               float* __restrict__ out, int M, int K, int N, size_t lds,
-               size_t ldo, size_t s_z, size_t w_z, size_t o_z) {
+               float* __restrict__ out, int M, int K, int N) {
   using L = Tile<CW, RPT>;
   constexpr int BM = L::BM, CPT = L::CPT, TX = L::TX, CAP = L::CAP;
   constexpr int UNROLL = L::UNROLL;
@@ -172,23 +158,16 @@ spikemm_kernel(const float* __restrict__ s, const float* __restrict__ w,
   const int tx = tid % TX, ty = tid / TX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * CW;
   const int live = min(BM, M - m0);
-  // the session's rows, weight and output rows (z strides 0: one session)
-  s += blockIdx.z * s_z;
-  w += blockIdx.z * w_z;
-  out += blockIdx.z * o_z;
   // float4 reads of a raster row, of a row of w (16-byte aligned rows)
-  const bool vec_s = K % 4 == 0 && lds % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  const bool vec_s = K % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0;
   const bool vec_w = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   if (tid == 0) total = overflow = 0;
   for (int r = tid; r < BM; r += THREADS) counts[r] = 0;
   __syncthreads();
 
   const int events =
-      vec_s ? findidx<4, BM, CAP>(s, m0, M, K, lds, klist, vlist, counts,
-                                  &overflow)
-            : findidx<1, BM, CAP>(s, m0, M, K, lds, klist, vlist, counts,
-                                  &overflow);
+      vec_s ? findidx<4, BM, CAP>(s, m0, M, K, klist, vlist, counts, &overflow)
+            : findidx<1, BM, CAP>(s, m0, M, K, klist, vlist, counts, &overflow);
   if (lane == 0) atomicAdd(&total, events);
   __syncthreads();
 
@@ -200,7 +179,7 @@ spikemm_kernel(const float* __restrict__ s, const float* __restrict__ w,
 
   if (overflow || 4LL * total > (long long)live * K) {
     // dense: every BK-deep step of K through the ring
-    ring_product<CW, RPT>(s, w, ring, m0, n0, M, K, N, lds, vec_s, vec_w,
+    ring_product<CW, RPT>(s, w, ring, m0, n0, M, K, N, K, vec_s, vec_w,
                           (K + BK - 1) / BK, [](int st) { return st * BK; },
                           acc);
   } else {
@@ -250,44 +229,37 @@ spikemm_kernel(const float* __restrict__ s, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int n = n0 + tx * CPT + j;
-      if (n < N) out[(size_t)m * ldo + n] = acc[i][j];
+      if (n < N) out[(size_t)m * N + n] = acc[i][j];
     }
   }
 }
 
-// S sessions of M rows each (S = 1: one raster); the strides in floats
-struct Layout {
-  int S;
-  size_t lds, ldo;          // next row of a session: raster, output
-  size_t s_z, w_z, o_z;     // next session: raster, weight, output
-};
-
 template <int CW, int RPT>
 int launch(const float* s, const float* w, float* out, int M, int K, int N,
-           const Layout& l, cudaStream_t stream) {
+           cudaStream_t stream) {
   using L = Tile<CW, RPT>;
   cudaError_t err = cudaFuncSetAttribute(
       spikemm_kernel<CW, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + CW - 1) / CW, (M + L::BM - 1) / L::BM, l.S);
-  spikemm_kernel<CW, RPT><<<grid, THREADS, L::SMEM, stream>>>(
-      s, w, out, M, K, N, l.lds, l.ldo, l.s_z, l.w_z, l.o_z);
+  dim3 grid((N + CW - 1) / CW, (M + L::BM - 1) / L::BM);
+  spikemm_kernel<CW, RPT><<<grid, THREADS, L::SMEM, stream>>>(s, w, out, M,
+                                                             K, N);
   return (int)cudaGetLastError();
 }
 
 // rows per CTA bm = TY * RPT
 template <int CW>
 int launch_cw(const float* s, const float* w, float* out, int M, int K,
-              int N, int bm, const Layout& l, cudaStream_t st) {
+              int N, int bm, cudaStream_t st) {
   constexpr int TY = Tile<CW, 1>::TY;
   switch (bm / TY) {
-    case 1: return launch<CW, 1>(s, w, out, M, K, N, l, st);
-    case 2: return launch<CW, 2>(s, w, out, M, K, N, l, st);
-    case 4: return launch<CW, 4>(s, w, out, M, K, N, l, st);
+    case 1: return launch<CW, 1>(s, w, out, M, K, N, st);
+    case 2: return launch<CW, 2>(s, w, out, M, K, N, st);
+    case 4: return launch<CW, 4>(s, w, out, M, K, N, st);
     default:
       if constexpr (TY == 16)
-        return launch<CW, 8>(s, w, out, M, K, N, l, st);
+        return launch<CW, 8>(s, w, out, M, K, N, st);
       else
         return (int)cudaErrorInvalidValue;
   }
@@ -299,23 +271,18 @@ extern "C" {
 
 // The CTA's tile, as kernels/spikemm/ops.py::col_tile and rows_per_cta
 // pick it: cw columns (8, 16, 32 or 64), bm rows (a power of two from 16,
-// or 32 when cw = 8, to 128). s (M, S, K), w (S, K, N), out (M, S, N),
-// contiguous: session s's M rows against w[s], one launch (grid.z = S);
-// S = 1 is one (M, K) raster against one weight.
+// or 32 when cw = 8, to 128)
 int spikemm_f32(const float* s, const float* w, float* out, int M, int K,
-                int N, int bm, int cw, int S, void* stream) {
-  if (M < 1 || N < 1 || K < 0 || S < 1 || S > 65535 || bm > 128 ||
-      bm < (cw == 8 ? 32 : 16) || (bm & (bm - 1)) ||
-      (cw != 8 && cw != 16 && cw != 32 && cw != 64))
+                int N, int bm, int cw, void* stream) {
+  if (M < 1 || N < 1 || K < 0 || bm > 128 || bm < (cw == 8 ? 32 : 16) ||
+      (bm & (bm - 1)) || (cw != 8 && cw != 16 && cw != 32 && cw != 64))
     return (int)cudaErrorInvalidValue;
-  const Layout l{S, (size_t)S * K, (size_t)S * N, (size_t)K,
-                 (size_t)K * N, (size_t)N};
   cudaStream_t st = (cudaStream_t)stream;
   switch (cw) {
-    case 8: return launch_cw<8>(s, w, out, M, K, N, bm, l, st);
-    case 16: return launch_cw<16>(s, w, out, M, K, N, bm, l, st);
-    case 32: return launch_cw<32>(s, w, out, M, K, N, bm, l, st);
-    default: return launch_cw<64>(s, w, out, M, K, N, bm, l, st);
+    case 8: return launch_cw<8>(s, w, out, M, K, N, bm, st);
+    case 16: return launch_cw<16>(s, w, out, M, K, N, bm, st);
+    case 32: return launch_cw<32>(s, w, out, M, K, N, bm, st);
+    default: return launch_cw<64>(s, w, out, M, K, N, bm, st);
   }
 }
 

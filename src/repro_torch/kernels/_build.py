@@ -86,7 +86,7 @@ _L = ctypes.c_int64
 
 # C signatures, one per exported symbol: (argtypes, restype)
 SIGNATURES = {
-    "spikemm_f32": ((_P, _P, _P) + (_I,) * 6 + (_P,), _I),
+    "spikemm_f32": ((_P, _P, _P) + (_I,) * 5 + (_P,), _I),
     "spikemm_sessions_f32": ((_P, _P, _P) + (_I,) * 6 + (_P,), _I),
     "spikemm_wgrad_f32": ((_P, _I) + (_P,) * 4 + (_I,) * 7 + (_P,), _I),
     "linrec_f32": ((_P, _L, _L, _L, _P, _P, _P, _P) + (_I,) * 5 + (_P,),

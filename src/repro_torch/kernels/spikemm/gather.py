@@ -51,8 +51,8 @@ the patch's through a cp.async ring in shared memory, and adds the terms
 in registers in the plain version's order: bit for bit
 `spikemm_gather_bwd_ref` (`spikemm_gather_ref` on the transposed
 tables). Each backward launch counts on `spikemm_gather_bwd_cuda` (the
-registry's `spikemm_gather_bwd`) and, as the forward's do, on the family's
-`spikemm_gather_cuda`.
+registry's `spikemm_gather_bwd`) alone; `spikemm_gather_cuda` counts the
+forward's kernel.
 """
 
 from __future__ import annotations
@@ -467,16 +467,15 @@ class GatherBwdPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def gather_bwd_plan(M: int, bn: int, n_post_blocks: int, n_sm: int, *,
-                    rows: int = None) -> GatherBwdPlan:
+def gather_bwd_plan(M: int, bn: int, n_post_blocks: int, n_sm: int
+                    ) -> GatherBwdPlan:
     """B6's plan for M rows of g against post blocks bn wide: the most rows
     a thread (4, 2, 1) whose CTA holds fewer than twice M's rows (16 x
     rows < 2 M, or 1 row a thread) and whose grid still holds two CTAs an
     SM, else the fewest such. More rows a thread make each weight a thread
     loads from shared memory serve more terms; more CTAs keep the card
     busy at few rows. (8 rows a thread measured slower at every B6 call of
-    `chip_smoke.py`: 168 registers leave 3 CTAs an SM.) `rows` takes
-    another instantiation instead (`chip_smoke.py` times each)."""
+    `chip_smoke.py`: 168 registers leave 3 CTAs an SM.)"""
     if M < 1 or bn < 1 or n_post_blocks < 1:
         raise ValueError(f"gather_bwd_plan: M={M}, bn={bn}, "
                          f"n_post_blocks={n_post_blocks}")
@@ -484,13 +483,10 @@ def gather_bwd_plan(M: int, bn: int, n_post_blocks: int, n_sm: int, *,
 
     def grid(r):
         return (slabs, -(-M // (GATHER_BWD_THREAD_ROWS * r)))
-    if rows is None:
-        fits = [r for r in GATHER_BWD_RPT
-                if r == 1 or GATHER_BWD_THREAD_ROWS * r < 2 * M]
-        rows = next((r for r in fits if math.prod(grid(r)) >= 2 * n_sm),
-                    fits[-1])
-    if rows not in GATHER_BWD_RPT:
-        raise ValueError(f"gather_bwd_plan: rows={rows}")
+    fits = [r for r in GATHER_BWD_RPT
+            if r == 1 or GATHER_BWD_THREAD_ROWS * r < 2 * M]
+    rows = next((r for r in fits if math.prod(grid(r)) >= 2 * n_sm),
+                fits[-1])
     g = grid(rows)
     if g[1] > 65535:
         raise ValueError(f"spikemm_gather_bwd: M={M} rows exceed one launch")
@@ -517,8 +513,8 @@ def launch_bwd_plan(g: torch.Tensor, tables: GatherTables,
 def spikemm_gather_bwd_cuda(g: torch.Tensor, tables: GatherTables
                             ) -> torch.Tensor:
     """B6 on the card: one launch of `csrc/spikemm_gather_bwd.cu` on the
-    transposed tables, counted here and in the family
-    (`spikemm_gather_cuda`)."""
+    transposed tables, counted here (the forward gather's count is its
+    own kernel's)."""
     t = tables.transpose()
     _check_input("spikemm_gather_bwd", g, t.n_pre)
     M = g.shape[0]
@@ -528,7 +524,6 @@ def spikemm_gather_bwd_cuda(g: torch.Tensor, tables: GatherTables
     launch_bwd_plan(g, t, out, gather_bwd_plan(
         M, t.bn, t.n_post_blocks, sm_count(g.device)))
     spikemm_gather_bwd_cuda.launches += 1
-    spikemm_gather_cuda.launches += 1
     return out
 
 

@@ -69,9 +69,7 @@ session's result is bit for bit the unbatched kernel's on its rows alone
 (the same fmaf chain); its plain version loops the unbatched plain
 version over the sessions. It takes the dense channel only (the serve
 window routes dense, as the flat window does) and has no backward: it
-runs in serving, under `no_grad`. (`csrc/spikemm.cu`'s own session axis,
-the event kernel on grid.z at `rows_per_cta(..., sessions=S)`, was this
-family's route before; no wrapper launches it.)
+runs in serving, under `no_grad`.
 """
 
 from __future__ import annotations
@@ -104,21 +102,17 @@ def col_tile(N: int) -> int:
     return 8 if N <= 8 else 16 if N <= 16 else 32 if N <= 32 else 64
 
 
-def rows_per_cta(M: int, N: int, n_sm: int, sessions: int = 1) -> int:
+def rows_per_cta(M: int, N: int, n_sm: int) -> int:
     """Rows a CTA of `csrc/spikemm.cu` owns: the largest of 128, 64, 32
     and 16 (32 at the 8-wide column tile) whose grid still holds about a
     wave of CTAs (three quarters of the SM count), else the smallest.
     Larger tiles make the dense loop's loads go further; more CTAs keep the
-    card busy where the events are few. `sessions` counts the grid of that
-    kernel's own session axis (S sessions of M rows each on grid.z), which
-    no wrapper launches: the session family takes `session_tile`. That
-    count does not look at how many rows a session has, so at a serve
-    window (M = 32, S = 64) it gives 128 rows, three quarters of them
-    idle."""
+    card busy where the events are few. (The session family sizes its
+    tile from a session's rows instead: `session_tile`.)"""
     cw = col_tile(N)
     sizes = (128, 64, 32) if cw == 8 else (128, 64, 32, 16)
     for bm in sizes:
-        if sessions * math.ceil(M / bm) * math.ceil(N / cw) * 4 >= 3 * n_sm:
+        if math.ceil(M / bm) * math.ceil(N / cw) * 4 >= 3 * n_sm:
             return bm
     return sizes[-1]
 
@@ -126,8 +120,8 @@ def rows_per_cta(M: int, N: int, n_sm: int, sessions: int = 1) -> int:
 SESSION_COLS = (64, 32, 16, 8)    # `csrc/spikemm_sessions.cu`'s column slabs
 
 
-def session_tile(T: int, N: int, n_sm: int, sessions: int, *,
-                 cw: Optional[int] = None) -> Tuple[int, int]:
+def session_tile(T: int, N: int, n_sm: int, sessions: int
+                 ) -> Tuple[int, int]:
     """(bm, cw): the tile of a CTA of `csrc/spikemm_sessions.cu` (128
     threads) for `sessions` sessions of T rows each against N columns. bm
     is the least of 8, 16, 32, 64 (16 to 128 at the 8-wide slab) that
@@ -137,20 +131,17 @@ def session_tile(T: int, N: int, n_sm: int, sessions: int, *,
     to 8) while the grid, sessions x row tiles x column slabs, holds fewer
     CTAs than the card has SMs: each CTA reads its slab of the session's
     weight once, so narrower slabs cost only the raster's rows read again
-    (from L2). `cw` takes another slab instead (`chip_smoke.py` times
-    each)."""
-    if T < 1 or N < 1 or sessions < 1 or cw not in (None,) + SESSION_COLS:
-        raise ValueError(f"session_tile: T={T}, N={N}, sessions={sessions}, "
-                         f"cw={cw}")
+    (from L2)."""
+    if T < 1 or N < 1 or sessions < 1:
+        raise ValueError(f"session_tile: T={T}, N={N}, sessions={sessions}")
 
     def rows(cw):
         least = 16 if cw == 8 else 8
         return min(8 * least, max(least, 1 << (T - 1).bit_length()))
-    if cw is None:
-        cw = min(col_tile(N), SESSION_COLS[0])
-        while (cw > SESSION_COLS[-1] and sessions * math.ceil(T / rows(cw))
-               * math.ceil(N / cw) < n_sm):
-            cw //= 2
+    cw = min(col_tile(N), SESSION_COLS[0])
+    while (cw > SESSION_COLS[-1] and sessions * math.ceil(T / rows(cw))
+           * math.ceil(N / cw) < n_sm):
+        cw //= 2
     return rows(cw), cw
 
 
@@ -217,7 +208,7 @@ def spikemm_cuda(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(spikes.device):
         code = _build.library().spikemm_f32(
             spikes.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, bm,
-            col_tile(N), 1, torch.cuda.current_stream().cuda_stream)
+            col_tile(N), torch.cuda.current_stream().cuda_stream)
     _build.check("spikemm", code)
     spikemm_cuda.launches += 1
     return out

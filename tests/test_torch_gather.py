@@ -474,10 +474,12 @@ def test_gather_bwd_plan_covers_the_output(M, bn, jb):
 
 
 def test_gather_bwd_plan_refuses_other_instantiations():
-    for rows in (3, 8):
+    """No plan for an empty output, and none past one launch's grid."""
+    for M, bn, jb in ((0, 32, 4), (8, 0, 4), (8, 32, 0)):
         with pytest.raises(ValueError, match="gather_bwd_plan"):
-            gather_bwd_plan(8, 32, 4, N_SM, rows=rows)
-    assert gather_bwd_plan(65535 * 16, 32, 1, N_SM, rows=1).grid == (1, 65535)
+            gather_bwd_plan(M, bn, jb, N_SM)
+    p = gather_bwd_plan(65535 * 64, 32, 1, N_SM)
+    assert (p.rows, p.grid) == (4, (1, 65535))
     with pytest.raises(ValueError, match="exceed one launch"):
         gather_bwd_plan(65535 * 64 + 1, 32, 1, N_SM)
 
@@ -487,8 +489,8 @@ def test_gather_bwd_wrapper_is_one_launch(monkeypatch, M):
     """With a recording stand-in for the library (no card here), B6's
     wrapper makes one C call, `spikemm_gather_bwd_f32`, on the transposed
     tables with the planned rows, counts one launch as
-    `spikemm_gather_bwd` and one in the family, and launches nothing of
-    the forward gather."""
+    `spikemm_gather_bwd`, and launches and counts nothing of the forward
+    gather."""
     from contextlib import nullcontext
     from unittest import mock
 
@@ -515,6 +517,6 @@ def test_gather_bwd_wrapper_is_one_launch(monkeypatch, M):
     assert lib.spikemm_gather_bwd_f32.call_args.args[6:13] == (
         M, t.n_pre, t.n_post, t.bk, t.bn, t.n_post_blocks, plan.rows)
     assert counts["spikemm_gather_bwd"] == 1
-    assert counts["spikemm_gather"] == 1
+    assert counts["spikemm_gather"] == 0
     with pytest.raises(ValueError, match=r"must be \(M, 110\)"):
         gather.spikemm_gather_bwd_cuda(torch.zeros((M, N_PRE)), fwd)

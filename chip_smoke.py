@@ -130,8 +130,12 @@ tree the same way, so two trees compare in one call.
             `stdp_seq_sessions` bit for bit its plain version, and each
             session of both equal bit for bit to the unbatched kernel on
             its rows alone (`spikemm` on its (T, K) rows; `stdp_seq` at
-            batch 1); `spikemm_sessions` (`csrc/spikemm_sessions.cu`)
-            timed beside `torch.bmm`;
+            batch 1, as int32 views); `spikemm_sessions`
+            (`csrc/spikemm_sessions.cu`) timed beside `torch.bmm`,
+            `stdp_seq_sessions` (`csrc/stdp_sessions.cu`) beside its two
+            issue floors (the plain order's 4K + 3 fp32 operations a
+            weight-step and the kernel's 3K + 3, on 128 lanes an SM at
+            the highest SM clock);
             `lif_bwd` (B1) and `linrec_bwd` (B2), the backward kernels:
             each model's calls of one train_shd step (captured at the
             registry; timed: the soma (60, 48, 64), the branches (60, 48,
@@ -179,7 +183,11 @@ tree the same way, so two trees compare in one call.
             one `spikemm_wgrad` launch, no occupancy launch; the train_shd
             and train_ecg g_w products also on the route it replaced,
             `spikemm` and `spikemm_sparse` on the transposed raster,
-            timed beside `torch.matmul`;
+            timed beside `torch.matmul`; train_banded's g_w products
+            ((700, 1024) @ (1024, 8192), (8192, 1024) @ (1024, 20)) and
+            its forward INTEGs on the channel `auto` routed ((1024, 700)
+            @ (700, 8192) and (1024, 8192) @ (8192, 20)), each timed
+            beside `torch.matmul`;
             `lifrec_bwd` (B4), `alifrec_bwd` and `alif_bwd` (B5): the
             train_ecg and train_alif_ff steps' calls (timed: (200, 16,
             64) under sigmoid alpha 4, (60, 48, 64)), the JAX families'
@@ -784,7 +792,7 @@ SOURCES = {
     # vmap of its Pallas kernels in a learning serve window)
     "spikemm_sessions": ("src/repro_torch/csrc/spikemm_sessions.cu",
                          "src/repro/kernels/spikemm/kernel.py:61"),
-    "stdp_seq_sessions": ("src/repro_torch/csrc/stdp.cu",
+    "stdp_seq_sessions": ("src/repro_torch/csrc/stdp_sessions.cu",
                           "src/repro/kernels/stdp/kernel.py:87"),
 }
 # the kernels that compute only a gradient: no forward of their own for
@@ -801,6 +809,11 @@ HOME = {"spikemm": "shd", "linrec": "shd", "lif": "shd",
         "spikemm_wgrad": "train_ecg", "spikemm_gather_bwd": "train_banded",
         "spikemm_sessions": "serve_plastic",
         "stdp_seq_sessions": "serve_plastic"}
+# the two issue floors printed beside a kernel's time (`b6_floors`,
+# `stdp_sessions_floors`): of the function's operations, of the kernel's
+FLOORS = {"spikemm_gather_bwd": ("needed terms", "walked sub-tiles"),
+          "stdp_seq_sessions": ("the plain order's 4K + 3 a weight-step",
+                                "the kernel's 3K + 3")}
 # elementwise fp32 operations per lane-step of the time kernels (the
 # backward: the u step and its reset, the surrogate, the adjoint, v_{t-1},
 # g_tau; ALIF also the threshold, a's step, Ga and g_rho). The recurrent
@@ -1653,7 +1666,7 @@ def stdp_seq_no_rows():
     amp = (ctypes.c_float * K)(*amps)
     code = _build.library().stdp_seq_f32(
         P.data_ptr(), Q.data_ptr(), w.data_ptr(), out.data_ptr(),
-        ctypes.addressof(amp), K, T, 0, M, N, 1, -0.5, 0.5,
+        ctypes.addressof(amp), K, T, 0, M, N, -0.5, 0.5,
         torch.cuda.current_stream().cuda_stream)
     _build.check("stdp_seq", code)
     want = w.clone()
@@ -2887,7 +2900,9 @@ def phase_kernels(cases):
                            warmup=1 if case.plain_iters else 3)
             lib = (None if case.library is None
                    else cuda_ms(case.library, iters=200))
-            parent_ms = issue_ms = walk_ms = None
+            # issue floors: of the operations the function needs, and of
+            # those the kernel issues
+            parent_ms = issue_ms = own_ms = None
             if name == "spikemm_gather_bwd":
                 # the route B6 replaced: bit for bit its output, timed on
                 # the same inputs
@@ -2900,7 +2915,9 @@ def phase_kernels(cases):
                                          "route differs from the kernel")
                 parent_ms = cuda_ms(run, iters=200)
                 extra += "; the parent route bit for bit the same"
-                issue_ms, walk_ms = b6_floors(args)
+                issue_ms, own_ms = b6_floors(args)
+            if name == "stdp_seq_sessions":
+                issue_ms, own_ms = stdp_sessions_floors(args)
             # the sparse channel is its occupancy measure and its product:
             # time each alone, and the dense kernel on the same inputs
             kernel_ms = dense_ms = occ_ms = witness = None
@@ -2993,7 +3010,7 @@ def phase_kernels(cases):
                           "device_kernels": witness,
                           "parent_ms": parent_ms,
                           "issue_floor_ms": issue_ms,
-                          "walk_floor_ms": walk_ms})
+                          "kernel_issue_floor_ms": own_ms})
             log(f"kernel {name} [{label}] {shapes}: {ms:.4f} ms on the card"
                 f"{'' if T is None else f' ({ms / T * 1e3:.3f} us/step)'} "
                 f"(plain {p_ms:.4f}, "
@@ -3008,7 +3025,7 @@ def phase_kernels(cases):
                 f"{'' if kernel_ms is None or occ_ms is not None else f', kernel alone {kernel_ms:.4f}'}"
                 f"{'' if case.build_s is None else f', tables built in {case.build_s:.1f} s'}"
                 f"{'' if parent_ms is None else f', parent route {parent_ms:.4f} ({parent_ms / ms:.2f}x)'}"
-                f"{'' if issue_ms is None else f', issue floor {issue_ms:.5f} (needed terms), {walk_ms:.5f} (walked sub-tiles)'})"
+                f"{'' if issue_ms is None else f', issue floor {issue_ms:.5f} ({FLOORS[name][0]}), {own_ms:.5f} ({FLOORS[name][1]})'})"
                 f"{extra}; max abs err so far {max_err:.3e}")
         src, rep = SOURCES[name]
         home = [c for c in calls if c["path"] == HOME[name]]
@@ -3101,6 +3118,22 @@ def b6_floors(args):
     need = g.shape[0] * int(np.count_nonzero(tables.wblk))
     walked = g.shape[0] * len(tables.transpose().bwd_steps()[1]) * 1024
     return 2 * need / rate, 2 * walked / rate
+
+
+def stdp_sessions_floors(args):
+    """`stdp_seq_sessions`' issue floors in ms at the highest SM clock, one
+    fp32 operation a lane a cycle on 128 lanes an SM: the plain order's
+    (4K + 3) a weight a step (a product p q, the sum 0 + p q, its product
+    by amp_k and the sum into dw for each of K terms, then w + dw and the
+    clip's max and min) and the kernel's 3K + 3 (`csrc/stdp_sessions.cu`
+    drops each 0 + p q, leaving every bit as it was)."""
+    from repro_torch.kernels.common import sm_count
+    P, _, w = args
+    K, rows = P.shape[:2]
+    S, M, N = w.shape
+    rate = sm_count(w.device) * 128 * sm_max_clock_mhz() * 1e3   # per ms
+    steps = S * M * N * (rows // S)
+    return (4 * K + 3) * steps / rate, (3 * K + 3) * steps / rate
 
 
 def phase_rec_bwd_passes(cases):
@@ -5043,6 +5076,22 @@ def train_cases():
                     out[name].append(Case(f"{tag} {kind} {what} {shape}",
                                           args, path=tag, timed=True, kw=kw,
                                           rtol=rtol, atol=atol))
+            if path.name == "train_banded":
+                # the step's forward spike products (the front INTEG and
+                # the readout's), on the channel `auto` routed, beside
+                # torch.matmul; its g_w products are g_w_cases' above
+                for r in routes:
+                    if r.get("g_w"):
+                        continue
+                    args = tuple(a.detach() for a in r["args"])
+                    front = args[1].shape[0] == N_IN
+                    out[r["channel"]].append(Case(
+                        f"train_banded {'front' if front else 'readout'} "
+                        f"INTEG {tuple(args[0].shape)} @ "
+                        f"{tuple(args[1].shape)}", args, path=path.name,
+                        timed=True, rtol=None if front
+                        else BANDED_READOUT_RTOL,
+                        library=lambda a=args: torch.matmul(*a)))
             if i == 0 and path.name in ("train_shd", "train_ecg"):
                 # the route it replaced: the spike product on the transposed
                 # raster, through the dense kernel and the sparse channel

@@ -42,13 +42,6 @@
 // runs while the previous group's chains finish). No split over steps or
 // batch rows and no atomics: a weight's result never depends on the grid.
 //
-// The session axis (`stdp_seq_f32`'s S, a learning serve window). S
-// sessions each own a weight, w (S, M, N), and each is one row of every
-// step of the flat planes: session s reads row t S + s at step t. One
-// launch, blockIdx.z the session; its CTAs run the kernel above at B = 1
-// on the rows it owns (read in place, S rows apart), so its weight is, bit
-// for bit, the kernel's at S = 1, batch 1, on those rows alone.
-//
 // The single step (`stdp`). At `stdp_run`'s shape (B = 8, 256 x 128) it
 // moves 0.29 MB (0.09 us at 3.35 TB/s) and is called once a step, so its
 // time is a launch and the memory round trips its chain waits on. A
@@ -318,14 +311,12 @@ static_assert(MICRO <= 8 && PV + QV <= 8, "a step's loads take 8 threads");
 static_assert(SEQ_THREADS <= 1024 && TM * TN <= SEQ_THREADS, "block shape");
 
 struct SeqArgs {
-  const float* P;   // (K, T*S*B, M): the planes back to back
-  const float* Q;   // (K, T*S*B, N)
+  const float* P;   // (K, T*B, M): the planes back to back
+  const float* Q;   // (K, T*B, N)
   float amp[MAX_TERMS];
-  const float* w_in;  // (S, M, N)
+  const float* w_in;  // (M, N)
   float* w_out;
   int K, T, B, M, N;
-  int S;            // sessions: step t's rows of session s are the B rows
-                    // from (t S + s) B of each plane (S = 1: one weight)
   float w_min, w_max;
   bool vec;         // rows of P and Q are 16-byte aligned: float4 copies
 };
@@ -335,12 +326,6 @@ stdp_seq_kernel(const SeqArgs a) {
   extern __shared__ __align__(16) float seq_smem[];
   const int K = a.K, T = a.T, B = a.B, M = a.M, N = a.N;
   const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  // the session: its weight, and its rows' offset in each step
-  const int64_t wz = (int64_t)blockIdx.z * M * N;
-  const float* w_in = a.w_in + wz;
-  float* w_out = a.w_out + wz;
-  const int64_t RS = (int64_t)a.S * B;  // rows of one step in a plane
-  const int64_t boff = (int64_t)blockIdx.z * B;
   const int tid = threadIdx.x;
   // phase 1 and the copies: step g of the group, micro-tile (or vector) u
   const int g = tid / MICRO, u = tid % MICRO;
@@ -350,7 +335,7 @@ stdp_seq_kernel(const SeqArgs a) {
   const int i2 = m0 + UT * (mt2 / (TN / UT)) + tid / (UT * MICRO);
   const int j2 = n0 + UT * (mt2 % (TN / UT)) + tid % UT;
   const bool own = tid < TM * TN && i2 < M && j2 < N;
-  float w = own ? w_in[(int64_t)i2 * N + j2] : 0.f;
+  float w = own ? a.w_in[(int64_t)i2 * N + j2] : 0.f;
 
   const int KB = K * B;                 // rows of one step, (k, b) order
   if (KB == 0) {                        // steps with no batch rows still clip
@@ -358,7 +343,7 @@ stdp_seq_kernel(const SeqArgs a) {
     for (int k = 0; k < K; ++k)
       dw = __fadd_rn(dw, __fmul_rn(pick(a.amp, k), 0.f));
     for (int t = 0; t < T; ++t) w = clip(__fadd_rn(w, dw), a.w_min, a.w_max);
-    if (own) w_out[(int64_t)i2 * N + j2] = w;
+    if (own) a.w_out[(int64_t)i2 * N + j2] = w;
     return;
   }
   const int nsub = (KB + RC - 1) / RC;  // stages of one group
@@ -376,7 +361,7 @@ stdp_seq_kernel(const SeqArgs a) {
   const int width = isP ? M : N;
   const int valid = min(max(width - col, 0), 4);
   const float* plane = isP ? a.P : a.Q;
-  const int64_t jump = ((int64_t)T * RS - B + 1) * width;
+  const int64_t jump = ((int64_t)(T - 1) * B + 1) * width;
   const int rowlen = isP ? TM : TN;
   const int dst0 = isP ? g * PS + 4 * u : G * PS + g * QS + 4 * (u - PV);
   int issued = 0, ist = 0;              // chunks issued, the next one's stage
@@ -387,8 +372,7 @@ stdp_seq_kernel(const SeqArgs a) {
       const uint32_t dst = smem_u32(seq_smem + ist * STAGE + dst0);
       const int q = lsub * RC, qe = min(q + RC, KB);
       int k = q / B, b = q - k * B;
-      const float* src =
-          plane + ((int64_t)(k * T + t) * RS + boff + b) * width + col;
+      const float* src = plane + ((int64_t)(k * T + t) * B + b) * width + col;
       for (int r = 0; r < qe - q; ++r) {
         const uint32_t d = dst + 4 * r * rowlen;
         if (a.vec) {
@@ -488,14 +472,14 @@ stdp_seq_kernel(const SeqArgs a) {
     ++gi;
   }
   cp_async_wait<0>();
-  if (own) w_out[(int64_t)i2 * N + j2] = w;
+  if (own) a.w_out[(int64_t)i2 * N + j2] = w;
 }
 
 int stdp_seq_launch(const SeqArgs& a, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
       stdp_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SEQ_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.N + TN - 1) / TN, (a.M + TM - 1) / TM, a.S);
+  const dim3 grid((a.N + TN - 1) / TN, (a.M + TM - 1) / TM);
   stdp_seq_kernel<<<grid, SEQ_THREADS, SEQ_SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -504,22 +488,19 @@ int stdp_seq_launch(const SeqArgs& a, cudaStream_t stream) {
 
 extern "C" {
 
-// amps: K floats (host memory). w (S, M, N), P (K, T*S*B, M), Q (K,
-// T*S*B, N): session s's weight takes the B rows from (t S + s) B of each
-// plane at step t (one launch, grid.z = S). S = 1 is one weight on the
-// flat planes; a learning serve window passes S sessions at B = 1.
+// amps: K floats (host memory). w (M, N), P (K, T*B, M), Q (K, T*B, N):
+// step t takes the B rows from t B of each plane.
 int stdp_seq_f32(const float* P, const float* Q, const float* w, float* out,
-                 const float* amps, int K, int T, int B, int M, int N, int S,
+                 const float* amps, int K, int T, int B, int M, int N,
                  float w_min, float w_max, void* stream) {
-  if (K < 1 || K > MAX_TERMS || S < 1 || S > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (K < 1 || K > MAX_TERMS) return (int)cudaErrorInvalidValue;
   SeqArgs a{};
   a.P = P;
   a.Q = Q;
   for (int k = 0; k < K; ++k) a.amp[k] = amps[k];
   a.w_in = w;
   a.w_out = out;
-  a.K = K, a.T = T, a.B = B, a.M = M, a.N = N, a.S = S;
+  a.K = K, a.T = T, a.B = B, a.M = M, a.N = N;
   a.w_min = w_min, a.w_max = w_max;
   a.vec = M % 4 == 0 && N % 4 == 0 && (uintptr_t)P % 16 == 0 &&
           (uintptr_t)Q % 16 == 0;

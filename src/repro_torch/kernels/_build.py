@@ -108,7 +108,8 @@ SIGNATURES = {
     "spikemm_sparse_f32": ((_P,) * 4 + (_I,) * 4 + (_P,), _I),
     "spikemm_gather_f32": ((_P,) * 6 + (_I,) * 10 + (_P,), _I),
     "spikemm_gather_bwd_f32": ((_P,) * 6 + (_I,) * 7 + (_P,), _I),
-    "stdp_seq_f32": ((_P,) * 5 + (_I,) * 6 + (_F, _F, _P), _I),
+    "stdp_seq_f32": ((_P,) * 5 + (_I,) * 5 + (_F, _F, _P), _I),
+    "stdp_seq_sessions_f32": ((_P,) * 5 + (_I,) * 7 + (_F, _F, _P), _I),
     "stdp_f32": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),
     "stdp_bf16": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),
     "flash_attention_f32": ((_P,) * 4 + (_I,) * 6 + (_F, _P), _I),

@@ -14,19 +14,22 @@ session axis, its own family (`stdp_seq_sessions`): w (S, M, N) holds one
 weight a session, and session s's weight takes, at each step t, only row
 t * S + s of each flat (K, T * S, .) plane, with batch-1 arithmetic (the
 JAX package's per-session `vmap` of the learning pass). One launch of
-`csrc/stdp.cu`'s `stdp_seq_kernel` covers every session (grid.z); each
-session's weight is bit for bit the unbatched kernel's at batch 1 on its
-rows alone. Its plain version loops `stdp_seq_ref` over the sessions.
+`csrc/stdp_sessions.cu` covers every session, a CTA a tile of one
+session's weight as `stdp_session_tile` picks it; each session's weight
+is bit for bit the unbatched kernel's at batch 1 on its rows alone. Its
+plain version loops `stdp_seq_ref` over the sessions.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import math
+from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, registry
+from repro_torch.kernels.common import sm_count
 from repro_torch.kernels.stdp.ref import (stdp_seq_ref,
                                          stdp_seq_sessions_ref,
                                          stdp_update_ref)
@@ -85,64 +88,104 @@ def stdp_update_cuda(x_pre: torch.Tensor, s_post: torch.Tensor,
     return out
 
 
-def _seq_launch(wrapper, name: str, P: torch.Tensor, Q: torch.Tensor,
-                w: torch.Tensor, amps: Sequence[float], w_min: float,
-                w_max: float, batch: int) -> torch.Tensor:
-    """`csrc/stdp.cu`'s multi-step kernel, one launch: w (M, N) with `batch`
-    rows a step of P (K, T*B, M) and Q (K, T*B, N), or S weights (S, M, N),
-    each one row of every step (batch 1), the sessions on the grid's z.
-    Counted on `wrapper`."""
-    what = "(S, M, N)" if w.dim() == 3 else "(M, N)"
-    if P.dim() != 3 or w.dim() not in (2, 3):
-        raise ValueError(f"{name}: P {tuple(P.shape)} must be (K, rows, M) "
-                         f"and w {tuple(w.shape)} {what}")
-    K, rows, _ = P.shape
-    S = w.shape[0] if w.dim() == 3 else 1
-    M, N = w.shape[-2:]
+def _amps(name: str, K: int, amps: Sequence[float]):
+    """The K amplitudes as the C array the kernels take."""
     if not 1 <= K <= MAX_TERMS or len(amps) != K:
         raise ValueError(f"{name}: {K} term planes and {len(amps)} amps; "
                          f"the kernel takes 1 to {MAX_TERMS} of each, as many "
                          "amps as planes")
-    if batch < 1 or S < 1 or rows % (S * batch):
-        raise ValueError(f"{name}: {rows} rows are not whole steps of "
-                         f"{S} sessions of batch {batch}")
-    _check(name, [("P", P, (K, rows, M)), ("Q", Q, (K, rows, N))], w,
-           (torch.float32,))
-    out = torch.empty_like(w)
-    if out.numel() == 0:
-        return out
-    amp = (ctypes.c_float * K)(*amps)
-    with torch.cuda.device(w.device):
-        code = _build.library().stdp_seq_f32(
-            P.data_ptr(), Q.data_ptr(), w.data_ptr(), out.data_ptr(),
-            ctypes.addressof(amp), K, rows // (S * batch), batch, M, N, S,
-            float(w_min), float(w_max),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(name, code)
-    wrapper.launches += 1
-    return out
+    return (ctypes.c_float * K)(*amps)
 
 
 def stdp_seq_cuda(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor, *,
                   amps: Sequence[float], w_min: float, w_max: float,
                   batch: int) -> torch.Tensor:
-    """Launch `csrc/stdp.cu`'s multi-step kernel on CUDA tensors."""
-    if w.dim() != 2:
-        raise ValueError(f"stdp_seq: w {tuple(w.shape)} must be (M, N)")
-    return _seq_launch(stdp_seq_cuda, "stdp_seq", P, Q, w, amps, w_min,
-                       w_max, batch)
+    """Launch `csrc/stdp.cu`'s multi-step kernel on CUDA tensors: w (M, N)
+    with `batch` rows a step of P (K, T*B, M) and Q (K, T*B, N); one
+    launch."""
+    if P.dim() != 3 or w.dim() != 2:
+        raise ValueError(f"stdp_seq: P {tuple(P.shape)} must be (K, rows, "
+                         f"M) and w {tuple(w.shape)} (M, N)")
+    K, rows, _ = P.shape
+    M, N = w.shape
+    amp = _amps("stdp_seq", K, amps)
+    if batch < 1 or rows % batch:
+        raise ValueError(f"stdp_seq: {rows} rows are not whole steps of "
+                         f"batch {batch}")
+    _check("stdp_seq", [("P", P, (K, rows, M)), ("Q", Q, (K, rows, N))], w,
+           (torch.float32,))
+    out = torch.empty_like(w)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(w.device):
+        code = _build.library().stdp_seq_f32(
+            P.data_ptr(), Q.data_ptr(), w.data_ptr(), out.data_ptr(),
+            ctypes.addressof(amp), K, rows // batch, batch, M, N,
+            float(w_min), float(w_max),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check("stdp_seq", code)
+    stdp_seq_cuda.launches += 1
+    return out
+
+
+# (rows, columns) of a thread's micro-tile in `csrc/stdp_sessions.cu`,
+# largest first (a CTA of 8 x 16 threads owns 8 x 16 of them): the rows
+# halve, then the columns, then the rows again, then one weight a thread
+SESSION_MICRO = ((4, 8), (2, 8), (2, 4), (1, 4), (1, 1))
+SESSION_THREADS = (8, 16)
+
+
+def stdp_session_tile(S: int, M: int, N: int, n_sm: int
+                      ) -> Tuple[int, int, int, int]:
+    """(tm, tn, ur, uc): the weight tile of a CTA of
+    `csrc/stdp_sessions.cu` (128 threads) for S sessions of (M, N)
+    weights, and each thread's ur x uc micro-tile of it (tm = 8 ur, tn =
+    16 uc). The largest micro-tile, 4 x 8, gives a thread the most
+    weights for each P and Q value it reads; it shrinks (`SESSION_MICRO`,
+    down to one weight a thread) while the grid, S x row tiles x column
+    tiles, holds fewer CTAs than the card has SMs: each weight's chain is
+    serial, so a small grid is only as fast as one thread's share of its
+    weights."""
+    if S < 1 or M < 1 or N < 1:
+        raise ValueError(f"stdp_session_tile: S={S}, M={M}, N={N}")
+    for ur, uc in SESSION_MICRO:
+        tm, tn = SESSION_THREADS[0] * ur, SESSION_THREADS[1] * uc
+        if S * math.ceil(M / tm) * math.ceil(N / tn) >= n_sm:
+            break
+    return tm, tn, ur, uc
 
 
 def stdp_seq_sessions_cuda(P: torch.Tensor, Q: torch.Tensor,
                            w: torch.Tensor, *, amps: Sequence[float],
                            w_min: float, w_max: float) -> torch.Tensor:
-    """Launch `csrc/stdp.cu`'s multi-step kernel with a session axis:
-    w (S, M, N), P (K, T * S, M), Q (K, T * S, N); one launch."""
-    if w.dim() != 3:
-        raise ValueError(f"stdp_seq_sessions: w {tuple(w.shape)} must be "
-                         "(S, M, N)")
-    return _seq_launch(stdp_seq_sessions_cuda, "stdp_seq_sessions", P, Q, w,
-                       amps, w_min, w_max, 1)
+    """Launch `csrc/stdp_sessions.cu` on CUDA tensors: w (S, M, N), P (K,
+    T * S, M), Q (K, T * S, N); one launch, the tile
+    `stdp_session_tile`'s."""
+    if P.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"stdp_seq_sessions: P {tuple(P.shape)} must be "
+                         f"(K, rows, M) and w {tuple(w.shape)} (S, M, N)")
+    K, rows, _ = P.shape
+    S, M, N = w.shape
+    amp = _amps("stdp_seq_sessions", K, amps)
+    if S < 1 or rows % S:
+        raise ValueError(f"stdp_seq_sessions: {rows} rows are not whole "
+                         f"steps of {S} sessions")
+    _check("stdp_seq_sessions", [("P", P, (K, rows, M)),
+                                 ("Q", Q, (K, rows, N))], w,
+           (torch.float32,))
+    out = torch.empty_like(w)
+    if out.numel() == 0:
+        return out
+    tm, tn, _, _ = stdp_session_tile(S, M, N, sm_count(w.device))
+    with torch.cuda.device(w.device):
+        code = _build.library().stdp_seq_sessions_f32(
+            P.data_ptr(), Q.data_ptr(), w.data_ptr(), out.data_ptr(),
+            ctypes.addressof(amp), K, rows // S, M, N, S, tm, tn,
+            float(w_min), float(w_max),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check("stdp_seq_sessions", code)
+    stdp_seq_sessions_cuda.launches += 1
+    return out
 
 
 def stdp_update(x_pre: torch.Tensor, s_post: torch.Tensor,
@@ -224,4 +267,5 @@ registry.register(registry.KernelSpec(
 
 __all__ = ["stdp_update", "stdp_seq", "stdp_update_cuda", "stdp_seq_cuda",
            "stdp_update_ref", "stdp_seq_ref", "stdp_seq_sessions",
-           "stdp_seq_sessions_cuda", "stdp_seq_sessions_ref", "MAX_TERMS"]
+           "stdp_seq_sessions_cuda", "stdp_seq_sessions_ref",
+           "stdp_session_tile", "MAX_TERMS"]

@@ -9,11 +9,13 @@
 s taking row t * S + s of each plane at step t (`stdp_seq_ref` at batch 1
 on its rows, a session at a time).
 
-Both are loops in the kernels' order (`csrc/stdp.cu`): every outer
-product is summed from zeros over the batch rows b ascending, one rounded
-product and one rounded sum per row; the terms of a step are summed from
-zeros as dw + amp_k * s_k over k ascending. So the card matches them bit
-for bit. Traces and spikes may be fp32 or bf16 (upcast exactly); the
+All are loops in the kernels' order (`csrc/stdp.cu`; the session axis
+`csrc/stdp_sessions.cu`): every outer product is summed from zeros over
+the batch rows b ascending, one rounded product and one rounded sum per
+row; the terms of a step are summed from zeros as dw + amp_k * s_k over k
+ascending. So the card matches them bit for bit (the session kernel
+drops the sum 0 + p q of its one row, which its header shows leaves
+every bit as it was). Traces and spikes may be fp32 or bf16 (upcast exactly); the
 weight is fp32 and the output has its dtype. Nothing is written in place:
 the result is a new tensor, never the input w.
 """

@@ -6,9 +6,15 @@
   rows t * S + s), at S = 1 and at ragged (S, M, N); and
   `spikemm_sessions_chain_ref`, the card's chain, equals `spikemm_chain_ref`
   session by session.
+* The session-axis `stdp_seq` equals the JAX package's `stdp_seq` under
+  `jax.vmap` over sessions at batch 1 (the reference engine's learning
+  step, on its reference route), and keeps every bit of the unbatched
+  plain version with -0 weights and signed-zero planes, as does the order
+  `csrc/stdp_sessions.cu` sums in (each 0 + p q dropped).
 * With a recording stand-in for the kernel library (no card here), each
   CUDA wrapper makes one C call for all sessions with the shape and tile
-  the kernel is to take, and counts one launch.
+  the kernel is to take (`session_tile`, `stdp_session_tile`), and counts
+  one launch; the unbatched `stdp_seq` wrapper passes no session axis.
 * `plan.run(learn=True)` with one weight a batch row (a (B, n_pre, n_post)
   plastic weight and stacked synapse state) equals the unbatched
   `plan.run` of each row alone, bit for bit: outputs, neuron state and the
@@ -21,9 +27,11 @@ import dataclasses
 from contextlib import nullcontext
 from unittest import mock
 
+import jax
 import numpy as np
 import pytest
 import torch
+from repro.kernels.stdp.ops import stdp_seq as jax_stdp_seq
 
 from repro_torch.core import plan, plasticity
 from repro_torch.core.snn_layers import make_plastic_ff
@@ -35,8 +43,9 @@ from repro_torch.kernels.spikemm.ops import (spikemm_sessions,
                                              spikemm_sessions_ref)
 from repro_torch.kernels.spikemm.ref import spikemm_chain_ref, spikemm_ref
 from repro_torch.kernels.stdp import ops as stdp_ops
-from repro_torch.kernels.stdp.ops import (stdp_seq_sessions,
-                                          stdp_seq_sessions_cuda)
+from repro_torch.kernels.stdp.ops import (stdp_seq_cuda, stdp_seq_sessions,
+                                          stdp_seq_sessions_cuda,
+                                          stdp_session_tile)
 from repro_torch.kernels.stdp.ref import stdp_seq_ref, stdp_seq_sessions_ref
 
 # (T, S, K, N): one session, and ragged against every tile
@@ -91,9 +100,11 @@ def stand_in(monkeypatch):
     """A recording stand-in for the kernel library: CPU tensors through the
     CUDA wrappers, device and stream stood in for."""
     lib = mock.Mock(**{"spikemm_sessions_f32.return_value": 0,
-                       "stdp_seq_f32.return_value": 0})
+                       "stdp_seq_f32.return_value": 0,
+                       "stdp_seq_sessions_f32.return_value": 0})
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(spikemm_ops, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(stdp_ops, "sm_count", lambda dev: 132)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -141,17 +152,149 @@ def test_session_tile_plan(T, N, S):
         assert ctas >= 132 and bm == T
 
 
-@pytest.mark.parametrize("K,T,S,M,N", STDP_SHAPES)
+@pytest.mark.parametrize("K,T,S,M,N", STDP_SHAPES + [
+    (2, 32, 64, 256, 128), (4, 32, 64, 256, 128)])
 def test_stdp_seq_sessions_wrapper_is_one_launch(stand_in, K, T, S, M, N):
     out = stdp_seq_sessions_cuda(torch.zeros((K, T * S, M)),
                                  torch.zeros((K, T * S, N)),
                                  torch.zeros((S, M, N)), amps=AMPS[:K],
                                  w_min=-1.0, w_max=1.0)
     assert out.shape == (S, M, N)
-    assert [c[0] for c in stand_in.method_calls] == ["stdp_seq_f32"]
-    assert stand_in.stdp_seq_f32.call_args.args[5:11] == (
-        K, T, 1, M, N, S)
+    assert [c[0] for c in stand_in.method_calls] == ["stdp_seq_sessions_f32"]
+    assert stand_in.stdp_seq_sessions_f32.call_args.args[5:12] == (
+        (K, T, M, N, S) + stdp_session_tile(S, M, N, 132)[:2])
     assert registry.launch_counts()["stdp_seq_sessions"] == 1
+    assert registry.launch_counts()["stdp_seq"] == 0
+
+
+def test_stdp_seq_wrapper_passes_no_session_axis(stand_in):
+    """`csrc/stdp.cu`'s entry point has no session axis: (K, T, B, M, N)
+    and the bounds, counted on `stdp_seq` alone."""
+    K, T, B, M, N = 2, 6, 3, 9, 5
+    stdp_seq_cuda(torch.zeros((K, T * B, M)), torch.zeros((K, T * B, N)),
+                  torch.zeros((M, N)), amps=AMPS[:K], w_min=-1.0, w_max=1.0,
+                  batch=B)
+    assert [c[0] for c in stand_in.method_calls] == ["stdp_seq_f32"]
+    args = stand_in.stdp_seq_f32.call_args.args
+    assert len(args) == 13 and args[5:12] == (K, T, B, M, N, -1.0, 1.0)
+    assert registry.launch_counts()["stdp_seq"] == 1
+    assert registry.launch_counts()["stdp_seq_sessions"] == 0
+
+
+# (S, M, N) -> (tm, tn, ur, uc) on 132 SMs: serve_plastic's window at S =
+# 64 (the pair and the triplet rule alike: the plan does not read K; one
+# wave of 512 CTAs), 10, 7 and 1 (one weight a thread, 256 CTAs); the
+# family's ragged (130, 140) and the triplet test shape (9, 5); weights
+# of 64 columns; many ragged sessions
+STDP_SESSION_TILES = {(64, 256, 128): (32, 128, 4, 8),
+                      (10, 256, 128): (16, 128, 2, 8),
+                      (7, 256, 128): (16, 64, 2, 4),
+                      (1, 256, 128): (8, 16, 1, 1),
+                      (5, 130, 140): (16, 64, 2, 4),
+                      (3, 9, 5): (8, 16, 1, 1),
+                      (7, 256, 64): (8, 64, 1, 4),
+                      (200, 130, 140): (32, 128, 4, 8)}
+
+
+@pytest.mark.parametrize("S,M,N", sorted(STDP_SESSION_TILES))
+def test_stdp_session_tile_plan(S, M, N):
+    """The tile is 8 x 16 threads times the micro-tile; the micro-tile is
+    the largest of its sequence (4 x 8, 2 x 8, 2 x 4, 1 x 4, 1 x 1) whose
+    grid holds at least as many CTAs as SMs, or the least where none
+    does."""
+    tm, tn, ur, uc = stdp_session_tile(S, M, N, 132)
+    assert (tm, tn, ur, uc) == STDP_SESSION_TILES[(S, M, N)]
+    assert (tm, tn) == (8 * ur, 16 * uc)
+    micro = stdp_ops.SESSION_MICRO
+    i = micro.index((ur, uc))
+
+    def ctas(u, c):
+        return S * -(-M // (8 * u)) * -(-N // (16 * c))
+    assert all(ctas(*m) < 132 for m in micro[:i])
+    assert ctas(ur, uc) >= 132 or i == len(micro) - 1
+    if (S, M, N) == (64, 256, 128):
+        assert ctas(ur, uc) == 512
+
+
+@pytest.mark.parametrize("K", [2, 4])
+def test_stdp_seq_sessions_matches_the_reference_vmap(K):
+    """The port's session axis against the JAX package's learning step in
+    a serve window: `stdp_seq` at batch 1 under `jax.vmap` over sessions
+    (reference route), on inputs from a numpy seed. The reference sums a
+    step's terms in one einsum, in another order than the port's dw +
+    amp_k s_k, so the two agree within 1e-6 (relative and absolute), not
+    bit for bit."""
+    T, S, M, N = 9, 4, 24, 20
+    rng = np.random.default_rng(K)
+    P = rng.random((K, T * S, M)).astype(np.float32)
+    Q = (rng.random((K, T * S, N)) < 0.3).astype(np.float32)
+    w = (0.3 * rng.standard_normal((S, M, N))).astype(np.float32)
+    kw = dict(amps=AMPS[:K], w_min=-0.4, w_max=0.4)
+    ref = jax.vmap(lambda p, q, ws: jax_stdp_seq(p, q, ws, batch=1, **kw),
+                   in_axes=(2, 2, 0))(P.reshape(K, T, S, M),
+                                      Q.reshape(K, T, S, N), w)
+    got = stdp_seq_sessions(*(torch.from_numpy(a) for a in (P, Q, w)), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=1e-6)
+    assert not np.array_equal(got.numpy(), w)
+    assert (np.abs(got.numpy()) == 0.4).any(), "no weight reached the clip"
+
+
+def _kernel_order(P, Q, w, *, amps, w_min, w_max):
+    """`csrc/stdp_sessions.cu`'s arithmetic on the CPU: per session and
+    step, dw from +0 as dw + amp_k * (p q) over k ascending (each 0 + p q
+    of the plain order dropped), then clip(w + dw)."""
+    S = w.shape[0]
+    out = []
+    for s in range(S):
+        ws = w[s].clone()
+        for r in range(s, P.shape[1], S):
+            dw = torch.zeros_like(ws)
+            for k, a in enumerate(amps):
+                dw = dw + torch.tensor(a, dtype=torch.float32) * (
+                    P[k, r, :, None] * Q[k, r, None, :])
+            ws = torch.clamp(ws + dw, w_min, w_max)
+        out.append(ws)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("planes", ["zero", "signed"])
+def test_stdp_seq_sessions_plain_keeps_signed_zeros(planes):
+    """-0 weights (and +0 ones) against planes of signed zeros alone, or
+    with nonzero pre-side values whose products with +0 are -0: the
+    session-axis plain version equals `stdp_seq_ref` at batch 1 on each
+    session's rows as int32 views, and so does the kernel's order, which
+    drops each 0 + p q. Session 0's every term is -0 (p of the sign
+    opposite to amp_k against q = +0): its dw must still be +0, since it
+    is summed from +0, so each -0 weight of session 0 becomes +0."""
+    K, T, S, M, N = 3, 4, 3, 6, 5
+    amps = (0.5, -0.25, 0.125)
+    rng = np.random.default_rng(7)
+    sign = np.where(rng.random((K, T * S, M)) < 0.5, -1.0, 1.0)
+    sign[:, 0::S] = -np.sign(amps)[:, None, None]
+    P = sign * (0.0 if planes == "zero" else rng.random((K, T * S, M)))
+    Q = np.where(rng.random((K, T * S, N)) < 0.5, -0.0, 0.0)
+    if planes == "signed":
+        Q = np.where(rng.random((K, T * S, N)) < 0.4, 1.0, Q)
+    Q[:, 0::S] = 0.0
+    w = np.where(rng.random((S, M, N)) < 0.6, -0.0,
+                 0.2 * rng.standard_normal((S, M, N)))
+    P, Q, w = (torch.from_numpy(a.astype(np.float32)) for a in (P, Q, w))
+    assert torch.signbit(w[0]).logical_and(w[0] == 0).any()
+    kw = dict(amps=amps, w_min=-0.4, w_max=0.4)
+    got = stdp_seq_sessions(P, Q, w, **kw)
+    for i in range(S):
+        alone = stdp_seq_ref(P[:, i::S].contiguous(), Q[:, i::S].contiguous(),
+                             w[i], batch=1, **kw)
+        assert torch.equal(got[i].view(torch.int32), alone.view(torch.int32))
+    assert torch.equal(_kernel_order(P, Q, w, **kw).view(torch.int32),
+                       got.view(torch.int32))
+    # session 0: every -0 weight became +0 at its first step, the rest
+    # clipped (in the zero planes' case, every session)
+    want = torch.clamp(torch.where(w == 0, 0.0, w), -0.4, 0.4)
+    some = slice(None) if planes == "zero" else slice(0, 1)
+    assert torch.equal(got[some].view(torch.int32),
+                       want[some].view(torch.int32))
 
 
 def test_session_wrappers_refuse_shapes_they_cannot_take(stand_in):

@@ -138,8 +138,11 @@ tree the same way, so two trees compare in one call.
             the highest SM clock);
             `lif_bwd` (B1) and `linrec_bwd` (B2), the backward kernels:
             each model's calls of one train_shd step (captured at the
-            registry; timed: the soma (60, 48, 64), the branches (60, 48,
-            256) and the readout (60, 48, 20)), `lif_bwd` with every
+            registry, a stride-0 view kept a view; timed: the soma (60,
+            48, 64), the branches (60, 48, 256) on the soma's (60, 48, 64)
+            cotangent with g_a summed over T and B, and the readout (60,
+            48, 20); B2 also at every other path's readout, its chain
+            floor printed beside), `lif_bwd` with every
             surrogate at alpha 0.5, 1, 2 and both resets at the JAX tests'
             (37, 3, 130), and at (20, 3, 130), T = 1, T = 0 and ragged
             (17, 1, 33), (5, 3, 7), and across the segments of its lane
@@ -159,12 +162,15 @@ tree the same way, so two trees compare in one call.
             tagged with the bci path (the kernel table's "2, bci" and
             "B1, bci" rows);
             `linrec_bwd` at (24, 3, 136), (37, 3,
-            136), T = 1, T = 0 and (17, 1, 33) with a full and a stride-0
-            decay, asked for every gradient, for g_x alone and for g_a
-            and g_x: each bit for bit its plain version as fp32 bit
+            136), T = 1, T = 0 and (17, 1, 33) with a full, a stride-0
+            and a (D,) decay (g_a summed), asked for every gradient, for
+            g_x alone and for g_a and g_x, and at the edges of its
+            segments, buffers and lane maps (`linrec_bwd_edge_cases`):
+            each bit for bit its plain version as fp32 bit
             patterns (sigmoid: rtol 1e-6, atol 1e-7, its expf), and
             `linrec_bwd`'s gx also equal to the forward kernel run on the
-            flipped, one-shifted decay; `spikemm_wgrad` (B3) at every g_w call
+            flipped, one-shifted decay; its timed calls one launch each,
+            as `lif_bwd`'s; `spikemm_wgrad` (B3) at every g_w call
             of one step of the three training paths (train_shd's
             (700, 2880) @ (2880, 256) and (64, 2880) @ (2880, 20),
             train_ecg's (4, 3200) @ (3200, 64), the recurrent
@@ -210,13 +216,16 @@ tree the same way, so two trees compare in one call.
             `nvidia-smi`'s clocks.max.sm), and their cycles by pass
             at train_ecg's call, `alif_bwd`'s and `lif_bwd`'s by phase
             (load, forward, surrogate, reverse, store, the sums over B) at
-            train_alif_ff's and train_shd's soma call, and
+            train_alif_ff's and train_shd's soma call, `linrec_bwd`'s
+            (load, reverse, store, sums) at train_shd's and train_ecg's
+            calls, and
             `spikemm_wgrad`'s by phase (waits, copies' issue, products,
             the cluster barrier, the combine; the steps computed) at each
             training g_w (a build of `rec_bwd.cu`, `alif_bwd.cu`,
-            `lif_bwd.cu` and `spikemm_wgrad.cu` with
+            `lif_bwd.cu`, `spikemm_wgrad.cu` and `linrec_bwd.cu` with
             -DREC_BWD_PASS_CLOCKS, -DALIF_BWD_PASS_CLOCKS,
-            -DLIF_BWD_PASS_CLOCKS and -DWGRAD_PASS_CLOCKS, made beside the
+            -DLIF_BWD_PASS_CLOCKS, -DWGRAD_PASS_CLOCKS and
+            -DLINREC_BWD_PASS_CLOCKS, made beside the
             library, bit for bit the library's outputs);
             `spikemm` also at the parity harness's inputs, at the
             sparse_integ path's hidden INTEG at each density and at the
@@ -379,7 +388,13 @@ tree the same way, so two trees compare in one call.
             `spikemm_wgrad` under auto and never and the sparse channel
             under always) and each within the same tolerances of the counted
             run (bit equality printed); the step's ms by host clock (median
-            of 5 after 2 warm-ups) and the card's by kernel (profiler).
+            of 5 after 2 warm-ups) and the card's by kernel (profiler,
+            printed); the dendritic step's branch call is its one
+            linrec_bwd: no PyTorch fill, copy, add or sum of the
+            branches' planes in a step (profiler with record_shapes:
+            `branch_call_ops`, named on a line of their own), and
+            hidden/neuron/w_tau_d, summed by that kernel, within a
+            relative L2 error of 1e-4 of the CPU's.
 12. train_ecg
             `examples/ecg_srnn_torch.py`'s training at the published
             widths: `make_srnn_ecg` 4 -> 64 self-recurrent ALIF -> 6 LI
@@ -739,6 +754,12 @@ REC_BWD_NO_SPILL = r"rec_bwd_row_kernelILb[01]ELi64E"
 # `lif_bwd` at either reset, as its mangled names hold it: the build fails
 # if it spills or if not both are found
 LIF_BWD_NO_SPILL = r"\dlif_bwd_kernelILb[01]EE"
+# `linrec_bwd` at either decay (a value a lane, a plane), each g_a (none,
+# a plane, summed) and either copy route (tensor copies, cp.async; a decay
+# plane takes cp.async): the build fails if one spills or if not all nine
+# are found
+LINREC_BWD_NO_SPILL = r"linrec_bwd_kernelILb[01]ELi[012]ELb[01]EE"
+LINREC_BWD_INSTANCES = 9
 # an assumed latency of a dependent fp32 add on an H100 SM, in cycles (not
 # measured here): the chain floor of the recurrent backward is T x N such
 # adds (the plain version's order) at the card's highest SM clock
@@ -771,7 +792,7 @@ SOURCES = {
     # no Pallas kernel): B1 and B2
     "lif_bwd": ("src/repro_torch/csrc/lif_bwd.cu",
                 "src/repro/kernels/lif/ops.py:78"),
-    "linrec_bwd": ("src/repro_torch/csrc/linrec.cu",
+    "linrec_bwd": ("src/repro_torch/csrc/linrec_bwd.cu",
                    "src/repro/kernels/linrec/ops.py:63"),
     # B4 and B5
     "lifrec_bwd": ("src/repro_torch/csrc/rec_bwd.cu",
@@ -913,30 +934,39 @@ def phase_build():
     if len(lane) != 2 or any(lane.values()):
         raise AssertionError(f"build: lif_bwd's instantiations {lane} "
                              "(want its two resets, neither spilling)")
+    b2 = {name: spills for name, spills in ptxas_spills(
+        (lib.parent / "build.log").read_text()).items()
+        if re.search(LINREC_BWD_NO_SPILL, name)}
+    if len(b2) != LINREC_BWD_INSTANCES or any(b2.values()):
+        raise AssertionError(f"build: linrec_bwd's instantiations {b2} "
+                             f"(want {LINREC_BWD_INSTANCES}, none spilling)")
     log(f"build: nvcc seconds by source {json.dumps(nvcc_s)}; lif_bwd's "
-        f"{len(lane)} instantiations, no spill")
+        f"{len(lane)} instantiations and linrec_bwd's {len(b2)}, no spill")
     return {"build_s": secs, "library_s": lib_s, "nvcc_s": nvcc_s}
 
 
 # the clock-stamped build of `csrc/rec_bwd.cu` (-DREC_BWD_PASS_CLOCKS),
 # `csrc/alif_bwd.cu` (-DALIF_BWD_PASS_CLOCKS), `csrc/lif_bwd.cu`
-# (-DLIF_BWD_PASS_CLOCKS) and `csrc/spikemm_wgrad.cu` (-DWGRAD_PASS_CLOCKS),
-# loaded by `phase_build`
+# (-DLIF_BWD_PASS_CLOCKS), `csrc/spikemm_wgrad.cu` (-DWGRAD_PASS_CLOCKS)
+# and `csrc/linrec_bwd.cu` (-DLINREC_BWD_PASS_CLOCKS), loaded by
+# `phase_build`
 _PASS_LIB = None
 # the backward entry points of the stamped build, and its stamp readers
 PASS_SOURCES = ("rec_bwd.cu", "alif_bwd.cu", "lif_bwd.cu",
-                "spikemm_wgrad.cu")
+                "spikemm_wgrad.cu", "linrec_bwd.cu")
 PASS_ENTRIES = ("lifrec_bwd_f32", "alifrec_bwd_f32", "alif_bwd_f32",
-                "lif_bwd_f32", "spikemm_wgrad_f32")
+                "lif_bwd_f32", "spikemm_wgrad_f32", "linrec_bwd_f32")
 PASS_READERS = ("rec_bwd_pass_clocks", "alif_bwd_pass_clocks",
-                "lif_bwd_pass_clocks", "wgrad_pass_clocks")
+                "lif_bwd_pass_clocks", "wgrad_pass_clocks",
+                "linrec_bwd_pass_clocks")
 
 
 def start_pass_clock_build():
     """Start nvcc on `csrc/rec_bwd.cu` with -DREC_BWD_PASS_CLOCKS (the warp
-    route's clock stamps by pass), `csrc/alif_bwd.cu`, `csrc/lif_bwd.cu`
-    and `csrc/spikemm_wgrad.cu` with -DALIF_BWD_PASS_CLOCKS,
-    -DLIF_BWD_PASS_CLOCKS and -DWGRAD_PASS_CLOCKS (their cycles by phase):
+    route's clock stamps by pass), `csrc/alif_bwd.cu`, `csrc/lif_bwd.cu`,
+    `csrc/spikemm_wgrad.cu` and `csrc/linrec_bwd.cu` with
+    -DALIF_BWD_PASS_CLOCKS, -DLIF_BWD_PASS_CLOCKS, -DWGRAD_PASS_CLOCKS and
+    -DLINREC_BWD_PASS_CLOCKS (their cycles by phase):
     one `nvcc -c` a source, all started together, into `build/bwd_passes/`
     for a shared library of their own; returns ([(process, source)],
     objects, library path)."""
@@ -947,7 +977,8 @@ def start_pass_clock_build():
     procs = [(subprocess.Popen(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-DREC_BWD_PASS_CLOCKS",
          "-DALIF_BWD_PASS_CLOCKS", "-DLIF_BWD_PASS_CLOCKS",
-         "-DWGRAD_PASS_CLOCKS", "-c", str(_build.CSRC / src), "-o",
+         "-DWGRAD_PASS_CLOCKS", "-DLINREC_BWD_PASS_CLOCKS", "-c",
+         str(_build.CSRC / src), "-o",
          str(obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True), src) for src, obj in zip(PASS_SOURCES, objs)]
     return procs, objs, out / "libbwdpasses.so"
@@ -1330,9 +1361,10 @@ def sm_max_clock_mhz():
 
 
 def chain_floor_ms(T, N):
-    """A floor under the recurrent backward's reverse pass in the order its
-    plain version fixes: T steps, each an N-term chain of dependent rounded
-    adds (rec_t) of FADD_CYCLES cycles (assumed) at the highest SM clock."""
+    """A floor under a reverse pass in the order its plain version fixes:
+    T steps, each a chain of N dependent rounded operations of FADD_CYCLES
+    cycles (assumed) at the highest SM clock; the recurrent backward's an
+    N-term sum (rec_t), B2's a product and an add (N = 2)."""
     return T * N * FADD_CYCLES / (sm_max_clock_mhz() * 1e3)
 
 
@@ -2037,16 +2069,21 @@ def work(name, args, out, kw=None):
         ops = 2 * x.numel()
         return a_bytes + 4 * (2 * x.numel() + 2 * h0.numel()), ops, ops
     if name == "linrec_bwd":
-        # reads gy, g_hT and a; writes gx; g_a also reads y (and h0) and
-        # writes g_a; g_h0 writes (B, D)
+        # reads gy (the branches': the soma's (T, B, N)), g_hT where given
+        # and a (its compact storage); writes gx; g_a also reads y and h0
+        # and writes g_a, summed in the decay's shape or a plane; g_h0
+        # writes (B, D)
+        from repro_torch.kernels.linrec.ref import lanes_decay
         a, y, h0, gy, ghT = args
         need_a, need_h0 = kw.get("need_a", True), kw.get("need_h0", True)
         a_bytes = 4 * int(np.prod([n for n, st in zip(a.shape, a.stride())
                                    if st != 0]))
         n, m = y.numel(), h0.numel()
-        nbytes = a_bytes + 4 * (2 * n + m) + (4 * (2 * n + m) if need_a
-                                                else 0) + 4 * m * need_h0
-        ops = 2 * n + n * need_a + m * need_h0
+        summed = need_a and lanes_decay(a, y.shape[2])
+        nbytes = (a_bytes + 4 * (gy.numel() + (0 if ghT is None else m) + n)
+                  + (4 * (n + m + (a.numel() if summed else n))
+                     if need_a else 0) + 4 * m * need_h0)
+        ops = 2 * n + (2 * n if summed else n) * need_a + m * need_h0
         return nbytes, ops, ops
     T, B, N = args[0].shape
     nbytes = 4 * (sum(t.numel() for t in tensors)
@@ -2895,6 +2932,10 @@ def phase_kernels(cases):
             if name in ("lifrec_bwd", "alifrec_bwd"):
                 clock = sm_max_clock_mhz()
                 chain_ms = chain_floor_ms(*args[0].shape[::2])
+            if name == "linrec_bwd":
+                # B2's chain: a rounded product and a rounded add a step
+                clock = sm_max_clock_mhz()
+                chain_ms = chain_floor_ms(args[1].shape[0], 2)
             p_ms = cuda_ms(lambda: plain[name](*args, **kw),
                            iters=case.plain_iters or (5 if heavy else 20),
                            warmup=1 if case.plain_iters else 3)
@@ -2923,6 +2964,7 @@ def phase_kernels(cases):
             kernel_ms = dense_ms = occ_ms = witness = None
             if name == "lif_bwd":
                 kernel_ms = cuda_ms(lif_bwd_alone(args, kw), iters=200)
+            if name in ("lif_bwd", "linrec_bwd"):
                 # one launch a call: the kernel and nothing after it, on
                 # the host (its counter, no PyTorch op that runs a kernel),
                 # on the device (a CUDA graph of the call holds that one
@@ -2932,22 +2974,22 @@ def phase_kernels(cases):
                 ops = host_ops(lambda: cuda[name](*args, **kw))
                 if ops or cuda[name].launches != before + 1:
                     raise AssertionError(
-                        f"lif_bwd [{label}]: a call made "
+                        f"{name} [{label}]: a call made "
                         f"{cuda[name].launches - before} launches and the "
                         f"PyTorch ops {ops}, not its one kernel alone")
                 captured = graph_kernels(lambda: cuda[name](*args, **kw))
                 ran = device_kernels(lambda: cuda[name](*args, **kw))
                 for seen, how in ((captured, "captured"), (ran, "ran")):
                     if seen and (len(seen) != 1
-                                 or "lif_bwd_kernel" not in seen[0]):
-                        raise AssertionError(f"lif_bwd [{label}]: a call "
+                                 or f"{name}_kernel" not in seen[0]):
+                        raise AssertionError(f"{name} [{label}]: a call "
                                              f"{how} {seen}, not its one "
                                              "kernel")
                 if not captured:
-                    raise AssertionError(f"lif_bwd [{label}]: a CUDA graph "
+                    raise AssertionError(f"{name} [{label}]: a CUDA graph "
                                          "of a call holds no node")
                 if not ran:
-                    log(f"lif_bwd [{label}]: the profiler recorded no device "
+                    log(f"{name} [{label}]: the profiler recorded no device "
                         "event; held by the CUDA graph's one node, the "
                         "launch counter and host ops")
                 witness = {"graph": captured, "profiler": ran}
@@ -2984,7 +3026,7 @@ def phase_kernels(cases):
             planes = {"lifrec_bwd": 1, "alifrec_bwd": 2}.get(name)
             scratch_ms = (None if planes is None else bound(
                 nbytes + 2 * 4 * planes * args[0].numel(), flops)[0])
-            T = args[1].shape[0] if name == "linrec" else (
+            T = args[1].shape[0] if name in ("linrec", "linrec_bwd") else (
                 args[0].shape[1] // kw["batch"] if name == "stdp_seq" else (
                     args[0].shape[1] // args[2].shape[0]
                     if name == "stdp_seq_sessions" else (
@@ -3180,60 +3222,66 @@ def phase_rec_bwd_passes(cases):
     return out
 
 
-# the lane backward kernels' phases (`lif_bwd`, `alif_bwd`), in the order
-# of their -DLIF_BWD_PASS_CLOCKS / -DALIF_BWD_PASS_CLOCKS slots
-# (`csrc/lane_bwd.cuh`: summed over their segments), and each kernel's
-# home call: its training path's step
+# the lane backward kernels' phases (`lif_bwd`, `alif_bwd`, `linrec_bwd`),
+# in the order of their -D..._PASS_CLOCKS slots (`csrc/lane_bwd.cuh`:
+# summed over their segments), the phases each kernel has, and each
+# kernel's home calls: its training paths' steps
 LANE_BWD_PHASES = ("load", "forward", "surrogate", "reverse", "store",
                    "sums", "cotangent wait")
 LANE_BWD_SLOTS = 8
-LANE_BWD_HOME = {"lif_bwd": "train_shd", "alif_bwd": "train_alif_ff"}
+LANE_BWD_HOME = {"lif_bwd": ("train_shd",), "alif_bwd": ("train_alif_ff",),
+                 "linrec_bwd": ("train_shd", "train_ecg")}
+LANE_BWD_OWN_PHASES = {"linrec_bwd": ("load", "reverse", "store", "sums")}
 
 
 def phase_lane_bwd_passes(cases, name):
-    """Where a lane backward kernel (`lif_bwd`, `alif_bwd`) spends its
-    time, by phase: its training path's captured step call through the
-    wrapper on the clock-stamped build (`phase_build`), its outputs equal
-    to the library's bit for bit. Mean cycles of each phase over the
-    blocks (a stamped call after the timing), the whole kernel's, and the
-    stamped build's own ms."""
+    """Where a lane backward kernel (`lif_bwd`, `alif_bwd`, `linrec_bwd`)
+    spends its time, by phase: each of its training paths' captured step
+    calls through the wrapper on the clock-stamped build (`phase_build`),
+    its outputs equal to the library's bit for bit. Mean cycles of each
+    phase over the blocks (a stamped call after the timing), the whole
+    kernel's, and the stamped build's own ms."""
     from repro_torch.kernels import _build
     cuda = kernel_impls()[0]
-    case = next(c for c in cases[name] if c.path == LANE_BWD_HOME[name])
-    T, B, N = case.args[0].shape
-    blocks = -(-B * N // 32)
-    ref = cuda[name](*case.args, **case.kw)
-    package = _build.library
-    _build.library = lambda: _PASS_LIB
-    try:
-        ms = cuda_ms(lambda: cuda[name](*case.args, **case.kw), iters=200)
-        got = cuda[name](*case.args, **case.kw)
-        sync()
-    finally:
-        _build.library = package
-    if not all(torch.equal(g, r) for g, r in zip(got, ref)
-               if g is not None):
-        raise AssertionError(f"{name}: the clock-stamped build's outputs "
-                             "differ from the library's")
-    clk = torch.zeros(LANE_BWD_SLOTS * blocks, dtype=torch.int64)
-    _build.check(name, getattr(_PASS_LIB, f"{name}_pass_clocks")(
-        clk.data_ptr(), LANE_BWD_SLOTS * blocks))
-    per_block = clk.view(blocks, LANE_BWD_SLOTS).double()
-    mean = per_block.mean(0).tolist()
-    most = per_block.max(0).values.tolist()
-    phases = dict(zip(LANE_BWD_PHASES, mean))
-    out = {"call": case.label, "stamped_ms": ms, "blocks": blocks,
-           "cycles": phases, "cycles_a_step": {k: v / T
-                                               for k, v in phases.items()},
-           "most_cycles": dict(zip(LANE_BWD_PHASES, most)),
-           "total_cycles": mean[-1], "most_total_cycles": most[-1]}
-    log(f"passes {name} [{case.label}]: stamped build {ms:.4f} ms; "
-        + ", ".join(f"{k} {v:.0f} ({v / T:.1f} a step)"
-                    for k, v in phases.items())
-        + f", whole kernel {mean[-1]:.0f} cycles, mean of {blocks} blocks "
-        f"(the slowest block's: {most[-1]:.0f} in all, sums {most[5]:.0f}); "
-        "bit for bit the library's")
-    return {name: out}
+    outs = []
+    for case in (c for c in cases[name] if c.path in LANE_BWD_HOME[name]):
+        T, B, N = case.args[1 if name == "linrec_bwd" else 0].shape
+        blocks = -(-B * N // 32)
+        ref = cuda[name](*case.args, **case.kw)
+        package = _build.library
+        _build.library = lambda: _PASS_LIB
+        try:
+            ms = cuda_ms(lambda: cuda[name](*case.args, **case.kw),
+                         iters=200)
+            got = cuda[name](*case.args, **case.kw)
+            sync()
+        finally:
+            _build.library = package
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)
+                   if g is not None):
+            raise AssertionError(f"{name}: the clock-stamped build's "
+                                 "outputs differ from the library's")
+        clk = torch.zeros(LANE_BWD_SLOTS * blocks, dtype=torch.int64)
+        _build.check(name, getattr(_PASS_LIB, f"{name}_pass_clocks")(
+            clk.data_ptr(), LANE_BWD_SLOTS * blocks))
+        per_block = clk.view(blocks, LANE_BWD_SLOTS).double()
+        mean = per_block.mean(0).tolist()
+        most = per_block.max(0).values.tolist()
+        own = LANE_BWD_OWN_PHASES.get(name, LANE_BWD_PHASES)
+        phases = {k: v for k, v in zip(LANE_BWD_PHASES, mean) if k in own}
+        outs.append({"call": case.label, "stamped_ms": ms, "blocks": blocks,
+                     "cycles": phases,
+                     "cycles_a_step": {k: v / T for k, v in phases.items()},
+                     "most_cycles": {k: v for k, v in zip(LANE_BWD_PHASES,
+                                                         most) if k in own},
+                     "total_cycles": mean[-1], "most_total_cycles": most[-1]})
+        log(f"passes {name} [{case.label}]: stamped build {ms:.4f} ms; "
+            + ", ".join(f"{k} {v:.0f} ({v / T:.1f} a step)"
+                        for k, v in phases.items())
+            + f", whole kernel {mean[-1]:.0f} cycles, mean of {blocks} "
+            f"blocks (the slowest block's: {most[-1]:.0f} in all, sums "
+            f"{most[5]:.0f}); bit for bit the library's")
+    return {name: outs}
 
 
 # spikemm_wgrad's phases, in the order of its -DWGRAD_PASS_CLOCKS slots
@@ -4955,7 +5003,22 @@ def recording(routes=None, bwd_calls=None):
     saved = dict(reg)
 
     def clone(t):
-        return t.detach().clone() if torch.is_tensor(t) else t
+        # the compact storage of a stride-0 view, re-expanded: the kernel
+        # is to see the strides the path handed it (a cloned (T, B, D)
+        # view of an (N,) decay would be a full plane)
+        if not torch.is_tensor(t):
+            return t
+        t = t.detach()
+        keep = tuple(slice(0, 1) if st == 0 and n > 1 else slice(None)
+                     for n, st in zip(t.shape, t.stride()))
+        c = t[keep].clone().expand(t.shape)
+        zero = [(n > 1 and st == 0) for n, st in zip(t.shape, t.stride())]
+        if [(n > 1 and st == 0) for n, st in zip(c.shape, c.stride())] != \
+                zero or not torch.equal(c, t):
+            raise AssertionError(f"recording: a captured {tuple(t.shape)} "
+                                 f"tensor of strides {t.stride()} was "
+                                 f"cloned to strides {c.stride()}")
+        return c
     try:
         if routes is not None:
             def select(*args, _route=registry.get("spikemm").select_channel,
@@ -5020,10 +5083,10 @@ def train_cases():
     SEG + 1, 2 SEG + 5 and 300 (SEG the lane backward's segment) on the
     soma's 48 x 64 lanes and ragged 1 x 33, 3 x 7, 3 x 130, every
     surrogate, both resets, alpha 2; `linrec_bwd` at the JAX
-    shapes (24, 3, 136) and (37, 3, 136) with a full decay plane and a
-    stride-0 one, each asked for every gradient, for g_x alone (the
-    readout's) and for g_a and g_x (the branches'), at T = 1 and 0 and
-    ragged; `lifrec_bwd`, `alifrec_bwd` and `alif_bwd` at
+    shapes (24, 3, 136) and (37, 3, 136) with a full decay plane, a
+    stride-0 (T, B, D) view and a (D,) decay (g_a summed), each asked for
+    every gradient, for g_x alone (the readout's) and for g_a and g_x, at
+    T = 1 and 0 and ragged, and at `linrec_bwd_edge_cases()`; `lifrec_bwd`, `alifrec_bwd` and `alif_bwd` at
     `rec_bwd_cases()`. And spikemm's g_w products: `spikemm_wgrad` at
     every g_w call of the three paths' first models (captured at the
     registry; the ECG's recurrent one from s0 and the spikes plane),
@@ -5049,6 +5112,16 @@ def train_cases():
                 train_step(nodes, params, x, y, loss_fn=path.loss,
                            lr=path.lr)
             sync()
+            # the captured arguments keep the path's stride-0 views (the
+            # clone asserts it for each): how many, by kernel
+            views = {name: sum(
+                1 for args, _ in got for t in args if torch.is_tensor(t)
+                and any(n > 1 and st == 0
+                        for n, st in zip(t.shape, t.stride())))
+                for name, got in calls.items()}
+            log(f"train cases [{path.name} {kind}]: captured backward "
+                f"calls {({k: len(v) for k, v in calls.items()})}, "
+                f"arguments kept as stride-0 views {views}")
             for name, got in calls.items():
                 tag = path.name if name not in seen else \
                     f"{path.name}_{kind}"
@@ -5142,9 +5215,10 @@ def train_cases():
                     (17, 1, 33)):
         x = torch.randn((T, B, D), generator=g).to(DEV)
         h0 = torch.randn((B, D), generator=g).to(DEV)
+        a_d = rnd(D, lo=0.5, hi=0.99)
         for kind, a in (("full decay plane", rnd(T, B, D, lo=0.5, hi=0.99)),
-                        ("stride-0 decay",
-                         rnd(D, lo=0.5, hi=0.99).expand(T, B, D))):
+                        ("stride-0 decay", a_d.expand(T, B, D)),
+                        ("(D,) decay, g_a summed", a_d)):
             yv, _ = linrec_cuda(a, x, h0)
             gy = torch.randn((T, B, D), generator=g).to(DEV)
             ghT = torch.randn((B, D), generator=g).to(DEV)
@@ -5154,9 +5228,59 @@ def train_cases():
                     f"{need[1]}", (a, yv, h0, gy, ghT),
                     kw=dict(need_a=need[0], need_h0=need[1]),
                     zero_ok=T == 0))
+    out["linrec_bwd"] += linrec_bwd_edge_cases()
     for name, cases in rec_bwd_cases().items():
         out[name] += cases
     out["spikemm_wgrad"] += wgrad_edge_cases()
+    return out
+
+
+def linrec_bwd_edge_cases():
+    """[Case] of `linrec_bwd` where its segments, buffers and lane maps
+    have edges, each bit for bit its plain version: T = 1, SEG - 1, SEG +
+    1, 2 SEG + 5, 4 SEG + 3 (more segments than buffers: the ring refills)
+    and 300, on rows of 48 x 20 (the readouts'), 1 x 33 and 3 x 7 (not a
+    multiple of 4 or 32 lanes) and 2 x 64 (groups of 32 columns, each
+    summed by its last CTA), with a (D,) decay (g_a summed in the
+    kernel, g_h0), a full decay plane (a plane of g_a, g_h0) and a
+    stride-0 view (a plane of g_a, no g_h0); and the branch call, the
+    soma's (T, B, N) cotangent read for K branches, at (48, 4, 64) (16-byte
+    copies), (3, 3, 7) and (5, 2, 10) (lane copies), with and without
+    g_hT, at T = 1, 60, 2 SEG + 5 and 300."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.linrec.ops import linrec_cuda
+    g = torch.Generator().manual_seed(35)
+    seg = _build.LANE_BWD_SEG
+    out = []
+
+    def rnd(*shape, lo=-1.0, hi=1.0):
+        return (lo + (hi - lo) * torch.rand(shape, generator=g)).to(DEV)
+    for T in (1, seg - 1, seg + 1, 2 * seg + 5, 4 * seg + 3, 300):
+        for B, D in ((TRAIN_B, N_OUT), (1, 33), (3, 7), (2, 64)):
+            x, h0 = rnd(T, B, D), rnd(B, D)
+            a_d = rnd(D, lo=0.5, hi=0.99)
+            for kind, a, need_h0 in (
+                    ("(D,) decay, g_a summed", a_d, True),
+                    ("full decay plane", rnd(T, B, D, lo=0.5, hi=0.99), True),
+                    ("stride-0 decay", a_d.expand(T, B, D), False)):
+                y, _ = linrec_cuda(a, x, h0)
+                out.append(Case(
+                    f"segment edge ({T}, {B}, {D}), {kind}, g_h0 {need_h0}",
+                    (a, y, h0, rnd(T, B, D), rnd(B, D)),
+                    kw=dict(need_a=True, need_h0=need_h0)))
+    for T in (1, 60, 2 * seg + 5, 300):
+        for B, K, N in ((TRAIN_B, N_BRANCHES, N_HIDDEN), (3, 3, 7),
+                        (5, 2, 10)):
+            D = K * N
+            x, h0 = rnd(T, B, D), rnd(B, D)
+            a = rnd(D, lo=0.5, hi=0.99)
+            y, _ = linrec_cuda(a, x, h0)
+            for with_hT in (True, False):
+                out.append(Case(
+                    f"branches ({T}, {B}, {K} x {N}), soma cotangent "
+                    f"({T}, {B}, {N}), g_hT {with_hT}",
+                    (a, y, h0, rnd(T, B, N), rnd(B, D) if with_hT
+                     else None), kw=dict(need_a=True, need_h0=True)))
     return out
 
 
@@ -5508,21 +5632,85 @@ def alif_bwd_alone(args, kw):
 
 def linrec_bwd_flipped(label, args, gx):
     """The JAX package's own route to gx: the forward recurrence on the
-    time-reversed decay shifted by one step (a_T = 0), g_hT folded into
-    the last step, from 0, here through `linrec.cu`'s forward kernel; it
-    must equal the backward kernel's gx bit for bit."""
+    time-reversed decay shifted by one step (a_T = 0), g_hT (zero where
+    None) folded into the last step, from 0, here through `linrec.cu`'s
+    forward kernel, on the K-fold plane of a soma's cotangent; it must
+    equal the backward kernel's gx bit for bit."""
     from repro_torch.kernels.linrec.ops import linrec_cuda
     a, y, h0, gy, ghT = args
+    T, B, D = y.shape
     ae = a.expand(y.shape)
     a_rev = torch.cat([ae[1:], torch.zeros_like(ae[:1])]).flip(0)
-    gy1 = gy.clone()
-    gy1[-1] = gy1[-1] + ghT
+    N = gy.shape[2]                 # the soma's cotangent for K = D / N
+    gy1 = gy[:, :, None, :].expand(T, B, D // N, N).reshape(T, B, D).clone()
+    gy1[-1] = gy1[-1] + (torch.zeros_like(h0) if ghT is None else ghT)
     rev, _ = linrec_cuda(a_rev.contiguous(), gy1.flip(0).contiguous(),
                          torch.zeros_like(h0))
     if not same_bits("linrec_bwd", rev.flip(0), gx):
         raise AssertionError(f"linrec_bwd [{label}]: gx differs from the "
                              "forward kernel on the flipped decay")
     return "; gx == the forward kernel on the flipped decay, bit for bit"
+
+
+# PyTorch ops that may serve a DH-LIF branch call's backward: the fills,
+# slice copies, adds and sums the autograd of a branch sum over a (T, B, K,
+# N) plane makes (`branch_call_ops`)
+BRANCH_OPS = ("aten::fill_", "aten::zero_", "aten::zeros", "aten::zeros_like",
+              "aten::new_zeros", "aten::copy_", "aten::add", "aten::add_",
+              "aten::sum", "aten::sum_to_size", "aten::select_backward",
+              "aten::clone", "aten::contiguous")
+# the DH-SNN's w_tau_d (the branch decay's parameter) card vs CPU, a
+# relative L2 error
+TAU_D_RTOL = 1e-4
+
+
+def branch_call_ops(fn, T, B, K, N):
+    """The PyTorch ops of one call of `fn` (a DH-SNN training step) that
+    serve its branch call: a BRANCH_OPS op with an input of the branches'
+    shapes ((T, B, K, N), (T, B, K N), (B, K N)) or under an
+    `aten::select_backward`, traced with torch.profiler (record_shapes).
+    [{"op", "shapes", "calls", "card_ms"}], an op's card time its kernels'
+    (an op under another listed one counted there)."""
+    from torch.profiler import ProfilerActivity, profile
+    shapes = ([T, B, K, N], [T, B, K * N], [B, K * N])
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        sync()
+
+    def under_select(ev):
+        if ev.name == "aten::select_backward":
+            return ev
+        p = ev.cpu_parent
+        while p is not None:
+            if p.name == "aten::select_backward":
+                return p
+            p = p.cpu_parent
+        return None
+    found = {}
+    for ev in prof.events():
+        if ev.name not in BRANCH_OPS:
+            continue
+        top = under_select(ev)
+        if top is None and not any(list(sh) in shapes
+                                   for sh in ev.input_shapes):
+            continue
+        key = (ev.name, str([list(sh) for sh in ev.input_shapes]))
+        row = found.setdefault(key, {"op": ev.name, "shapes": key[1],
+                                     "calls": 0, "card_ms": 0.0})
+        row["calls"] += 1
+        p, counted_above = ev.cpu_parent, False
+        while p is not None:
+            if p.name in BRANCH_OPS and (
+                    under_select(p) is not None or any(
+                        list(sh) in shapes for sh in p.input_shapes)):
+                counted_above = True
+                break
+            p = p.cpu_parent
+        if not counted_above:
+            row["card_ms"] += ev.device_time_total / 1e3
+    return sorted(found.values(), key=lambda r: -r["card_ms"])
 
 
 def rel_l2(got, ref):
@@ -5668,6 +5856,28 @@ def phase_train(path, smi):
                 raise AssertionError(f"[{tag}] {kind}: the kernels after "
                                      f"lif_bwd in a step: {after}")
             log(f"path [{tag}] {kind}: the kernel after lif_bwd: {after}")
+        # the DH-SNN's branch call: one linrec_bwd a step and no PyTorch
+        # fill, copy, add or sum of the branches' planes around it; its
+        # decay's gradient, summed by the kernel, against the CPU's
+        branch_ops = None
+        if kind == "dendritic":
+            branch_ops = branch_call_ops(lambda: step(nt, pt, x, y), path.T,
+                                         path.B, N_BRANCHES, N_HIDDEN)
+            log(f"path [{tag}] {kind}: the branch call's PyTorch ops in a "
+                "step: " + ("none" if not branch_ops else "; ".join(
+                    f"{r['op']} {r['shapes']} x{r['calls']} "
+                    f"{r['card_ms']:.4f} ms" for r in branch_ops)))
+            if branch_ops:
+                raise AssertionError(f"[{tag}] {kind}: PyTorch ops serve "
+                                     f"the branch call: {branch_ops}")
+            tau_d = leaf_err["hidden/neuron/w_tau_d"]
+            if not tau_d <= TAU_D_RTOL:
+                raise AssertionError(f"[{tag}] {kind}: w_tau_d card vs CPU "
+                                     f"{tau_d:.3e} > {TAU_D_RTOL}")
+        log(f"path [{tag}] {kind}: card ms by kernel in a step "
+            f"({card_ms if card_ms is None else round(card_ms, 4)} ms in "
+            "all): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                 top_per(by_name, 1, n=16).items()))
         rate = fwd["rate"]
         log(f"path [{tag}] {kind}: launches {counts} (+{occ} occupancy; "
             f"recurrent routes {routes}); first step card vs CPU: loss "
@@ -5699,7 +5909,7 @@ def phase_train(path, smi):
             "card_ms": card_ms,
             "card_ms_by_kernel": top_per(by_name, 1, n=12),
             "b6_card_ms": b6_ms, "b6_share": b6_share,
-            "after_lif_bwd": after,
+            "after_lif_bwd": after, "branch_call_ops": branch_ops,
             **{k: fwd[k] for k in ("rates",) if k in fwd}}
     return {"path": tag, "model": path.describe, "T": path.T,
             "batch": path.B, "steps": TRAIN_STEPS, "input": path.input,

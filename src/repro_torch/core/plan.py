@@ -84,7 +84,7 @@ from repro_torch.kernels.common import DeviceLike, check_device, resolve_device
 from repro_torch.kernels.alifrec.ops import alif_scan, alifrec_scan
 from repro_torch.kernels.lif.ops import lif_scan
 from repro_torch.kernels.lifrec.ops import lifrec_scan
-from repro_torch.kernels.linrec.ops import linrec
+from repro_torch.kernels.linrec.ops import linrec, linrec_branches
 from repro_torch.kernels.spikemm.ops import spikemm, spikemm_sessions
 from repro_torch.kernels.stdp.ops import stdp_seq, stdp_seq_sessions
 
@@ -458,7 +458,8 @@ def _decay_vec(decay: Decay, nparams: Optional[Dict[str, Tensor]], n: int,
     shape = (n_branches, n) if n_branches else (n,)
     p = (nparams or {}).get(decay.param) if decay.kind != "const" else None
     if p is not None:
-        return torch.sigmoid(p.float()).expand(shape).contiguous()
+        d = torch.sigmoid(p.float())
+        return (d if tuple(d.shape) == shape else d.expand(shape)).contiguous()
     return torch.full(shape, decay.value, dtype=torch.float32, device=device)
 
 
@@ -483,8 +484,7 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
     if lower == LOWER_LI:
         sv = prog.states[0]
         tau = _decay_vec(sv.decay, nparams, N, dev).to(cur.dtype)
-        out, vT = linrec(tau.expand(cur.shape), cur,
-                         st[sv.name].contiguous())
+        out, vT = linrec(tau, cur, st[sv.name].contiguous())
         ns = {sv.name: vT}
     elif lower == LOWER_LIF:
         tau = _decay_vec(prog.states[0].decay, nparams, N, dev)
@@ -514,23 +514,20 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
         # branch-integrate prologue: the dendrites never reset, so they are
         # a pure linear recurrence -> one linrec over every (b, k, n) lane
         # (the lanes are laid out (B, K*N); elementwise this is the
-        # reference's (B*K, N) layout), summed into the soma's LIF kernel.
+        # reference's (B*K, N) layout), summed into the soma's LIF kernel
+        # in a fixed order, so a lane's result never depends on the shape
+        # of the batch it was packed into (`linrec_branches`: its backward
+        # reads the soma's cotangent as it is)
         mem = next(s for s in prog.states if s.name == th.on)
         br = next(s for s in prog.states if s.branch)
         d0 = st[br.name]                             # (B, K, N)
         K = d0.shape[-2]
         tau_d = _decay_vec(br.decay, nparams, N, dev, n_branches=K)
-        d_full, dT = linrec(
-            tau_d.to(cur.dtype).reshape(K * N).expand(T, B, K * N),
-            cur.reshape(T, B, K * N), d0.reshape(B, K * N).contiguous())
-        d4 = d_full.reshape(T, B, K, N)
-        # the soma sums its branches in a fixed order, so a lane's result
-        # never depends on the shape of the batch it was packed into
-        soma_cur = d4[:, :, 0]
-        for k in range(1, K):
-            soma_cur = soma_cur + d4[:, :, k]
+        soma_cur, dT = linrec_branches(
+            tau_d.to(cur.dtype).reshape(K * N), cur.reshape(T, B, K * N),
+            d0.reshape(B, K * N).contiguous(), K)
         tau_s = _decay_vec(mem.decay, nparams, N, dev)
-        out, vT = lif_scan(soma_cur.contiguous(), tau_s,
+        out, vT = lif_scan(soma_cur, tau_s,
                            st[mem.name].contiguous(), th.base, sur, alpha)
         ns = {mem.name: vT, br.name: dT.reshape(B, K, N)}
     else:  # pragma: no cover - compile_program only emits known families

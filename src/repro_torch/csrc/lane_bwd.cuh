@@ -1,7 +1,8 @@
 // The segment skeleton of the lane backward kernels, shared by
 // `lif_bwd.cu` (B1, `lif_bwd_f32`) and `alif_bwd.cu` (B5, `alif_bwd_f32`):
 // the STBP adjoints of a feed-forward neuron scan, whose lanes (b, n) are
-// independent and whose time is a serial chain.
+// independent and whose time is a serial chain. `linrec_bwd.cu` (B2) takes
+// its clock stamps and its 16-byte copy rule from here.
 //
 // A CTA owns 32 lanes (a warp's width): a chain warp, whose thread l
 // carries lane l's state in registers, and three helper warps. Time is cut

@@ -51,9 +51,8 @@ STDP_SEQ_GROUP = 32
 # definition, -DREC_LANE_NEURONS.
 REC_LANE_NEURONS = 4
 # The lane scans' staging ring (`csrc/lane_scan.cuh`: `linrec`, `lif`,
-# `alif`, and the backward `linrec_bwd`, which walks it reversed): steps
-# a stage holds and stages of the ring (chunks in flight: one fewer).
-# Their one definition, -DLANE_SCAN_CHUNK and
+# `alif`): steps a stage holds and stages of the ring (chunks in flight:
+# one fewer). Their one definition, -DLANE_SCAN_CHUNK and
 # -DLANE_SCAN_STAGES; `common.lane_plan` sizes the ring from them. Four
 # stages: on an H100, eight made the SHD window's call 0.5 us slower (a
 # longer prologue) and two left too few steps in flight at T = 300.
@@ -93,7 +92,7 @@ SIGNATURES = {
                    _I),
     "lif_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P), _I),
     "lif_bwd_f32": ((_P,) * 12 + (_I, _I, _I, _F, _I, _I, _F, _P), _I),
-    "linrec_bwd_f32": ((_P, _L, _L, _L) + (_P,) * 7 + (_I,) * 4 + (_P,),
+    "linrec_bwd_f32": ((_P, _L, _L, _L) + (_P,) * 9 + (_I,) * 5 + (_P,),
                        _I),
     "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _I, _P), _I),
     "rec_scan_w_in_smem": ((_I,), _I),

@@ -5,11 +5,17 @@ from h0 (B, D). `a` is anything that broadcasts to x's shape; a per-neuron
 decay (D,) broadcast over T and B reaches the kernel as a stride-0 view
 and is never materialised. It is differentiable in (a, x, h0) through
 `_LinRec`, the reverse-time adjoint of the JAX package's custom VJP:
-`linrec.cu`'s `linrec_bwd_f32` kernel on CUDA tensors (`linrec_bwd_cuda`,
-its own launch counter, listed as `linrec_bwd`), `linrec_bwd_ref` on CPU
-tensors. g_a and g_h0 are computed only where autograd needs them (an LI
-readout's decay is a constant); g_a comes back in x's shape, and a
-broadcast decay's is reduced to its own shape by autograd.
+`csrc/linrec_bwd.cu`'s `linrec_bwd_f32` kernel on CUDA tensors
+(`linrec_bwd_cuda`, its own launch counter, listed as `linrec_bwd`),
+`linrec_bwd_ref` on CPU tensors. g_a and g_h0 are computed only where
+autograd needs them (an LI readout's decay is a constant); g_a comes back
+in x's shape, or, for a decay of D values (`lanes_decay`), summed over T
+and B by the backward itself.
+
+`linrec_branches(a, x, h0, K)`: a DH-LIF layer's dendritic prologue, the
+same recurrence over (T, B, K N) lanes and then the soma's fixed-order
+sum of its K branches, (T, B, N); its backward (`_LinRecBranches`) is
+one `linrec_bwd` launch that reads the soma's cotangent as it is.
 """
 
 from __future__ import annotations
@@ -18,9 +24,10 @@ import torch
 
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.common import (MAX_WARPS, check_planes, lane_plan,
-                                        optional_ptr, sm_count)
-from repro_torch.kernels.linrec.ref import (linrec_bwd_ref, linrec_naive,
-                                            linrec_ref)
+                                        optional_ptr, sm_count,
+                                        zeroed_counters)
+from repro_torch.kernels.linrec.ref import (lanes_decay, linrec_bwd_ref,
+                                            linrec_naive, linrec_ref)
 
 
 def _check(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor) -> None:
@@ -63,27 +70,57 @@ def linrec_cuda(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor):
 
 
 def linrec_bwd_cuda(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
-                    g_y: torch.Tensor, g_hT: torch.Tensor,
-                    need_a: bool = True, need_h0: bool = True):
-    """Launch `csrc/linrec.cu`'s backward kernel on CUDA tensors:
-    `linrec_bwd_ref`'s (g_a, g_x, g_h0), None where not needed."""
+                    g_y: torch.Tensor, g_hT, need_a: bool = True,
+                    need_h0: bool = True):
+    """Launch `csrc/linrec_bwd.cu` on CUDA tensors: `linrec_bwd_ref`'s
+    (g_a, g_x, g_h0), None where not needed. g_y is (T, B, D) or the soma
+    cotangent (T, B, N) of D = K N branch lanes; g_hT may be None (zero).
+    One launch and nothing after it: g_a of a decay of D values
+    (`lanes_decay`) is summed over T and B by the kernel, on a (B, D)
+    scratch of per-lane partials and zeroed counters of the stream."""
     _check(a, y, h0)
-    check_planes("linrec_bwd", y, [("g_y", g_y)])
-    check_planes("linrec_bwd", h0, [("g_hT", g_hT)])
     T, B, D = y.shape
+    N = g_y.shape[-1] if g_y.dim() == 3 else 0
+    if (g_y.dim() != 3 or tuple(g_y.shape[:2]) != (T, B) or N < 1
+            or D % N):
+        raise ValueError(f"linrec_bwd: g_y {tuple(g_y.shape)} must be "
+                         f"(T, B, N) with N dividing D, y {tuple(y.shape)}")
+    if (g_y.dtype != y.dtype or g_y.device != y.device
+            or not g_y.is_contiguous()):
+        raise ValueError(f"linrec_bwd: g_y must be contiguous {y.dtype} on "
+                         f"{y.device}, got {g_y.dtype} on {g_y.device}")
+    if g_hT is not None:
+        check_planes("linrec_bwd", h0, [("g_hT", g_hT)])
     av = a.expand(y.shape)                   # a view: strides 0 where broadcast
+    summed = need_a and lanes_decay(a, D)
     g_x = torch.empty_like(y)
-    g_a = torch.empty_like(y) if need_a else None
+    g_a = None
+    if need_a:
+        g_a = torch.empty(a.shape, dtype=y.dtype, device=y.device) \
+            if summed else torch.empty_like(y)
     g_h0 = torch.empty_like(h0) if need_h0 else None
     if T == 0 or h0.numel() == 0:
-        return g_a, g_x, None if g_h0 is None else g_h0.copy_(g_hT)
-    stages = lane_plan(B * D, T, sm_count(y.device))[2]
+        if summed:
+            g_a.zero_()
+        if g_h0 is not None:
+            g_h0 = g_h0.zero_() if g_hT is None else g_h0.copy_(g_hT)
+        return g_a, g_x, g_h0
     with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        part = count = None
+        if summed:
+            part = torch.empty((B, D), dtype=torch.float32, device=y.device)
+            # a counter a group of 32 columns (`csrc/linrec_bwd.cu`)
+            count = zeroed_counters(y.device, stream,
+                                    D // 32 if D % 32 == 0 else 1)
+        # a dimension of one step or row has no stride to walk
+        sa = [0 if n == 1 else st for n, st in zip(av.shape, av.stride())]
         code = _build.library().linrec_bwd_f32(
-            av.data_ptr(), av.stride(0), av.stride(1), av.stride(2),
-            y.data_ptr(), h0.data_ptr(), g_y.data_ptr(), g_hT.data_ptr(),
-            g_x.data_ptr(), optional_ptr(g_a), optional_ptr(g_h0), T, B, D,
-            stages, torch.cuda.current_stream().cuda_stream)
+            av.data_ptr(), *sa,
+            y.data_ptr(), h0.data_ptr(), g_y.data_ptr(), optional_ptr(g_hT),
+            optional_ptr(part), optional_ptr(count), g_x.data_ptr(),
+            optional_ptr(g_a), optional_ptr(g_h0), T, B, D, N, int(summed),
+            stream)
     _build.check("linrec_bwd", code)
     linrec_bwd_cuda.launches += 1
     return g_a, g_x, g_h0
@@ -115,6 +152,63 @@ class _LinRec(torch.autograd.Function):
         return g_a, g_x if need_x else None, g_h0, None, None
 
 
+class _LinRecBranches(torch.autograd.Function):
+    """A DH-LIF layer's dendritic prologue: `linrec` over the (T, B, K N)
+    branch lanes, then the soma's sum of the K branches in a fixed order,
+    ((d_0 + d_1) + d_2) + ..., so that a lane's result never depends on
+    the batch it was packed into. Returns (the soma's current (T, B, N),
+    the branches' final state (B, K N)).
+
+    Its backward is one `linrec_bwd` that reads the soma's cotangent
+    (T, B, N) for every branch of a neuron: no (T, B, K, N) cotangent
+    plane is filled, copied or added, and a decay of K N values gets its
+    gradient summed over T and B by the kernel. The sum's own backward
+    only handed every branch the soma's cotangent (adding exact zeros),
+    so g_x is bit for bit what autograd through the sum and `linrec`
+    gave. An unused final state costs nothing (no zero cotangent is
+    made)."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0, K):
+        T, B, D = x.shape
+        y, hT = registry.dispatch("linrec", (a, x, h0))
+        d4 = y.reshape(T, B, K, D // K)
+        soma = d4[:, :, 0]
+        for k in range(1, K):
+            soma = soma + d4[:, :, k]
+        ctx.save_for_backward(a, y, h0)
+        ctx.K = K
+        ctx.set_materialize_grads(False)
+        return soma.contiguous(), hT
+
+    @staticmethod
+    def backward(ctx, g_soma, g_hT):
+        a, y, h0 = ctx.saved_tensors
+        need_a, need_x, need_h0 = ctx.needs_input_grad[:3]
+        if g_soma is None:
+            T, B, D = y.shape
+            g_soma = y.new_zeros((T, B, D // ctx.K))
+        args = (a, y, h0, g_soma.contiguous(),
+                None if g_hT is None else g_hT.contiguous())
+        g_a, g_x, g_h0 = registry.dispatch_bwd(
+            "linrec", args, need_a=need_a, need_h0=need_h0)
+        if g_a is not None and g_a.shape != a.shape:
+            g_a = g_a.sum_to_size(a.shape)
+        return g_a, g_x if need_x else None, g_h0, None
+
+
+def linrec_branches(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor,
+                    K: int):
+    """The K-branch dendritic prologue: y = linrec(a, x, h0) over x's
+    (T, B, K N) lanes, then (the soma's current sum_k y[:, :, k N : (k + 1)
+    N] in ascending k, (T, B, N); y's final state (B, K N)).
+    Differentiable in (a, x, h0) through `_LinRecBranches`."""
+    if x.dim() != 3 or x.shape[2] % K:
+        raise ValueError(f"linrec_branches: x {tuple(x.shape)} must be "
+                         f"(T, B, K N) with K = {K}")
+    return _LinRecBranches.apply(a, x, h0, K)
+
+
 def linrec(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor):
     """y_t = a_t * y_{t-1} + x_t over axis 0. x: (T,B,D); h0: (B,D).
 
@@ -140,5 +234,6 @@ registry.register(registry.KernelSpec(
     bwd=registry.Channel(plain=linrec_bwd_ref, cuda=linrec_bwd_cuda),
     vjp=_vjp))
 
-__all__ = ["linrec", "linrec_cuda", "linrec_bwd_cuda", "linrec_ref",
-           "linrec_bwd_ref", "linrec_naive", "lane_plan", "MAX_WARPS"]
+__all__ = ["linrec", "linrec_branches", "linrec_cuda", "linrec_bwd_cuda",
+           "linrec_ref", "linrec_bwd_ref", "linrec_naive", "lanes_decay",
+           "lane_plan", "MAX_WARPS"]

@@ -278,6 +278,50 @@ def test_linrec_lane_plan(lanes, T):
         warps, ctas)
 
 
+@pytest.mark.parametrize("T", [1, 37, 2 * _build.LANE_BWD_SEG + 5])
+def test_linrec_bwd_ref_sums_a_per_neuron_decay(T):
+    """`linrec_bwd_ref` with a (D,) decay returns g_a of shape (D,): each
+    lane's gx_t y_{t-1} summed in descending t from +0, then over B in
+    ascending b (`csrc/linrec_bwd.cu`'s order), bit for bit that loop; and
+    within the family's tol of `jax.vjp` of the JAX `linrec` over the
+    broadcast decay. g_x and g_h0 are those of the (T, B, D) view of the
+    same decay, bit for bit."""
+    import jax
+    from repro.kernels.linrec.ops import linrec as jlinrec
+    from repro_torch.kernels.linrec.ref import linrec_bwd_ref
+    rng = np.random.default_rng(T + 1)
+    B, D = 3, 136
+    a = rng.uniform(0.5, 0.99, D).astype(np.float32)
+    x = rng.standard_normal((T, B, D)).astype(np.float32)
+    h0 = rng.standard_normal((B, D)).astype(np.float32)
+    gy = rng.standard_normal((T, B, D)).astype(np.float32)
+    ghT = rng.standard_normal((B, D)).astype(np.float32)
+    at, ht = torch.from_numpy(a), torch.from_numpy(h0)
+    y, _ = linrec(at, torch.from_numpy(x), ht)
+    g_a, g_x, g_h0 = linrec_bwd_ref(at, y, ht, torch.from_numpy(gy),
+                                    torch.from_numpy(ghT))
+    assert g_a.shape == (D,)
+    y_prev = torch.cat([ht[None], y[:-1]])
+    acc = torch.zeros(B, D)
+    for t in range(T - 1, -1, -1):
+        acc = acc + g_x[t] * y_prev[t]
+    want = acc[0]
+    for b in range(1, B):
+        want = want + acc[b]
+    assert torch.equal(g_a.view(torch.int32), want.view(torch.int32))
+    full = linrec_bwd_ref(at.expand(T, B, D), y, ht, torch.from_numpy(gy),
+                          torch.from_numpy(ghT))
+    assert full[0].shape == (T, B, D)
+    assert torch.equal(full[1], g_x) and torch.equal(full[2], g_h0)
+    _, vjp = jax.vjp(
+        lambda a_, x_, h_: jlinrec(jnp.broadcast_to(a_, (T, B, D)), x_, h_),
+        jnp.asarray(a), jnp.asarray(x), jnp.asarray(h0))
+    for got, ref in zip((g_a, g_x, g_h0),
+                        vjp((jnp.asarray(gy), jnp.asarray(ghT)))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   rtol=_tol("linrec"), atol=_tol("linrec"))
+
+
 def test_linrec_wrapper_passes_the_plan(monkeypatch):
     """With a recording stand-in for the library (no card here) the
     wrapper hands `linrec_f32` the decay's strides (0 where broadcast) and
@@ -917,7 +961,7 @@ def test_build_failure_shows_each_failed_sources_messages(tmp_path,
     nvcc.write_text(
         f"#!{sys.executable}\nimport sys\n"
         "src = sys.argv[sys.argv.index('-c') + 1]\n"
-        "if src.endswith('rec_bwd.cu'):\n"
+        "if src.endswith('/rec_bwd.cu'):\n"
         "    print(src + '(12): error: boom')\n"
         "    sys.exit(2)\n"
         "print('ptxas info    : Used 32 registers\\n' * 400)\n"
@@ -1202,6 +1246,8 @@ def test_rec_wrappers_pass_the_route_and_count_it(monkeypatch, name, side):
     ("alifrec.cu", "REC_LANE_NEURONS", None),
     ("linrec.cu", "LANE_SCAN_CHUNK", "LS_CHUNK"),
     ("linrec.cu", "LANE_SCAN_STAGES", "LS_STAGES"),
+    ("lif_bwd.cu", "LANE_BWD_SEG", "SEG"),
+    ("alif_bwd.cu", "LANE_BWD_SEG", "SEG"),
     ("lif.cu", "LANE_SCAN_CHUNK", "LS_CHUNK"),
     ("lif.cu", "LANE_SCAN_STAGES", "LS_STAGES"),
     ("alifrec.cu", "LANE_SCAN_CHUNK", "LS_CHUNK"),
@@ -1209,8 +1255,9 @@ def test_rec_wrappers_pass_the_route_and_count_it(monkeypatch, name, side):
 def test_serial_kernel_constants_are_the_wrappers(tmp_path, monkeypatch,
                                                  source, macro, const):
     """stdp_seq's group of STDP_SEQ_GROUP steps, the scan's
-    REC_LANE_NEURONS neurons a lane and the lane scans' staging ring
-    (LANE_SCAN_CHUNK steps a stage, LANE_SCAN_STAGES stages) have one
+    REC_LANE_NEURONS neurons a lane, the lane scans' staging ring
+    (LANE_SCAN_CHUNK steps a stage, LANE_SCAN_STAGES stages) and the lane
+    backward kernels' segment (LANE_BWD_SEG steps) have one
     definition, in `_build`: the nvcc call of each source that uses them
     passes them as -D flags, and the sources (or the headers they include)
     take them from there and from no other value."""

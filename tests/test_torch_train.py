@@ -65,7 +65,7 @@ from repro_torch.kernels import _build, registry
 from repro_torch.kernels.alifrec.ops import alif_scan, alifrec_scan
 from repro_torch.kernels.lif.ops import lif_scan
 from repro_torch.kernels.lifrec.ops import lifrec_scan
-from repro_torch.kernels.linrec.ops import linrec
+from repro_torch.kernels.linrec.ops import linrec, linrec_branches
 from repro_torch.kernels.linrec.ref import linrec_bwd_ref
 from repro_torch.kernels.spikemm.ops import spikemm
 from repro_torch.serve import EngineConfig, make_engine
@@ -684,25 +684,33 @@ def test_lif_bwd_checkpoints_only_past_one_segment(lif_stand_in, T):
     assert sizes == ([] if segs == 1 else [(segs, B, N)]) + [(B, N)]
 
 
+def _linrec_bwd_stand_in(monkeypatch):
+    """A recording stand-in for the library's `linrec_bwd_f32` (no card
+    here), the wrapper's device checks off."""
+    from contextlib import nullcontext
+    from unittest import mock
+    from repro_torch.kernels.linrec import ops as lin_ops
+    lib = mock.Mock(**{"linrec_bwd_f32.return_value": 0})
+    monkeypatch.setattr(lin_ops, "_check", lambda *a: None)
+    monkeypatch.setattr(lin_ops, "check_planes", lambda *a: None)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    return lib
+
+
 @pytest.mark.parametrize("need_a,need_h0", [(True, True), (False, False),
                                             (True, False)])
 def test_linrec_bwd_wrapper_passes_the_kernel_its_arguments(
         monkeypatch, need_a, need_h0):
     """`linrec_bwd_cuda` hands `linrec_bwd_f32` the decay's strides (0 where
     broadcast: never materialised), null pointers for the gradients not
-    asked for, `lane_plan`'s stages, and counts one launch."""
-    from contextlib import nullcontext
-    from unittest import mock
-    from repro_torch.kernels import _build, common
+    asked for, the full plane's N = D, no scratch for a g_a plane (a
+    decay handed as a (T, B, D) view keeps its (T, B, D) g_a), and counts
+    one launch."""
     from repro_torch.kernels.linrec import ops as lin_ops
-    lib = mock.Mock(**{"linrec_bwd_f32.return_value": 0})
-    monkeypatch.setattr(lin_ops, "_check", lambda *a: None)
-    monkeypatch.setattr(lin_ops, "check_planes", lambda *a: None)
-    monkeypatch.setattr(lin_ops, "sm_count", lambda dev: 132)
-    monkeypatch.setattr(_build, "library", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda: type("S", (), {"cuda_stream": 0})())
+    lib = _linrec_bwd_stand_in(monkeypatch)
     T, B, D = 60, 48, 256
     a = torch.rand(D).expand(T, B, D)
     y, h = torch.zeros((T, B, D)), torch.zeros((B, D))
@@ -710,13 +718,153 @@ def test_linrec_bwd_wrapper_passes_the_kernel_its_arguments(
     g_a, g_x, g_h0 = lin_ops.linrec_bwd_cuda(a, y, h, y, h, need_a, need_h0)
     (call,) = lib.linrec_bwd_f32.call_args_list
     assert call.args[1:4] == (0, 0, 1)
-    assert (call.args[9] is None) == (not need_a)
-    assert (call.args[10] is None) == (not need_h0)
-    assert call.args[11:15] == (T, B, D, common.lane_plan(B * D, T, 132)[2])
+    assert call.args[6] == y.data_ptr() and call.args[7] == h.data_ptr()
+    assert call.args[8] is None and call.args[9] is None
+    assert (call.args[11] is None) == (not need_a)
+    assert (call.args[12] is None) == (not need_h0)
+    assert call.args[13:18] == (T, B, D, D, 0)
     assert (g_a is None) == (not need_a) and (g_h0 is None) == (not need_h0)
     assert g_x.shape == (T, B, D)
+    assert g_a is None or g_a.shape == (T, B, D)
     assert registry.launch_counts()["linrec_bwd"] == 1
     registry.reset_launches()
+
+
+@pytest.mark.parametrize("with_hT", [True, False])
+def test_linrec_bwd_wrapper_takes_the_soma_cotangent(monkeypatch, with_hT):
+    """The branch call (`linrec_branches`' backward): one launch that gets
+    the soma's (T, B, N) cotangent itself (its pointer; N, from which the
+    kernel reads K = D / N branches of it), g_hT or a null pointer, a
+    (B, D) scratch of partials and a zeroed counter, and returns g_a in
+    the decay's (K N,) shape, summed by the kernel (flag 1)."""
+    from repro_torch.kernels.linrec import ops as lin_ops
+    lib = _linrec_bwd_stand_in(monkeypatch)
+    T, B, K, N = 60, 48, 4, 64
+    D = K * N
+    a = torch.rand(D)
+    y, h = torch.zeros((T, B, D)), torch.zeros((B, D))
+    g_soma = torch.zeros((T, B, N))
+    g_hT = torch.zeros((B, D)) if with_hT else None
+    registry.reset_launches()
+    g_a, g_x, g_h0 = lin_ops.linrec_bwd_cuda(a, y, h, g_soma, g_hT)
+    (call,) = lib.linrec_bwd_f32.call_args_list
+    assert call.args[0] == a.data_ptr() and call.args[1:4] == (0, 0, 1)
+    assert call.args[6] == g_soma.data_ptr()
+    assert call.args[7] == (g_hT.data_ptr() if with_hT else None)
+    assert call.args[8] is not None and call.args[9] is not None
+    assert call.args[10:13] == (g_x.data_ptr(), g_a.data_ptr(),
+                                g_h0.data_ptr())
+    assert call.args[13:18] == (T, B, D, N, 1)
+    assert g_a.shape == (D,) and g_x.shape == (T, B, D)
+    assert g_h0.shape == (B, D)
+    assert registry.launch_counts()["linrec_bwd"] == 1
+    registry.reset_launches()
+    with pytest.raises(ValueError, match="N dividing D"):
+        lin_ops.linrec_bwd_cuda(a, y, h, torch.zeros((T, B, 48)), g_hT)
+
+
+def _bits(t):
+    return t.detach().contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("with_hT", [True, False])
+@pytest.mark.parametrize("T", [1, 23, SEG + 5])
+def test_linrec_branches_matches_the_parent_formulation(T, with_hT):
+    """`linrec_branches`, the DH-LIF prologue as one Function: its forward
+    equals `linrec` then the fixed-order branch sum bit for bit; its g_x
+    equals `linrec_bwd_ref` on the materialised K-fold cotangent plane bit
+    for bit (the autograd of the sum only handed every branch the soma's
+    cotangent); g_a, now summed in the kernel's order, and g_h0 agree with
+    autograd through the parent formulation within 1e-6 relative. An
+    unused final state gives a zero g_hT."""
+    rng = np.random.default_rng(T)
+    B, K, N = 3, 4, 10
+    D = K * N
+    a_np = rng.uniform(0.5, 0.99, D).astype(np.float32)
+    x_np = rng.standard_normal((T, B, D)).astype(np.float32)
+    h_np = rng.standard_normal((B, D)).astype(np.float32)
+    gs = torch.from_numpy(rng.standard_normal((T, B, N)).astype(np.float32))
+    ghT = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+
+    def leaves():
+        return [torch.from_numpy(v.copy()).requires_grad_()
+                for v in (a_np, x_np, h_np)]
+    new = leaves()
+    soma, dT = linrec_branches(*new, K)
+    old = leaves()
+    y, hT = linrec(old[0].expand(T, B, D), old[1], old[2])
+    d4 = y.reshape(T, B, K, N)
+    parent = d4[:, :, 0]
+    for k in range(1, K):
+        parent = parent + d4[:, :, k]
+    assert torch.equal(_bits(soma), _bits(parent))
+    assert torch.equal(_bits(dT), _bits(hT))
+    outs_new, outs_old = ((soma, dT), (parent, hT)) if with_hT else (
+        (soma,), (parent,))
+    cots = (gs, ghT) if with_hT else (gs,)
+    g_new = torch.autograd.grad(outs_new, new, cots)
+    g_old = torch.autograd.grad(outs_old, old, cots)
+    plane = gs[:, :, None, :].expand(T, B, K, N).reshape(T, B, D)
+    _, gx_ref, _ = linrec_bwd_ref(
+        new[0].detach(), y.detach(), new[2].detach(), plane.contiguous(),
+        ghT if with_hT else torch.zeros(B, D))
+    assert torch.equal(_bits(g_new[1]), _bits(gx_ref))
+    assert torch.equal(g_new[1], g_old[1])
+    assert g_new[0].shape == (D,)
+    for got, want in ((g_new[0], g_old[0]), (g_new[2], g_old[2])):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
+def _backward_nodes(root):
+    """The names of the autograd nodes reachable from `root`, itself
+    included."""
+    seen, todo, names = set(), [root], []
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.append(type(fn).__name__)
+        todo += [nxt for nxt, _ in fn.next_functions]
+    return names
+
+
+def test_dhsnn_step_graph_has_no_branch_plumbing():
+    """A DH-SNN training step's graph: the branch call is one
+    `_LinRecBranchesBackward` node, fed by the soma's LIF scan directly,
+    and nothing under it (toward the leaves) is a select, an expand or a
+    sum over (T, B): the parent's four SelectBackward0s (each a zero fill
+    and a slice copy, then adds) and the ExpandBackward0 of its decay
+    (a sum over T and B) are gone from the branch path."""
+    x, y = _shd_data()
+    nodes, params = make_dhsnn_shd(torch.Generator().manual_seed(1),
+                                   n_hidden=N_HIDDEN, device="cpu")
+    _requires_grad(params)
+    _, outs, _ = plan.run(nodes, params, torch.from_numpy(x),
+                          device="cpu")
+    loss = outs.float().pow(2).mean()
+    names = _backward_nodes(loss.grad_fn)
+    assert names.count("_LinRecBranchesBackward") == 1
+    fn = consumer = None
+    todo, branch = [loss.grad_fn], set()
+    while todo:                         # the branch node, and its consumer
+        f = todo.pop()
+        if f is None or f in branch:
+            continue
+        branch.add(f)
+        for nxt, _ in f.next_functions:
+            if nxt is not None and type(nxt).__name__ == \
+                    "_LinRecBranchesBackward":
+                fn = nxt
+                consumer = type(f).__name__
+            todo.append(nxt)
+    assert consumer == "_LifScanBackward"
+    under = _backward_nodes(fn)
+    for bad in ("SelectBackward0", "ExpandBackward0", "SumBackward0",
+                "SumBackward1"):
+        assert bad not in under, (bad, under)
+    assert "SelectBackward0" not in names
 
 
 def test_run_stream_carries_the_graph_across_chunks():

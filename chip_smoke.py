@@ -369,6 +369,33 @@ tree the same way, so two trees compare in one call.
             floor; one session solo equal bit for bit to itself in the
             full cohort, its learned synapses included; p50/p99 window
             latency, sessions/s, card ms a window by kernel.
+10b. resilience
+            runtime robustness through the main path, counters set to 0
+            before each part. The served SHD DH-SNN (64 sessions of
+            gen_shd_spikes, window 32, capacity 64) under
+            `faults.inject("drop_blocks:p=0.2,seed=1;dead_rows:frac=0.1,
+            seed=2;bitflip:frac=1e-3,seed=3")` with guard sanitize, then
+            warn: the clean path's launches a window; every session's
+            hidden train against the CPU engine's under the tie rule (the
+            float64 membrane of the perturbed input and weights), readouts
+            within 1e-4 before a session's divergence; the guard incident
+            lists equal to the CPU's, in order. guard=off with no fault:
+            the clean launches, a window's dispatched ops those of the
+            clean window (`host_ops`), no host sync (warn one, sanitize
+            none; `set_sync_debug_mode`). Host ms a window (p50, mean) and
+            card ms by kernel with no fault and under the faults with guard
+            off, warn and sanitize. serve_plastic's model (64 sessions,
+            learn=True) under `nan_weights:frac=0.2` with sanitize: finite
+            weights and outputs, learned weights within 1e-4 of the CPU's,
+            the CPU's incidents; one window of 64 sessions with
+            `GuardConfig(w_ratio_max=)` put between two sessions'
+            learned-norm ratios: sanitize rolls back exactly the sessions
+            above it (entry weights bit for bit) and keeps the others' bit
+            for bit, warn flags exactly those, and so does the CPU. A
+            plastic_ff stream of 6 `plan.run` windows (T=300, B=8)
+            snapshotted by `StreamCheckpointer` after the first 3, restored
+            into zero templates and finished: params and state equal the
+            uninterrupted card run bit for bit.
 11. train_shd
             `examples/shd_dhsnn_torch.py`'s training at the published
             widths: the DH-SNN (700 -> 64 x 4 -> 20) and its LIF ablation,
@@ -4588,6 +4615,448 @@ def phase_serve_plastic(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 10b. resilience
+# ---------------------------------------------------------------------------
+
+# the served SHD DH-SNN's faults: packet loss, dead rows and sign flips at
+# once; the learning window's NaN-poisoned weight planes
+RES_SHD_FAULTS = ("drop_blocks:p=0.2,seed=1;dead_rows:frac=0.1,seed=2;"
+                  "bitflip:frac=1e-3,seed=3")
+RES_LEARN_FAULTS = "nan_weights:frac=0.2"
+RES_SESSIONS = 64
+RES_TIMED = 3                 # timed replays of the trace per guard policy
+# the stream checkpoint: windows of plastic_ff's plan.run, snapshots after
+# the first RES_SNAPSHOTS of them
+RES_WINDOWS, RES_SNAPSHOTS = 6, 3
+
+
+def guard_events():
+    """The guard incidents on the log, as (family, stage, error)."""
+    from repro_torch.kernels.incidents import incidents
+    return [(e.family, e.stage, e.error) for e in incidents(kind="guard")]
+
+
+def sync_warnings(fn):
+    """(fn's result, the host syncs it made), counted under
+    `torch.cuda.set_sync_debug_mode("warn")`."""
+    import warnings
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return r, sum("synchroniz" in str(w.message) for w in rec)
+
+
+def bit_equal(a, b):
+    """Two state or params trees equal bit for bit, leaf for leaf."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(bit_equal(a[k], b[k]) for k in a)
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32) if a.dtype == torch.float32 else a,
+        b.view(torch.int32) if b.dtype == torch.float32 else b))
+
+
+def session_trains(wins, sids, n):
+    """(T_max, sessions, n): each session's recorded hidden train
+    (`window_records`) over its whole stream, side by side."""
+    parts = {sid: [] for sid in sids}
+    for w in wins:
+        for i, (sid, v) in enumerate(zip(w["sids"], w["valid"])):
+            parts[sid].append(w["hidden"][:v, i])
+    return side_by_side({sid: np.concatenate(p) for sid, p in parts.items()},
+                        n)
+
+
+def resilience_shd():
+    """The served SHD DH-SNN under RES_SHD_FAULTS, guard sanitize then
+    warn, card against CPU; a clean guard=off window against the clean
+    path; host and card ms per window by policy."""
+    import warnings
+
+    from repro_torch.core import events, faults, plan
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.incidents import clear
+    from repro_torch.serve import EngineConfig, make_engine
+    from repro_torch.weights import params_to_numpy
+    tag = "resilience shd"
+    tie = load_tie_rule()
+    path = PATHS[0]
+    nodes, params = make_shd(True, DEV)
+    nodes_c, params_c = make_shd(True, "cpu")
+    streams = shd_streams(RES_SESSIONS)
+    trace = make_trace(streams)
+    sids = list(streams)
+
+    def cfg(guard):
+        return EngineConfig(window=WINDOW, capacity=CAPACITY,
+                            queue_limit=None, guard=guard)
+
+    with faults.inject(RES_SHD_FAULTS), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        replay(make_engine(nodes, params, cfg("warn"), device=DEV),
+               make_trace({k: v[:64] for k, v in list(streams.items())[:4]}))
+        sync()
+        # the faults' world on the host, for the tie rule's membrane: the
+        # window's input mask (the same every window: the site is T x N) and
+        # the perturbed weights
+        mask = faults.perturb_input(torch.ones(WINDOW, 1, N_IN))[:, 0].numpy()
+        hidden_np = params_to_numpy(faults.perturb_params(params_c))["hidden"]
+        x = side_by_side(streams, N_IN)
+        x_eff = x * np.tile(mask, (-(-len(x) // WINDOW), 1))[:len(x), None]
+        runs = {}
+        for guard in ("sanitize", "warn"):
+            for where, nd, pr, dev in (("card", nodes, params, DEV),
+                                       ("cpu", nodes_c, params_c, "cpu")):
+                eng = make_engine(nd, pr, cfg(guard), device=dev)
+                wins = []
+                registry.reset_launches()
+                clear()
+                with window_records(eng, wins):
+                    replay(eng, trace)
+                runs[guard, where] = (eng, session_trains(wins, sids,
+                                                          N_HIDDEN),
+                                      guard_events(),
+                                      registry.launch_counts())
+            eng, s_gpu, inc_gpu, counts = runs[guard, "card"]
+            eng_c, s_cpu, inc_cpu, _ = runs[guard, "cpu"]
+            counted(f"{tag} {guard}", path.per_window,
+                    eng.metrics.windows_run, counts)
+            if inc_gpu != inc_cpu:
+                raise AssertionError(f"[{tag} {guard}] card incidents "
+                                     f"{inc_gpu} != CPU {inc_cpu}")
+            steps = sum(len(v) for v in streams.values())
+            rate = float(s_cpu.sum()) / (steps * N_HIDDEN)
+            if rate < MIN_HIDDEN_RATE:
+                raise AssertionError(f"[{tag} {guard}] hidden rate "
+                                     f"{rate:.4%} under the floor")
+            u, th = tie.hidden_membrane(nodes_c[0], hidden_np, x_eff, s_cpu)
+            first_div, n_ties = tie.tie_rule(s_cpu, s_gpu, u, th)
+            err = 0.0
+            for b, sid in enumerate(sids):
+                t0 = min(int(first_div[b]), len(streams[sid]))
+                got, ref = eng.outputs(sid), eng_c.outputs(sid)
+                if got.shape != ref.shape or not np.all(np.isfinite(got)):
+                    raise AssertionError(f"[{tag} {guard}] {sid}: outputs "
+                                         f"{got.shape}, CPU {ref.shape}")
+                err = max(err, float(np.max(np.abs(got[:t0] - ref[:t0]),
+                                            initial=0.0)))
+            if err > READOUT_TOL:
+                raise AssertionError(f"[{tag} {guard}] readout card vs CPU "
+                                     f"{err:.3e} > {READOUT_TOL}")
+            runs[guard] = dict(
+                windows=eng.metrics.windows_run, launches=counts,
+                incidents=len(inc_gpu), hidden_rate=rate, tie_flips=n_ties,
+                rows_diverged=int((first_div < len(x)).sum()),
+                readout_max_abs_err=err)
+            log(f"path [{tag}]: guard={guard} under {RES_SHD_FAULTS}: "
+                f"{eng.metrics.windows_run} windows, launches "
+                f"{ {k: v for k, v in counts.items() if v} }, hidden rate "
+                f"{rate:.4f}, {n_ties} lanes flipped at ties, readout card "
+                f"vs CPU {err:.3e}, {len(inc_gpu)} guard incidents (the "
+                "CPU's, in order)")
+        # sanitize and warn differ only in what they do on a violation, and
+        # this world has none (sign flips keep every value finite)
+        for sid in sids:
+            if not np.array_equal(runs["sanitize", "card"][0].outputs(sid),
+                                  runs["warn", "card"][0].outputs(sid)):
+                raise AssertionError(f"[{tag}] {sid}: sanitize and warn "
+                                     "outputs differ with no violation")
+    sanitize, warn = runs["sanitize"], runs["warn"]
+
+    # -- guard=off with no fault: the clean path's launches and syncs --------
+    with faults.inject(""):
+        registry.reset_launches()
+        eng = replay(make_engine(nodes, params, cfg("off"), device=DEV), trace)
+        off_counts = registry.launch_counts()
+        counted(f"{tag} off", path.per_window, eng.metrics.windows_run,
+                off_counts)
+        xw = torch.from_numpy(x[:WINDOW]).to(DEV)
+        st = events.init_state(nodes, RES_SESSIONS, torch.float32, params,
+                               device=DEV)
+
+        def window(guard):
+            return plan.run(nodes, params, xw, state=st, learn=False,
+                            guard=guard, device=DEV, _traced=True)
+
+        for g in (None, "off", "warn", "sanitize"):
+            window(g)
+        sync()
+        syncs = {str(g): sync_warnings(lambda g=g: window(g))[1]
+                 for g in (None, "off", "warn", "sanitize")}
+        ops = {str(g): host_ops(lambda g=g: window(g))
+               for g in (None, "off", "warn")}
+        registry.reset_launches()
+        window("off")
+        one = registry.launch_counts()
+        counted(f"{tag} off window", path.per_window, 1, one)
+    if ops["off"] != ops["None"]:
+        raise AssertionError(f"[{tag}] guard=off dispatched other ops than "
+                             f"the clean window: {ops['off']} vs "
+                             f"{ops['None']}")
+    if syncs != {"None": 0, "off": 0, "warn": 1, "sanitize": 0}:
+        raise AssertionError(f"[{tag}] host syncs of a window by guard "
+                             f"{syncs}: off and sanitize should add none, "
+                             "warn one")
+    log(f"path [{tag}]: guard=off, no fault: {eng.metrics.windows_run} "
+        f"windows with the clean path's launches ({path.per_window} a "
+        f"window), a window's ops those of the clean window "
+        f"({len(ops['off'])}; warn dispatches {len(ops['warn'])}), host "
+        f"syncs a window {syncs}")
+
+    # -- host and card ms a window, by policy --------------------------------
+    lat = {g: [] for g in ("clean", "off", "warn", "sanitize")}
+    card = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for _ in range(RES_TIMED):
+            for g, samples in lat.items():
+                with faults.inject("" if g == "clean" else RES_SHD_FAULTS):
+                    replay(make_engine(nodes, params,
+                                       cfg(None if g == "clean" else g),
+                                       device=DEV), trace, samples)
+        for g in lat:
+            with faults.inject("" if g == "clean" else RES_SHD_FAULTS):
+                card[g] = device_profile(lambda g=g: make_engine(
+                    nodes, params, cfg(None if g == "clean" else g),
+                    device=DEV), trace)
+    host = {g: {"p50_window_ms": float(np.percentile(v, 50)) * 1e3,
+                "mean_window_ms": float(np.mean(v)) * 1e3,
+                "window_samples": len(v)} for g, v in lat.items()}
+    for g in lat:
+        what = ("no fault, no guard" if g == "clean"
+                else f"guard={g} under the faults")
+        log(f"path [{tag}]: {what}: host p50 {host[g]['p50_window_ms']:.3f} ms a window, mean "
+            f"{host[g]['mean_window_ms']:.3f}; card {card[g][0]} ms a "
+            f"window, by kernel {card[g][1]}")
+    return {"faults": RES_SHD_FAULTS, "sanitize": sanitize, "warn": warn,
+            "off_launches": off_counts, "off_windows": eng.metrics.windows_run,
+            "syncs_per_window": syncs,
+            "ops_per_window": {g: len(v) for g, v in ops.items()},
+            "host_ms_per_window": host,
+            "device_ms_per_window": {g: v[0] for g, v in card.items()},
+            "device_ms_per_window_by_kernel": {g: v[1]
+                                               for g, v in card.items()}}
+
+
+def resilience_learning():
+    """serve_plastic's model in one learning serve window of 64 sessions:
+    under RES_LEARN_FAULTS with guard="sanitize" (finite, the CPU's
+    weights and incidents), then clean with the explosion bound lowered
+    between the sessions' learned-norm ratios, so that the sessions above
+    it, and only they, roll back (sanitize) or are flagged (warn)."""
+    import warnings
+
+    from repro_torch.core import faults, guards
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.incidents import clear
+    from repro_torch.serve import EngineConfig, make_engine
+    tag = "resilience learning"
+    nodes, params = make_plastic("pair_stdp", DEV)
+    nodes_c, params_c = make_plastic("pair_stdp", "cpu")
+    streams = dict(list(plastic_streams().items())[:RES_SESSIONS])
+    trace = make_trace(streams)
+    per_window = {"spikemm_sessions": 1, "stdp_seq_sessions": 1,
+                  "spikemm": 1, "lif": 1, "linrec": 3}
+
+    def cfg(guard):
+        return EngineConfig(window=WINDOW, capacity=CAPACITY,
+                            queue_limit=None, learn=True, guard=guard)
+
+    def w_of(eng, sid):
+        return eng.state_of(sid)["hidden"]["syn:input"]["w"]
+
+    out = {}
+    with faults.inject(RES_LEARN_FAULTS):
+        registry.reset_launches()
+        clear()
+        eng = replay(make_engine(nodes, params, cfg("sanitize"), device=DEV),
+                     trace)
+        counts = registry.launch_counts()
+        counted(tag, per_window, eng.metrics.windows_run, counts)
+        inc_gpu = guard_events()
+        clear()
+        eng_c = replay(make_engine(nodes_c, params_c, cfg("sanitize"),
+                                   device="cpu"), trace)
+        inc_cpu = guard_events()
+    if inc_gpu != inc_cpu:
+        raise AssertionError(f"[{tag}] card incidents {inc_gpu} != CPU "
+                             f"{inc_cpu}")
+    err = 0.0
+    for sid in streams:
+        w, w_c = w_of(eng, sid), w_of(eng_c, sid)
+        if not bool(torch.isfinite(w).all()) or not np.all(
+                np.isfinite(eng.outputs(sid))):
+            raise AssertionError(f"[{tag}] {sid}: nonfinite weights or "
+                                 "outputs under sanitize")
+        torch.testing.assert_close(w.cpu(), w_c, rtol=LEARN_TOL,
+                                   atol=LEARN_TOL, msg=lambda m: (
+                                       f"[{tag}] {sid} learned w card vs "
+                                       f"CPU: {m}"))
+        err = max(err, float((w.cpu() - w_c).abs().max()))
+    out["nan_weights"] = dict(faults=RES_LEARN_FAULTS,
+                              windows=eng.metrics.windows_run,
+                              launches=counts, incidents=len(inc_gpu),
+                              learned_w_max_abs_err=err)
+    log(f"path [{tag}]: {RES_LEARN_FAULTS} under sanitize: "
+        f"{eng.metrics.windows_run} windows, launches "
+        f"{ {k: v for k, v in counts.items() if v} }; every session's "
+        f"weights and outputs finite, learned w card vs CPU {err:.3e}, "
+        f"{len(inc_gpu)} guard incidents on both")
+
+    # -- per-session rollback: one window, the bound between two sessions ----
+    def learn_once(nd, pr, dev, guard):
+        e = make_engine(nd, pr, cfg(guard), device=dev)
+        for sid, xs in streams.items():
+            e.open(sid)
+            e.submit(sid, xs[:WINDOW])
+            e.close(sid)
+        clear()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            e.drain()
+        return e, guard_events()
+
+    with faults.inject(""):
+        free, _ = learn_once(nodes, params, DEV, "off")
+        w0 = params["hidden"]["w_input"]
+        n0 = float(torch.linalg.vector_norm(w0.float()))
+        ratio = {sid: float(torch.linalg.vector_norm(w_of(free, sid).float()))
+                 / (n0 + 1.0) for sid in streams}
+        r = sorted(ratio.values())
+        k = max(range(len(r) // 4, 3 * len(r) // 4),
+                key=lambda i: r[i + 1] - r[i])
+        bound = (r[k] + r[k + 1]) / 2
+        if not (r[k + 1] - r[k]) > 1e-5 * bound:
+            raise AssertionError(f"[{tag}] no gap between the sessions' "
+                                 f"norm ratios to put the bound in: {r}")
+        rolled = {sid for sid, v in ratio.items() if v > bound}
+        runs = {}
+        for policy in ("sanitize", "warn"):
+            g = guards.GuardConfig(policy=policy, w_ratio_max=bound)
+            runs[policy] = (learn_once(nodes, params, DEV, g),
+                            learn_once(nodes_c, params_c, "cpu", g))
+    (san, inc_san), (san_c, _) = runs["sanitize"]
+    for sid in streams:
+        want = w0 if sid in rolled else w_of(free, sid)
+        if not torch.equal(w_of(san, sid), want):
+            raise AssertionError(f"[{tag}] {sid}: sanitize "
+                                 + ("did not roll back" if sid in rolled
+                                    else "changed a window it kept"))
+        torch.testing.assert_close(w_of(san, sid).cpu(), w_of(san_c, sid),
+                                   rtol=LEARN_TOL, atol=LEARN_TOL)
+    (_, inc_warn), (_, inc_warn_c) = runs["warn"]
+    flagged = [e for e in inc_warn if "explosion" in e[2]]
+    if inc_san or len(flagged) != len(rolled) or inc_warn != inc_warn_c:
+        raise AssertionError(f"[{tag}] incidents: sanitize {inc_san}, warn "
+                             f"{inc_warn} (CPU {inc_warn_c}), "
+                             f"{len(rolled)} sessions over the bound")
+    if not 0 < len(rolled) < len(streams):
+        raise AssertionError(f"[{tag}] {len(rolled)} of {len(streams)} "
+                             "sessions over the bound: not a per-session "
+                             "check")
+    out["rollback"] = dict(w_ratio_max=bound, sessions=len(streams),
+                           rolled_back=len(rolled),
+                           ratio_min=r[0], ratio_max=r[-1])
+    log(f"path [{tag}]: one window of {len(streams)} sessions, learned-norm "
+        f"ratios {r[0]:.6f}..{r[-1]:.6f} of the entry's; with w_ratio_max "
+        f"{bound:.6f} sanitize rolled back exactly the {len(rolled)} "
+        f"sessions over it (entry weights bit for bit) and kept the "
+        f"others' windows bit for bit, warn flagged those {len(flagged)} "
+        "and the CPU the same")
+    return out
+
+
+def resilience_stream():
+    """plastic_ff as a chunked-online plan.run stream of RES_WINDOWS
+    windows (T=300, B=8) on the card, snapshotted by `StreamCheckpointer`
+    after each of the first RES_SNAPSHOTS, restored into fresh (zero)
+    templates and finished: the final params and state, bit for bit those
+    of the uninterrupted card run."""
+    import tempfile
+
+    from repro_torch.core import events, faults, plan, plasticity
+    from repro_torch.kernels import registry
+    from repro_torch.train.checkpoint import StreamCheckpointer
+    tag = "resilience stream"
+    nodes, params0 = make_plastic("pair_stdp", DEV)
+
+    def chunk(w):
+        return torch.from_numpy((np.random.default_rng(30 + w).random(
+            (PLASTIC_T, PLASTIC_B, PLASTIC_IN)) < PLASTIC_RATE).astype(
+                np.float32)).to(DEV)
+
+    def windows(nd, params, state, start, stop, ck=None):
+        for w in range(start, stop):
+            state, _, _ = plan.run(nd, params, chunk(w), state=state,
+                                   device=DEV)
+            params = plasticity.apply_learned(nd, params, state)
+            if ck is not None:
+                ck.save(w, state, params=params)
+        return params, state
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else torch.zeros_like(v)
+                for k, v in tree.items()}
+
+    with torch.no_grad(), faults.inject(""):
+        st0 = events.init_state(nodes, PLASTIC_B, torch.float32, params0,
+                                device=DEV)
+        registry.reset_launches()
+        p_ref, s_ref = windows(nodes, dict(params0), st0, 0, RES_WINDOWS)
+        counts = registry.launch_counts()
+        if counts["stdp_seq"] != RES_WINDOWS:
+            raise AssertionError(f"[{tag}] {counts['stdp_seq']} stdp_seq "
+                                 f"launches for {RES_WINDOWS} windows")
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            windows(nodes, dict(params0), st0, 0, RES_SNAPSHOTS,
+                    StreamCheckpointer(d, keep=2))
+            save_s = time.perf_counter() - t0
+            nodes2, params2 = make_plastic("pair_stdp", DEV)
+            t0 = time.perf_counter()
+            window, state2, params2, _ = StreamCheckpointer(
+                d, keep=2).restore_latest(zeros(st0), params=zeros(params2))
+            restore_s = time.perf_counter() - t0
+        if window != RES_SNAPSHOTS - 1:
+            raise AssertionError(f"[{tag}] restored window {window}")
+        p_res, s_res = windows(nodes2, params2, state2, window + 1,
+                               RES_WINDOWS)
+    if not (bit_equal(p_ref, p_res) and bit_equal(s_ref, s_res)):
+        raise AssertionError(f"[{tag}] the resumed stream's params or state "
+                             "differ from the uninterrupted run's")
+    log(f"path [{tag}]: {RES_WINDOWS} windows (T={PLASTIC_T}, "
+        f"B={PLASTIC_B}), snapshots after windows 0..{RES_SNAPSHOTS - 1} "
+        f"({save_s:.3f} s with their runs), restored from window {window} "
+        f"into zero templates ({restore_s:.3f} s) and finished: final "
+        "weights, neuron states and synapse traces equal the "
+        "uninterrupted card run bit for bit")
+    return {"windows": RES_WINDOWS, "snapshots": RES_SNAPSHOTS,
+            "restored_window": window, "launches": counts,
+            "save_and_run_s": save_s, "restore_s": restore_s}
+
+
+def phase_resilience(smi):
+    """Runtime robustness on the card: faults, guards and stream
+    checkpoints through the main path (`resilience_shd`,
+    `resilience_learning`, `resilience_stream`)."""
+    from repro_torch.kernels.incidents import clear
+    shd = resilience_shd()
+    learning = resilience_learning()
+    stream = resilience_stream()
+    clear()
+    return {"path": "resilience", "model": PATHS[0].model,
+            "window": WINDOW, "capacity": CAPACITY,
+            "sessions": RES_SESSIONS,
+            # the counted run: the served SHD DH-SNN, guard=off, no fault
+            "launches": shd["off_launches"],
+            "launches_per_window": PATHS[0].per_window,
+            "shd": shd, "learning": learning, "stream": stream, "card": smi}
+
+
 def phase_plastic_online(smi):
     """`examples/stdp_online.py`'s loop at the bench widths: ONLINE_CHUNKS
     chunks, chunked (apply_learned between chunks) and streamed
@@ -6554,6 +7023,7 @@ def path_phases():
             "plastic_online": phase_plastic_online,
             "stdp_step": phase_stdp_step,
             "serve_plastic": phase_serve_plastic,
+            "resilience": phase_resilience,
             **{name: functools.partial(phase_train, p)
                for name, p in train_paths().items()},
             "bci": phase_bci,
@@ -6611,6 +7081,7 @@ def main(argv):
     slices.append(phase_plastic_online(smi))
     slices.append(phase_stdp_step(smi))
     slices.append(phase_serve_plastic(smi))
+    slices.append(phase_resilience(smi))
     slices += [phase_train(p, smi) for p in train_paths().values()]
     slices.append(phase_bci(smi))
     kernels["attention"], attn = phase_attention(smi)

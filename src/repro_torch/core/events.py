@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.neuron import NeuronSpec
 from repro_torch.core.plasticity import (SynapseProgram, synapse_init,
                                          validate_synapse_program)
@@ -276,6 +277,10 @@ def step(nodes: List[LayerNode], params: Dict[str, Any],
             {k: v for k, v in state[n.name].items()
              if k not in ("out", "ring") and not k.startswith("syn:")},
             current, params.get(n.name, {}).get("neuron"))      # FIRE
+        # injected dead/stuck neuron rows (repro_torch.core.faults): the
+        # faulty rows poison everything downstream of the emission —
+        # recurrence, rings, same-timestep feeds — like a dead core would
+        s_out = faults.perturb_output(n.name, s_out)
         ns = dict(ns)
         ns["out"] = s_out
         if "ring" in state[n.name]:

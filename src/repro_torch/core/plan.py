@@ -64,21 +64,30 @@ bisecting a numerics difference). REPRO_SNN_EXPLAIN=1 prints every compiled
 schedule (`Plan.describe()`) as Programs are lowered. A bad value of either
 raises the reference's ValueError.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: numerical guardrails (`guard=`, REPRO_GUARD) and fault injection
-(REPRO_FAULTS), item 8; the compile-time checker (REPRO_CHECK=warn|raise),
-item 9.
+Resilience hooks, at the reference's places: active faults (REPRO_FAULTS
+/ `faults.inject`, `core/faults.py`) perturb the input raster and the weight
+planes once at the run's entry and each node's output inside both engines,
+identically; REPRO_GUARD (or `run(guard=...)`) arms the numerical
+guardrails (`core/guards.py`) on the input, on every segment's output and
+new state, on the stepper's output and on each window's learned weights.
+Their flags are read once a run. In a learning serve window (a plastic
+weight with a session axis) the weight faults draw one session's mask and
+every guard acts per session, as under the reference's per-session vmap.
+
+Not ported yet: the compile-time checker (REPRO_CHECK=warn|raise) raises
+NotImplementedError naming its ROADMAP.md item, item 9.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import (Any, Dict, Iterable, Iterator, List, Optional, Tuple,
+                    Union)
 
 import torch
 
-from repro_torch.core import events, plasticity
+from repro_torch.core import events, faults, guards, plasticity
 from repro_torch.core.neuron import Decay, NeuronProgram, decay_array
 from repro_torch.kernels.common import DeviceLike, check_device, resolve_device
 from repro_torch.kernels.alifrec.ops import alif_scan, alifrec_scan
@@ -468,10 +477,22 @@ def _self_weight(node: events.LayerNode, params: Dict[str, Any]) -> Tensor:
     return params[node.name][conn.weight_key].contiguous()
 
 
+def _is_spiking(node: events.LayerNode) -> bool:
+    """Whether the node emits a spike train (rate monitors make sense) as
+    opposed to a membrane/state readout. Unknown programs count as spiking
+    only if they declare a threshold."""
+    try:
+        return node.neuron.program.threshold is not None
+    except NotImplementedError:
+        return False
+
+
 def _run_fused(node: events.LayerNode, kind: str, lower: str,
                params: Dict[str, Any], outs: Dict[str, Tensor],
                state: Dict[str, Any], new_state: Dict[str, Any],
-               T: int, B: int, traced: bool) -> None:
+               T: int, B: int, traced: bool,
+               gcfg: guards.GuardConfig = guards.GuardConfig(),
+               sessions: bool = False) -> None:
     cur = _hoisted_current(node, params, outs, state, T, B, traced)
     prog = node.neuron.program
     nparams = params.get(node.name, {}).get("neuron")
@@ -533,6 +554,22 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
     else:  # pragma: no cover - compile_program only emits known families
         raise ValueError(f"unknown FIRE lowering {lower!r}")
 
+    # dead/stuck-row faults: the mask is time-independent, so masking the
+    # full (T, B, N) train here equals the stepper's per-step masking for
+    # everything downstream (feeds, rings, "out"). A fused *recurrent*
+    # kernel's in-loop feedback runs pre-mask, unlike the stepper, as in
+    # the reference. The DH-LIF branch call's output is the soma's input,
+    # not a node output, so nothing is checked between branch and soma.
+    # With `sessions` the batch rows are a learning window's sessions, and
+    # each guard acts per row (axis 1 of the train, 0 of a state).
+    out = faults.perturb_output(node.name, out)
+    out = guards.check_tensor(f"{node.name}.out", out, gcfg,
+                              1 if sessions else None)
+    if lower != LOWER_LI:
+        guards.check_spikes(node.name, out, gcfg, 1 if sessions else None)
+    ns = {k: guards.check_tensor(f"{node.name}.{k}", v, gcfg,
+                                 0 if sessions else None)
+          for k, v in ns.items()}
     outs[node.name] = out
     ns["out"] = out[-1]
     if "ring" in st:
@@ -546,7 +583,8 @@ def _run_fused(node: events.LayerNode, kind: str, lower: str,
 def _run_fallback(seg: Segment, nodes_by_name: Dict[str, events.LayerNode],
                   params: Dict[str, Any], x: Tensor, outs: Dict[str, Tensor],
                   state: Dict[str, Any], new_state: Dict[str, Any],
-                  T: int) -> None:
+                  T: int,
+                  gcfg: guards.GuardConfig = guards.GuardConfig()) -> None:
     seg_nodes = [nodes_by_name[name] for name in seg.names]
     seg_names = set(seg.names)
     st = {name: state[name] for name in seg.names}
@@ -564,7 +602,17 @@ def _run_fallback(seg: Segment, nodes_by_name: Dict[str, events.LayerNode],
                             ext={k: v[t] for k, v in ext.items()})
         for name in seg.names:
             rec[name].append(st[name]["out"])
-    outs.update({name: torch.stack(v) for name, v in rec.items()})
+    full = {name: torch.stack(v) for name, v in rec.items()}
+    if gcfg.active:
+        for name in seg.names:
+            full[name] = guards.check_tensor(f"{name}.out", full[name], gcfg)
+            if _is_spiking(nodes_by_name[name]):
+                guards.check_spikes(name, full[name], gcfg)
+        st = {name: {k: (guards.check_tensor(f"{name}.{k}", v, gcfg)
+                         if not k.startswith("syn:") else v)
+                     for k, v in ns.items()}
+              for name, ns in st.items()}
+    outs.update(full)
     new_state.update(st)
 
 
@@ -577,9 +625,20 @@ def _refuse_check() -> None:
             f"ported yet: {_ROADMAP}, item 9 (verifier)")
 
 
-def _refuse_sessions_off_the_plan(plan: Plan, nodes: List[events.LayerNode],
-                                  params: Dict[str, Any], mode: str,
-                                  learn: bool) -> None:
+def _session_conns(nodes: List[events.LayerNode], params: Dict[str, Any]
+                   ) -> List[Tuple[str, events.Connection]]:
+    """(node name, connection) of every plastic weight with a session axis:
+    a weight of shape (S, n_pre, n_post), a learning serve window's one
+    weight a session (batch row)."""
+    return [(n.name, c) for n in nodes for c in n.connections
+            if c.plastic is not None
+            and torch.is_tensor(w := params.get(n.name, {}).get(c.weight_key))
+            and w.dim() == 3]
+
+
+def _refuse_sessions_off_the_plan(
+        plan: Plan, sessions: List[Tuple[str, events.Connection]],
+        mode: str, learn: bool) -> None:
     """A plastic weight with a session axis (a learning serve window) runs
     on the fused segments and learns on the `stdp_seq` lowering only: the
     stepper and the per-step synapse interpreter (TB210) read one weight
@@ -587,39 +646,20 @@ def _refuse_sessions_off_the_plan(plan: Plan, nodes: List[events.LayerNode],
     fallback = {n for s in plan.segments if s.kind == FALLBACK
                 for n in s.names}
     step = {(p.node, p.conn) for p in plan.plastic if p.lower == SYN_STEP}
-    for n in nodes:
-        for c in n.connections:
-            w = params.get(n.name, {}).get(c.weight_key)
-            if c.plastic is None or not (torch.is_tensor(w)
-                                         and w.dim() == 3):
-                continue
-            if mode == "stepper":
-                where = "the stepper (REPRO_SNN_ENGINE=stepper)"
-            elif n.name in fallback:
-                where = "the stepper (a fallback segment)"
-            elif learn and (n.name, c.key) in step:
-                where = "the per-step synapse lowering (TB210)"
-            else:
-                continue
-            raise NotImplementedError(
-                f"node {n.name!r}: the session axis of a learning serve "
-                f"window runs on the fused plan and the stdp_seq lowering, "
-                f"not on {where}: {_ROADMAP}, item 7 (plasticity in "
-                "serving)")
-
-
-def _refuse_unported(guard) -> None:
-    """Raise for the reference's run-time hooks the port does not have
-    yet, instead of silently running without them."""
-    _refuse_check()
-    if guard is not None or os.environ.get("REPRO_GUARD", "off") != "off":
+    for name, c in sessions:
+        if mode == "stepper":
+            where = "the stepper (REPRO_SNN_ENGINE=stepper)"
+        elif name in fallback:
+            where = "the stepper (a fallback segment)"
+        elif learn and (name, c.key) in step:
+            where = "the per-step synapse lowering (TB210)"
+        else:
+            continue
         raise NotImplementedError(
-            "numerical guardrails (guard=, REPRO_GUARD) are not ported yet: "
-            f"{_ROADMAP}, item 8 (runtime robustness)")
-    if os.environ.get("REPRO_FAULTS"):
-        raise NotImplementedError(
-            "fault injection (REPRO_FAULTS) is not ported yet: "
-            f"{_ROADMAP}, item 8 (runtime robustness)")
+            f"node {name!r}: the session axis of a learning serve "
+            f"window runs on the fused plan and the stdp_seq lowering, "
+            f"not on {where}: {_ROADMAP}, item 7 (plasticity in "
+            "serving)")
 
 
 # ---------------------------------------------------------------------------
@@ -784,7 +824,8 @@ def _learn_fused(prog: plasticity.SynapseProgram, syn0: Dict[str, Tensor],
 def _learn_conn(node: events.LayerNode, conn: events.Connection, lower: str,
                 params: Dict[str, Any], outs: Dict[str, Tensor],
                 state: Dict[str, Any], new_state: Dict[str, Any],
-                T: int, B: int, mod: Any, order: Dict[str, int]) -> None:
+                T: int, B: int, mod: Any, order: Dict[str, int],
+                gcfg: guards.GuardConfig = guards.GuardConfig()) -> None:
     """Apply one plastic Connection's learning rule over the run window.
 
     The pre train is exactly the feed the stepper delivered: delay-shifted
@@ -819,6 +860,15 @@ def _learn_conn(node: events.LayerNode, conn: events.Connection, lower: str,
     else:
         syn1 = plasticity.synapse_run(prog, syn0["w"], pre, post, mod_f,
                                       sparams, syn=syn0)
+    if gcfg.active:
+        # chunked-online divergence guard: a window whose learned weights
+        # go nonfinite or explode is flagged (warn/raise) or rolled back
+        # to the entry tensor (sanitize) before it is published; a weight
+        # with a session axis is guarded session by session
+        syn1 = dict(syn1)
+        syn1["w"] = guards.guard_learned(
+            f"{node.name}.{conn.key}", syn0["w"], syn1["w"], gcfg,
+            0 if syn0["w"].dim() == 3 else None)
     ns = dict(new_state[node.name])
     ns[key] = syn1
     new_state[node.name] = ns
@@ -828,7 +878,8 @@ def _learn_conn(node: events.LayerNode, conn: events.Connection, lower: str,
 def _learn_pass(plan: Plan, nodes: List[events.LayerNode],
                 params: Dict[str, Any], outs: Dict[str, Tensor],
                 state: Dict[str, Any], new_state: Dict[str, Any],
-                T: int, B: int, mod: Any) -> None:
+                T: int, B: int, mod: Any,
+                gcfg: guards.GuardConfig = guards.GuardConfig()) -> None:
     """Every plastic connection's learning rule over the window, out of
     the autograd graph (the JAX package's `stop_gradient`): its weight and
     trace writes carry no `grad_fn`, whatever the spike trains, synapse
@@ -839,7 +890,7 @@ def _learn_pass(plan: Plan, nodes: List[events.LayerNode],
         node = nodes_by_name[p.node]
         conn = next(c for c in node.connections if c.key == p.conn)
         _learn_conn(node, conn, p.lower, params, outs, state, new_state,
-                    T, B, mod, order)
+                    T, B, mod, order, gcfg)
 
 
 # ---------------------------------------------------------------------------
@@ -850,12 +901,22 @@ def _learn_pass(plan: Plan, nodes: List[events.LayerNode],
 def _run_stepper(nodes: List[events.LayerNode], params: Dict[str, Any],
                  x: Tensor, state: Optional[Dict[str, Any]],
                  record: Tuple[str, ...], plan: Plan, mod: Any,
-                 do_learn: bool, dev: torch.device):
+                 do_learn: bool, dev: torch.device,
+                 gcfg: guards.GuardConfig = guards.GuardConfig()):
     """The interpreted engine (`events.run`), then, when learning, the
     same learning pass over the realized spike trains (recording what the
-    plastic connections need)."""
+    plastic connections need). The guards check the last node's output."""
+
+    def checked(out):
+        out = guards.check_tensor(f"{nodes[-1].name}.out", out, gcfg)
+        if gcfg.active and _is_spiking(nodes[-1]):
+            guards.check_spikes(nodes[-1].name, out, gcfg)
+        return out
+
     if not do_learn:
-        return events.run(nodes, params, x, state, record, device=dev)
+        final, out, recs = events.run(nodes, params, x, state, record,
+                                      device=dev)
+        return final, checked(out), recs
     T, B = x.shape[0], x.shape[1]
     if state is None:
         state = events.init_state(nodes, B, x.dtype, params, device=dev)
@@ -869,19 +930,21 @@ def _run_stepper(nodes: List[events.LayerNode], params: Dict[str, Any],
             needed.add(conn.src)
     final, out, recs = events.run(nodes, params, x, state,
                                   tuple(sorted(needed)), device=dev)
+    out = checked(out)
     outs = dict(recs)
     outs["input"] = x
     outs[nodes[-1].name] = out
     new_state = dict(final)
-    _learn_pass(plan, nodes, params, outs, state, new_state, T, B, mod)
+    _learn_pass(plan, nodes, params, outs, state, new_state, T, B, mod,
+                gcfg)
     return new_state, out, {r: outs[r] for r in record}
 
 
 def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
         state: Optional[Dict[str, Any]] = None, record: Tuple[str, ...] = (),
         plan: Optional[Plan] = None, mod: Any = None, learn: bool = True,
-        guard: Optional[str] = None, device: DeviceLike = "cuda",
-        _traced: bool = False):
+        guard: Union[None, str, guards.GuardConfig] = None,
+        device: DeviceLike = "cuda", _traced: bool = False):
     """Drop-in replacement for `events.run` through the compiled plan.
 
     x: (T, batch, n_in) on `device` (default the card; pass device="cpu"
@@ -895,7 +958,16 @@ def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
     REPRO_SNN_ENGINE=stepper the forward runs on `events.run`, and the
     learning pass after it. `_traced=True` (the serve engine's window
     step) routes the hoisted INTEG as the JAX package routes its jitted
-    step: spikemm's `auto` stays dense, with no occupancy sync.
+    step: spikemm's `auto` stays dense, with no occupancy sync, and a
+    guard's raise policy records and warns instead of raising.
+
+    Resilience hooks: active faults (`REPRO_FAULTS` / `faults.inject`)
+    perturb the input raster and weight planes once at entry and node
+    outputs inside both engines, identically. `guard` enables numerical
+    guardrails (`core/guards.py`): a policy string off|warn|raise|sanitize
+    or a full `GuardConfig`; None defers to `REPRO_GUARD` (default off).
+    Off adds no op, launch or host read; warn and raise read every flag
+    of the run in one copy at its end.
 
     Differentiable (surrogate-gradient BPTT): the outputs and final
     states carry autograd graphs back to `params`, `x` and `state` where
@@ -906,40 +978,53 @@ def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
     stays out of the graph. Callers that only infer run it under
     `torch.no_grad()`.
     """
-    _refuse_unported(guard)
+    _refuse_check()
     mode = engine_mode()
     dev = resolve_device(device)
     check_device("x", x, dev)
     if plan is None:
         plan = compile_program(nodes)
+    gcfg = guards.config(guard)
     do_learn = learn and bool(plan.plastic)
-    _refuse_sessions_off_the_plan(plan, nodes, params, mode, do_learn)
-    if mode == "stepper" or plan.fully_fallback:
-        return _run_stepper(nodes, params, x, state, record, plan, mod,
-                            do_learn, dev)
-    T, B = x.shape[0], x.shape[1]
-    if state is None:
-        state = events.init_state(nodes, B, x.dtype, params, device=dev)
-    nodes_by_name = {n.name: n for n in nodes}
-    outs: Dict[str, Tensor] = {"input": x}
-    new_state = dict(state)
-    for seg in plan.segments:
-        if seg.kind == FALLBACK:
-            _run_fallback(seg, nodes_by_name, params, x, outs, state,
-                          new_state, T)
-        else:
-            _run_fused(nodes_by_name[seg.names[0]], seg.kind, seg.lower,
-                       params, outs, state, new_state, T, B, _traced)
-    if do_learn:
-        _learn_pass(plan, nodes, params, outs, state, new_state, T, B, mod)
-    return new_state, outs[nodes[-1].name], {r: outs[r] for r in record}
+    sessions = _session_conns(nodes, params)
+    _refuse_sessions_off_the_plan(plan, sessions, mode, do_learn)
+    with guards.collect(_traced):
+        # injected faults hit the run boundary once, before either engine
+        # (and before init_state seeds plastic synapses), so both see the
+        # same world
+        x = faults.perturb_input(x)
+        params = faults.perturb_params(
+            params, {(name, c.weight_key) for name, c in sessions})
+        x = guards.check_tensor("input", x, gcfg, 1 if sessions else None)
+        if mode == "stepper" or plan.fully_fallback:
+            return _run_stepper(nodes, params, x, state, record, plan, mod,
+                                do_learn, dev, gcfg)
+        T, B = x.shape[0], x.shape[1]
+        if state is None:
+            state = events.init_state(nodes, B, x.dtype, params, device=dev)
+        nodes_by_name = {n.name: n for n in nodes}
+        outs: Dict[str, Tensor] = {"input": x}
+        new_state = dict(state)
+        for seg in plan.segments:
+            if seg.kind == FALLBACK:
+                _run_fallback(seg, nodes_by_name, params, x, outs, state,
+                              new_state, T, gcfg)
+            else:
+                _run_fused(nodes_by_name[seg.names[0]], seg.kind,
+                           seg.lower, params, outs, state, new_state, T, B,
+                           _traced, gcfg, bool(sessions))
+        if do_learn:
+            _learn_pass(plan, nodes, params, outs, state, new_state, T, B,
+                        mod, gcfg)
+        return new_state, outs[nodes[-1].name], {r: outs[r] for r in record}
 
 
 def run_stream(nodes: List[events.LayerNode], params: Dict[str, Any],
                chunks: Iterable[Tensor],
                state: Optional[Dict[str, Any]] = None,
                plan: Optional[Plan] = None, mod: Optional[Iterable] = None,
-               learn: bool = True, guard: Optional[str] = None,
+               learn: bool = True,
+               guard: Union[None, str, guards.GuardConfig] = None,
                device: DeviceLike = "cuda"
                ) -> Iterator[Tuple[Dict[str, Any], Tensor]]:
     """Chunked/streaming execution: yields `(state, outputs)` after each

@@ -16,7 +16,10 @@ Dispatch goes by the device of the tensors, and by nothing else: tensors
 on the CPU run the plain version, tensors on a CUDA device launch the hand
 kernel. There is no environment switch that sends card tensors to the
 plain version, and no fallback: when a build or a launch fails, the call
-raises. (The JAX package's pallas -> interpret -> ref chain and its
+raises. So do the injected infrastructure faults (`core/faults.py`), on
+either device, before the device is chosen: a `compile_fail` that targets
+the family raises `FaultInjectedError` where the JAX package would fall
+back to its reference, and so does any active `vmem_limit`. (The JAX package's pallas -> interpret -> ref chain and its
 autotuner are not ported; a TPU's block sizes are VMEM choices that mean
 nothing here.)
 
@@ -44,6 +47,8 @@ from typing import (Any, Callable, Dict, Mapping, Optional, Sequence,
                     Tuple)
 
 import torch
+
+from repro_torch.core import faults
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +163,7 @@ def dispatch(name: str, args: Sequence[Any], traced: bool = False,
     tensors. `traced` goes to the router only (see `spikemm`); `static`
     kwargs, and those the router hands its channel, are forwarded to the
     implementation."""
+    faults.check_dispatch(name)
     spec = get(name)
     impl: Any = spec
     if spec.select_channel is not None:
@@ -172,6 +178,7 @@ def dispatch(name: str, args: Sequence[Any], traced: bool = False,
 def dispatch_bwd(name: str, args: Sequence[Any], **static) -> Any:
     """Run family `name`'s backward: its CUDA kernel for CUDA tensors,
     its plain version for CPU tensors."""
+    faults.check_dispatch(name)
     bwd = get(name).bwd
     if bwd is None:
         raise ValueError(f"kernel {name!r} has no backward of its own")

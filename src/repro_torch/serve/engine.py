@@ -54,20 +54,27 @@ session. Both kernels give each session, bit for bit, what they give its
 rows alone, so the isolation invariant holds with learning on. The naive
 engine runs the same path a session at a time (S = 1).
 
-Not ported yet: `guard=` raises NotImplementedError naming its ROADMAP.md
-item.
+Resilience composes as in the reference: `REPRO_FAULTS` / `faults.inject`
+and `EngineConfig.guard` (or `REPRO_GUARD`) reach `plan.run` on both
+cohorts. The JAX engine caches its jitted step by the active fault spec;
+the port has no step cache, so each window reads the spec in effect when
+it runs. A window step runs as the reference's jitted step does
+(`_traced=True`): a guard's raise policy records and warns instead of
+raising. In a learning window the faults and guards act per session (see
+`core/plan.py`). Kernel dispatch has no fallback: an injected
+`compile_fail` raises `FaultInjectedError` out of `step()`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core import events, plasticity
+from repro_torch.core import events, guards, plasticity
 from repro_torch.core import plan as plan_mod
 from repro_torch.kernels.common import DeviceLike, check_device, resolve_device
 from repro_torch.serve.metrics import ServeMetrics
@@ -89,7 +96,8 @@ class EngineConfig:
     learn:       per-session on-chip plasticity (the `learn=` path of
                  `plan.run`, one weight a session); with False a plastic
                  program serves with frozen weights.
-    guard:       numerical guardrail policy (not ported yet: raises).
+    guard:       numerical guardrail policy for `plan.run` (a policy
+                 string or a `GuardConfig`; None defers to REPRO_GUARD).
     """
 
     window: int = 32
@@ -97,7 +105,7 @@ class EngineConfig:
     queue_limit: Optional[int] = 256
     cache_bytes: Optional[int] = None
     learn: bool = False
-    guard: Optional[str] = None
+    guard: Union[None, str, guards.GuardConfig] = None
 
     def __post_init__(self):
         if self.window < 1:
@@ -183,7 +191,7 @@ class BatchedEngine:
                  plan: Optional[plan_mod.Plan] = None,
                  dtype: torch.dtype = torch.float32,
                  device: DeviceLike = "cuda"):
-        plan_mod._refuse_unported(cfg.guard)
+        plan_mod._refuse_check()
         self.device = resolve_device(device)
         _check_params(params, self.device)
         self.nodes = list(nodes)
@@ -335,7 +343,8 @@ class BatchedEngine:
         ns, out, _ = plan_mod.run(self.nodes, params,
                                   self._window(xs, slots), state=stacked,
                                   plan=self.plan, learn=True,
-                                  device=self.device, _traced=True)
+                                  guard=self.cfg.guard, device=self.device,
+                                  _traced=True)
         out_np = out.cpu().numpy()              # one transfer per window
         return _sessions_of(ns, len(states)), out_np
 
@@ -357,7 +366,8 @@ class BatchedEngine:
         x = self._window([xw for _, xw, _ in cohort], C)
         ns, out, _ = plan_mod.run(self.nodes, self.params, x, state=packed,
                                   plan=self.plan, learn=False,
-                                  device=self.device, _traced=True)
+                                  guard=self.cfg.guard, device=self.device,
+                                  _traced=True)
         out_np = out.cpu().numpy()              # one transfer per window
         return ([_merge_syn(plan_mod.unpack_state(ns, i), syn)
                  for i, syn in enumerate(syns)],
@@ -384,6 +394,7 @@ class NaiveEngine(BatchedEngine):
             ns, out, _ = plan_mod.run(self.nodes, self.params,
                                       self._window([xw], 1), state=core,
                                       plan=self.plan, learn=False,
+                                      guard=self.cfg.guard,
                                       device=self.device, _traced=True)
             news.append(_merge_syn(ns, syn))
             outs.append(out.cpu().numpy()[:, 0, :])

@@ -1,9 +1,10 @@
 """Import hygiene: the port never imports JAX or the JAX package.
 
 Every module of `repro_torch` is imported in a fresh interpreter whose
-import system refuses `jax*` and `repro`/`repro.*`; `chip_smoke.py` and
-the port's examples are parsed and must import neither, and so is the
-tie-rule helper `chip_smoke.py` shares with the tests.
+import system refuses `jax*`, `repro`/`repro.*` and `ml_dtypes`;
+`chip_smoke.py` and the port's examples are parsed and must import
+neither, and so is the tie-rule helper `chip_smoke.py` shares with the
+tests.
 """
 
 import ast
@@ -22,7 +23,7 @@ import importlib, pkgutil, sys
 class Refuse:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top == "repro" or top.startswith("jax"):
+        if top in ("repro", "ml_dtypes") or top.startswith("jax"):
             raise ImportError(f"refused import of {name}")
         return None
 
@@ -33,7 +34,8 @@ mods = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 bad = [k for k in sys.modules
-       if k == "repro" or k.startswith("repro.") or k.startswith("jax")]
+       if k in ("repro", "ml_dtypes") or k.startswith("repro.")
+       or k.startswith("jax")]
 assert not bad, bad
 print(len(mods), " ".join(mods))
 """
@@ -41,9 +43,12 @@ print(len(mods), " ".join(mods))
 # the modules of the serving slices, compressed topology, plasticity,
 # flash attention with the parity harness, the BCI decoder (in
 # core.snn_layers and core.plasticity), and the mapping compiler, the
-# behavioural simulator and the Table II configs, and the streaming client
-# (ROADMAP.md, Open items 1, items 1, 3, 4, 5, 6, 7, 11's kernel and 12)
+# behavioural simulator and the Table II configs, the streaming client,
+# and the fault injection, guards and checkpoints of runtime robustness
+# (ROADMAP.md, Open items 1, items 1, 3, 4, 5, 6, 7, 8, 11's kernel and 12)
 EXPECTED = {
+    "repro_torch.core.faults", "repro_torch.core.guards",
+    "repro_torch.train", "repro_torch.train.checkpoint",
     "repro_torch.core.mapping", "repro_torch.core.simulator",
     "repro_torch.configs", "repro_torch.configs.snn_models",
     "repro_torch.kernels.attention.ops", "repro_torch.kernels.attention.ref",

@@ -537,13 +537,20 @@ def test_pack_unpack_round_trip():
 
 
 def test_unported_hooks_raise(monkeypatch):
+    """Only REPRO_CHECK (item 9) still raises; the guards and the faults
+    (item 8) are ported and a run under them completes."""
     _, _, tn, tp = _dhsnn(True, 8, 4, 2)
     x = torch.zeros(3, 1, 8)
-    with pytest.raises(NotImplementedError, match="guardrails"):
-        plan.run(tn, tp, x, guard="warn", device="cpu")
+    with pytest.warns(RuntimeWarning, match="population silent"):
+        _, out, _ = plan.run(tn, tp, x, guard="warn", device="cpu")
+    assert out.shape == (3, 1, 2) and bool(torch.isfinite(out).all())
+    monkeypatch.setenv("REPRO_GUARD", "sanitize")
+    _, out, _ = plan.run(tn, tp, x, device="cpu")
+    assert out.shape == (3, 1, 2)
+    monkeypatch.delenv("REPRO_GUARD")
     monkeypatch.setenv("REPRO_FAULTS", "dead_rows:frac=0.1")
-    with pytest.raises(NotImplementedError, match="fault injection"):
-        plan.run(tn, tp, x, device="cpu")
+    _, out, _ = plan.run(tn, tp, x, device="cpu")
+    assert out.shape == (3, 1, 2)
     monkeypatch.delenv("REPRO_FAULTS")
     monkeypatch.setenv("REPRO_CHECK", "raise")
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -513,7 +513,33 @@ tree the same way, so two trees compare in one call.
             Then `_FlashST`'s straight-through VJP at T=256, S=160, d=64,
             causal with window 128 (the parity phase holds (2, 160, 64))
             against autograd through the plain version, within 2e-3.
-16. parity  `repro_torch.kernels.parity.check_all()`: every family's CUDA
+16. verifier  the compile-time verifier (`repro_torch.analysis`) on the
+            card, also alone as `--path verifier`; in the whole script it
+            runs right after the build, while the process's profiler
+            sessions still record every kernel. (a) The CLI gate
+            `analysis --all --fail-on warning` in this process: no finding
+            at warning or above; counts and wall time printed. (b) The
+            served SHD DH-SNN (64 sessions, window 32) under
+            REPRO_CHECK=raise against REPRO_CHECK=off: outputs bit for bit,
+            the same launches a window (spikemm 2, linrec 2, lif 1), the
+            same PyTorch ops and host syncs over the run; compile_program's
+            host ms under both for each path's program and the p50 window
+            under both printed; the reference test's TB231 weight collision
+            raises `DiagnosticError` at compile time with no launch. (c)
+            Each registered family's tile model against the card's own
+            launches, at `make_inputs`' call, every candidate route and the
+            paths' shapes: one call captured in a CUDA graph, each kernel
+            node's grid, block and dynamic shared memory read through the
+            driver (with the kernel's static shared memory,
+            `cuFuncGetAttribute`), and the same call traced by
+            torch.profiler, whose Kineto events give grid, block and
+            shared memory where the trace carries them (the two must
+            agree). The model's grid and threads must equal the launch's,
+            its shared memory bound the launch's (TB304) within 8x (TB305),
+            and the launch's fit the card's opt-in budget. (d) TB307 on the
+            flags `occupancy_cuda` measures on sparse_integ's rasters at
+            densities 0.01, 0.05 and 0.5.
+17. parity  `repro_torch.kernels.parity.check_all()`: every family's CUDA
             wrapper and the sparse channel's against their plain versions
             at `make_inputs`, forward, and the VJP of `attention`, `lif`,
             `linrec`, `lifrec`, `alif`, `alifrec` and `spikemm` (both
@@ -521,7 +547,7 @@ tree the same way, so two trees compare in one call.
             `spikemm_wgrad` pair, against plain forward and backward) and
             `spikemm_gather` (its backward B6); the session axis of
             `spikemm` and `stdp_seq`; 13 kernels.
-17. result  prints `{"kernels": [...]}`, `{"bwd_passes": {...}}`,
+18. result  prints `{"kernels": [...]}`, `{"bwd_passes": {...}}`,
             `{"gather_rows": {...}}`,
             `{"sparse_tiles": {...}}`, `{"sweep": {...}}`, one
             `{"slice": {...}}` line per path, `{"parity": {...}}`, the
@@ -1715,6 +1741,7 @@ def stdp_seq_no_rows():
     dw = sum_k amp_k * 0 from zeros, then the clip, T times."""
     import ctypes
     from repro_torch.kernels import _build
+    from repro_torch.kernels.stdp.ops import stdp_seq_plan
     K, T, M, N = 3, 5, 130, 140
     amps = (0.5, -0.25, 0.125)
     w = (0.7 * torch.randn((M, N), generator=torch.Generator().manual_seed(
@@ -1725,8 +1752,8 @@ def stdp_seq_no_rows():
     amp = (ctypes.c_float * K)(*amps)
     code = _build.library().stdp_seq_f32(
         P.data_ptr(), Q.data_ptr(), w.data_ptr(), out.data_ptr(),
-        ctypes.addressof(amp), K, T, 0, M, N, -0.5, 0.5,
-        torch.cuda.current_stream().cuda_stream)
+        ctypes.addressof(amp), K, T, 0, M, N, *stdp_seq_plan(M, N)[:2],
+        -0.5, 0.5, torch.cuda.current_stream().cuda_stream)
     _build.check("stdp_seq", code)
     want = w.clone()
     for _ in range(T):
@@ -6013,19 +6040,29 @@ def device_kernels(fn, traces=3):
 _GRAPH_STREAM = []
 
 
-def graph_kernels(fn):
+class _KernelNode(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 (72 bytes, its CUfunction first)."""
+    _fields_ = [("func", ctypes.c_void_p), ("gx", ctypes.c_uint),
+                ("gy", ctypes.c_uint), ("gz", ctypes.c_uint),
+                ("bx", ctypes.c_uint), ("by", ctypes.c_uint),
+                ("bz", ctypes.c_uint), ("smem", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_nodes(fn):
     """The device work of one call of `fn`, read without the profiler: the
     call is captured in a CUDA graph and the graph's nodes listed through
-    the driver (`cuGraphGetNodes`), a kernel node by its name
-    (`cuFuncGetName`), any other node by its type. A call on the capture
-    stream goes first, so that what `fn` makes once for a stream (its
-    zeroed counters) is not made inside the capture."""
-    import ctypes
+    the driver (`cuGraphGetNodes`): [(mangled kernel name, its
+    `_KernelNode` params, its static shared memory)] for a kernel node,
+    [(node type, None, None)] for any other. A call on the capture stream
+    goes first, so that what `fn` makes once for a stream (its zeroed
+    counters) is not made inside the capture."""
     cu = ctypes.CDLL("libcuda.so.1")
 
     def check(code, what):
         if code:
-            raise AssertionError(f"graph_kernels: {what} returned {code}")
+            raise AssertionError(f"graph_nodes: {what} returned {code}")
     if not _GRAPH_STREAM:
         _GRAPH_STREAM.append(torch.cuda.Stream())
     side = _GRAPH_STREAM[0]
@@ -6042,24 +6079,35 @@ def graph_kernels(fn):
     check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
     check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    names = []
+    out = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
               "cuGraphNodeGetType")
         if kind.value != 0:                   # CU_GRAPH_NODE_TYPE_KERNEL
-            names.append(f"graph node of type {kind.value}")
+            out.append((kind.value, None, None))
             continue
-        # CUDA_KERNEL_NODE_PARAMS_v2 (72 bytes), its CUfunction first
-        params = (ctypes.c_void_p * 16)()
-        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
+        p = _KernelNode()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                               ctypes.byref(p)),
               "cuGraphKernelNodeGetParams_v2")
         name = ctypes.c_char_p()
-        check(cu.cuFuncGetName(ctypes.byref(name),
-                               ctypes.c_void_p(params[0])), "cuFuncGetName")
-        names.append(name.value.decode())
+        check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)),
+              "cuFuncGetName")
+        static = ctypes.c_int(0)   # CU_FUNC_ATTRIBUTE_SHARED_SIZE_BYTES (1)
+        check(cu.cuFuncGetAttribute(ctypes.byref(static), 1,
+                                    ctypes.c_void_p(p.func)),
+              "cuFuncGetAttribute")
+        out.append((name.value.decode(), p, static.value))
     del graph
-    return names
+    return out
+
+
+def graph_kernels(fn):
+    """The names of the device work of one call of `fn` (`graph_nodes`):
+    a kernel node by its name, any other node by its type."""
+    return [name if p is not None else f"graph node of type {name}"
+            for name, p, _ in graph_nodes(fn)]
 
 
 def alif_bwd_alone(args, kw):
@@ -6984,6 +7032,560 @@ def phase_attention(smi):
     return kernel, sl
 
 
+# ---------------------------------------------------------------------------
+# 16. verifier
+# ---------------------------------------------------------------------------
+
+VERIFIER_TIMED = 2            # replays timed a setting, alternating
+VERIFIER_COMPILES = 5         # compile_program calls timed a program
+TB305_RATIO = 8               # the model within this factor of the launch
+VERIFIER_DENSITIES = (0.01, 0.05, 0.5)
+VERIFIER_TRACE = ROOT / "build" / "verifier_trace.json"
+
+
+@contextlib.contextmanager
+def check_mode(mode):
+    """REPRO_CHECK set to `mode` for the block, restored after."""
+    prev = os.environ.get("REPRO_CHECK")
+    os.environ["REPRO_CHECK"] = mode
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_CHECK", None)
+        else:
+            os.environ["REPRO_CHECK"] = prev
+
+
+def verifier_cli():
+    """`python -m repro_torch.analysis --all --fail-on warning` in this
+    process on the card: no finding at warning or above."""
+    import io
+    from repro_torch.analysis.__main__ import main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["--all", "--fail-on", "warning"])
+    wall = time.perf_counter() - t0
+    out = buf.getvalue().strip().splitlines()
+    m = re.fullmatch(r"-- (\d+) error\(s\), (\d+) warning\(s\), (\d+) info",
+                     out[-1] if out else "")
+    if rc != 0 or m is None or m.group(1) != "0" or m.group(2) != "0":
+        raise AssertionError("verifier: analysis --all --fail-on warning "
+                             f"exited {rc}:\n" + "\n".join(out))
+    counts = dict(zip(("errors", "warnings", "info"),
+                      map(int, m.groups())))
+    log(f"verifier [cli]: analysis --all --fail-on warning: {counts}, "
+        f"{wall:.3f} s wall")
+    return {**counts, "wall_s": wall}
+
+
+def verifier_programs():
+    """{name: nodes} of each path's program, built on the card."""
+    progs = {p.name: p.make_model(DEV)[0] for p in PATHS}
+    progs["alif_ff"] = make_alif_ff(DEV)[0]
+    progs["sparse_integ"] = make_sparse_integ(DEV)[0]
+    progs["plastic_ff"] = make_plastic("pair_stdp", DEV)[0]
+    return progs
+
+
+def compile_ms():
+    """compile_program's host ms (median of VERIFIER_COMPILES calls) for
+    each path's program, under REPRO_CHECK=off and =raise."""
+    from repro_torch.core import plan
+    out = {}
+    for name, nodes in verifier_programs().items():
+        row = {}
+        for mode in ("off", "raise"):
+            with check_mode(mode):
+                plan.compile_program(nodes)
+                ts = []
+                for _ in range(VERIFIER_COMPILES):
+                    t0 = time.perf_counter()
+                    plan.compile_program(nodes)
+                    ts.append((time.perf_counter() - t0) * 1e3)
+            row[mode] = float(np.median(ts))
+        out[name] = row
+        log(f"verifier [compile]: {name}: compile_program {row['off']:.4f} "
+            f"ms under off, {row['raise']:.4f} ms under raise (host, "
+            f"median of {VERIFIER_COMPILES})")
+    return out
+
+
+def weight_collision(device):
+    """The reference test's TB231 program at the SHD widths: two plastic
+    edges of one node learning `w_shared`, and its weights on `device`."""
+    from repro_torch.core.events import Connection, LayerNode
+    from repro_torch.core.neuron import LIF
+    from repro_torch.core.plasticity import pair_stdp
+    from repro_torch.core.snn_layers import ff_integrate
+    rule = pair_stdp()
+    pre = LayerNode("pre", LIF(), ff_integrate, inputs=(Connection("input"),),
+                    out_dim=N_HIDDEN)
+    h = LayerNode("h", LIF(), ff_integrate, out_dim=N_HIDDEN, inputs=(
+        Connection("input", plastic=rule, weight="w_shared"),
+        Connection("pre", plastic=rule, weight="w_shared")))
+    g = torch.Generator().manual_seed(0)
+    params = {"pre": {"w_input": torch.randn((N_IN, N_HIDDEN), generator=g)},
+              "h": {"w_shared": torch.randn((N_IN, N_HIDDEN), generator=g)}}
+    return [pre, h], {k: {kk: v.to(device) for kk, v in d.items()}
+                      for k, d in params.items()}
+
+
+def verifier_served():
+    """The served SHD DH-SNN under REPRO_CHECK=raise against =off."""
+    from repro_torch.analysis import DiagnosticError
+    from repro_torch.kernels import registry
+    from repro_torch.serve import EngineConfig, make_engine
+    path = PATHS[0]
+    nodes, params = make_shd(True, DEV)
+    streams = shd_streams(CAPACITY)
+    trace = make_trace(streams)
+    cfg = EngineConfig(window=WINDOW, capacity=CAPACITY, queue_limit=None)
+    # each setting twice, alternating, the second kept: a setting's first
+    # run may pay the allocator's first device allocations (host syncs)
+    runs, first = {}, {}
+    for mode in ("off", "raise", "off", "raise"):
+        with check_mode(mode):
+            eng = make_engine(nodes, params, cfg, device=DEV)
+            sync()
+            registry.reset_launches()
+            _, syncs = sync_warnings(lambda: replay(eng, trace))
+            counts = registry.launch_counts()
+            ops = host_ops(lambda: replay(make_engine(nodes, params, cfg,
+                                                      device=DEV), trace))
+            first.setdefault(mode, syncs)
+            runs[mode] = dict(eng=eng, syncs=syncs, counts=counts, ops=ops)
+            counted(f"verifier {mode}", path.per_window,
+                    eng.metrics.windows_run, counts)
+    log(f"verifier [served]: host syncs over a run, first and second run "
+        f"of each setting: off {first['off']}, {runs['off']['syncs']}; "
+        f"raise {first['raise']}, {runs['raise']['syncs']}")
+    off, rai = runs["off"], runs["raise"]
+    wins = off["eng"].metrics.windows_run
+    if rai["eng"].metrics.windows_run != wins or rai["counts"] != \
+            off["counts"]:
+        raise AssertionError(f"verifier: raise ran {rai['counts']} over "
+                             f"{rai['eng'].metrics.windows_run} windows, off "
+                             f"{off['counts']} over {wins}")
+    for sid in streams:
+        a, b = off["eng"].outputs(sid), rai["eng"].outputs(sid)
+        if a.shape != b.shape or not np.array_equal(a.view(np.int32),
+                                                    b.view(np.int32)):
+            raise AssertionError(f"verifier: {sid}'s outputs under raise "
+                                 "differ from off")
+    if rai["ops"] != off["ops"] or rai["syncs"] != off["syncs"]:
+        raise AssertionError(
+            f"verifier: raise ran {len(rai['ops'])} ops and {rai['syncs']} "
+            f"host syncs, off {len(off['ops'])} and {off['syncs']}")
+    lat = {"off": [], "raise": []}
+    for _ in range(VERIFIER_TIMED):
+        for mode in lat:
+            with check_mode(mode):
+                replay(make_engine(nodes, params, cfg, device=DEV), trace,
+                       lat[mode])
+    p50 = {m: float(np.percentile(v, 50)) * 1e3 for m, v in lat.items()}
+    # the TB231 collision raises at compile time, before any launch
+    cn, cp = weight_collision(DEV)
+    registry.reset_launches()
+    with check_mode("raise"):
+        try:
+            make_engine(cn, cp, cfg, device=DEV)
+        except DiagnosticError as e:
+            codes = sorted({d.code for d in e.diagnostics})
+        else:
+            raise AssertionError("verifier: the TB231 collision compiled "
+                                 "under REPRO_CHECK=raise")
+    sync()
+    if "TB231" not in codes or any(registry.launch_counts().values()):
+        raise AssertionError(f"verifier: the collision raised {codes} with "
+                             f"launches {registry.launch_counts()}")
+    log(f"verifier [served]: {wins} windows under off and raise: outputs "
+        f"bit for bit, launches a window {path.per_window}, "
+        f"{len(off['ops'])} PyTorch ops and {off['syncs']} host syncs over "
+        f"the run under both; p50 window {p50['off']:.3f} ms under off, "
+        f"{p50['raise']:.3f} under raise (host, {len(lat['off'])} samples "
+        f"each); the TB231 collision raised DiagnosticError {codes} with no "
+        "launch")
+    return {"windows": wins, "launches": rai["counts"],
+            "launches_per_window": {k: v // wins
+                                    for k, v in rai["counts"].items()},
+            "ops": len(off["ops"]), "syncs": off["syncs"],
+            "p50_window_ms": p50, "window_samples": len(lat["off"]),
+            "collision_codes": codes}
+
+
+# -- (c) tile models against the card's launches -----------------------------
+
+
+def graph_launches(fn):
+    """The kernel launches of one call of `fn` (`graph_nodes`): [(mangled
+    name, grid, block, dynamic shared memory, static shared memory)]."""
+    return [(name, (p.gx, p.gy, p.gz), (p.bx, p.by, p.bz), int(p.smem),
+             int(static)) for name, p, static in graph_nodes(fn)
+            if p is not None]
+
+
+def trace_launches(fn, traces=3):
+    """The kernel events of one call of `fn` in torch.profiler's exported
+    Kineto trace: [(name, args)], in launch order; empty when no trace
+    held a kernel event."""
+    from torch.profiler import ProfilerActivity, profile
+    VERIFIER_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    for _ in range(traces):
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        prof.export_chrome_trace(str(VERIFIER_TRACE))
+        evs = json.loads(VERIFIER_TRACE.read_text()).get("traceEvents", [])
+        kern = sorted((e for e in evs if e.get("cat") == "kernel"),
+                      key=lambda e: e.get("ts", 0))
+        if kern:
+            return [(e["name"], e.get("args", {})) for e in kern]
+        torch.cuda.empty_cache()
+    return []
+
+
+def _mangled(kernel, name):
+    """Whether mangled `name` is kernel function `kernel` (its
+    length-prefixed identifier)."""
+    return f"{len(kernel)}{kernel}" in name
+
+
+def _demangled(kernel, name):
+    return re.search(rf"(?<![\w]){re.escape(kernel)}(?=[<(])", name) \
+        is not None
+
+
+def _trace_smem(args):
+    """The shared memory a trace event reports, or None."""
+    for key in ("shared memory", "shared_memory", "sharedMemory"):
+        if key in args:
+            return int(args[key])
+    return None
+
+
+def verifier_inputs(name, dims, blocks):
+    """A call of family `name`'s route at `dims` (and a route `blocks`
+    pins) on the card, inputs from seed 0: the counted wrapper, or for a
+    pinned route the launch function its wrapper calls."""
+    from repro_torch.kernels.alifrec.ops import alif_cuda, alifrec_cuda
+    from repro_torch.kernels.attention.ops import flash_attention_cuda
+    from repro_torch.kernels.common import plan_sms
+    from repro_torch.kernels.lif.ops import lif_cuda
+    from repro_torch.kernels.lifrec.ops import lifrec_cuda
+    from repro_torch.kernels.linrec.ops import linrec_cuda
+    from repro_torch.kernels.spikemm import gather, sparse
+    from repro_torch.kernels.spikemm.ops import (spikemm_cuda,
+                                                 spikemm_sessions_cuda)
+    from repro_torch.kernels.stdp.ops import (stdp_seq_cuda,
+                                              stdp_seq_sessions_cuda,
+                                              stdp_update_cuda)
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape, p=None):
+        x = torch.rand(shape, generator=g)
+        return (x < p).float().to(DEV) if p is not None else x.to(DEV)
+    d = dims
+    if name == "spikemm":
+        s, w = rand(d["M"], d["K"], p=0.2), rand(d["K"], d["N"])
+        if "st" not in blocks:
+            return lambda: spikemm_cuda(s, w)
+
+        def sparse_route():
+            flags, _ = sparse.occupancy_cuda(s)
+            out = torch.empty((d["M"], d["N"]), device=DEV)
+            sparse.launch_product(s, w, flags, out, blocks["st"])
+        return sparse_route
+    if name == "spikemm_sessions":
+        s, w = rand(d["T"], d["S"], d["K"], p=0.2), rand(d["S"], d["K"],
+                                                         d["N"])
+        return lambda: spikemm_sessions_cuda(s, w)
+    if name == "spikemm_gather":
+        rng = np.random.default_rng(0)
+        mask = rng.random((d["K"], d["N"])) < 0.05
+        pre, post = np.nonzero(mask)
+        tables = gather.build_gather_tables(
+            pre, post, rng.standard_normal(len(pre)).astype(np.float32),
+            d["K"], d["N"], bk=d["BK"], bn=d["BN"])
+        s = rand(d["M"], d["K"], p=0.3)
+        plan = gather.gather_plan(d["M"], d["BN"], d["JB"], plan_sms(),
+                                  cols=blocks["cols"])
+
+        def gather_route():
+            out = torch.empty((d["M"], d["N"]), device=DEV)
+            gather.launch_plan(s, tables, out, plan)
+        return gather_route
+    if name in ("linrec", "lif", "alif"):
+        T, B, N = d["T"], d["B"], d["N"]
+        cur = rand(T, B, N) - 0.3
+        tau = 0.7 + 0.28 * rand(N)
+        zero = torch.zeros((B, N), device=DEV)
+        if name == "linrec":
+            a = 0.5 + 0.49 * (rand(T, B, N) if d["P"] == 2 else rand(N))
+            return lambda: linrec_cuda(a, cur, zero)
+        if name == "lif":
+            return lambda: lif_cuda(cur, tau, zero)
+        rho = 0.85 + 0.14 * rand(N)
+        return lambda: alif_cuda(cur, tau, rho, zero, zero)
+    if name in ("lifrec", "alifrec"):
+        T, B, N = d["T"], d["B"], d["N"]
+        cur = rand(T, B, N) - 0.3
+        w = (0.4 / N ** 0.5) * (rand(N, N) - 0.5)
+        tau = 0.7 + 0.28 * rand(N)
+        zero = torch.zeros((B, N), device=DEV)
+        if name == "lifrec":
+            return lambda: lifrec_cuda(cur, w, tau, zero, zero)
+        rho = 0.85 + 0.14 * rand(N)
+        return lambda: alifrec_cuda(cur, w, tau, rho, zero, zero, zero)
+    if name == "stdp":
+        B, M, N = d["B"], d["M"], d["N"]
+        args = (rand(B, M), rand(B, N, p=0.2), rand(B, M, p=0.2), rand(B, N),
+                rand(M, N))
+        return lambda: stdp_update_cuda(*args)
+    if name == "stdp_seq":
+        K, rows = d["K"], d["T"] * d["B"]
+        P, Q, w = rand(K, rows, d["M"]), rand(K, rows, d["N"], p=0.2), \
+            rand(d["M"], d["N"])
+        return lambda: stdp_seq_cuda(P, Q, w, amps=(0.01,) * K, w_min=-1.0,
+                                     w_max=1.0, batch=d["B"])
+    if name == "stdp_seq_sessions":
+        K, rows = d["K"], d["T"] * d["S"]
+        P, Q = rand(K, rows, d["M"]), rand(K, rows, d["N"], p=0.2)
+        w = rand(d["S"], d["M"], d["N"])
+        return lambda: stdp_seq_sessions_cuda(P, Q, w, amps=(0.01,) * K,
+                                              w_min=-1.0, w_max=1.0)
+    if name == "attention":
+        dt = torch.bfloat16 if d["bf16"] else torch.float32
+        q = rand(d["BH"], d["T"], d["d"]).to(dt)
+        k, v = (rand(d["BH"], d["S"], d["d"]).to(dt) for _ in range(2))
+        return lambda: flash_attention_cuda(q, k, v, causal=True)
+    raise AssertionError(f"verifier: no inputs for family {name!r}")
+
+
+def verifier_bwd_inputs(name, dims):
+    """A call of the backward kernel `name` (a launch counter's name) at
+    its forward's `dims` on the card, inputs from seed 0."""
+    from repro_torch.kernels.alifrec.ops import alif_bwd_cuda, \
+        alifrec_bwd_cuda
+    from repro_torch.kernels.lif.ops import lif_bwd_cuda
+    from repro_torch.kernels.lifrec.ops import lifrec_bwd_cuda
+    from repro_torch.kernels.linrec.ops import linrec_bwd_cuda
+    from repro_torch.kernels.spikemm import gather
+    from repro_torch.kernels.spikemm.wgrad import spikemm_wgrad_cuda
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape, p=None):
+        x = torch.rand(shape, generator=g)
+        return (x < p).float().to(DEV) if p is not None else x.to(DEV)
+    d = dims
+    if name == "spikemm_wgrad":
+        s, gr = rand(d["R"], d["K"], p=0.2), rand(d["R"], d["N"])
+        return lambda: spikemm_wgrad_cuda(s, gr)
+    if name == "spikemm_gather_bwd":
+        rng = np.random.default_rng(0)
+        pre, post = np.nonzero(rng.random((d["K"], d["N"])) < 0.05)
+        tables = gather.build_gather_tables(
+            pre, post, rng.standard_normal(len(pre)).astype(np.float32),
+            d["K"], d["N"], bk=d["BK"], bn=d["BN"])
+        gr = rand(d["M"], d["N"])
+        return lambda: gather.spikemm_gather_bwd_cuda(gr, tables)
+    T, B, N = d["T"], d["B"], d["N"]
+    cur, sp, gs = rand(T, B, N) - 0.3, rand(T, B, N, p=0.2), rand(T, B, N)
+    tau, rho = 0.7 + 0.28 * rand(N), 0.85 + 0.14 * rand(N)
+    lane = [rand(B, N) for _ in range(4)]
+    if name == "lif_bwd":
+        return lambda: lif_bwd_cuda(cur, tau, lane[0], sp, gs, lane[1])
+    if name == "alif_bwd":
+        return lambda: alif_bwd_cuda(cur, tau, rho, lane[0], lane[1], sp, gs,
+                                     lane[2], lane[3])
+    if name in ("lifrec_bwd", "alifrec_bwd"):
+        w = (0.4 / N ** 0.5) * (rand(N, N) - 0.5)
+        s0 = rand(B, N, p=0.2)
+        if name == "lifrec_bwd":
+            return lambda: lifrec_bwd_cuda(cur, w, tau, lane[0], s0, sp, gs,
+                                           lane[1])
+        return lambda: alifrec_bwd_cuda(cur, w, tau, rho, lane[0], lane[1],
+                                        s0, sp, gs, lane[2], lane[3])
+    if name == "linrec_bwd":
+        a = 0.5 + 0.49 * (rand(T, B, N) if d["P"] == 2 else rand(N))
+        gy = rand(T, B, d["G"])
+        return lambda: linrec_bwd_cuda(a, cur, lane[0], gy, lane[1])
+    raise AssertionError(f"verifier: no inputs for backward {name!r}")
+
+
+def verifier_path_shapes():
+    """{family: [(label, dims)]}: the kernels' calls on the served paths
+    (one SHD DH-SNN window, one ECG window, a learning serve window)."""
+    B, T = CAPACITY, WINDOW
+    lanes = {"T": T, "B": B, "P": 1}
+    return {
+        "spikemm": [("shd hidden INTEG", {"M": T * B, "K": N_IN,
+                                          "N": N_HIDDEN * N_BRANCHES}),
+                    ("shd readout INTEG", {"M": T * B, "K": N_HIDDEN,
+                                           "N": N_OUT}),
+                    ("ecg hidden INTEG", {"M": T * B, "K": ECG_IN,
+                                          "N": ECG_HIDDEN})],
+        "linrec": [("shd branches", {**lanes, "N": N_HIDDEN * N_BRANCHES,
+                                     "L": B * N_HIDDEN * N_BRANCHES}),
+                   ("shd readout", {**lanes, "N": N_OUT, "L": B * N_OUT})],
+        "lif": [("shd soma", {**lanes, "N": N_HIDDEN, "L": B * N_HIDDEN})],
+        "alifrec": [("ecg hidden", {"T": T, "B": B, "N": ECG_HIDDEN})],
+        "lifrec": [("ecg_homogeneous hidden", {"T": T, "B": B,
+                                               "N": ECG_HIDDEN})],
+        # train_shd's step (TRAIN_T x TRAIN_B) and train_ecg's
+        "lif_bwd": [("train_shd soma", {"T": TRAIN_T, "B": TRAIN_B,
+                                        "N": N_HIDDEN, "P": 1,
+                                        "L": TRAIN_B * N_HIDDEN})],
+        "linrec_bwd": [("train_shd branches",
+                        {"T": TRAIN_T, "B": TRAIN_B,
+                         "N": N_HIDDEN * N_BRANCHES, "P": 1,
+                         "L": TRAIN_B * N_HIDDEN * N_BRANCHES,
+                         "G": N_HIDDEN, "GA": 2, "V": 1})],
+        "alifrec_bwd": [("train_ecg hidden", {"T": ECG_TRAIN_T,
+                                              "B": ECG_TRAIN_B,
+                                              "N": ECG_HIDDEN})],
+        "spikemm_wgrad": [("train_shd hidden g_w",
+                           {"R": TRAIN_T * TRAIN_B, "K": N_IN,
+                            "N": N_HIDDEN * N_BRANCHES})],
+    }
+
+
+def verifier_tiles():
+    """Every family's tile model against the card's launches (see the
+    module docstring, 16 (c))."""
+    from repro_torch import analysis
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.common import plan_sms, smem_budget
+    budget, n_sm = smem_budget(), plan_sms()
+    paths = verifier_path_shapes()
+    rows = []
+    specs = [registry.get(name) for name in registry.names()]
+    specs += [s.bwd_tiles for s in specs if s.bwd_tiles is not None]
+    for spec in specs:
+        name = spec.name
+        dims0 = spec.dims_of(*spec.make_inputs(torch.Generator().manual_seed(
+            0)), **spec.static)
+        shapes = analysis.route_shapes(spec, dims0, n_sm=n_sm)
+        shapes += [(label, d, spec.resolve_blocks(d, n_sm=n_sm))
+                   for label, d in paths.get(name, [])]
+        for label, d, blocks in shapes:
+            fn = (verifier_inputs(name, d, blocks) if name in registry.names()
+                  else verifier_bwd_inputs(name, d))
+            model = spec.launches(d, blocks)
+            got = graph_launches(fn)
+            traced = trace_launches(fn)
+            tag = f"verifier [tiles] {name} {label} {d}"
+            for m in model:
+                hits = [x for x in got if _mangled(m.kernel, x[0])]
+                if len(hits) != 1:
+                    raise AssertionError(f"{tag}: {len(hits)} launches of "
+                                         f"{m.kernel} in {got}")
+                _, grid, block, dyn, static = hits[0]
+                launched = dyn + static
+                # Kineto's event, where the trace recorded the kernel: its
+                # grid and its shared memory (static + dynamic) must be the
+                # graph's
+                tev = [a for n_, a in traced if _demangled(m.kernel, n_)]
+                t_grid = tuple(tev[0].get("grid", ())) or None if tev else None
+                t_smem = _trace_smem(tev[0]) if tev else None
+                if (t_grid, t_smem) != (None, None) and (
+                        t_grid != grid or t_smem != launched):
+                    raise AssertionError(
+                        f"{tag}: {m.kernel} traced grid {t_grid}, shared "
+                        f"memory {t_smem}; graph {grid}, {dyn} + {static}")
+                if tuple(m.grid) != grid or block != (m.threads, 1, 1):
+                    raise AssertionError(
+                        f"{tag}: {m.kernel} launched grid {grid} block "
+                        f"{block}, its model {m.grid} x {m.threads}")
+                if m.smem < launched:
+                    raise AssertionError(
+                        f"TB304 {tag}: {m.kernel} launched {dyn} + {static} "
+                        f"B of shared memory, its model {m.smem}")
+                if m.smem > TB305_RATIO * max(launched, 1) and launched:
+                    raise AssertionError(
+                        f"TB305 {tag}: {m.kernel}'s model {m.smem} B is over "
+                        f"{TB305_RATIO}x its launch's {launched}")
+                if launched > budget:
+                    raise AssertionError(f"{tag}: {m.kernel} launched "
+                                         f"{launched} B > budget {budget}")
+                rows.append({"family": name, "case": label, "dims": d,
+                             "blocks": blocks, "kernel": m.kernel,
+                             "grid": list(grid), "threads": block[0],
+                             "smem_dynamic": dyn, "smem_static": static,
+                             "model_smem": m.smem,
+                             "traced_grid": list(t_grid) if t_grid else None,
+                             "traced_smem": t_smem})
+                log(f"{tag}: {m.kernel} grid {grid} x {block[0]} threads, "
+                    f"shared memory {dyn} + {static} B (model {m.smem} B; "
+                    f"trace grid {t_grid}, shared memory {t_smem})")
+            # the route's hand kernels (the sources' anonymous namespaces;
+            # PyTorch's own kernels, a W^T copy or a sum, are not the model's)
+            extra = [x[0] for x in got if "_GLOBAL__N_" in x[0]
+                     and not any(_mangled(m.kernel, x[0]) for m in model)]
+            if extra:
+                raise AssertionError(f"verifier [tiles] {name} {label}: "
+                                     f"launches outside the model {extra}")
+    traced = sum(r["traced_grid"] is not None for r in rows)
+    log(f"verifier [tiles]: {len(rows)} launches of {len(specs)} kernel "
+        f"specs ({len(registry.names())} families and their backward "
+        f"kernels) held to their models (grid equal, shared memory within "
+        f"the model and {TB305_RATIO}x of it, within the budget {budget} B); "
+        f"geometry read from the CUDA graph for all, and from the Kineto "
+        f"trace, equal, for the {traced} whose trace recorded the kernel")
+    return {"launches": rows, "budget": budget, "traced": traced}
+
+
+def verifier_flags():
+    """TB307 on the occupancy flags the card measures at sparse_integ's
+    densities."""
+    from repro_torch import analysis
+    from repro_torch.kernels._build import SPARSE_BLOCK
+    from repro_torch.kernels.spikemm.sparse import (block_occupancy,
+                                                    occupancy_cuda)
+    out = {}
+    for density in VERIFIER_DENSITIES:
+        s = torch.from_numpy(packed_raster(SPARSE_T * SPARSE_B, SPARSE_IN,
+                                           density, SPARSE_SEED)).to(DEV)
+        flags, total = occupancy_cuda(s)
+        want = block_occupancy(s, *SPARSE_BLOCK)
+        sync()
+        if not torch.equal(flags, want) or int(total) != int(want.sum()):
+            raise AssertionError(f"verifier: occupancy flags at density "
+                                 f"{density} are not block_occupancy's")
+        diags = analysis.check_flags(f"sparse_integ[{density}]", flags)
+        if diags:
+            raise AssertionError(analysis.render(diags))
+        out[str(density)] = {"blocks": flags.numel(),
+                             "occupied": int(total)}
+        log(f"verifier [TB307]: density {density}: {int(total)} of "
+            f"{flags.numel()} blocks occupied on the card's flags, "
+            "compact_blocks' table faithful")
+    return out
+
+
+def phase_verifier(smi):
+    """16. verifier (see the module docstring)."""
+    from repro_torch.kernels import registry
+    cli = verifier_cli()
+    compiles = compile_ms()
+    registry.reset_launches()
+    served = verifier_served()
+    tiles = verifier_tiles()
+    flags = verifier_flags()
+    return {"path": "verifier", "model": PATHS[0].model,
+            "card": smi, "cli": cli, "compile_ms": compiles,
+            "launches": served["launches"],
+            "launches_per_window": served["launches_per_window"],
+            "served": {k: v for k, v in served.items()
+                       if k not in ("launches", "launches_per_window")},
+            "tiles": {"launches": len(tiles["launches"]),
+                      "traced": tiles["traced"], "budget": tiles["budget"]},
+            "tile_launches": tiles["launches"], "tb307": flags}
+
+
 def phase_parity():
     """`repro_torch.kernels.parity.check_all()` on the card: every family's
     wrapper (and the sparse channel's) against its plain version at its
@@ -7027,7 +7629,8 @@ def path_phases():
             **{name: functools.partial(phase_train, p)
                for name, p in train_paths().items()},
             "bci": phase_bci,
-            "attention": lambda smi: phase_attention(smi)[1]}
+            "attention": lambda smi: phase_attention(smi)[1],
+            "verifier": phase_verifier}
 
 
 def main(argv):
@@ -7052,6 +7655,10 @@ def main(argv):
         log(json.dumps({"sweep": phase_sweep(sweep_cases())}))
         log(smi)
         return
+    # the verifier first: its Kineto traces record every kernel in a fresh
+    # process (later, after the other phases' profiler sessions, most of
+    # them come back empty; its CUDA-graph readout needs no trace)
+    verifier = None if argv == ["--kernels"] else phase_verifier(smi)
     cases = kernel_cases(make_shd(True, DEV)[1])
     kernels = phase_kernels(cases)
     passes = phase_rec_bwd_passes(cases)
@@ -7087,6 +7694,7 @@ def main(argv):
     kernels["attention"], attn = phase_attention(smi)
     kernels["attention"]["floor_ms"] = launch_floor_ms()
     slices.append(attn)
+    slices.append(verifier)
     parity = phase_parity()
     for name, k in kernels.items():
         by_path = {s["path"]: s["launches"][name] for s in slices

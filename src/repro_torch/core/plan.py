@@ -74,8 +74,14 @@ Their flags are read once a run. In a learning serve window (a plastic
 weight with a session axis) the weight faults draw one session's mask and
 every guard acts per session, as under the reference's per-session vmap.
 
-Not ported yet: the compile-time checker (REPRO_CHECK=warn|raise) raises
-NotImplementedError naming its ROADMAP.md item, item 9.
+REPRO_CHECK = off | warn | raise runs the compile-time verifier
+(`repro_torch.analysis`) once at the end of every `compile_program`, where
+the reference runs it: warn logs warnings and worse on the kernel incident
+log (kind "check", the TB code as the stage), raise raises
+`analysis.DiagnosticError` on errors. A plan compiled once is checked
+once; `run` with a compiled plan, and so every served window, checks
+nothing. The checks read shapes, never values: they launch nothing and
+read nothing back from the card.
 """
 
 from __future__ import annotations
@@ -89,6 +95,7 @@ import torch
 
 from repro_torch.core import events, faults, guards, plasticity
 from repro_torch.core.neuron import Decay, NeuronProgram, decay_array
+from repro_torch.kernels.incidents import FallbackEvent, record
 from repro_torch.kernels.common import DeviceLike, check_device, resolve_device
 from repro_torch.kernels.alifrec.ops import alif_scan, alifrec_scan
 from repro_torch.kernels.lif.ops import lif_scan
@@ -310,11 +317,43 @@ def _classify(node: events.LayerNode, order: Dict[str, int]
 
 def compile_program(nodes: List[events.LayerNode]) -> Plan:
     """Analyze the node DAG and emit the segment + plastic-lowering plan."""
-    _refuse_check()
     plan = _compile(nodes)
     if os.environ.get("REPRO_SNN_EXPLAIN") == "1":
         print(f"[repro_torch.plan] {plan.describe()}")
+    _run_check_hook(nodes, plan)
     return plan
+
+
+# Re-entrancy latch for the REPRO_CHECK hook: `analysis.check_nodes` may
+# itself call `compile_program` (it reuses the planner for TB2xx), which
+# must not re-trigger the hook.
+_IN_CHECK = False
+
+
+def _run_check_hook(nodes: List[events.LayerNode], plan: "Plan") -> None:
+    """Opt-in static checking at compile time (REPRO_CHECK=warn|raise).
+
+    warn: warning+ findings land on the kernel incident log (kind="check")
+    — observable, never fatal, and record()ed rather than degrade()d so
+    that REPRO_STRICT stays green. raise: error-severity findings abort
+    compilation with `analysis.DiagnosticError`.
+    """
+    global _IN_CHECK
+    mode = check_mode()
+    if mode == "off" or _IN_CHECK:
+        return
+    from repro_torch import analysis  # deferred: analysis imports this module
+    _IN_CHECK = True
+    try:
+        diags = analysis.check_nodes(nodes, plan=plan)
+    finally:
+        _IN_CHECK = False
+    if mode == "raise":
+        analysis.raise_if(diags, "error")
+    for d in analysis.at_least(diags, "warning"):
+        record(FallbackEvent(
+            kind="check", family="plan", stage=d.code,
+            error=f"{d.site}: {d.message}"))
 
 
 def _compile(nodes: List[events.LayerNode]) -> Plan:
@@ -614,15 +653,6 @@ def _run_fallback(seg: Segment, nodes_by_name: Dict[str, events.LayerNode],
               for name, ns in st.items()}
     outs.update(full)
     new_state.update(st)
-
-
-def _refuse_check() -> None:
-    """REPRO_CHECK=warn|raise asks for the compile-time checker, which is
-    not ported: raise rather than compile unchecked."""
-    if check_mode() != "off":
-        raise NotImplementedError(
-            f"the compile-time checker (REPRO_CHECK={check_mode()}) is not "
-            f"ported yet: {_ROADMAP}, item 9 (verifier)")
 
 
 def _session_conns(nodes: List[events.LayerNode], params: Dict[str, Any]
@@ -978,7 +1008,6 @@ def run(nodes: List[events.LayerNode], params: Dict[str, Any], x: Tensor,
     stays out of the graph. Callers that only infer run it under
     `torch.no_grad()`.
     """
-    _refuse_check()
     mode = engine_mode()
     dev = resolve_device(device)
     check_device("x", x, dev)

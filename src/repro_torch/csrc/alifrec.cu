@@ -95,11 +95,12 @@ int alif_f32(const float* cur, const float* tau, const float* rho,
 int alifrec_f32(const float* cur, const float* w, const float* tau,
                 const float* rho, const float* v0, const float* a0,
                 const float* s0, float* spikes, float* vT, float* aT, int T,
-                int B, int N, float v_th, float beta, int warp,
-                void* stream) {
+                int B, int N, float v_th, float beta, int warp, int unit,
+                int smem_w, void* stream) {
   const ScanArgs p{cur, w, tau, rho, v0, a0, s0, spikes, vT, aT,
                    T, B, N, v_th, beta};
-  return launch_rec_scan<true>(p, warp != 0, (cudaStream_t)stream);
+  return launch_rec_scan<true>(p, warp != 0, unit, smem_w != 0,
+                               (cudaStream_t)stream);
 }
 
 }  // extern "C"

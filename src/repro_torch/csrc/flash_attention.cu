@@ -298,12 +298,16 @@ int launch_d(const Tin* q, const Tin* k, const Tin* v, Tin* o, int BH, int T,
   return (int)cudaGetLastError();
 }
 
+// The CUDA-core route at the head-dim tile `dmax` that
+// `kernels/attention/ops.py::plan_call` chose (the least of 16, 32, 64,
+// 128, 256 that holds d); any other tile is refused.
 template <typename Tin>
 int launch(const void* q, const void* k, const void* v, void* o, int BH,
            int T, int S, int d, int causal, int window, float scale,
-           void* stream) {
+           int dmax, void* stream) {
   const int64_t blocks = (int64_t)BH * ((T + BQ - 1) / BQ);
-  if (BH < 0 || T < 0 || S < 0 || d < 1 || d > 256 || blocks > 0x7fffffff)
+  if (BH < 0 || T < 0 || S < 0 || d < 1 || d > 256 || blocks > 0x7fffffff ||
+      d > dmax || (dmax > 16 && 2 * d <= dmax))
     return (int)cudaErrorInvalidValue;
   if (blocks == 0) return (int)cudaSuccess;
   const Tin* qp = static_cast<const Tin*>(q);
@@ -311,20 +315,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
   const Tin* vp = static_cast<const Tin*>(v);
   Tin* op = static_cast<Tin*>(o);
   cudaStream_t st = (cudaStream_t)stream;
-  if (d <= 16)
-    return launch_d<Tin, 16>(qp, kp, vp, op, BH, T, S, d, causal, window,
-                             scale, st);
-  if (d <= 32)
-    return launch_d<Tin, 32>(qp, kp, vp, op, BH, T, S, d, causal, window,
-                             scale, st);
-  if (d <= 64)
-    return launch_d<Tin, 64>(qp, kp, vp, op, BH, T, S, d, causal, window,
-                             scale, st);
-  if (d <= 128)
-    return launch_d<Tin, 128>(qp, kp, vp, op, BH, T, S, d, causal, window,
-                              scale, st);
-  return launch_d<Tin, 256>(qp, kp, vp, op, BH, T, S, d, causal, window,
-                            scale, st);
+  switch (dmax) {
+    case 16:
+      return launch_d<Tin, 16>(qp, kp, vp, op, BH, T, S, d, causal, window,
+                               scale, st);
+    case 32:
+      return launch_d<Tin, 32>(qp, kp, vp, op, BH, T, S, d, causal, window,
+                               scale, st);
+    case 64:
+      return launch_d<Tin, 64>(qp, kp, vp, op, BH, T, S, d, causal, window,
+                               scale, st);
+    case 128:
+      return launch_d<Tin, 128>(qp, kp, vp, op, BH, T, S, d, causal, window,
+                                scale, st);
+    case 256:
+      return launch_d<Tin, 256>(qp, kp, vp, op, BH, T, S, d, causal, window,
+                                scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 
@@ -860,19 +868,19 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // scale: d^-1/2 as the caller rounds it to fp32; causal: 0 or 1;
-// window <= 0: no window.
+// window <= 0: no window; dmax: the plan's head-dim tile.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* o, int BH, int T, int S, int d, int causal,
-                        int window, float scale, void* stream) {
-  return launch<float>(q, k, v, o, BH, T, S, d, causal, window, scale,
+                        int window, float scale, int dmax, void* stream) {
+  return launch<float>(q, k, v, o, BH, T, S, d, causal, window, scale, dmax,
                        stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, int BH, int T, int S, int d, int causal,
-                         int window, float scale, void* stream) {
+                         int window, float scale, int dmax, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, BH, T, S, d, causal, window,
-                               scale, stream);
+                               scale, dmax, stream);
 }
 
 // The tensor-core route: bf16, d = 64 or 128, q/k/v 16-byte aligned. With

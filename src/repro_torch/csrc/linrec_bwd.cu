@@ -744,14 +744,16 @@ extern "C" {
 // with ga_summed the (D,) gradient of a decay with strides 0 over T and B,
 // which needs `part` ((B, D) floats) and `count`: zeroed counters of the
 // stream, D / 32 of them where 32 divides D, else one (left at 0). The
-// segments come in by tensor copies where the planes allow (a decay with
-// no time stride; rows of whole 16-byte groups, 16-byte aligned; the
-// soma's rows of whole warps), else by cp.async.
+// segments come in by tensor copies where `kernels/linrec/ops.py::
+// linrec_bwd_plan` says so (`tma`: a decay with no time stride, at most
+// MAX_ROWS steps, rows of whole 16-byte groups, 16-byte aligned, the
+// soma's rows of whole warps), else by cp.async; a `tma` call the planes
+// do not allow, or whose tensor maps cannot be encoded, is refused.
 int linrec_bwd_f32(const float* a, int64_t sa_t, int64_t sa_b, int64_t sa_d,
                    const float* y, const float* h0, const float* gy,
                    const float* ghT, float* part, unsigned* count, float* gx,
                    float* ga, float* gh0, int T, int B, int D, int N,
-                   int ga_summed, void* stream) {
+                   int ga_summed, int tma, void* stream) {
   const int64_t lanes = (int64_t)B * D;
   if (T < 1 || B < 1 || D < 1 || N < 1 || D % N != 0 ||
       lanes >= (int64_t)1 << 30 ||
@@ -761,12 +763,11 @@ int linrec_bwd_f32(const float* a, int64_t sa_t, int64_t sa_b, int64_t sa_d,
   const int segs = (T + LSEG - 1) / LSEG;
   const int ga_mode = !ga ? GA_NONE : ga_summed ? GA_SUM : GA_PLANE;
   const bool aligned_gy = (uintptr_t)gy % 16 == 0;
-  // the tensor copies take a call of at most MAX_ROWS steps (one box a
-  // plane), with no decay plane, rows of whole 16-byte groups, 16-byte
-  // aligned, and the soma's rows of whole warps
-  bool tma = sa_t == 0 && T <= MAX_ROWS && encode_tiled() != nullptr &&
-             aligned_gy && (N == D ? lanes % 4 == 0 : N % 32 == 0) &&
-             (ga_mode == GA_NONE || lane_bwd_vec(lanes, y));
+  if (tma && !(sa_t == 0 && T <= MAX_ROWS && aligned_gy &&
+               (N == D ? lanes % 4 == 0 : N % 32 == 0) &&
+               (ga_mode == GA_NONE || lane_bwd_vec(lanes, y))))
+    return (int)cudaErrorInvalidValue;
+  if (tma && encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   LinrecBwdArgs p{
       a, sa_t, sa_b, sa_d, y, h0, gy, ghT, part, count, gx, ga, gh0, T, B, D,
       N, tma ? T : (segs < BUFS ? segs : BUFS) * LSEG, N != D, D % 32 == 0,
@@ -778,10 +779,10 @@ int linrec_bwd_f32(const float* a, int64_t sa_t, int64_t sa_b, int64_t sa_d,
   if (tma) {
     const cuuint64_t plane[2] = {(cuuint64_t)lanes, (cuuint64_t)T};
     const cuuint64_t soma[3] = {(cuuint64_t)N, (cuuint64_t)B, (cuuint64_t)T};
-    tma = (N == D ? make_map(&gy_map, gy, 2, plane, T)
-                  : make_map(&gy_map, gy, 3, soma, T)) &&
-          (ga_mode == GA_NONE || make_map(&y_map, y, 2, plane, T));
-    if (!tma) p.rows = (segs < BUFS ? segs : BUFS) * LSEG;
+    if (!(N == D ? make_map(&gy_map, gy, 2, plane, T)
+                 : make_map(&gy_map, gy, 3, soma, T)) ||
+        !(ga_mode == GA_NONE || make_map(&y_map, y, 2, plane, T)))
+      return (int)cudaErrorNotSupported;
   }
   if (sa_t != 0) return launch<true, false>(p, ga_mode, gy_map, y_map, stream);
   return tma ? launch<false, true>(p, ga_mode, gy_map, y_map, stream)

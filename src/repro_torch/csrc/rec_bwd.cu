@@ -706,14 +706,16 @@ __global__ void __launch_bounds__(ROW_THREADS, 1) rec_bwd_row_kernel(
   PASS_STAMP(3);
 }
 
-// The instantiation whose KP = 32 NW covers the row; a block a row.
+// The instantiation of KP = 32 NW chain threads that
+// `kernels/common.py::rec_plan(backward=True)` chose (the least that covers
+// the row); a block a row. Any other KP is refused.
 template <bool ADAPT, int KP>
-int launch_bwd_rows(const BwdArgs& p, cudaStream_t stream) {
+int launch_bwd_rows(const BwdArgs& p, int unit, cudaStream_t stream) {
   if constexpr (KP < WARP_NB) {
-    if (KP < p.N) return launch_bwd_rows<ADAPT, KP + 32>(p, stream);
-  } else if (KP < p.N) {
-    return (int)cudaErrorInvalidValue;  // wider rows take the block route
+    if (KP < unit) return launch_bwd_rows<ADAPT, KP + 32>(p, unit, stream);
   }
+  if (KP != unit || KP < p.N || KP - 32 >= p.N)
+    return (int)cudaErrorInvalidValue;  // not the plan's instantiation
   const int smem = (int)sizeof(float) * row_smem_floats<KP>(p.N);
   auto kern = rec_bwd_row_kernel<ADAPT, KP>;
   if (smem > 48 * 1024) {
@@ -872,21 +874,12 @@ __global__ void __launch_bounds__(BWD_THREADS) rec_bwd_block_kernel(
 }
 
 // Dynamic shared memory of a block-route block: the two spike masks and
-// the two Gu buffers, plus W_rec when all fit under the device's opt-in
-// maximum (then `smem_w` is set). Returns a CUDA error code, 0 on success.
-int plan_bwd_smem(int N, int* bytes, bool* smem_w) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return (int)e;
+// the two Gu buffers, plus W_rec where the plan keeps it there (`smem_w`:
+// all fit under the device's opt-in maximum, as the plan reads it).
+inline int bwd_block_smem(int N, bool smem_w) {
   const size_t base = 2 * sizeof(uint32_t) * ((N + 31) / 32) +
                       2 * sizeof(float) * (size_t)N;
-  const size_t with_w = base + sizeof(float) * (size_t)N * N;
-  *smem_w = with_w <= (size_t)optin;
-  *bytes = (int)(*smem_w ? with_w : base);
-  return 0;
+  return (int)(smem_w ? base + sizeof(float) * (size_t)N * N : base);
 }
 
 template <typename K>
@@ -901,65 +894,65 @@ int launch_bwd_block(K kern, const BwdArgs& p, int threads, int smem,
   return (int)cudaGetLastError();
 }
 
-// The instantiation that owns NPT neurons a thread, or the next wider one.
+// The instantiation of NPT neurons a thread that the plan chose (the least
+// whose BWD_THREADS threads cover the row); any other NPT is refused.
 template <bool ADAPT, int NPT>
-int launch_bwd_npt(const BwdArgs& p, int smem, cudaStream_t stream) {
+int launch_bwd_npt(const BwdArgs& p, int unit, int smem,
+                   cudaStream_t stream) {
   if constexpr (NPT < 256) {
-    if ((int64_t)NPT * BWD_THREADS < p.N)
-      return launch_bwd_npt<ADAPT, 2 * NPT>(p, smem, stream);
-  } else if ((int64_t)NPT * BWD_THREADS < p.N) {
-    return (int)cudaErrorInvalidValue;  // W_rec alone would be 275 GB
+    if (NPT < unit)
+      return launch_bwd_npt<ADAPT, 2 * NPT>(p, unit, smem, stream);
   }
+  if (NPT != unit || (int64_t)NPT * BWD_THREADS < p.N ||
+      (NPT > 1 && (int64_t)NPT * BWD_THREADS / 2 >= p.N))
+    return (int)cudaErrorInvalidValue;
   const int per = (p.N + NPT - 1) / NPT;
   return launch_bwd_block(rec_bwd_block_kernel<ADAPT, false, NPT>, p,
                           (per + 31) / 32 * 32, smem, stream);
 }
 
+// Launch the backward as `kernels/common.py::rec_plan(backward=True)`
+// planned it: the warp route (`warp` set) with `unit` = KP chain threads,
+// or B blocks of `unit` neurons a thread, W_rec in shared memory where
+// `smem_w` is set (then one neuron a thread).
 template <bool ADAPT>
-int launch_rec_bwd(const BwdArgs& p, bool warp, cudaStream_t stream) {
-  if (p.T < 1 || p.B < 1 || p.N < 1 || p.sur < 0 || p.sur > 3)
+int launch_rec_bwd(const BwdArgs& p, bool warp, int unit, bool smem_w,
+                   cudaStream_t stream) {
+  if (p.T < 1 || p.B < 1 || p.N < 1 || p.sur < 0 || p.sur > 3 || unit < 1)
     return (int)cudaErrorInvalidValue;
-  if (warp) return launch_bwd_rows<ADAPT, 32>(p, stream);
-  int smem = 0;
-  bool smem_w = false;
-  const int err = plan_bwd_smem(p.N, &smem, &smem_w);
-  if (err) return err;
-  if (smem_w)  // N <= 240: one neuron a thread
+  if (warp) return launch_bwd_rows<ADAPT, 32>(p, unit, stream);
+  const int smem = bwd_block_smem(p.N, smem_w);
+  if (smem_w) {
+    if (unit != 1 || p.N > BWD_THREADS) return (int)cudaErrorInvalidValue;
     return launch_bwd_block(rec_bwd_block_kernel<ADAPT, true, 1>, p,
                             (p.N + 31) / 32 * 32, smem, stream);
-  return launch_bwd_npt<ADAPT, 1>(p, smem, stream);
+  }
+  return launch_bwd_npt<ADAPT, 1>(p, unit, smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// On the block route: 1 when the backward holds W_rec (N, N) in shared
-// memory, 0 when it reads W_rec and W_rec^T through L2, a negative CUDA
-// error code when the device cannot be queried.
-int rec_bwd_w_in_smem(int N) {
-  int bytes = 0;
-  bool smem_w = false;
-  const int err = plan_bwd_smem(N, &bytes, &smem_w);
-  return err ? -err : (int)smem_w;
-}
-
 // The backward of lifrec_f32 (see above); wt = w transposed (contiguous),
 // ubuf a (T, B, N) scratch; gtau (the per-lane partials), gv0 and gs0 may
-// be null. surrogate: 0 arctan, 1 rectangle, 2 sigmoid, 3 triangle; warp:
-// the route (`kernels/common.py::rec_route`).
+// be null. surrogate: 0 arctan, 1 rectangle, 2 sigmoid, 3 triangle; warp,
+// unit, smem_w: the launch `kernels/common.py::rec_plan(backward=True)`
+// planned (its route, KP or neurons a thread, W_rec in shared memory).
 int lifrec_bwd_f32(const float* cur, const float* w, const float* wt,
                    const float* tau, const float* v0, const float* s0,
                    const float* spikes, const float* gs, const float* gvT,
                    float* ubuf, float* gc, float* gtau, float* gv0,
                    float* gs0, int T, int B, int N, float v_th,
-                   int surrogate, float alpha, int warp, void* stream) {
+                   int surrogate, float alpha, int warp, int unit,
+                   int smem_w, void* stream) {
   const BwdArgs p{cur,     w,       wt,      tau,     nullptr, v0,
                   nullptr, s0,      spikes,  gs,      gvT,     nullptr,
                   ubuf,    nullptr, gc,      gtau,    nullptr, gv0,
                   nullptr, gs0,     T,       B,       N,       v_th,
                   0.f,     alpha,   surrogate};
-  return launch_rec_bwd<false>(p, warp != 0, (cudaStream_t)stream);
+  return launch_rec_bwd<false>(p, warp != 0, unit, smem_w != 0,
+                               (cudaStream_t)stream);
 }
 
 // The backward of alifrec_f32: as lifrec_bwd_f32, with rho, a0 and g_aT
@@ -972,11 +965,13 @@ int alifrec_bwd_f32(const float* cur, const float* w, const float* wt,
                     float* ubuf, float* abuf, float* gc, float* gtau,
                     float* grho, float* gv0, float* ga0, float* gs0, int T,
                     int B, int N, float v_th, float beta, int surrogate,
-                    float alpha, int warp, void* stream) {
+                    float alpha, int warp, int unit, int smem_w,
+                    void* stream) {
   const BwdArgs p{cur,  w,    wt,  tau, rho,  v0,   a0,   s0,   spikes,
                   gs,   gvT,  gaT, ubuf, abuf, gc,  gtau, grho, gv0,
                   ga0,  gs0,  T,   B,   N,    v_th, beta, alpha, surrogate};
-  return launch_rec_bwd<true>(p, warp != 0, (cudaStream_t)stream);
+  return launch_rec_bwd<true>(p, warp != 0, unit, smem_w != 0,
+                              (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -285,14 +285,15 @@ __global__ void __launch_bounds__(32 * REC_ROWS) rec_warp_kernel(
     }
 }
 
-// The instantiation whose R lanes-worth of neurons covers the row.
+// The instantiation of R neurons a lane that `kernels/common.py::rec_plan`
+// chose (the least that covers the row); any other R is refused.
 template <bool ADAPT, int R>
-int launch_warp(const ScanArgs& p, cudaStream_t stream) {
+int launch_warp(const ScanArgs& p, int unit, cudaStream_t stream) {
   if constexpr (R < LANE_N) {
-    if (32 * R < p.N) return launch_warp<ADAPT, 2 * R>(p, stream);
-  } else if (32 * R < p.N) {
-    return (int)cudaErrorInvalidValue;  // wider rows take the block route
+    if (R < unit) return launch_warp<ADAPT, 2 * R>(p, unit, stream);
   }
+  if (R != unit || 32 * R < p.N || (R > 1 && 16 * R >= p.N))
+    return (int)cudaErrorInvalidValue;  // not the plan's instantiation
   const int rows = p.B < REC_ROWS ? p.B : REC_ROWS;
   const int smem = (int)sizeof(float) * warp_words(p.N, rows);
   auto kern = rec_warp_kernel<ADAPT, R>;
@@ -392,21 +393,12 @@ __global__ void __launch_bounds__(REC_THREADS) rec_scan_kernel(
     }
 }
 
-// Dynamic shared memory of a block: the two spike masks, plus W_rec when
-// it fits under the device's opt-in maximum (then `smem_w` is set).
-// Returns a CUDA error code, 0 on success.
-int plan_smem(int N, int* bytes, bool* smem_w) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return (int)e;
+// Dynamic shared memory of a block: the two spike masks, plus W_rec where
+// `kernels/common.py::rec_plan` keeps it there (`smem_w`: it fits under
+// the device's opt-in maximum, as the plan reads it).
+inline int block_smem(int N, bool smem_w) {
   const size_t masks = 2 * sizeof(uint32_t) * ((N + 31) / 32);
-  const size_t with_w = masks + sizeof(float) * (size_t)N * N;
-  *smem_w = with_w <= (size_t)optin;
-  *bytes = (int)(*smem_w ? with_w : masks);
-  return 0;
+  return (int)(smem_w ? masks + sizeof(float) * (size_t)N * N : masks);
 }
 
 // Launch kernel `kern` on B blocks of `threads` threads (whole warps).
@@ -422,33 +414,38 @@ int launch_kernel(K kern, const ScanArgs& p, int threads, int smem,
   return (int)cudaGetLastError();
 }
 
-// The instantiation that owns NPT neurons a thread, or the next wider one.
+// The instantiation of NPT neurons a thread that the plan chose (the least
+// whose REC_THREADS threads cover the row); any other NPT is refused.
 template <bool ADAPT, int NPT>
-int launch_npt(const ScanArgs& p, int smem, cudaStream_t stream) {
+int launch_npt(const ScanArgs& p, int unit, int smem, cudaStream_t stream) {
   if constexpr (NPT < 256) {
-    if ((int64_t)NPT * REC_THREADS < p.N)
-      return launch_npt<ADAPT, 2 * NPT>(p, smem, stream);
-  } else if ((int64_t)NPT * REC_THREADS < p.N) {
-    return (int)cudaErrorInvalidValue;  // W_rec alone would be 275 GB
+    if (NPT < unit) return launch_npt<ADAPT, 2 * NPT>(p, unit, smem, stream);
   }
+  if (NPT != unit || (int64_t)NPT * REC_THREADS < p.N ||
+      (NPT > 1 && (int64_t)NPT * REC_THREADS / 2 >= p.N))
+    return (int)cudaErrorInvalidValue;
   const int per = (p.N + NPT - 1) / NPT;
   return launch_kernel(rec_scan_kernel<ADAPT, false, NPT>, p,
                        (per + 31) / 32 * 32, smem, stream);
 }
 
-// Launch the scan on the warp route (`warp` set, N <= WARP_MAX_N) or on B
-// blocks; returns a CUDA error code.
+// Launch the scan as `kernels/common.py::rec_plan` planned it: on the warp
+// route (`warp` set, N <= WARP_MAX_N) with `unit` neurons a lane, or on B
+// blocks with `unit` neurons a thread, W_rec in shared memory where
+// `smem_w` is set (then one neuron a thread); returns a CUDA error code.
 template <bool ADAPT>
-int launch_rec_scan(const ScanArgs& p, bool warp, cudaStream_t stream) {
-  if (warp) return launch_warp<ADAPT, 1>(p, stream);
-  int smem = 0;
-  bool smem_w = false;
-  const int err = plan_smem(p.N, &smem, &smem_w);
-  if (err) return err;
-  if (smem_w)  // N <= 241: one neuron a thread
+int launch_rec_scan(const ScanArgs& p, bool warp, int unit, bool smem_w,
+                    cudaStream_t stream) {
+  if (p.T < 1 || p.B < 1 || p.N < 1 || unit < 1)
+    return (int)cudaErrorInvalidValue;
+  if (warp) return launch_warp<ADAPT, 1>(p, unit, stream);
+  const int smem = block_smem(p.N, smem_w);
+  if (smem_w) {
+    if (unit != 1 || p.N > REC_THREADS) return (int)cudaErrorInvalidValue;
     return launch_kernel(rec_scan_kernel<ADAPT, true, 1>, p,
                          (p.N + 31) / 32 * 32, smem, stream);
-  return launch_npt<ADAPT, 1>(p, smem, stream);
+  }
+  return launch_npt<ADAPT, 1>(p, unit, smem, stream);
 }
 
 }  // namespace

@@ -261,14 +261,16 @@ stdp_pair_kernel(const PairArgs<Tin> a) {
     pair_step<Tin, false>(a, i, j0, n);
 }
 
+// `ctas`: `kernels/stdp/ops.py::stdp_pair_plan`'s grid, checked here.
 template <typename Tin>
 int stdp_pair(const void* x_pre, const void* s_post, const void* s_pre,
               const void* x_post, const float* w, float* out, int B, int M,
               int N, float a_plus, float a_minus, float w_min, float w_max,
-              void* stream) {
+              int ctas, void* stream) {
   const int64_t threads = (int64_t)M * ((N + PAIR_V - 1) / PAIR_V);
   if (B < 0 || M < 1 || N < 1 || (int64_t)M * N > INT32_MAX ||
-      (int64_t)B * M > INT32_MAX || (int64_t)B * N > INT32_MAX)
+      (int64_t)B * M > INT32_MAX || (int64_t)B * N > INT32_MAX ||
+      ctas != (threads + PAIR_THREADS - 1) / PAIR_THREADS)
     return (int)cudaErrorInvalidValue;
   PairArgs<Tin> a{};
   a.x_pre = static_cast<const Tin*>(x_pre);
@@ -279,8 +281,7 @@ int stdp_pair(const void* x_pre, const void* s_post, const void* s_pre,
   a.w_out = out;
   a.B = B, a.M = M, a.N = N;
   a.a_plus = a_plus, a.a_minus = a_minus, a.w_min = w_min, a.w_max = w_max;
-  const int blocks = (int)((threads + PAIR_THREADS - 1) / PAIR_THREADS);
-  stdp_pair_kernel<Tin><<<blocks, PAIR_THREADS, 0, (cudaStream_t)stream>>>(a);
+  stdp_pair_kernel<Tin><<<ctas, PAIR_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -475,6 +476,8 @@ stdp_seq_kernel(const SeqArgs a) {
   if (own) a.w_out[(int64_t)i2 * N + j2] = w;
 }
 
+// The grid of (TM, TN) weight tiles; `kernels/stdp/ops.py::stdp_seq_plan`
+// gives the same tile, which the entry point checks.
 int stdp_seq_launch(const SeqArgs& a, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
       stdp_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SEQ_SMEM);
@@ -489,11 +492,13 @@ int stdp_seq_launch(const SeqArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // amps: K floats (host memory). w (M, N), P (K, T*B, M), Q (K, T*B, N):
-// step t takes the B rows from t B of each plane.
+// step t takes the B rows from t B of each plane. tm, tn: the weight tile
+// of `kernels/stdp/ops.py::stdp_seq_plan`, the kernel's one tile (16, 8).
 int stdp_seq_f32(const float* P, const float* Q, const float* w, float* out,
                  const float* amps, int K, int T, int B, int M, int N,
-                 float w_min, float w_max, void* stream) {
-  if (K < 1 || K > MAX_TERMS) return (int)cudaErrorInvalidValue;
+                 int tm, int tn, float w_min, float w_max, void* stream) {
+  if (K < 1 || K > MAX_TERMS || tm != TM || tn != TN)
+    return (int)cudaErrorInvalidValue;
   SeqArgs a{};
   a.P = P;
   a.Q = Q;
@@ -510,17 +515,17 @@ int stdp_seq_f32(const float* P, const float* Q, const float* w, float* out,
 int stdp_f32(const float* x_pre, const float* s_post, const float* s_pre,
              const float* x_post, const float* w, float* out, int B, int M,
              int N, float a_plus, float a_minus, float w_min, float w_max,
-             void* stream) {
+             int ctas, void* stream) {
   return stdp_pair<float>(x_pre, s_post, s_pre, x_post, w, out, B, M, N,
-                          a_plus, a_minus, w_min, w_max, stream);
+                          a_plus, a_minus, w_min, w_max, ctas, stream);
 }
 
 int stdp_bf16(const void* x_pre, const void* s_post, const void* s_pre,
               const void* x_post, const float* w, float* out, int B, int M,
               int N, float a_plus, float a_minus, float w_min, float w_max,
-              void* stream) {
+              int ctas, void* stream) {
   return stdp_pair<uint16_t>(x_pre, s_post, s_pre, x_post, w, out, B, M, N,
-                             a_plus, a_minus, w_min, w_max, stream);
+                             a_plus, a_minus, w_min, w_max, ctas, stream);
 }
 
 }  // extern "C"

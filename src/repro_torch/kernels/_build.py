@@ -64,6 +64,14 @@ LANE_SCAN_STAGES = 4
 # call of more steps keeps a checkpoint a segment. Its one definition,
 # -DLANE_BWD_SEG; the wrappers size the checkpoint scratch from it.
 LANE_BWD_SEG = 64
+# The shared memory a CTA may opt into on the build's one target, sm_90
+# (227 KB: 232 448 bytes a block on an H100), and its SM count. The tile
+# plans read the card's own figures where there is a card
+# (`common.smem_budget`, `common.plan_sms`); these stand in for them on
+# the CPU, where the static checks (`repro_torch.analysis`) plan the same
+# launches.
+SM90_SMEM_OPTIN = 232448
+SM90_SMS = 132
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # compile flags (each source with -c), then the link's
 NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -92,27 +100,27 @@ SIGNATURES = {
                    _I),
     "lif_f32": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P), _I),
     "lif_bwd_f32": ((_P,) * 12 + (_I, _I, _I, _F, _I, _I, _F, _P), _I),
-    "linrec_bwd_f32": ((_P, _L, _L, _L) + (_P,) * 9 + (_I,) * 5 + (_P,),
+    "linrec_bwd_f32": ((_P, _L, _L, _L) + (_P,) * 9 + (_I,) * 6 + (_P,),
                        _I),
-    "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _I, _P), _I),
-    "rec_scan_w_in_smem": ((_I,), _I),
-    "lifrec_bwd_f32": ((_P,) * 14 + (_I, _I, _I, _F, _I, _F, _I, _P), _I),
-    "alifrec_bwd_f32": ((_P,) * 20 + (_I, _I, _I, _F, _F, _I, _F, _I, _P),
-                        _I),
-    "rec_bwd_w_in_smem": ((_I,), _I),
+    "lifrec_f32": ((_P,) * 7 + (_I, _I, _I, _F, _I, _I, _I, _P), _I),
+    "lifrec_bwd_f32": ((_P,) * 14 + (_I, _I, _I, _F, _I, _F) + (_I,) * 3
+                       + (_P,), _I),
+    "alifrec_bwd_f32": ((_P,) * 20 + (_I, _I, _I, _F, _F, _I, _F)
+                        + (_I,) * 3 + (_P,), _I),
     "alif_bwd_f32": ((_P,) * 17 + (_I, _I, _I, _F, _F, _I, _F, _P), _I),
     "alif_f32": ((_P,) * 8 + (_I, _I, _I, _F, _F, _I, _I, _P), _I),
-    "alifrec_f32": ((_P,) * 10 + (_I, _I, _I, _F, _F, _I, _P), _I),
+    "alifrec_f32": ((_P,) * 10 + (_I, _I, _I, _F, _F, _I, _I, _I, _P),
+                    _I),
     "spikemm_occupancy_f32": ((_P, _P, _P, _I, _I, _P), _I),
     "spikemm_sparse_f32": ((_P,) * 4 + (_I,) * 4 + (_P,), _I),
     "spikemm_gather_f32": ((_P,) * 6 + (_I,) * 10 + (_P,), _I),
     "spikemm_gather_bwd_f32": ((_P,) * 6 + (_I,) * 7 + (_P,), _I),
-    "stdp_seq_f32": ((_P,) * 5 + (_I,) * 5 + (_F, _F, _P), _I),
+    "stdp_seq_f32": ((_P,) * 5 + (_I,) * 7 + (_F, _F, _P), _I),
     "stdp_seq_sessions_f32": ((_P,) * 5 + (_I,) * 7 + (_F, _F, _P), _I),
-    "stdp_f32": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),
-    "stdp_bf16": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_P,), _I),
-    "flash_attention_f32": ((_P,) * 4 + (_I,) * 6 + (_F, _P), _I),
-    "flash_attention_bf16": ((_P,) * 4 + (_I,) * 6 + (_F, _P), _I),
+    "stdp_f32": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_I, _P), _I),
+    "stdp_bf16": ((_P,) * 6 + (_I,) * 3 + (_F,) * 4 + (_I, _P), _I),
+    "flash_attention_f32": ((_P,) * 4 + (_I,) * 6 + (_F, _I, _P), _I),
+    "flash_attention_bf16": ((_P,) * 4 + (_I,) * 6 + (_F, _I, _P), _I),
     "flash_attention_bf16_tc": ((_P,) * 6 + (_I,) * 6 + (_F, _I, _P), _I),
     "flash_attention_combine_bf16": ((_P, _P, _P, _L, _I, _I, _P), _I),
     "cuda_error_string": ((_I,), ctypes.c_char_p),

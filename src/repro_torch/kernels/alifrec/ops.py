@@ -33,8 +33,10 @@ from repro_torch.kernels.alifrec.ref import (alif_scan_bwd_ref,
                                              alifrec_scan_bwd_ref,
                                              alifrec_scan_ref)
 from repro_torch.kernels.common import (REC_WARP, check_planes, check_scan,
-                                        count_rec_launch, lane_plan,
-                                        optional_ptr, rec_route, sm_count,
+                                        count_rec_launch, lane_bwd_plan,
+                                        lane_bwd_tiles, lane_plan,
+                                        lane_tiles, optional_ptr, rec_plan,
+                                        rec_tiles, sm_count, smem_budget,
                                         zeroed_counters)
 from repro_torch.kernels.lif.ops import kernel_surrogate
 from repro_torch.kernels.lifrec.ops import rec_g_w
@@ -75,7 +77,7 @@ def alifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
                  a0: torch.Tensor, s0: torch.Tensor, v_th: float = 1.0,
                  beta: float = 1.8):
     """Launch `csrc/alifrec.cu`'s self-recurrent kernel on CUDA tensors, on
-    the route `rec_route(N)` picks."""
+    the route `rec_route(N)` picks, as `rec_plan` plans it."""
     check_scan("alifrec", current, w_rec, [("tau", tau), ("rho", rho)],
                [("v0", v0), ("a0", a0), ("s0", s0)])
     T, B, N = current.shape
@@ -84,17 +86,17 @@ def alifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
         return spikes, vT.copy_(v0), aT.copy_(a0)
     if v0.numel() == 0:
         return spikes, vT, aT
-    route = rec_route(N)
+    plan = rec_plan(N, B, smem_budget(current.device))
     with torch.cuda.device(current.device):
         code = _build.library().alifrec_f32(
             current.data_ptr(), w_rec.data_ptr(), tau.data_ptr(),
             rho.data_ptr(), v0.data_ptr(), a0.data_ptr(), s0.data_ptr(),
             spikes.data_ptr(), vT.data_ptr(), aT.data_ptr(), T, B, N,
-            float(v_th), float(beta), int(route == REC_WARP),
-            torch.cuda.current_stream().cuda_stream)
+            float(v_th), float(beta), int(plan.route == REC_WARP), plan.unit,
+            int(plan.w_smem), torch.cuda.current_stream().cuda_stream)
     _build.check("alifrec", code)
     alifrec_cuda.launches += 1
-    count_rec_launch("alifrec", route)
+    count_rec_launch("alifrec", plan.route)
     return spikes, vT, aT
 
 
@@ -151,7 +153,7 @@ def alif_bwd_cuda(current: torch.Tensor, tau: torch.Tensor,
                 None if g_rho is None else g_rho.zero_(),
                 None if g_v0 is None else g_v0.copy_(g_vT),
                 None if g_a0 is None else g_a0.copy_(g_aT))
-    segs = -(-T // _build.LANE_BWD_SEG)
+    _, _, segs = lane_bwd_plan(B * N, T)
     ckpt = (torch.empty((segs, 2, B, N), dtype=torch.float32,
                         device=current.device) if segs > 1 else None)
     with torch.cuda.device(current.device):
@@ -203,7 +205,7 @@ def alifrec_bwd_cuda(current: torch.Tensor, w_rec: torch.Tensor,
                 None if g_s0 is None else g_s0.zero_())
     u, ap = torch.empty_like(current), torch.empty_like(current)
     w_t = w_rec.t().contiguous()
-    route = rec_route(N)
+    plan = rec_plan(N, B, smem_budget(current.device), backward=True)
     with torch.cuda.device(current.device):
         code = _build.library().alifrec_bwd_f32(
             current.data_ptr(), w_rec.data_ptr(), w_t.data_ptr(),
@@ -213,11 +215,11 @@ def alifrec_bwd_cuda(current: torch.Tensor, w_rec: torch.Tensor,
             g_cur.data_ptr(), optional_ptr(g_tau), optional_ptr(g_rho),
             optional_ptr(g_v0), optional_ptr(g_a0), optional_ptr(g_s0), T, B,
             N, float(v_th), float(beta), sur, float(alpha),
-            int(route == REC_WARP),
+            int(plan.route == REC_WARP), plan.unit, int(plan.w_smem),
             torch.cuda.current_stream().cuda_stream)
     _build.check("alifrec_bwd", code)
     alifrec_bwd_cuda.launches += 1
-    count_rec_launch("alifrec_bwd", route)
+    count_rec_launch("alifrec_bwd", plan.route)
     return (g_cur, *_sum_partials(g_tau, g_rho), g_v0, g_a0, g_s0)
 
 
@@ -347,17 +349,27 @@ def _make_alifrec_inputs(generator: torch.Generator):
     return current, w_rec, tau, rho, v0, a0, torch.zeros_like(v0)
 
 
+_ALIF_TILES = lane_tiles("alif_kernel")
+
 registry.register(registry.KernelSpec(
     name="alif", plain=alif_scan_ref, cuda=alif_cuda,
     make_inputs=_make_alif_inputs, tol=1e-4, diff_argnums=(0, 1, 2, 3, 4),
     bwd=registry.Channel(plain=alif_scan_bwd_ref, cuda=alif_bwd_cuda),
-    vjp=_alif_vjp))
+    vjp=_alif_vjp, **_ALIF_TILES,
+    bwd_tiles=registry.KernelSpec(
+        name="alif_bwd", plain=alif_scan_bwd_ref, cuda=alif_bwd_cuda,
+        make_inputs=_make_alif_inputs, dims_of=_ALIF_TILES["dims_of"],
+        **lane_bwd_tiles("alif_bwd_kernel"))))
 registry.register(registry.KernelSpec(
     name="alifrec", plain=alifrec_scan_ref, cuda=alifrec_cuda,
     make_inputs=_make_alifrec_inputs, tol=1e-4,
     diff_argnums=(0, 1, 2, 3, 4, 5, 6),
     bwd=registry.Channel(plain=alifrec_scan_bwd_ref, cuda=alifrec_bwd_cuda),
-    vjp=_alifrec_vjp))
+    vjp=_alifrec_vjp, **rec_tiles(),
+    bwd_tiles=registry.KernelSpec(
+        name="alifrec_bwd", plain=alifrec_scan_bwd_ref,
+        cuda=alifrec_bwd_cuda, make_inputs=_make_alifrec_inputs,
+        **rec_tiles(backward=True))))
 
 __all__ = ["alif_scan", "alifrec_scan", "alif_cuda", "alifrec_cuda",
            "alif_bwd_cuda", "alifrec_bwd_cuda", "alif_scan_ref",

@@ -52,6 +52,10 @@ _TYPES = (torch.float32, torch.bfloat16)
 # the tensor-core route's tiles (TC_BQ, TC_BK in csrc/flash_attention.cu)
 TC_BLOCK_Q = TC_BLOCK_K = 128
 TC_HEAD_DIMS = (64, 128)
+# the CUDA-core route's head-dim tiles (its DMAX instantiations) and its
+# q rows a CTA (BQ in csrc/flash_attention.cu)
+HEAD_TILES = (16, 32, 64, 128, 256)
+CC_BLOCK_Q = 64
 # split over KV while the grid is under this many CTAs per SM, into at
 # most this many chunks (bounds the scratch: nsplit * BH * T * d fp32)
 SPLIT_CTAS_PER_SM = 2
@@ -92,6 +96,15 @@ def plan_call(BH: int, T: int, S: int, d: int, dtype: torch.dtype,
     route = pick_route(dtype, d, S)
     return AttentionPlan(route, plan_split(BH, T, S, n_sm)
                          if route == TENSOR_CORES else 1)
+
+
+def head_tile(d: int) -> int:
+    """The CUDA-core route's head-dim tile for head dim d: the least of
+    HEAD_TILES that holds d. The wrapper hands it to the C entry point,
+    which launches that instantiation and refuses any other."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_tile: head dim {d} outside 1..{MAX_HEAD_DIM}")
+    return next(t for t in HEAD_TILES if d <= t)
 
 
 _ROUTE_LAUNCHES = {TENSOR_CORES: 0, CUDA_CORES: 0, COMBINE: 0}
@@ -165,7 +178,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         with torch.cuda.device(q.device):
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), BH, T, S, d, int(bool(causal)),
-                      int(window), scale,
+                      int(window), scale, head_tile(d),
                       torch.cuda.current_stream().cuda_stream)
         _build.check("flash_attention", code)
         _count(CUDA_CORES)
@@ -241,12 +254,97 @@ def _make_inputs(generator: torch.Generator):
     return q, k, v
 
 
+# The routes' shared memory (`csrc/flash_attention.cu`). CUDA cores: Q
+# transposed (dt x (BQ + 4)), a KV tile (BK x (dt + 1)) and P transposed
+# (BK x (BQ + 4)) floats, at BQ = BK = CC_BLOCK_Q. Tensor cores: the
+# 1024-byte aligned Q tile and a ring of 3 K/V tile pairs (2 at d = 128)
+# in bf16, and 8-byte mbarriers (one for Q, three a stage).
+CC_THREADS, TC_THREADS, COMBINE_THREADS, COMBINE_ROWS = 256, 288, 256, 8
+
+
+def _tc_stages(d: int) -> int:
+    return 2 if d == 128 else 3
+
+
+def _dims(q, k, v, **static):
+    BH, T, d = q.shape
+    return {"BH": BH, "T": T, "S": k.shape[1], "d": d,
+            "bf16": int(q.dtype == torch.bfloat16)}
+
+
+def _plan(dims, n_sm, overrides):
+    """`plan_call`'s route and split, and the route's tiles: q rows a CTA
+    and (CUDA cores) `head_tile`'s head-dim tile."""
+    dtype = torch.bfloat16 if dims["bf16"] else torch.float32
+    plan = plan_call(dims["BH"], dims["T"], dims["S"], dims["d"], dtype, n_sm)
+    if plan.route == TENSOR_CORES:
+        return {"bq": TC_BLOCK_Q, "dt": dims["d"], "nsplit": plan.nsplit,
+                "tc": 1}
+    return {"bq": CC_BLOCK_Q, "dt": head_tile(dims["d"]), "nsplit": 1,
+            "tc": 0}
+
+
+def _tiles(dims, blocks):
+    dt, bq = blocks["dt"], blocks["bq"]
+    if not blocks["tc"]:
+        return {"q": (dt, bq + 4), "kv": (CC_BLOCK_Q, dt + 1),
+                "p": (CC_BLOCK_Q, bq + 4)}
+    nst = _tc_stages(dt)
+    return {"align": (256,), "q": (bq * dt // 2,),
+            "kv": (2 * nst, TC_BLOCK_K * dt // 2), "bars": (2 * (1 + 3 * nst),)}
+
+
+def _launches(dims, blocks):
+    BH, T, d = dims["BH"], dims["T"], dims["d"]
+    words = sum(math.prod(v) for v in _tiles(dims, blocks).values())
+    ctas = BH * -(-T // blocks["bq"]) * blocks["nsplit"]
+    if not blocks["tc"]:
+        return (registry.Launch("flash_fwd", (ctas, 1, 1), CC_THREADS,
+                                4 * words),)
+    out = (registry.Launch("flash_fwd_tc", (ctas, 1, 1), TC_THREADS,
+                           4 * words),)
+    if blocks["nsplit"] > 1:
+        out += (registry.Launch("flash_combine",
+                                (-(-BH * T // COMBINE_ROWS), 1, 1),
+                                COMBINE_THREADS, 0),)
+    return out
+
+
+def _coverage(dims, blocks):
+    """The output rows each CTA of the kernel writes, or with a split the
+    combine's: COMBINE_ROWS rows of the (BH T, d) output a CTA."""
+    BH, T, d = dims["BH"], dims["T"], dims["d"]
+    if blocks["nsplit"] == 1:
+        for (b0, b1), (t0, t1) in registry.tile_cells((BH, 1),
+                                                      (T, blocks["bq"])):
+            yield (b0, b1), (t0, t1), (0, d)
+        return
+    for r0 in range(0, BH * T, COMBINE_ROWS):
+        r1 = min(r0 + COMBINE_ROWS, BH * T)
+        while r0 < r1:
+            b, t = divmod(r0, T)
+            hi = min(r1, (b + 1) * T)
+            yield (b, b + 1), (t, t + hi - r0), (0, d)
+            r0 = hi
+
+
 registry.register(registry.KernelSpec(
     name="attention", plain=attention_ref, cuda=flash_attention_cuda,
     make_inputs=_make_inputs, static=dict(causal=True), tol=2e-3,
-    diff_argnums=(0, 1, 2)))
+    diff_argnums=(0, 1, 2),
+    block_axes=(registry.BlockAxis("bq", "T", TC_BLOCK_Q, CC_BLOCK_Q),
+                registry.BlockAxis("dt", "d", MAX_HEAD_DIM, 1)),
+    dims_of=_dims, plan=_plan,
+    # the tensor cores at d = 64 (unsplit) and d = 128 split over KV with
+    # the combine; the CUDA cores in bf16 at d = 80 and in fp32 at d = 256
+    candidates=({"bf16": 1, "BH": 64, "T": 1024, "S": 1024, "d": 64},
+                {"bf16": 1, "BH": 2, "T": 160, "S": 4096, "d": 128},
+                {"bf16": 1, "d": 80}, {"d": 256}),
+    tile_model=registry.TileModel(
+        out=(("BH", None), ("T", "bq"), ("d", None)), tiles=_tiles,
+        launches=_launches, coverage=_coverage)))
 
 __all__ = ["flash_attention", "flash_attention_cuda", "attention_ref",
-           "attention_split_ref", "AttentionPlan", "pick_route",
+           "attention_split_ref", "AttentionPlan", "pick_route", "head_tile",
            "plan_split", "plan_call", "route_launch_counts", "sm_count",
            "MAX_HEAD_DIM"]

@@ -17,7 +17,9 @@ import torch
 from repro_torch.core.surrogate import check_surrogate
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.common import (check_planes, check_scan,
-                                        lane_plan, optional_ptr, sm_count,
+                                        lane_bwd_plan, lane_bwd_tiles,
+                                        lane_plan, lane_tiles, optional_ptr,
+                                        sm_count,
                                         zeroed_counters)
 from repro_torch.kernels.lif.ref import lif_scan_bwd_ref, lif_scan_ref
 
@@ -93,7 +95,7 @@ def lif_bwd_cuda(current: torch.Tensor, tau: torch.Tensor,
     if T == 0 or v0.numel() == 0:
         return (g_cur, None if g_tau is None else g_tau.zero_(),
                 None if g_v0 is None else g_v0.copy_(g_vT))
-    segs = -(-T // _build.LANE_BWD_SEG)
+    _, _, segs = lane_bwd_plan(B * N, T)
     ckpt = (torch.empty((segs, B, N), dtype=torch.float32,
                         device=current.device) if segs > 1 else None)
     with torch.cuda.device(current.device):
@@ -172,11 +174,17 @@ def _make_inputs(generator: torch.Generator):
     return current, tau, v0
 
 
+_TILES = lane_tiles("lif_kernel")
+
 registry.register(registry.KernelSpec(
     name="lif", plain=lif_scan_ref, cuda=lif_cuda,
     make_inputs=_make_inputs, tol=1e-4, diff_argnums=(0, 1, 2),
     bwd=registry.Channel(plain=lif_scan_bwd_ref, cuda=lif_bwd_cuda),
-    vjp=_vjp))
+    vjp=_vjp, **_TILES,
+    bwd_tiles=registry.KernelSpec(
+        name="lif_bwd", plain=lif_scan_bwd_ref, cuda=lif_bwd_cuda,
+        make_inputs=_make_inputs, dims_of=_TILES["dims_of"],
+        **lane_bwd_tiles("lif_bwd_kernel"))))
 
 __all__ = ["lif_scan", "lif_cuda", "lif_bwd_cuda", "lif_scan_ref",
            "lif_scan_bwd_ref", "KERNEL_SURROGATES", "kernel_surrogate"]

@@ -15,7 +15,9 @@ The kernels take one of the two routes of `csrc/rec_scan.cuh` (and of
 `rec_bwd.cu`) by the row's width, `common.rec_route(N)` (a warp a batch
 row up to 128 neurons, a block a row above), and count each launch on
 that route's counter (`common.rec_route_launch_counts()`) as well as on
-their registry counters.
+their registry counters. Each launch, forward and backward (its route,
+neurons a lane or a thread, W_rec in shared memory or through L2), is
+`common.rec_plan`'s, which the wrapper hands the C entry point.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from repro_torch.core.surrogate import check_surrogate
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.common import (REC_WARP, check_planes, check_scan,
                                         count_rec_launch, optional_ptr,
-                                        rec_route)
+                                        rec_plan, rec_tiles, smem_budget)
 from repro_torch.kernels.lif.ops import kernel_surrogate
 from repro_torch.kernels.spikemm.ops import spikemm_g_w
 from repro_torch.kernels.lifrec.ref import (lifrec_scan_bwd_ref,
@@ -36,8 +38,8 @@ from repro_torch.kernels.lifrec.ref import (lifrec_scan_bwd_ref,
 def lifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
                 tau: torch.Tensor, v0: torch.Tensor, s0: torch.Tensor,
                 v_th: float = 1.0):
-    """Launch `csrc/lifrec.cu` on CUDA tensors, on the route `rec_route(N)`
-    picks."""
+    """Launch `csrc/lifrec.cu` on CUDA tensors as `rec_plan` plans it (on
+    the route `rec_route(N)` picks)."""
     check_scan("lifrec", current, w_rec, [("tau", tau)],
                [("v0", v0), ("s0", s0)])
     T, B, N = current.shape
@@ -47,16 +49,16 @@ def lifrec_cuda(current: torch.Tensor, w_rec: torch.Tensor,
         return spikes, vT.copy_(v0)
     if v0.numel() == 0:
         return spikes, vT
-    route = rec_route(N)
+    plan = rec_plan(N, B, smem_budget(current.device))
     with torch.cuda.device(current.device):
         code = _build.library().lifrec_f32(
             current.data_ptr(), w_rec.data_ptr(), tau.data_ptr(),
             v0.data_ptr(), s0.data_ptr(), spikes.data_ptr(), vT.data_ptr(),
-            T, B, N, float(v_th), int(route == REC_WARP),
-            torch.cuda.current_stream().cuda_stream)
+            T, B, N, float(v_th), int(plan.route == REC_WARP), plan.unit,
+            int(plan.w_smem), torch.cuda.current_stream().cuda_stream)
     _build.check("lifrec", code)
     lifrec_cuda.launches += 1
-    count_rec_launch("lifrec", route)
+    count_rec_launch("lifrec", plan.route)
     return spikes, vT
 
 
@@ -87,7 +89,7 @@ def lifrec_bwd_cuda(current: torch.Tensor, w_rec: torch.Tensor,
                 None if g_s0 is None else g_s0.zero_())
     u = torch.empty_like(current)
     w_t = w_rec.t().contiguous()
-    route = rec_route(N)
+    plan = rec_plan(N, B, smem_budget(current.device), backward=True)
     with torch.cuda.device(current.device):
         code = _build.library().lifrec_bwd_f32(
             current.data_ptr(), w_rec.data_ptr(), w_t.data_ptr(),
@@ -95,11 +97,11 @@ def lifrec_bwd_cuda(current: torch.Tensor, w_rec: torch.Tensor,
             g_spikes.data_ptr(), g_vT.data_ptr(), u.data_ptr(),
             g_cur.data_ptr(), optional_ptr(g_tau), optional_ptr(g_v0),
             optional_ptr(g_s0), T, B, N, float(v_th), sur, float(alpha),
-            int(route == REC_WARP),
+            int(plan.route == REC_WARP), plan.unit, int(plan.w_smem),
             torch.cuda.current_stream().cuda_stream)
     _build.check("lifrec_bwd", code)
     lifrec_bwd_cuda.launches += 1
-    count_rec_launch("lifrec_bwd", route)
+    count_rec_launch("lifrec_bwd", plan.route)
     return g_cur, None if g_tau is None else g_tau.sum(0), g_v0, g_s0
 
 
@@ -185,7 +187,10 @@ registry.register(registry.KernelSpec(
     name="lifrec", plain=lifrec_scan_ref, cuda=lifrec_cuda,
     make_inputs=_make_inputs, tol=1e-4, diff_argnums=(0, 1, 2, 3, 4),
     bwd=registry.Channel(plain=lifrec_scan_bwd_ref, cuda=lifrec_bwd_cuda),
-    vjp=_vjp))
+    vjp=_vjp, **rec_tiles(),
+    bwd_tiles=registry.KernelSpec(
+        name="lifrec_bwd", plain=lifrec_scan_bwd_ref, cuda=lifrec_bwd_cuda,
+        make_inputs=_make_inputs, **rec_tiles(backward=True))))
 
 __all__ = ["lifrec_scan", "lifrec_cuda", "lifrec_bwd_cuda",
            "lifrec_scan_ref", "lifrec_scan_bwd_ref", "rec_g_w"]

@@ -20,10 +20,13 @@ one `linrec_bwd` launch that reads the soma's cotangent as it is.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.common import (MAX_WARPS, check_planes, lane_plan,
+                                        lane_tiles,
                                         optional_ptr, sm_count,
                                         zeroed_counters)
 from repro_torch.kernels.linrec.ref import (lanes_decay, linrec_bwd_ref,
@@ -67,6 +70,52 @@ def linrec_cuda(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor):
     _build.check("linrec", code)
     linrec_cuda.launches += 1
     return y, hT
+
+
+# `csrc/linrec_bwd.cu`'s CTA: LINREC_BWD_THREADS threads (a chain warp and
+# helpers) own 32 lanes; their planes come in by segments of
+# LINREC_BWD_SEG steps, a ring of up to LINREC_BWD_BUFS of them, or a call
+# of at most LINREC_BWD_TMA_ROWS steps in one tensor copy a plane
+LINREC_BWD_THREADS = 256
+LINREC_BWD_SEG = 32
+LINREC_BWD_BUFS = 8
+LINREC_BWD_TMA_ROWS = 256
+GA_NONE, GA_PLANE, GA_SUM = 0, 1, 2
+
+
+class LinrecBwdPlan(NamedTuple):
+    """`linrec_bwd_plan`'s launch: the tensor-copy route or not, the rows
+    of each plane a CTA stages, its planes, and the grid, threads and
+    dynamic shared memory that follow."""
+
+    tma: bool
+    rows: int
+    planes: int
+    grid: int
+    threads: int
+    smem: int
+
+
+def linrec_bwd_plan(T: int, B: int, D: int, a_plane: bool, ga_mode: int,
+                    copyable: bool) -> LinrecBwdPlan:
+    """The backward's launch over B x D lanes of T steps: a CTA a 32-lane
+    group. Its planes come in as one tensor copy each (TMA, all T steps in
+    one pass) where the call allows it: no decay plane, at most
+    LINREC_BWD_TMA_ROWS steps and `copyable` (g_y's rows of whole 16-byte
+    groups, or the soma's of whole warps, 16-byte aligned, and y's where
+    g_a is asked for: the wrapper reads the pointers); else by cp.async in
+    LINREC_BWD_SEG-step segments, a ring of up to LINREC_BWD_BUFS. The
+    staged planes: g_y, y where g_a is asked for (`ga_mode`), the decay
+    plane; each holds the staged rows and a segment of scratch rows of 32
+    lanes, plus 128 bytes of alignment. The C entry point takes `tma` and
+    refuses a call it does not fit."""
+    tma = not a_plane and T <= LINREC_BWD_TMA_ROWS and copyable
+    rows = T if tma else min(-(-T // LINREC_BWD_SEG),
+                             LINREC_BWD_BUFS) * LINREC_BWD_SEG
+    planes = 1 + (ga_mode != GA_NONE) + bool(a_plane)
+    return LinrecBwdPlan(tma, rows, planes, -(-B * D // 32),
+                         LINREC_BWD_THREADS,
+                         4 * (rows + LINREC_BWD_SEG) * planes * 32 + 128)
 
 
 def linrec_bwd_cuda(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
@@ -115,12 +164,19 @@ def linrec_bwd_cuda(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
                                     D // 32 if D % 32 == 0 else 1)
         # a dimension of one step or row has no stride to walk
         sa = [0 if n == 1 else st for n, st in zip(av.shape, av.stride())]
+        ga_mode = GA_NONE if not need_a else GA_SUM if summed else GA_PLANE
+        lanes = B * D
+        copyable = (g_y.data_ptr() % 16 == 0
+                    and (lanes % 4 == 0 if N == D else N % 32 == 0)
+                    and (ga_mode == GA_NONE
+                         or (lanes % 4 == 0 and y.data_ptr() % 16 == 0)))
+        plan = linrec_bwd_plan(T, B, D, sa[0] != 0, ga_mode, copyable)
         code = _build.library().linrec_bwd_f32(
             av.data_ptr(), *sa,
             y.data_ptr(), h0.data_ptr(), g_y.data_ptr(), optional_ptr(g_hT),
             optional_ptr(part), optional_ptr(count), g_x.data_ptr(),
             optional_ptr(g_a), optional_ptr(g_h0), T, B, D, N, int(summed),
-            stream)
+            int(plan.tma), stream)
     _build.check("linrec_bwd", code)
     linrec_bwd_cuda.launches += 1
     return g_a, g_x, g_h0
@@ -228,11 +284,73 @@ def _make_inputs(generator: torch.Generator):
     return a, x, h0
 
 
+def _planes(a, x, h0):
+    """The planes `csrc/linrec.cu`'s ring stages: x, and a decay with a
+    time stride (a full plane; a (D,) or (B, D) decay is read in place)."""
+    return 2 if a.expand(x.shape).stride(0) else 1
+
+
+_TILES = lane_tiles("linrec_kernel", current=1, planes_of=_planes)
+
+
+def _bwd_dims(a, x, h0):
+    """The forward's dims, and the backward's: G, the width of the
+    cotangent's rows (D, or the soma's N of the branch call), GA, the
+    mode of g_a (`GA_PLANE` for a decay plane, `GA_SUM` for a (D,) decay),
+    and V, whether its planes take the tensor copies (the wrapper reads
+    the pointers; the calls here are 16-byte aligned)."""
+    d = _TILES["dims_of"](a, x, h0)
+    lanes = d["B"] * d["N"]
+    return {**d, "G": d["N"], "GA": GA_PLANE if d["P"] == 2 else GA_SUM,
+            "V": int(lanes % 4 == 0)}
+
+
+def _bwd_launch(dims) -> LinrecBwdPlan:
+    return linrec_bwd_plan(dims["T"], dims["B"], dims["N"], dims["P"] == 2,
+                           dims["GA"], bool(dims["V"]))
+
+
+def _bwd_plan(dims, n_sm, overrides):
+    p = _bwd_launch(dims)
+    return {"lb": 32, "bt": dims["T"], "tma": int(p.tma), "rows": p.rows}
+
+
+def _bwd_tiles(dims, blocks):
+    p = _bwd_launch(dims)
+    # "flags": LINREC_BWD_BUFS 8-byte mbarriers, a progress count and a
+    # flag, static (80 bytes)
+    return {"planes": (p.planes, p.rows + LINREC_BWD_SEG, 32),
+            "align": (32,), "flags": (20,)}
+
+
+def _bwd_launches(dims, blocks):
+    p = _bwd_launch(dims)
+    return (registry.Launch("linrec_bwd_kernel", (p.grid, 1, 1), p.threads,
+                            p.smem, 80),)
+
+
 registry.register(registry.KernelSpec(
     name="linrec", plain=linrec_ref, cuda=linrec_cuda,
     make_inputs=_make_inputs, tol=1e-4, diff_argnums=(0, 1, 2),
     bwd=registry.Channel(plain=linrec_bwd_ref, cuda=linrec_bwd_cuda),
-    vjp=_vjp))
+    vjp=_vjp, **_TILES,
+    bwd_tiles=registry.KernelSpec(
+        name="linrec_bwd", plain=linrec_bwd_ref, cuda=linrec_bwd_cuda,
+        make_inputs=_make_inputs, dims_of=_bwd_dims, plan=_bwd_plan,
+        block_axes=(registry.BlockAxis("lb", "L", 32, 32),
+                    registry.BlockAxis("bt", "T", 1, 1, exact=True)),
+        # the DH-LIF branch call (the soma's cotangent, tensor copies), the
+        # readout (a full cotangent plane, tensor copies) and a long call
+        # (cp.async segments, a ring of 8)
+        candidates=({"T": 32, "B": 64, "N": 256, "L": 16384, "P": 1,
+                     "G": 64, "GA": GA_SUM, "V": 1},
+                    {"T": 32, "B": 64, "N": 20, "L": 1280, "P": 1, "G": 20,
+                     "GA": GA_SUM, "V": 1},
+                    {"T": 300, "B": 8, "N": 256, "L": 2048, "P": 1,
+                     "G": 256, "GA": GA_SUM, "V": 1}),
+        tile_model=registry.TileModel(out=(("L", "lb"), ("T", "bt")),
+                                      tiles=_bwd_tiles,
+                                      launches=_bwd_launches))))
 
 __all__ = ["linrec", "linrec_branches", "linrec_cuda", "linrec_bwd_cuda",
            "linrec_ref", "linrec_bwd_ref", "linrec_naive", "lanes_decay",

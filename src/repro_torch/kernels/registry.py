@@ -32,6 +32,18 @@ and the keyword arguments it hands that channel: what it measured to
 decide, so the channel does not measure it again. There is no fallback
 from one channel to another: a router that raises fails the call.
 
+Each family also declares the CTA tiles its wrappers launch, for the
+static checks (`repro_torch.analysis`, TB230 and TB3xx): `block_axes`
+(the tile's dimensions), `dims_of` (the logical dims of a call),
+`plan(dims, n_sm, overrides)` (the wrappers' own plan functions, which
+`resolve_blocks` calls: `spikemm.ops.col_tile`, `common.lane_plan`, ...),
+`candidates` (every route dispatch can take: dims or tiles that reach
+it) and a `TileModel`: how the grid covers the output, the CTA's
+shared-memory buffers, and each kernel launch of the route (grid,
+threads, shared memory), which `chip_smoke.py` holds against the card's
+own launches (a CUDA graph of the call, and the profiler's trace). Its
+backward kernel's tiles are declared the same way on `bwd_tiles`.
+
 Each CUDA wrapper keeps a plain integer count of its launches
 (`wrapper.launches`), which `launch_counts()` reads and `reset_launches()`
 zeroes, so a run can show that it went through the kernels. A channel's
@@ -43,8 +55,9 @@ backward kernel's, as `<family>_bwd` or its spec's `bwd_name`
 from __future__ import annotations
 
 import dataclasses
-from typing import (Any, Callable, Dict, Mapping, Optional, Sequence,
-                    Tuple)
+import itertools
+from typing import (Any, Callable, Dict, Iterator, Mapping, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -58,6 +71,75 @@ class Channel:
 
     plain: Callable[..., Any]
     cuda: Callable[..., Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockAxis:
+    """One dimension of the CTA tile a family's wrappers launch.
+
+    `name` is its key in the blocks dict (`KernelSpec.resolve_blocks`);
+    `dim` names the logical dimension (`KernelSpec.dims_of`) it tiles;
+    `preferred` is the largest tile the plan picks and `align` the step it
+    picks in. An `exact` axis must divide its dim: a recurrence's time
+    axis, chained inside one CTA, is taken whole."""
+
+    name: str
+    dim: str
+    preferred: int
+    align: int
+    exact: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One kernel launch of a route: the kernel's name (its function name,
+    as the profiler's trace spells it inside the demangled signature), its
+    grid of CTAs, its threads a CTA, the dynamic shared memory it asks for
+    and the static shared memory its source declares, in bytes."""
+
+    kernel: str
+    grid: Tuple[int, int, int]
+    threads: int
+    dynamic_smem: int
+    static_smem: int = 0
+
+    @property
+    def smem(self) -> int:
+        return self.dynamic_smem + self.static_smem
+
+
+@dataclasses.dataclass(frozen=True)
+class TileModel:
+    """Static description of a family's CTA grid and shared memory.
+
+    out:      the output's dims in order, each paired with the block axis
+              that tiles it (None: the dim rides whole in every CTA).
+    tiles:    (dims, blocks) -> {buffer: shape} of a CTA's shared-memory
+              buffers, in 4-byte words (the analyzer's TB304/305 operand
+              tiles).
+    launches: (dims, blocks) -> the route's kernel launches, in order.
+    coverage: optional override returning, per CTA, the per-output-axis
+              (start, stop) ranges it writes; defaults to the dense
+              row-major tiling of `out`.
+    """
+
+    out: Tuple[Tuple[str, Optional[str]], ...]
+    tiles: Callable[[Mapping[str, int], Mapping[str, int]],
+                    Mapping[str, Tuple[int, ...]]]
+    launches: Optional[Callable[[Mapping[str, int], Mapping[str, int]],
+                                Tuple[Launch, ...]]] = None
+    coverage: Optional[Callable[[Mapping[str, int], Mapping[str, int]],
+                                Any]] = None
+
+
+def tile_cells(*axes: Tuple[int, int]) -> Iterator[Tuple[Tuple[int, int],
+                                                        ...]]:
+    """The cells of a dense row-major tiling: `axes` are (size, tile)
+    pairs, one per output dim; each cell is its (start, stop) per dim, the
+    last tile of a dim cut at its size."""
+    per = [[(i * b, min((i + 1) * b, n)) for i in range(max(1, -(-n // b)))]
+           for n, b in axes]
+    return itertools.product(*per)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +170,46 @@ class KernelSpec:
     channels: Mapping[str, Channel] = dataclasses.field(default_factory=dict)
     select_channel: Optional[Callable[..., Tuple[Optional[str],
                                                  Dict[str, Any]]]] = None
+    # the CTA tiles (see the module docstring): their axes, the call's
+    # logical dims dims_of(*args, **static), the wrappers' plan
+    # plan(dims, n_sm, overrides) -> blocks, the routes dispatch can take
+    # (dicts of dims and/or block axes that reach each), and the model
+    block_axes: Tuple[BlockAxis, ...] = ()
+    dims_of: Optional[Callable[..., Dict[str, int]]] = None
+    plan: Optional[Callable[[Mapping[str, int], int, Mapping[str, int]],
+                            Dict[str, int]]] = None
+    candidates: Tuple[Mapping[str, int], ...] = ()
+    tile_model: Optional[TileModel] = None
+    # the backward kernel's tiles, declared the same way on a spec of its
+    # own (named as its launch counter; its dims are those of the forward
+    # call on make_inputs' arguments)
+    bwd_tiles: Optional["KernelSpec"] = None
+
+    def resolve_blocks(self, dims: Mapping[str, int],
+                       overrides: Optional[Mapping[str, int]] = None,
+                       n_sm: Optional[int] = None) -> Dict[str, int]:
+        """The CTA tile the wrappers launch at `dims` on a card of `n_sm`
+        SMs (default: the current card's, `common.plan_sms`), with the
+        tile axes in `overrides` pinned where the plan takes them."""
+        if self.plan is None:
+            raise ValueError(f"kernel {self.name!r} declares no tile plan")
+        if n_sm is None:
+            from repro_torch.kernels.common import plan_sms
+            n_sm = plan_sms()
+        return dict(self.plan(dims, n_sm, dict(overrides or {})))
+
+    def launches(self, dims: Mapping[str, int],
+                 blocks: Mapping[str, int]) -> Tuple[Launch, ...]:
+        """The route's kernel launches at `dims` and `blocks`."""
+        if self.tile_model is None or self.tile_model.launches is None:
+            return ()
+        return tuple(self.tile_model.launches(dims, blocks))
+
+    def smem_bytes(self, dims: Mapping[str, int],
+                   blocks: Mapping[str, int]) -> int:
+        """The model of the route's shared memory: the most any of its
+        launches asks of a CTA, static plus dynamic, in bytes."""
+        return max((x.smem for x in self.launches(dims, blocks)), default=0)
 
     def wrappers(self) -> Dict[str, Callable[..., Any]]:
         """{counter name: CUDA wrapper}: the family's own and one per
@@ -201,7 +323,8 @@ def reset_launches() -> None:
             fn.launches = 0
 
 
-__all__ = ["Channel", "KernelSpec", "register", "get", "names", "dispatch",
+__all__ = ["BlockAxis", "Channel", "KernelSpec", "Launch", "TileModel",
+           "tile_cells", "register", "get", "names", "dispatch",
            "dispatch_bwd",
            "ensure_registered", "on_cuda", "launch_counts",
            "reset_launches"]

@@ -450,6 +450,8 @@ def spikemm_gather_bwd_ref(g: torch.Tensor, tables: GatherTables
 # SLAB, which the step lists of `GatherTables.bwd_steps` also assume)
 GATHER_BWD_RPT = (4, 2, 1)
 GATHER_BWD_THREAD_ROWS = 16
+GATHER_BWD_THREADS = 128    # threads a CTA of B6 (8 x 16)
+GATHER_BWD_STAGES = 2       # steps of B6's cp.async ring
 GATHER_BWD_SLAB = 32
 
 
@@ -569,13 +571,123 @@ def _make_inputs(generator: torch.Generator):
     return spikes, tables
 
 
+def _dims(spikes, tables):
+    return {"M": spikes.shape[0], "K": tables.n_pre, "N": tables.n_post,
+            "BK": tables.bk, "BN": tables.bn, "JB": tables.n_post_blocks}
+
+
+def _plan(dims, n_sm, overrides):
+    """`gather_plan`'s warps, with `cols` pinned where a candidate asks
+    for the other instantiation."""
+    p = gather_plan(dims["M"], dims["BN"], dims["JB"], n_sm,
+                    cols=overrides.get("cols"))
+    return {"rows": p.rows, "cols": p.cols, "units": p.units,
+            "groups": p.groups}
+
+
+def _launches(dims, blocks):
+    q = -(-dims["BN"] // (32 * blocks["cols"]))
+    units, groups, rows = blocks["units"], blocks["groups"], blocks["rows"]
+    threads = 32 * units * groups
+    grid = (-(-dims["JB"] * q // units), -(-(-(-dims["M"] // rows)) // groups),
+            1)
+    return (registry.Launch("spikemm_gather_kernel", grid, threads,
+                            4 * threads * rows),)
+
+
+def _coverage(dims, blocks):
+    """A CTA's `groups` x `rows` rows and `units` column warps, each warp
+    32 `cols` columns of one post block (cut at the block's and the
+    output's edge)."""
+    M, N, bn = dims["M"], dims["N"], dims["BN"]
+    span = 32 * blocks["cols"]
+    q = -(-bn // span)
+    rows = blocks["rows"] * blocks["groups"]
+    gx, gy, _ = _launches(dims, blocks)[0].grid
+    for x in range(gx):
+        for u in range(x * blocks["units"],
+                       min((x + 1) * blocks["units"], dims["JB"] * q)):
+            j, c = divmod(u, q)
+            lo = j * bn + c * span
+            hi = min(j * bn + min((c + 1) * span, bn), N)
+            if lo >= hi:
+                continue
+            for y in range(gy):
+                yield (y * rows, min((y + 1) * rows, M)), (lo, hi)
+
+
+def _bwd_plan(dims, n_sm, overrides):
+    """B6 runs on the transposed tables: bk and bn swap, and the post
+    blocks are the forward's pre blocks."""
+    p = gather_bwd_plan(dims["M"], dims["BK"], -(-dims["K"] // dims["BK"]),
+                        n_sm)
+    return {"rows": p.rows}
+
+
+def _bwd_tiles(dims, blocks):
+    bm = GATHER_BWD_THREAD_ROWS * blocks["rows"]
+    return {"g_ring": (GATHER_BWD_STAGES, bm, 32 + 4),
+            "w_ring": (GATHER_BWD_STAGES, 32, GATHER_BWD_SLAB)}
+
+
+def _bwd_launches(dims, blocks):
+    slabs = -(-dims["BK"] // GATHER_BWD_SLAB)
+    words = sum(math.prod(v) for v in _bwd_tiles(dims, blocks).values())
+    return (registry.Launch(
+        "gather_bwd_kernel",
+        (-(-dims["K"] // dims["BK"]) * slabs,
+         -(-dims["M"] // (GATHER_BWD_THREAD_ROWS * blocks["rows"])), 1),
+        GATHER_BWD_THREADS, 4 * words),)
+
+
+def _bwd_coverage(dims, blocks):
+    """g_spikes (M, n_pre): a CTA's 16 x rows rows and a 32-column slab of
+    one transposed post block (a forward pre block, BK wide)."""
+    M, K, bk = dims["M"], dims["K"], dims["BK"]
+    rows = GATHER_BWD_THREAD_ROWS * blocks["rows"]
+    slabs = -(-bk // GATHER_BWD_SLAB)
+    for j in range(-(-K // bk)):
+        for c in range(slabs):
+            lo = j * bk + c * GATHER_BWD_SLAB
+            hi = min(j * bk + min((c + 1) * GATHER_BWD_SLAB, bk), K)
+            for y in range(-(-M // rows)):
+                yield (y * rows, min((y + 1) * rows, M)), (lo, hi)
+
+
 registry.register(registry.KernelSpec(
     name="spikemm_gather", plain=spikemm_gather_ref,
     cuda=spikemm_gather_cuda, make_inputs=_make_inputs, tol=1e-4,
     diff_argnums=(0,), vjp=_vjp,
     bwd=registry.Channel(plain=spikemm_gather_bwd_ref,
                          cuda=spikemm_gather_bwd_cuda),
-    bwd_name="spikemm_gather_bwd"))
+    bwd_name="spikemm_gather_bwd",
+    block_axes=(registry.BlockAxis("rows", "M", 8, 1),
+                registry.BlockAxis("groups", "M", GATHER_MAX_WARPS, 1),
+                registry.BlockAxis("cols", "BN", 4, 1),
+                registry.BlockAxis("units", "JB", GATHER_MAX_WARPS, 1)),
+    dims_of=_dims, plan=_plan,
+    # C = 1 and C = 4 (a 128-wide post block), and the banded chunk's rows
+    candidates=({"cols": 1}, {"N": 512, "BN": 128, "JB": 4, "cols": 4},
+                {"M": 64, "K": 8192, "N": 8192, "BK": 128, "BN": 128,
+                 "JB": 64}),
+    tile_model=registry.TileModel(
+        out=(("M", "rows"), ("N", "units")),
+        tiles=lambda dims, blocks: {"x": (32 * blocks["units"]
+                                          * blocks["groups"],
+                                          blocks["rows"])},
+        launches=_launches, coverage=_coverage),
+    bwd_tiles=registry.KernelSpec(
+        name="spikemm_gather_bwd", plain=spikemm_gather_bwd_ref,
+        cuda=spikemm_gather_bwd_cuda, make_inputs=_make_inputs,
+        dims_of=_dims, plan=_bwd_plan,
+        block_axes=(registry.BlockAxis("rows", "M", 4, 1),),
+        # train_banded's step (64 rows of the 8192-neuron band) and one row
+        candidates=({"M": 64, "K": 8192, "N": 8192, "BK": 128, "BN": 128,
+                     "JB": 64}, {"M": 1}),
+        tile_model=registry.TileModel(out=(("M", "rows"), ("K", None)),
+                                      tiles=_bwd_tiles,
+                                      launches=_bwd_launches,
+                                      coverage=_bwd_coverage))))
 
 __all__ = ["GatherTables", "GatherPlan", "GatherBwdPlan",
            "build_gather_tables", "gather_plan", "gather_bwd_plan",

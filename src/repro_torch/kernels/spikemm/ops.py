@@ -86,10 +86,14 @@ from repro_torch.kernels.spikemm.ref import (shifted_raster,
                                              spikemm_chain_ref, spikemm_ref,
                                              spikemm_wgrad_chain_ref,
                                              spikemm_wgrad_ref)
-from repro_torch.kernels.spikemm.sparse import (block_occupancy, occupancy,
+from repro_torch.kernels.spikemm.sparse import (SPARSE_TILES,
+                                                block_occupancy, occupancy,
                                                 spikemm_sparse_cuda,
                                                 spikemm_sparse_ref)
-from repro_torch.kernels.spikemm.wgrad import spikemm_wgrad_cuda, wgrad_chunk
+from repro_torch.kernels.spikemm.wgrad import (WGRAD_THREADS,
+                                               spikemm_wgrad_cuda,
+                                               wgrad_chunk, wgrad_groups,
+                                               wgrad_tile)
 
 _ENV_SPARSE = "REPRO_SPIKEMM_SPARSE"
 _SPARSE_THRESHOLD_DEFAULT = 0.25
@@ -332,9 +336,146 @@ def _make_session_inputs(generator: torch.Generator):
     return spikes, w
 
 
+# The CTA tiles (`registry.TileModel`). `csrc/spikemm_ring.cuh`'s ring: 3
+# stages of a (bm, 32) spike tile, rows padded to 36 floats, and a (32, cw)
+# weight tile; `csrc/spikemm.cu` adds its event lists (LIST_ENTRIES (k,
+# spike) pairs) and their counts, `csrc/spikemm_sparse.cu` its list of
+# 1024 k blocks and a count a warp.
+RING_STAGES, RING_DEPTH, RING_ROW = 3, 32, 36
+LIST_ENTRIES = 4096
+SPARSE_LIST = 1024
+_THREADS, _SESSION_THREADS = 256, 128
+
+
+def _ring(bm: int, cw: int) -> Dict[str, Tuple[int, ...]]:
+    return {"a_ring": (RING_STAGES, bm, RING_ROW),
+            "b_ring": (RING_STAGES, RING_DEPTH, cw)}
+
+
+def _dims(spikes, w):
+    return {"M": spikes.shape[0], "K": spikes.shape[1], "N": w.shape[1]}
+
+
+def _plan(dims, n_sm, overrides):
+    """The dense channel's tile (`rows_per_cta`, `col_tile`), or with
+    `st` pinned to one of `SPARSE_TILES` the sparse channel's (the router
+    picks `sparse_tile`'s)."""
+    if "st" in overrides:
+        if overrides["st"] not in SPARSE_TILES:
+            raise ValueError(f"spikemm: sparse tile {overrides['st']} not "
+                             f"one of {SPARSE_TILES}")
+        return {"st": int(overrides["st"])}
+    M, N = dims["M"], dims["N"]
+    return {"bm": rows_per_cta(M, N, n_sm), "cw": col_tile(N)}
+
+
+# the kernels' static shared memory (4-byte words): `spikemm_kernel`'s two
+# counters (16 bytes as ptxas lays them out), the sparse product's count a
+# warp
+_STATIC = {"totals": (4,), "warp_n": (8,)}
+
+
+def _tiles(dims, blocks):
+    if "st" in blocks:
+        st = blocks["st"]
+        return {**_ring(st, st), "list": (SPARSE_LIST,),
+                "warp_n": _STATIC["warp_n"]}
+    return {**_ring(blocks["bm"], blocks["cw"]), "events": (LIST_ENTRIES, 2),
+            "counts": (blocks["bm"],), "totals": _STATIC["totals"]}
+
+
+def _launches(dims, blocks):
+    M, K, N = dims["M"], dims["K"], dims["N"]
+    tiles = _tiles(dims, blocks)
+    dynamic = 4 * sum(math.prod(v) for k, v in tiles.items()
+                      if k not in _STATIC)
+    static = 4 * sum(math.prod(v) for k, v in tiles.items() if k in _STATIC)
+    if "st" not in blocks:
+        bm, cw = blocks["bm"], blocks["cw"]
+        return (registry.Launch("spikemm_kernel",
+                                (-(-N // cw), -(-M // bm), 1), _THREADS,
+                                dynamic, static),)
+    st = blocks["st"]
+    bm, bk = _build.SPARSE_BLOCK
+    occ = -(-M // bm) * -(-K // bk)
+    return ((registry.Launch("spikemm_occupancy_kernel", (occ, 1, 1),
+                             _THREADS, 0),) if occ else ()) + (
+        registry.Launch("spikemm_sparse_kernel", (-(-N // st), -(-M // st), 1),
+                        _THREADS, dynamic, static),)
+
+
+def _coverage(dims, blocks):
+    tm, tn = ((blocks["st"],) * 2 if "st" in blocks
+              else (blocks["bm"], blocks["cw"]))
+    return registry.tile_cells((dims["M"], tm), (dims["N"], tn))
+
+
+def _session_dims(spikes, w):
+    T, S, K = spikes.shape
+    return {"T": T, "S": S, "K": K, "N": w.shape[2]}
+
+
+def _session_plan(dims, n_sm, overrides):
+    bm, cw = session_tile(dims["T"], dims["N"], n_sm, dims["S"])
+    return {"sb": 1, "bm": bm, "cw": cw}
+
+
+def _session_launches(dims, blocks):
+    bm, cw = blocks["bm"], blocks["cw"]
+    words = sum(math.prod(v) for v in _ring(bm, cw).values())
+    return (registry.Launch(
+        "spikemm_sessions_kernel",
+        (-(-dims["N"] // cw), -(-dims["T"] // bm), dims["S"]),
+        _SESSION_THREADS, 4 * words),)
+
+
 registry.register(registry.KernelSpec(
     name="spikemm_sessions", plain=spikemm_sessions_ref,
-    cuda=spikemm_sessions_cuda, make_inputs=_make_session_inputs, tol=1e-4))
+    cuda=spikemm_sessions_cuda, make_inputs=_make_session_inputs, tol=1e-4,
+    block_axes=(registry.BlockAxis("sb", "S", 1, 1),
+                registry.BlockAxis("bm", "T", 128, 8),
+                registry.BlockAxis("cw", "N", 64, 8)),
+    dims_of=_session_dims, plan=_session_plan,
+    # the 8-wide slab's 16 rows, a 64-column slab, a narrowed slab
+    candidates=({"T": 1, "S": 1, "N": 8}, {"T": 32, "S": 64, "N": 64},
+                {"T": 32, "S": 7, "N": 20}),
+    tile_model=registry.TileModel(
+        out=(("S", "sb"), ("T", "bm"), ("N", "cw")),
+        tiles=lambda dims, blocks: _ring(blocks["bm"], blocks["cw"]),
+        launches=_session_launches)))
+
+# `csrc/spikemm_wgrad.cu`'s ring: WGRAD_STAGES steps of each group's
+# (rows, bm) raster and (rows, cw) g slabs, padded by 4 floats a row; a step
+# is 32 rows with at most two groups a CTA, else 16
+WGRAD_STAGES = 4
+
+
+def _wgrad_dims(spikes, w):
+    """The weight gradient's dims for the forward on (spikes, w): the
+    raster's R rows, its K columns, g's N."""
+    return {"R": spikes.shape[0], "K": spikes.shape[1], "N": w.shape[1]}
+
+
+def _wgrad_plan(dims, n_sm, overrides):
+    bm, cw, cluster = wgrad_tile(dims["K"], dims["N"])
+    return {"bm": bm, "cw": cw, "cluster": cluster,
+            "chunk": wgrad_chunk(dims["R"], dims["K"], dims["N"])}
+
+
+def _wgrad_tiles(dims, blocks):
+    bm, cw = blocks["bm"], blocks["cw"]
+    g = wgrad_groups(bm, cw)
+    step = 32 if g <= 2 else 16
+    return {"ring": (WGRAD_STAGES, g, step, bm + 4 + cw + 4)}
+
+
+def _wgrad_launches(dims, blocks):
+    bm, cw = blocks["bm"], blocks["cw"]
+    words = math.prod(_wgrad_tiles(dims, blocks)["ring"])
+    return (registry.Launch(
+        "wgrad_kernel", (-(-dims["N"] // cw), -(-dims["K"] // bm),
+                         blocks["cluster"]), WGRAD_THREADS, 4 * words),)
+
 
 registry.register(registry.KernelSpec(
     name="spikemm", plain=spikemm_ref, cuda=spikemm_cuda,
@@ -343,7 +484,32 @@ registry.register(registry.KernelSpec(
     bwd_name="spikemm_wgrad",
     channels={"sparse": registry.Channel(plain=spikemm_sparse_ref,
                                          cuda=spikemm_sparse_cuda)},
-    select_channel=_select_channel))
+    select_channel=_select_channel,
+    block_axes=(registry.BlockAxis("bm", "M", 128, 16),
+                registry.BlockAxis("cw", "N", 64, 8),
+                registry.BlockAxis("st", "M", 64, 16)),
+    dims_of=_dims, plan=_plan,
+    # the dense channel at the 8-wide column tile and at the largest row
+    # tile; the sparse channel at each of its tiles
+    candidates=({"M": 2048, "K": 700, "N": 8}, {"M": 8192, "N": 512},
+                {"st": 64}, {"st": 16}),
+    tile_model=registry.TileModel(
+        out=(("M", "bm"), ("N", "cw")), tiles=_tiles, launches=_launches,
+        coverage=_coverage),
+    bwd_tiles=registry.KernelSpec(
+        name="spikemm_wgrad", plain=spikemm_wgrad_ref,
+        cuda=spikemm_wgrad_cuda, make_inputs=_make_inputs,
+        dims_of=_wgrad_dims, plan=_wgrad_plan,
+        block_axes=(registry.BlockAxis("bm", "K", 64, 8),
+                    registry.BlockAxis("cw", "N", 128, 8)),
+        # the SHD window's hidden g_w (the event tile) and its readout's, a
+        # small dense tile, and the ECG input's
+        candidates=({"R": 2048, "K": 700, "N": 256},
+                    {"R": 2048, "K": 64, "N": 20},
+                    {"R": 6400, "K": 4, "N": 64}),
+        tile_model=registry.TileModel(out=(("K", "bm"), ("N", "cw")),
+                                      tiles=_wgrad_tiles,
+                                      launches=_wgrad_launches))))
 
 __all__ = ["spikemm", "spikemm_cuda", "spikemm_ref", "spikemm_chain_ref",
            "spikemm_g_w", "spikemm_wgrad_cuda", "spikemm_wgrad_ref",

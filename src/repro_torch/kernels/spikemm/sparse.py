@@ -104,7 +104,9 @@ def compact_blocks(flags: torch.Tensor
     order, one entry per occupied block and one inactive sentinel
     (`active == 0`, `idx_k == 0`) per row block with none, so that every
     output row block is visited. Row i's active entries are the list a
-    CTA of block row i builds in shared memory."""
+    CTA of block row i builds in shared memory. The compile-time verifier
+    (`repro_torch.analysis`, TB307) checks this table against the flags it
+    compacts, on the CPU and on the card's own occupancy flags."""
     Mb, Kb = flags.shape
     occ = flags != 0
     aug = torch.cat([occ, ~occ.any(dim=1, keepdim=True)], dim=1)

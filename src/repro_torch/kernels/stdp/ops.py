@@ -82,6 +82,7 @@ def stdp_update_cuda(x_pre: torch.Tensor, s_post: torch.Tensor,
         code = fn(x_pre.data_ptr(), s_post.data_ptr(), s_pre.data_ptr(),
                   x_post.data_ptr(), w.data_ptr(), out.data_ptr(), B, M, N,
                   float(a_plus), float(a_minus), float(w_min), float(w_max),
+                  stdp_pair_plan(M, N)[0],
                   torch.cuda.current_stream().cuda_stream)
     _build.check("stdp", code)
     stdp_update_cuda.launches += 1
@@ -95,6 +96,41 @@ def _amps(name: str, K: int, amps: Sequence[float]):
                          f"the kernel takes 1 to {MAX_TERMS} of each, as many "
                          "amps as planes")
     return (ctypes.c_float * K)(*amps)
+
+
+# `csrc/stdp.cu`'s one stdp_seq tile: (rows of M, columns of N) of the
+# weight a CTA owns (TM, TN there), a thread a (step, 4 x 4 micro-tile) of
+# a group of `_build.STDP_SEQ_GROUP` steps; its ring of SEQ_STAGES stages
+# of SEQ_ROWS rows of each step's P and Q rows (padded by 16 and 8 floats)
+# and two buffers of a group's dw in shared memory
+SEQ_TILE = (16, 8)
+SEQ_MICRO = 4
+SEQ_STAGES, SEQ_ROWS = 3, 8
+# `csrc/stdp_sessions.cu`'s ring: (step, term) rows a stage, and its stages
+# (5 where a row, tm + tn floats, is at most 80, else 3)
+SESSION_RING_ROWS = 16
+# `csrc/stdp.cu`'s pair step: adjacent weights of a row a thread, threads
+# a CTA (PAIR_V, PAIR_THREADS there)
+PAIR_WEIGHTS = 2
+PAIR_THREADS = 128
+
+
+def stdp_seq_plan(M: int, N: int) -> Tuple[int, int, int, int, int]:
+    """(tm, tn, grid x, grid y, threads) of `stdp_seq_cuda`'s launch for
+    an (M, N) weight: SEQ_TILE's tiles, a CTA of one thread a micro-tile
+    and a step of a group. The C entry point takes (tm, tn) and refuses any
+    other tile."""
+    tm, tn = SEQ_TILE
+    threads = (tm // SEQ_MICRO) * (tn // SEQ_MICRO) * _build.STDP_SEQ_GROUP
+    return tm, tn, -(-N // tn), -(-M // tm), threads
+
+
+def stdp_pair_plan(M: int, N: int) -> Tuple[int, int]:
+    """(CTAs, threads a CTA) of the single pair step on an (M, N) weight:
+    PAIR_WEIGHTS adjacent weights of a row a thread. The C entry point
+    takes the CTAs and refuses any other grid."""
+    pairs = M * -(-N // PAIR_WEIGHTS)
+    return -(-pairs // PAIR_THREADS), PAIR_THREADS
 
 
 def stdp_seq_cuda(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor, *,
@@ -121,7 +157,7 @@ def stdp_seq_cuda(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor, *,
         code = _build.library().stdp_seq_f32(
             P.data_ptr(), Q.data_ptr(), w.data_ptr(), out.data_ptr(),
             ctypes.addressof(amp), K, rows // batch, batch, M, N,
-            float(w_min), float(w_max),
+            *stdp_seq_plan(M, N)[:2], float(w_min), float(w_max),
             torch.cuda.current_stream().cuda_stream)
     _build.check("stdp_seq", code)
     stdp_seq_cuda.launches += 1
@@ -240,9 +276,40 @@ def _make_seq_inputs(generator: torch.Generator):
     return P, Q, w
 
 
+def _seq_dims(P, Q, w, *, batch, **static):
+    K, rows, M = P.shape
+    return {"K": K, "T": rows // batch, "B": batch, "M": M, "N": w.shape[1]}
+
+
+def _seq_plan(dims, n_sm, overrides):
+    tm, tn, *_ = stdp_seq_plan(dims["M"], dims["N"])
+    return {"tm": tm, "tn": tn}
+
+
+def _seq_tiles(dims, blocks):
+    G, tm, tn = _build.STDP_SEQ_GROUP, blocks["tm"], blocks["tn"]
+    return {"p_ring": (SEQ_STAGES, G, SEQ_ROWS * tm + 16),
+            "q_ring": (SEQ_STAGES, G, SEQ_ROWS * tn + 8),
+            "dw": (2, G, tm * tn)}
+
+
+def _seq_launches(dims, blocks):
+    *_, gx, gy, threads = stdp_seq_plan(dims["M"], dims["N"])
+    words = sum(math.prod(v) for v in _seq_tiles(dims, blocks).values())
+    return (registry.Launch("stdp_seq_kernel", (gx, gy, 1), threads,
+                            4 * words),)
+
+
 registry.register(registry.KernelSpec(
     name="stdp_seq", plain=stdp_seq_ref, cuda=stdp_seq_cuda,
-    make_inputs=_make_seq_inputs, static=_SEQ_STATIC, tol=1e-4))
+    make_inputs=_make_seq_inputs, static=_SEQ_STATIC, tol=1e-4,
+    block_axes=(registry.BlockAxis("tm", "M", SEQ_TILE[0], SEQ_TILE[0]),
+                registry.BlockAxis("tn", "N", SEQ_TILE[1], SEQ_TILE[1])),
+    dims_of=_seq_dims, plan=_seq_plan,
+    candidates=({"K": 4, "T": 300, "B": 8, "M": 256, "N": 128},),
+    tile_model=registry.TileModel(out=(("M", "tm"), ("N", "tn")),
+                                  tiles=_seq_tiles,
+                                  launches=_seq_launches)))
 
 _SESSIONS_STATIC = dict(amps=(0.01, -0.012), w_min=-1.0, w_max=1.0)
 
@@ -255,17 +322,77 @@ def _make_session_inputs(generator: torch.Generator):
     return P, Q, w
 
 
+def _session_dims(P, Q, w, **static):
+    S, M, N = w.shape
+    return {"K": P.shape[0], "T": P.shape[1] // S, "S": S, "M": M, "N": N}
+
+
+def _session_plan(dims, n_sm, overrides):
+    tm, tn, _, _ = stdp_session_tile(dims["S"], dims["M"], dims["N"], n_sm)
+    return {"sb": 1, "tm": tm, "tn": tn}
+
+
+def _session_tiles(dims, blocks):
+    row = blocks["tm"] + blocks["tn"]
+    return {"ring": (5 if row <= 80 else 3, SESSION_RING_ROWS, row)}
+
+
+def _session_launches(dims, blocks):
+    tm, tn = blocks["tm"], blocks["tn"]
+    words = math.prod(_session_tiles(dims, blocks)["ring"])
+    return (registry.Launch(
+        "stdp_sessions_kernel",
+        (-(-dims["N"] // tn), -(-dims["M"] // tm), dims["S"]),
+        math.prod(SESSION_THREADS), 0, 4 * words),)
+
+
 registry.register(registry.KernelSpec(
     name="stdp_seq_sessions", plain=stdp_seq_sessions_ref,
     cuda=stdp_seq_sessions_cuda, make_inputs=_make_session_inputs,
-    static=_SESSIONS_STATIC, tol=1e-4))
+    static=_SESSIONS_STATIC, tol=1e-4,
+    block_axes=(registry.BlockAxis("sb", "S", 1, 1),
+                registry.BlockAxis("tm", "M", 32, 8),
+                registry.BlockAxis("tn", "N", 128, 16)),
+    dims_of=_session_dims, plan=_session_plan,
+    # the largest micro-tile (a full learning cohort), the smallest (one
+    # session), one between
+    candidates=({"S": 64, "T": 32, "M": 700, "N": 64},
+                {"S": 1, "T": 32, "M": 128, "N": 64},
+                {"S": 7, "T": 32, "M": 130, "N": 140}),
+    tile_model=registry.TileModel(
+        out=(("S", "sb"), ("M", "tm"), ("N", "tn")), tiles=_session_tiles,
+        launches=_session_launches)))
+
+
+def _pair_dims(x_pre, s_post, s_pre, x_post, w, **static):
+    M, N = w.shape
+    return {"B": x_pre.shape[0], "M": M, "N": N,
+            "PAIRS": M * -(-N // PAIR_WEIGHTS)}
+
+
+def _pair_plan(dims, n_sm, overrides):
+    return {"pb": stdp_pair_plan(dims["M"], dims["N"])[1]}
+
 
 registry.register(registry.KernelSpec(
     name="stdp", plain=stdp_update_ref, cuda=stdp_update_cuda,
     make_inputs=_make_inputs, tol=1e-4,
-    static=dict(a_plus=0.01, a_minus=0.012, w_min=-1.0, w_max=1.0)))
+    static=dict(a_plus=0.01, a_minus=0.012, w_min=-1.0, w_max=1.0),
+    # a CTA owns PAIR_THREADS consecutive pairs of adjacent weights of the
+    # (M, ceil(N / 2)) pair grid, and holds nothing in shared memory
+    block_axes=(registry.BlockAxis("pb", "PAIRS", PAIR_THREADS,
+                                   PAIR_THREADS),),
+    dims_of=_pair_dims, plan=_pair_plan,
+    candidates=({"M": 256, "N": 128, "PAIRS": 256 * 64},),
+    tile_model=registry.TileModel(
+        out=(("PAIRS", "pb"),), tiles=lambda dims, blocks: {},
+        launches=lambda dims, blocks: (registry.Launch(
+            "stdp_pair_kernel",
+            (stdp_pair_plan(dims["M"], dims["N"])[0], 1, 1),
+            blocks["pb"], 0),))))
 
 __all__ = ["stdp_update", "stdp_seq", "stdp_update_cuda", "stdp_seq_cuda",
            "stdp_update_ref", "stdp_seq_ref", "stdp_seq_sessions",
            "stdp_seq_sessions_cuda", "stdp_seq_sessions_ref",
-           "stdp_session_tile", "MAX_TERMS"]
+           "stdp_session_tile", "stdp_seq_plan", "stdp_pair_plan",
+           "MAX_TERMS"]

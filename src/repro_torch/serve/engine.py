@@ -191,7 +191,6 @@ class BatchedEngine:
                  plan: Optional[plan_mod.Plan] = None,
                  dtype: torch.dtype = torch.float32,
                  device: DeviceLike = "cuda"):
-        plan_mod._refuse_check()
         self.device = resolve_device(device)
         _check_params(params, self.device)
         self.nodes = list(nodes)

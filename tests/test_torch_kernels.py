@@ -1206,9 +1206,10 @@ def test_rec_route_follows_the_row_width(n):
 @pytest.mark.parametrize("side", ["warp", "block"])
 def test_rec_wrappers_pass_the_route_and_count_it(monkeypatch, name, side):
     """With a recording stand-in for the library (no card here) the
-    wrapper tells the C entry point its route (the `warp` flag, 1 up to
-    REC_WARP_MAX_N neurons and 0 above) and counts one launch on that
-    route's counter and on the registry's."""
+    wrapper tells the C entry point `common.rec_plan`'s launch (the `warp`
+    flag, 1 up to REC_WARP_MAX_N neurons and 0 above, its neurons a lane
+    or a thread, and whether W_rec sits in shared memory) and counts one
+    launch on that route's counter and on the registry's."""
     from contextlib import nullcontext
     from unittest import mock
     from repro_torch.kernels import common
@@ -1233,7 +1234,10 @@ def test_rec_wrappers_pass_the_route_and_count_it(monkeypatch, name, side):
     (lifrec_cuda if name == "lifrec" else alifrec_cuda)(*args)
     after = common.rec_route_launch_counts()[name]
     call, = getattr(lib, f"{name}_f32").call_args_list
-    assert call.args[-2] == int(side == "warp")
+    plan = common.rec_plan(n, B, common.smem_budget())
+    assert call.args[-4:-1] == (int(side == "warp"), plan.unit,
+                                int(plan.w_smem))
+    assert plan.route == side
     assert {r: after[r] - before[r] for r in after} == {
         "warp": int(side == "warp"), "block": int(side == "block")}
     assert registry.launch_counts()[name] == 1

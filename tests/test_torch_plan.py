@@ -22,9 +22,10 @@
   the JAX interpreter, and program validation and `register_neuron`
   refuse what the reference refuses.
 * The env knobs: REPRO_SNN_ENGINE selects the engine, REPRO_SNN_EXPLAIN
-  prints `describe()`, REPRO_CHECK raises (the checker is not ported), bad
-  values raise the reference's errors; neuron state and the serve cache
-  default to the card.
+  prints `describe()`, REPRO_CHECK runs the compile-time verifier
+  (`repro_torch.analysis`: warn logs, raise rejects, neither changes what a
+  clean program computes), bad values raise the reference's errors; neuron
+  state and the serve cache default to the card.
 """
 
 import jax
@@ -537,8 +538,10 @@ def test_pack_unpack_round_trip():
 
 
 def test_unported_hooks_raise(monkeypatch):
-    """Only REPRO_CHECK (item 9) still raises; the guards and the faults
-    (item 8) are ported and a run under them completes."""
+    """No resilience or verifier hook raises NotImplementedError any more:
+    the guards and the faults (item 8) are ported and a run under them
+    completes, and so does one under REPRO_CHECK=raise (item 9), with the
+    outputs of REPRO_CHECK=off."""
     _, _, tn, tp = _dhsnn(True, 8, 4, 2)
     x = torch.zeros(3, 1, 8)
     with pytest.warns(RuntimeWarning, match="population silent"):
@@ -552,9 +555,11 @@ def test_unported_hooks_raise(monkeypatch):
     _, out, _ = plan.run(tn, tp, x, device="cpu")
     assert out.shape == (3, 1, 2)
     monkeypatch.delenv("REPRO_FAULTS")
+    xr = torch.from_numpy(_raster(5, 2, 8, 0.4, seed=2))
+    _, want, _ = plan.run(tn, tp, xr, device="cpu")
     monkeypatch.setenv("REPRO_CHECK", "raise")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        plan.run(tn, tp, x, device="cpu")
+    _, got, _ = plan.run(tn, tp, xr, device="cpu")
+    assert torch.equal(got, want)
     # compressed topology and plasticity are ported: both edges build
     assert events.Connection("input", topology="t").topology == "t"
     assert events.Connection("input", plastic=pair_stdp()).plastic \
@@ -596,13 +601,50 @@ def test_engine_knob_selects_the_engine(monkeypatch):
     assert str(got.value) == str(ref.value)
 
 
+def _weight_collision():
+    """The reference test's TB231 program: two plastic edges of one node
+    learning the same weight key `w_shared`."""
+    rule = pair_stdp()
+    pre = events.LayerNode("pre", LIF(), ff_integrate,
+                           inputs=(events.Connection("input"),), out_dim=8)
+    h = events.LayerNode(
+        "h", LIF(), ff_integrate,
+        inputs=(events.Connection("input", plastic=rule, weight="w_shared"),
+                events.Connection("pre", plastic=rule, weight="w_shared")),
+        out_dim=8)
+    return [pre, h]
+
+
+def _served(nodes, params, n_in):
+    """Two sessions of 20 steps through a BatchedEngine (window 8)."""
+    eng = make_engine(nodes, params, EngineConfig(window=8, capacity=2),
+                      device="cpu")
+    outs = {}
+    for i in range(2):
+        sid = eng.open()
+        eng.submit(sid, _raster(20, 1, n_in, 0.3, seed=10 + i)[:, 0])
+        eng.close(sid)
+        outs[sid] = None
+    eng.drain()
+    return {sid: eng.outputs(sid) for sid in outs}
+
+
 @pytest.mark.parametrize("mode", ["warn", "raise", "sometimes"])
 def test_check_knob_raises(mode, monkeypatch):
-    """REPRO_CHECK asks for the compile-time checker, which is not ported:
-    warn and raise refuse to compile or run unchecked (naming ROADMAP
-    item 9), a bad value raises the reference's ValueError, off runs."""
+    """REPRO_CHECK runs the compile-time verifier at the end of
+    `compile_program`, as the reference does. warn compiles a program with
+    a zero-delay cycle and logs its TB103 on the incident log (kind
+    "check"); raise rejects the TB231 weight collision with
+    `analysis.DiagnosticError` before anything runs; under either,
+    `plan.run` and a BatchedEngine serve a clean program with the outputs
+    of REPRO_CHECK=off, bit for bit. A bad value raises the reference's
+    ValueError from both entry points."""
+    from repro_torch import analysis
+    from repro_torch.kernels.incidents import clear, incidents
     _, _, tn, tp = _dhsnn(True, 8, 4, 2)
-    x = torch.zeros(3, 1, 8)
+    x = torch.from_numpy(_raster(6, 2, 8, 0.4, seed=1))
+    _, want, _ = plan.run(tn, tp, x, device="cpu")
+    served = _served(tn, tp, 8)
     monkeypatch.setenv("REPRO_CHECK", mode)
     if mode == "sometimes":
         with pytest.raises(ValueError) as ref:
@@ -612,15 +654,35 @@ def test_check_knob_raises(mode, monkeypatch):
             with pytest.raises(ValueError) as got:
                 call()
             assert str(got.value) == str(ref.value)
-    else:
-        for call in (lambda: plan.compile_program(tn),
-                     lambda: plan.run(tn, tp, x, device="cpu"),
-                     lambda: make_engine(tn, tp, EngineConfig(),
-                                         device="cpu")):
-            with pytest.raises(NotImplementedError, match="item 9"):
-                call()
+        return
+    cycle = [events.LayerNode("a", LIF(), ff_integrate, out_dim=8,
+                              inputs=(events.Connection("input"),
+                                      events.Connection("b"))),
+             events.LayerNode("b", LIF(), ff_integrate, out_dim=8,
+                              inputs=(events.Connection("a"),))]
+    clear()
+    try:
+        if mode == "warn":
+            assert plan.compile_program(cycle).segments
+            checks = [e for e in incidents() if e.kind == "check"]
+            assert any(e.stage == "TB103" for e in checks), checks
+            assert plan.compile_program(_weight_collision()).segments
+        else:
+            with pytest.raises(analysis.DiagnosticError) as err:
+                plan.compile_program(_weight_collision())
+            assert any(d.code == "TB231" for d in err.value.diagnostics)
+            with pytest.raises(analysis.DiagnosticError):
+                plan.run(_weight_collision(), {}, x, device="cpu")
+        _, got, _ = plan.run(tn, tp, x, device="cpu")
+        assert torch.equal(got, want)
+        got_served = _served(tn, tp, 8)
+        assert got_served.keys() == served.keys()
+        for sid, out in served.items():
+            np.testing.assert_array_equal(got_served[sid], out)
+    finally:
+        clear()
     monkeypatch.setenv("REPRO_CHECK", "off")
-    plan.run(tn, tp, x, device="cpu")
+    assert plan.compile_program(_weight_collision()).segments
 
 
 def test_explain_knob_prints_describe(monkeypatch, capsys):

@@ -168,15 +168,17 @@ def test_stdp_seq_sessions_wrapper_is_one_launch(stand_in, K, T, S, M, N):
 
 
 def test_stdp_seq_wrapper_passes_no_session_axis(stand_in):
-    """`csrc/stdp.cu`'s entry point has no session axis: (K, T, B, M, N)
-    and the bounds, counted on `stdp_seq` alone."""
+    """`csrc/stdp.cu`'s entry point has no session axis: (K, T, B, M, N),
+    the plan's weight tile (`stdp_seq_plan`: 16 x 8) and the bounds,
+    counted on `stdp_seq` alone."""
     K, T, B, M, N = 2, 6, 3, 9, 5
     stdp_seq_cuda(torch.zeros((K, T * B, M)), torch.zeros((K, T * B, N)),
                   torch.zeros((M, N)), amps=AMPS[:K], w_min=-1.0, w_max=1.0,
                   batch=B)
     assert [c[0] for c in stand_in.method_calls] == ["stdp_seq_f32"]
     args = stand_in.stdp_seq_f32.call_args.args
-    assert len(args) == 13 and args[5:12] == (K, T, B, M, N, -1.0, 1.0)
+    assert len(args) == 15 and args[5:14] == (K, T, B, M, N, 16, 8, -1.0,
+                                              1.0)
     assert registry.launch_counts()["stdp_seq"] == 1
     assert registry.launch_counts()["stdp_seq_sessions"] == 0
 
